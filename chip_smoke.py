@@ -7,19 +7,34 @@ Run from the repository root, on a machine with a CUDA card:
 
 Phases (any failure raises and exits non-zero):
 
-1. build every CUDA kernel from ``gnntf_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card — a small
-   random ELL graph with duplicates and empty rows, and the hub-free ELL
-   part of the benchmark graph at F=128 and at the serving width F=40 —
-   timing kernel, plain version and one PyTorch library call with CUDA
-   events;
+1. build every CUDA kernel from ``gnntf_tpu_torch/csrc`` with nvcc, one
+   process per source, all started together;
+2. hold K1 (the ELL gather-reduce) against its plain PyTorch version on the
+   card — a small random ELL graph with duplicates and empty rows, and the
+   hub-free ELL part of the benchmark graph at F=128 and at the serving
+   width F=40 — timing kernel, plain version and one PyTorch library call
+   with CUDA events;
+2b. the same for K2 (the blocked-COO SpMM): a small random layout with
+   duplicates, empty windows and one window heavier than a run, and the
+   layout of the RCM-reordered benchmark graph at F=40 and F=128, with the
+   layout's statistics;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
    requests of 10,000 nodes and one evaluate, with the kernel launch counts
    zeroed just before and read just after; then the same forward on the CPU
    (plain versions) as the reference;
-4. print a ``{"kernels": [...]}`` line, the card's name and power limit from
+4a. drive the training path through K2: APPNP(num_classes=40) with its
+   defaults on the RCM-reordered benchmark graph, ``train(...,
+   spmm_impl="pallas", epochs=5)`` on 10,000 train and 10,000 valid nodes,
+   counts zeroed just before and read just after (20 K2 launches an epoch:
+   10 in the step, 10 in the validation forward); then predict;
+4b. the same path on both devices: a hand-built APPNP stack without feature
+   dropout (edge masks come from CPU-drawn salts, so they agree), 3 epochs
+   under ``pallas`` on the card and on the CPU (plain versions), losses and
+   parameters compared; then 2 epochs with the default implementation on
+   the card, whose clean forwards run K1 (10 launches an epoch);
+5. print a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -35,6 +50,8 @@ N_EDGES = 1_166_243
 N_FEATURES = 128
 N_CLASSES = 40
 N_REQUESTS, REQUEST_NODES = 3, 10_000
+TRAIN_NODES = VALID_NODES = 10_000
+TRAIN_EPOCHS, CROSS_EPOCHS, DEFAULT_EPOCHS = 5, 3, 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -48,6 +65,18 @@ KERNEL_RTOL = 1e-5
 # GPU vs CPU forward: float32, sums in another order across 10 steps
 FORWARD_TOL = dict(rtol=1e-4, atol=1e-4)
 MIN_ARGMAX_AGREEMENT = 0.999
+# GPU vs CPU training (3 epochs, same edge masks): float32 sums in another
+# order through 10 propagation steps, their backward and 3 Adam updates.
+# Parameters must agree within PARAM_TOL except for at most PARAM_OUTLIERS of
+# their elements, and no element may differ by more than MAX_PARAM_DIFF.
+# Adam's state at the elements outside PARAM_TOL is logged: an update is
+# -alpha * m / (sqrt(v) + eps), most sensitive to rounding in g where sqrt(v)
+# is of the order of eps.
+LOSS_RTOL = 1e-4
+PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+PARAM_OUTLIERS = 1e-3
+MAX_PARAM_DIFF = 1e-3
+LEARNING_RATE = 0.01
 
 
 def log(msg):
@@ -163,6 +192,375 @@ def check_ell_kernel(label, idx, vals, x, vrow_row, n_nodes, library=False):
     return res
 
 
+def live_edges(prep):
+    """Absolute (dst, src) of the layout's live slots, as the plain version
+    walks them."""
+    lay = prep.layout
+    chunk = prep.perm // lay.block_edges
+    dst = prep.chunk_window.long()[chunk] * lay.window \
+        + prep.rows.long()[prep.perm]
+    src = prep.chunk_tile.long()[chunk] * lay.tile + prep.cols.long()[prep.perm]
+    return dst, src
+
+
+def blocked_bound(prep, f):
+    """Least time for the K2 function on these inputs: the live slots'
+    rows/cols/vals (12 B each) and the chunks' window and tile (8 B a chunk)
+    read once, the referenced x rows read once, out written once; 2 flops
+    per live edge and feature."""
+    lay = prep.layout
+    _, src = live_edges(prep)
+    x_rows = int(torch.unique(src).numel())
+    n_bytes = (lay.n_edges * 12 + lay.n_chunks * 8 + x_rows * f * 4
+               + lay.n_nodes * f * 4)
+    flops = 2 * lay.n_edges * f
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes
+
+
+def check_blocked_kernel(label, prep, slot_vals, x, library=False):
+    from gnntf_tpu_torch.ops import blocked_spmm, blocked_spmm_plain
+
+    out = blocked_spmm(prep, slot_vals, x)
+    torch.cuda.synchronize()
+    ref = blocked_spmm_plain(prep, slot_vals, x)
+    scale = blocked_spmm_plain(prep, slot_vals.abs(), x.abs())
+    err = check_close(f"K2 {label}", out, ref, scale)
+    res = dict(max_abs_err=err,
+               ms=time_ms(lambda: blocked_spmm(prep, slot_vals, x)),
+               plain_ms=time_ms(lambda: blocked_spmm_plain(
+                   prep, slot_vals, x)))
+    res["bound_ms"], res["bound_by"], n_bytes = blocked_bound(
+        prep, x.shape[1])
+    res["library_ms"] = None
+    if library:
+        # yardstick only: one cuSPARSE CSR product of the same matrix
+        dst, src = live_edges(prep)
+        n = prep.layout.n_nodes
+        a = torch.sparse_coo_tensor(torch.stack([dst, src]),
+                                    slot_vals[prep.perm], (n, n))
+        a = a.coalesce().to_sparse_csr()
+        check_close(f"library CSR product {label}", torch.sparse.mm(a, x),
+                    ref, scale)
+        res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
+    lay = prep.layout
+    log(f"K2 {label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
+        f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
+        f"({res['bound_by']}, {n_bytes} B), live slots {lay.n_edges}, "
+        f"chunks {lay.n_chunks}, runs {prep.n_runs}, N={lay.n_nodes} "
+        f"F={x.shape[1]}")
+    return res
+
+
+def layout_stats(lay, seconds):
+    """Chunks, fill and the skew of the work over windows and chunks."""
+    clen = lay.chunk_len
+    per_window = np.bincount(lay.chunk_window, minlength=lay.n_windows)
+    edges = np.bincount(lay.chunk_window, weights=clen,
+                        minlength=lay.n_windows).astype(np.int64)
+    stats = dict(
+        chunks=lay.n_chunks, slots=int(lay.rows.shape[0]),
+        fill=lay.fill_factor, windows=lay.n_windows,
+        chunks_per_window_median=float(np.median(per_window)),
+        chunks_per_window_p99=float(np.percentile(per_window, 99)),
+        chunks_per_window_max=int(per_window.max()),
+        edges_per_window_median=float(np.median(edges)),
+        heaviest_window_edges=int(edges.max()),
+        heaviest_window_share=float(edges.max() / max(1, lay.n_edges)),
+        edges_per_chunk_median=float(np.median(clen)),
+        chunks_at_most_8_edges=int((clen <= 8).sum()),
+        full_chunks=int((clen == lay.block_edges).sum()), **seconds)
+    log(f"RCM bench layout: {stats}")
+    return stats
+
+
+def hand_stack(graph, features, device, iterations=10):
+    """APPNP's stack without its feature-dropout layers: Dense(64, relu),
+    H0 = Dense(40, no regularization), ``iterations`` x
+    PPRIteration(H0, 0.1, graph_dropout=0.5)."""
+    import gnntf_tpu_torch as tt
+    model = tt.GNN(graph, features, device=device)
+    model.add(tt.Dense(64, activation=torch.relu))
+    h0 = model.add(tt.Dense(N_CLASSES, regularize=False))
+    for _ in range(iterations):
+        model.add(tt.PPRIteration(h0, 0.1, graph_dropout=0.5))
+    return model
+
+
+def profile_step(step, top=10):
+    """Device time by kernel over one training step (torch.profiler), the
+    share of it in ``index_add_`` kernels (the backward's transposed
+    products and the degree sums) and in K2."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    index_add_us = sum(r[1] for r in rows if "indexFunc" in r[0]
+                       or "index_add" in r[0].lower())
+    k2_us = sum(r[1] for r in rows if "blocked_spmm" in r[0])
+    log(f"profile of one training step: wall {wall_us} us, device busy "
+        f"{busy_us} us, idle share {1 - busy_us / wall_us}; index_add_ "
+        f"kernels {index_add_us} us ({index_add_us / busy_us} of busy), K2 "
+        f"{k2_us} us ({k2_us / busy_us} of busy)")
+    for key, us, count in rows[:top]:
+        log(f"  {us} us in {count} launches: {key[:90]}")
+    return dict(busy_us=busy_us, wall_us=wall_us,
+                index_add_share=index_add_us / busy_us,
+                k2_share=k2_us / busy_us)
+
+
+def phase_blocked_kernel(graph, dev, x40, x128):
+    """2b: K2 against its plain version, small and at bench size; returns
+    the RCM-reordered graph, its permutation and the results."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo,
+                                     normalize_adjacency, scatter_values)
+
+    rng = np.random.RandomState(5)
+    n = 5000
+    row = rng.randint(0, n // 2, size=60_000)
+    row[row >= n // 4] += n // 2  # rows [n/2, 3n/4) stay empty
+    row = np.concatenate([row, rng.randint(0, 256, size=30_000)])
+    col = rng.randint(0, n, size=row.shape[0])
+    small = BlockedSpMM(block_coo(row, col, n), dev)
+    small_vals = scatter_values(small, torch.from_numpy(
+        rng.randn(row.shape[0]).astype(np.float32)).to(dev))
+    for f in (6, 40):  # the line reports F=40, the width of the path
+        x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
+        small_res = check_blocked_kernel(f"small F={f}", small, small_vals, x)
+
+    t0 = time.perf_counter()
+    perm = tt.rcm_order(graph)
+    rcm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_rcm, inv = tt.permute_graph(graph, perm)
+    permute_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay = block_coo(g_rcm.row.cpu().numpy(), g_rcm.col.cpu().numpy(), N_NODES)
+    block_s = time.perf_counter() - t0
+    log(f"RCM: bandwidth {tt.bandwidth(graph)} -> {tt.bandwidth(g_rcm)}")
+    stats = layout_stats(lay, dict(rcm_s=rcm_s, permute_s=permute_s,
+                                   block_coo_s=block_s))
+    prep = BlockedSpMM(lay, dev)
+    norm = normalize_adjacency(g_rcm, graph_dropout=0.0).materialized()
+    slot_vals = scatter_values(prep, norm.val)
+    stats["scatter_values_ms"] = time_ms(
+        lambda: scatter_values(prep, norm.val))
+    log(f"scatter_values at bench size: {stats['scatter_values_ms']} ms")
+    perm_t = torch.from_numpy(perm).to(dev)
+    bench = check_blocked_kernel("RCM bench F=128", prep, slot_vals,
+                                 x128[perm_t].contiguous(), library=True)
+    train_width = check_blocked_kernel("RCM bench F=40", prep, slot_vals,
+                                       x40[perm_t].contiguous(), library=True)
+    return g_rcm, perm, inv, dict(small=small_res, bench=bench,
+                                  train=train_width, layout=stats)
+
+
+def phase_train(g_rcm, perm, inv, features, dev):
+    """4a: APPNP.train(spmm_impl="pallas") at full width through K2."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import blocked_spmm, ell_gather
+    from gnntf_tpu_torch.train.trainer import _total_loss
+
+    order = np.random.RandomState(7).permutation(N_NODES)
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    train_old = order[:TRAIN_NODES]
+    valid_old = order[TRAIN_NODES:TRAIN_NODES + VALID_NODES]
+    train = tt.NodeClassification(inv[train_old], labels[train_old])
+    valid = tt.NodeClassification(inv[valid_old], labels[valid_old])
+    model = tt.APPNP(g_rcm, features[perm], num_classes=N_CLASSES, device=dev)
+    marks = []
+
+    def mark(epoch, **_):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), blocked_spmm.launches))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocked_spmm.launches = 0
+    ell_gather.launches = 0
+    t0 = time.perf_counter()
+    hist = model.train(train, valid, spmm_impl="pallas", epochs=TRAIN_EPOCHS,
+                       patience=100, seed=0, callbacks=[mark])
+    launches, k1_launches = blocked_spmm.launches, ell_gather.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    epoch_ms, per_epoch, prev = [], [], (t0, 0)
+    for t, n in marks:
+        epoch_ms.append((t - prev[0]) * 1e3)
+        per_epoch.append(n - prev[1])
+        prev = (t, n)
+    log(f"training (pallas): epoch ms {epoch_ms}, K2 launches per epoch "
+        f"{per_epoch}, K1 launches {k1_launches}, peak memory {peak_mb} MiB, "
+        f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}")
+    if per_epoch != [20] * TRAIN_EPOCHS or launches != 20 * TRAIN_EPOCHS:
+        raise AssertionError(f"K2 launches per epoch {per_epoch}, expected "
+                             "20 (10 in the step, 10 in the validation)")
+    if k1_launches:
+        raise AssertionError(f"{k1_launches} K1 launches under pallas")
+    losses = np.array(hist["train_loss"] + hist["valid_loss"])
+    if len(losses) != 2 * TRAIN_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"bad losses {hist}")
+
+    params = [p for p in model.params.values() if p.requires_grad]
+
+    def step():
+        with tt.spmm_impl("pallas"):
+            loss = _total_loss(model, train, train.batch(), 5e-4,
+                               torch.Generator().manual_seed(1))
+            torch.autograd.grad(loss, params)
+
+    def eval_forward():
+        with torch.no_grad(), tt.spmm_impl("pallas"):
+            model.forward(model.features)
+
+    timings = {}
+    for name, fn in (("step", step), ("eval_forward", eval_forward)):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        timings[name + "_ms"] = times
+    profile = profile_step(step)
+    log(f"training step (forward + backward) ms {timings['step_ms']}, "
+        f"validation forward ms {timings['eval_forward_ms']}")
+
+    with tt.spmm_impl("pallas"):
+        preds = model.predict(valid).cpu()
+        accuracy = float(model.evaluate(valid))
+    if preds.shape != (VALID_NODES,) or int(preds.max()) >= N_CLASSES:
+        raise AssertionError(f"bad predictions {tuple(preds.shape)}")
+    log(f"predict on the valid set: {VALID_NODES} labels, accuracy "
+        f"{accuracy} (random labels: ~{1 / N_CLASSES})")
+    return dict(launches=launches, epoch_ms=epoch_ms, peak_mb=peak_mb,
+                profile=profile, **timings)
+
+
+def recording_adam(learning_rate):
+    """keras_adam that keeps every step's gradients and second moments on
+    the host (``.steps``: one ``{name: (g, v)}`` per update)."""
+    from gnntf_tpu_torch.train.trainer import KerasAdam
+
+    class RecordingAdam(KerasAdam):
+        def __init__(self):
+            super().__init__(learning_rate)
+            self.steps = []
+
+        def update(self, grads, state):
+            updates, state = super().update(grads, state)
+            self.steps.append({k: (g.detach().cpu(), state["v"][k].cpu())
+                               for k, g in grads.items()})
+            return updates, state
+
+    return RecordingAdam()
+
+
+def log_adam_state(name, far, steps_gpu, steps_cpu, eps, top=8):
+    """Per step, the gradients on both devices and the card's sqrt(v) at the
+    elements outside PARAM_TOL, against eps."""
+    where = torch.nonzero(far).tolist()[:top]
+    for t, (sg, sc) in enumerate(zip(steps_gpu, steps_cpu), start=1):
+        g_gpu, v_gpu = sg[name]
+        g_cpu = sc[name][0]
+        dg = (g_gpu - g_cpu).abs()
+        log(f"    step {t}: all of {name}: median |g| "
+            f"{g_cpu.abs().median().item()}, max |g gpu - g cpu| "
+            f"{dg.max().item()}")
+        for i in where:
+            i = tuple(i)
+            log(f"    step {t} {name}{list(i)}: g gpu {g_gpu[i].item()}, "
+                f"g cpu {g_cpu[i].item()}, sqrt(v) gpu "
+                f"{v_gpu[i].sqrt().item()} (eps {eps})")
+
+
+def phase_devices(g_rcm, perm, inv, features, dev):
+    """4b: the pallas training path on the card and on the CPU, then the
+    default implementation on the card."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import blocked_spmm, ell_gather
+
+    order = np.random.RandomState(7).permutation(N_NODES)
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    train_old = order[:TRAIN_NODES]
+    valid_old = order[TRAIN_NODES:TRAIN_NODES + VALID_NODES]
+    tasks = (tt.NodeClassification(inv[train_old], labels[train_old]),
+             tt.NodeClassification(inv[valid_old], labels[valid_old]))
+    feats = features[perm]
+    runs, seconds, params, adam = {}, {}, {}, {}
+    for device, graph in ((dev, g_rcm), ("cpu", g_rcm.to("cpu"))):
+        model = hand_stack(graph, feats, device)
+        adam[str(device)] = recording_adam(LEARNING_RATE)
+        blocked_spmm.launches = 0
+        t0 = time.perf_counter()
+        runs[str(device)] = model.train(*tasks, spmm_impl="pallas",
+                                        epochs=CROSS_EPOCHS, patience=100,
+                                        optimizer=adam[str(device)], seed=0)
+        seconds[str(device)] = time.perf_counter() - t0
+        launches = blocked_spmm.launches
+        want = 20 * CROSS_EPOCHS if device == dev else 0
+        if launches != want:
+            raise AssertionError(f"{launches} K2 launches on {device}, "
+                                 f"expected {want}")
+        params[str(device)] = {k: p.detach().cpu()
+                               for k, p in model.params.items()}
+    gpu, cpu = runs[str(dev)], runs["cpu"]
+    log(f"GPU vs CPU training, {CROSS_EPOCHS} epochs: GPU {gpu} "
+        f"({seconds[str(dev)]} s), CPU {cpu} ({seconds['cpu']} s)")
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
+    worst, outside, total = 0.0, 0, 0
+    for k, p in params["cpu"].items():
+        q = params[str(dev)][k]
+        diff = (q - p).abs()
+        worst = max(worst, diff.max().item())
+        far = ~torch.isclose(q, p, **PARAM_TOL)
+        outside += int(far.sum())
+        total += p.numel()
+        log(f"  parameter {k} {tuple(p.shape)}: max |diff| "
+            f"{diff.max().item()}, {int(far.sum())} elements outside "
+            f"{PARAM_TOL}, largest |value| there "
+            f"{p[far].abs().max().item() if far.any() else 0.0}")
+        if far.any():
+            log_adam_state(k, far, adam[str(dev)].steps, adam["cpu"].steps,
+                           adam["cpu"].eps)
+    log(f"GPU vs CPU parameters after training (best epoch "
+        f"{gpu['best_epoch']}): max |diff| {worst} (limit {MAX_PARAM_DIFF}), "
+        f"{outside} of {total} elements outside {PARAM_TOL}")
+    if outside > PARAM_OUTLIERS * total or worst > MAX_PARAM_DIFF:
+        raise AssertionError("parameters differ between devices")
+
+    model = hand_stack(g_rcm, feats, dev)
+    marks = []
+    blocked_spmm.launches = 0
+    ell_gather.launches = 0
+    hist = model.train(*tasks, epochs=DEFAULT_EPOCHS, patience=100, seed=0,
+                       callbacks=[lambda **_: marks.append(
+                           ell_gather.launches)])
+    k1 = np.diff([0] + marks).tolist()
+    log(f"default impl on the card: K1 launches per epoch {k1}, K2 "
+        f"launches {blocked_spmm.launches}, losses {hist}")
+    if k1 != [10] * DEFAULT_EPOCHS or blocked_spmm.launches:
+        raise AssertionError("the default impl's clean forwards must run K1 "
+                             "10 times an epoch and K2 never")
+    return dict(cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)],
+                max_param_diff=worst, k1_per_epoch=k1)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -222,6 +620,9 @@ def main():
     serving = check_ell_kernel("bench F=40", prep.ell_idx, prep.ell_vals,
                                x40, prep.vrow_row, N_NODES, library=True)
     del prep
+
+    # 2b. K2 against its plain version, small and on the RCM bench layout
+    g_rcm, perm, inv, k2 = phase_blocked_kernel(graph, dev, x40, x128)
 
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
@@ -296,16 +697,31 @@ def main():
     if agree < MIN_ARGMAX_AGREEMENT:
         raise AssertionError(f"argmax agreement {agree}")
 
-    # 4. report
-    # the top-level numbers are at the serving path's own width (F=40, the
-    # width APPNP propagates); F=128 is the bench shape of the kernel table
+    # 4a. the training path through K2, 4b. the same on both devices
+    trained = phase_train(g_rcm, perm, inv, features, dev)
+    cross = phase_devices(g_rcm, perm, inv, features, dev)
+    log(f"training summary: {json.dumps(dict(trained=trained, cross=cross))}")
+
+    # 5. report
+    # the top-level numbers are at the width each path propagates (F=40:
+    # APPNP's 40 classes); F=128 is the bench width of the kernel table
     entry = {"name": "ell_gather", "route": "cuda",
              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
              "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
              "launches": launches, **serving, "kernel_ms": serving["ms"],
              "shape": "V=87091 k=8 N=169343 F=40",
              "bench_width": dict(bench, shape="F=128")}
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    lay = k2["layout"]
+    entry2 = {"name": "blocked_spmm", "route": "cuda",
+              "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
+              "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
+              "launches": trained["launches"], **k2["train"],
+              "kernel_ms": k2["train"]["ms"],
+              "shape": f"RCM bench layout C={lay['chunks']} W=T=256 BE=1024 "
+                       f"N=169343 F=40",
+              "bench_width": dict(k2["bench"], shape="F=128"),
+              "small": k2["small"]}
+    print(json.dumps({"kernels": [entry, entry2]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,14 +14,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import measures  # noqa: E402
-from .graph import (Graph, add_self_loops, from_edges, graph2adj,  # noqa: E402
-                    graph2indices)
+from .graph import (Graph, add_self_loops, bandwidth, from_edges,  # noqa: E402
+                    graph2adj, graph2indices, permute_graph, rcm_order)
 from .interop import params_from_jax  # noqa: E402
 from .measures import acc, next_seed, set_seed  # noqa: E402
 from .models import APPNP, GNN, PPRIteration  # noqa: E402
 from .nn import Dense, Dropout, Forward, Layer, Network, ParamSpec  # noqa: E402
-from .ops import normalize_adjacency, spmm  # noqa: E402
+from .ops import (dropout, normalize_adjacency, set_spmm_impl,  # noqa: E402
+                  spmm, spmm_impl)
 from .tasks import NodeClassification, Predictor  # noqa: E402
-from .train import Trainable  # noqa: E402
+from .train import Trainable, fit, keras_adam  # noqa: E402
 
 __version__ = "0.1.0"

@@ -12,6 +12,13 @@ two (N, F) row-wise multiplies around the product,
 ``D ⊙ (A @ (D ⊙ x)) == (D A D) @ x`` up to float reassociation.  ``None``
 means identity.
 
+**Lazy counter-based edge dropout** (``drop_salt``/``drop_keep``/
+``drop_n``): when ``drop_salt`` is set, the effective edge values are
+``val[e] * mask(e) / drop_keep`` for ``e < drop_n`` and ``val[e]`` for the
+trailing self-loop entries, where ``mask(e)`` is a hash of the edge id and
+the two salts (``ops/stochastic.py``).  Applied before the lazy scales:
+dropout comes before renormalization.
+
 **Lazy post-scale identity** (``eye_weight``): the effective matrix is
 ``diag(row_scale) A diag(col_scale) + eye_weight * I`` — self-loops added
 *after* normalization stay a ``+ w*x`` in the SpMM.
@@ -43,6 +50,9 @@ class Graph:
     sorted_by_row: bool = False
     row_scale: Optional[torch.Tensor] = None   # [N] or None (identity)
     col_scale: Optional[torch.Tensor] = None   # [N] or None (identity)
+    drop_salt: Optional[torch.Tensor] = None   # (2,) int64 uint32 values
+    drop_keep: float = 1.0
+    drop_n: int = 0
     eye_weight: float = 0.0
 
     @property
@@ -58,6 +68,10 @@ class Graph:
         return self.row_scale is not None or self.col_scale is not None
 
     @property
+    def dropped(self) -> bool:
+        return self.drop_salt is not None
+
+    @property
     def device(self) -> torch.device:
         return self.val.device
 
@@ -69,10 +83,19 @@ class Graph:
             self, row=move(self.row), col=move(self.col), val=move(self.val),
             row_scale=move(self.row_scale), col_scale=move(self.col_scale))
 
+    def materialized_dropout(self) -> "Graph":
+        """Fold the lazy edge dropout into per-edge values (the scales stay
+        lazy)."""
+        if not self.dropped:
+            return self
+        from ..ops.stochastic import materialize_dropped
+        return dataclasses.replace(self, val=materialize_dropped(self),
+                                   drop_salt=None, drop_keep=1.0, drop_n=0)
+
     def materialized(self) -> "Graph":
-        """Fold the lazy diagonal scales and post-scale identity into
-        per-edge values (two E-sized gathers; for inspection and tests)."""
-        g = self
+        """Fold the lazy dropout, diagonal scales and post-scale identity
+        into per-edge values (for inspection, tests and re-normalization)."""
+        g = self.materialized_dropout()
         if g.scaled:
             val = g.val
             if g.row_scale is not None:

@@ -7,10 +7,16 @@ the same registration order, so weights map one to one between the two
 packages.  ``forward(x)`` folds the layers in order and keeps every layer's
 output in a :class:`Forward` context, which residual layers read back
 (the reference's ``.value`` cache).
+
+Randomness in training: the step passes one CPU ``torch.Generator``; each
+layer draws its own CPU generator from it, in layer order, and the layer's
+stochastic ops draw from that.  Edge dropout takes its salts from the CPU
+generator, so a step's edge masks are the same on every device; feature
+dropout seeds a generator on the model's device.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -64,16 +70,46 @@ class Layer:
         raise NotImplementedError(
             f"{type(self).__name__} must implement apply()")
 
+    def loss(self, fw: "Forward", value: torch.Tensor):
+        """Activation-regularization loss, ``output_regularize * l2(value)``
+        (reference Layer.loss, layered.py:83-86)."""
+        if self.output_regularize == 0.0:
+            return 0.0
+        return self.output_regularize * 0.5 * torch.sum(
+            torch.square(value.to(torch.float32)))
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 1 << 62, (1,), generator=generator))
+
 
 class Forward:
-    """Per-call forward context: the mode and each layer's output."""
+    """Per-call forward context: the mode, the random state and each
+    layer's output."""
 
-    __slots__ = ("net", "training", "acts")
+    __slots__ = ("net", "training", "acts", "_generator", "_layer_generator")
 
-    def __init__(self, net: "Network", training: bool):
+    def __init__(self, net: "Network", training: bool,
+                 generator: Optional[torch.Generator] = None):
         self.net = net
         self.training = bool(training)
         self.acts: List[torch.Tensor] = []
+        self._generator = generator
+        self._layer_generator = None
+
+    def begin_layer(self) -> None:
+        """Draw the layer's CPU generator from the step's."""
+        if self._generator is not None:
+            self._layer_generator = torch.Generator().manual_seed(
+                _draw_seed(self._generator))
+
+    def next_generator(self) -> torch.Generator:
+        """The layer's CPU generator, for a stochastic op."""
+        if self._layer_generator is None:
+            raise ValueError(
+                "Stochastic op requested without a generator; pass "
+                "generator= to forward() when training=True")
+        return self._layer_generator
 
     def param(self, ref) -> torch.Tensor:
         return self.net.params[ref]
@@ -86,21 +122,30 @@ class Forward:
         return self.acts[layer.index]
 
     def dropout(self, x: torch.Tensor, rate: float = 0.5) -> torch.Tensor:
-        """Feature dropout: the identity outside training."""
+        """Feature dropout: the identity outside training; in training the
+        mask comes from a generator on ``x``'s device, seeded from the
+        layer's CPU generator."""
         if not self.training or rate == 0.0:
             return x
-        raise NotImplementedError(
-            "training-mode dropout is not implemented in the torch port yet")
+        from ..ops.dropout import dropout
+        generator = torch.Generator(device=x.device).manual_seed(
+            _draw_seed(self.next_generator()))
+        return dropout(x, rate, generator)
 
     def adjacency(self, graph_dropout: float = 0.5,
                   normalized: str = "symmetric", add_eye: str = "none"):
         """The normalized adjacency (reference GNN.get_adjacency,
-        gnn.py:36-50): outside training, the model's cached one."""
+        gnn.py:36-50): in training with ``graph_dropout``, a fresh edge
+        dropout renormalized after the draw; otherwise the model's cached
+        one."""
         if not hasattr(self.net, "adjacency"):
             raise ValueError("adjacency() requires a graph-bearing model (GNN)")
         if self.training and graph_dropout != 0.0:
-            raise NotImplementedError(
-                "edge dropout is not implemented in the torch port yet")
+            from ..ops.normalize import normalize_adjacency
+            return normalize_adjacency(
+                self.net.graph, graph_dropout=graph_dropout,
+                normalized=normalized, add_eye=add_eye,
+                generator=self.next_generator())
         return self.net.adjacency(normalized, add_eye)
 
     def spmm(self, graph, x: torch.Tensor) -> torch.Tensor:
@@ -165,14 +210,38 @@ class Network(nn.Module):
                 init_param(generator, spec.shape, spec.init, self.dtype))
 
     def forward(self, x: torch.Tensor, *, training: bool = False,
+                generator: Optional[torch.Generator] = None,
                 return_ctx: bool = False):
-        """Sequential forward fold (layered.py:52-55)."""
-        fw = Forward(self, training)
+        """Sequential forward fold (layered.py:52-55).  ``generator`` is the
+        step's CPU generator, needed when ``training`` draws dropout."""
+        fw = Forward(self, training, generator)
         h = x
         for layer in self._layers:
+            fw.begin_layer()
             h = layer.apply(fw, h)
             fw.acts.append(h)
         if return_ctx:
             return h, fw
         return h
+
+    def layer_losses(self, fw: Forward):
+        """Sum of the per-layer losses (trainable.py:72-74)."""
+        total = 0.0
+        for layer, act in zip(self._layers, fw.acts):
+            total = total + layer.loss(fw, act)
+        return total
+
+    def weight_l2(self):
+        """``sum_var reg_weight * l2_loss(var)``; the trainer multiplies it by
+        the global ``regularization`` factor (trainable.py:75-77)."""
+        total = 0.0
+        for spec in self.param_specs:
+            if spec.regularize != 0.0:
+                w = self.params[spec.name]
+                total = total + spec.regularize * 0.5 * torch.sum(
+                    torch.square(w.to(torch.float32)))
+        return total
+
+    def trainable_mask(self) -> Dict[str, bool]:
+        return {s.name: s.trainable for s in self.param_specs}
 

@@ -1,3 +1,7 @@
+from .blocked import (BlockedCOO, BlockedSpMM, block_coo, blocked_spmm,
+                      blocked_spmm_plain, scatter_values, spmm_pallas)
+from .dropout import dropout
 from .ell_gather import ell_gather, ell_gather_plain
-from .normalize import normalize_adjacency
-from .spmm import PreparedSpMM, build_ell, build_hybrid, prepare, spmm, spmm_segment
+from .normalize import edge_dropout, normalize_adjacency
+from .spmm import (PreparedSpMM, build_ell, build_hybrid, prepare,
+                   set_spmm_impl, spmm, spmm_impl, spmm_segment)

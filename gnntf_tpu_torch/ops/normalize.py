@@ -1,7 +1,9 @@
 """Adjacency normalization (reference ``GNN.get_adjacency``,
-gnntf/core/gnn/gnn.py:36-50), deterministic path.
+gnntf/core/gnn/gnn.py:36-50).
 
-  1. edge dropout (not ported yet: a nonzero rate with a generator raises);
+  1. edge dropout on the edge values, self-loop entries excepted: lazy salts
+     and the counter hash of ``ops/stochastic.py`` at or above
+     ``MIN_EDGES`` edges, an eager Bernoulli draw below;
   2. optional self-loops *before* normalization (``add_eye='before'``);
   3. normalization, returned *lazily* as per-node scales:
        * ``symmetric``:  D = rsqrt(colsum) where colsum > 0, else 0;
@@ -20,18 +22,47 @@ from typing import Optional
 import torch
 
 from ..graph.coo import Graph, add_self_loops
+from .stochastic import MIN_EDGES
 
 
 def _degree(graph: Graph, by: str = "col") -> torch.Tensor:
     """Column sums ``deg[j] = sum_i A[i, j]``; ``by='row'`` gives row sums.
+    A lazily dropped graph sums its materialized dropped values (the same
+    numbers as the JAX package's grid reduction, summed in another order).
     A lazy ``eye_weight`` adds to every degree."""
-    idx = graph.col if by == "col" else graph.row
-    deg = torch.zeros(graph.n_nodes, dtype=graph.val.dtype,
-                      device=graph.device)
-    deg.index_add_(0, idx, graph.val)
+    g = graph.materialized_dropout()
+    idx = g.col if by == "col" else g.row
+    deg = torch.zeros(g.n_nodes, dtype=g.val.dtype, device=g.device)
+    deg.index_add_(0, idx, g.val)
     if graph.eye_weight != 0.0:
         deg = deg + graph.eye_weight
     return deg
+
+
+def edge_dropout(graph: Graph, rate: float,
+                 generator: Optional[torch.Generator]) -> Graph:
+    """Dropout on the edge values; the trailing self-loop entries are never
+    dropped.  ``generator`` is a CPU generator, so the masks of a run are the
+    same on every device: at or above ``MIN_EDGES`` edges it draws the two
+    salts of a lazy draw, below it an eager Bernoulli mask."""
+    if rate == 0.0 or generator is None:
+        return graph
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    keep = 1.0 - rate
+    n_drop = graph.n_edges - graph.num_self_loop
+    if graph.n_edges >= MIN_EDGES and not graph.dropped:
+        salt = torch.randint(0, 1 << 32, (2,), generator=generator,
+                             dtype=torch.int64)
+        return dataclasses.replace(graph, drop_salt=salt, drop_keep=keep,
+                                   drop_n=n_drop)
+    graph = graph.materialized_dropout()  # stacking draws: realize the first
+    mask = (torch.rand(n_drop, generator=generator) < keep).to(graph.device)
+    head = graph.val[:n_drop]
+    val = torch.cat([torch.where(mask, head / keep, torch.zeros_like(head)),
+                     graph.val[n_drop:]])
+    return Graph(graph.row, graph.col, val, graph.n_nodes,
+                 graph.num_self_loop, graph.sorted_by_row)
 
 
 def normalize_adjacency(
@@ -43,14 +74,13 @@ def normalize_adjacency(
     generator: Optional[torch.Generator] = None,
 ) -> Graph:
     """The normalized adjacency.  Pass ``generator=None`` (or
-    ``graph_dropout=0``) for the deterministic (inference) path."""
-    if generator is not None and graph_dropout != 0.0:
-        raise NotImplementedError(
-            "edge dropout is not implemented in the torch port yet")
+    ``graph_dropout=0``) for the deterministic (inference) path; otherwise
+    ``generator`` is the CPU generator that edge dropout draws from."""
     if graph.scaled or graph.eye_weight != 0.0:
         # normalizing an already-normalized graph: fold the scales first so
         # degrees see the effective values
         graph = graph.materialized()
+    graph = edge_dropout(graph, graph_dropout, generator)
     if add_eye == "before":
         graph = add_self_loops(graph)
     elif add_eye not in ("none", "after"):

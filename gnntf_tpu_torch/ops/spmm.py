@@ -1,11 +1,16 @@
-"""Sparse matrix x dense matrix products (SpMM) on a fixed adjacency.
+"""Sparse matrix x dense matrix products (SpMM) and the dispatcher.
 
-* ``spmm_segment`` — gather + ``index_add_``: the plain reference, and the
-  dispatcher's choice below ``_ELL_MIN_EDGES`` edges.
+* ``spmm_segment`` — gather + ``index_add_``: the plain reference,
+  differentiable through autograd.
 * :class:`PreparedSpMM` — the layout and the value routing are built once,
   on the host and with one ``index_add_``; each call then runs the ELL
   gather-reduce kernel (``ops/ell_gather.py``) for the row-split ELL part and
   one ``torch.matmul`` for the dense hub slice.
+* ``spmm_pallas`` (``ops/blocked.py``) — the blocked-COO kernel K2.
+
+The implementation is selected as in the JAX package: ``auto`` (the
+default), ``segment``, ``ell``, ``hybrid`` or ``pallas``, process-wide with
+:func:`set_spmm_impl` or per call with the :class:`spmm_impl` scope.
 
 Layouts (built once per graph structure, numpy, copied from the JAX
 package so the two stay bit-equal):
@@ -21,6 +26,7 @@ Lazy scales and identity apply around the product in the JAX order,
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 from typing import Callable, Optional
@@ -29,10 +35,50 @@ import numpy as np
 import torch
 
 from ..graph.coo import Graph
+from .blocked import spmm_pallas
 from .ell_gather import ell_gather
 
+_IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
 _ELL_MIN_EDGES = 65_536
 _ELL_DEFAULT_K = 8
+
+# The process-wide default (set_spmm_impl) and a per-context override (the
+# spmm_impl scope), which takes precedence where it is set.
+_SPMM_IMPL_DEFAULT = "auto"
+_SPMM_IMPL_VAR: contextvars.ContextVar[Optional[str]] = \
+    contextvars.ContextVar("gnntf_torch_spmm_impl", default=None)
+
+
+class spmm_impl:
+    """Context manager scoping the SpMM implementation selection
+    (``auto``/``segment``/``ell``/``hybrid``/``pallas``) to a call;
+    ``None`` defers to the process default."""
+
+    def __init__(self, name: Optional[str]):
+        if name is not None and name not in _IMPL_NAMES:
+            raise ValueError(name)
+        self.name = name
+
+    def __enter__(self):
+        self._token = _SPMM_IMPL_VAR.set(self.name)
+        return self.name
+
+    def __exit__(self, *exc):
+        _SPMM_IMPL_VAR.reset(self._token)
+        return False
+
+
+def set_spmm_impl(name: str) -> None:
+    """Set the process-wide default SpMM implementation."""
+    global _SPMM_IMPL_DEFAULT
+    if name not in _IMPL_NAMES:
+        raise ValueError(name)
+    _SPMM_IMPL_DEFAULT = name
+
+
+def current_impl() -> str:
+    """The SpMM implementation in force here."""
+    return _SPMM_IMPL_VAR.get() or _SPMM_IMPL_DEFAULT
 
 
 def _scaled_call(fn, graph: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +103,7 @@ def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     """out[i, :] = sum_e{row[e]=i} val[e] * x[col[e], :]  (out = A @ X)."""
     if graph.scaled or graph.eye_weight != 0.0:
         return _scaled_call(spmm_segment, graph, x)
+    graph = graph.materialized_dropout()
     gathered = x[graph.col] * graph.val[:, None].to(x.dtype)
     out = x.new_zeros(graph.n_nodes, x.shape[1])
     return out.index_add_(0, graph.row, gathered)
@@ -244,6 +291,28 @@ def _route(slots: np.ndarray, val: torch.Tensor, size: int) -> torch.Tensor:
     return grid[:size]
 
 
+class _ELLGatherFn(torch.autograd.Function):
+    """``x -> ell_gather(idx, vals, x, vrow_row)`` with its transpose as the
+    backward, in plain torch: ``dx[idx[v, j]] += vals[v, j] * dy[vrow_row[v]]``
+    over the live slots.  The values of a prepared operator are constants."""
+
+    @staticmethod
+    def forward(ctx, x, idx, vals, vrow_row, n_nodes):
+        ctx.save_for_backward(idx, vals, vrow_row)
+        return ell_gather(idx, vals, x, vrow_row, n_nodes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        idx, vals, vrow_row = ctx.saved_tensors
+        k = idx.shape[1]
+        src = idx.reshape(-1).long()
+        live = src < dy.shape[0]
+        rows = vrow_row.long().repeat_interleave(k)[live]
+        terms = dy[rows] * vals.reshape(-1)[live][:, None]
+        return (torch.zeros_like(dy).index_add_(0, src[live], terms),
+                None, None, None, None)
+
+
 class PreparedSpMM:
     """``x -> A @ x`` for a fixed adjacency, with the layout and the value
     routing done once at construction, on the graph's device.
@@ -285,8 +354,13 @@ class PreparedSpMM:
         xin = x
         if self.col_scale is not None:
             xin = xin * self.col_scale[:, None].to(x.dtype)
-        out = ell_gather(self.ell_idx, self.ell_vals, xin.contiguous(),
-                         self.vrow_row, self.n_nodes)
+        xin = xin.contiguous()
+        if xin.requires_grad and xin.device.type == "cuda":
+            out = _ELLGatherFn.apply(xin, self.ell_idx, self.ell_vals,
+                                     self.vrow_row, self.n_nodes)
+        else:  # no gradient asked, or the plain version (autograd's own)
+            out = ell_gather(self.ell_idx, self.ell_vals, xin, self.vrow_row,
+                             self.n_nodes)
         if self.dense is not None:
             out = out + torch.matmul(self.dense, xin[self.hub_ids])
         if self.row_scale is not None:
@@ -296,17 +370,44 @@ class PreparedSpMM:
         return out
 
 
-def prepare(graph: Graph) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The operator ``x -> A @ x`` that :func:`spmm` applies to ``graph``,
-    built once so a caller holding a fixed adjacency can reuse it:
-    :class:`PreparedSpMM` at or above ``_ELL_MIN_EDGES`` edges, else
-    ``spmm_segment``."""
-    if graph.n_edges >= _ELL_MIN_EDGES:
+def prepare(graph: Graph, impl: Optional[str] = None
+            ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The operator ``x -> A @ x`` that :func:`spmm` applies to the fixed
+    (undropped) ``graph`` under ``impl`` (default: the one in force), built
+    once so a caller holding a fixed adjacency can reuse it: ``pallas`` runs
+    K2; ``segment`` the plain product; ``auto``/``hybrid``/``ell`` take
+    :class:`PreparedSpMM` at or above ``_ELL_MIN_EDGES`` edges, else the
+    plain product.  The per-call ``spmm_ell``/``spmm_hybrid`` forms of the
+    JAX package are not ported; the prepared operator computes the same
+    product."""
+    impl = current_impl() if impl is None else impl
+    if impl not in _IMPL_NAMES:
+        raise ValueError(impl)
+    if graph.dropped:
+        raise ValueError("prepare() takes a fixed adjacency; a dropped graph "
+                         "goes through spmm()")
+    if impl == "pallas":
+        return functools.partial(spmm_pallas, graph)
+    if impl != "segment" and graph.n_edges >= _ELL_MIN_EDGES:
         return PreparedSpMM(graph, _ELL_DEFAULT_K)
     return functools.partial(spmm_segment, graph)
 
 
 def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """Dispatching SpMM on a fixed adjacency: ``prepare(graph)(x)``.  This
-    builds the layout on every call; hold ``prepare(graph)`` to reuse it."""
-    return prepare(graph)(x)
+    """Dispatching SpMM under the implementation in force.
+
+    A lazily dropped graph goes through K2 under ``pallas`` and through the
+    materialized ``spmm_segment`` under every other impl.  (The JAX package
+    runs ``auto``/``hybrid``/``ell`` on a dropped graph through
+    ``stochastic_spmm`` over its ``TrainGrids``: the same function, which
+    this port does not have yet.)  A fixed graph takes :func:`prepare`,
+    which builds the layout on every call; hold ``prepare(graph)`` to reuse
+    it."""
+    if graph.scaled or graph.eye_weight != 0.0:
+        return _scaled_call(spmm, graph, x)
+    impl = current_impl()
+    if impl == "pallas":
+        return spmm_pallas(graph, x)
+    if graph.dropped:
+        return spmm_segment(graph.materialized_dropout(), x)
+    return prepare(graph, impl)(x)

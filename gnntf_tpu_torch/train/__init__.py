@@ -1,1 +1,1 @@
-from .trainer import Trainable
+from .trainer import KerasAdam, Trainable, fit, keras_adam

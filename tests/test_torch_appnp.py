@@ -75,8 +75,8 @@ def test_predict_and_evaluate_match_jax(kind):
 def test_adjacency_and_operator_built_once():
     _, pm, _ = _pair("large")
     pm._activations()
-    assert list(pm._adjacency) == [("symmetric", "none")]
-    graph, op = pm._adjacency[("symmetric", "none")]
+    assert list(pm._adjacency) == [("symmetric", "none", "auto")]
+    graph, op = pm._adjacency[("symmetric", "none", "auto")]
     assert isinstance(op, tt.ops.PreparedSpMM)
     assert pm.adjacency() is graph and pm.operator(graph) is op
 
@@ -111,6 +111,7 @@ def test_reset_is_seeded_and_drops_the_cache():
 
 
 def test_training_mode_dropout_raises():
+    """A training forward draws dropout, so it needs the step's generator."""
     _, pm, _ = _pair("small")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         pm.forward(pm.features, training=True)

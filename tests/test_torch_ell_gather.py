@@ -146,3 +146,36 @@ def test_appnp_forward_on_card_matches_cpu(cuda):
         assert launched == (10 if model.device.type == "cuda" else 0)
     np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prepared_gradient_on_card_matches_cpu(cuda):
+    """Training without edge dropout under the default impl runs K1 in the
+    step too, with its plain transposed backward: 20 launches an epoch, and
+    the losses close to the CPU run (float32, sums in another order)."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    n = 5000
+    src, dst = random_power_law_edges(n, 40_000, seed=0)
+    rng = np.random.RandomState(1)
+    features = rng.randn(n, 32).astype(np.float32)
+    labels = rng.randint(0, 6, n)
+    hist = {}
+    for device in ("cpu", cuda):
+        graph = tt.from_edges(src, dst, n_nodes=n, directed=False,
+                              device=device)
+        model = tt.GNN(graph, features, device=device)
+        model.add(tt.Dense(16, activation=torch.relu))
+        h0 = model.add(tt.Dense(6, regularize=False))
+        for _ in range(10):
+            model.add(tt.PPRIteration(h0, 0.1, graph_dropout=0.0))
+        before = ell_gather.launches
+        hist[str(device)] = model.train(
+            tt.NodeClassification(np.arange(1000), labels[:1000]),
+            tt.NodeClassification(np.arange(1000, 2000), labels[1000:2000]),
+            epochs=2, patience=100, seed=0)
+        launched = ell_gather.launches - before
+        assert launched == (40 if model.device.type == "cuda" else 0)
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
+                                   rtol=1e-4)

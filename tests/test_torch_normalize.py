@@ -58,14 +58,20 @@ def test_degree_matches_jax():
 
 
 def test_edge_dropout_not_ported_raises():
+    """Edge dropout is ported: a generator draws a fresh mask, a rate
+    outside [0, 1) raises, and rate 0 or no generator is the deterministic
+    path."""
     _, pg = _graphs()
-    with pytest.raises(NotImplementedError):
-        normalize_adjacency(pg, graph_dropout=0.5,
+    with pytest.raises(ValueError):
+        normalize_adjacency(pg, graph_dropout=1.0,
                             generator=torch.Generator().manual_seed(0))
-    # rate 0 or no generator is the deterministic path
-    normalize_adjacency(pg, graph_dropout=0.5)
-    normalize_adjacency(pg, graph_dropout=0.0,
-                        generator=torch.Generator().manual_seed(0))
+    dropped = normalize_adjacency(pg, graph_dropout=0.5,
+                                  generator=torch.Generator().manual_seed(0))
+    assert 0 < int((dropped.val == 0).sum()) < pg.n_edges
+    for g in (normalize_adjacency(pg, graph_dropout=0.5),
+              normalize_adjacency(pg, graph_dropout=0.0,
+                                  generator=torch.Generator().manual_seed(0))):
+        assert torch.equal(g.val, pg.val) and not g.dropped
 
 
 def test_invalid_mode_raises():

@@ -14,7 +14,8 @@ import torch
 import gnntf_tpu as gt
 import gnntf_tpu_torch as tt
 from gnntf_tpu_torch.nn.initializers import init_param
-from gnntf_tpu_torch.ops import ell_gather
+from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo, blocked_spmm,
+                                 ell_gather, scatter_values)
 from gnntf_tpu_torch.ops.spmm import build_ell
 
 PKG = Path(tt.__file__).resolve().parent
@@ -37,7 +38,8 @@ def test_no_source_mentions_the_jax_package():
     pattern = re.compile(r"(^\s*(import|from)\s+(jax|jaxlib|optax)\b)"
                          r"|(\bgnntf_tpu\.)", re.M)
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    assert files
+    files.append(PKG.parent / "chip_smoke.py")
+    assert len(files) > 1
     hits = [str(p) for p in files if pattern.search(p.read_text())]
     assert not hits
 
@@ -71,6 +73,20 @@ def test_cpu_wrapper_uses_plain_and_counts_nothing():
     out = ell_gather(*args)
     assert ell_gather.launches == before
     assert torch.equal(out, tt.ops.ell_gather_plain(*args))
+
+
+def test_cpu_blocked_wrapper_uses_plain_and_counts_nothing():
+    rng = np.random.RandomState(0)
+    layout = block_coo(rng.randint(0, 50, 400), rng.randint(0, 50, 400), 50,
+                       window=16, tile=16, block_edges=32)
+    prep = BlockedSpMM(layout, "cpu")
+    sv = scatter_values(prep, torch.from_numpy(
+        rng.randn(400).astype(np.float32)))
+    x = torch.from_numpy(rng.randn(50, 12).astype(np.float32))
+    before = blocked_spmm.launches
+    out = blocked_spmm(prep, sv, x)
+    assert blocked_spmm.launches == before
+    assert torch.equal(out, tt.ops.blocked_spmm_plain(prep, sv, x))
 
 
 @pytest.mark.parametrize("scheme", [0.3, "zero", "eye", "ones", "xavier",
