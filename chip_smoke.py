@@ -14,10 +14,12 @@ Phases (any failure raises and exits non-zero):
    hub-free ELL part of the benchmark graph at F=128 and at the serving
    width F=40 — timing kernel, plain version and one PyTorch library call
    with CUDA events;
-2b. the same for K2 (the blocked-COO SpMM): a small random layout with
-   duplicates, empty windows and one window heavier than a run, and the
-   layout of the RCM-reordered benchmark graph at F=40 and F=128, with the
-   layout's statistics;
+2b. the same for K2 (the blocked-COO SpMM, an edge-balanced walk over
+   per-edge lists) over its forward list (A) and its transposed list (A^T):
+   a small random layout with duplicates, empty rows and a hub row and
+   column split over many units of work, and the layout of the
+   RCM-reordered benchmark graph at F=40 and F=128 (each direction beside
+   the cuSPARSE CSR product of A or A^T), with the layout's statistics;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -27,8 +29,9 @@ Phases (any failure raises and exits non-zero):
 4a. drive the training path through K2: APPNP(num_classes=40) with its
    defaults on the RCM-reordered benchmark graph, ``train(...,
    spmm_impl="pallas", epochs=5)`` on 10,000 train and 10,000 valid nodes,
-   counts zeroed just before and read just after (20 K2 launches an epoch:
-   10 in the step, 10 in the validation forward); then predict;
+   counts zeroed just before and read just after (30 K2 launches an epoch:
+   10 in the step's forward, 10 in its backward's A^T dy, 10 in the
+   validation forward); then predict;
 4b. the same path on both devices: a hand-built APPNP stack without feature
    dropout (edge masks come from CPU-drawn salts, so they agree), 3 epochs
    under ``pallas`` on the card and on the CPU (plain versions), losses and
@@ -59,8 +62,9 @@ PEAK_FP32_FLOPS = 67e12
 # kernel vs plain version on the card, per element, relative to the sum of
 # the magnitudes of the element's terms (the scale of float32 summation
 # error; the result itself may cancel): both sum in float32 in another
-# order, and rows that span runs of virtual rows are combined with atomics
-# in an order that varies from launch to launch
+# order; K1 combines rows that span runs of virtual rows with atomics in an
+# order that varies from launch to launch, K2 sums a split row's pieces
+# apart before adding them
 KERNEL_RTOL = 1e-5
 # GPU vs CPU forward: float32, sums in another order across 10 steps
 FORWARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -192,64 +196,59 @@ def check_ell_kernel(label, idx, vals, x, vrow_row, n_nodes, library=False):
     return res
 
 
-def live_edges(prep):
-    """Absolute (dst, src) of the layout's live slots, as the plain version
-    walks them."""
-    lay = prep.layout
-    chunk = prep.perm // lay.block_edges
-    dst = prep.chunk_window.long()[chunk] * lay.window \
-        + prep.rows.long()[prep.perm]
-    src = prep.chunk_tile.long()[chunk] * lay.tile + prep.cols.long()[prep.perm]
-    return dst, src
+def live_edges(lst):
+    """(row, source) of every edge of a K2 list, as the plain version walks
+    them."""
+    rows = torch.repeat_interleave(
+        torch.arange(lst.n_rows, device=lst.ptr.device), lst.ptr.diff().long())
+    return rows, lst.idx.long()
 
 
-def blocked_bound(prep, f):
-    """Least time for the K2 function on these inputs: the live slots'
-    rows/cols/vals (12 B each) and the chunks' window and tile (8 B a chunk)
-    read once, the referenced x rows read once, out written once; 2 flops
-    per live edge and feature."""
-    lay = prep.layout
-    _, src = live_edges(prep)
-    x_rows = int(torch.unique(src).numel())
-    n_bytes = (lay.n_edges * 12 + lay.n_chunks * 8 + x_rows * f * 4
-               + lay.n_nodes * f * 4)
-    flops = 2 * lay.n_edges * f
+def blocked_bound(lst, f):
+    """Least time for the K2 function over this list: its row pointer (4 B
+    a row), each edge's source and value (8 B) and, where the list reads
+    one, its edge id (4 B more) read once, the referenced x rows read once,
+    out written once; 2 flops per edge and feature."""
+    x_rows = int(torch.unique(lst.idx).numel())
+    edge_bytes = 8 if lst.eid is None else 12
+    n_bytes = ((lst.n_rows + 1) * 4 + lst.n_edges * edge_bytes
+               + x_rows * f * 4 + lst.n_rows * f * 4)
+    flops = 2 * lst.n_edges * f
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), n_bytes
 
 
-def check_blocked_kernel(label, prep, slot_vals, x, library=False):
+def check_blocked_kernel(label, lst, val, x, library=False):
     from gnntf_tpu_torch.ops import blocked_spmm, blocked_spmm_plain
 
-    out = blocked_spmm(prep, slot_vals, x)
+    out = blocked_spmm(lst, val, x)
     torch.cuda.synchronize()
-    ref = blocked_spmm_plain(prep, slot_vals, x)
-    scale = blocked_spmm_plain(prep, slot_vals.abs(), x.abs())
+    ref = blocked_spmm_plain(lst, val, x)
+    scale = blocked_spmm_plain(lst, val.abs(), x.abs())
     err = check_close(f"K2 {label}", out, ref, scale)
     res = dict(max_abs_err=err,
-               ms=time_ms(lambda: blocked_spmm(prep, slot_vals, x)),
-               plain_ms=time_ms(lambda: blocked_spmm_plain(
-                   prep, slot_vals, x)))
+               ms=time_ms(lambda: blocked_spmm(lst, val, x)),
+               plain_ms=time_ms(lambda: blocked_spmm_plain(lst, val, x)))
     res["bound_ms"], res["bound_by"], n_bytes = blocked_bound(
-        prep, x.shape[1])
+        lst, x.shape[1])
     res["library_ms"] = None
     if library:
         # yardstick only: one cuSPARSE CSR product of the same matrix
-        dst, src = live_edges(prep)
-        n = prep.layout.n_nodes
-        a = torch.sparse_coo_tensor(torch.stack([dst, src]),
-                                    slot_vals[prep.perm], (n, n))
+        rows, src = live_edges(lst)
+        n = lst.n_rows
+        w = val if lst.eid is None else val[lst.eid.long()]
+        a = torch.sparse_coo_tensor(torch.stack([rows, src]), w, (n, n))
         a = a.coalesce().to_sparse_csr()
         check_close(f"library CSR product {label}", torch.sparse.mm(a, x),
                     ref, scale)
         res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
-    lay = prep.layout
     log(f"K2 {label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
         f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
-        f"({res['bound_by']}, {n_bytes} B), live slots {lay.n_edges}, "
-        f"chunks {lay.n_chunks}, runs {prep.n_runs}, N={lay.n_nodes} "
+        f"({res['bound_by']}, {n_bytes} B), edges {lst.n_edges}, units "
+        f"{lst.n_units}, split rows {lst.split.shape[0]}, eid "
+        f"{'identity' if lst.eid is None else 'read'}, N={lst.n_rows} "
         f"F={x.shape[1]}")
     return res
 
@@ -291,8 +290,8 @@ def hand_stack(graph, features, device, iterations=10):
 
 def profile_step(step, top=10):
     """Device time by kernel over one training step (torch.profiler), the
-    share of it in ``index_add_`` kernels (the backward's transposed
-    products and the degree sums) and in K2."""
+    share of it in ``index_add_`` kernels (the degree sums of the dropped
+    graph) and in K2 (forward and backward launches)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -307,39 +306,52 @@ def profile_step(step, top=10):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    index_add_us = sum(r[1] for r in rows if "indexFunc" in r[0]
-                       or "index_add" in r[0].lower())
+    index_add = [r for r in rows if "indexFunc" in r[0]
+                 or "index_add" in r[0].lower()]
+    index_add_us = sum(r[1] for r in index_add)
     k2_us = sum(r[1] for r in rows if "blocked_spmm" in r[0])
+    walks = sum(r[2] for r in rows if "blocked_spmm_walk" in r[0])
     log(f"profile of one training step: wall {wall_us} us, device busy "
         f"{busy_us} us, idle share {1 - busy_us / wall_us}; index_add_ "
         f"kernels {index_add_us} us ({index_add_us / busy_us} of busy), K2 "
         f"{k2_us} us ({k2_us / busy_us} of busy)")
     for key, us, count in rows[:top]:
         log(f"  {us} us in {count} launches: {key[:90]}")
+    for key, us, count in rows:
+        if "blocked_spmm" in key:
+            log(f"  K2 kernel {key.split('<')[0].split('::')[-1]}: {us} us "
+                f"in {count} launches, {us / count} us a launch")
     return dict(busy_us=busy_us, wall_us=wall_us,
                 index_add_share=index_add_us / busy_us,
-                k2_share=k2_us / busy_us)
+                index_add_launches=sum(r[2] for r in index_add),
+                k2_share=k2_us / busy_us, k2_walks=walks)
 
 
 def phase_blocked_kernel(graph, dev, x40, x128):
-    """2b: K2 against its plain version, small and at bench size; returns
-    the RCM-reordered graph, its permutation and the results."""
+    """2b: K2 against its plain version over both lists, small and at bench
+    size; returns the RCM-reordered graph, its permutation and the
+    results."""
     import gnntf_tpu_torch as tt
-    from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo,
-                                     normalize_adjacency, scatter_values)
+    from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo, blocked_spmm,
+                                     blocked_spmm_plain, normalize_adjacency)
 
     rng = np.random.RandomState(5)
     n = 5000
     row = rng.randint(0, n // 2, size=60_000)
     row[row >= n // 4] += n // 2  # rows [n/2, 3n/4) stay empty
-    row = np.concatenate([row, rng.randint(0, 256, size=30_000)])
-    col = rng.randint(0, n, size=row.shape[0])
+    # a hub row and a hub column, each split over ~150 units of work
+    row = np.concatenate([row, np.full(20_000, 17), rng.randint(0, n, 20_000)])
+    col = np.concatenate([rng.randint(0, n, size=80_000),
+                          np.full(20_000, 33)])
     small = BlockedSpMM(block_coo(row, col, n), dev)
-    small_vals = scatter_values(small, torch.from_numpy(
-        rng.randn(row.shape[0]).astype(np.float32)).to(dev))
+    small_vals = torch.from_numpy(
+        rng.randn(row.shape[0]).astype(np.float32)).to(dev)
     for f in (6, 40):  # the line reports F=40, the width of the path
         x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
-        small_res = check_blocked_kernel(f"small F={f}", small, small_vals, x)
+        small_res = check_blocked_kernel(f"small F={f}", small.forward,
+                                         small_vals, x)
+        small_t = check_blocked_kernel(f"small transposed F={f}",
+                                       small.transposed, small_vals, x)
 
     t0 = time.perf_counter()
     perm = tt.rcm_order(graph)
@@ -351,21 +363,46 @@ def phase_blocked_kernel(graph, dev, x40, x128):
     lay = block_coo(g_rcm.row.cpu().numpy(), g_rcm.col.cpu().numpy(), N_NODES)
     block_s = time.perf_counter() - t0
     log(f"RCM: bandwidth {tt.bandwidth(graph)} -> {tt.bandwidth(g_rcm)}")
-    stats = layout_stats(lay, dict(rcm_s=rcm_s, permute_s=permute_s,
-                                   block_coo_s=block_s))
+    t0 = time.perf_counter()
     prep = BlockedSpMM(lay, dev)
+    torch.cuda.synchronize()
+    stats = layout_stats(lay, dict(rcm_s=rcm_s, permute_s=permute_s,
+                                   block_coo_s=block_s,
+                                   edge_lists_s=time.perf_counter() - t0))
+    for name, lst in (("forward", prep.forward),
+                      ("transposed", prep.transposed)):
+        split = lst.split.cpu().numpy()
+        stats[name] = dict(units=lst.n_units, split_rows=len(split),
+                           pieces=int(split[:, 2].sum()),
+                           most_pieces=int(split[:, 2].max(initial=0)),
+                           eid="identity" if lst.eid is None else "read")
+    log(f"RCM bench lists: forward {stats['forward']}, transposed "
+        f"{stats['transposed']}")
     norm = normalize_adjacency(g_rcm, graph_dropout=0.0).materialized()
-    slot_vals = scatter_values(prep, norm.val)
-    stats["scatter_values_ms"] = time_ms(
-        lambda: scatter_values(prep, norm.val))
-    log(f"scatter_values at bench size: {stats['scatter_values_ms']} ms")
+    val = norm.val.to(torch.float32).contiguous()
     perm_t = torch.from_numpy(perm).to(dev)
-    bench = check_blocked_kernel("RCM bench F=128", prep, slot_vals,
-                                 x128[perm_t].contiguous(), library=True)
-    train_width = check_blocked_kernel("RCM bench F=40", prep, slot_vals,
-                                       x40[perm_t].contiguous(), library=True)
-    return g_rcm, perm, inv, dict(small=small_res, bench=bench,
-                                  train=train_width, layout=stats)
+    # the kernel rounds as the plain version does on the CPU, in its order
+    cpu = BlockedSpMM(lay, "cpu")
+    x_cpu = x40[perm_t].cpu()
+    for name, lst, ref in (("forward", prep.forward, cpu.forward),
+                           ("transposed", prep.transposed, cpu.transposed)):
+        out = blocked_spmm(lst, val, x40[perm_t].contiguous()).cpu()
+        same = (out == blocked_spmm_plain(ref, val.cpu(), x_cpu))
+        share = same.double().mean().item()
+        stats[name]["bit_equal_to_cpu_plain_f40"] = share
+        log(f"K2 RCM bench {name} F=40 on the card against the plain version "
+            f"on the CPU: bit-equal share {share}")
+    res = {}
+    for f, x in ((128, x128), (40, x40)):
+        x = x[perm_t].contiguous()
+        for name, lst in (("A", prep.forward), ("AT", prep.transposed)):
+            res[name, f] = check_blocked_kernel(
+                f"RCM bench {'transposed ' if name == 'AT' else ''}F={f}",
+                lst, val, x, library=True)
+    return g_rcm, perm, inv, dict(
+        small=small_res, small_transposed=small_t, bench=res["A", 128],
+        train=res["A", 40], bench_t=res["AT", 128], train_t=res["AT", 40],
+        layout=stats)
 
 
 def phase_train(g_rcm, perm, inv, features, dev):
@@ -404,9 +441,10 @@ def phase_train(g_rcm, perm, inv, features, dev):
     log(f"training (pallas): epoch ms {epoch_ms}, K2 launches per epoch "
         f"{per_epoch}, K1 launches {k1_launches}, peak memory {peak_mb} MiB, "
         f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}")
-    if per_epoch != [20] * TRAIN_EPOCHS or launches != 20 * TRAIN_EPOCHS:
+    if per_epoch != [30] * TRAIN_EPOCHS or launches != 30 * TRAIN_EPOCHS:
         raise AssertionError(f"K2 launches per epoch {per_epoch}, expected "
-                             "20 (10 in the step, 10 in the validation)")
+                             "30 (10 in the step's forward, 10 in its "
+                             "backward, 10 in the validation)")
     if k1_launches:
         raise AssertionError(f"{k1_launches} K1 launches under pallas")
     losses = np.array(hist["train_loss"] + hist["valid_loss"])
@@ -437,6 +475,12 @@ def phase_train(g_rcm, perm, inv, features, dev):
             times.append((time.perf_counter() - t) * 1e3)
         timings[name + "_ms"] = times
     profile = profile_step(step)
+    # the backward's A^T dy runs K2: the step's only index_add_ kernels are
+    # the 10 layers' degree sums
+    if profile["index_add_launches"] != 10 or profile["k2_walks"] != 20:
+        raise AssertionError(f"step profile: {profile['index_add_launches']}"
+                             f" index_add_ launches (expected 10) and "
+                             f"{profile['k2_walks']} K2 walks (expected 20)")
     log(f"training step (forward + backward) ms {timings['step_ms']}, "
         f"validation forward ms {timings['eval_forward_ms']}")
 
@@ -512,7 +556,7 @@ def phase_devices(g_rcm, perm, inv, features, dev):
                                         optimizer=adam[str(device)], seed=0)
         seconds[str(device)] = time.perf_counter() - t0
         launches = blocked_spmm.launches
-        want = 20 * CROSS_EPOCHS if device == dev else 0
+        want = 30 * CROSS_EPOCHS if device == dev else 0
         if launches != want:
             raise AssertionError(f"{launches} K2 launches on {device}, "
                                  f"expected {want}")
@@ -718,9 +762,13 @@ def main():
               "launches": trained["launches"], **k2["train"],
               "kernel_ms": k2["train"]["ms"],
               "shape": f"RCM bench layout C={lay['chunks']} W=T=256 BE=1024 "
-                       f"N=169343 F=40",
+                       f"N=169343 F=40, forward list",
               "bench_width": dict(k2["bench"], shape="F=128"),
-              "small": k2["small"]}
+              "small": k2["small"],
+              "transposed": dict(k2["train_t"], shape="A^T, F=40",
+                                 bench_width=dict(k2["bench_t"],
+                                                  shape="A^T, F=128"),
+                                 small=k2["small_transposed"])}
     print(json.dumps({"kernels": [entry, entry2]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

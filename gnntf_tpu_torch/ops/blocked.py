@@ -9,19 +9,20 @@ package's ``ops/pallas/format.py`` so every field is bit-equal.  It pays off
 on reordered or clustered graphs (``graph/reorder.py::rcm_order``), where
 edges fill their chunks.
 
-:class:`BlockedSpMM` is one layout on a device, with the kernel's work
-partition derived from it on the host: the live slots (a prefix of each
-chunk, ``chunk_len`` of them) window by window and by row inside a window,
-cut into runs of ``_RUN`` live edges and, inside a run, into segments of
-one window.
+The kernel does not walk the slot grid.  :func:`edge_lists` turns the
+layout's live slots into two per-edge CSR lists, one for ``A`` and one for
+``A^T``, and :func:`work_units` cuts each list into units of about
+``_UNIT_ITEMS`` edges and row ends for the kernel's workers.
+:class:`BlockedSpMM` holds the two lists on a device.
 
 ``blocked_spmm`` is the kernel's wrapper.  It replaces the TPU kernel
 ``gnntf_tpu/ops/pallas/spmm.py::_kernel``; the CUDA source,
 ``gnntf_tpu_torch/csrc/blocked_spmm.cu``, states its bound and design.  A CPU
 tensor takes :func:`blocked_spmm_plain`; a CUDA tensor launches the kernel
 or raises.  ``spmm_pallas`` is the differentiable SpMM over it: the forward
-runs the kernel, the backward is the JAX package's ``_pallas_vjp_fn`` in
-plain torch (the TPU kernel has no backward kernel either).
+runs the kernel over the forward list, the backward's ``dx = A^T dy`` runs
+it over the transposed list, and the values' gradient (the JAX package's
+``_pallas_vjp_fn``) is plain torch, computed only when asked for.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import ctypes
 import dataclasses
 import functools
 from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,19 +38,19 @@ import torch
 from ..graph.coo import Graph
 from ..utils import kernels
 
-# live edges per block of the kernel
-_RUN = 2048
-# largest shared-memory window a block accumulates into; wider features are
-# tiled over a second grid dimension
-_WINDOW_BYTES = 128 * 1024
+# items (edges and row ends) per unit of the kernel's work
+_UNIT_ITEMS = 128
+# a split row's pieces are summed in this many parts: part g takes pieces
+# g, g + P, g + 2P, ... in turn, then the parts are added in order.  This
+# fixes the order of the sum; the kernel's launch geometry does not.
+_FIXUP_PARTS = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockedCOO:
     """Edge structure re-blocked for K2.  ``rows``/``cols`` are relative to
     their window/tile base, flat over ``n_chunks * block_edges`` slots;
-    ``perm[e]`` is the flat slot of original edge ``e``, so live values are
-    scattered into the slot grid per call (:func:`scatter_values`)."""
+    ``perm[e]`` is the flat slot of original edge ``e``."""
 
     rows: np.ndarray          # (C*BE,) int32, in [0, window)
     cols: np.ndarray          # (C*BE,) int32, in [0, tile)
@@ -158,132 +160,229 @@ def block_coo(row, col, n_nodes: int, *, window: int = 256,
     )
 
 
-def work_partition(layout: BlockedCOO, run: int):
-    """The kernel's work partition: ``(live_slots, seg_begin, seg_window,
-    run_seg)``, all int32.  ``live_slots`` lists the live slots window by
-    window, by destination row inside a window; it is cut into runs of
-    ``run`` live edges, and each run where the window changes into segments:
-    segment ``k`` holds ``live_slots[seg_begin[k]:seg_begin[k + 1]]``, all
-    in window ``seg_window[k]``, and run ``r`` owns segments ``run_seg[r]``
-    to ``run_seg[r + 1]``."""
-    slots = layout.perm.astype(np.int64)
-    win = layout.chunk_window[slots // layout.block_edges]
-    live = slots[np.lexsort((slots, layout.rows[slots], win))]
-    window = layout.chunk_window[live // layout.block_edges]
-    cut = np.zeros(len(live), bool)
-    cut[::run] = True
-    cut[1:] |= window[1:] != window[:-1]
-    first = np.flatnonzero(cut)
-    seg_begin = np.append(first, len(live))
-    run_seg = np.append(np.searchsorted(first, np.arange(0, len(live), run)),
-                        len(first))
-    return tuple(a.astype(np.int32) for a in
-                 (live, seg_begin, window[first], run_seg))
+def _row_ptr(rows: np.ndarray, n_rows: int) -> np.ndarray:
+    """CSR row pointer (n_rows + 1,) of row ids sorted ascending."""
+    return np.concatenate(
+        [[0], np.cumsum(np.bincount(rows, minlength=n_rows))])
+
+
+def edge_lists(layout: BlockedCOO):
+    """The layout's live edges as two CSR lists, ``(ptr, idx, eid)`` each,
+    all int32.  Forward (``A``): the live slots in the layout's work order
+    (window, row inside the window, slot), so ``ptr`` (N+1) indexes
+    destination rows, ``idx`` holds each edge's absolute source
+    (``chunk_tile * T + cols``) and ``eid`` its edge id (``perm[eid] ==
+    slot``).  Transposed (``A^T``): the same edges stable-sorted by
+    (source, destination), ``ptr`` over sources and ``idx`` the
+    destinations.  On a graph sorted by (row, col), as ``from_edges``
+    builds it, the forward ``eid`` is ``arange(E)``."""
+    perm = layout.perm.astype(np.int64)
+    chunk = perm // layout.block_edges
+    win = layout.chunk_window[chunk].astype(np.int64)
+    rel = layout.rows[perm]
+    eid = np.lexsort((perm, rel, win))
+    dst = (win * layout.window + rel)[eid]
+    src = (layout.chunk_tile[chunk].astype(np.int64) * layout.tile
+           + layout.cols[perm])[eid]
+    order = np.lexsort((dst, src))
+    n = layout.n_nodes
+    lists = ((_row_ptr(dst, n), src, eid),
+             (_row_ptr(src[order], n), dst[order], eid[order]))
+    return tuple(tuple(a.astype(np.int32) for a in lst) for lst in lists)
+
+
+def work_units(ptr: np.ndarray, items: int):
+    """Cut a list's rows into K2's units of work, about ``items`` items each
+    (an item is an edge or a row's end).  A unit is a run of whole rows, or,
+    for a row of more than ``items`` edges, a piece of at most ``items`` of
+    its edges.  Returns int32 ``(unit_row, unit_edge, split)``: unit ``u``
+    holds edges ``unit_edge[u]:unit_edge[u + 1]``; ``unit_row[u]`` is its
+    first row, or ``~row`` for a piece; ``unit_row[-1]`` is the row count.
+    ``split`` (S, 3) lists each split row with its first piece and number
+    of pieces, which are consecutive units."""
+    ptr = np.asarray(ptr, np.int64)
+    n = len(ptr) - 1
+    deg = np.diff(ptr)
+    split = deg > items
+    cost = np.where(split, 0, deg + 1)
+    bucket = (np.cumsum(cost) - cost) // items
+    starts = ~split
+    starts[1:] &= split[:-1] | (bucket[1:] != bucket[:-1])
+    starts = np.flatnonzero(starts)
+    rows_split = np.flatnonzero(split)
+    n_pieces = -(-deg[rows_split] // items)
+    first_piece = np.cumsum(n_pieces) - n_pieces
+    piece_row = np.repeat(rows_split, n_pieces)
+    piece_edge = ptr[piece_row] + items * (
+        np.arange(len(piece_row)) - np.repeat(first_piece, n_pieces))
+    row = np.concatenate([starts, piece_row])
+    edge = np.concatenate([ptr[starts], piece_edge])
+    order = np.lexsort((edge, row))
+    position = np.empty(len(order), np.int64)
+    position[order] = np.arange(len(order))
+    unit_row = np.append(np.concatenate([starts, ~piece_row])[order], n)
+    unit_edge = np.append(edge[order], ptr[-1])
+    table = np.stack([rows_split, position[len(starts) + first_piece],
+                      n_pieces], 1).reshape(-1, 3)
+    return tuple(a.astype(np.int32) for a in (unit_row, unit_edge, table))
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeList:
+    """One direction of K2's work on a device: a CSR list (``ptr``,
+    ``idx``, ``eid``; ``eid`` is None where it is the identity) and its
+    units of work (:func:`work_units`)."""
+
+    ptr: torch.Tensor        # (N+1,) int32
+    idx: torch.Tensor        # (E,) int32 source row of each edge
+    eid: Optional[torch.Tensor]  # (E,) int32 edge id; None: arange(E)
+    unit_row: torch.Tensor   # (U+1,) int32
+    unit_edge: torch.Tensor  # (U+1,) int32
+    split: torch.Tensor      # (S, 3) int32
+
+    @classmethod
+    def build(cls, ptr, idx, eid, device):
+        if len(idx) >= 2**31 - 1:
+            raise ValueError(f"{len(idx)} edges exceed K2's int32 indices")
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                device)
+
+        identity = np.array_equal(eid, np.arange(len(eid)))
+        return cls(put(ptr), put(idx), None if identity else put(eid),
+                   *(put(a) for a in work_units(ptr, _UNIT_ITEMS)))
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.ptr.shape[0]) - 1
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.idx.shape[0])
+
+    @property
+    def n_units(self) -> int:
+        return int(self.unit_row.shape[0]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.ptr.device
 
 
 class BlockedSpMM:
-    """One :class:`BlockedCOO` layout on a device, with the kernel's work
-    partition (:func:`work_partition`) in runs of ``_RUN`` live edges."""
+    """The forward and transposed :class:`EdgeList` of one
+    :class:`BlockedCOO` layout, on a device (the layout is not kept)."""
 
     def __init__(self, layout: BlockedCOO, device):
-        self.layout = layout
-
-        def put(a, dtype=np.int32):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-
-        live, seg_begin, seg_window, run_seg = work_partition(layout, _RUN)
-        self.rows = put(layout.rows)
-        self.cols = put(layout.cols)
-        self.chunk_window = put(layout.chunk_window)
-        self.chunk_tile = put(layout.chunk_tile)
-        self.live_slots = put(live)
-        self.seg_begin = put(seg_begin)
-        self.seg_window = put(seg_window)
-        self.run_seg = put(run_seg)
-        self.perm = put(layout.perm, np.int64)
-
-    @property
-    def n_runs(self) -> int:
-        return int(self.run_seg.shape[0]) - 1
-
-    @property
-    def n_slots(self) -> int:
-        return int(self.rows.shape[0])
+        fwd, tr = edge_lists(layout)
+        self.forward = EdgeList.build(*fwd, device)
+        self.transposed = EdgeList.build(*tr, device)
 
 
-def scatter_values(prep: BlockedSpMM, val: torch.Tensor) -> torch.Tensor:
+def scatter_values(layout: BlockedCOO, val: torch.Tensor) -> torch.Tensor:
     """Live edge values into the (C*BE,) float32 slot grid at ``perm``,
-    zeros in the padding slots."""
-    flat = torch.zeros(prep.n_slots, dtype=torch.float32, device=val.device)
-    flat[prep.perm] = val.to(torch.float32)
+    zeros in the padding slots (the TPU kernel's value layout)."""
+    flat = torch.zeros(layout.rows.shape[0], dtype=torch.float32,
+                       device=val.device)
+    flat[torch.from_numpy(layout.perm).long().to(val.device)] = \
+        val.to(torch.float32)
     return flat
 
 
-def blocked_spmm_plain(prep: BlockedSpMM, slot_vals: torch.Tensor,
+def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch: walks the live slots only
-    (through ``perm``), gathers their source rows and ``index_add_``s them
-    into their destination rows."""
-    lay = prep.layout
-    slot = prep.perm
-    chunk = slot // lay.block_edges
-    dst = (prep.chunk_window.long()[chunk] * lay.window
-           + prep.rows.long()[slot])
-    src = prep.chunk_tile.long()[chunk] * lay.tile + prep.cols.long()[slot]
-    out = torch.zeros(lay.n_nodes, x.shape[1], dtype=torch.float32,
-                      device=x.device)
-    return out.index_add_(0, dst, x[src] * slot_vals[slot][:, None])
+    """The kernel's function in plain torch: ``out[r] = sum over the
+    list's edges e of row r of val[eid[e]] * x[idx[e]]``, with
+    ``index_add_`` and in the kernel's order: a row, or a piece of a split
+    row, in edge order; then a split row's pieces in ``_FIXUP_PARTS``
+    parts (part g sums pieces g, g + P, ... in turn) and the parts in
+    order.  On the CPU, where ``index_add_`` adds in index order, a row
+    then gets the kernel's own roundings."""
+    n, f = lst.n_rows, x.shape[1]
+    dev = x.device
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=dev), lst.ptr.diff().long())
+    w = val if lst.eid is None else val[lst.eid.long()]
+    terms = x[lst.idx.long()] * w[:, None]
+    split = lst.split.long()
+    n_split = split.shape[0]
+    if n_split == 0 or f == 0:
+        out = torch.zeros(n, f, dtype=torch.float32, device=dev)
+        return out.index_add_(0, rows, terms)
+    # a split row's edges add into its pieces, rows n + unit
+    unit = torch.searchsorted(
+        lst.unit_edge.long(), torch.arange(lst.n_edges, device=dev),
+        right=True) - 1
+    target = torch.where(lst.unit_row.long()[unit] < 0, n + unit, rows)
+    sums = torch.zeros(n + lst.n_units, f, dtype=torch.float32,
+                       device=dev).index_add_(0, target, terms)
+    # piece k of split row s adds into part s * P + k % P, in piece order;
+    # then the row's P parts add into it, in order
+    parts = _FIXUP_PARTS
+    count = split[:, 2]
+    s = torch.repeat_interleave(torch.arange(n_split, device=dev), count)
+    k = torch.arange(len(s), device=dev) - torch.repeat_interleave(
+        count.cumsum(0) - count, count)
+    part = torch.zeros(n_split * parts, f, dtype=torch.float32,
+                       device=dev).index_add_(0, s * parts + k % parts,
+                                              sums[n + split[s, 1] + k])
+    out = sums[:n]
+    out[split[:, 0]] = torch.zeros(
+        n_split, f, dtype=torch.float32, device=dev).index_add_(
+            0, torch.arange(n_split * parts, device=dev) // parts, part)
+    return out
 
 
-def _check(prep, slot_vals, x):
-    n = prep.layout.n_nodes
+def _check(lst, val, x):
+    n = lst.n_rows
     if x.dim() != 2 or x.shape[0] != n or x.dtype != torch.float32:
         raise TypeError(f"x must be ({n}, F) float32, got "
                         f"{tuple(x.shape)} {x.dtype}")
-    if slot_vals.shape != (prep.n_slots,) or slot_vals.dtype != torch.float32:
-        raise TypeError(f"slot values must be ({prep.n_slots},) float32, got "
-                        f"{tuple(slot_vals.shape)} {slot_vals.dtype}")
-    devices = {slot_vals.device, x.device, prep.rows.device}
+    if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
+        raise TypeError(f"values must be ({lst.n_edges},) float32, got "
+                        f"{tuple(val.shape)} {val.dtype}")
+    devices = {val.device, x.device, lst.device}
     if len(devices) != 1:
         raise ValueError(f"blocked_spmm inputs span devices {devices}")
-    if not (x.is_contiguous() and slot_vals.is_contiguous()):
+    if not (x.is_contiguous() and val.is_contiguous()):
         raise ValueError("blocked_spmm inputs must be contiguous")
 
 
-def blocked_spmm(prep: BlockedSpMM, slot_vals: torch.Tensor,
+def blocked_spmm(lst: EdgeList, val: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` over the layout's live slots as an (n_nodes, F) float32
-    tensor.  CPU tensors take :func:`blocked_spmm_plain`; CUDA tensors
-    launch the kernel (counted in ``blocked_spmm.launches``)."""
-    _check(prep, slot_vals, x)
+    """The list's product with ``x`` (``A @ x`` over the forward list,
+    ``A^T @ x`` over the transposed one) as an (N, F) float32 tensor.
+    ``val`` holds the graph's edge values in its own edge order.  CPU
+    tensors take :func:`blocked_spmm_plain`; CUDA tensors launch the kernel
+    (counted in ``blocked_spmm.launches``)."""
+    _check(lst, val, x)
     if x.device.type == "cpu":
-        return blocked_spmm_plain(prep, slot_vals, x)
+        return blocked_spmm_plain(lst, val, x)
     if x.device.type != "cuda":
         raise ValueError(f"blocked_spmm runs on cpu or cuda, not {x.device}")
-    lay = prep.layout
     f = x.shape[1]
-    out = torch.zeros(lay.n_nodes, f, dtype=torch.float32, device=x.device)
-    if prep.n_runs == 0 or f == 0:
+    out = torch.empty(lst.n_rows, f, dtype=torch.float32, device=x.device)
+    if lst.n_units == 0 or f == 0:
         return out
+    # float4 loads where rows are 16-byte aligned; a group of lanes a unit
     vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-    tile_floats = _WINDOW_BYTES // (4 * lay.window) // vec * vec
-    if tile_floats == 0:
-        raise ValueError(f"window {lay.window} is too tall for one block's "
-                         "shared memory")
-    ftv = min(f, tile_floats) // vec
-    group = 1
-    while group < min(32, ftv):
-        group *= 2
+    group = max(1, min(32, f // vec))
+    n_split = int(lst.split.shape[0])
+    # the pieces' sums, then the split rows' parts
+    carry = (torch.empty(lst.n_units + n_split * _FIXUP_PARTS, f,
+                         dtype=torch.float32, device=x.device)
+             if n_split else None)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gnntf_blocked_spmm(
-            prep.rows.data_ptr(), prep.cols.data_ptr(), slot_vals.data_ptr(),
-            prep.chunk_tile.data_ptr(), prep.live_slots.data_ptr(),
-            prep.seg_begin.data_ptr(), prep.seg_window.data_ptr(),
-            prep.run_seg.data_ptr(), x.data_ptr(), out.data_ptr(),
-            prep.n_runs, lay.n_nodes, lay.window, lay.tile, lay.block_edges,
-            f, ftv, vec, group, stream)
+            lst.ptr.data_ptr(), lst.idx.data_ptr(),
+            None if lst.eid is None else lst.eid.data_ptr(), val.data_ptr(),
+            lst.unit_row.data_ptr(), lst.unit_edge.data_ptr(),
+            lst.split.data_ptr(), x.data_ptr(), out.data_ptr(),
+            None if carry is None else carry.data_ptr(),
+            lst.n_units, n_split, f, vec, group, _FIXUP_PARTS, stream)
     kernels.check(lib, rc, "blocked_spmm launch")
     blocked_spmm.launches += 1
     return out
@@ -300,32 +399,35 @@ def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.gnntf_blocked_spmm.restype = i
-    lib.gnntf_blocked_spmm.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.gnntf_blocked_spmm.argtypes = [p] * 10 + [i] * 6 + [p]
     return lib
 
 
 class _BlockedSpMMFn(torch.autograd.Function):
     """``(val, x) -> A @ x`` through K2.  The backward is the JAX package's
-    ``_pallas_vjp_fn.f_bwd``: ``dx = A^T @ dy`` with ``index_add_`` and, only
-    when the values need it, ``dval[e] = <dy[row[e]], x[col[e]]>``."""
+    ``_pallas_vjp_fn.f_bwd``: ``dx = A^T @ dy`` through K2 over the
+    transposed list and, only when the values need it, ``dval[e] =
+    <dy[row[e]], x[col[e]]>`` in plain torch."""
 
     @staticmethod
     def forward(ctx, val, x, prep, row, col):
-        out = blocked_spmm(prep, scatter_values(prep, val), x.contiguous())
-        ctx.save_for_backward(val, x if ctx.needs_input_grad[0] else None,
+        val32 = val.to(torch.float32).contiguous()
+        out = blocked_spmm(prep.forward, val32, x.contiguous())
+        ctx.prep = prep
+        ctx.val_dtype = val.dtype
+        ctx.save_for_backward(val32, x if ctx.needs_input_grad[0] else None,
                               row, col)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        val, x, row, col = ctx.saved_tensors
-        gathered = dy[row]
+        val32, x, row, col = ctx.saved_tensors
         dval = dx = None
         if ctx.needs_input_grad[1]:
-            dx = torch.zeros_like(dy).index_add_(
-                0, col, gathered * val[:, None].to(dy.dtype))
+            dx = blocked_spmm(ctx.prep.transposed, val32,
+                              dy.to(torch.float32).contiguous())
         if ctx.needs_input_grad[0]:
-            dval = (gathered * x[col]).sum(-1).to(val.dtype)
+            dval = (dy[row] * x[col]).sum(-1).to(ctx.val_dtype)
         return dval, dx, None, None, None
 
 
@@ -357,9 +459,9 @@ def spmm_pallas(graph: Graph, x: torch.Tensor, *, window: int = 256,
                 tile: int = 256, block_edges: int = 1024) -> torch.Tensor:
     """SpMM through K2 (the JAX package's ``spmm_impl="pallas"``).  Lazy
     scales and identity apply around it, lazy dropout is materialized
-    first; the layout is built once per graph structure and the live values
-    are scattered into it on every call.  Differentiable in the values and
-    in ``x``."""
+    first; the layout and its edge lists are built once per graph
+    structure, and the kernel reads the graph's values in place.
+    Differentiable in the values and in ``x``."""
     if graph.scaled or graph.eye_weight != 0.0:
         from .spmm import _scaled_call
         return _scaled_call(functools.partial(

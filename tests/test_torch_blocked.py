@@ -19,9 +19,9 @@ from gnntf_tpu.graph.reorder import rcm_order as jax_rcm
 from gnntf_tpu.ops.pallas import block_coo as jax_block_coo
 from gnntf_tpu.ops.pallas import spmm_pallas as jax_spmm_pallas
 from gnntf_tpu.ops.spmm import spmm_impl as jax_impl
-from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo, scatter_values,
-                                 spmm_pallas)
-from gnntf_tpu_torch.ops.blocked import work_partition
+from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo, blocked_spmm,
+                                 scatter_values, spmm_pallas)
+from gnntf_tpu_torch.ops.blocked import edge_lists, work_units
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FIELDS = ("rows", "cols", "perm", "chunk_window", "chunk_tile")
@@ -71,9 +71,11 @@ def test_block_coo_empty_graph_bit_equal():
     _assert_layouts_equal(ours, jax_block_coo(empty, empty, 50, window=32,
                                               tile=32, block_edges=128))
     assert ours.n_chunks == 2 and ours.chunk_len.tolist() == [0, 0]
-    live, seg_begin, _, run_seg = work_partition(ours, 16)
-    assert live.shape == (0,) and seg_begin.tolist() == [0]
-    assert run_seg.tolist() == [0]
+    for ptr, idx, eid in edge_lists(ours):
+        assert ptr.tolist() == [0] * 51 and idx.shape == eid.shape == (0,)
+        unit_row, unit_edge, split = work_units(ptr, 16)
+        assert unit_row.tolist() == [0, 16, 32, 48, 50]
+        assert not unit_edge.any() and split.shape == (0, 3)
 
 
 def test_chunk_len_is_the_live_prefix():
@@ -89,31 +91,72 @@ def test_chunk_len_is_the_live_prefix():
 
 @pytest.mark.parametrize("run", [1, 7, 64, 5000])
 def test_work_partition_covers_each_live_slot_once(run):
+    """The forward and transposed edge lists hold each live edge once, in
+    (dst, src) and (src, dst) order, with ``eid`` the identity on a
+    ``from_edges`` graph; ``work_units`` of ``run`` items tiles each list's
+    edges and rows once."""
     src, dst, _ = _edges(300, 900, seed=2)
-    lay = block_coo(src, dst, 300, window=64, tile=64, block_edges=128)
-    live, seg_begin, seg_window, run_seg = work_partition(lay, run)
-    np.testing.assert_array_equal(np.sort(live), np.sort(lay.perm))
-    window = lay.chunk_window[live // lay.block_edges]
-    key = window.astype(np.int64) * lay.window + lay.rows[live]
-    assert np.all(np.diff(key) >= 0)  # window-major, by row in a window
-    n_runs = -(-lay.n_edges // run)
-    assert run_seg.shape == (n_runs + 1,) and run_seg[-1] == len(seg_window)
-    for r in range(n_runs):  # a run's segments tile its live edges
-        segs = range(run_seg[r], run_seg[r + 1])
-        assert seg_begin[segs[0]] == r * run
-        assert seg_begin[segs[-1] + 1] == min((r + 1) * run, lay.n_edges)
-        for k in segs:  # one window per segment
-            part = window[seg_begin[k]:seg_begin[k + 1]]
-            assert len(part) and np.all(part == seg_window[k])
+    g = tt.from_edges(src, dst, n_nodes=300, device="cpu")
+    row, col = g.row.numpy(), g.col.numpy()
+    lay = block_coo(row, col, 300, window=64, tile=64, block_edges=128)
+    fwd, tr = edge_lists(lay)
+    np.testing.assert_array_equal(fwd[2], np.arange(g.n_edges))
+    for (ptr, idx, eid), (a, b) in ((fwd, (row, col)), (tr, (col, row))):
+        assert ptr.dtype == idx.dtype == eid.dtype == np.int32
+        np.testing.assert_array_equal(np.sort(eid), np.arange(g.n_edges))
+        first = np.repeat(np.arange(300), np.diff(ptr))
+        np.testing.assert_array_equal(first, a[eid])
+        np.testing.assert_array_equal(idx, b[eid])
+        key = first.astype(np.int64) * 300 + idx
+        assert np.all(np.diff(key) >= 0)
+        unit_row, unit_edge, split = work_units(ptr, run)
+        assert unit_edge[0] == 0 and unit_edge[-1] == g.n_edges
+        assert np.all(np.diff(unit_edge) >= 0) and unit_row[-1] == 300
+        owned = np.zeros(300, int)
+        for u in range(len(unit_row) - 1):
+            r0, r1 = unit_row[u], unit_row[u + 1]
+            r1 = ~r1 if r1 < 0 else r1
+            if r0 < 0:  # a piece of one split row
+                assert 0 < unit_edge[u + 1] - unit_edge[u] <= run
+                assert ptr[~r0] <= unit_edge[u] < unit_edge[u + 1] \
+                    <= ptr[~r0 + 1]
+                continue
+            assert r0 < r1 and unit_edge[u] == ptr[r0]
+            assert unit_edge[u + 1] == ptr[r1]
+            assert (ptr[r1] - ptr[r0]) + (r1 - r0) <= 2 * run
+            owned[r0:r1] += 1
+        for r, first_piece, count in split:
+            assert ptr[r + 1] - ptr[r] > run and owned[r] == 0
+            assert -(-(ptr[r + 1] - ptr[r]) // run) == count
+            assert np.all(unit_row[first_piece:first_piece + count] == ~r)
+            owned[r] += 1
+        np.testing.assert_array_equal(owned, 1)
+
+
+def test_edge_lists_after_add_self_loops():
+    """Appended self-loops break the (row, col) order, so the forward list's
+    ``eid`` is no identity; both directions still give ``A @ x`` and
+    ``A^T @ x``."""
+    _, pg = _pair(150, 500, seed=4)
+    pg = tt.add_self_loops(pg, weight=0.5)
+    prep = BlockedSpMM(block_coo(pg.row.numpy(), pg.col.numpy(), 150,
+                                 window=32, tile=32, block_edges=64), "cpu")
+    assert prep.forward.eid is not None and prep.transposed.eid is not None
+    x = torch.from_numpy(np.random.RandomState(1).randn(150, 6)
+                         .astype(np.float32))
+    dense = pg.to_dense().double()
+    for lst, a in ((prep.forward, dense), (prep.transposed, dense.T)):
+        np.testing.assert_allclose(blocked_spmm(lst, pg.val, x).numpy(),
+                                   (a @ x.double()).numpy(), **TOL)
 
 
 def test_scatter_values_match_jax():
     jg, pg = _pair(200, 600, seed=3)
     ref = jax_block_coo(np.asarray(jg.row), np.asarray(jg.col), 200,
                         window=64, tile=64, block_edges=128)
-    prep = BlockedSpMM(block_coo(pg.row.numpy(), pg.col.numpy(), 200,
-                                 window=64, tile=64, block_edges=128), "cpu")
-    np.testing.assert_array_equal(scatter_values(prep, pg.val).numpy(),
+    lay = block_coo(pg.row.numpy(), pg.col.numpy(), 200, window=64, tile=64,
+                    block_edges=128)
+    np.testing.assert_array_equal(scatter_values(lay, pg.val).numpy(),
                                   np.asarray(ref.scatter_values(jg.val)))
 
 
@@ -217,6 +260,38 @@ def test_layout_is_cached_per_structure():
     spmm_pallas(pg, x)
     spmm_pallas(dataclasses.replace(pg, val=pg.val * 3), x)
     assert len(tt.ops.blocked._BLOCK_CACHE) == min(before + 1, 16)
+
+
+def test_pallas_epoch_runs_k2_both_ways_without_value_scatter(monkeypatch):
+    """One epoch under ``pallas``: every propagation of the step's forward
+    and of the validation forward walks the forward list, every one of the
+    step's backward the transposed list (no ``dy[row]`` gather, no 2-D
+    ``index_add_``), and nothing scatters values into the slot grid."""
+    def refuse(*_):
+        raise AssertionError("scatter_values on the hot path")
+
+    calls = []
+    wrapped = tt.ops.blocked.blocked_spmm
+
+    def record(lst, val, x):
+        prep = next(iter(tt.ops.blocked._BLOCK_CACHE.values()))[1]
+        calls.append("T" if lst is prep.transposed else "A")
+        return wrapped(lst, val, x)
+
+    monkeypatch.setattr(tt.ops.blocked, "scatter_values", refuse)
+    monkeypatch.setattr(tt.ops.blocked, "blocked_spmm", record)
+    monkeypatch.setattr(tt.ops.blocked, "_BLOCK_CACHE",
+                        type(tt.ops.blocked._BLOCK_CACHE)())
+    _, pg = _pair(300, 1200, seed=11)
+    feats = np.random.RandomState(1).randn(300, 8).astype(np.float32)
+    labels = np.random.RandomState(2).randint(0, 3, 300)
+    model = tt.APPNP(pg, feats, num_classes=3, iterations=3, device="cpu")
+    hist = model.train(tt.NodeClassification(np.arange(100), labels[:100]),
+                       tt.NodeClassification(np.arange(100, 200),
+                                             labels[100:200]),
+                       spmm_impl="pallas", epochs=1, patience=10, seed=0)
+    assert np.isfinite(hist["train_loss"]).all()
+    assert calls == ["A"] * 3 + ["T"] * 3 + ["A"] * 3
 
 
 @pytest.mark.parametrize("impl", ["pallas", "segment", "auto"])

@@ -15,7 +15,7 @@ import gnntf_tpu as gt
 import gnntf_tpu_torch as tt
 from gnntf_tpu_torch.nn.initializers import init_param
 from gnntf_tpu_torch.ops import (BlockedSpMM, block_coo, blocked_spmm,
-                                 ell_gather, scatter_values)
+                                 ell_gather)
 from gnntf_tpu_torch.ops.spmm import build_ell
 
 PKG = Path(tt.__file__).resolve().parent
@@ -80,13 +80,13 @@ def test_cpu_blocked_wrapper_uses_plain_and_counts_nothing():
     layout = block_coo(rng.randint(0, 50, 400), rng.randint(0, 50, 400), 50,
                        window=16, tile=16, block_edges=32)
     prep = BlockedSpMM(layout, "cpu")
-    sv = scatter_values(prep, torch.from_numpy(
-        rng.randn(400).astype(np.float32)))
+    val = torch.from_numpy(rng.randn(400).astype(np.float32))
     x = torch.from_numpy(rng.randn(50, 12).astype(np.float32))
-    before = blocked_spmm.launches
-    out = blocked_spmm(prep, sv, x)
-    assert blocked_spmm.launches == before
-    assert torch.equal(out, tt.ops.blocked_spmm_plain(prep, sv, x))
+    for lst in (prep.forward, prep.transposed):
+        before = blocked_spmm.launches
+        out = blocked_spmm(lst, val, x)
+        assert blocked_spmm.launches == before
+        assert torch.equal(out, tt.ops.blocked_spmm_plain(lst, val, x))
 
 
 @pytest.mark.parametrize("scheme", [0.3, "zero", "eye", "ones", "xavier",
