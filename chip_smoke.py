@@ -9,11 +9,15 @@ Phases (any failure raises and exits non-zero):
 
 1. build every CUDA kernel from ``gnntf_tpu_torch/csrc`` with nvcc, one
    process per source, all started together;
-2. hold K1 (the ELL gather-reduce) against its plain PyTorch version on the
-   card — a small random ELL graph with duplicates and empty rows, and the
-   hub-free ELL part of the benchmark graph at F=128 and at the serving
-   width F=40 — timing kernel, plain version and one PyTorch library call
-   with CUDA events;
+2. hold K1 (the ELL gather-reduce, an edge-balanced walk over the live
+   slots of the ELL grid that adds each row into a base) against its plain
+   PyTorch version on the card, adding into a random base — a small random
+   ELL graph with duplicates, empty rows and a row split over many units,
+   and the list of the benchmark graph's hub-free ("rest") ELL at F=128 and
+   at the serving width F=40 — timing kernel, plain version and one PyTorch
+   library call (``torch.sparse.addmm``) with CUDA events, and logging the
+   share of the bench output at F=40 bit-equal to the plain version run on
+   the CPU;
 2b. the same for K2 (the blocked-COO SpMM, an edge-balanced walk over
    per-edge lists) over its forward list (A) and its transposed list (A^T):
    a small random layout with duplicates, empty rows and a hub row and
@@ -24,8 +28,9 @@ Phases (any failure raises and exits non-zero):
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
    requests of 10,000 nodes and one evaluate, with the kernel launch counts
-   zeroed just before and read just after; then the same forward on the CPU
-   (plain versions) as the reference;
+   zeroed just before and read just after; a device profile of one forward
+   and of one SpMM; then the same forward on the CPU (plain versions) as
+   the reference;
 4a. drive the training path through K2: APPNP(num_classes=40) with its
    defaults on the RCM-reordered benchmark graph, ``train(...,
    spmm_impl="pallas", epochs=5)`` on 10,000 train and 10,000 valid nodes,
@@ -40,6 +45,7 @@ Phases (any failure raises and exits non-zero):
 5. print a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and as the last line ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,10 +67,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 # kernel vs plain version on the card, per element, relative to the sum of
 # the magnitudes of the element's terms (the scale of float32 summation
-# error; the result itself may cancel): both sum in float32 in another
-# order; K1 combines rows that span runs of virtual rows with atomics in an
-# order that varies from launch to launch, K2 sums a split row's pieces
-# apart before adding them
+# error; the result itself may cancel).  Neither kernel uses atomics: each
+# sums a row, or a piece of a split row, in list order and a split row's
+# pieces in a fixed order, so the plain version run on the CPU, where
+# index_add_ adds in index order, equals it bit for bit (phases 2 and 2b log
+# that share).  The plain version on the card adds a row's terms with
+# index_add_'s atomics, in no fixed order, hence the tolerance.
 KERNEL_RTOL = 1e-5
 # GPU vs CPU forward: float32, sums in another order across 10 steps
 FORWARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -110,17 +118,15 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def profile_forward(model, top=8):
-    """Device time by kernel over one clean forward (torch.profiler), and
-    the share of the forward's wall time (under the profiler) that the
-    device was busy."""
+def device_profile(fn):
+    """Device time by kernel over one ``fn()`` (torch.profiler): rows
+    ``(name, us, launches)`` by time, busy and wall microseconds."""
     from torch.profiler import ProfilerActivity, profile
-    model._act_cache = None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model._activations()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -128,22 +134,45 @@ def profile_forward(model, top=8):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
-    log(f"profile of one forward: wall {wall_us} us, device busy {busy_us} "
-        f"us, idle share {1 - busy_us / wall_us}")
+    return rows, sum(r[1] for r in rows), wall_us
+
+
+def log_kernels(label, rows, tag):
+    """One line per kernel whose name holds ``tag`` (K1's or K2's walk,
+    parts and fix-up)."""
+    for key, us, count in rows:
+        if tag in key:
+            log(f"  {label} kernel {key.split('<')[0].split('::')[-1]}: {us} "
+                f"us in {count} launches, {us / count} us a launch")
+
+
+def profile_forward(label, fn, top=10):
+    """Device time by kernel over one clean forward or one SpMM, the share
+    of its wall time (under the profiler) that the device was busy, and
+    K1's kernels apart."""
+    rows, busy_us, wall_us = device_profile(fn)
+    launches = sum(r[2] for r in rows)
+    log(f"profile of {label}: wall {wall_us} us, device busy {busy_us} us "
+        f"in {launches} launches, idle share {1 - busy_us / wall_us}")
     for key, us, count in rows[:top]:
         log(f"  {us} us in {count} launches: {key[:90]}")
+    log_kernels("K1", rows, "ell_gather")
+    return dict(busy_us=busy_us, wall_us=wall_us, launches=launches,
+                k1_us=sum(r[1] for r in rows if "ell_gather" in r[0]),
+                k1_walks=sum(r[2] for r in rows
+                             if "ell_gather_walk" in r[0]))
 
 
-def ell_bound(idx, n_nodes, f):
-    """Least time for the K1 function on these inputs: the referenced x rows
-    read once, out written once, idx/vals/vrow_row read once; 2 flops per
-    live slot and feature."""
-    live = idx < n_nodes
-    x_rows = int(torch.unique(idx[live]).numel())
-    v, k = idx.shape
-    n_bytes = x_rows * f * 4 + n_nodes * f * 4 + v * k * 8 + v * 4
-    flops = 2 * int(live.sum()) * f
+def ell_bound(lst, f):
+    """Least time for the K1 function over this list: its row pointer and
+    row ids (8 B a held row), each live slot's source and value (8 B), the
+    referenced x rows read once, the held rows of out read and written once;
+    2 flops per live slot and feature, and one add per held row and
+    feature."""
+    x_rows = int(torch.unique(lst.idx).numel())
+    n_bytes = ((lst.n_rows + 1) * 4 + lst.n_rows * 4 + lst.n_edges * 8
+               + x_rows * f * 4 + 2 * lst.n_rows * f * 4)
+    flops = (2 * lst.n_edges + lst.n_rows) * f
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -163,37 +192,109 @@ def check_close(label, out, ref, scale):
     return err
 
 
-def check_ell_kernel(label, idx, vals, x, vrow_row, n_nodes, library=False):
-    from gnntf_tpu_torch.ops import ell_gather, ell_gather_plain
+def list_to(lst, device):
+    """A walk's list (K1's or K2's) with every tensor on ``device``."""
+    return dataclasses.replace(lst, **{
+        f.name: getattr(lst, f.name).to(device)
+        for f in dataclasses.fields(lst)
+        if isinstance(getattr(lst, f.name), torch.Tensor)})
 
-    out = ell_gather(idx, vals, x, vrow_row, n_nodes)
+
+def check_ell_kernel(label, lst, val, x, base, library=False):
+    """K1 over its list, adding into a copy of ``base``, against its plain
+    version on the card; times kernel, plain version and (``library``)
+    ``torch.sparse.addmm`` of the same CSR matrix."""
+    from gnntf_tpu_torch.ops import blocked_spmm_plain, ell_gather_list
+
+    out = ell_gather_list(lst, val, x, base.clone())
     torch.cuda.synchronize()
-    ref = ell_gather_plain(idx, vals, x, vrow_row, n_nodes)
-    scale = ell_gather_plain(idx, vals.abs(), x.abs(), vrow_row, n_nodes)
+    ref = blocked_spmm_plain(lst, val, x, base.clone())
+    scale = blocked_spmm_plain(lst, val.abs(), x.abs(), base.abs())
     err = check_close(f"K1 {label}", out, ref, scale)
+    scratch = base.clone()  # timed calls add into it, again and again
     res = dict(max_abs_err=err,
-               ms=time_ms(lambda: ell_gather(idx, vals, x, vrow_row,
-                                             n_nodes)),
-               plain_ms=time_ms(lambda: ell_gather_plain(
-                   idx, vals, x, vrow_row, n_nodes)))
-    res["bound_ms"], res["bound_by"], n_bytes = ell_bound(
-        idx, n_nodes, x.shape[1])
+               ms=time_ms(lambda: ell_gather_list(lst, val, x, scratch)),
+               plain_ms=time_ms(lambda: blocked_spmm_plain(lst, val, x,
+                                                           scratch)))
+    res["bound_ms"], res["bound_by"], n_bytes = ell_bound(lst, x.shape[1])
     res["library_ms"] = None
     if library:
-        # yardstick only: one cuSPARSE CSR product of the same matrix
-        live = idx < n_nodes
-        rows = vrow_row.long()[:, None].expand_as(idx)[live]
-        a = torch.sparse_coo_tensor(torch.stack([rows, idx[live].long()]),
-                                    vals[live], (n_nodes, n_nodes))
+        # yardstick only: one cuSPARSE CSR product added into the base
+        n = base.shape[0]
+        rows = torch.repeat_interleave(lst.rows.long(), lst.ptr.diff().long())
+        a = torch.sparse_coo_tensor(torch.stack([rows, lst.idx.long()]), val,
+                                    (n, x.shape[0]))
         a = a.coalesce().to_sparse_csr()
-        check_close(f"library CSR product {label}", torch.sparse.mm(a, x),
-                    ref, scale)
-        res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
+        check_close(f"library sparse.addmm {label}",
+                    torch.sparse.addmm(base, a, x), ref, scale)
+        res["library_ms"] = time_ms(lambda: torch.sparse.addmm(base, a, x))
     log(f"K1 {label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
         f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
-        f"({res['bound_by']}, {n_bytes} B), V={idx.shape[0]} "
-        f"k={idx.shape[1]} N={n_nodes} F={x.shape[1]}")
+        f"({res['bound_by']}, {n_bytes} B), held rows {lst.n_rows}, live "
+        f"slots {lst.n_edges}, units {lst.n_units}, split rows "
+        f"{lst.split.shape[0]}, F={x.shape[1]}")
     return res
+
+
+def phase_ell_kernel(graph, dev, x40, x128):
+    """2: K1 against its plain version, small and on the bench graph's rest
+    ELL list, adding into random bases; returns the results."""
+    from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
+                                     ell_edge_list, ell_gather_list,
+                                     normalize_adjacency)
+    from gnntf_tpu_torch.ops.spmm import build_ell
+
+    rng = np.random.RandomState(0)
+    n = 3000
+    row = rng.randint(0, n // 2, size=60_000) * 2  # odd rows stay empty
+    col = rng.randint(0, n, size=60_000)
+    # row 0 holds ~2,900 unique slots: split over many units
+    row = np.concatenate([row, np.zeros(20_000, np.int64)])
+    col = np.concatenate([col, rng.randint(0, n, size=20_000)])
+    layout = build_ell(row, col, n, 8)
+    small, slot = ell_edge_list(layout.idx, layout.vrow_row, n, dev)
+    small_val = torch.from_numpy(rng.randn(len(slot)).astype(
+        np.float32)).to(dev)
+    for f in (6, 40):  # the line reports F=40, the width of the path
+        x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
+        base = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
+        small_res = check_ell_kernel(f"small F={f}", small, small_val, x,
+                                     base)
+
+    t0 = time.perf_counter()
+    prep = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lst, val = prep.k1_list, prep.k1_val
+    split = lst.split.cpu().numpy()
+    slots = lst.ptr.diff().cpu().numpy()
+    stats = dict(held_rows=lst.n_rows, live_slots=lst.n_edges,
+                 units=lst.n_units, split_rows=len(split),
+                 pieces=int(split[:, 2].sum()),
+                 heaviest_row_slots=int(slots.max(initial=0)),
+                 rows_over_1000_slots=int((slots > 1000).sum()),
+                 rest_vrows=prep.ell.n_vrows,
+                 hub_slice=list(prep.dense.shape),
+                 hub_pairs=int(torch.count_nonzero(prep.dense)),
+                 prepared_s=setup_s)
+    log(f"bench graph: {graph.n_edges} counted edges; K1's rest list "
+        f"{stats}")
+    rng = np.random.RandomState(4)
+    res = {}
+    for f, x in ((N_FEATURES, x128), (40, x40)):
+        base = torch.from_numpy(rng.randn(N_NODES, f).astype(
+            np.float32)).to(dev)
+        res[f] = check_ell_kernel(f"bench F={f}", lst, val, x, base,
+                                  library=True)
+    # the kernel rounds as the plain version does on the CPU, in its order
+    out = ell_gather_list(lst, val, x40, base.clone()).cpu()
+    ref = blocked_spmm_plain(list_to(lst, "cpu"), val.cpu(), x40.cpu(),
+                             base.cpu())
+    stats["bit_equal_to_cpu_plain_f40"] = (out == ref).double().mean().item()
+    log(f"K1 bench F=40 on the card against the plain version on the CPU: "
+        f"bit-equal share {stats['bit_equal_to_cpu_plain_f40']}")
+    return dict(small=small_res, bench=res[N_FEATURES], serving=res[40],
+                rest_list=stats)
 
 
 def live_edges(lst):
@@ -292,20 +393,7 @@ def profile_step(step, top=10):
     """Device time by kernel over one training step (torch.profiler), the
     share of it in ``index_add_`` kernels (the degree sums of the dropped
     graph) and in K2 (forward and backward launches)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
+    rows, busy_us, wall_us = device_profile(step)
     index_add = [r for r in rows if "indexFunc" in r[0]
                  or "index_add" in r[0].lower()]
     index_add_us = sum(r[1] for r in index_add)
@@ -317,10 +405,7 @@ def profile_step(step, top=10):
         f"{k2_us} us ({k2_us / busy_us} of busy)")
     for key, us, count in rows[:top]:
         log(f"  {us} us in {count} launches: {key[:90]}")
-    for key, us, count in rows:
-        if "blocked_spmm" in key:
-            log(f"  K2 kernel {key.split('<')[0].split('::')[-1]}: {us} us "
-                f"in {count} launches, {us / count} us a launch")
+    log_kernels("K2", rows, "blocked_spmm")
     return dict(busy_us=busy_us, wall_us=wall_us,
                 index_add_share=index_add_us / busy_us,
                 index_add_launches=sum(r[2] for r in index_add),
@@ -610,8 +695,7 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
-    from gnntf_tpu_torch.ops import ell_gather, normalize_adjacency
-    from gnntf_tpu_torch.ops.spmm import PreparedSpMM, build_ell
+    from gnntf_tpu_torch.ops import ell_gather
     from gnntf_tpu_torch.utils import kernels
 
     dev = torch.device("cuda")
@@ -624,46 +708,20 @@ def main():
     log(f"build: {sorted(built)} in {time.perf_counter() - t0} s")
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
 
-    # 2. kernels against their plain versions
-    rng = np.random.RandomState(0)
-    n = 3000
-    row = rng.randint(0, n // 2, size=60_000) * 2  # odd rows stay empty
-    col = rng.randint(0, n, size=60_000)
-    layout = build_ell(row, col, n, 8)
-    small_vals = rng.randn(layout.n_vrows, layout.k).astype(np.float32)
-    small_vals[layout.idx == n] = 0.0
-    small = [torch.from_numpy(a).to(dev)
-             for a in (layout.idx, small_vals, layout.vrow_row)]
-    for f in (40, 6):
-        x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
-        check_ell_kernel(f"small F={f}", small[0], small[1], x, small[2], n)
-
-    t0 = time.perf_counter()
+    # 2. K1 against its plain version, small and on the bench rest list
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)
-    prep = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
-    vpr = np.bincount(prep.ell.vrow_row, minlength=N_NODES)
-    log(f"bench graph: {graph.n_edges} counted edges; rest ELL V="
-        f"{prep.ell.n_vrows} k={prep.ell.k} live slots "
-        f"{int((prep.ell_idx < N_NODES).sum())}; hub slice "
-        f"{tuple(prep.dense.shape)} with {int(torch.count_nonzero(prep.dense))}"
-        f" unique pairs; heaviest row {int(vpr.max())} virtual rows, "
-        f"{int((vpr > 1000).sum())} rows over 1,000 "
-        f"(set-up {time.perf_counter() - t0} s)")
     features = np.random.RandomState(2).randn(
         N_NODES, N_FEATURES).astype(np.float32)
     x128 = torch.from_numpy(features).to(dev)
-    bench = check_ell_kernel("bench F=128", prep.ell_idx, prep.ell_vals, x128,
-                             prep.vrow_row, N_NODES, library=True)
     x40 = torch.from_numpy(np.random.RandomState(3).randn(
         N_NODES, N_CLASSES).astype(np.float32)).to(dev)
-    serving = check_ell_kernel("bench F=40", prep.ell_idx, prep.ell_vals,
-                               x40, prep.vrow_row, N_NODES, library=True)
-    del prep
+    k1 = phase_ell_kernel(graph, dev, x40, x128)
 
     # 2b. K2 against its plain version, small and on the RCM bench layout
     g_rcm, perm, inv, k2 = phase_blocked_kernel(graph, dev, x40, x128)
@@ -710,7 +768,15 @@ def main():
         raise AssertionError(f"{launches} K1 launches on the serving path")
     op = model.operator(adj)
     spmm_ms = time_ms(lambda: op(acts))
-    profile_forward(model)
+    model._act_cache = None
+    fwd_profile = profile_forward("one forward", model._activations)
+    spmm_profile = profile_forward(f"one SpMM at F={acts.shape[1]}",
+                                   lambda: op(acts))
+    if fwd_profile["k1_walks"] != 10 or spmm_profile["k1_walks"] != 1:
+        raise AssertionError("K1 walks in the profiles: "
+                             f"{fwd_profile['k1_walks']} a forward (expected "
+                             f"10), {spmm_profile['k1_walks']} an SpMM "
+                             "(expected 1)")
     log(f"serving: set-up {setup_ms} ms (normalized graph + PreparedSpMM), "
         f"forward ms {forward_ms}, SpMM {spmm_ms} ms at F={acts.shape[1]}, "
         f"predict ms {request_ms}, evaluate {accuracy}, peak memory "
@@ -749,12 +815,19 @@ def main():
     # 5. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
+    rest = k1["rest_list"]
     entry = {"name": "ell_gather", "route": "cuda",
              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
              "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
-             "launches": launches, **serving, "kernel_ms": serving["ms"],
-             "shape": "V=87091 k=8 N=169343 F=40",
-             "bench_width": dict(bench, shape="F=128")}
+             "launches": launches, **k1["serving"],
+             "kernel_ms": k1["serving"]["ms"],
+             "shape": f"rest ELL list R={rest['held_rows']} held rows of "
+                      f"N=169343, E={rest['live_slots']} live slots, F=40, "
+                      f"added into the hub product",
+             "bench_width": dict(k1["bench"], shape="F=128"),
+             "small": k1["small"], "rest_list": rest,
+             "serving_profile": dict(forward=fwd_profile,
+                                     spmm=spmm_profile)}
     lay = k2["layout"]
     entry2 = {"name": "blocked_spmm", "route": "cuda",
               "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",

@@ -1,128 +1,81 @@
-// K1: ELL gather-reduce with the virtual-row combine fused in.
+// K1: the ELL gather-reduce with the virtual-row combine fused in, added into
+// a base.
 //
 // Replaces the TPU kernel gnntf_tpu/ops/pallas/dma_gather.py::_kernel and the
 // segment_sum over vrow_row that its caller runs after it; together they are
-// the computation of _ell_compute (gnntf_tpu/ops/spmm.py):
+// the computation of _ell_compute (gnntf_tpu/ops/spmm.py), whose result
+// PreparedSpMM adds to the hub slice's product:
 //
-//     out[r] = sum_{v : vrow_row[v] == r} sum_{j < k} vals[v, j] * x[idx[v, j]]
+//     out[r] = base[r] + sum_{v : vrow_row[v] == r} sum_{j < k} vals[v, j] *
+//                        x[idx[v, j]]
 //
-// Pad slots hold idx == n_nodes and are skipped, so the padded copy of x that
-// the TPU kernel gathers from (one zero row appended) is never built.
+// The kernel does not walk the (V, k) grid.  The host keeps its live slots
+// in grid order (virtual row, then slot) as a CSR list over the rows that
+// have a slot: rows (R,), ptr (R + 1,), idx and val (E,)
+// (gnntf_tpu_torch/ops/ell_gather.py::ell_list).  Pad slots and rows
+// without a slot never reach the card.
 //
 // Bound.  Two flops per live slot and feature are far below the card's fp32
-// rate, so memory bounds the kernel.  The compulsory bytes are x read once,
-// out written once and idx/vals read once: at the bench shape (N = 169,343,
-// F = 128, V = 87,091 virtual rows, k = 8) 86.7 + 86.7 + 5.6 MB = 179 MB,
-// about 53 us at 3.35 TB/s.  The gather reads an x row once per edge that
-// references it (618,044 live slots), so if every gathered row missed L2 the
-// traffic would be about 408 MB.
+// rate, so memory bounds the kernel.  The compulsory bytes are the list
+// (ptr and rows, 8 B a held row; idx and val, 8 B a live slot), the
+// referenced x rows read once, and the held rows of out read and written
+// once.  On the rest ELL of the bench graph at F = 40 (R = 11,857 held rows
+// of N = 169,343, 618,044 live slots, 168,912 referenced x rows): 0.1 + 4.9
+// + 27.0 + 3.8 MB = 35,859,372 B, 10.7 us at 3.35 TB/s.
 //
-// Design.  A group of G lanes (G = the power of two >= F / VEC, at most 32)
-// walks a fixed run of RUN consecutive virtual rows.  The lanes span the
-// feature dimension with VEC-wide loads (float4 when F % 4 == 0 and x is
-// 16-byte aligned, else float), so one x row is read as whole 16-byte
-// sectors by neighbouring lanes, and accumulate in fp32 registers while
-// vrow_row stays constant.  When the destination row changes, and at the end
-// of the run, the group flushes its sums into out with atomicAdd (the caller
-// zero-fills out).  A row that lies inside one run gets exactly one add onto
-// zero, so its value is the run's own sum; only rows that span runs (the hub
-// rows of a power-law graph) get several adds, in an order that varies from
-// launch to launch.  Rows are split across runs, so the heaviest bench row
-// (20,593 virtual rows) is spread over about 1,300 groups instead of holding
-// one warp for the whole launch.  The result does not depend on vrow_row
-// being sorted; sorting only keeps the number of flushes low.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design.  The edge-balanced walk of edge_walk.cuh, with row ids, in
+// accumulate mode: each held row's sum is added to out once, with a plain
+// load and store, and rows the list does not hold are not touched; so out
+// (the hub slice's product, or zeros) needs no zero-fill, there are no
+// atomics and no separate add pass.  Of the bench's 11,857 held rows, 110
+// hold 85% of the slots and the heaviest 164,744; units of `items` items
+// (ops/ell_gather.py::_UNIT_ITEMS, smaller than K2's, as the list is a
+// quarter of K2's) spread them over the card, and the fix-up adds a split
+// row's pieces in the same fixed order as K2's.
+#include "edge_walk.cuh"
 
 namespace {
 
-__device__ __forceinline__ void set_zero(float& a) { a = 0.f; }
-__device__ __forceinline__ void set_zero(float4& a) {
-  a = make_float4(0.f, 0.f, 0.f, 0.f);
-}
+using edge_walk::Args;
 
-__device__ __forceinline__ void fma_into(float& acc, float w, float v) {
-  acc = fmaf(w, v, acc);
-}
-__device__ __forceinline__ void fma_into(float4& acc, float w, float4 v) {
-  acc.x = fmaf(w, v.x, acc.x);
-  acc.y = fmaf(w, v.y, acc.y);
-  acc.z = fmaf(w, v.z, acc.z);
-  acc.w = fmaf(w, v.w, acc.w);
-}
-
-__device__ __forceinline__ void flush(float* dst, float a) { atomicAdd(dst, a); }
-__device__ __forceinline__ void flush(float4* dst, float4 a) {
-  float* p = reinterpret_cast<float*>(dst);
-  atomicAdd(p + 0, a.x);
-  atomicAdd(p + 1, a.y);
-  atomicAdd(p + 2, a.z);
-  atomicAdd(p + 3, a.w);
-}
-
-// T is float or float4; fv = F / (elements of T).
 template <typename T>
-__global__ void ell_gather_kernel(const int32_t* __restrict__ idx,
-                                  const float* __restrict__ vals,
-                                  const T* __restrict__ x,
-                                  const int32_t* __restrict__ vrow_row,
-                                  T* __restrict__ out, int64_t n_vrows, int k,
-                                  int n_nodes, int fv, int group, int run) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t g = tid / group;
-  const int lane = (int)(tid % group);
-  const int64_t v_begin = g * run;
-  if (v_begin >= n_vrows) return;
-  const int64_t v_end =
-      v_begin + run < n_vrows ? v_begin + run : n_vrows;
-  for (int c = lane; c < fv; c += group) {
-    T acc;
-    set_zero(acc);
-    int row = vrow_row[v_begin];
-    for (int64_t v = v_begin; v < v_end; ++v) {
-      const int r = vrow_row[v];
-      if (r != row) {
-        flush(out + (int64_t)row * fv + c, acc);
-        set_zero(acc);
-        row = r;
-      }
-      const int32_t* iv = idx + v * k;
-      const float* wv = vals + v * k;
-#pragma unroll 8
-      for (int j = 0; j < k; ++j) {
-        const int s = iv[j];
-        if ((unsigned)s < (unsigned)n_nodes)
-          fma_into(acc, wv[j], x[(int64_t)s * fv + c]);
-      }
-    }
-    flush(out + (int64_t)row * fv + c, acc);
-  }
+__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
+    ell_gather_walk(const Args a) {
+  edge_walk::walk<T, true>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) ell_gather_parts(const Args a) {
+  edge_walk::parts<T>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) ell_gather_fixup(const Args a) {
+  edge_walk::fixup<T, true>(a);
 }
 
 }  // namespace
 
-// out (n_nodes, f) must be zero-filled; vec is 4 (float4) or 1 (float).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int gnntf_ell_gather(const void* idx, const void* vals,
-                                const void* x, const void* vrow_row, void* out,
-                                long long n_vrows, int k, int n_nodes, int f,
-                                int vec, int group, int run, void* stream) {
-  const int block = 256;
-  const long long threads = (n_vrows + run - 1) / run * group;
-  const unsigned grid = (unsigned)((threads + block - 1) / block);
+// out (n_out, f) float32 holds the base and gets each held row's sum added;
+// rows (R,) are the held rows' ids in out; eid may be null (the identity).
+// carry, part_item, vec, group and parts are as gnntf_blocked_spmm's,
+// with vec 4 only where x and out are 16-byte aligned.  Launches on `stream`
+// and returns a CUDA error code (0 on success).
+extern "C" int gnntf_ell_gather(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, void* stream) {
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, rows, unit_row, unit_edge, split, part_item, val, x,
+      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    ell_gather_kernel<float4><<<grid, block, 0, s>>>(
-        static_cast<const int32_t*>(idx), static_cast<const float*>(vals),
-        static_cast<const float4*>(x), static_cast<const int32_t*>(vrow_row),
-        static_cast<float4*>(out), n_vrows, k, n_nodes, f / 4, group, run);
-  } else {
-    ell_gather_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const int32_t*>(idx), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<const int32_t*>(vrow_row),
-        static_cast<float*>(out), n_vrows, k, n_nodes, f, group, run);
-  }
-  return (int)cudaGetLastError();
+  if (vec == 4)
+    return edge_walk::launch(ell_gather_walk<float4>, ell_gather_parts<float4>,
+                             ell_gather_fixup<float4>, a, s);
+  return edge_walk::launch(ell_gather_walk<float>, ell_gather_parts<float>,
+                           ell_gather_fixup<float>, a, s);
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

@@ -17,9 +17,11 @@ layout's live slots into two per-edge CSR lists, one for ``A`` and one for
 
 ``blocked_spmm`` is the kernel's wrapper.  It replaces the TPU kernel
 ``gnntf_tpu/ops/pallas/spmm.py::_kernel``; the CUDA source,
-``gnntf_tpu_torch/csrc/blocked_spmm.cu``, states its bound and design.  A CPU
-tensor takes :func:`blocked_spmm_plain`; a CUDA tensor launches the kernel
-or raises.  ``spmm_pallas`` is the differentiable SpMM over it: the forward
+``gnntf_tpu_torch/csrc/blocked_spmm.cu``, states its bound, and
+``csrc/edge_walk.cuh`` the walk's design.  K1 (``ops/ell_gather.py``) runs
+the same walk over a list with row ids, adding into a base.  A CPU tensor
+takes :func:`blocked_spmm_plain`; a CUDA tensor launches the kernel or
+raises.  ``spmm_pallas`` is the differentiable SpMM over it: the forward
 runs the kernel over the forward list, the backward's ``dx = A^T dy`` runs
 it over the transposed list, and the values' gradient (the JAX package's
 ``_pallas_vjp_fn``) is plain torch, computed only when asked for.
@@ -42,7 +44,8 @@ from ..utils import kernels
 _UNIT_ITEMS = 128
 # a split row's pieces are summed in this many parts: part g takes pieces
 # g, g + P, g + 2P, ... in turn, then the parts are added in order.  This
-# fixes the order of the sum; the kernel's launch geometry does not.
+# fixes the order of the sum; the kernel's launch geometry does not.  A list
+# keeps the value it was built with (``EdgeList.parts``).
 _FIXUP_PARTS = 64
 
 
@@ -227,11 +230,26 @@ def work_units(ptr: np.ndarray, items: int):
     return tuple(a.astype(np.int32) for a in (unit_row, unit_edge, table))
 
 
+def part_items(split: np.ndarray, parts: int) -> np.ndarray:
+    """The fix-up's items: part g of split row s, as ``s * parts + g``, for
+    the parts that hold a piece (g below the row's piece count), part-major
+    so the hub row's parts spread over the launch.  A part without a piece
+    adds nothing to its row's sum, so it is left out."""
+    count = np.minimum(np.asarray(split, np.int64).reshape(-1, 3)[:, 2],
+                       parts)
+    s = np.repeat(np.arange(len(count)), count)
+    g = np.arange(len(s)) - np.repeat(np.cumsum(count) - count, count)
+    return (s * parts + g)[np.lexsort((s, g))].astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeList:
-    """One direction of K2's work on a device: a CSR list (``ptr``,
-    ``idx``, ``eid``; ``eid`` is None where it is the identity) and its
-    units of work (:func:`work_units`)."""
+    """The walk's work on a device: a CSR list (``ptr``, ``idx``, ``eid``;
+    ``eid`` is None where it is the identity), its units of work
+    (:func:`work_units`), the fix-up's items (:func:`part_items`) and the
+    number of parts that fixes its order, and, for K1's lists, the output
+    row of each list row (``rows``; None for K2's, where row r is output
+    row r)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -239,19 +257,30 @@ class EdgeList:
     unit_row: torch.Tensor   # (U+1,) int32
     unit_edge: torch.Tensor  # (U+1,) int32
     split: torch.Tensor      # (S, 3) int32
+    part_item: torch.Tensor  # (I,) int32
+    parts: int
+    rows: Optional[torch.Tensor] = None  # (N,) int32 output rows
 
     @classmethod
-    def build(cls, ptr, idx, eid, device):
+    def build(cls, ptr, idx, eid, device, rows=None, items=None):
+        """The list on ``device``, cut into units of ``items`` items
+        (default ``_UNIT_ITEMS``), its split rows summed in
+        ``_FIXUP_PARTS`` parts; ``eid`` None means the identity."""
         if len(idx) >= 2**31 - 1:
-            raise ValueError(f"{len(idx)} edges exceed K2's int32 indices")
+            raise ValueError(f"{len(idx)} edges exceed the walk's int32 "
+                             "indices")
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 device)
 
-        identity = np.array_equal(eid, np.arange(len(eid)))
+        identity = eid is None or np.array_equal(eid, np.arange(len(eid)))
+        units = work_units(ptr, _UNIT_ITEMS if items is None else items)
+        parts = _FIXUP_PARTS
         return cls(put(ptr), put(idx), None if identity else put(eid),
-                   *(put(a) for a in work_units(ptr, _UNIT_ITEMS)))
+                   *(put(a) for a in units),
+                   put(part_items(units[2], parts)), parts,
+                   rows=None if rows is None else put(rows))
 
     @property
     def n_rows(self) -> int:
@@ -268,6 +297,18 @@ class EdgeList:
     @property
     def device(self) -> torch.device:
         return self.ptr.device
+
+    @functools.cached_property
+    def addresses(self) -> tuple:
+        """The list's device addresses, in the C entry points' order (ptr,
+        idx, eid, rows, unit_row, unit_edge, split, part_item; None for an
+        absent array), and its int arguments (n_units, n_split,
+        n_part_items)."""
+        arrays = (self.ptr, self.idx, self.eid, self.rows, self.unit_row,
+                  self.unit_edge, self.split, self.part_item)
+        return (tuple(None if a is None else a.data_ptr() for a in arrays),
+                (self.n_units, int(self.split.shape[0]),
+                 int(self.part_item.shape[0])))
 
 
 class BlockedSpMM:
@@ -290,19 +331,32 @@ def scatter_values(layout: BlockedCOO, val: torch.Tensor) -> torch.Tensor:
     return flat
 
 
-def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch: ``out[r] = sum over the
-    list's edges e of row r of val[eid[e]] * x[idx[e]]``, with
-    ``index_add_`` and in the kernel's order: a row, or a piece of a split
-    row, in edge order; then a split row's pieces in ``_FIXUP_PARTS``
-    parts (part g sums pieces g, g + P, ... in turn) and the parts in
-    order.  On the CPU, where ``index_add_`` adds in index order, a row
-    then gets the kernel's own roundings."""
+def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
+                       base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The walk's function in plain torch: ``out[r] = sum over the list's
+    edges e of row r of val[eid[e]] * x[idx[e]]``, with ``index_add_`` and
+    in the kernel's order: a row, or a piece of a split row, in edge order;
+    then a split row's pieces in ``lst.parts`` parts (part g sums pieces g,
+    g + P, ... in turn) and the parts in order.  On the CPU, where
+    ``index_add_`` adds in index order, a row then gets the kernel's own
+    roundings.  With a ``base`` (K1), row r's sum is added into ``base``'s
+    row ``rows[r]`` in place, one addition an element, and ``base`` is
+    returned."""
+    out = _row_sums(lst, val, x)
+    if base is None:
+        return out
+    rows = (torch.arange(lst.n_rows, device=x.device) if lst.rows is None
+            else lst.rows.long())
+    return base.index_add_(0, rows, out)
+
+
+def _row_sums(lst: EdgeList, val: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
     n, f = lst.n_rows, x.shape[1]
     dev = x.device
     rows = torch.repeat_interleave(
-        torch.arange(n, device=dev), lst.ptr.diff().long())
+        torch.arange(n, device=dev), lst.ptr.diff().long(),
+        output_size=lst.n_edges)
     w = val if lst.eid is None else val[lst.eid.long()]
     terms = x[lst.idx.long()] * w[:, None]
     split = lst.split.long()
@@ -319,7 +373,7 @@ def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor,
                        device=dev).index_add_(0, target, terms)
     # piece k of split row s adds into part s * P + k % P, in piece order;
     # then the row's P parts add into it, in order
-    parts = _FIXUP_PARTS
+    parts = lst.parts
     count = split[:, 2]
     s = torch.repeat_interleave(torch.arange(n_split, device=dev), count)
     k = torch.arange(len(s), device=dev) - torch.repeat_interleave(
@@ -334,19 +388,63 @@ def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor,
     return out
 
 
-def _check(lst, val, x):
+def check(what, lst, val, x, base=None):
+    """Raise unless the walk can take these inputs: ``x`` (N, F) float32
+    (any number of rows where the list adds into a ``base``), ``val`` one
+    float32 an edge, a ``base`` (M, F) float32 apart from ``x`` (the kernel
+    reads ``x`` while it writes ``base``), all contiguous and on the list's
+    device."""
     n = lst.n_rows
-    if x.dim() != 2 or x.shape[0] != n or x.dtype != torch.float32:
-        raise TypeError(f"x must be ({n}, F) float32, got "
+    if x.dim() != 2 or x.dtype != torch.float32 or (
+            base is None and x.shape[0] != n):
+        raise TypeError(f"{what}: x must be ({n}, F) float32, got "
                         f"{tuple(x.shape)} {x.dtype}")
     if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
-        raise TypeError(f"values must be ({lst.n_edges},) float32, got "
-                        f"{tuple(val.shape)} {val.dtype}")
-    devices = {val.device, x.device, lst.device}
+        raise TypeError(f"{what}: values must be ({lst.n_edges},) float32, "
+                        f"got {tuple(val.shape)} {val.dtype}")
+    tensors = [val, x]
+    if base is not None:
+        if (base.dim() != 2 or base.shape[1] != x.shape[1]
+                or base.dtype != torch.float32):
+            raise TypeError(f"{what}: base must be (M, {x.shape[1]}) "
+                            f"float32, got {tuple(base.shape)} {base.dtype}")
+        if (base.untyped_storage().data_ptr()
+                == x.untyped_storage().data_ptr()):
+            raise ValueError(f"{what}: base shares memory with x")
+        tensors.append(base)
+    devices = {t.device for t in tensors} | {lst.device}
     if len(devices) != 1:
-        raise ValueError(f"blocked_spmm inputs span devices {devices}")
-    if not (x.is_contiguous() and val.is_contiguous()):
-        raise ValueError("blocked_spmm inputs must be contiguous")
+        raise ValueError(f"{what} inputs span devices {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} inputs must be contiguous")
+
+
+def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
+           x: torch.Tensor, out: torch.Tensor) -> None:
+    """Run the walk through the C ``entry`` of a built library (K1's or
+    K2's), writing into ``out`` on the current stream; counts nothing."""
+    f = x.shape[1]
+    addresses, (n_units, n_split, n_part_items) = lst.addresses
+    if n_units == 0 or f == 0:
+        return
+    # float4 loads where rows are 16-byte aligned; a group of lanes a unit
+    x_at, out_at = x.data_ptr(), out.data_ptr()
+    vec = 4 if f % 4 == 0 and x_at % 16 == 0 and out_at % 16 == 0 else 1
+    group = max(1, min(32, f // vec))
+    # the pieces' sums, then the split rows' parts
+    carry = (torch.empty(n_units + n_split * lst.parts, f,
+                         dtype=torch.float32, device=x.device).data_ptr()
+             if n_split else None)
+    args = (*addresses, val.data_ptr(), x_at, out_at, carry, n_units,
+            n_split, n_part_items, f, vec, group, lst.parts)
+    if x.device.index == torch.cuda.current_device():
+        rc = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = getattr(lib, entry)(
+                *args, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(lib, rc, f"{entry} launch")
 
 
 def blocked_spmm(lst: EdgeList, val: torch.Tensor,
@@ -356,34 +454,19 @@ def blocked_spmm(lst: EdgeList, val: torch.Tensor,
     ``val`` holds the graph's edge values in its own edge order.  CPU
     tensors take :func:`blocked_spmm_plain`; CUDA tensors launch the kernel
     (counted in ``blocked_spmm.launches``)."""
-    _check(lst, val, x)
+    if lst.rows is not None:
+        raise ValueError("blocked_spmm stores row r at r; a list with row "
+                         "ids is K1's (ops/ell_gather.py)")
+    check("blocked_spmm", lst, val, x)
     if x.device.type == "cpu":
         return blocked_spmm_plain(lst, val, x)
     if x.device.type != "cuda":
         raise ValueError(f"blocked_spmm runs on cpu or cuda, not {x.device}")
-    f = x.shape[1]
-    out = torch.empty(lst.n_rows, f, dtype=torch.float32, device=x.device)
-    if lst.n_units == 0 or f == 0:
+    out = torch.empty(lst.n_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    if lst.n_units == 0 or x.shape[1] == 0:
         return out
-    # float4 loads where rows are 16-byte aligned; a group of lanes a unit
-    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-    group = max(1, min(32, f // vec))
-    n_split = int(lst.split.shape[0])
-    # the pieces' sums, then the split rows' parts
-    carry = (torch.empty(lst.n_units + n_split * _FIXUP_PARTS, f,
-                         dtype=torch.float32, device=x.device)
-             if n_split else None)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gnntf_blocked_spmm(
-            lst.ptr.data_ptr(), lst.idx.data_ptr(),
-            None if lst.eid is None else lst.eid.data_ptr(), val.data_ptr(),
-            lst.unit_row.data_ptr(), lst.unit_edge.data_ptr(),
-            lst.split.data_ptr(), x.data_ptr(), out.data_ptr(),
-            None if carry is None else carry.data_ptr(),
-            lst.n_units, n_split, f, vec, group, _FIXUP_PARTS, stream)
-    kernels.check(lib, rc, "blocked_spmm launch")
+    launch(_library(), "gnntf_blocked_spmm", lst, val, x, out)
     blocked_spmm.launches += 1
     return out
 
@@ -391,15 +474,25 @@ def blocked_spmm(lst: EdgeList, val: torch.Tensor,
 blocked_spmm.launches = 0
 
 
+# the C signature of the walk's entry points (gnntf_blocked_spmm,
+# gnntf_ell_gather): ptr, idx, eid, rows, unit_row, unit_edge, split,
+# part_item (the list), val, x, out, carry; n_units, n_split, n_part_items,
+# f, vec, group, parts; stream
+ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
+
+
+def declare(entry) -> None:
+    entry.restype = ctypes.c_int
+    entry.argtypes = ENTRY_ARGTYPES
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared (built on
     first use, never at import)."""
     lib = kernels.load("blocked_spmm")
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.gnntf_blocked_spmm.restype = i
-    lib.gnntf_blocked_spmm.argtypes = [p] * 10 + [i] * 6 + [p]
+    declare(lib.gnntf_blocked_spmm)
     return lib
 
 

@@ -1,43 +1,81 @@
-"""K1, the ELL gather-reduce with the virtual-row combine fused in:
+"""K1, the ELL gather-reduce with the virtual-row combine fused in, added
+into a base:
 
-    out[r] = sum_{v: vrow_row[v] = r} sum_{j<k} vals[v, j] * x[idx[v, j]]
+    out[r] = base[r] + sum_{v: vrow_row[v] = r} sum_{j<k} vals[v, j] * x[idx[v, j]]
 
 It replaces the TPU kernel ``gnntf_tpu/ops/pallas/dma_gather.py::_kernel``
 (with the ``segment_sum`` over ``vrow_row`` that runs after it), the heart of
-``_ell_compute`` in the JAX package.  The CUDA source,
-``gnntf_tpu_torch/csrc/ell_gather.cu``, states its bound — at the bench
-shape (N=169,343, F=128, V=87,091, k=8) about 179 MB of compulsory traffic,
-53 us at 3.35 TB/s — and how its design meets it: runs of virtual rows per
-lane group, 16-byte row loads, fp32 register sums, one atomic flush per
-(run, row).
+``_ell_compute`` in the JAX package; ``PreparedSpMM`` adds its result to the
+hub slice's product, as the JAX package does with ``ell + dense @ x[hubs]``.
 
-``ell_gather`` dispatches on the tensors' device: a CPU tensor takes
-:func:`ell_gather_plain`; a CUDA tensor launches the kernel or raises.
+The kernel does not walk the (V, k) grid.  :func:`ell_list` keeps the grid's
+live slots in grid order (virtual row, then slot: the order ``_ell_compute``
+sums a row in) as a CSR list over the rows that have a slot, and
+``EdgeList.build`` cuts it into units of ``_UNIT_ITEMS`` items.  The kernel
+is the edge-balanced walk of K2 (``csrc/edge_walk.cuh``) with row ids, in
+accumulate mode: each held row's sum is added to the base once, rows without
+a slot are not touched, and nothing is zero-filled or added atomically.  The
+CUDA source, ``gnntf_tpu_torch/csrc/ell_gather.cu``, states its bound.
+
+:func:`ell_gather_list` is the kernel's wrapper over a list built once (what
+``PreparedSpMM`` calls); :func:`ell_gather` and :func:`ell_gather_plain`
+take the ELL grid and derive the list per call.  A CPU tensor takes the
+plain version, ``blocked_spmm_plain`` over the list, which sums in the
+kernel's order; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import kernels
+from . import blocked
+from .blocked import EdgeList, blocked_spmm_plain
 
-# consecutive virtual rows walked by one lane group
-_RUN = 16
-
-
-def ell_gather_plain(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-                     vrow_row: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """The JAX recipe in torch: padded ``xp``, gather, k-sum, then the
-    virtual-row -> row combine with ``index_add_``."""
-    xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
-    partial = (xp[idx.long()] * vals[:, :, None]).sum(dim=1)
-    out = x.new_zeros(n_nodes, x.shape[1])
-    return out.index_add_(0, vrow_row.long(), partial)
+# items (live slots and row ends) per unit of the walk's work: the list is a
+# quarter of K2's, so its units are smaller than K2's to fill the card (32
+# is the fastest of 32, 64 and 128 at F=40 in k2_sweep.py)
+_UNIT_ITEMS = 32
 
 
-def _check(idx, vals, x, vrow_row, n_nodes):
+def ell_list(idx: np.ndarray, vrow_row: np.ndarray, n_nodes: int):
+    """K1's list from an ELL grid (host, numpy): the live slots (``idx <
+    n_nodes``) in grid order, stably sorted by their row, over the rows that
+    hold one.  Returns int32 ``rows`` (R,) ascending, ``ptr`` (R+1,) and
+    ``src`` (E,), and int64 ``slot`` (E,), each live slot's flat position in
+    the (V*k) grid, so a slot's value is ``vals.reshape(-1)[slot]``."""
+    idx = np.asarray(idx)
+    flat = idx.reshape(-1)
+    slot = np.flatnonzero(flat < n_nodes)
+    row = np.asarray(vrow_row, np.int64)[slot // max(1, idx.shape[1])]
+    order = np.argsort(row, kind="stable")
+    slot, row = slot[order], row[order]
+    rows, count = np.unique(row, return_counts=True)
+    ptr = np.concatenate([[0], np.cumsum(count)])
+    return (rows.astype(np.int32), ptr.astype(np.int32),
+            flat[slot].astype(np.int32), slot)
+
+
+def ell_edge_list(idx: np.ndarray, vrow_row: np.ndarray, n_nodes: int,
+                  device):
+    """K1's :func:`ell_list` on ``device`` as an :class:`EdgeList` with row
+    ids, cut into units of ``_UNIT_ITEMS`` items; returns it and ``slot``."""
+    rows, ptr, src, slot = ell_list(idx, vrow_row, n_nodes)
+    return EdgeList.build(ptr, src, None, device, rows=rows,
+                          items=_UNIT_ITEMS), slot
+
+
+def _grid_list(idx, vals, vrow_row, n_nodes, device):
+    lst, slot = ell_edge_list(idx.cpu().numpy(), vrow_row.cpu().numpy(),
+                              n_nodes, device)
+    val = vals.reshape(-1)[torch.from_numpy(slot).to(vals.device)]
+    return lst, val.contiguous()
+
+
+def _check_grid(idx, vals, x, vrow_row, n_nodes, out):
     if idx.dim() != 2 or idx.dtype != torch.int32:
         raise TypeError(f"idx must be (V, k) int32, got {tuple(idx.shape)} "
                         f"{idx.dtype}")
@@ -50,41 +88,66 @@ def _check(idx, vals, x, vrow_row, n_nodes):
     if vrow_row.shape != idx.shape[:1] or vrow_row.dtype != torch.int32:
         raise TypeError(f"vrow_row must be ({idx.shape[0]},) int32, got "
                         f"{tuple(vrow_row.shape)} {vrow_row.dtype}")
-    devices = {t.device for t in (idx, vals, x, vrow_row)}
+    if out is not None and out.shape != x.shape:
+        raise TypeError(f"out must be {tuple(x.shape)}, got "
+                        f"{tuple(out.shape)}")
+    tensors = [idx, vals, x, vrow_row] + ([] if out is None else [out])
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"ell_gather inputs span devices {devices}")
-    if not all(t.is_contiguous() for t in (idx, vals, x, vrow_row)):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ell_gather inputs must be contiguous")
 
 
-def ell_gather(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-               vrow_row: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """``out = combine(vrow_row, sum_j vals * x[idx])`` as an (n_nodes, F)
-    float32 tensor; ``idx == n_nodes`` marks a pad slot.
+def ell_gather_plain(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+                     vrow_row: torch.Tensor, n_nodes: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of :func:`ell_gather`: the list derived from the
+    grid, then ``blocked_spmm_plain`` in the kernel's order, adding into
+    ``out`` (zeros when None) in place."""
+    _check_grid(idx, vals, x, vrow_row, n_nodes, out)
+    lst, val = _grid_list(idx, vals, vrow_row, n_nodes, x.device)
+    if out is None:
+        out = torch.zeros_like(x)
+    return blocked_spmm_plain(lst, val, x, out)
 
-    CPU tensors take :func:`ell_gather_plain`; CUDA tensors launch the
-    kernel (counted in ``ell_gather.launches``)."""
-    _check(idx, vals, x, vrow_row, n_nodes)
+
+def ell_gather(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+               vrow_row: torch.Tensor, n_nodes: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out + combine(vrow_row, sum_j vals * x[idx])`` as an (n_nodes, F)
+    float32 tensor, added into ``out`` in place (zeros when None);
+    ``idx == n_nodes`` marks a pad slot.  The list is derived from the grid
+    on the host at every call; hold an :func:`ell_edge_list` and call
+    :func:`ell_gather_list` to reuse it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``ell_gather.launches``)."""
+    _check_grid(idx, vals, x, vrow_row, n_nodes, out)
+    lst, val = _grid_list(idx, vals, vrow_row, n_nodes, x.device)
+    if out is None:
+        out = torch.zeros_like(x)
+    return ell_gather_list(lst, val, x, out)
+
+
+def ell_gather_list(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """Add K1's product over ``lst`` (an :class:`EdgeList` with row ids,
+    ``val`` one value a live slot) into ``out`` in place and return it:
+    ``out[rows[r]] += sum_e val[e] * x[idx[e]]`` over row r's slots.
+
+    CPU tensors take ``blocked_spmm_plain``; CUDA tensors launch the kernel
+    (counted in ``ell_gather.launches``)."""
+    if lst.rows is None:
+        raise ValueError("K1's list holds row ids (ell_list)")
+    blocked.check("ell_gather", lst, val, x, out)
     if x.device.type == "cpu":
-        return ell_gather_plain(idx, vals, x, vrow_row, n_nodes)
+        return blocked_spmm_plain(lst, val, x, out)
     if x.device.type != "cuda":
         raise ValueError(f"ell_gather runs on cpu or cuda, not {x.device}")
-    lib = _library()
-    f = x.shape[1]
-    out = torch.zeros(n_nodes, f, dtype=torch.float32, device=x.device)
-    if idx.shape[0] == 0 or f == 0:
+    if lst.n_units == 0 or x.shape[1] == 0:
         return out
-    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-    group = 1
-    while group < min(32, f // vec):
-        group *= 2
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gnntf_ell_gather(
-            idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            vrow_row.data_ptr(), out.data_ptr(), idx.shape[0], idx.shape[1],
-            n_nodes, f, vec, group, _RUN, stream)
-    kernels.check(lib, rc, "ell_gather launch")
+    blocked.launch(_library(), "gnntf_ell_gather", lst, val, x, out)
     ell_gather.launches += 1
     return out
 
@@ -93,13 +156,9 @@ ell_gather.launches = 0
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signature declared (built on
     first use, never at import)."""
     lib = kernels.load("ell_gather")
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.gnntf_ell_gather.restype = i
-    lib.gnntf_ell_gather.argtypes = [p, p, p, p, p, ctypes.c_longlong,
-                                     i, i, i, i, i, i, p]
+    blocked.declare(lib.gnntf_ell_gather)
     return lib

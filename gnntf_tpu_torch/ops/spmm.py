@@ -2,10 +2,11 @@
 
 * ``spmm_segment`` — gather + ``index_add_``: the plain reference,
   differentiable through autograd.
-* :class:`PreparedSpMM` — the layout and the value routing are built once,
-  on the host and with one ``index_add_``; each call then runs the ELL
-  gather-reduce kernel (``ops/ell_gather.py``) for the row-split ELL part and
-  one ``torch.matmul`` for the dense hub slice.
+* :class:`PreparedSpMM` — the layout, K1's list and the value routing are
+  built once, on the host and with one ``index_add_``; each call then runs
+  one ``torch.matmul`` for the dense hub slice and the ELL gather-reduce
+  kernel K1 (``ops/ell_gather.py``), which adds the rest ELL's product into
+  the hub product's rows.
 * ``spmm_pallas`` (``ops/blocked.py``) — the blocked-COO kernel K2.
 
 The implementation is selected as in the JAX package: ``auto`` (the
@@ -36,7 +37,7 @@ import torch
 
 from ..graph.coo import Graph
 from .blocked import spmm_pallas
-from .ell_gather import ell_gather
+from .ell_gather import ell_edge_list, ell_gather_list
 
 _IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
 _ELL_MIN_EDGES = 65_536
@@ -292,34 +293,41 @@ def _route(slots: np.ndarray, val: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class _ELLGatherFn(torch.autograd.Function):
-    """``x -> ell_gather(idx, vals, x, vrow_row)`` with its transpose as the
-    backward, in plain torch: ``dx[idx[v, j]] += vals[v, j] * dy[vrow_row[v]]``
-    over the live slots.  The values of a prepared operator are constants."""
+    """``(x, base) -> base + A_rest @ x`` through K1 over its list, adding
+    into ``base`` in place (marked dirty).  The backward passes ``dy`` to
+    ``base`` and gives ``x`` the transposed product in plain torch,
+    ``dx[idx[e]] += val[e] * dy[rows[r]]`` over each row r's slots e.  The
+    values of a prepared operator are constants."""
 
     @staticmethod
-    def forward(ctx, x, idx, vals, vrow_row, n_nodes):
-        ctx.save_for_backward(idx, vals, vrow_row)
-        return ell_gather(idx, vals, x, vrow_row, n_nodes)
+    def forward(ctx, x, base, lst, val):
+        ctx.mark_dirty(base)
+        ctx.lst, ctx.val, ctx.n_in = lst, val, x.shape[0]
+        return ell_gather_list(lst, val, x, base)
 
     @staticmethod
     def backward(ctx, dy):
-        idx, vals, vrow_row = ctx.saved_tensors
-        k = idx.shape[1]
-        src = idx.reshape(-1).long()
-        live = src < dy.shape[0]
-        rows = vrow_row.long().repeat_interleave(k)[live]
-        terms = dy[rows] * vals.reshape(-1)[live][:, None]
-        return (torch.zeros_like(dy).index_add_(0, src[live], terms),
-                None, None, None, None)
+        lst, dx = ctx.lst, None
+        if ctx.needs_input_grad[0]:
+            dst = torch.repeat_interleave(lst.rows.long(),
+                                          lst.ptr.diff().long(),
+                                          output_size=lst.n_edges)
+            terms = dy[dst] * ctx.val[:, None]
+            dx = dy.new_zeros(ctx.n_in, dy.shape[1]).index_add_(
+                0, lst.idx.long(), terms)
+        return dx, dy if ctx.needs_input_grad[1] else None, None, None
 
 
 class PreparedSpMM:
-    """``x -> A @ x`` for a fixed adjacency, with the layout and the value
-    routing done once at construction, on the graph's device.
+    """``x -> A @ x`` for a fixed adjacency, with the layout, K1's list and
+    the value routing done once at construction, on the graph's device.
 
-    Per call: the ELL gather-reduce kernel over the (hub-free) ELL grid,
-    plus ``torch.matmul(dense, xin[hub_ids])`` when the graph has a hub
-    slice, plus the lazy scales and identity of a normalized graph."""
+    Per call: ``torch.matmul(dense, xin[hub_ids])`` when the graph has a hub
+    slice (else zeros), then K1 over the (hub-free) ELL's list, adding each
+    row it holds into that product (the JAX package's ``ell + dense @
+    x[hubs]``, one addition an element), then the lazy scales and identity
+    of a normalized graph.  Only the list, its values and the hub slice are
+    kept on the device; ``ell`` is the host layout."""
 
     def __init__(self, graph: Graph, k: int = _ELL_DEFAULT_K):
         self.n_nodes = graph.n_nodes
@@ -345,24 +353,27 @@ class PreparedSpMM:
             self.hub_ids = torch.from_numpy(
                 hybrid.hub_ids.astype(np.int64)).to(device)
         self.ell = ell
-        self.ell_idx = torch.from_numpy(ell.idx).to(device)
-        self.ell_vals = _route(slots, val, ell.n_vrows * ell.k).view(
-            ell.n_vrows, ell.k)
-        self.vrow_row = torch.from_numpy(ell.vrow_row).to(device)
+        self.k1_list, slot = ell_edge_list(ell.idx, ell.vrow_row,
+                                           graph.n_nodes, device)
+        # each edge's list position; the sentinel (hub edges, V*k) maps to
+        # the extra cell that _route drops
+        position = np.full(ell.n_vrows * ell.k + 1, len(slot), np.int64)
+        position[slot] = np.arange(len(slot))
+        self.k1_val = _route(position[slots], val, len(slot))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xin = x
         if self.col_scale is not None:
             xin = xin * self.col_scale[:, None].to(x.dtype)
         xin = xin.contiguous()
-        if xin.requires_grad and xin.device.type == "cuda":
-            out = _ELLGatherFn.apply(xin, self.ell_idx, self.ell_vals,
-                                     self.vrow_row, self.n_nodes)
-        else:  # no gradient asked, or the plain version (autograd's own)
-            out = ell_gather(self.ell_idx, self.ell_vals, xin, self.vrow_row,
-                             self.n_nodes)
         if self.dense is not None:
-            out = out + torch.matmul(self.dense, xin[self.hub_ids])
+            out = torch.matmul(self.dense, xin[self.hub_ids])
+        else:
+            out = xin.new_zeros(self.n_nodes, xin.shape[1])
+        if xin.requires_grad and torch.is_grad_enabled():
+            out = _ELLGatherFn.apply(xin, out, self.k1_list, self.k1_val)
+        else:
+            ell_gather_list(self.k1_list, self.k1_val, xin, out)
         if self.row_scale is not None:
             out = out * self.row_scale[:, None].to(out.dtype)
         if self.eye_weight != 0.0:

@@ -3,14 +3,17 @@
 Each ``gnntf_tpu_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ``gnntf_tpu_torch/build/lib<name>.so``, a shared library
 with a plain C interface that the kernel's wrapper loads with ``ctypes``.  A
-library is rebuilt when it is missing or older than its source.  A missing
-``nvcc`` or a failed build raises: there is no fallback.
+library is rebuilt when it is missing or older than its source or a header
+of ``csrc/`` that the source includes (``#include "..."``, followed
+through headers).  A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,10 +45,26 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def inputs(name: str) -> list:
+    """``<name>.cu`` and every header of ``csrc/`` it includes, directly or
+    through another header."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(CSRC / h for h in _INCLUDE.findall(path.read_text()))
+    return seen
+
+
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    return (not lib.exists() or lib.stat().st_mtime
+            < max(p.stat().st_mtime for p in inputs(name)))
 
 
 def build(names: Optional[Iterable[str]] = None,

@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Sweep K2's tuning knobs on one NVIDIA GPU.
+"""Sweep the tuning knobs of the edge-balanced walk (K1 and K2) on one
+NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE]
+    python3 k2_sweep.py [--out FILE] [--kernels k1,k2]
 
-On the RCM-reordered benchmark graph of ``chip_smoke.py``, over the forward
-and the transposed list at F=40 and F=128, it times K2 (CUDA events, as
-``chip_smoke.py`` does) at:
+K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
+forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
+as ``chip_smoke.py`` does) at:
 
 - every pair of unit size (``ops/blocked.py::_UNIT_ITEMS``: 64, 128, 256
-  items) and gathers of x rows in flight (``K2_UNROLL`` in
-  ``csrc/blocked_spmm.cu``: 2, 4, 8; one library built for each);
+  items) and gathers of x rows in flight (``WALK_UNROLL`` in
+  ``csrc/edge_walk.cuh``: 2, 4, 8; one library built for each);
 - fix-up parts (``_FIXUP_PARTS``: 16, 64, 256) at the default unit size and
   unroll.
+
+K1: on the list of the benchmark graph's hub-free ELL (``PreparedSpMM``),
+adding into a random base at F=40 and F=128, it times K1 at every pair of
+unit size (``ops/ell_gather.py::_UNIT_ITEMS``: 32, 64, 128 items) and
+gathers in flight (2, 4, 8), and at the least resident blocks that the
+walk's ``__launch_bounds__`` asks for (``WALK_MIN_BLOCKS``: 1, 2, 3 beside
+the default 4) at the default unit size and unroll; one ``ell_gather.cu`` library is built for
+each build setting, and each setting's three kernels are timed apart with
+``torch.profiler``.
 
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|).  One JSON object a line goes to
@@ -21,6 +31,7 @@ standard output and, with ``--out``, to FILE.
 """
 import argparse
 import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -28,45 +39,109 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (N_EDGES, N_FEATURES, N_NODES, check_close, log,
-                        nvidia_smi, time_ms)
+from chip_smoke import (N_EDGES, N_FEATURES, N_NODES, check_close,
+                        device_profile, log, nvidia_smi, time_ms)
 
 ITEMS = (64, 128, 256)
 UNROLLS = (2, 4, 8)
 PARTS = (16, 64, 256)
+K1_ITEMS = (32, 64, 128)
+# WALK_MIN_BLOCKS: the header's default, and the others K1's sweep builds
+MIN_BLOCKS_DEFAULT = 4
+MIN_BLOCKS = (1, 2, 3)
 
 
-def build_variants(unrolls):
-    """One ``libblocked_spmm_u<n>.so`` for each unroll, nvcc runs started
-    together; returns ``{unroll: ctypes.CDLL}`` with the C signature of the
-    default library."""
-    from gnntf_tpu_torch.ops import blocked
+def build_variants(name, entry, ref, builds):
+    """One ``lib<name>_u<unroll>_b<min blocks>.so`` for each (unroll, min
+    blocks) pair, nvcc runs started together; returns ``{pair:
+    ctypes.CDLL}`` with the C signature of ``entry`` in the default library
+    ``ref``, and logs each library's registers and spills."""
     from gnntf_tpu_torch.utils import kernels
-    ref = blocked._library()
-    src = kernels.CSRC / "blocked_spmm.cu"
+    src = kernels.CSRC / f"{name}.cu"
     procs = {}
-    for u in unrolls:
-        out = kernels.BUILD / f"libblocked_spmm_u{u}.so"
-        procs[u] = (out, subprocess.Popen(
-            [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DK2_UNROLL={u}", "-o",
-             str(out), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+    for u, b in builds:
+        out = kernels.BUILD / f"lib{name}_u{u}_b{b}.so"
+        procs[u, b] = (out, subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DWALK_UNROLL={u}",
+             f"-DWALK_MIN_BLOCKS={b}", "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for u, (out, proc) in procs.items():
+    for (u, b), (out, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc -DK2_UNROLL={u} failed:\n{text}")
+            raise RuntimeError(f"nvcc -DWALK_UNROLL={u} -DWALK_MIN_BLOCKS="
+                               f"{b} failed:\n{text}")
+        for line in text.splitlines():
+            if "_walk" in line or "registers" in line or "spill" in line:
+                log(f"  {name} u{u} b{b}: {line.strip()}")
         lib = ctypes.CDLL(str(out))
-        for name in ("gnntf_blocked_spmm", "gnntf_cuda_error_string"):
-            getattr(lib, name).restype = getattr(ref, name).restype
-            getattr(lib, name).argtypes = getattr(ref, name).argtypes
-        libs[u] = lib
+        for fn in (entry, "gnntf_cuda_error_string"):
+            getattr(lib, fn).restype = getattr(ref, fn).restype
+            getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+        libs[u, b] = lib
     return libs
+
+
+def sweep_k1(graph, dev, card):
+    """K1's unit size over the bench graph's rest ELL list, adding into a
+    random base; returns the JSON lines."""
+    from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
+                                     ell_gather_list, normalize_adjacency)
+    k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+    settings = [(i, u, MIN_BLOCKS_DEFAULT) for i in K1_ITEMS for u in UNROLLS]
+    settings += [(K1_ITEMS[0], 4, b) for b in MIN_BLOCKS]
+    libs = build_variants("ell_gather", "gnntf_ell_gather", k1._library(),
+                          sorted({(u, b) for _, u, b in settings}))
+    norm = normalize_adjacency(graph, graph_dropout=0.0)
+    default, library, lines = k1._UNIT_ITEMS, k1._library, []
+    rng = np.random.RandomState(4)
+    bases = {f: torch.from_numpy(rng.randn(N_NODES, f).astype(
+        np.float32)).to(dev) for f in (40, N_FEATURES)}
+    xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
+        N_NODES, f).astype(np.float32)).to(dev)
+        for f, seed in ((40, 3), (N_FEATURES, 2))}
+    preps = {}
+    for items, unroll, blocks in settings:
+        k1._UNIT_ITEMS = items
+        if items not in preps:
+            prep = PreparedSpMM(norm)
+            preps[items] = prep.k1_list, prep.k1_val
+        lst, val = preps[items]
+        k1._library = lambda lib=libs[unroll, blocks]: lib
+        for f, x in xs.items():
+            base = bases[f]
+            label = (f"K1 items={items} unroll={unroll} min_blocks="
+                     f"{blocks} F={f}")
+            check_close(label,
+                        ell_gather_list(lst, val, x, base.clone()),
+                        blocked_spmm_plain(lst, val, x, base.clone()),
+                        blocked_spmm_plain(lst, val.abs(), x.abs(),
+                                           base.abs()))
+            scratch = base.clone()
+
+            def run():
+                ell_gather_list(lst, val, x, scratch)
+
+            rows, _, _ = device_profile(run)
+            line = dict(kernel="K1", items=items, unroll=unroll,
+                        min_blocks=blocks, f=f,
+                        units=lst.n_units,
+                        split_rows=int(lst.split.shape[0]),
+                        pieces=int(lst.split[:, 2].sum()),
+                        ms=time_ms(run), card=card, us_by_kernel={
+                            key.split("<")[0].split("::")[-1]: us
+                            for key, us, _ in rows})
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+    k1._UNIT_ITEMS, k1._library = default, library
+    return lines
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
+    parser.add_argument("--kernels", default="k1,k2",
+                        help="which sweeps to run (k1, k2 or both)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -76,13 +151,20 @@ def main():
                                      blocked_spmm, blocked_spmm_plain,
                                      normalize_adjacency)
 
+    which = set(args.kernels.split(","))
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
-    libs = build_variants(UNROLLS)
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)
+    lines = sweep_k1(graph, dev, card) if "k1" in which else []
+    if "k2" not in which:
+        write(args.out, lines)
+        return
+    libs = build_variants("blocked_spmm", "gnntf_blocked_spmm",
+                          blocked._library(),
+                          [(u, MIN_BLOCKS_DEFAULT) for u in UNROLLS])
     perm = tt.rcm_order(graph)
     g, _ = tt.permute_graph(graph, perm)
     lay = block_coo(g.row.cpu().numpy(), g.col.cpu().numpy(), N_NODES)
@@ -95,13 +177,13 @@ def main():
     defaults = blocked._UNIT_ITEMS, blocked._FIXUP_PARTS
     settings = [(i, u, defaults[1]) for i in ITEMS for u in UNROLLS]
     settings += [(defaults[0], 4, p) for p in PARTS if p != defaults[1]]
-    lines, preps = [], {}
+    preps = {}
     for items, unroll, parts in settings:
         blocked._UNIT_ITEMS, blocked._FIXUP_PARTS = items, parts
-        blocked._library = lambda lib=libs[unroll]: lib
-        if items not in preps:
-            preps[items] = BlockedSpMM(lay, dev)
-        prep = preps[items]
+        blocked._library = lambda lib=libs[unroll, MIN_BLOCKS_DEFAULT]: lib
+        if (items, parts) not in preps:  # a list keeps its parts
+            preps[items, parts] = BlockedSpMM(lay, dev)
+        prep = preps[items, parts]
         for f, x in xs.items():
             for name, lst in (("A", prep.forward), ("AT", prep.transposed)):
                 label = f"items={items} unroll={unroll} parts={parts} " \
@@ -109,7 +191,8 @@ def main():
                 check_close(label, blocked_spmm(lst, val, x),
                             blocked_spmm_plain(lst, val, x),
                             blocked_spmm_plain(lst, val.abs(), x.abs()))
-                line = dict(items=items, unroll=unroll, parts=parts,
+                line = dict(kernel="K2", items=items, unroll=unroll,
+                            parts=parts,
                             list=name, f=f, units=lst.n_units,
                             split_rows=int(lst.split.shape[0]),
                             ms=time_ms(lambda: blocked_spmm(lst, val, x)),
@@ -117,8 +200,12 @@ def main():
                 print(json.dumps(line), flush=True)
                 lines.append(line)
     blocked._UNIT_ITEMS, blocked._FIXUP_PARTS = defaults
-    if args.out:
-        with open(args.out, "w") as fh:
+    write(args.out, lines)
+
+
+def write(path, lines):
+    if path:
+        with open(path, "w") as fh:
             fh.writelines(json.dumps(line) + "\n" for line in lines)
 
 

@@ -104,6 +104,23 @@ def test_plain_sums_split_rows_in_fixed_parts(monkeypatch, parts,
                                   want)
 
 
+@pytest.mark.parametrize("parts", [1, 5, 64])
+def test_part_items_hold_each_part_with_a_piece_once(parts):
+    """The fix-up's items: every (split row s, part g) with g below the
+    row's piece count once, as s * parts + g, part-major."""
+    split = np.array([[3, 0, 2], [9, 2, 70], [11, 72, 5]], np.int32)
+    items = blocked_ops.part_items(split, parts)
+    s, g = items // parts, items % parts
+    want = {(r, p) for r, (_, _, count) in enumerate(split)
+            for p in range(min(parts, count))}
+    assert items.dtype == np.int32 and len(items) == len(want)
+    assert set(zip(s.tolist(), g.tolist())) == want
+    assert np.all(np.diff(g) >= 0)
+    assert np.all(np.diff(s)[np.diff(g) == 0] > 0)
+    assert blocked_ops.part_items(np.zeros((0, 3), np.int32), parts).shape \
+        == (0,)
+
+
 def test_wrapper_rejects_bad_inputs():
     _, prep, val, x = _inputs(1)
     lst = prep.forward

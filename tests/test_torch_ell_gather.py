@@ -3,33 +3,41 @@ card tests run where JAX is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_ell_gather.py
 
-On the CPU the wrapper takes the plain version, which is held here against a
-dense product.  On the card the kernel is held against the plain version on
-the same CUDA tensors, per element, with |err| <= 1e-5 * sum|terms| (the
-scale of float32 summation error): both sum in float32 in another order,
-and rows that span runs of virtual rows are combined with atomics in an order
-that varies from launch to launch.
+K1 walks a list of the ELL grid's live slots (``ell_list``) and adds each
+row's sum into a base.  On the CPU the wrapper takes the plain version,
+which is held here against a dense product (rtol=atol=1e-5: float32 against
+float64) and, bit for bit, against a one-sum-at-a-time float32 emulation of
+the kernel's order.  On the card the kernel is held bit for bit against the
+plain version run on the CPU: both round each product and each sum apart,
+in that order.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from gnntf_tpu_torch.ops import ell_gather, ell_gather_plain
-from gnntf_tpu_torch.ops.spmm import build_ell
+import gnntf_tpu_torch.ops.blocked as blocked_ops
+from gnntf_tpu_torch.ops import (ell_edge_list, ell_gather, ell_gather_list,
+                                 ell_gather_plain, ell_list)
+from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _ELLGatherFn, build_ell
 
-KERNEL_RTOL = 1e-5
+# the module, not the function that ``gnntf_tpu_torch.ops`` exports as
+# ``ell_gather``
+k1_ops = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _ell_inputs(seed, n=500, e=4000, f=16, heavy=0):
+def _ell_inputs(seed, n=500, e=4000, f=16, heavy=0, dedup=True):
     """An ELL layout with duplicates and empty (odd) rows; ``heavy`` extra
-    edges all land on row 0, so that row spans many runs of virtual rows."""
+    edges all land on row 0, so that row is split over many units."""
     rng = np.random.RandomState(seed)
     row = rng.randint(0, n // 2, size=e) * 2
     col = rng.randint(0, n, size=e)
     if heavy:
         row = np.concatenate([row, np.zeros(heavy, row.dtype)])
         col = np.concatenate([col, rng.randint(0, n, size=heavy)])
-    layout = build_ell(row, col, n, 8)
+    layout = build_ell(row, col, n, 8, dedup=dedup)
     vals = rng.randn(layout.n_vrows, layout.k).astype(np.float32)
     vals[layout.idx == n] = 0.0
     x = rng.randn(n, f).astype(np.float32)
@@ -54,7 +62,138 @@ def test_plain_matches_dense(f):
     layout, vals, x = _ell_inputs(0, f=f, heavy=300)
     out = ell_gather_plain(*_tensors(layout, vals, x), layout.n_nodes)
     np.testing.assert_allclose(out.numpy(), _dense_reference(layout, vals, x),
-                               rtol=1e-5, atol=1e-5)
+                               **TOL)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_ell_list_keeps_live_slots_in_grid_order(dedup):
+    """Rows without a slot (the odd ones) are dropped, pads are gone, and
+    the slots of a row keep the grid's order (virtual row, then slot);
+    without dedup a duplicate pair keeps a slot of its own.  The heavy row
+    is split over many units."""
+    n = 500
+    layout, _, _ = _ell_inputs(1, n=n, heavy=1200, dedup=dedup)
+    rows, ptr, src, slot = ell_list(layout.idx, layout.vrow_row, n)
+    assert rows.dtype == ptr.dtype == src.dtype == np.int32
+    live = layout.idx < n
+    held = np.unique(np.repeat(layout.vrow_row, layout.k)[live.reshape(-1)])
+    np.testing.assert_array_equal(rows, held)
+    assert not np.any(rows % 2) and np.all(np.diff(ptr) > 0)
+    np.testing.assert_array_equal(slot, np.flatnonzero(live))
+    np.testing.assert_array_equal(src, layout.idx.reshape(-1)[slot])
+    assert ptr[-1] == int(live.sum()) and np.all(src < n)
+    per_row = np.bincount(layout.vrow_row[slot // layout.k], minlength=n)
+    np.testing.assert_array_equal(np.diff(ptr), per_row[rows])
+    lst, _ = ell_edge_list(layout.idx, layout.vrow_row, n, "cpu")
+    split = lst.split.numpy()
+    assert lst.rows is not None and lst.eid is None
+    assert split[0, 0] == 0 and split[0, 2] > 5  # row 0, 400+ slots
+
+
+def test_ell_list_groups_an_unsorted_grid():
+    """Virtual rows in any order: a row's slots are gathered in grid
+    order, and the product is unchanged."""
+    layout, vals, x = _ell_inputs(2, heavy=100)
+    order = np.random.RandomState(0).permutation(layout.n_vrows)
+    idx, vrow = layout.idx[order], layout.vrow_row[order]
+    rows, ptr, src, slot = ell_list(idx, vrow, layout.n_nodes)
+    row_of = vrow[slot // layout.k]
+    np.testing.assert_array_equal(row_of, np.repeat(rows, np.diff(ptr)))
+    assert np.all(np.diff(slot)[np.diff(row_of) == 0] > 0)
+    out = ell_gather_plain(*[torch.from_numpy(a) for a in
+                             (idx, vals[order], x, vrow)], layout.n_nodes)
+    np.testing.assert_allclose(out.numpy(), _dense_reference(layout, vals, x),
+                               **TOL)
+
+
+@pytest.mark.parametrize("f", [1, 6, 40])
+def test_plain_with_base_matches_base_plus_dense(f):
+    layout, vals, x = _ell_inputs(3, f=f, heavy=300)
+    base = np.random.RandomState(9).randn(layout.n_nodes, f).astype(
+        np.float32)
+    out = ell_gather_plain(*_tensors(layout, vals, x), layout.n_nodes,
+                           out=torch.from_numpy(base.copy()))
+    np.testing.assert_allclose(
+        out.numpy(), base + _dense_reference(layout, vals, x), **TOL)
+    # odd rows hold no slot: left as they were, bit for bit
+    np.testing.assert_array_equal(out.numpy()[1::2], base[1::2])
+
+
+@pytest.mark.parametrize("parts", [1, 5, 64])
+def test_plain_sums_split_rows_in_fixed_parts(monkeypatch, parts):
+    """The kernel's order over K1's list: a row, or a piece of a split row,
+    in slot order; a split row's pieces in ``_FIXUP_PARTS`` parts (part g
+    sums pieces g, g + P, ... in turn), the parts in order; then one
+    addition into the base.  Emulated here one float32 sum at a time; on
+    the CPU the plain version equals it bit for bit."""
+    monkeypatch.setattr(blocked_ops, "_FIXUP_PARTS", parts)
+    monkeypatch.setattr(k1_ops, "_UNIT_ITEMS", 8)
+    layout, vals, x = _ell_inputs(4, f=6, heavy=400)
+    n = layout.n_nodes
+    base = np.random.RandomState(5).randn(n, 6).astype(np.float32)
+    lst, slot = ell_edge_list(layout.idx, layout.vrow_row, n, "cpu")
+    val = vals.reshape(-1)[slot]
+    assert lst.split.shape[0] > 1 and lst.split[:, 2].max() > 30
+    ptr, src = lst.ptr.numpy(), lst.idx.numpy()
+    unit_edge = lst.unit_edge.numpy()
+
+    def run(e0, e1):
+        acc = np.zeros(6, np.float32)
+        for e in range(e0, e1):
+            acc = acc + x[src[e]] * val[e]
+        return acc
+
+    sums = np.stack([run(ptr[r], ptr[r + 1]) for r in range(lst.n_rows)])
+    for r, first, count in lst.split.numpy():
+        part = np.zeros((parts, 6), np.float32)
+        for k in range(count):
+            part[k % parts] += run(unit_edge[first + k],
+                                   unit_edge[first + k + 1])
+        sums[r] = np.zeros(6, np.float32)
+        for g in range(parts):
+            sums[r] = sums[r] + part[g]
+    want = base.copy()
+    rows = lst.rows.numpy()
+    want[rows] = base[rows] + sums
+    out = ell_gather_list(lst, torch.from_numpy(val), torch.from_numpy(x),
+                          torch.from_numpy(base.copy()))
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_gradient_for_x_and_base():
+    """``_ELLGatherFn``'s backward: ``A^T dy`` for ``x`` (against a dense
+    product) and ``dy`` itself for a base that requires grad."""
+    layout, vals, x = _ell_inputs(5, f=6, heavy=200)
+    n = layout.n_nodes
+    lst, slot = ell_edge_list(layout.idx, layout.vrow_row, n, "cpu")
+    val = torch.from_numpy(vals.reshape(-1)[slot])
+    rng = np.random.RandomState(6)
+    dy = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
+    leaf = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
+    leaf.requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = _ELLGatherFn.apply(xt, leaf * 1.0, lst, val)
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        leaf.detach().numpy() + _dense_reference(layout, vals, x), **TOL)
+    out.backward(dy)
+    a = np.zeros((n, n + 1), np.float64)
+    np.add.at(a, (np.repeat(layout.vrow_row, layout.k),
+                  layout.idx.reshape(-1)), vals.reshape(-1))
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               a[:, :n].T @ dy.numpy().astype(np.float64),
+                               **TOL)
+    assert torch.equal(leaf.grad, dy)
+
+
+def test_empty_grid_leaves_the_base():
+    layout = build_ell(np.zeros(0, np.int64), np.zeros(0, np.int64), 40, 8)
+    vals = np.zeros(layout.idx.shape, np.float32)
+    x = np.ones((40, 8), np.float32)
+    base = torch.arange(320, dtype=torch.float32).view(40, 8)
+    out = ell_gather(*_tensors(layout, vals, x), 40, out=base.clone())
+    assert torch.equal(out, base)
+    assert not ell_gather(*_tensors(layout, vals, x), 40).any()
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -74,6 +213,19 @@ def test_wrapper_rejects_bad_inputs():
         ell_gather(*bad, layout.n_nodes)
     with pytest.raises(TypeError):
         ell_gather(*args, layout.n_nodes + 1)
+    with pytest.raises(TypeError):
+        ell_gather(*args, layout.n_nodes, out=torch.zeros(3, x.shape[1]))
+    with pytest.raises(TypeError):
+        ell_gather(*args, layout.n_nodes, out=args[2].double())
+    with pytest.raises(ValueError):  # the kernel would read what it writes
+        ell_gather(*args, layout.n_nodes, out=args[2])
+    lst, slot = ell_edge_list(layout.idx, layout.vrow_row, layout.n_nodes,
+                              "cpu")
+    val = args[1].reshape(-1)[torch.from_numpy(slot)]
+    with pytest.raises(TypeError):
+        ell_gather_list(lst, val[:-1], args[2], torch.zeros_like(args[2]))
+    with pytest.raises(TypeError):
+        ell_gather_list(lst, val, args[2], torch.zeros(layout.n_nodes, 3))
 
 
 @pytest.fixture
@@ -83,45 +235,104 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_kernel(args, n_nodes):
+def _check_kernel(args, n_nodes, base):
+    """The kernel adding into ``base`` equals the plain version on the CPU
+    bit for bit, and leaves the rows without a slot as they were."""
     before = ell_gather.launches
-    out = ell_gather(*args, n_nodes)
+    out = ell_gather(*args, n_nodes, out=base.clone())
     torch.cuda.synchronize()
     assert ell_gather.launches == before + 1
-    idx, vals, x, vrow_row = args
-    ref = ell_gather_plain(*args, n_nodes)
-    scale = ell_gather_plain(idx, vals.abs(), x.abs(), vrow_row, n_nodes)
-    diff = (out - ref).abs()
-    assert bool((diff <= KERNEL_RTOL * scale).all()), diff.max().item()
+    ref = ell_gather_plain(*[a.cpu() for a in args], n_nodes,
+                           out=base.cpu().clone())
+    assert torch.equal(out.cpu(), ref)
+    idx, _, _, vrow_row = (a.cpu().numpy() for a in args)
+    rows, _, _, _ = ell_list(idx, vrow_row, n_nodes)
+    untouched = np.setdiff1d(np.arange(n_nodes), rows)
+    assert torch.equal(out.cpu()[untouched], base.cpu()[untouched])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [1, 6, 40, 64, 128, 260])
 def test_kernel_matches_plain_on_card(cuda, f):
     layout, vals, x = _ell_inputs(2, n=3000, e=60_000, f=f, heavy=20_000)
-    _check_kernel(_tensors(layout, vals, x, cuda), layout.n_nodes)
+    base = torch.from_numpy(np.random.RandomState(f).randn(3000, f).astype(
+        np.float32)).to(cuda)
+    _check_kernel(_tensors(layout, vals, x, cuda), layout.n_nodes, base)
 
 
 @pytest.mark.cuda
 def test_kernel_takes_unaligned_rows_on_card(cuda):
-    # x starts one float into its buffer: F = 16 would take float4 loads,
-    # but the rows are not 16-byte aligned, so the wrapper takes scalar ones
+    # x, then the base, start one float into their buffers: F = 16 would
+    # take float4 loads, but the rows are not 16-byte aligned, so the
+    # wrapper takes scalar ones
     layout, vals, x = _ell_inputs(3, n=2000, e=30_000, f=16)
-    idx, v, _, vr = _tensors(layout, vals, x, cuda)
-    buf = torch.empty(x.size + 1, dtype=torch.float32, device=cuda)
-    xs = buf[1:].view(x.shape)
-    xs.copy_(torch.from_numpy(x))
-    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
-    _check_kernel([idx, v, xs, vr], layout.n_nodes)
+    idx, v, xa, vr = _tensors(layout, vals, x, cuda)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=torch.float32, device=cuda)
+        u = buf[1:].view(t.shape)
+        u.copy_(t)
+        assert u.is_contiguous() and u.data_ptr() % 16 != 0
+        return u
+
+    base = torch.randn(2000, 16, device=cuda)
+    _check_kernel([idx, v, unaligned(xa), vr], layout.n_nodes, base)
+    _check_kernel([idx, v, xa, vr], layout.n_nodes, unaligned(base))
+
+
+@pytest.mark.cuda
+def test_kernel_empty_graph_on_card(cuda):
+    layout = build_ell(np.zeros(0, np.int64), np.zeros(0, np.int64), 40, 8)
+    vals = np.zeros(layout.idx.shape, np.float32)
+    args = _tensors(layout, vals, np.ones((40, 8), np.float32), cuda)
+    base = torch.randn(40, 8, device=cuda)
+    assert torch.equal(ell_gather(*args, 40, out=base.clone()), base)
+
+
+@pytest.mark.cuda
+def test_kernel_leaves_rows_it_does_not_hold_on_card(cuda):
+    # only rows 0 and 2 hold slots; every other row keeps the base's bits,
+    # NaN included
+    layout = build_ell(np.array([0, 0, 2]), np.array([1, 5, 3]), 300, 8)
+    vals = np.ones(layout.idx.shape, np.float32)
+    args = _tensors(layout, vals, np.ones((300, 4), np.float32), cuda)
+    base = torch.full((300, 4), float("nan"), device=cuda)
+    base[0] = base[2] = 1.0
+    out = ell_gather(*args, 300, out=base.clone()).cpu()
+    assert out[0].tolist() == [3.0] * 4 and out[2].tolist() == [2.0] * 4
+    assert torch.isnan(out[1]).all() and torch.isnan(out[3:]).all()
 
 
 @pytest.mark.cuda
 def test_kernel_raises_on_mixed_devices(cuda):
     layout, vals, x = _ell_inputs(4)
     args = _tensors(layout, vals, x, cuda)
-    args[2] = args[2].cpu()
+    cpu_x = list(args)
+    cpu_x[2] = cpu_x[2].cpu()
     with pytest.raises(ValueError):
-        ell_gather(*args, layout.n_nodes)
+        ell_gather(*cpu_x, layout.n_nodes)
+    with pytest.raises(ValueError):
+        ell_gather(*args, layout.n_nodes, out=torch.zeros(x.shape))
+
+
+@pytest.mark.cuda
+def test_prepared_without_hub_slice_on_card_matches_cpu(cuda):
+    """Uniform sources give no hub slice: K1 adds into zeros."""
+    import gnntf_tpu_torch as tt
+    rng = np.random.RandomState(3)
+    n = 6000
+    src, dst = rng.randint(0, n, size=(2, 40_000))
+    x = rng.randn(n, 24).astype(np.float32)
+    out = {}
+    for device in ("cpu", cuda):
+        g = tt.normalize_adjacency(tt.from_edges(
+            src, dst, n_nodes=n, directed=False, device=device),
+            graph_dropout=0.0)
+        prep = PreparedSpMM(g)
+        assert prep.dense is None
+        out[str(device)] = prep(torch.from_numpy(x).to(device)).cpu()
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -89,6 +89,44 @@ def test_cpu_blocked_wrapper_uses_plain_and_counts_nothing():
         assert torch.equal(out, tt.ops.blocked_spmm_plain(lst, val, x))
 
 
+def test_header_change_rebuilds_every_library_that_includes_it(
+        tmp_path, monkeypatch):
+    """A library is stale when it is older than its source or a ``csrc/``
+    header the source includes, directly or through another header (file
+    mtimes only; nothing is compiled)."""
+    from gnntf_tpu_torch.utils import kernels
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD", build)
+    (csrc / "walk.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    (csrc / "a.cu").write_text('#include <stdint.h>\n#include "walk.cuh"\n')
+    (csrc / "b.cu").write_text("#include <cuda_runtime.h>\n")
+    for name in ("a", "b"):
+        kernels.library_path(name).write_bytes(b"")
+
+    def stamp(path, t):
+        os.utime(path, (t, t))
+
+    for path in csrc.iterdir():
+        stamp(path, 1000)
+    for name in ("a", "b"):
+        stamp(kernels.library_path(name), 2000)
+    assert sorted(p.name for p in kernels.inputs("a")) == [
+        "a.cu", "inner.cuh", "walk.cuh"]
+    assert not kernels._stale("a") and not kernels._stale("b")
+    stamp(csrc / "inner.cuh", 3000)
+    assert kernels._stale("a") and not kernels._stale("b")
+    stamp(kernels.library_path("a"), 4000)
+    assert not kernels._stale("a")
+    stamp(csrc / "b.cu", 5000)
+    assert kernels._stale("b") and not kernels._stale("a")
+    kernels.library_path("a").unlink()
+    assert kernels._stale("a")
+
+
 @pytest.mark.parametrize("scheme", [0.3, "zero", "eye", "ones", "xavier",
                                     "he", "bernouli", "small"])
 def test_init_schemes(scheme):

@@ -1,7 +1,9 @@
 """The port's SpMM against the JAX package.
 
 Tolerance rtol=1e-5, atol=1e-5: float32 both sides, summed in another
-order (k-sum, combine and hub matmul).  The kernel wrapper on its own, and
+order (the port sums a row's live slots in one run, JAX each virtual row's
+k slots and then the virtual rows; the hub matmul is added to that sum on
+both sides).  The kernel wrapper on its own, and
 the kernel against its plain version on the card, are in
 test_torch_ell_gather.py.
 """
@@ -96,6 +98,52 @@ def test_prepared_matches_jax(case, add_eye):
     assert (jp.dense is None) == (pp.dense is None) == (case == "plain_ell")
     np.testing.assert_allclose(pp(torch.from_numpy(x)).numpy(),
                                np.asarray(jp(jnp.asarray(x))), **TOL)
+
+
+def _hub_and_split_graphs():
+    """A power-law graph (hub slice) plus row 7 joined to 2,000 random
+    nodes, most of them no hub: row 7's rest-ELL slots are split over many
+    of K1's units."""
+    rng = np.random.RandomState(11)
+    n = 4000
+    src, dst = random_power_law_edges(n, 24_000, seed=11)
+    src = np.concatenate([src, np.full(2000, 7)])
+    dst = np.concatenate([dst, rng.randint(0, n, 2000)])
+    vals = rng.rand(src.shape[0]) + 0.5
+    kw = dict(n_nodes=n, directed=False)
+    jg = jax_normalize(gt.from_edges(src, dst, vals, **kw),
+                       graph_dropout=0.0, add_eye="after")
+    pg = normalize_adjacency(tt.from_edges(src, dst, vals, device="cpu",
+                                           **kw),
+                             graph_dropout=0.0, add_eye="after")
+    return jg, pg
+
+
+def test_prepared_with_hub_slice_and_split_rows_matches_jax():
+    jg, pg = _hub_and_split_graphs()
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
+    assert pp.dense is not None and jp.dense is not None
+    split = pp.k1_list.split.numpy()
+    assert len(split) and split[:, 2].max() > 10
+    x = np.random.RandomState(12).randn(jg.n_nodes, 40).astype(np.float32)
+    np.testing.assert_allclose(pp(torch.from_numpy(x)).numpy(),
+                               np.asarray(jp(jnp.asarray(x))), **TOL)
+
+
+def test_prepared_gradient_matches_jax():
+    """The prepared operator's ``dx`` (K1's plain transposed product, the
+    hub matmul's and the scales' gradients) against ``jax.vjp``."""
+    import jax
+    jg, pg = _hub_and_split_graphs()
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
+    rng = np.random.RandomState(13)
+    x = rng.randn(jg.n_nodes, 12).astype(np.float32)
+    dy = rng.randn(jg.n_nodes, 12).astype(np.float32)
+    _, vjp = jax.vjp(jp, jnp.asarray(x))
+    (ref,) = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    pp(xt).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), **TOL)
 
 
 @pytest.mark.parametrize("n,e", [(500, 3000), (6000, 40_000)])

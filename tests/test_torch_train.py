@@ -262,10 +262,10 @@ def test_prepared_operator_gradient_matches_plain():
     x = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
     dy = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
     grads = []
-    for fn in (_ELLGatherFn.apply, lambda x, *a: tt.ops.ell_gather_plain(
-            a[0], a[1], x, a[2], a[3])):
+    for fn in (_ELLGatherFn.apply, lambda x, base, lst, val:
+               tt.ops.blocked_spmm_plain(lst, val, x, base)):
         xt = x.clone().requires_grad_()
-        fn(xt, prep.ell_idx, prep.ell_vals, prep.vrow_row, n).backward(dy)
+        fn(xt, torch.zeros(n, 6), prep.k1_list, prep.k1_val).backward(dy)
         grads.append(xt.grad)
     np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(),
                                rtol=1e-5, atol=1e-5)
