@@ -24,6 +24,15 @@ Phases (any failure raises and exits non-zero):
    column split over many units of work, and the layout of the
    RCM-reordered benchmark graph at F=40 and F=128 (each direction beside
    the cuSPARSE CSR product of A or A^T), with the layout's statistics;
+2c. the same for K1's masked mode (each edge weighted by its dropped value,
+   the mask hashed in the kernel) over the training grids' row list (the
+   step's forward) and column list (its backward), and for K1's degree mode
+   (the dropped graph's column sums): a small graph with empty rows and
+   columns, a hub row and column split over many units, trailing self-loops
+   (``n_drop < E``) and ``keep = 1``, and the benchmark graph's lists at
+   F=40 and F=128 beside ``torch.sparse.mm`` of the dropped A in CSR and
+   ``index_add_`` of the dropped values, logging the bit-equal share
+   against the plain versions on the CPU;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -36,13 +45,21 @@ Phases (any failure raises and exits non-zero):
    spmm_impl="pallas", epochs=5)`` on 10,000 train and 10,000 valid nodes,
    counts zeroed just before and read just after (30 K2 launches an epoch:
    10 in the step's forward, 10 in its backward's A^T dy, 10 in the
-   validation forward); then predict;
+   validation forward; the step's degrees run K1's degree mode, 10 an
+   epoch); then predict;
 4b. the same path on both devices: a hand-built APPNP stack without feature
    dropout (edge masks come from CPU-drawn salts, so they agree), 3 epochs
-   under ``pallas`` on the card and on the CPU (plain versions), losses and
-   parameters compared; then 2 epochs with the default implementation on
-   the card, whose clean forwards run K1 (10 launches an epoch);
-5. print a ``{"kernels": [...]}`` line, the card's name and power limit from
+   under ``pallas`` and 3 epochs under the default implementation, each on
+   the card and on the CPU (plain versions), losses and parameters
+   compared;
+5. drive the default training path: APPNP(num_classes=40) with its defaults
+   on the natural-order benchmark graph, ``train(..., epochs=5)`` with no
+   ``spmm_impl``, 4a's labels and split, counts zeroed just before and read
+   just after: an epoch launches the masked walk 20 times (10 in the step's
+   forward over the row list, 10 in its backward over the column list), the
+   degree walk 10 times, K1 10 times (the validation forward) and K2 never,
+   and the training grids are built once; a profile of one step;
+6. print a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -60,11 +77,18 @@ N_FEATURES = 128
 N_CLASSES = 40
 N_REQUESTS, REQUEST_NODES = 3, 10_000
 TRAIN_NODES = VALID_NODES = 10_000
-TRAIN_EPOCHS, CROSS_EPOCHS, DEFAULT_EPOCHS = 5, 3, 2
+TRAIN_EPOCHS, CROSS_EPOCHS = 5, 3
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# integer operations of the dropout hash an edge (two fmix32 rounds, the
+# salts, the threshold and n_drop tests), counted at the fp32 rate: the
+# data sheet gives no integer rate off the tensor cores, and a higher rate
+# would only lower the bound
+HASH_OPS = 21
+# the draw of the masked kernels' checks: keep rate of APPNP's edge dropout
+KEEP = 0.5
 # kernel vs plain version on the card, per element, relative to the sum of
 # the magnitudes of the element's terms (the scale of float32 summation
 # error; the result itself may cancel).  Neither kernel uses atomics: each
@@ -137,12 +161,19 @@ def device_profile(fn):
     return rows, sum(r[1] for r in rows), wall_us
 
 
+def kernel_name(key):
+    """A profiled kernel's name without namespace, template arguments and
+    parameters (``ell_degree_walk``, ``blocked_spmm_walk``, ...)."""
+    return key.split("(anonymous namespace)::")[-1].split("<")[0].split(
+        "(")[0]
+
+
 def log_kernels(label, rows, tag):
     """One line per kernel whose name holds ``tag`` (K1's or K2's walk,
     parts and fix-up)."""
     for key, us, count in rows:
         if tag in key:
-            log(f"  {label} kernel {key.split('<')[0].split('::')[-1]}: {us} "
+            log(f"  {label} kernel {kernel_name(key)}: {us} "
                 f"us in {count} launches, {us / count} us a launch")
 
 
@@ -376,6 +407,201 @@ def layout_stats(lay, seconds):
     return stats
 
 
+def list_rows(lst):
+    """The list row of each item of a walk's list."""
+    return torch.repeat_interleave(
+        torch.arange(lst.n_rows, device=lst.device), lst.ptr.diff().long(),
+        output_size=lst.n_edges)
+
+
+def list_eids(lst):
+    return (torch.arange(lst.n_edges, device=lst.device) if lst.eid is None
+            else lst.eid.long())
+
+
+def masked_bound(lst, kept, f=None):
+    """Least time for a masked walk over this list under a draw that keeps
+    ``kept`` (one bool a list item): its row pointer (4 B a row), each
+    item's edge id where the list reads one (4 B), the source and value of
+    each kept edge (8 B; a dropped edge's are not needed), the x rows that
+    kept edges reference read once and out written once; 2 flops per kept
+    edge and feature and the hash's integer operations an edge.  With no
+    ``f`` (the degree walk): no sources and no x, one value a row out, an
+    addition per kept edge."""
+    n_kept = int(kept.sum())
+    eid_bytes = 0 if lst.eid is None else 4 * lst.n_edges
+    n_bytes = (lst.n_rows + 1) * 4 + eid_bytes
+    if f is None:
+        n_bytes += n_kept * 4 + lst.n_rows * 4
+        ops = n_kept + HASH_OPS * lst.n_edges
+    else:
+        x_rows = int(torch.unique(lst.idx[kept]).numel())
+        n_bytes += n_kept * 8 + x_rows * f * 4 + lst.n_rows * f * 4
+        ops = 2 * n_kept * f + HASH_OPS * lst.n_edges
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes
+
+
+def check_masked_kernel(label, lst, val, draw, x=None, library=False):
+    """K1's masked walk (``x`` given) or its degree walk (no ``x``) over a
+    training-grid list against its plain version on the card; times kernel,
+    plain version (the hash included) and (``library``) one PyTorch call of
+    the same function on the realized values: ``torch.sparse.mm`` of the
+    dropped matrix in CSR, or ``index_add_`` for the degree."""
+    from gnntf_tpu_torch.ops import (blocked_spmm_plain, ell_degree_masked,
+                                     ell_degree_masked_plain,
+                                     ell_gather_masked,
+                                     ell_gather_masked_plain, stochastic)
+
+    w = stochastic.drawn_values(val, *draw)
+    if x is None:
+        kernel = lambda: ell_degree_masked(lst, val, *draw)
+        plain_fn = lambda: ell_degree_masked_plain(lst, val, *draw)
+        ones = torch.ones(lst.n_rows, 1, device=val.device)
+        scale = blocked_spmm_plain(lst, w.abs(), ones)[:, 0]
+    else:
+        kernel = lambda: ell_gather_masked(lst, val, *draw, x)
+        plain_fn = lambda: ell_gather_masked_plain(lst, val, *draw, x)
+        scale = blocked_spmm_plain(lst, w.abs(), x.abs())
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain_fn()
+    err = check_close(f"{label}", out, ref, scale)
+
+    def plain():
+        stochastic._last_draw = None  # hash anew, as a new draw would
+        return plain_fn()
+
+    res = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain))
+    kept = stochastic.keep_mask(list_eids(lst), draw[0], draw[1], draw[2])
+    res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
+        lst, kept, None if x is None else x.shape[1])
+    res["library_ms"] = None
+    if library:
+        rows, w_items = list_rows(lst), w[list_eids(lst)]
+        if x is None:
+            call = lambda: torch.zeros(lst.n_rows, device=val.device
+                                       ).index_add_(0, rows, w_items)
+        else:
+            a = torch.sparse_coo_tensor(
+                torch.stack([rows, lst.idx.long()]), w_items,
+                (lst.n_rows, x.shape[0])).coalesce().to_sparse_csr()
+            call = lambda: torch.sparse.mm(a, x)
+        check_close(f"library {label}", call(), ref, scale)
+        res["library_ms"] = time_ms(call)
+    log(f"{label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
+        f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
+        f"({res['bound_by']}, {n_bytes} B), kept {int(kept.sum())} of "
+        f"{lst.n_edges} edges, units {lst.n_units}, split rows "
+        f"{lst.split.shape[0]}, eid {'identity' if lst.eid is None else 'read'}"
+        f", N={lst.n_rows}" + ("" if x is None else f" F={x.shape[1]}"))
+    return res
+
+
+def cpu_share(label, out, lst, val, draw, x=None):
+    """The share of ``out`` (from the card) bit-equal to the plain version
+    run on the CPU."""
+    from gnntf_tpu_torch.ops import (ell_degree_masked_plain,
+                                     ell_gather_masked_plain)
+    lst = list_to(lst, "cpu")
+    if x is None:
+        ref = ell_degree_masked_plain(lst, val.cpu(), *draw)
+    else:
+        ref = ell_gather_masked_plain(lst, val.cpu(), *draw, x.cpu())
+    share = (out.cpu() == ref).double().mean().item()
+    log(f"{label} on the card against the plain version on the CPU: "
+        f"bit-equal share {share}")
+    return share
+
+
+def phase_masked_kernels(graph, dev, x40, x128):
+    """2c: K1's masked and degree walks against their plain versions, small
+    and on the bench graph's training-grid lists; returns the results."""
+    from gnntf_tpu_torch.ops import (build_train_grids, ell_degree_masked,
+                                     ell_gather_masked)
+
+    rng = np.random.RandomState(6)
+    n = 3000
+    # even rows and columns that are multiples of 3 (the others stay
+    # empty), a hub row and a hub column, then 300 self-loops past n_drop
+    row = np.concatenate([rng.randint(0, n // 2, 60_000) * 2,
+                          np.zeros(20_000, np.int64),
+                          rng.randint(0, n // 2, 20_000) * 2])
+    col = np.concatenate([rng.randint(0, n // 3, 80_000) * 3,
+                          np.full(20_000, 33)])
+    n_drop = len(row)
+    row = np.concatenate([row, np.arange(300)])
+    col = np.concatenate([col, np.arange(300)])
+    val = torch.from_numpy(rng.rand(len(row)).astype(np.float32) + 0.5).to(
+        dev)
+    rows, cols = build_train_grids(row, col, val.cpu().numpy(), n).lists(dev)
+    salt = torch.tensor([0x9E3779B9, 77])
+    small = {}
+    for f in (6, 40):
+        x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
+        for name, lst in (("row", rows), ("column", cols)):
+            small[name] = check_masked_kernel(
+                f"masked small {name} list F={f}", lst, val,
+                (salt, 0.3, n_drop), x)
+    for keep in (0.3, 1.0):
+        small["degree"] = check_masked_kernel(
+            f"degree small column list keep={keep}", cols, val,
+            (salt, keep, n_drop))
+
+    t0 = time.perf_counter()
+    grids = build_train_grids(graph.row.cpu().numpy(),
+                              graph.col.cpu().numpy(),
+                              graph.val.cpu().numpy(), N_NODES)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, cols = grids.lists(dev)
+    torch.cuda.synchronize()
+    stats = dict(grids_s=build_s, lists_s=time.perf_counter() - t0)
+    for name, lst in (("row", rows), ("column", cols)):
+        split = lst.split.cpu().numpy()
+        stats[name] = dict(edges=lst.n_edges, units=lst.n_units,
+                           split_rows=len(split),
+                           pieces=int(split[:, 2].sum()),
+                           most_pieces=int(split[:, 2].max(initial=0)),
+                           eid="identity" if lst.eid is None else "read")
+    log(f"bench training grids: {stats}")
+    val = graph.val.to(torch.float32).contiguous()
+    salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(9))
+    draw = (salt, KEEP, graph.n_edges)
+    res = {}
+    for f, x in ((N_FEATURES, x128), (40, x40)):
+        res["forward", f] = check_masked_kernel(
+            f"masked bench row list F={f}", rows, val, draw, x, library=True)
+        res["backward", f] = check_masked_kernel(
+            f"masked bench column list F={f}", cols, val, draw, x,
+            library=True)
+    res["degree"] = check_masked_kernel("degree bench column list", cols, val,
+                                        draw, library=True)
+    res["degree_row"] = check_masked_kernel("degree bench row list", rows,
+                                            val, draw, library=True)
+    # the kernels round as the plain versions do on the CPU, in their order
+    shares = dict(
+        forward_f40=cpu_share("masked bench row list F=40",
+                              ell_gather_masked(rows, val, *draw, x40),
+                              rows, val, draw, x40),
+        backward_f40=cpu_share("masked bench column list F=40",
+                               ell_gather_masked(cols, val, *draw, x40),
+                               cols, val, draw, x40),
+        degree=cpu_share("degree bench column list",
+                         ell_degree_masked(cols, val, *draw), cols, val,
+                         draw))
+    stats["bit_equal_to_cpu_plain"] = shares
+    return dict(small=small, forward=res["forward", 40],
+                forward_bench=res["forward", N_FEATURES],
+                backward=res["backward", 40],
+                backward_bench=res["backward", N_FEATURES],
+                degree=res["degree"], degree_row=res["degree_row"],
+                lists=stats)
+
+
 def hand_stack(graph, features, device, iterations=10):
     """APPNP's stack without its feature-dropout layers: Dense(64, relu),
     H0 = Dense(40, no regularization), ``iterations`` x
@@ -390,26 +616,40 @@ def hand_stack(graph, features, device, iterations=10):
 
 
 def profile_step(step, top=10):
-    """Device time by kernel over one training step (torch.profiler), the
-    share of it in ``index_add_`` kernels (the degree sums of the dropped
-    graph) and in K2 (forward and backward launches)."""
+    """Device time by kernel over one training step (torch.profiler): the
+    share of it in ``index_add_`` kernels, in K2 (forward and backward
+    launches), in K1's masked walk and in its degree walk, and the walks of
+    each."""
     rows, busy_us, wall_us = device_profile(step)
-    index_add = [r for r in rows if "indexFunc" in r[0]
-                 or "index_add" in r[0].lower()]
-    index_add_us = sum(r[1] for r in index_add)
-    k2_us = sum(r[1] for r in rows if "blocked_spmm" in r[0])
-    walks = sum(r[2] for r in rows if "blocked_spmm_walk" in r[0])
+
+    def family(*tags):
+        hit = [r for r in rows if any(t in r[0] for t in tags)]
+        return sum(r[1] for r in hit), sum(r[2] for r in hit)
+
+    index_add_us, index_add_launches = family("indexFunc", "index_add")
+    walks = {name: family(name)[1] for name in (
+        "blocked_spmm_walk", "ell_gather_masked_walk", "ell_degree_walk",
+        "ell_gather_walk")}
+    shares = {name: family(tag)[0] / busy_us for name, tag in (
+        ("k2", "blocked_spmm"), ("masked", "ell_gather_masked"),
+        ("degree", "ell_degree"))}
     log(f"profile of one training step: wall {wall_us} us, device busy "
         f"{busy_us} us, idle share {1 - busy_us / wall_us}; index_add_ "
-        f"kernels {index_add_us} us ({index_add_us / busy_us} of busy), K2 "
-        f"{k2_us} us ({k2_us / busy_us} of busy)")
+        f"kernels {index_add_us} us in {index_add_launches} launches; "
+        f"shares of busy {shares}; walks {walks}")
     for key, us, count in rows[:top]:
         log(f"  {us} us in {count} launches: {key[:90]}")
     log_kernels("K2", rows, "blocked_spmm")
+    log_kernels("K1 masked", rows, "ell_gather_masked")
+    log_kernels("K1 degree", rows, "ell_degree")
     return dict(busy_us=busy_us, wall_us=wall_us,
+                launches=sum(r[2] for r in rows),
                 index_add_share=index_add_us / busy_us,
-                index_add_launches=sum(r[2] for r in index_add),
-                k2_share=k2_us / busy_us, k2_walks=walks)
+                index_add_launches=index_add_launches, shares=shares,
+                k2_walks=walks["blocked_spmm_walk"],
+                masked_walks=walks["ell_gather_masked_walk"],
+                degree_walks=walks["ell_degree_walk"],
+                k1_walks=walks["ell_gather_walk"])
 
 
 def phase_blocked_kernel(graph, dev, x40, x128):
@@ -493,7 +733,8 @@ def phase_blocked_kernel(graph, dev, x40, x128):
 def phase_train(g_rcm, perm, inv, features, dev):
     """4a: APPNP.train(spmm_impl="pallas") at full width through K2."""
     import gnntf_tpu_torch as tt
-    from gnntf_tpu_torch.ops import blocked_spmm, ell_gather
+    from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
+                                     ell_gather)
     from gnntf_tpu_torch.train.trainer import _total_loss
 
     order = np.random.RandomState(7).permutation(N_NODES)
@@ -513,10 +754,12 @@ def phase_train(g_rcm, perm, inv, features, dev):
     torch.cuda.reset_peak_memory_stats()
     blocked_spmm.launches = 0
     ell_gather.launches = 0
+    ell_degree_masked.launches = 0
     t0 = time.perf_counter()
     hist = model.train(train, valid, spmm_impl="pallas", epochs=TRAIN_EPOCHS,
                        patience=100, seed=0, callbacks=[mark])
     launches, k1_launches = blocked_spmm.launches, ell_gather.launches
+    degree_launches = ell_degree_masked.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     epoch_ms, per_epoch, prev = [], [], (t0, 0)
     for t, n in marks:
@@ -524,8 +767,12 @@ def phase_train(g_rcm, perm, inv, features, dev):
         per_epoch.append(n - prev[1])
         prev = (t, n)
     log(f"training (pallas): epoch ms {epoch_ms}, K2 launches per epoch "
-        f"{per_epoch}, K1 launches {k1_launches}, peak memory {peak_mb} MiB, "
-        f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}")
+        f"{per_epoch}, K1 launches {k1_launches}, degree walks "
+        f"{degree_launches}, peak memory {peak_mb} MiB, train loss "
+        f"{hist['train_loss']}, valid loss {hist['valid_loss']}")
+    if degree_launches != 10 * TRAIN_EPOCHS:
+        raise AssertionError(f"{degree_launches} degree walks under pallas, "
+                             f"expected 10 an epoch (the step's degrees)")
     if per_epoch != [30] * TRAIN_EPOCHS or launches != 30 * TRAIN_EPOCHS:
         raise AssertionError(f"K2 launches per epoch {per_epoch}, expected "
                              "30 (10 in the step's forward, 10 in its "
@@ -560,12 +807,15 @@ def phase_train(g_rcm, perm, inv, features, dev):
             times.append((time.perf_counter() - t) * 1e3)
         timings[name + "_ms"] = times
     profile = profile_step(step)
-    # the backward's A^T dy runs K2: the step's only index_add_ kernels are
-    # the 10 layers' degree sums
-    if profile["index_add_launches"] != 10 or profile["k2_walks"] != 20:
+    # the backward's A^T dy runs K2 and the 10 layers' degrees run K1's
+    # degree walk: no index_add_ is left in the step
+    if (profile["index_add_launches"], profile["k2_walks"],
+            profile["degree_walks"]) != (0, 20, 10):
         raise AssertionError(f"step profile: {profile['index_add_launches']}"
-                             f" index_add_ launches (expected 10) and "
-                             f"{profile['k2_walks']} K2 walks (expected 20)")
+                             f" index_add_ launches (expected 0), "
+                             f"{profile['k2_walks']} K2 walks (expected 20), "
+                             f"{profile['degree_walks']} degree walks "
+                             "(expected 10)")
     log(f"training step (forward + backward) ms {timings['step_ms']}, "
         f"validation forward ms {timings['eval_forward_ms']}")
 
@@ -576,8 +826,9 @@ def phase_train(g_rcm, perm, inv, features, dev):
         raise AssertionError(f"bad predictions {tuple(preds.shape)}")
     log(f"predict on the valid set: {VALID_NODES} labels, accuracy "
         f"{accuracy} (random labels: ~{1 / N_CLASSES})")
-    return dict(launches=launches, epoch_ms=epoch_ms, peak_mb=peak_mb,
-                profile=profile, **timings)
+    return dict(launches=launches, degree_launches=degree_launches,
+                epoch_ms=epoch_ms, peak_mb=peak_mb, profile=profile,
+                **timings)
 
 
 def recording_adam(learning_rate):
@@ -617,11 +868,47 @@ def log_adam_state(name, far, steps_gpu, steps_cpu, eps, top=8):
                 f"{v_gpu[i].sqrt().item()} (eps {eps})")
 
 
+def launch_counts():
+    """The kernel wrappers' launch counts: K2, K1, K1's masked walk and its
+    degree walk."""
+    from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
+                                     ell_gather, ell_gather_masked)
+    return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
+                masked=ell_gather_masked.launches,
+                degree=ell_degree_masked.launches)
+
+
+def zero_counts():
+    from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
+                                     ell_gather, ell_gather_masked)
+    for fn in (blocked_spmm, ell_gather, ell_gather_masked,
+               ell_degree_masked):
+        fn.launches = 0
+
+
+def per_epoch(marks):
+    """Per-epoch differences of the launch counts read at each epoch's
+    end (counts zeroed before the run)."""
+    prev = dict.fromkeys(marks[0], 0) if marks else {}
+    out = []
+    for m in marks:
+        out.append({k: m[k] - prev[k] for k in m})
+        prev = m
+    return out
+
+
+# launches an epoch on the card: K2 in the step's forward and backward and
+# in the validation forward under pallas, with K1's degree walk for the
+# step's degrees; under the default impl K1's masked walk in the step's
+# forward and backward, its degree walk, and K1 in the validation forward
+EPOCH_LAUNCHES = {"pallas": dict(k2=30, k1=0, masked=0, degree=10),
+                  None: dict(k2=0, k1=10, masked=20, degree=10)}
+
+
 def phase_devices(g_rcm, perm, inv, features, dev):
-    """4b: the pallas training path on the card and on the CPU, then the
-    default implementation on the card."""
+    """4b: the pallas and the default training path, each on the card and
+    on the CPU."""
     import gnntf_tpu_torch as tt
-    from gnntf_tpu_torch.ops import blocked_spmm, ell_gather
 
     order = np.random.RandomState(7).permutation(N_NODES)
     labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
@@ -630,75 +917,189 @@ def phase_devices(g_rcm, perm, inv, features, dev):
     tasks = (tt.NodeClassification(inv[train_old], labels[train_old]),
              tt.NodeClassification(inv[valid_old], labels[valid_old]))
     feats = features[perm]
-    runs, seconds, params, adam = {}, {}, {}, {}
-    for device, graph in ((dev, g_rcm), ("cpu", g_rcm.to("cpu"))):
-        model = hand_stack(graph, feats, device)
-        adam[str(device)] = recording_adam(LEARNING_RATE)
-        blocked_spmm.launches = 0
-        t0 = time.perf_counter()
-        runs[str(device)] = model.train(*tasks, spmm_impl="pallas",
-                                        epochs=CROSS_EPOCHS, patience=100,
-                                        optimizer=adam[str(device)], seed=0)
-        seconds[str(device)] = time.perf_counter() - t0
-        launches = blocked_spmm.launches
-        want = 30 * CROSS_EPOCHS if device == dev else 0
-        if launches != want:
-            raise AssertionError(f"{launches} K2 launches on {device}, "
-                                 f"expected {want}")
-        params[str(device)] = {k: p.detach().cpu()
-                               for k, p in model.params.items()}
-    gpu, cpu = runs[str(dev)], runs["cpu"]
-    log(f"GPU vs CPU training, {CROSS_EPOCHS} epochs: GPU {gpu} "
-        f"({seconds[str(dev)]} s), CPU {cpu} ({seconds['cpu']} s)")
-    for key in ("train_loss", "valid_loss"):
-        np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
-    worst, outside, total = 0.0, 0, 0
-    for k, p in params["cpu"].items():
-        q = params[str(dev)][k]
-        diff = (q - p).abs()
-        worst = max(worst, diff.max().item())
-        far = ~torch.isclose(q, p, **PARAM_TOL)
-        outside += int(far.sum())
-        total += p.numel()
-        log(f"  parameter {k} {tuple(p.shape)}: max |diff| "
-            f"{diff.max().item()}, {int(far.sum())} elements outside "
-            f"{PARAM_TOL}, largest |value| there "
-            f"{p[far].abs().max().item() if far.any() else 0.0}")
-        if far.any():
-            log_adam_state(k, far, adam[str(dev)].steps, adam["cpu"].steps,
-                           adam["cpu"].eps)
-    log(f"GPU vs CPU parameters after training (best epoch "
-        f"{gpu['best_epoch']}): max |diff| {worst} (limit {MAX_PARAM_DIFF}), "
-        f"{outside} of {total} elements outside {PARAM_TOL}")
-    if outside > PARAM_OUTLIERS * total or worst > MAX_PARAM_DIFF:
-        raise AssertionError("parameters differ between devices")
+    g_cpu = g_rcm.to("cpu")
+    out = {}
+    for impl in ("pallas", None):
+        runs, seconds, params, adam, counts = {}, {}, {}, {}, {}
+        for device, graph in ((dev, g_rcm), ("cpu", g_cpu)):
+            model = hand_stack(graph, feats, device)
+            adam[str(device)] = recording_adam(LEARNING_RATE)
+            marks = []
+            zero_counts()
+            t0 = time.perf_counter()
+            runs[str(device)] = model.train(
+                *tasks, spmm_impl=impl, epochs=CROSS_EPOCHS, patience=100,
+                optimizer=adam[str(device)], seed=0,
+                callbacks=[lambda **_: marks.append(launch_counts())])
+            seconds[str(device)] = time.perf_counter() - t0
+            counts[str(device)] = per_epoch(marks)
+            want = (EPOCH_LAUNCHES[impl] if device == dev
+                    else dict(k2=0, k1=0, masked=0, degree=0))
+            if counts[str(device)] != [want] * CROSS_EPOCHS:
+                raise AssertionError(f"launches an epoch under {impl} on "
+                                     f"{device}: {counts[str(device)]}, "
+                                     f"expected {want}")
+            params[str(device)] = {k: p.detach().cpu()
+                                   for k, p in model.params.items()}
+        gpu, cpu = runs[str(dev)], runs["cpu"]
+        log(f"GPU vs CPU training under {impl or 'the default impl'}, "
+            f"{CROSS_EPOCHS} epochs: GPU {gpu} ({seconds[str(dev)]} s, "
+            f"launches an epoch {counts[str(dev)][0]}), CPU {cpu} "
+            f"({seconds['cpu']} s)")
+        for key in ("train_loss", "valid_loss"):
+            np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
+        worst, outside, total = 0.0, 0, 0
+        for k, p in params["cpu"].items():
+            q = params[str(dev)][k]
+            diff = (q - p).abs()
+            worst = max(worst, diff.max().item())
+            far = ~torch.isclose(q, p, **PARAM_TOL)
+            outside += int(far.sum())
+            total += p.numel()
+            log(f"  parameter {k} {tuple(p.shape)}: max |diff| "
+                f"{diff.max().item()}, {int(far.sum())} elements outside "
+                f"{PARAM_TOL}, largest |value| there "
+                f"{p[far].abs().max().item() if far.any() else 0.0}")
+            if far.any():
+                log_adam_state(k, far, adam[str(dev)].steps,
+                               adam["cpu"].steps, adam["cpu"].eps)
+        log(f"GPU vs CPU parameters after training under "
+            f"{impl or 'the default impl'} (best epoch {gpu['best_epoch']}):"
+            f" max |diff| {worst} (limit {MAX_PARAM_DIFF}), {outside} of "
+            f"{total} elements outside {PARAM_TOL}")
+        if outside > PARAM_OUTLIERS * total or worst > MAX_PARAM_DIFF:
+            raise AssertionError("parameters differ between devices")
+        out[impl or "default"] = dict(
+            cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)],
+            max_param_diff=worst, outside=outside,
+            launches_per_epoch=counts[str(dev)][0])
+    return out
 
-    model = hand_stack(g_rcm, feats, dev)
-    marks = []
-    blocked_spmm.launches = 0
-    ell_gather.launches = 0
-    hist = model.train(*tasks, epochs=DEFAULT_EPOCHS, patience=100, seed=0,
-                       callbacks=[lambda **_: marks.append(
-                           ell_gather.launches)])
-    k1 = np.diff([0] + marks).tolist()
-    log(f"default impl on the card: K1 launches per epoch {k1}, K2 "
-        f"launches {blocked_spmm.launches}, losses {hist}")
-    if k1 != [10] * DEFAULT_EPOCHS or blocked_spmm.launches:
-        raise AssertionError("the default impl's clean forwards must run K1 "
-                             "10 times an epoch and K2 never")
-    return dict(cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)],
-                max_param_diff=worst, k1_per_epoch=k1)
+
+def phase_default_train(graph, features, dev):
+    """5: APPNP.train() with no spmm_impl at full width on the natural-order
+    bench graph: the masked and degree walks in the step, K1 in the
+    validation forward, the grids built once."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import (ell_degree_masked, ell_gather_masked,
+                                     stochastic)
+    from gnntf_tpu_torch.train.trainer import _total_loss
+
+    order = np.random.RandomState(7).permutation(N_NODES)
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    train_old = order[:TRAIN_NODES]
+    valid_old = order[TRAIN_NODES:TRAIN_NODES + VALID_NODES]
+    train = tt.NodeClassification(train_old, labels[train_old])
+    valid = tt.NodeClassification(valid_old, labels[valid_old])
+    model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+    marks, times = [], []
+
+    def mark(epoch, **_):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        marks.append(launch_counts())
+
+    stochastic._last_draw = None  # set only where a draw is realized
+    builds = stochastic.train_grids.builds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = model.train(train, valid, epochs=TRAIN_EPOCHS, patience=100,
+                       seed=0, callbacks=[mark])
+    counts = per_epoch(marks)
+    builds = stochastic.train_grids.builds - builds
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    epoch_ms = np.diff([t0] + times) * 1e3
+    log(f"training (default impl): epoch ms {epoch_ms.tolist()}, launches "
+        f"an epoch {counts}, grid builds {builds}, peak memory {peak_mb} "
+        f"MiB, train loss {hist['train_loss']}, valid loss "
+        f"{hist['valid_loss']}")
+    if counts != [EPOCH_LAUNCHES[None]] * TRAIN_EPOCHS:
+        raise AssertionError(f"launches an epoch {counts}, expected "
+                             f"{EPOCH_LAUNCHES[None]}")
+    if builds != 1:
+        raise AssertionError(f"{builds} grid builds, expected 1")
+    # on the card no draw is realized per edge (the plain versions that
+    # stand in for the kernels on the CPU realize each one)
+    if dev.type == "cuda" and stochastic._last_draw is not None:
+        raise AssertionError("a draw was realized per edge on the default "
+                             "training path")
+    losses = np.array(hist["train_loss"] + hist["valid_loss"])
+    if len(losses) != 2 * TRAIN_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"bad losses {hist}")
+
+    params = [p for p in model.params.values() if p.requires_grad]
+    split = {}
+
+    def step(record=False):
+        before = (ell_gather_masked.launches, ell_degree_masked.launches)
+        loss = _total_loss(model, train, train.batch(), 5e-4,
+                           torch.Generator().manual_seed(1))
+        mid = (ell_gather_masked.launches, ell_degree_masked.launches)
+        torch.autograd.grad(loss, params)
+        if record:
+            split.update(forward_masked=mid[0] - before[0],
+                         forward_degree=mid[1] - before[1],
+                         backward_masked=ell_gather_masked.launches - mid[0],
+                         backward_degree=ell_degree_masked.launches - mid[1])
+
+    def eval_forward():
+        with torch.no_grad():
+            model.forward(model.features)
+
+    step(record=True)
+    log(f"one step's launches: {split}")
+    if split != dict(forward_masked=10, forward_degree=10,
+                     backward_masked=10, backward_degree=0):
+        raise AssertionError(f"one step's launches {split}: expected the "
+                             "masked walk 10 times forward and 10 backward, "
+                             "the degree walk 10 times forward")
+    timings = {}
+    for name, fn in (("step", step), ("eval_forward", eval_forward)):
+        fn()
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t) * 1e3)
+        timings[name + "_ms"] = reps
+    profile = profile_step(step)
+    if (profile["index_add_launches"], profile["k2_walks"],
+            profile["masked_walks"], profile["degree_walks"]) != (0, 0, 20,
+                                                                  10):
+        raise AssertionError(f"step profile {profile}: expected no "
+                             "index_add_, no K2, 20 masked and 10 degree "
+                             "walks")
+    log(f"training step (forward + backward, default impl) ms "
+        f"{timings['step_ms']}, validation forward ms "
+        f"{timings['eval_forward_ms']}")
+    preds = model.predict(valid).cpu()
+    accuracy = float(model.evaluate(valid))
+    if preds.shape != (VALID_NODES,) or int(preds.max()) >= N_CLASSES:
+        raise AssertionError(f"bad predictions {tuple(preds.shape)}")
+    log(f"predict on the valid set: {VALID_NODES} labels, accuracy "
+        f"{accuracy} (random labels: ~{1 / N_CLASSES})")
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return dict(launches=total, epoch_ms=epoch_ms.tolist(), peak_mb=peak_mb,
+                grid_builds=builds, step_split=split, profile=profile,
+                **timings)
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: torch.cuda.is_available() is False")
+def main(dev=None):
+    """Every phase on the card; ``dev`` (another device) serves rehearsals
+    of the control flow only."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: torch.cuda.is_available() is False")
+        dev = torch.device("cuda")
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
     from gnntf_tpu_torch.ops import ell_gather
     from gnntf_tpu_torch.utils import kernels
 
-    dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
 
@@ -725,6 +1126,9 @@ def main():
 
     # 2b. K2 against its plain version, small and on the RCM bench layout
     g_rcm, perm, inv, k2 = phase_blocked_kernel(graph, dev, x40, x128)
+
+    # 2c. K1's masked and degree walks, small and on the bench grids' lists
+    masked = phase_masked_kernels(graph, dev, x40, x128)
 
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
@@ -807,12 +1211,22 @@ def main():
     if agree < MIN_ARGMAX_AGREEMENT:
         raise AssertionError(f"argmax agreement {agree}")
 
-    # 4a. the training path through K2, 4b. the same on both devices
+    # 4a. the training path through K2, 4b. the pallas and the default
+    # path on both devices, 5. the default training path
+    from gnntf_tpu_torch.ops import stochastic
     trained = phase_train(g_rcm, perm, inv, features, dev)
     cross = phase_devices(g_rcm, perm, inv, features, dev)
-    log(f"training summary: {json.dumps(dict(trained=trained, cross=cross))}")
+    default = phase_default_train(graph, features, dev)
+    log(f"training summary: {json.dumps(dict(trained=trained, cross=cross, default=default))}")
+    # one grid build a structure over the run: the RCM graph on the card
+    # (4a; 4b hits it) and on the CPU (4b), the natural graph on the card (5)
+    # (a rehearsal on the CPU has one RCM graph)
+    builds = 3 if dev.type == "cuda" else 2
+    if stochastic.train_grids.builds != builds:
+        raise AssertionError(f"{stochastic.train_grids.builds} grid builds "
+                             f"over the run, expected {builds}")
 
-    # 5. report
+    # 6. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
     rest = k1["rest_list"]
@@ -842,7 +1256,27 @@ def main():
                                  bench_width=dict(k2["bench_t"],
                                                   shape="A^T, F=128"),
                                  small=k2["small_transposed"])}
-    print(json.dumps({"kernels": [entry, entry2]}), flush=True)
+    lists = masked["lists"]
+    entry3 = {"name": "ell_gather_masked", "route": "cuda",
+              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+              "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+              "launches": default["launches"]["masked"], **masked["forward"],
+              "shape": f"bench training grids' row list, E={graph.n_edges} "
+                       f"edges, N=169343, F=40, keep {KEEP}",
+              "bench_width": dict(masked["forward_bench"], shape="F=128"),
+              "backward": dict(masked["backward"], shape="column list, F=40",
+                               bench_width=dict(masked["backward_bench"],
+                                                shape="F=128")),
+              "small": masked["small"], "lists": lists}
+    entry4 = {"name": "ell_degree_masked", "route": "cuda",
+              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+              "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+              "launches": default["launches"]["degree"], **masked["degree"],
+              "shape": f"bench training grids' column list, E={graph.n_edges} "
+                       f"edges, N=169343, keep {KEEP}",
+              "row_list": masked["degree_row"]}
+    print(json.dumps({"kernels": [entry, entry2, entry3, entry4]}),
+          flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

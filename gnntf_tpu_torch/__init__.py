@@ -20,8 +20,8 @@ from .interop import params_from_jax  # noqa: E402
 from .measures import acc, next_seed, set_seed  # noqa: E402
 from .models import APPNP, GNN, PPRIteration  # noqa: E402
 from .nn import Dense, Dropout, Forward, Layer, Network, ParamSpec  # noqa: E402
-from .ops import (dropout, normalize_adjacency, set_spmm_impl,  # noqa: E402
-                  spmm, spmm_impl)
+from .ops import (dropout, edge_dot, normalize_adjacency,  # noqa: E402
+                  sddmm, set_spmm_impl, spmm, spmm_impl)
 from .tasks import NodeClassification, Predictor  # noqa: E402
 from .train import Trainable, fit, keras_adam  # noqa: E402
 

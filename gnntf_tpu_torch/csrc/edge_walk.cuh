@@ -34,9 +34,25 @@
 // geometry does not change it, so the result is the same from launch to
 // launch and on the CPU.
 //
-// Each source that includes this header defines its own three __global__
-// kernels, thin wrappers named after it (so a profile tells K1's from K2's),
-// over walk(), parts() and fixup() below, and launches them with launch().
+// Two more modes serve the training step's edge dropout (ops/stochastic.py).
+// With kMasked, edge e's weight is its dropped value: with id = eid[e],
+//
+//     w = keep(id) ? val[id] * scale(id) : +0,
+//     keep(id) = fmix32(fmix32(id ^ s0) ^ s1) >> 8 < thresh  or  id >= n_drop,
+//     scale(id) = fp32(1 / keep) below n_drop, else 1,
+//
+// in uint32 arithmetic, one rounded product, bit-equal to the host's
+// dropped_values.  The lane that loads an edge's idx and val in the batch
+// computes its weight, once an edge, and passes the weight out with
+// __shfl_sync where val is passed otherwise; a dropped edge's val is not
+// read.  With kDegree (masked, T = float, fv = 1) there is no x: a row's
+// sum is the sum of its weights, in list order, by the group's first lane,
+// with the same units, parts and fix-up, so the order is fixed as above.
+//
+// Each source that includes this header defines its own __global__ kernels,
+// thin wrappers named after it and its mode (so a profile tells them
+// apart), over walk(), parts() and fixup() below, and launches them with
+// launch().
 #pragma once
 
 #include <climits>
@@ -77,6 +93,37 @@ struct Args {
   void* carry;
   int n_units, n_split, n_part_items, fv, group, parts;
 };
+
+// The dropout draw of the masked modes, as kernel scalars (computed on the
+// host by ops/ell_gather.py::_mask_scalars).
+struct Mask {
+  uint32_t s0, s1;  // the draw's two salts
+  uint32_t thresh;  // round(keep * 2^24), at most 2^24
+  uint32_t n_drop;  // ids at or past it are always kept, unscaled
+  float scale;      // fp32(1 / keep)
+};
+
+// murmur3's 32-bit finalizer
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// The weight of edge id `e`: val[e], or with kMasked its dropped value (+0
+// where the edge is dropped, and then val is not read).
+template <bool kMasked>
+__device__ __forceinline__ float weight(const float* __restrict__ val, int e,
+                                        const Mask& m) {
+  if (!kMasked) return val[e];
+  const uint32_t id = (uint32_t)e;
+  const bool low = id < m.n_drop;
+  if (low && (fmix32(fmix32(id ^ m.s0) ^ m.s1) >> 8) >= m.thresh) return 0.f;
+  return __fmul_rn(val[e], low ? m.scale : 1.f);
+}
 
 __device__ __forceinline__ void set_zero(float& a) { a = 0.f; }
 __device__ __forceinline__ void set_zero(float4& a) {
@@ -163,14 +210,14 @@ __device__ __forceinline__ long long group_item(int group, long long n_items,
 
 // Unit u holds edges unit_edge[u] .. unit_edge[u+1]; unit_row[u] is its
 // first row, or ~row for a piece of a split row.
-template <typename T, bool kAdd>
+template <typename T, bool kAdd, bool kMasked, bool kDegree>
 __device__ __forceinline__ void walk_units(
     const int32_t* __restrict__ ptr, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ eid, const int32_t* __restrict__ rows,
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
     const int32_t* __restrict__ unit_edge, const T* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
-    int group) {
+    int group, const Mask& m) {
   int lane;
   const long long unit = group_item(group, n_units, lane);
   if (unit < 0) return;
@@ -197,8 +244,8 @@ __device__ __forceinline__ void walk_units(
     int next_src = 0;
     float next_w = 0.f;
     if (e0 + lane < e1) {
-      next_src = idx[e0 + lane];
-      next_w = val[eid ? eid[e0 + lane] : e0 + lane];
+      if (!kDegree) next_src = idx[e0 + lane];
+      next_w = weight<kMasked>(val, eid ? eid[e0 + lane] : e0 + lane, m);
     }
     for (int b = e0; b < e1; b += group) {
       const int n = min(group, e1 - b);
@@ -206,8 +253,8 @@ __device__ __forceinline__ void walk_units(
       const float my_w = next_w;
       const int pe = b + group + lane;
       if (pe < e1) {
-        next_src = idx[pe];
-        next_w = val[eid ? eid[pe] : pe];
+        if (!kDegree) next_src = idx[pe];
+        next_w = weight<kMasked>(val, eid ? eid[pe] : pe, m);
       }
       for (int k = 0; k < n; k += kUnroll) {
         T a[kUnroll];
@@ -215,10 +262,12 @@ __device__ __forceinline__ void walk_units(
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int from = lane0 + min(k + u, n - 1);
-          const int s = __shfl_sync(mask, my_src, from);
           w[u] = __shfl_sync(mask, my_w, from);
           set_zero(a[u]);
-          if (on && k + u < n) a[u] = x[(long long)s * fv + j];
+          if (!kDegree) {
+            const int s = __shfl_sync(mask, my_src, from);
+            if (on && k + u < n) a[u] = x[(long long)s * fv + j];
+          }
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -231,7 +280,10 @@ __device__ __forceinline__ void walk_units(
               row_end = ptr[row + 1];
               if (kAdd && on) base = *row_at<kAdd>(out, rows, row, fv, j);
             }
-            mul_add(acc, w[u], a[u]);
+            if constexpr (kDegree)
+              add_into(acc, w[u]);
+            else
+              mul_add(acc, w[u], a[u]);
           }
         }
       }
@@ -250,12 +302,14 @@ __device__ __forceinline__ void walk_units(
   }
 }
 
-template <typename T, bool kAdd>
-__device__ __forceinline__ void walk(const Args& a) {
-  walk_units<T, kAdd>(a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row,
-                      a.unit_edge, static_cast<const T*>(a.x),
-                      static_cast<T*>(a.out), static_cast<T*>(a.carry),
-                      a.n_units, a.fv, a.group);
+template <typename T, bool kAdd, bool kMasked = false, bool kDegree = false>
+__device__ __forceinline__ void walk(const Args& a, const Mask& m = Mask{}) {
+  static_assert(!kDegree || (kMasked && !kAdd),
+                "the degree mode is masked and stores its rows");
+  walk_units<T, kAdd, kMasked, kDegree>(
+      a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
+      static_cast<const T*>(a.x), static_cast<T*>(a.out),
+      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, m);
 }
 
 // Item i, part_item[i] = s * parts + g: part g of split row s, the sum of
@@ -329,14 +383,13 @@ inline unsigned group_blocks(long long n_items, int group, int threads) {
 }
 
 typedef void (*Kernel)(Args);
+typedef void (*MaskedKernel)(Args, Mask);
 
-// The walk, then (only where a row is split) the parts and the fix-up, on
-// `stream`; both run in blocks of one warp, so their items spread over the
-// SMs.  Returns a CUDA error code (0 on success).
-inline int launch(Kernel walk_k, Kernel parts_k, Kernel fixup_k,
-                  const Args& a, cudaStream_t stream) {
-  walk_k<<<group_blocks(a.n_units, a.group, kThreads), kThreads, 0,
-           stream>>>(a);
+// After the walk's launch: (only where a row is split) the parts and the
+// fix-up, on `stream`; both run in blocks of one warp, so their items spread
+// over the SMs.  Returns a CUDA error code (0 on success).
+inline int finish(Kernel parts_k, Kernel fixup_k, const Args& a,
+                  cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 0) return (int)err;
   if (a.parts < 1) return (int)cudaErrorInvalidValue;
@@ -345,6 +398,22 @@ inline int launch(Kernel walk_k, Kernel parts_k, Kernel fixup_k,
   if (err != cudaSuccess) return (int)err;
   fixup_k<<<group_blocks(a.n_split, a.group, 32), 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The walk, then finish(), on `stream`.
+inline int launch(Kernel walk_k, Kernel parts_k, Kernel fixup_k,
+                  const Args& a, cudaStream_t stream) {
+  walk_k<<<group_blocks(a.n_units, a.group, kThreads), kThreads, 0,
+           stream>>>(a);
+  return finish(parts_k, fixup_k, a, stream);
+}
+
+// The same for a masked walk, which takes the draw as well.
+inline int launch(MaskedKernel walk_k, Kernel parts_k, Kernel fixup_k,
+                  const Args& a, const Mask& m, cudaStream_t stream) {
+  walk_k<<<group_blocks(a.n_units, a.group, kThreads), kThreads, 0,
+           stream>>>(a, m);
+  return finish(parts_k, fixup_k, a, stream);
 }
 
 // The Args of an entry point's C arguments; vec is 4 (float4) or 1.

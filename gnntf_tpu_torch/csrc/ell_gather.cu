@@ -32,11 +32,33 @@
 // (ops/ell_gather.py::_UNIT_ITEMS, smaller than K2's, as the list is a
 // quarter of K2's) spread them over the card, and the fix-up adds a split
 // row's pieces in the same fixed order as K2's.
+//
+// Two more modes of the same walk carry the training step under the default
+// implementation (ops/stochastic.py::TrainGrids, the counterpart of the JAX
+// package's TrainGrids.core and stochastic_degree), over the row list (A) or
+// the column list (A^T) of every edge, ptr over all N rows, in store mode:
+//
+// * ell_gather_masked_*: out[r] = sum_e w(eid[e]) * x[idx[e]], w the edge's
+//   dropped value, hashed in the walk from its id (edge_walk.cuh, kMasked);
+//   the step's forward over the row list, its dx = A^T dy over the column
+//   list.  Bound: the list (ptr; idx and val of the kept edges; eid of every
+//   edge where it is read), the x rows of kept edges once, out once: at
+//   F = 40 on the bench graph's row list with half of its 2,332,478 edges
+//   kept, 63,357,536 B, 18.9 us at 3.35 TB/s (chip_smoke.py phase 2c).  The
+//   hash is ~21 integer operations an edge, far below the card's rate.
+// * ell_degree_*: deg[r] = sum_e w(eid[e]), no x, `group` lanes a unit (one
+//   lane an edge for the loads and the hash, the sum in list order by the
+//   group's first lane): the dropped graph's column (or row) sums, with no
+//   atomics.  Bound on the bench graph's column list: ptr, eid of every
+//   edge, val of the kept ones and deg, 15,352,020 B, 4.6 us; its serial
+//   sums bound it by instruction throughput instead, which fewer lanes a
+//   unit spread over more units a warp (ops/ell_gather.py::_DEGREE_GROUP).
 #include "edge_walk.cuh"
 
 namespace {
 
 using edge_walk::Args;
+using edge_walk::Mask;
 
 template <typename T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
@@ -52,6 +74,46 @@ __global__ void __launch_bounds__(32) ell_gather_parts(const Args a) {
 template <typename T>
 __global__ void __launch_bounds__(32) ell_gather_fixup(const Args a) {
   edge_walk::fixup<T, true>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
+    ell_gather_masked_walk(const Args a, const Mask m) {
+  edge_walk::walk<T, false, true>(a, m);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) ell_gather_masked_parts(const Args a) {
+  edge_walk::parts<T>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) ell_gather_masked_fixup(const Args a) {
+  edge_walk::fixup<T, false>(a);
+}
+
+__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
+    ell_degree_walk(const Args a, const Mask m) {
+  edge_walk::walk<float, false, true, true>(a, m);
+}
+
+__global__ void __launch_bounds__(32) ell_degree_parts(const Args a) {
+  edge_walk::parts<float>(a);
+}
+
+__global__ void __launch_bounds__(32) ell_degree_fixup(const Args a) {
+  edge_walk::fixup<float, false>(a);
+}
+
+Mask make_mask(unsigned s0, unsigned s1, unsigned thresh, unsigned n_drop,
+               float scale) {
+  Mask m;
+  m.s0 = s0;
+  m.s1 = s1;
+  m.thresh = thresh;
+  m.n_drop = n_drop;
+  m.scale = scale;
+  return m;
 }
 
 }  // namespace
@@ -76,6 +138,56 @@ extern "C" int gnntf_ell_gather(
                              ell_gather_fixup<float4>, a, s);
   return edge_walk::launch(ell_gather_walk<float>, ell_gather_parts<float>,
                            ell_gather_fixup<float>, a, s);
+}
+
+// The masked walk in store mode: out (n, f) float32 needs no zero-fill
+// (rows is ignored); val holds the graph's E base values, read at eid;
+// s0, s1, thresh, n_drop and scale are the draw (edge_walk.cuh, Mask); the
+// other arguments are as gnntf_ell_gather's.
+extern "C" int gnntf_ell_gather_masked(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, unsigned s0, unsigned s1,
+    unsigned thresh, unsigned n_drop, float scale, void* stream) {
+  (void)rows;
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
+      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
+  const Mask m = make_mask(s0, s1, thresh, n_drop, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return edge_walk::launch(ell_gather_masked_walk<float4>,
+                             ell_gather_masked_parts<float4>,
+                             ell_gather_masked_fixup<float4>, a, m, s);
+  return edge_walk::launch(ell_gather_masked_walk<float>,
+                           ell_gather_masked_parts<float>,
+                           ell_gather_masked_fixup<float>, a, m, s);
+}
+
+// The degree mode: out (n,) float32, each list row's sum of its dropped
+// weights, needs no zero-fill; x, rows and idx are not read; f and vec are
+// 1 and group is the lanes a unit (ops/ell_gather.py::_DEGREE_GROUP); carry
+// is (n_units + n_split * parts,) float32 scratch.
+extern "C" int gnntf_ell_degree(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, unsigned s0, unsigned s1,
+    unsigned thresh, unsigned n_drop, float scale, void* stream) {
+  (void)rows;
+  (void)x;
+  if (f != 1 || vec != 1) return (int)cudaErrorInvalidValue;
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,
+      nullptr, out, carry, n_units, n_split, n_part_items, 1, 1, group,
+      parts);
+  const Mask m = make_mask(s0, s1, thresh, n_drop, scale);
+  return edge_walk::launch(ell_degree_walk, ell_degree_parts,
+                           ell_degree_fixup, a, m,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

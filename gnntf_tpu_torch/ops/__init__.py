@@ -2,8 +2,15 @@ from .blocked import (BlockedCOO, BlockedSpMM, EdgeList, block_coo,
                       blocked_spmm, blocked_spmm_plain, scatter_values,
                       spmm_pallas)
 from .dropout import dropout
-from .ell_gather import (ell_edge_list, ell_gather, ell_gather_list,
+from .ell_gather import (ell_degree_masked, ell_degree_masked_plain,
+                         ell_edge_list, ell_gather, ell_gather_list,
+                         ell_gather_masked, ell_gather_masked_plain,
                          ell_gather_plain, ell_list)
 from .normalize import edge_dropout, normalize_adjacency
-from .spmm import (PreparedSpMM, build_ell, build_hybrid, prepare,
-                   set_spmm_impl, spmm, spmm_impl, spmm_segment)
+from .spmm import (PreparedSpMM, build_ell, build_hybrid, edge_dot, prepare,
+                   sddmm, set_spmm_executor, set_spmm_impl, spmm,
+                   spmm_ell, spmm_executor, spmm_hybrid, spmm_impl,
+                   spmm_segment)
+from .stochastic import (TrainGrids, build_train_grids, grids_eligible,
+                         min_edges, min_edges_scope, stochastic_degree,
+                         stochastic_spmm, train_grids)

@@ -420,30 +420,37 @@ def check(what, lst, val, x, base=None):
 
 
 def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
-           x: torch.Tensor, out: torch.Tensor) -> None:
+           x: Optional[torch.Tensor], out: torch.Tensor, mask=(),
+           group: Optional[int] = None) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
-    K2's), writing into ``out`` on the current stream; counts nothing."""
-    f = x.shape[1]
+    K2's), writing into ``out`` on the current stream; counts nothing.
+    ``mask`` holds a masked entry's draw (``ops/ell_gather.py``); with no
+    ``x`` (the degree mode) the walk sums one value a row, ``group`` lanes
+    a unit."""
+    f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
     if n_units == 0 or f == 0:
         return
     # float4 loads where rows are 16-byte aligned; a group of lanes a unit
-    x_at, out_at = x.data_ptr(), out.data_ptr()
-    vec = 4 if f % 4 == 0 and x_at % 16 == 0 and out_at % 16 == 0 else 1
-    group = max(1, min(32, f // vec))
+    x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
+    vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
+                and out_at % 16 == 0) else 1
+    if group is None:
+        group = max(1, min(32, f // vec))
     # the pieces' sums, then the split rows' parts
     carry = (torch.empty(n_units + n_split * lst.parts, f,
-                         dtype=torch.float32, device=x.device).data_ptr()
+                         dtype=torch.float32, device=out.device).data_ptr()
              if n_split else None)
     args = (*addresses, val.data_ptr(), x_at, out_at, carry, n_units,
-            n_split, n_part_items, f, vec, group, lst.parts)
-    if x.device.index == torch.cuda.current_device():
+            n_split, n_part_items, f, vec, group, lst.parts, *mask)
+    device = out.device
+    if device.index == torch.cuda.current_device():
         rc = getattr(lib, entry)(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
+            *args, torch.cuda.current_stream(device).cuda_stream)
     else:
-        with torch.cuda.device(x.device):
+        with torch.cuda.device(device):
             rc = getattr(lib, entry)(
-                *args, torch.cuda.current_stream(x.device).cuda_stream)
+                *args, torch.cuda.current_stream(device).cuda_stream)
     kernels.check(lib, rc, f"{entry} launch")
 
 
@@ -480,11 +487,15 @@ blocked_spmm.launches = 0
 # f, vec, group, parts; stream
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# the masked entry points (gnntf_ell_gather_masked, gnntf_ell_degree) take
+# the draw before the stream: s0, s1, thresh, n_drop, scale
+MASKED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_uint32] * 4 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
-def declare(entry) -> None:
+def declare(entry, masked: bool = False) -> None:
     entry.restype = ctypes.c_int
-    entry.argtypes = ENTRY_ARGTYPES
+    entry.argtypes = MASKED_ARGTYPES if masked else ENTRY_ARGTYPES
 
 
 @functools.cache

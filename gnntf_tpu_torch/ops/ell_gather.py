@@ -22,6 +22,15 @@ CUDA source, ``gnntf_tpu_torch/csrc/ell_gather.cu``, states its bound.
 take the ELL grid and derive the list per call.  A CPU tensor takes the
 plain version, ``blocked_spmm_plain`` over the list, which sums in the
 kernel's order; a CUDA tensor launches the kernel or raises.
+
+Two more modes of the walk carry the training step's edge dropout
+(``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
+over all N rows, in store mode.  :func:`ell_gather_masked` weights each
+edge by its dropped value, hashed in the kernel from its id and the draw;
+:func:`ell_degree_masked` sums those weights a row, with no ``x``.  Their
+plain versions take the draw's per-edge values (``stochastic.drawn_values``,
+which equal the kernel's weights bit for bit) and sum them in the kernel's
+order.
 """
 from __future__ import annotations
 
@@ -39,6 +48,12 @@ from .blocked import EdgeList, blocked_spmm_plain
 # quarter of K2's, so its units are smaller than K2's to fill the card (32
 # is the fastest of 32, 64 and 128 at F=40 in k2_sweep.py)
 _UNIT_ITEMS = 32
+# lanes a unit in the degree mode: a group loads and hashes a batch of
+# that many edges, one a lane, and its first lane sums them in list order;
+# every lane of a group runs the serial sum, so fewer lanes put more units
+# in a warp (8 was the fastest of 1 to 32 at 128 items a unit in
+# k2_sweep.py --kernels train)
+_DEGREE_GROUP = 8
 
 
 def ell_list(idx: np.ndarray, vrow_row: np.ndarray, n_nodes: int):
@@ -155,10 +170,106 @@ def ell_gather_list(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
 ell_gather.launches = 0
 
 
+def _check_masked(what, lst, val):
+    if lst.rows is not None:
+        raise ValueError(f"{what} stores row r at r; a list with row ids is "
+                         "K1's (ell_list)")
+    if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
+        raise TypeError(f"{what}: values must be ({lst.n_edges},) float32, "
+                        f"one an edge id, got {tuple(val.shape)} {val.dtype}")
+    if val.device != lst.device:
+        raise ValueError(f"{what} inputs span devices {val.device} and "
+                         f"{lst.device}")
+    if not val.is_contiguous():
+        raise ValueError(f"{what} values must be contiguous")
+
+
+def ell_gather_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
+                            keep: float, n_drop: int,
+                            x: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`ell_gather_masked`:
+    ``blocked_spmm_plain`` over the draw's per-edge values, in the kernel's
+    order."""
+    from .stochastic import drawn_values
+    return blocked_spmm_plain(lst, drawn_values(val, salt, keep, n_drop), x)
+
+
+def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
+                      n_drop: int, x: torch.Tensor) -> torch.Tensor:
+    """The product of the dropped graph's list with ``x`` as an (N, F)
+    float32 tensor: ``out[r] = sum_e w(eid[e]) * x[idx[e]]`` over row r's
+    edges, where ``w(e)`` is edge e's dropped value under the draw (``salt``,
+    ``keep``, ``n_drop``; ``stochastic.dropped_values``) and ``val`` holds
+    the graph's base values, one an edge id.
+
+    CPU tensors take :func:`ell_gather_masked_plain`; CUDA tensors launch
+    the masked walk, which hashes the mask in the kernel (counted in
+    ``ell_gather_masked.launches``)."""
+    _check_masked("ell_gather_masked", lst, val)
+    blocked.check("ell_gather_masked", lst, val, x)
+    if x.device.type == "cpu":
+        return ell_gather_masked_plain(lst, val, salt, keep, n_drop, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"ell_gather_masked runs on cpu or cuda, not "
+                         f"{x.device}")
+    out = torch.empty(lst.n_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    if lst.n_units == 0 or x.shape[1] == 0:
+        return out
+    from .stochastic import draw_scalars
+    blocked.launch(_library(), "gnntf_ell_gather_masked", lst, val, x, out,
+                   mask=draw_scalars(salt, keep, n_drop))
+    ell_gather_masked.launches += 1
+    return out
+
+
+ell_gather_masked.launches = 0
+
+
+def ell_degree_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
+                            keep: float, n_drop: int) -> torch.Tensor:
+    """The plain version of :func:`ell_degree_masked`: the walk's order over
+    a column of ones, each product ``w * 1`` equal to ``w``."""
+    from .stochastic import drawn_values
+    ones = torch.ones(1, 1, dtype=torch.float32,
+                      device=val.device).expand(lst.n_rows, 1)
+    return blocked_spmm_plain(
+        lst, drawn_values(val, salt, keep, n_drop), ones)[:, 0]
+
+
+def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
+                      n_drop: int) -> torch.Tensor:
+    """Each list row's sum of its edges' dropped values as an (N,) float32
+    tensor: over the column list the dropped graph's column sums, over the
+    row list its row sums.
+
+    CPU tensors take :func:`ell_degree_masked_plain`; CUDA tensors launch
+    the degree walk (counted in ``ell_degree_masked.launches``)."""
+    _check_masked("ell_degree_masked", lst, val)
+    if val.device.type == "cpu":
+        return ell_degree_masked_plain(lst, val, salt, keep, n_drop)
+    if val.device.type != "cuda":
+        raise ValueError(f"ell_degree_masked runs on cpu or cuda, not "
+                         f"{val.device}")
+    out = torch.empty(lst.n_rows, dtype=torch.float32, device=val.device)
+    if lst.n_units == 0:
+        return out
+    from .stochastic import draw_scalars
+    blocked.launch(_library(), "gnntf_ell_degree", lst, val, None, out,
+                   mask=draw_scalars(salt, keep, n_drop), group=_DEGREE_GROUP)
+    ell_degree_masked.launches += 1
+    return out
+
+
+ell_degree_masked.launches = 0
+
+
 @functools.cache
 def _library():
-    """The built kernel library with its C signature declared (built on
+    """The built kernel library with its C signatures declared (built on
     first use, never at import)."""
     lib = kernels.load("ell_gather")
     blocked.declare(lib.gnntf_ell_gather)
+    blocked.declare(lib.gnntf_ell_gather_masked, masked=True)
+    blocked.declare(lib.gnntf_ell_degree, masked=True)
     return lib

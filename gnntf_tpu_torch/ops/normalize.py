@@ -3,7 +3,7 @@ gnntf/core/gnn/gnn.py:36-50).
 
   1. edge dropout on the edge values, self-loop entries excepted: lazy salts
      and the counter hash of ``ops/stochastic.py`` at or above
-     ``MIN_EDGES`` edges, an eager Bernoulli draw below;
+     ``min_edges()`` edges, an eager Bernoulli draw below;
   2. optional self-loops *before* normalization (``add_eye='before'``);
   3. normalization, returned *lazily* as per-node scales:
        * ``symmetric``:  D = rsqrt(colsum) where colsum > 0, else 0;
@@ -22,18 +22,23 @@ from typing import Optional
 import torch
 
 from ..graph.coo import Graph, add_self_loops
-from .stochastic import MIN_EDGES
+from .stochastic import grids_eligible, stochastic_degree
 
 
 def _degree(graph: Graph, by: str = "col") -> torch.Tensor:
     """Column sums ``deg[j] = sum_i A[i, j]``; ``by='row'`` gives row sums.
-    A lazily dropped graph sums its materialized dropped values (the same
-    numbers as the JAX package's grid reduction, summed in another order).
-    A lazy ``eye_weight`` adds to every degree."""
-    g = graph.materialized_dropout()
-    idx = g.col if by == "col" else g.row
-    deg = torch.zeros(g.n_nodes, dtype=g.val.dtype, device=g.device)
-    deg.index_add_(0, idx, g.val)
+    A lazily dropped graph at or above ``min_edges()`` edges takes the
+    degree walk over its training grids' column (or row) list, as the JAX
+    package takes its grid reduction; below, the materialized dropped values
+    are summed with ``index_add_``.  A lazy ``eye_weight`` adds to every
+    degree."""
+    if graph.dropped and grids_eligible(graph):
+        deg = stochastic_degree(graph, by=by)
+    else:
+        g = graph.materialized_dropout()
+        idx = g.col if by == "col" else g.row
+        deg = torch.zeros(g.n_nodes, dtype=g.val.dtype, device=g.device)
+        deg.index_add_(0, idx, g.val)
     if graph.eye_weight != 0.0:
         deg = deg + graph.eye_weight
     return deg
@@ -43,15 +48,16 @@ def edge_dropout(graph: Graph, rate: float,
                  generator: Optional[torch.Generator]) -> Graph:
     """Dropout on the edge values; the trailing self-loop entries are never
     dropped.  ``generator`` is a CPU generator, so the masks of a run are the
-    same on every device: at or above ``MIN_EDGES`` edges it draws the two
-    salts of a lazy draw, below it an eager Bernoulli mask."""
+    same on every device: where the training grids take the graph
+    (``grids_eligible``: at or above ``min_edges()`` edges) it draws the two
+    salts of a lazy draw, elsewhere an eager Bernoulli mask."""
     if rate == 0.0 or generator is None:
         return graph
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     keep = 1.0 - rate
     n_drop = graph.n_edges - graph.num_self_loop
-    if graph.n_edges >= MIN_EDGES and not graph.dropped:
+    if grids_eligible(graph) and not graph.dropped:
         salt = torch.randint(0, 1 << 32, (2,), generator=generator,
                              dtype=torch.int64)
         return dataclasses.replace(graph, drop_salt=salt, drop_keep=keep,

@@ -1,17 +1,24 @@
-"""Sparse matrix x dense matrix products (SpMM) and the dispatcher.
+"""Sparse matrix x dense matrix products (SpMM), SDDMM and the dispatcher.
 
 * ``spmm_segment`` — gather + ``index_add_``: the plain reference,
   differentiable through autograd.
-* :class:`PreparedSpMM` — the layout, K1's list and the value routing are
-  built once, on the host and with one ``index_add_``; each call then runs
-  one ``torch.matmul`` for the dense hub slice and the ELL gather-reduce
-  kernel K1 (``ops/ell_gather.py``), which adds the rest ELL's product into
-  the hub product's rows.
+* ``spmm_ell`` / ``spmm_hybrid`` — the per-call forms: the layout (ELL, or
+  the rest ELL beside a dense hub slice) and K1's list are built once per
+  structure; each call routes the edge values into K1's list values (and
+  the hub slice) with one ``index_add_`` each, runs the hub matmul, then
+  the ELL gather-reduce kernel K1 (``ops/ell_gather.py``) adding into it.
+  Differentiable in ``x`` and in the values.
+* :class:`PreparedSpMM` — the same with the values routed once, for a fixed
+  adjacency; ``spmm`` keeps one per (structure, values) (``_prepared_cached``).
+* ``stochastic_spmm`` (``ops/stochastic.py``) — a lazily dropped graph
+  through its training grids: K1's walk in masked mode, the mask hashed in
+  the kernel, the backward over the column list.
 * ``spmm_pallas`` (``ops/blocked.py``) — the blocked-COO kernel K2.
 
 The implementation is selected as in the JAX package: ``auto`` (the
 default), ``segment``, ``ell``, ``hybrid`` or ``pallas``, process-wide with
-:func:`set_spmm_impl` or per call with the :class:`spmm_impl` scope.
+:func:`set_spmm_impl` or per call with the :class:`spmm_impl` scope.  An
+executor override (:class:`spmm_executor`) takes precedence over every impl.
 
 Layouts (built once per graph structure, numpy, copied from the JAX
 package so the two stay bit-equal):
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..graph.coo import Graph
+from ..utils.idcache import IdLRU, sizeof
 from .blocked import spmm_pallas
 from .ell_gather import ell_edge_list, ell_gather_list
 
@@ -48,6 +56,28 @@ _ELL_DEFAULT_K = 8
 _SPMM_IMPL_DEFAULT = "auto"
 _SPMM_IMPL_VAR: contextvars.ContextVar[Optional[str]] = \
     contextvars.ContextVar("gnntf_torch_spmm_impl", default=None)
+
+# Executor override: a callable ``(graph, x) -> out`` that takes precedence
+# over every impl, per context (thread), as in the JAX package.  An executor
+# with ``supports_lazy_dropout`` receives a dropped graph with its draw
+# intact; any other receives the realized per-edge values.
+_SPMM_EXECUTOR_VAR: contextvars.ContextVar[Optional[object]] = \
+    contextvars.ContextVar("gnntf_torch_spmm_executor", default=None)
+
+
+class spmm_executor:
+    """Context manager scoping an executor override to a call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        self._token = _SPMM_EXECUTOR_VAR.set(self.fn)
+        return self.fn
+
+    def __exit__(self, *exc):
+        _SPMM_EXECUTOR_VAR.reset(self._token)
+        return False
 
 
 class spmm_impl:
@@ -67,6 +97,12 @@ class spmm_impl:
     def __exit__(self, *exc):
         _SPMM_IMPL_VAR.reset(self._token)
         return False
+
+
+def set_spmm_executor(fn) -> None:
+    """Install (or with ``None`` remove) the executor override for the
+    current context.  Prefer the :class:`spmm_executor` scope."""
+    _SPMM_EXECUTOR_VAR.set(fn)
 
 
 def set_spmm_impl(name: str) -> None:
@@ -283,39 +319,156 @@ def build_hybrid(row, col, n_nodes: int, k: int = _ELL_DEFAULT_K,
         ell_slot_of_edge=ell_of_edge, dense_flat_of_edge=dense_of_edge)
 
 
-def _route(slots: np.ndarray, val: torch.Tensor, size: int) -> torch.Tensor:
-    """Scatter-add per-edge values into a flat grid of ``size`` cells; the
-    sentinel ``size`` lands in one extra cell that is dropped."""
+def _route(slots: torch.Tensor, val: torch.Tensor, size: int) -> torch.Tensor:
+    """Scatter-add per-edge values into a flat grid of ``size`` cells
+    (duplicates add up); the sentinel ``size`` lands in one extra cell that
+    is dropped."""
     grid = val.new_zeros(size + 1)
-    grid.index_add_(0, torch.from_numpy(slots.astype(np.int64)).to(
-        val.device), val)
+    grid.index_add_(0, slots, val)
     return grid[:size]
 
 
 class _ELLGatherFn(torch.autograd.Function):
-    """``(x, base) -> base + A_rest @ x`` through K1 over its list, adding
-    into ``base`` in place (marked dirty).  The backward passes ``dy`` to
-    ``base`` and gives ``x`` the transposed product in plain torch,
-    ``dx[idx[e]] += val[e] * dy[rows[r]]`` over each row r's slots e.  The
-    values of a prepared operator are constants."""
+    """``(x, base, val) -> base + A_rest @ x`` through K1 over its list,
+    adding into ``base`` in place (marked dirty).  The backward passes
+    ``dy`` to ``base`` and, in plain torch, gives ``x`` the transposed
+    product ``dx[idx[e]] += val[e] * dy[rows[r]]`` over each row r's slots
+    e, and ``val`` (only when it asks for it) ``dval[e] = <dy[rows[r]],
+    x[idx[e]]>``."""
 
     @staticmethod
     def forward(ctx, x, base, lst, val):
         ctx.mark_dirty(base)
-        ctx.lst, ctx.val, ctx.n_in = lst, val, x.shape[0]
+        ctx.lst, ctx.n_in = lst, x.shape[0]
+        ctx.save_for_backward(x if ctx.needs_input_grad[3] else None, val)
         return ell_gather_list(lst, val, x, base)
 
     @staticmethod
     def backward(ctx, dy):
-        lst, dx = ctx.lst, None
-        if ctx.needs_input_grad[0]:
+        lst, (x, val) = ctx.lst, ctx.saved_tensors
+        dx = dval = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[3]:
             dst = torch.repeat_interleave(lst.rows.long(),
                                           lst.ptr.diff().long(),
                                           output_size=lst.n_edges)
-            terms = dy[dst] * ctx.val[:, None]
-            dx = dy.new_zeros(ctx.n_in, dy.shape[1]).index_add_(
-                0, lst.idx.long(), terms)
-        return dx, dy if ctx.needs_input_grad[1] else None, None, None
+            src = lst.idx.long()
+            dy_e = dy[dst]
+            if ctx.needs_input_grad[0]:
+                dx = dy.new_zeros(ctx.n_in, dy.shape[1]).index_add_(
+                    0, src, dy_e * val[:, None])
+            if ctx.needs_input_grad[3]:
+                dval = (dy_e * x[src]).sum(-1)
+        return dx, dy if ctx.needs_input_grad[1] else None, None, dval
+
+
+class _RoutedLayout:
+    """One graph structure's layout for K1 on a device: the ELL (with hubs:
+    the rest ELL beside the dense hub slice of ``build_hybrid``, when it
+    pays), K1's list over its live slots, and each original edge's place in
+    the list and in the hub slice.  :meth:`values` routes a vector of edge
+    values into them, one ``index_add_`` each, so duplicates coalesce;
+    :meth:`apply` runs the hub matmul (or zeros), then K1 adding into it.
+    Only the list, the routes and the hub ids are kept on the device."""
+
+    def __init__(self, row: np.ndarray, col: np.ndarray, n_nodes: int,
+                 k: int, device, hubs: bool):
+        hybrid = build_hybrid(row, col, n_nodes, k) if hubs else None
+        if hybrid is None:
+            ell = build_ell(row, col, n_nodes, k)
+            slots = ell.edge_slot
+        else:
+            ell = hybrid.rest
+            slots = hybrid.ell_slot_of_edge
+        self.n_nodes = n_nodes
+        self.ell = ell
+        self.list, slot = ell_edge_list(ell.idx, ell.vrow_row, n_nodes,
+                                        device)
+        # each edge's list position; the sentinel (hub edges, V*k) maps to
+        # the extra cell that _route drops
+        position = np.full(ell.n_vrows * ell.k + 1, len(slot), np.int64)
+        position[slot] = np.arange(len(slot))
+        self.to_list = torch.from_numpy(position[slots]).to(device)
+        self.to_dense = self.hub_ids = None
+        self.n_hubs = 0
+        if hybrid is not None:
+            self.n_hubs = hybrid.n_hubs
+            self.to_dense = torch.from_numpy(
+                hybrid.dense_flat_of_edge.astype(np.int64)).to(device)
+            self.hub_ids = torch.from_numpy(
+                hybrid.hub_ids.astype(np.int64)).to(device)
+
+    def values(self, val: torch.Tensor):
+        """K1's list values and the (N, H) hub slice (None without hubs)
+        of the edge values ``val``, as float32."""
+        val = val.to(torch.float32)
+        list_val = _route(self.to_list, val, self.list.n_edges)
+        dense = None
+        if self.to_dense is not None:
+            dense = _route(self.to_dense, val, self.n_nodes * self.n_hubs
+                           ).view(self.n_nodes, self.n_hubs)
+        return list_val, dense
+
+    def apply(self, list_val: torch.Tensor, dense: Optional[torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+        """``dense @ x[hub_ids] + A_rest @ x``, the hub product first and
+        K1 adding the rest into it (the JAX package's ``ell + dense @
+        x[hubs]``, one addition an element)."""
+        x = x.contiguous()
+        if dense is not None:
+            out = torch.matmul(dense, x[self.hub_ids])
+        else:
+            out = x.new_zeros(self.n_nodes, x.shape[1])
+        if torch.is_grad_enabled() and (x.requires_grad or out.requires_grad
+                                        or list_val.requires_grad):
+            return _ELLGatherFn.apply(x, out, self.list, list_val)
+        return ell_gather_list(self.list, list_val, x, out)
+
+    def nbytes(self) -> int:
+        return sizeof((self.list, self.to_list, self.to_dense, self.hub_ids,
+                       self.ell))
+
+
+_ROUTED_CACHE = IdLRU()  # byte-bounded, anchored on the structure
+
+
+def _routed_layout(graph: Graph, k: int, hubs: bool) -> _RoutedLayout:
+    key = ("hybrid" if hubs else "ell", id(graph.row), id(graph.col),
+           graph.n_nodes, k)
+    anchors = (graph.row, graph.col)
+    routed = _ROUTED_CACHE.get(key, anchors)
+    if routed is None:
+        routed = _RoutedLayout(graph.row.cpu().numpy(),
+                               graph.col.cpu().numpy(), graph.n_nodes, k,
+                               graph.device, hubs)
+        _ROUTED_CACHE.put(key, anchors, routed, nbytes=routed.nbytes())
+    return routed
+
+
+def spmm_ell(graph: Graph, x: torch.Tensor,
+             k: int = _ELL_DEFAULT_K) -> torch.Tensor:
+    """SpMM through the row-split ELL layout (duplicates coalesced), built
+    once per structure; the values are routed per call, so dropped or
+    learned values work, and the product is differentiable in ``x`` and in
+    the values."""
+    if graph.scaled or graph.eye_weight != 0.0:
+        return _scaled_call(functools.partial(spmm_ell, k=k), graph, x)
+    graph = graph.materialized_dropout()
+    routed = _routed_layout(graph, k, hubs=False)
+    list_val, _ = routed.values(graph.val)
+    return routed.apply(list_val, None, x)
+
+
+def spmm_hybrid(graph: Graph, x: torch.Tensor,
+                k: int = _ELL_DEFAULT_K) -> torch.Tensor:
+    """Hub-densified SpMM: a dense (N, H) matmul for the edges whose source
+    is one of the ``H`` busiest nodes, K1 over the rest ELL adding into it;
+    plain ELL where the hub slice does not pay.  The values are routed per
+    call; differentiable in ``x`` and in the values."""
+    if graph.scaled or graph.eye_weight != 0.0:
+        return _scaled_call(functools.partial(spmm_hybrid, k=k), graph, x)
+    graph = graph.materialized_dropout()
+    routed = _routed_layout(graph, k, hubs=True)
+    return routed.apply(*routed.values(graph.val), x)
 
 
 class PreparedSpMM:
@@ -327,58 +480,54 @@ class PreparedSpMM:
     row it holds into that product (the JAX package's ``ell + dense @
     x[hubs]``, one addition an element), then the lazy scales and identity
     of a normalized graph.  Only the list, its values and the hub slice are
-    kept on the device; ``ell`` is the host layout."""
+    kept on the device; ``ell`` is the host layout.  The values are
+    constants: no gradient flows to them."""
 
     def __init__(self, graph: Graph, k: int = _ELL_DEFAULT_K):
+        if graph.dropped:
+            raise TypeError("PreparedSpMM is for fixed adjacencies; a lazily "
+                            "dropped graph resamples per call: use spmm()")
         self.n_nodes = graph.n_nodes
         self.row_scale = graph.row_scale
         self.col_scale = graph.col_scale
         self.eye_weight = graph.eye_weight
-        device = graph.device
-        row = graph.row.cpu().numpy()
-        col = graph.col.cpu().numpy()
-        val = graph.val.to(torch.float32)
-        hybrid = build_hybrid(row, col, graph.n_nodes, k)
-        if hybrid is None:
-            ell = build_ell(row, col, graph.n_nodes, k)
-            slots = ell.edge_slot
-            self.dense = None
-            self.hub_ids = None
-        else:
-            ell = hybrid.rest
-            slots = hybrid.ell_slot_of_edge
-            n_h = hybrid.n_hubs
-            self.dense = _route(hybrid.dense_flat_of_edge, val,
-                                graph.n_nodes * n_h).view(graph.n_nodes, n_h)
-            self.hub_ids = torch.from_numpy(
-                hybrid.hub_ids.astype(np.int64)).to(device)
-        self.ell = ell
-        self.k1_list, slot = ell_edge_list(ell.idx, ell.vrow_row,
-                                           graph.n_nodes, device)
-        # each edge's list position; the sentinel (hub edges, V*k) maps to
-        # the extra cell that _route drops
-        position = np.full(ell.n_vrows * ell.k + 1, len(slot), np.int64)
-        position[slot] = np.arange(len(slot))
-        self.k1_val = _route(position[slots], val, len(slot))
+        self._routed = _routed_layout(graph, k, hubs=True)
+        self.ell = self._routed.ell
+        self.k1_list = self._routed.list
+        self.hub_ids = self._routed.hub_ids
+        self.k1_val, self.dense = self._routed.values(graph.val.detach())
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xin = x
         if self.col_scale is not None:
             xin = xin * self.col_scale[:, None].to(x.dtype)
-        xin = xin.contiguous()
-        if self.dense is not None:
-            out = torch.matmul(self.dense, xin[self.hub_ids])
-        else:
-            out = xin.new_zeros(self.n_nodes, xin.shape[1])
-        if xin.requires_grad and torch.is_grad_enabled():
-            out = _ELLGatherFn.apply(xin, out, self.k1_list, self.k1_val)
-        else:
-            ell_gather_list(self.k1_list, self.k1_val, xin, out)
+        out = self._routed.apply(self.k1_val, self.dense, xin)
         if self.row_scale is not None:
             out = out * self.row_scale[:, None].to(out.dtype)
         if self.eye_weight != 0.0:
             out = out + self.eye_weight * x
         return out
+
+    def nbytes(self) -> int:
+        return sizeof((self.k1_val, self.dense, self.row_scale,
+                       self.col_scale))
+
+
+_PREPARED_CACHE = IdLRU()
+
+
+def _prepared_cached(graph: Graph, k: int) -> PreparedSpMM:
+    """The :class:`PreparedSpMM` of an unscaled, undropped graph, built once
+    per (structure, values): memoized on the identity of ``row``, ``col``
+    and ``val`` (strong references kept and re-checked)."""
+    key = ("prep", id(graph.row), id(graph.col), id(graph.val),
+           graph.n_nodes, k)
+    anchors = (graph.row, graph.col, graph.val)
+    prep = _PREPARED_CACHE.get(key, anchors)
+    if prep is None:
+        prep = PreparedSpMM(graph, k)
+        _PREPARED_CACHE.put(key, anchors, prep, nbytes=prep.nbytes())
+    return prep
 
 
 def prepare(graph: Graph, impl: Optional[str] = None
@@ -386,39 +535,80 @@ def prepare(graph: Graph, impl: Optional[str] = None
     """The operator ``x -> A @ x`` that :func:`spmm` applies to the fixed
     (undropped) ``graph`` under ``impl`` (default: the one in force), built
     once so a caller holding a fixed adjacency can reuse it: ``pallas`` runs
-    K2; ``segment`` the plain product; ``auto``/``hybrid``/``ell`` take
-    :class:`PreparedSpMM` at or above ``_ELL_MIN_EDGES`` edges, else the
-    plain product.  The per-call ``spmm_ell``/``spmm_hybrid`` forms of the
-    JAX package are not ported; the prepared operator computes the same
-    product."""
+    K2; ``segment`` the plain product; ``ell`` the per-call
+    :func:`spmm_ell`; ``auto``/``hybrid`` a :class:`PreparedSpMM` with the
+    scales folded in at or above ``_ELL_MIN_EDGES`` edges, below it the
+    plain product (``auto``) or the per-call :func:`spmm_hybrid`."""
     impl = current_impl() if impl is None else impl
     if impl not in _IMPL_NAMES:
         raise ValueError(impl)
     if graph.dropped:
         raise ValueError("prepare() takes a fixed adjacency; a dropped graph "
                          "goes through spmm()")
-    if impl == "pallas":
-        return functools.partial(spmm_pallas, graph)
-    if impl != "segment" and graph.n_edges >= _ELL_MIN_EDGES:
+    if impl in ("auto", "hybrid") and graph.n_edges >= _ELL_MIN_EDGES:
         return PreparedSpMM(graph, _ELL_DEFAULT_K)
-    return functools.partial(spmm_segment, graph)
+    return functools.partial(_per_call, impl, graph)
+
+
+def _per_call(impl: str, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """The product under ``impl`` with the values routed per call: ``auto``
+    takes ``hybrid`` at or above ``_ELL_MIN_EDGES`` edges, else
+    ``segment``."""
+    if impl == "auto":
+        impl = "hybrid" if graph.n_edges >= _ELL_MIN_EDGES else "segment"
+    if impl == "pallas":
+        return spmm_pallas(graph, x)
+    if impl == "hybrid":
+        return spmm_hybrid(graph, x)
+    if impl == "ell":
+        return spmm_ell(graph, x)
+    return spmm_segment(graph, x)
 
 
 def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """Dispatching SpMM under the implementation in force.
+    """Dispatching SpMM under the implementation in force (the JAX
+    package's dispatcher).
 
-    A lazily dropped graph goes through K2 under ``pallas`` and through the
-    materialized ``spmm_segment`` under every other impl.  (The JAX package
-    runs ``auto``/``hybrid``/``ell`` on a dropped graph through
-    ``stochastic_spmm`` over its ``TrainGrids``: the same function, which
-    this port does not have yet.)  A fixed graph takes :func:`prepare`,
-    which builds the layout on every call; hold ``prepare(graph)`` to reuse
-    it."""
+    The lazy scales and identity apply around the product.  An executor
+    override takes the product first.  A lazily dropped graph at or above
+    ``min_edges()`` edges goes through ``stochastic_spmm`` (its training
+    grids, K1's masked walk) under ``auto``/``hybrid``/``ell``; any other
+    dropped graph is realized per edge and takes the per-call form of its
+    impl (``pallas``: K2).  A fixed graph under ``auto``/``hybrid`` at or
+    above ``_ELL_MIN_EDGES`` edges, whose values need no gradient, takes the
+    :class:`PreparedSpMM` kept for it (``_prepared_cached``); otherwise the
+    per-call form of its impl."""
     if graph.scaled or graph.eye_weight != 0.0:
         return _scaled_call(spmm, graph, x)
+    executor = _SPMM_EXECUTOR_VAR.get()
+    if executor is not None:
+        if graph.dropped and not getattr(executor, "supports_lazy_dropout",
+                                         False):
+            graph = graph.materialized_dropout()
+        return executor(graph, x)
     impl = current_impl()
-    if impl == "pallas":
-        return spmm_pallas(graph, x)
     if graph.dropped:
-        return spmm_segment(graph.materialized_dropout(), x)
-    return prepare(graph, impl)(x)
+        from .stochastic import grids_eligible, stochastic_spmm
+        if impl in ("auto", "hybrid", "ell") and grids_eligible(graph):
+            return stochastic_spmm(graph, x)
+        # realized values are new every draw: never a prepared operator
+        return _per_call(impl, graph.materialized_dropout(), x)
+    if (impl in ("auto", "hybrid") and graph.n_edges >= _ELL_MIN_EDGES
+            and not graph.val.requires_grad):
+        return _prepared_cached(graph, _ELL_DEFAULT_K)(x)
+    return _per_call(impl, graph, x)
+
+
+def edge_dot(row: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+             y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-pair dot products ``s[e] = <x[row[e]], y[col[e]]>`` (``y``
+    defaults to ``x``): the SDDMM core on an explicit index list, in plain
+    torch (the JAX package has no kernel for it)."""
+    y = x if y is None else y
+    return (x[row] * y[col]).sum(-1)
+
+
+def sddmm(graph: Graph, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul on the sparsity pattern:
+    ``s[e] = <x[row[e]], y[col[e]]>``."""
+    return edge_dot(graph.row, graph.col, x, y)

@@ -1,27 +1,86 @@
-"""Counter-based edge dropout: the keep decision of edge ``e`` is a pure
-hash of its id and two 32-bit salts,
+"""Counter-based edge dropout and the training grids (the JAX package's
+``ops/stochastic.py``).
+
+The keep decision of edge ``e`` is a pure hash of its id and two 32-bit
+salts,
 
     fmix32(fmix32(e ^ s0) ^ s1) >> 8  <  round(keep * 2**24),
 
 so every layout that knows an edge's id recomputes the same realized mask,
 on any device.  The masks are bit-equal to the JAX package's for the same
-ids, salts, keep rate and ``n_drop``.
+ids, salts, keep rate and ``n_drop``.  On the host the hash runs in int64
+with ``& 0xFFFFFFFF`` (``torch.uint32`` tensors do not support ``>>`` or
+``<``), its multiplications split into 16-bit halves so no product leaves
+the int64 range; the masked kernels run it in native uint32.
 
-The hash runs in int64 with ``& 0xFFFFFFFF``: ``torch.uint32`` tensors do not
-support ``>>`` or ``<``.  Multiplications are split into 16-bit halves so no
-product leaves the int64 range.
+:class:`TrainGrids` holds, for one graph structure, a row-split ELL grid of
+every original edge (for ``A @ x``) and a column-split twin (for ``A^T @ g``
+and the column sums), bit-equal to the JAX package's.  The grids stay on
+the host.  On a device only the walk's two lists go: each grid's live slots
+in grid order as an :class:`~.blocked.EdgeList` (``ptr`` over all N rows,
+``idx``, ``eid``; the row list's ``eid`` is the identity on a row-sorted
+graph and is not stored).  The kernels read the graph's base values through
+``eid`` and hash the mask themselves (``ops/ell_gather.py``):
+
+* :func:`stochastic_spmm` — ``A_dropped @ x`` through ``_TrainGridsFn``:
+  the masked walk over the row list, its backward ``dx`` the masked walk over
+  the column list with the same draw (never a row scatter); no gradient
+  flows to the values, as in the JAX package;
+* :func:`stochastic_degree` — the dropped graph's column (or row) sums, the
+  degree walk over the column (or row) list, with no E-sized scatter.
+
+The JAX package's ``grid_value_dtype`` (bf16 value grids) has no
+counterpart: the walk reads ``graph.val`` through ``eid``, not a value grid.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextvars
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..graph.coo import Graph
+from ..utils.idcache import IdLRU, sizeof
+from .blocked import EdgeList
+from .ell_gather import ell_degree_masked, ell_gather_masked, ell_list
+# the row-split width of the ELL layouts (ops/spmm.py), shared by the grids
+from .spmm import _ELL_DEFAULT_K as _K
+
 # graphs below this many edges take an eager Bernoulli draw instead of the
-# lazy salts (ops/normalize.py::edge_dropout)
+# lazy salts (ops/normalize.py::edge_dropout), unless min_edges_scope says
+# otherwise
 MIN_EDGES = 65_536
 
+_MIN_EDGES_VAR: contextvars.ContextVar[Optional[int]] = \
+    contextvars.ContextVar("gnntf_torch_min_edges", default=None)
+
 _MASK32 = 0xFFFFFFFF
+
+
+def min_edges() -> int:
+    """The lazy-dropout threshold in force: the scoped override if one is
+    active, else ``MIN_EDGES``."""
+    override = _MIN_EDGES_VAR.get()
+    return MIN_EDGES if override is None else override
+
+
+class min_edges_scope:
+    """Context manager scoping the lazy-dropout edge threshold, for tests
+    that need the grid path on small graphs without changing the
+    process-wide default."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __enter__(self):
+        self._token = _MIN_EDGES_VAR.set(self.n)
+        return self.n
+
+    def __exit__(self, *exc):
+        _MIN_EDGES_VAR.reset(self._token)
+        return False
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -45,6 +104,10 @@ def _salts(salt) -> Tuple[int, int]:
     return s0, s1
 
 
+def _threshold(keep: float) -> int:
+    return min(int(round(keep * (1 << 24))), 1 << 24)
+
+
 def keep_mask(eids: torch.Tensor, salt, keep: float,
               n_drop: int) -> torch.Tensor:
     """Boolean keep decision per edge id (any shape, int64 ids).  Ids at or
@@ -52,8 +115,7 @@ def keep_mask(eids: torch.Tensor, salt, keep: float,
     s0, s1 = _salts(salt)
     eids = eids.to(torch.int64)
     h = _fmix32(_fmix32(eids ^ s0) ^ s1)
-    thresh = min(int(round(keep * (1 << 24))), 1 << 24)
-    return ((h >> 8) < thresh) | (eids >= n_drop)
+    return ((h >> 8) < _threshold(keep)) | (eids >= n_drop)
 
 
 def dropped_values(val: torch.Tensor, eids: torch.Tensor, salt, keep: float,
@@ -66,25 +128,214 @@ def dropped_values(val: torch.Tensor, eids: torch.Tensor, salt, keep: float,
     return torch.where(kept, val * scale, torch.zeros_like(val))
 
 
-# (salt, val, keep, n_drop, values) of the last draw materialized
+def draw_scalars(salt, keep: float, n_drop: int) -> tuple:
+    """A draw as the masked kernels take it: ``(s0, s1, thresh, n_drop,
+    scale)``, the threshold as :func:`keep_mask` computes it and ``scale``
+    the float32 ``1 / keep`` of :func:`dropped_values`."""
+    s0, s1 = _salts(salt)
+    scale = float(torch.tensor(1.0 / keep, dtype=torch.float32))
+    return s0, s1, _threshold(keep), int(n_drop), scale
+
+
+# (salt, val, keep, n_drop, values) of the last draw realized
 _last_draw = None
 
 
-def materialize_dropped(graph) -> torch.Tensor:
-    """Per-edge dropped values of a lazily dropped graph.  The values of the
-    last draw are kept, keyed on the identity of its salt and value tensors,
-    which every copy of the dropped graph shares: a layer's degree sum and
-    its SpMM hash the edge ids once.  Values that carry a gradient are not
-    kept."""
+def drawn_values(val: torch.Tensor, salt, keep: float,
+                 n_drop: int) -> torch.Tensor:
+    """Per-edge dropped values of the draw (``salt``, ``keep``, ``n_drop``)
+    over the base values ``val``, by edge id.  The values of the last draw
+    are kept, keyed on the identity of its salt and value tensors, which
+    every copy of a dropped graph shares: a layer's degree sum and its SpMM
+    hash the edge ids once.  Values that carry a gradient are not kept."""
     global _last_draw
     hit = _last_draw
-    if hit is not None and hit[0] is graph.drop_salt and hit[1] is graph.val \
-            and hit[2:4] == (graph.drop_keep, graph.drop_n):
+    if hit is not None and hit[0] is salt and hit[1] is val \
+            and hit[2:4] == (keep, n_drop):
         return hit[4]
-    eids = torch.arange(graph.n_edges, dtype=torch.int64, device=graph.device)
-    out = dropped_values(graph.val, eids, graph.drop_salt, graph.drop_keep,
-                         graph.drop_n)
+    eids = torch.arange(val.shape[0], dtype=torch.int64, device=val.device)
+    out = dropped_values(val, eids, salt, keep, n_drop)
     if not out.requires_grad:
-        _last_draw = (graph.drop_salt, graph.val, graph.drop_keep,
-                      graph.drop_n, out)
+        _last_draw = (salt, val, keep, n_drop, out)
     return out
+
+
+def materialize_dropped(graph: Graph) -> torch.Tensor:
+    """Per-edge dropped values of a lazily dropped graph (the same numbers
+    every grid and kernel computes): :func:`drawn_values` of its draw."""
+    return drawn_values(graph.val, graph.drop_salt, graph.drop_keep,
+                        graph.drop_n)
+
+
+@dataclasses.dataclass
+class TrainGrids:
+    """Host-built per-original-edge row and column ELL grids for one graph
+    structure and its base values (numpy, bit-equal to the JAX package's
+    ``TrainGrids``).  :meth:`lists` puts the walk's two lists on a device,
+    once a device; :meth:`core` is the masked product through them."""
+
+    n_nodes: int
+    # row-split (A @ x): gather sources, combine into destination rows
+    r_idx: np.ndarray    # (Vr, k) int32 source ids (pad -> n_nodes)
+    r_vrow: np.ndarray   # (Vr,)  int32 destination row per virtual row
+    r_val: np.ndarray    # (Vr, k) float32 base values (pad -> 0)
+    r_eid: np.ndarray    # (Vr, k) uint32 edge ids (pad -> 0)
+    # column-split (A^T @ g, column sums): the same over the transpose
+    c_idx: np.ndarray
+    c_vrow: np.ndarray   # destination *column* per virtual column
+    c_val: np.ndarray
+    c_eid: np.ndarray
+
+    def __post_init__(self):
+        self._lists = {}
+
+    def lists(self, device) -> Tuple[EdgeList, EdgeList]:
+        """The row list and the column list on ``device`` (built on first
+        use there): each grid's live slots in grid order, ``ptr`` over all
+        N rows, in units of the walk's default size."""
+        key = str(torch.device(device))
+        if key not in self._lists:
+            self._lists[key] = tuple(
+                _grid_list(idx, vrow, eid, self.n_nodes, device)
+                for idx, vrow, eid in ((self.r_idx, self.r_vrow, self.r_eid),
+                                       (self.c_idx, self.c_vrow, self.c_eid)))
+        return self._lists[key]
+
+    def core(self, val: torch.Tensor, salt, keep: float, n_drop: int,
+             x: torch.Tensor) -> torch.Tensor:
+        """``A_dropped @ x`` for base values ``val`` (float32, one an edge)
+        and the draw (``salt``, ``keep``, ``n_drop``), differentiable in
+        ``x``."""
+        return _TrainGridsFn.apply(x, self.lists(x.device), val, salt, keep,
+                                   n_drop)
+
+
+def _grid_list(idx: np.ndarray, vrow: np.ndarray, eid: np.ndarray,
+               n_nodes: int, device) -> EdgeList:
+    """A grid's live slots in grid order (``ell_list``'s) as an
+    :class:`EdgeList` with ``ptr`` over all ``n_nodes`` rows."""
+    rows, ptr, src, slot = ell_list(idx, vrow, n_nodes)
+    count = np.zeros(n_nodes, np.int64)
+    count[rows] = np.diff(ptr)
+    full = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(count, out=full[1:])
+    return EdgeList.build(full, src, eid.reshape(-1)[slot].astype(np.int64),
+                          device)
+
+
+class _TrainGridsFn(torch.autograd.Function):
+    """``x -> A_dropped @ x``: the masked walk over the row list.  The
+    backward's ``dx`` is the masked walk over the column list with the same
+    draw; the values get no gradient (the JAX package's zero cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, lists, val, salt, keep, n_drop):
+        rows, cols = lists
+        ctx.cols, ctx.draw = cols, (val, salt, keep, n_drop)
+        return ell_gather_masked(rows, val, salt, keep, n_drop, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = ell_gather_masked(ctx.cols, *ctx.draw, dy.contiguous())
+        return dx, None, None, None, None, None
+
+
+def _route(layout, arr: np.ndarray, fill) -> np.ndarray:
+    grid = np.full(layout.n_vrows * layout.k, fill, arr.dtype)
+    grid[layout.slot] = arr
+    return grid.reshape(layout.n_vrows, layout.k)
+
+
+def build_train_grids(row: np.ndarray, col: np.ndarray, val,
+                      n_nodes: int, k: int = _K) -> TrainGrids:
+    """One-time host build: per-original-edge row and column ELL layouts
+    (``build_ell(..., dedup=False)`` on (row, col) and (col, row)) with
+    base-value and edge-id grids."""
+    from .spmm import build_ell
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    val = np.asarray(val).astype(np.float32)
+    eids = np.arange(row.shape[0], dtype=np.uint32)
+    rl = build_ell(row, col, n_nodes, k, dedup=False)
+    cl = build_ell(col, row, n_nodes, k, dedup=False)
+    return TrainGrids(
+        n_nodes=n_nodes,
+        r_idx=rl.idx, r_vrow=rl.vrow_row,
+        r_val=_route(rl, val, np.float32(0)),
+        r_eid=_route(rl, eids, np.uint32(0)),
+        c_idx=cl.idx, c_vrow=cl.vrow_row,
+        c_val=_route(cl, val, np.float32(0)),
+        c_eid=_route(cl, eids, np.uint32(0)),
+    )
+
+
+_GRIDS_CACHE = IdLRU()  # byte-bounded; shares the global layout budget
+
+
+def train_grids(graph: Graph, k: int = _K) -> TrainGrids:
+    """The grids of ``graph``'s structure and base values, with its lists on
+    its device, built once: memoized on the identity of ``row``, ``col`` and
+    ``val`` (strong references kept and re-checked), which every layer's
+    dropped copy of a graph shares.  ``train_grids.builds`` counts the
+    builds."""
+    key = (id(graph.row), id(graph.col), id(graph.val), graph.n_nodes, k)
+    anchors = (graph.row, graph.col, graph.val)
+    grids = _GRIDS_CACHE.get(key, anchors)
+    if grids is None:
+        grids = build_train_grids(graph.row.cpu().numpy(),
+                                  graph.col.cpu().numpy(),
+                                  graph.val.detach().cpu().numpy(),
+                                  graph.n_nodes, k)
+        lists = grids.lists(graph.device)
+        _GRIDS_CACHE.put(key, anchors, grids,
+                         nbytes=sizeof(grids) + sizeof(lists))
+        train_grids.builds += 1
+    return grids
+
+
+train_grids.builds = 0
+
+
+def grids_eligible(graph: Graph) -> bool:
+    """The grid path needs enough edges to amortize the one-time build
+    (:func:`min_edges`)."""
+    return graph.n_edges >= min_edges()
+
+
+def masked_row_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:
+    """The row grid's dropped values under ``graph``'s draw (host, plain;
+    the kernels hash the mask themselves)."""
+    return dropped_values(torch.from_numpy(grids.r_val),
+                          torch.from_numpy(grids.r_eid.astype(np.int64)),
+                          graph.drop_salt, graph.drop_keep, graph.drop_n)
+
+
+def masked_col_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:
+    """The column grid's dropped values under ``graph``'s draw (host,
+    plain)."""
+    return dropped_values(torch.from_numpy(grids.c_val),
+                          torch.from_numpy(grids.c_eid.astype(np.int64)),
+                          graph.drop_salt, graph.drop_keep, graph.drop_n)
+
+
+def stochastic_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """``A_dropped @ x`` for a lazily dropped graph through its grids'
+    lists.  The lazy scales are applied by the ``spmm`` dispatcher around
+    this call; ``graph`` here is the unscaled base."""
+    grids = train_grids(graph)
+    val = graph.val.to(torch.float32).contiguous()
+    return grids.core(val, graph.drop_salt, graph.drop_keep, graph.drop_n,
+                      x.to(torch.float32).contiguous())
+
+
+def stochastic_degree(graph: Graph, by: str = "col") -> torch.Tensor:
+    """Degree vector of the *dropped* adjacency with no E-sized scatter: the
+    degree walk over the column list (``by='col'``: column sums, for the
+    symmetric and bipartite normalizations) or the row list (``by='row'``:
+    row sums)."""
+    rows, cols = train_grids(graph).lists(graph.device)
+    val = graph.val.to(torch.float32).contiguous()
+    return ell_degree_masked(cols if by == "col" else rows, val,
+                             graph.drop_salt, graph.drop_keep, graph.drop_n)

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE] [--kernels k1,k2]
+    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -25,6 +25,14 @@ the default 4) at the default unit size and unroll; one ``ell_gather.cu`` librar
 each build setting, and each setting's three kernels are timed apart with
 ``torch.profiler``.
 
+Train (K1's masked and degree walks): over the training grids' lists of
+the natural-order benchmark graph (a draw keeping half the edges), it
+times the masked walk over the row and the column list at F=40 and F=128
+for each unit size (``ops/blocked.py::_UNIT_ITEMS``: 32, 64, 128, 256
+items), and the degree walk over the column list for each unit size and
+number of lanes a unit (``ops/ell_gather.py::_DEGREE_GROUP``: 1 to 32);
+no library is rebuilt.
+
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|).  One JSON object a line goes to
 standard output and, with ``--out``, to FILE.
@@ -40,12 +48,15 @@ import numpy as np
 import torch
 
 from chip_smoke import (N_EDGES, N_FEATURES, N_NODES, check_close,
-                        device_profile, log, nvidia_smi, time_ms)
+                        device_profile, kernel_name, log, nvidia_smi,
+                        time_ms)
 
 ITEMS = (64, 128, 256)
 UNROLLS = (2, 4, 8)
 PARTS = (16, 64, 256)
 K1_ITEMS = (32, 64, 128)
+TRAIN_ITEMS = (32, 64, 128, 256)
+DEGREE_GROUPS = (1, 2, 4, 8, 16, 32)
 # WALK_MIN_BLOCKS: the header's default, and the others K1's sweep builds
 MIN_BLOCKS_DEFAULT = 4
 MIN_BLOCKS = (1, 2, 3)
@@ -129,7 +140,7 @@ def sweep_k1(graph, dev, card):
                         split_rows=int(lst.split.shape[0]),
                         pieces=int(lst.split[:, 2].sum()),
                         ms=time_ms(run), card=card, us_by_kernel={
-                            key.split("<")[0].split("::")[-1]: us
+                            kernel_name(key): us
                             for key, us, _ in rows})
             print(json.dumps(line), flush=True)
             lines.append(line)
@@ -137,11 +148,70 @@ def sweep_k1(graph, dev, card):
     return lines
 
 
+def sweep_train(graph, dev, card):
+    """K1's masked walk (unit size) and degree walk (unit size, lanes a
+    unit) over the bench graph's training-grid lists; returns the JSON
+    lines."""
+    from gnntf_tpu_torch.ops import (EdgeList, blocked_spmm_plain,
+                                     build_train_grids, ell_degree_masked,
+                                     ell_gather_masked, stochastic)
+    k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+    grids = build_train_grids(graph.row.cpu().numpy(),
+                              graph.col.cpu().numpy(),
+                              graph.val.cpu().numpy(), N_NODES)
+    host = grids.lists("cpu")
+    val = graph.val.to(torch.float32).contiguous()
+    salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(9))
+    draw = (salt, 0.5, graph.n_edges)
+    w = stochastic.drawn_values(val, *draw)
+    xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
+        N_NODES, f).astype(np.float32)).to(dev)
+        for f, seed in ((40, 3), (N_FEATURES, 2))}
+    default, lines = k1._DEGREE_GROUP, []
+
+    def emit(line, run):
+        rows, _, _ = device_profile(run)
+        line.update(ms=time_ms(run), card=card, us_by_kernel={
+            kernel_name(key): us
+            for key, us, _ in rows})
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+
+    for items in TRAIN_ITEMS:
+        lists = {name: EdgeList.build(
+            lst.ptr.numpy(), lst.idx.numpy(),
+            None if lst.eid is None else lst.eid.numpy(), dev, items=items)
+            for name, lst in zip(("row", "column"), host)}
+        for name, lst in lists.items():
+            for f, x in xs.items():
+                check_close(f"masked items={items} {name} F={f}",
+                            ell_gather_masked(lst, val, *draw, x),
+                            blocked_spmm_plain(lst, w, x),
+                            blocked_spmm_plain(lst, w.abs(), x.abs()))
+                emit(dict(kernel="masked", items=items, list=name, f=f,
+                          units=lst.n_units),
+                     lambda: ell_gather_masked(lst, val, *draw, x))
+        lst = lists["column"]
+        ones = torch.ones(N_NODES, 1, device=dev)
+        ref = blocked_spmm_plain(lst, w, ones)[:, 0]
+        for group in DEGREE_GROUPS:
+            k1._DEGREE_GROUP = group
+            check_close(f"degree items={items} group={group}",
+                        ell_degree_masked(lst, val, *draw), ref, ref.abs())
+            emit(dict(kernel="degree", items=items, group=group,
+                      units=lst.n_units),
+                 lambda: ell_degree_masked(lst, val, *draw))
+    k1._DEGREE_GROUP = default
+    return lines
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
-    parser.add_argument("--kernels", default="k1,k2",
-                        help="which sweeps to run (k1, k2 or both)")
+    parser.add_argument("--kernels", default="k1,k2,train",
+                        help="which sweeps to run (k1, k2, train; "
+                             "comma-separated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -159,6 +229,8 @@ def main():
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)
     lines = sweep_k1(graph, dev, card) if "k1" in which else []
+    if "train" in which:
+        lines += sweep_train(graph, dev, card)
     if "k2" not in which:
         write(args.out, lines)
         return

@@ -10,7 +10,15 @@ float64) and, bit for bit, against a one-sum-at-a-time float32 emulation of
 the kernel's order.  On the card the kernel is held bit for bit against the
 plain version run on the CPU: both round each product and each sum apart,
 in that order.
+
+The masked and degree modes of the same walk (``ell_gather_masked``,
+``ell_degree_masked``) run over the training grids' row and column lists of
+a dropped graph; they are held the same way, the plain versions against the
+dense dropped matrix on the CPU, the kernels against the plain versions on
+the card (within ``1e-5 * sum|terms|`` per element, and bit for bit against
+the CPU).
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -18,9 +26,13 @@ import pytest
 import torch
 
 import gnntf_tpu_torch.ops.blocked as blocked_ops
-from gnntf_tpu_torch.ops import (ell_edge_list, ell_gather, ell_gather_list,
+from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
+                                 ell_degree_masked, ell_degree_masked_plain,
+                                 ell_edge_list, ell_gather, ell_gather_list,
+                                 ell_gather_masked, ell_gather_masked_plain,
                                  ell_gather_plain, ell_list)
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _ELLGatherFn, build_ell
+from gnntf_tpu_torch.ops.stochastic import keep_mask
 
 # the module, not the function that ``gnntf_tpu_torch.ops`` exports as
 # ``ell_gather``
@@ -228,6 +240,98 @@ def test_wrapper_rejects_bad_inputs():
         ell_gather_list(lst, val, args[2], torch.zeros(layout.n_nodes, 3))
 
 
+def _masked_inputs(seed, n=600, e=5000, f=8, heavy=0, n_loops=0):
+    """A graph's training-grid lists: edges from even rows to columns that
+    are multiples of 3 (other rows and columns stay empty); ``heavy`` more
+    edges from row 0 and as many into column 33 (each split over many
+    units); ``n_loops`` trailing self-loops past ``n_drop``.  Returns the
+    lists, random values, x and the draw's ``n_drop``."""
+    rng = np.random.RandomState(seed)
+    row = rng.randint(0, n // 2, size=e) * 2
+    col = rng.randint(0, n // 3, size=e) * 3
+    row = np.concatenate([row, np.zeros(heavy, np.int64),
+                          rng.randint(0, n // 2, heavy) * 2])
+    col = np.concatenate([col, rng.randint(0, n // 3, heavy) * 3,
+                          np.full(heavy, 33)])
+    n_drop = len(row)
+    loops = np.arange(n_loops) % n
+    row, col = np.concatenate([row, loops]), np.concatenate([col, loops])
+    val = rng.rand(len(row)).astype(np.float32) + 0.5
+    grids = build_train_grids(row, col, val, n)
+    rows, cols = grids.lists("cpu")
+    x = rng.randn(n, f).astype(np.float32)
+    return (rows, cols), torch.from_numpy(val), torch.from_numpy(x), n_drop, \
+        (row, col)
+
+
+def _dropped_dense(edges, val, salt, keep, n_drop, n):
+    row, col = edges
+    kept = keep_mask(torch.arange(len(row)), torch.tensor(salt), keep,
+                     n_drop).numpy()
+    w = np.where(kept, val.numpy().astype(np.float64)
+                 * np.where(np.arange(len(row)) < n_drop, 1 / keep, 1), 0)
+    a = np.zeros((n, n))
+    np.add.at(a, (row, col), w)
+    return a
+
+
+@pytest.mark.parametrize("keep", [0.5, 0.2, 1.0])
+@pytest.mark.parametrize("f", [1, 8, 40])
+def test_masked_plain_matches_dense(keep, f):
+    """Over the row list the dropped A @ x, over the column list A^T @ x;
+    the degree mode gives the row and column sums."""
+    (rows, cols), val, x, n_drop, edges = _masked_inputs(
+        1, f=f, heavy=700, n_loops=50)
+    salt = (123, 0xDEADBEEF)
+    a = _dropped_dense(edges, val, salt, keep, n_drop, 600)
+    for lst, m in ((rows, a), (cols, a.T)):
+        assert lst.n_rows == 600 and lst.rows is None
+        out = ell_gather_masked(lst, val, torch.tensor(salt), keep, n_drop, x)
+        np.testing.assert_allclose(out.numpy(), m @ x.numpy(), **TOL)
+        deg = ell_degree_masked(lst, val, torch.tensor(salt), keep, n_drop)
+        np.testing.assert_allclose(deg.numpy(), m.sum(1), **TOL)
+    # the edges are not sorted by row: both lists read their edge ids
+    assert rows.eid is not None and cols.eid is not None
+    assert rows.split.shape[0] and cols.split.shape[0]
+
+
+def test_masked_plain_rounds_as_the_walk():
+    """The masked plain version is the walk's plain version over the
+    draw's per-edge values; the degree, over a column of ones, bit for
+    bit."""
+    (rows, cols), val, x, n_drop, _ = _masked_inputs(2, heavy=400,
+                                                     n_loops=20)
+    salt = torch.tensor((9, 10))
+    w = torch.where(keep_mask(torch.arange(len(val)), salt, 0.5, n_drop),
+                    val * torch.where(torch.arange(len(val)) < n_drop,
+                                      torch.tensor(2.0), torch.tensor(1.0)),
+                    torch.zeros(()))
+    for lst in (rows, cols):
+        assert torch.equal(ell_gather_masked_plain(lst, val, salt, 0.5,
+                                                   n_drop, x),
+                           blocked_spmm_plain(lst, w, x))
+        assert torch.equal(
+            ell_degree_masked_plain(lst, val, salt, 0.5, n_drop),
+            blocked_spmm_plain(lst, w, torch.ones(600, 1))[:, 0])
+
+
+def test_masked_wrappers_reject_bad_inputs():
+    (rows, _), val, x, n_drop, _ = _masked_inputs(3)
+    salt = torch.tensor((1, 2))
+    with pytest.raises(TypeError):
+        ell_gather_masked(rows, val[:-1], salt, 0.5, n_drop, x)
+    with pytest.raises(TypeError):
+        ell_degree_masked(rows, val.double(), salt, 0.5, n_drop)
+    with pytest.raises(TypeError):
+        ell_gather_masked(rows, val, salt, 0.5, n_drop, x[:-1])
+    layout, _, _ = _ell_inputs(1)
+    k1_list, _ = ell_edge_list(layout.idx, layout.vrow_row, layout.n_nodes,
+                               "cpu")
+    with pytest.raises(ValueError):  # a list with row ids is K1's
+        ell_degree_masked(k1_list, torch.zeros(k1_list.n_edges), salt, 0.5,
+                          n_drop)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -387,6 +491,89 @@ def test_prepared_gradient_on_card_matches_cpu(cuda):
             epochs=2, patience=100, seed=0)
         launched = ell_gather.launches - before
         assert launched == (40 if model.device.type == "cuda" else 0)
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
+                                   rtol=1e-4)
+
+
+def _check_masked_kernels(lists, val, x, salt, keep, n_drop, cuda):
+    """Each list's masked product and degree on the card: within 1e-5 of
+    the sum of the terms' magnitudes of the plain version run on the card,
+    and bit-equal to the plain version run on the CPU."""
+    salt = torch.tensor(salt)
+    for lst in lists:
+        on = dataclasses.replace(lst, **{
+            f.name: getattr(lst, f.name).to(cuda)
+            for f in dataclasses.fields(lst)
+            if isinstance(getattr(lst, f.name), torch.Tensor)})
+        val_c, x_c = val.to(cuda), x.to(cuda)
+        before = (ell_gather_masked.launches, ell_degree_masked.launches)
+        out = ell_gather_masked(on, val_c, salt, keep, n_drop, x_c)
+        deg = ell_degree_masked(on, val_c, salt, keep, n_drop)
+        torch.cuda.synchronize()
+        assert (ell_gather_masked.launches, ell_degree_masked.launches) == (
+            before[0] + 1, before[1] + 1)
+        plain = ell_gather_masked_plain(on, val_c, salt, keep, n_drop, x_c)
+        scale = ell_gather_masked_plain(on, val_c, salt, keep, n_drop,
+                                        x_c.abs())
+        assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+        plain_deg = ell_degree_masked_plain(on, val_c, salt, keep, n_drop)
+        assert bool(((deg - plain_deg).abs() <= 1e-5 * plain_deg).all())
+        assert torch.equal(out.cpu(), ell_gather_masked_plain(
+            lst, val, salt, keep, n_drop, x))
+        assert torch.equal(deg.cpu(), ell_degree_masked_plain(
+            lst, val, salt, keep, n_drop))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 6, 40, 128, 260])
+@pytest.mark.parametrize("keep,n_loops", [(0.5, 0), (0.3, 300), (1.0, 300)])
+def test_masked_kernels_match_plain_on_card(cuda, f, keep, n_loops):
+    """Empty rows and columns, a hub row and a hub column split over many
+    units, ``n_drop < E`` (trailing self-loops) and ``keep = 1``."""
+    lists, val, x, n_drop, _ = _masked_inputs(
+        4, n=3000, e=60_000, f=f, heavy=20_000, n_loops=n_loops)
+    assert lists[0].split.shape[0] and lists[1].split.shape[0]
+    _check_masked_kernels(lists, val, x, (0x9E3779B9, 77), keep, n_drop,
+                          cuda)
+
+
+@pytest.mark.cuda
+def test_stochastic_training_on_card_matches_cpu(cuda):
+    """Training under the default impl on a dropped graph above
+    ``min_edges()``: every propagation step of the step runs the masked
+    walk forward and backward and the degree walk, the validation forward
+    K1; the grids are built once per device; the losses agree with the CPU
+    run (float32; the degrees and products are bit-equal, the dense layers
+    and Adam are not)."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    from gnntf_tpu_torch.ops import stochastic
+    n = 20_000
+    src, dst = random_power_law_edges(n, 40_000, seed=0)
+    rng = np.random.RandomState(1)
+    features = rng.randn(n, 16).astype(np.float32)
+    labels = rng.randint(0, 6, n)
+    hist = {}
+    for device in ("cpu", cuda):
+        graph = tt.from_edges(src, dst, n_nodes=n, directed=False,
+                              device=device)
+        model = tt.GNN(graph, features, device=device)
+        model.add(tt.Dense(16, activation=torch.relu))
+        h0 = model.add(tt.Dense(6, regularize=False))
+        for _ in range(10):
+            model.add(tt.PPRIteration(h0, 0.1, graph_dropout=0.5))
+        counts = lambda: (ell_gather_masked.launches,
+                          ell_degree_masked.launches, ell_gather.launches,
+                          stochastic.train_grids.builds)
+        before = counts()
+        hist[str(device)] = model.train(
+            tt.NodeClassification(np.arange(1000), labels[:1000]),
+            tt.NodeClassification(np.arange(1000, 2000), labels[1000:2000]),
+            epochs=2, patience=100, seed=0)
+        launched = [a - b for a, b in zip(counts(), before)]
+        assert launched == ([40, 20, 20, 1] if model.device.type == "cuda"
+                            else [0, 0, 0, 1])
     for key in ("train_loss", "valid_loss"):
         np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
                                    rtol=1e-4)
