@@ -32,7 +32,11 @@ Phases (any failure raises and exits non-zero):
    (``n_drop < E``) and ``keep = 1``, and the benchmark graph's lists at
    F=40 and F=128 beside ``torch.sparse.mm`` of the dropped A in CSR and
    ``index_add_`` of the dropped values, logging the bit-equal share
-   against the plain versions on the CPU;
+   against the plain versions on the CPU; then both walks with the draw's
+   salt pair in a device buffer: two launches with the same arguments, the
+   buffer rewritten between them, and a CUDA graph of the launches replayed
+   after another rewrite, each output bit-equal to the CPU plain version of
+   its draw;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -59,7 +63,22 @@ Phases (any failure raises and exits non-zero):
    forward over the row list, 10 in its backward over the column list), the
    degree walk 10 times, K1 10 times (the validation forward) and K2 never,
    and the training grids are built once; a profile of one step;
-6. print a ``{"kernels": [...]}`` line, the card's name and power limit from
+6. drive the fused trainer: phase 5's configuration trained with
+   ``train(epochs=10, block_epochs=5, patience=100, seed=0)`` (two blocks:
+   one epoch recorded, one captured in a CUDA graph, replayed for the rest)
+   against the host loop with ``block_epochs=1``: losses within
+   ``rtol=1e-5``, the same best epoch; launches counted twice an epoch's
+   worth (the recorded epoch and the capture); the second block's wall time
+   an epoch; a profile of a second run's second block (5 replays): per
+   replay 20 masked walks, 10 degree walks, 10 K1 walks, no K2 and no
+   ``index_add_``, and its device busy time an epoch; peak memory with the
+   graph's pool;
+6b. the same under ``spmm_impl="pallas"`` on the RCM graph (phase 4a's
+   configuration): per replay 30 K2 walks and 10 degree walks;
+6c. early stopping inside a block on the card: a small graph under
+   ``min_edges_scope(0)``, ``patience=2``, ``epochs=12``, ``block_epochs=5``:
+   the fused run's predictions equal the host loop's;
+7. print a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -98,6 +117,11 @@ KEEP = 0.5
 # that share).  The plain version on the card adds a row's terms with
 # index_add_'s atomics, in no fixed order, hence the tolerance.
 KERNEL_RTOL = 1e-5
+# fused vs host-loop training on the card: the same kernels in the same
+# order (a CUDA graph of one epoch replays the host loop's work), but the
+# capture may take other library algorithms for the dense products
+FUSED_RTOL = 1e-5
+FUSED_EPOCHS, FUSED_BLOCK = 10, 5
 # GPU vs CPU forward: float32, sums in another order across 10 steps
 FORWARD_TOL = dict(rtol=1e-4, atol=1e-4)
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -145,20 +169,36 @@ def time_ms(fn, reps=20, warmup=3):
 def device_profile(fn):
     """Device time by kernel over one ``fn()`` (torch.profiler): rows
     ``(name, us, launches)`` by time, busy and wall microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    span = ProfiledSpan()
+    span.start()
+    fn()
+    return span.stop()
+
+
+class ProfiledSpan:
+    """torch.profiler from :meth:`start` to :meth:`stop` (which may be
+    called from two callbacks of one run)."""
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return rows, sum(r[1] for r in rows), wall_us
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        """Rows ``(name, us, launches)`` by time, busy and wall
+        microseconds."""
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - self.t0) * 1e6
+        self.prof.stop()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in self.prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        return rows, sum(r[1] for r in rows), wall_us
 
 
 def kernel_name(key):
@@ -537,7 +577,7 @@ def phase_masked_kernels(graph, dev, x40, x128):
     val = torch.from_numpy(rng.rand(len(row)).astype(np.float32) + 0.5).to(
         dev)
     rows, cols = build_train_grids(row, col, val.cpu().numpy(), n).lists(dev)
-    salt = torch.tensor([0x9E3779B9, 77])
+    salt = torch.tensor([0x9E3779B9, 77], device=dev)
     small = {}
     for f in (6, 40):
         x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
@@ -569,7 +609,7 @@ def phase_masked_kernels(graph, dev, x40, x128):
     log(f"bench training grids: {stats}")
     val = graph.val.to(torch.float32).contiguous()
     salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
-                         generator=torch.Generator().manual_seed(9))
+                         generator=torch.Generator().manual_seed(9)).to(dev)
     draw = (salt, KEEP, graph.n_edges)
     res = {}
     for f, x in ((N_FEATURES, x128), (40, x40)):
@@ -594,12 +634,69 @@ def phase_masked_kernels(graph, dev, x40, x128):
                          ell_degree_masked(cols, val, *draw), cols, val,
                          draw))
     stats["bit_equal_to_cpu_plain"] = shares
+    stats["device_salts"] = check_device_salts(rows, cols, val, x40, x128,
+                                               dev)
     return dict(small=small, forward=res["forward", 40],
                 forward_bench=res["forward", N_FEATURES],
                 backward=res["backward", 40],
                 backward_bench=res["backward", N_FEATURES],
                 degree=res["degree"], degree_row=res["degree_row"],
                 lists=stats)
+
+
+def check_device_salts(rows, cols, val, x40, x128, dev):
+    """2c: the masked walks (both lists, F=40 and F=128) and the degree walk
+    with the salt pair in one device buffer: launched with draw A, the
+    buffer rewritten to draw B, launched again with the same arguments;
+    then the F=40 launches captured in a CUDA graph and replayed after the
+    buffer is rewritten to draw C.  Every output must be bit-equal to the
+    CPU plain version of its draw; returns the shares (all 1.0)."""
+    from gnntf_tpu_torch.ops import ell_degree_masked, ell_gather_masked
+
+    n_drop = val.shape[0]
+    draws = [torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(s))
+             for s in (21, 22, 23)]
+    buf = draws[0].to(dev, copy=True)
+    launches = [(f"masked {name} list F={x.shape[1]}",
+                 lambda lst=lst, x=x: ell_gather_masked(lst, val, buf, KEEP,
+                                                        n_drop, x), lst, x)
+                for x in (x40, x128) for name, lst in (("row", rows),
+                                                       ("column", cols))]
+    launches.append(("degree column list",
+                     lambda: ell_degree_masked(cols, val, buf, KEEP, n_drop),
+                     cols, None))
+    shares = {}
+
+    def hold(label, out, lst, x, draw):
+        share = cpu_share(f"{label}, salts in device memory (draw {draw})",
+                          out, lst, val, (draws[draw], KEEP, n_drop), x)
+        shares[f"{label} draw {draw}"] = share
+        if share != 1.0:
+            raise AssertionError(f"{label} with draw {draw} from the device "
+                                 f"buffer: bit-equal share {share}")
+
+    for label, launch, lst, x in launches:
+        buf.copy_(draws[0])
+        first = launch()
+        buf.copy_(draws[1])
+        second = launch()
+        hold(label, first, lst, x, 0)
+        hold(label, second, lst, x, 1)
+    if dev.type != "cuda":  # a rehearsal on the CPU: no graphs there
+        return shares
+    graphed = [launch for launch in launches
+               if launch[3] is None or launch[3] is x40]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [launch() for _, launch, _, _ in graphed]
+    buf.copy_(draws[2])
+    graph.replay()
+    for (label, _, lst, x), out in zip(graphed, outs):
+        hold(f"{label} (graph replay)", out, lst, x, 2)
+    return shares
 
 
 def hand_stack(graph, features, device, iterations=10):
@@ -1088,6 +1185,178 @@ def phase_default_train(graph, features, dev):
                 **timings)
 
 
+def fused_tasks(inv=None):
+    """Phase 5's (and 4a's) labels and split, the node ids mapped through
+    ``inv`` on a reordered graph."""
+    import gnntf_tpu_torch as tt
+    order = np.random.RandomState(7).permutation(N_NODES)
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    ids = order[:TRAIN_NODES], order[TRAIN_NODES:TRAIN_NODES + VALID_NODES]
+    return tuple(tt.NodeClassification(
+        nodes if inv is None else inv[nodes], labels[nodes]) for nodes in ids)
+
+
+def fused_run(model, tasks, impl, block_epochs, profile=False):
+    """``model.train(epochs=FUSED_EPOCHS, block_epochs=..., patience=100,
+    seed=0)`` with the counts zeroed just before and read just after: the
+    history, the counts, the host clock at the start and at each callback
+    (after a synchronize), and with ``profile`` the profile of the second
+    block, from the first block's last callback to the second block's
+    first."""
+    marks, span, profiled = [], ProfiledSpan(), {}
+
+    def mark(epoch, **_):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if profile and epoch == FUSED_BLOCK - 1:
+            span.start()
+        if profile and epoch == FUSED_BLOCK:
+            profiled["rows"], profiled["busy_us"], profiled["wall_us"] = \
+                span.stop()
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = model.train(*tasks, epochs=FUSED_EPOCHS, patience=100, seed=0,
+                       spmm_impl=impl, block_epochs=block_epochs,
+                       callbacks=[mark])
+    return hist, launch_counts(), t0, marks, profiled
+
+
+def replay_profile(label, profiled, want):
+    """The kernels of the profiled block (FUSED_BLOCK replays) an epoch;
+    raises unless each of ``want`` (a name tag: walks an epoch) holds."""
+    rows = profiled["rows"]
+    count = lambda tag: sum(r[2] for r in rows if tag in r[0])
+    walks = {tag: count(tag) / FUSED_BLOCK for tag in (
+        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
+        "blocked_spmm_walk")}
+    index_add = (count("indexFunc") + count("index_add")) / FUSED_BLOCK
+    out = dict(walks_per_epoch=walks, index_add_per_epoch=index_add,
+               launches_per_epoch=sum(r[2] for r in rows) / FUSED_BLOCK,
+               busy_ms_per_epoch=profiled["busy_us"] / FUSED_BLOCK / 1e3,
+               profiled_wall_ms_per_epoch=(profiled["wall_us"] / FUSED_BLOCK
+                                           / 1e3))
+    log(f"{label} replay profile ({FUSED_BLOCK} replays): {out}")
+    for key, us, n in rows[:12]:
+        log(f"  {us} us in {n} launches: {key[:90]}")
+    got = dict(walks, index_add=index_add)
+    if any(got[tag] != n for tag, n in want.items()):
+        raise AssertionError(f"{label}: per replay {got}, expected {want}")
+    return out
+
+
+# walks a replayed epoch: the profile's kernel names
+REPLAY_WALKS = {
+    None: {"ell_gather_masked_walk": 20, "ell_degree_walk": 10,
+           "ell_gather_walk": 10, "blocked_spmm_walk": 0, "index_add": 0},
+    "pallas": {"ell_gather_masked_walk": 0, "ell_degree_walk": 10,
+               "ell_gather_walk": 0, "blocked_spmm_walk": 30,
+               "index_add": 0}}
+
+
+def phase_fused(label, graph, features, dev, impl=None, inv=None):
+    """6 / 6b: the fused trainer against the host loop at full width, the
+    second block timed, and a second fused run's second block profiled."""
+    import gnntf_tpu_torch as tt
+
+    tasks = fused_tasks(inv)
+    model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused, counts, t0, marks, _ = fused_run(model, tasks, impl, FUSED_BLOCK)
+    peak = dict(allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20)
+    # the recorded epoch and the capture (a rehearsal on the CPU runs every
+    # epoch)
+    runs = 2 if dev.type == "cuda" else FUSED_EPOCHS
+    want = {k: runs * v for k, v in EPOCH_LAUNCHES[impl].items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches counted {counts}, expected "
+                             f"{want} (the recorded epoch and the capture)")
+    block_ms = [(marks[FUSED_BLOCK - 1] - t0) * 1e3,
+                (marks[2 * FUSED_BLOCK - 1] - marks[FUSED_BLOCK - 1]) * 1e3]
+    host, host_counts, h0, host_marks, _ = fused_run(model, tasks, impl, 1)
+    if host_counts != {k: FUSED_EPOCHS * v
+                       for k, v in EPOCH_LAUNCHES[impl].items()}:
+        raise AssertionError(f"{label}: host loop launches {host_counts}")
+    host_ms = np.diff([h0] + host_marks) * 1e3
+    rel = {}
+    for key in ("train_loss", "valid_loss"):
+        a, b = np.array(fused[key]), np.array(host[key])
+        rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        np.testing.assert_allclose(a, b, rtol=FUSED_RTOL)
+    if fused["best_epoch"] != host["best_epoch"]:
+        raise AssertionError(f"{label}: best epoch {fused['best_epoch']}, "
+                             f"host loop {host['best_epoch']}")
+    _, _, _, _, profiled = fused_run(model, tasks, impl, FUSED_BLOCK,
+                                     profile=True)
+    replay = replay_profile(label, profiled, REPLAY_WALKS[impl])
+    epoch_ms = block_ms[1] / FUSED_BLOCK
+    out = dict(fused_epoch_ms=epoch_ms, first_block_ms=block_ms[0],
+               busy_ms_per_epoch=replay["busy_ms_per_epoch"],
+               wall_over_busy=epoch_ms / replay["busy_ms_per_epoch"],
+               host_epoch_ms=host_ms.tolist(),
+               max_rel_loss_diff=rel, best_epoch=fused["best_epoch"],
+               counted=counts, peak=peak, replay=replay,
+               train_loss=fused["train_loss"], valid_loss=fused["valid_loss"])
+    log(f"{label}: fused epoch {epoch_ms} ms (second block, wall), device "
+        f"busy {replay['busy_ms_per_epoch']} ms an epoch, wall/busy "
+        f"{out['wall_over_busy']}, first block (record + capture + "
+        f"{FUSED_BLOCK - 1} replays) {block_ms[0]} ms; host loop epoch ms "
+        f"{host_ms.tolist()}; max relative loss difference {rel} (limit "
+        f"{FUSED_RTOL}), best epoch {fused['best_epoch']}; launches counted "
+        f"{counts}; peak memory with the graph pool {peak}")
+    return out
+
+
+def phase_fused_patience(dev):
+    """6c: early stopping inside a block on the card: the fused run's
+    predictions equal the host loop's."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    from gnntf_tpu_torch.ops import stochastic
+
+    n = 20_000
+    src, dst = random_power_law_edges(n, 80_000, seed=1)
+    graph = tt.from_edges(src, dst, n_nodes=n, directed=False, device=dev)
+    features = np.random.RandomState(3).randn(n, 16).astype(np.float32)
+    labels = np.random.RandomState(4).randint(0, 6, n)
+    tasks = (tt.NodeClassification(np.arange(2000), labels[:2000]),
+             tt.NodeClassification(np.arange(2000, 4000), labels[2000:4000]))
+    runs = {}
+    for block_epochs in (1, FUSED_BLOCK):
+        model = tt.APPNP(graph, features, num_classes=6, device=dev)
+        with stochastic.min_edges_scope(0):
+            hist = model.train(*tasks, epochs=12, patience=2, seed=0,
+                               learning_rate=0.2, block_epochs=block_epochs)
+        runs[block_epochs] = (hist, model.predict(tt.NodeClassification(
+            np.arange(4000, n))).cpu())
+    (host, host_pred), (fused, fused_pred) = runs[1], runs[FUSED_BLOCK]
+    log(f"patience on the card: host loop ran {len(host['valid_loss'])} "
+        f"epochs (best {host['best_epoch']}), fused {fused['epochs_run']} "
+        f"(best {fused['best_epoch']}); predictions equal "
+        f"{torch.equal(host_pred, fused_pred)}")
+    if len(host["valid_loss"]) == 12:
+        raise AssertionError("the host loop did not stop early")
+    if not torch.equal(host_pred, fused_pred) or (
+            host["best_epoch"] != fused["best_epoch"]):
+        raise AssertionError("the fused run's predictions or best epoch "
+                             "differ from the host loop's after early "
+                             "stopping")
+    return dict(host_epochs=len(host["valid_loss"]),
+                fused_epochs=fused["epochs_run"],
+                best_epoch=fused["best_epoch"])
+
+
+def fused_launches(result, walk, counter):
+    """A kernel's launches on the fused path: its walks a replayed epoch
+    (the profile) and the launches its wrapper counted over the run (the
+    recorded epoch and the capture)."""
+    return dict(per_replayed_epoch=result["replay"]["walks_per_epoch"][walk],
+                counted=result["counted"][counter])
+
+
 def main(dev=None):
     """Every phase on the card; ``dev`` (another device) serves rehearsals
     of the control flow only."""
@@ -1218,15 +1487,25 @@ def main(dev=None):
     cross = phase_devices(g_rcm, perm, inv, features, dev)
     default = phase_default_train(graph, features, dev)
     log(f"training summary: {json.dumps(dict(trained=trained, cross=cross, default=default))}")
+
+    # 6. the fused trainer under the default impl, 6b. under pallas, 6c.
+    # early stopping inside a block
+    fused = phase_fused("fused (default impl)", graph, features, dev)
+    fused_k2 = phase_fused("fused (pallas)", g_rcm, features[perm], dev,
+                           impl="pallas", inv=inv)
+    patience = phase_fused_patience(dev)
+    log("fused summary: " + json.dumps(
+        dict(default=fused, pallas=fused_k2, patience=patience)))
     # one grid build a structure over the run: the RCM graph on the card
-    # (4a; 4b hits it) and on the CPU (4b), the natural graph on the card (5)
-    # (a rehearsal on the CPU has one RCM graph)
-    builds = 3 if dev.type == "cuda" else 2
+    # (4a; 4b and 6b hit it) and on the CPU (4b), the natural graph on the
+    # card (5; 6 hits it), 6c's small graph (a rehearsal on the CPU has one
+    # RCM graph)
+    builds = 4 if dev.type == "cuda" else 3
     if stochastic.train_grids.builds != builds:
         raise AssertionError(f"{stochastic.train_grids.builds} grid builds "
                              f"over the run, expected {builds}")
 
-    # 6. report
+    # 7. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
     rest = k1["rest_list"]
@@ -1239,6 +1518,7 @@ def main(dev=None):
                       f"N=169343, E={rest['live_slots']} live slots, F=40, "
                       f"added into the hub product",
              "bench_width": dict(k1["bench"], shape="F=128"),
+             "fused": fused_launches(fused, "ell_gather_walk", "k1"),
              "small": k1["small"], "rest_list": rest,
              "serving_profile": dict(forward=fwd_profile,
                                      spmm=spmm_profile)}
@@ -1251,6 +1531,7 @@ def main(dev=None):
               "shape": f"RCM bench layout C={lay['chunks']} W=T=256 BE=1024 "
                        f"N=169343 F=40, forward list",
               "bench_width": dict(k2["bench"], shape="F=128"),
+              "fused": fused_launches(fused_k2, "blocked_spmm_walk", "k2"),
               "small": k2["small"],
               "transposed": dict(k2["train_t"], shape="A^T, F=40",
                                  bench_width=dict(k2["bench_t"],
@@ -1264,6 +1545,8 @@ def main(dev=None):
               "shape": f"bench training grids' row list, E={graph.n_edges} "
                        f"edges, N=169343, F=40, keep {KEEP}",
               "bench_width": dict(masked["forward_bench"], shape="F=128"),
+              "fused": fused_launches(fused, "ell_gather_masked_walk",
+                                      "masked"),
               "backward": dict(masked["backward"], shape="column list, F=40",
                                bench_width=dict(masked["backward_bench"],
                                                 shape="F=128")),
@@ -1274,6 +1557,7 @@ def main(dev=None):
               "launches": default["launches"]["degree"], **masked["degree"],
               "shape": f"bench training grids' column list, E={graph.n_edges} "
                        f"edges, N=169343, keep {KEEP}",
+              "fused": fused_launches(fused, "ell_degree_walk", "degree"),
               "row_list": masked["degree_row"]}
     print(json.dumps({"kernels": [entry, entry2, entry3, entry4]}),
           flush=True)

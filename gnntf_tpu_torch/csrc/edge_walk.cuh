@@ -35,7 +35,8 @@
 // launch and on the CPU.
 //
 // Two more modes serve the training step's edge dropout (ops/stochastic.py).
-// With kMasked, edge e's weight is its dropped value: with id = eid[e],
+// With kMasked, edge e's weight is its dropped value under the draw (Mask):
+// with id = eid[e],
 //
 //     w = keep(id) ? val[id] * scale(id) : +0,
 //     keep(id) = fmix32(fmix32(id ^ s0) ^ s1) >> 8 < thresh  or  id >= n_drop,
@@ -94,14 +95,33 @@ struct Args {
   int n_units, n_split, n_part_items, fv, group, parts;
 };
 
-// The dropout draw of the masked modes, as kernel scalars (computed on the
-// host by ops/ell_gather.py::_mask_scalars).
+// The dropout draw of the masked modes.  The salt pair is read from device
+// memory, once a thread at the kernel's start, so a launch captured in a
+// CUDA graph takes the draw that the buffer holds at each replay; the rest
+// is fixed for a layer over a run and comes as kernel scalars
+// (ops/stochastic.py::draw_scalars).
 struct Mask {
-  uint32_t s0, s1;  // the draw's two salts
-  uint32_t thresh;  // round(keep * 2^24), at most 2^24
-  uint32_t n_drop;  // ids at or past it are always kept, unscaled
-  float scale;      // fp32(1 / keep)
+  const int64_t* salt;  // (2,) int64 holding the draw's two uint32 salts
+  uint32_t thresh;      // round(keep * 2^24), at most 2^24
+  uint32_t n_drop;      // ids at or past it are always kept, unscaled
+  float scale;          // fp32(1 / keep)
 };
+
+// The draw as the walk uses it, the salts in registers.
+struct Draw {
+  uint32_t s0, s1, thresh, n_drop;
+  float scale;
+};
+
+__device__ __forceinline__ Draw load_draw(const Mask& m) {
+  Draw d;
+  d.s0 = (uint32_t)m.salt[0];
+  d.s1 = (uint32_t)m.salt[1];
+  d.thresh = m.thresh;
+  d.n_drop = m.n_drop;
+  d.scale = m.scale;
+  return d;
+}
 
 // murmur3's 32-bit finalizer
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -117,7 +137,7 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
 // where the edge is dropped, and then val is not read).
 template <bool kMasked>
 __device__ __forceinline__ float weight(const float* __restrict__ val, int e,
-                                        const Mask& m) {
+                                        const Draw& m) {
   if (!kMasked) return val[e];
   const uint32_t id = (uint32_t)e;
   const bool low = id < m.n_drop;
@@ -217,7 +237,7 @@ __device__ __forceinline__ void walk_units(
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
     const int32_t* __restrict__ unit_edge, const T* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
-    int group, const Mask& m) {
+    int group, const Draw& m) {
   int lane;
   const long long unit = group_item(group, n_units, lane);
   if (unit < 0) return;
@@ -306,10 +326,12 @@ template <typename T, bool kAdd, bool kMasked = false, bool kDegree = false>
 __device__ __forceinline__ void walk(const Args& a, const Mask& m = Mask{}) {
   static_assert(!kDegree || (kMasked && !kAdd),
                 "the degree mode is masked and stores its rows");
+  Draw d{};
+  if constexpr (kMasked) d = load_draw(m);
   walk_units<T, kAdd, kMasked, kDegree>(
       a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
       static_cast<const T*>(a.x), static_cast<T*>(a.out),
-      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, m);
+      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, d);
 }
 
 // Item i, part_item[i] = s * parts + g: part g of split row s, the sum of

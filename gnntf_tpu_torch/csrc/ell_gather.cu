@@ -105,11 +105,10 @@ __global__ void __launch_bounds__(32) ell_degree_fixup(const Args a) {
   edge_walk::fixup<float, false>(a);
 }
 
-Mask make_mask(unsigned s0, unsigned s1, unsigned thresh, unsigned n_drop,
+Mask make_mask(const void* salt, unsigned thresh, unsigned n_drop,
                float scale) {
   Mask m;
-  m.s0 = s0;
-  m.s1 = s1;
+  m.salt = static_cast<const int64_t*>(salt);
   m.thresh = thresh;
   m.n_drop = n_drop;
   m.scale = scale;
@@ -142,20 +141,20 @@ extern "C" int gnntf_ell_gather(
 
 // The masked walk in store mode: out (n, f) float32 needs no zero-fill
 // (rows is ignored); val holds the graph's E base values, read at eid;
-// s0, s1, thresh, n_drop and scale are the draw (edge_walk.cuh, Mask); the
-// other arguments are as gnntf_ell_gather's.
+// salt (a (2,) int64 device buffer), thresh, n_drop and scale are the draw
+// (edge_walk.cuh, Mask); the other arguments are as gnntf_ell_gather's.
 extern "C" int gnntf_ell_gather_masked(
     const void* ptr, const void* idx, const void* eid, const void* rows,
     const void* unit_row, const void* unit_edge, const void* split,
     const void* part_item, const void* val, const void* x, void* out,
     void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, unsigned s0, unsigned s1,
-    unsigned thresh, unsigned n_drop, float scale, void* stream) {
+    int vec, int group, int parts, const void* salt, unsigned thresh,
+    unsigned n_drop, float scale, void* stream) {
   (void)rows;
   const Args a = edge_walk::make_args(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
-  const Mask m = make_mask(s0, s1, thresh, n_drop, scale);
+  const Mask m = make_mask(salt, thresh, n_drop, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4)
     return edge_walk::launch(ell_gather_masked_walk<float4>,
@@ -175,8 +174,8 @@ extern "C" int gnntf_ell_degree(
     const void* unit_row, const void* unit_edge, const void* split,
     const void* part_item, const void* val, const void* x, void* out,
     void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, unsigned s0, unsigned s1,
-    unsigned thresh, unsigned n_drop, float scale, void* stream) {
+    int vec, int group, int parts, const void* salt, unsigned thresh,
+    unsigned n_drop, float scale, void* stream) {
   (void)rows;
   (void)x;
   if (f != 1 || vec != 1) return (int)cudaErrorInvalidValue;
@@ -184,7 +183,7 @@ extern "C" int gnntf_ell_degree(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,
       nullptr, out, carry, n_units, n_split, n_part_items, 1, 1, group,
       parts);
-  const Mask m = make_mask(s0, s1, thresh, n_drop, scale);
+  const Mask m = make_mask(salt, thresh, n_drop, scale);
   return edge_walk::launch(ell_degree_walk, ell_degree_parts,
                            ell_degree_fixup, a, m,
                            static_cast<cudaStream_t>(stream));

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.idcache import IdLRU
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,7 +82,8 @@ class Graph:
         move = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self, row=move(self.row), col=move(self.col), val=move(self.val),
-            row_scale=move(self.row_scale), col_scale=move(self.col_scale))
+            row_scale=move(self.row_scale), col_scale=move(self.col_scale),
+            drop_salt=move(self.drop_salt))
 
     def materialized_dropout(self) -> "Graph":
         """Fold the lazy edge dropout into per-edge values (the scales stay
@@ -169,13 +171,32 @@ def _append_eye(graph: Graph, weight: float) -> Graph:
     )
 
 
+# The extended structures of add_self_loops, memoized so that every layer
+# and step shares one extension and the identity-keyed layout and grid
+# caches hit (the JAX package's _EYE_CACHE).
+_EYE_CACHE = IdLRU()
+
+
 def add_self_loops(graph: Graph, weight: float = 1.0) -> Graph:
     """Add ``weight * I`` (reference gnn.py:38-39, :48-49).
 
     A *scaled* graph (``add_eye='after'``) keeps the identity lazy as
     ``eye_weight``; an unscaled one (``add_eye='before'``) gets N entries
-    appended, counted in ``num_self_loop``."""
+    appended, counted in ``num_self_loop``.  The extension is built once per
+    (``row``, ``col``, ``val``, ``weight``, ``num_self_loop``, ``n_nodes``),
+    memoized on the tensors' identity, and the caller's lazy dropout is
+    reattached to it."""
     if graph.scaled:
         return dataclasses.replace(graph,
                                    eye_weight=graph.eye_weight + weight)
-    return _append_eye(graph, weight)
+    key = ("eye", id(graph.row), id(graph.col), id(graph.val), float(weight),
+           graph.num_self_loop, graph.n_nodes)
+    anchors = (graph.row, graph.col, graph.val)
+    ext = _EYE_CACHE.get(key, anchors)
+    if ext is None:
+        ext = _append_eye(dataclasses.replace(
+            graph, drop_salt=None, drop_keep=1.0, drop_n=0), weight)
+        _EYE_CACHE.put(key, anchors, ext)
+    return dataclasses.replace(ext, drop_salt=graph.drop_salt,
+                               drop_keep=graph.drop_keep,
+                               drop_n=graph.drop_n)

@@ -12,7 +12,9 @@ Randomness in training: the step passes one CPU ``torch.Generator``; each
 layer draws its own CPU generator from it, in layer order, and the layer's
 stochastic ops draw from that.  Edge dropout takes its salts from the CPU
 generator, so a step's edge masks are the same on every device; feature
-dropout seeds a generator on the model's device.
+dropout seeds a generator on the model's device.  The fused trainer passes
+a :class:`DrawTape` instead, which records those draws once and then feeds
+each epoch's draws to a forward that reads them from fixed places.
 """
 from __future__ import annotations
 
@@ -83,28 +85,170 @@ def _draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 1 << 62, (1,), generator=generator))
 
 
+class DrawTape:
+    """The random draws of a training forward, recorded once so that every
+    later epoch's draws can be fed to a forward that reads them from fixed
+    places: the fused trainer's captured epoch (``train/trainer.py``).
+
+    Recording (:meth:`record`), the forward draws as the host loop does: a
+    CPU generator a layer, drawn from the epoch's generator, and from it
+    each stochastic op's draw, two edge-dropout salts, a feature-dropout
+    seed or an eager edge mask's uniforms; the tape keeps their kinds in
+    order.  Replaying (after :meth:`stop`), the forward reads each salt pair
+    from its slot of :attr:`salts`, each feature-dropout mask from the op's
+    own generator on the forward's device (made once, while recording, so
+    a CUDA graph can register it) and each eager mask's uniforms from
+    :attr:`uniforms`.  :meth:`draw` reruns the record on the host on an
+    epoch's generator; :meth:`feed` seeds the generators and sets the
+    uniforms, and the caller copies the salts into :attr:`salts`.  A forward
+    whose draws differ from the record raises."""
+
+    def __init__(self):
+        # the kinds a layer draws: "salt", "seed" or ("uniform", n)
+        self.layers: List[list] = []
+        self.generators: List[torch.Generator] = []
+        self.salts: Optional[torch.Tensor] = None  # (K, 2) int64 slots
+        self.uniforms: List[torch.Tensor] = []
+        self._epoch = None  # the epoch's generator while recording
+        self._layer = None  # the layer's generator while recording
+        self.begin_forward()
+
+    @property
+    def recording(self) -> bool:
+        return self._epoch is not None
+
+    def record(self, generator: torch.Generator) -> None:
+        """Record the next forward's draws, made from ``generator``."""
+        self.layers, self.generators, self.uniforms = [], [], []
+        self._epoch = generator
+
+    def stop(self, device) -> None:
+        """End the recording; the salt slots are made on ``device``."""
+        self._epoch = self._layer = None
+        n = sum(kind == "salt" for kinds in self.layers for kind in kinds)
+        self.salts = torch.zeros(n, 2, dtype=torch.int64, device=device)
+
+    def begin_forward(self) -> None:
+        self._layer_at, self._op_at = -1, 0
+        self._drawn = {"salt": 0, "seed": 0, "uniform": 0}
+
+    def begin_layer(self) -> None:
+        self._layer_at, self._op_at = self._layer_at + 1, 0
+        if self.recording:
+            self._layer = torch.Generator().manual_seed(
+                _draw_seed(self._epoch))
+            self.layers.append([])
+        elif self._layer_at >= len(self.layers):
+            raise RuntimeError("the forward has more layers than the "
+                               "recorded one")
+
+    def _next(self, kind) -> int:
+        """The index of this op's draw among those of its kind, its kind
+        recorded or checked against the record."""
+        ops = self.layers[self._layer_at]
+        if self.recording:
+            ops.append(kind)
+        elif self._op_at >= len(ops) or ops[self._op_at] != kind:
+            raise RuntimeError(
+                f"layer {self._layer_at} draws {kind!r} as its op "
+                f"{self._op_at}, unlike the recorded forward")
+        self._op_at += 1
+        name = kind if isinstance(kind, str) else kind[0]
+        self._drawn[name] += 1
+        return self._drawn[name] - 1
+
+    def salt(self, device) -> torch.Tensor:
+        """An edge dropout's salt pair on ``device``."""
+        from ..ops.stochastic import draw_salt
+        i = self._next("salt")
+        if self.recording:
+            return draw_salt(self._layer, device)
+        return self.salts[i]
+
+    def dropout_generator(self, device) -> torch.Generator:
+        """The generator of a feature dropout's mask, on ``device``."""
+        seed = _draw_seed(self._layer) if self.recording else None
+        i = self._next("seed")
+        if self.recording:
+            self.generators.append(
+                torch.Generator(device=device).manual_seed(seed))
+        return self.generators[i]
+
+    def uniform(self, n: int, device) -> torch.Tensor:
+        """An eager edge mask's ``n`` uniforms, on the host only: a card
+        would need them copied in at every replay."""
+        if torch.device(device).type != "cpu":
+            raise NotImplementedError(
+                "fit(block_epochs > 1) on a card cannot replay the eager "
+                "Bernoulli edge mask of a graph below min_edges() edges "
+                "(ops/normalize.py::edge_dropout); train with block_epochs=1 "
+                "or under min_edges_scope(0)")
+        i = self._next(("uniform", n))
+        if self.recording:
+            self.uniforms.append(torch.rand(n, generator=self._layer))
+        return self.uniforms[i]
+
+    def draw(self, generator: torch.Generator):
+        """The recorded forward's draws on ``generator``, as the host loop
+        makes them: ``(salts, seeds, uniforms)``, the salts a (K, 2) int64
+        host tensor in slot order."""
+        from ..ops.stochastic import host_salt
+        salts, seeds, uniforms = [], [], []
+        for kinds in self.layers:
+            layer = torch.Generator().manual_seed(_draw_seed(generator))
+            for kind in kinds:
+                if kind == "salt":
+                    salts.append(host_salt(layer))
+                elif kind == "seed":
+                    seeds.append(_draw_seed(layer))
+                else:
+                    uniforms.append(torch.rand(kind[1], generator=layer))
+        salts = torch.stack(salts) if salts else torch.zeros(
+            0, 2, dtype=torch.int64)
+        return salts, seeds, uniforms
+
+    def feed(self, seeds, uniforms) -> None:
+        """Seed each feature dropout's generator and set the eager masks'
+        uniforms for the next replayed forward."""
+        for generator, seed in zip(self.generators, seeds):
+            generator.manual_seed(seed)
+        self.uniforms = list(uniforms)
+
+
 class Forward:
     """Per-call forward context: the mode, the random state and each
     layer's output."""
 
-    __slots__ = ("net", "training", "acts", "_generator", "_layer_generator")
+    __slots__ = ("net", "training", "acts", "_generator", "_layer_generator",
+                 "_tape")
 
-    def __init__(self, net: "Network", training: bool,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, net: "Network", training: bool, generator=None):
+        """``generator``: the step's CPU generator, or a :class:`DrawTape`
+        (the fused trainer's)."""
         self.net = net
         self.training = bool(training)
         self.acts: List[torch.Tensor] = []
-        self._generator = generator
+        self._tape = generator if isinstance(generator, DrawTape) else None
+        self._generator = None if self._tape is not None else generator
         self._layer_generator = None
+        if self._tape is not None:
+            self._tape.begin_forward()
 
     def begin_layer(self) -> None:
         """Draw the layer's CPU generator from the step's."""
-        if self._generator is not None:
+        if self._tape is not None:
+            self._tape.begin_layer()
+        elif self._generator is not None:
             self._layer_generator = torch.Generator().manual_seed(
                 _draw_seed(self._generator))
 
     def next_generator(self) -> torch.Generator:
         """The layer's CPU generator, for a stochastic op."""
+        if self._tape is not None:
+            raise NotImplementedError(
+                "a stochastic op draws from the layer's CPU generator "
+                "directly, which fit(block_epochs > 1) cannot replay; train "
+                "with block_epochs=1")
         if self._layer_generator is None:
             raise ValueError(
                 "Stochastic op requested without a generator; pass "
@@ -124,12 +268,15 @@ class Forward:
     def dropout(self, x: torch.Tensor, rate: float = 0.5) -> torch.Tensor:
         """Feature dropout: the identity outside training; in training the
         mask comes from a generator on ``x``'s device, seeded from the
-        layer's CPU generator."""
+        layer's CPU generator (or the tape's generator for the op)."""
         if not self.training or rate == 0.0:
             return x
         from ..ops.dropout import dropout
-        generator = torch.Generator(device=x.device).manual_seed(
-            _draw_seed(self.next_generator()))
+        if self._tape is not None:
+            generator = self._tape.dropout_generator(x.device)
+        else:
+            generator = torch.Generator(device=x.device).manual_seed(
+                _draw_seed(self.next_generator()))
         return dropout(x, rate, generator)
 
     def adjacency(self, graph_dropout: float = 0.5,
@@ -145,7 +292,8 @@ class Forward:
             return normalize_adjacency(
                 self.net.graph, graph_dropout=graph_dropout,
                 normalized=normalized, add_eye=add_eye,
-                generator=self.next_generator())
+                generator=(self._tape if self._tape is not None
+                           else self.next_generator()))
         return self.net.adjacency(normalized, add_eye)
 
     def spmm(self, graph, x: torch.Tensor) -> torch.Tensor:
@@ -174,8 +322,11 @@ class Network(nn.Module):
         return self._layers[-1].output_shape
 
     def add(self, layer: Layer) -> Layer:
+        """Append ``layer`` (built here); a layer already in the stack is
+        re-emitted through an :class:`_Alias`, as the reference allows
+        duplicate membership (layered.py:25-29)."""
         if layer.index is not None:
-            raise ValueError("a layer can be added to a network only once")
+            layer = _Alias(layer)
         layer.index = len(self._layers)
         layer.late_init(self)
         self._layers.append(layer)
@@ -193,10 +344,12 @@ class Network(nn.Module):
             requires_grad=spec.trainable)
         return pname
 
-    def create_var(self, shape=(1, 1), normalization="small", trainable=True,
+    def create_var(self, shape=None, normalization="small", trainable=True,
                    regularize=True):
-        """Reference name (create_var, variables.py:55); the default shape is
-        the (1, 1) scalar of APPNP's learnable restart probability."""
+        """Reference name (create_var, variables.py:55); no shape gives the
+        (1, 1) scalar of APPNP's learnable restart probability."""
+        if shape is None:
+            shape = (1, 1)
         return self.create_param(shape, normalization, trainable, regularize)
 
     @torch.no_grad()
@@ -210,10 +363,10 @@ class Network(nn.Module):
                 init_param(generator, spec.shape, spec.init, self.dtype))
 
     def forward(self, x: torch.Tensor, *, training: bool = False,
-                generator: Optional[torch.Generator] = None,
-                return_ctx: bool = False):
+                generator=None, return_ctx: bool = False):
         """Sequential forward fold (layered.py:52-55).  ``generator`` is the
-        step's CPU generator, needed when ``training`` draws dropout."""
+        step's CPU generator (or a :class:`DrawTape`), needed when
+        ``training`` draws dropout."""
         fw = Forward(self, training, generator)
         h = x
         for layer in self._layers:
@@ -245,3 +398,17 @@ class Network(nn.Module):
     def trainable_mask(self) -> Dict[str, bool]:
         return {s.name: s.trainable for s in self.param_specs}
 
+
+class _Alias(Layer):
+    """A layer added to the stack a second time: its output there is the
+    inner layer applied again, with the inner layer's parameters."""
+
+    def __init__(self, inner: Layer):
+        super().__init__()
+        self.inner = inner
+
+    def build(self, net: Network):
+        return self.inner.output_shape
+
+    def apply(self, fw: Forward, x: torch.Tensor) -> torch.Tensor:
+        return self.inner.apply(fw, x)

@@ -31,7 +31,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch
 
 from ..graph.coo import Graph
 from ..utils import kernels
+from ..utils.idcache import IdLRU, sizeof
 
 # items (edges and row ends) per unit of the kernel's work
 _UNIT_ITEMS = 128
@@ -424,7 +424,8 @@ def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
            group: Optional[int] = None) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
     K2's), writing into ``out`` on the current stream; counts nothing.
-    ``mask`` holds a masked entry's draw (``ops/ell_gather.py``); with no
+    ``mask`` holds a masked entry's draw (the salt pair's device address,
+    then ``stochastic.draw_scalars``; ``ops/ell_gather.py``); with no
     ``x`` (the degree mode) the walk sums one value a row, ``group`` lanes
     a unit."""
     f = 1 if x is None else x.shape[1]
@@ -488,9 +489,11 @@ blocked_spmm.launches = 0
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 # the masked entry points (gnntf_ell_gather_masked, gnntf_ell_degree) take
-# the draw before the stream: s0, s1, thresh, n_drop, scale
-MASKED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_uint32] * 4 + [
-    ctypes.c_float, ctypes.c_void_p]
+# the draw before the stream: the salt pair's device address, thresh,
+# n_drop, scale
+MASKED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [
+    ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+    ctypes.c_void_p]
 
 
 def declare(entry, masked: bool = False) -> None:
@@ -535,27 +538,26 @@ class _BlockedSpMMFn(torch.autograd.Function):
         return dval, dx, None, None, None
 
 
-# Layouts keyed on the identity of the graph's ``row`` tensor, which pins a
-# reference to it so a recycled id never aliases a dead graph's layout; the
-# 10 layers of a model and every step share one layout.
-_BLOCK_CACHE: OrderedDict = OrderedDict()
-_BLOCK_CACHE_MAX = 16
+# The lists of one structure, memoized on the identity of the graph's ``row``
+# and ``col`` (strong references kept and re-checked, so a recycled id never
+# aliases a dead graph's lists); the 10 layers of a model and every step
+# share one entry.
+_BLOCK_CACHE = IdLRU()
 
 
 def _blocked_layout(graph: Graph, window: int, tile: int,
                     block_edges: int) -> BlockedSpMM:
-    key = (id(graph.row), window, tile, block_edges, str(graph.device))
-    hit = _BLOCK_CACHE.get(key)
-    if hit is not None and hit[0] is graph.row:
-        _BLOCK_CACHE.move_to_end(key)
-        return hit[1]
-    layout = block_coo(graph.row.cpu().numpy(), graph.col.cpu().numpy(),
-                       graph.n_nodes, window=window, tile=tile,
-                       block_edges=block_edges)
-    prep = BlockedSpMM(layout, graph.device)
-    _BLOCK_CACHE[key] = (graph.row, prep)
-    while len(_BLOCK_CACHE) > _BLOCK_CACHE_MAX:
-        _BLOCK_CACHE.popitem(last=False)
+    key = (id(graph.row), id(graph.col), graph.n_nodes, window, tile,
+           block_edges)
+    anchors = (graph.row, graph.col)
+    prep = _BLOCK_CACHE.get(key, anchors)
+    if prep is None:
+        layout = block_coo(graph.row.cpu().numpy(), graph.col.cpu().numpy(),
+                           graph.n_nodes, window=window, tile=tile,
+                           block_edges=block_edges)
+        prep = BlockedSpMM(layout, graph.device)
+        _BLOCK_CACHE.put(key, anchors, prep,
+                         nbytes=sizeof((prep.forward, prep.transposed)))
     return prep
 
 

@@ -26,11 +26,12 @@ kernel's order; a CUDA tensor launches the kernel or raises.
 Two more modes of the walk carry the training step's edge dropout
 (``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
 over all N rows, in store mode.  :func:`ell_gather_masked` weights each
-edge by its dropped value, hashed in the kernel from its id and the draw;
-:func:`ell_degree_masked` sums those weights a row, with no ``x``.  Their
-plain versions take the draw's per-edge values (``stochastic.drawn_values``,
-which equal the kernel's weights bit for bit) and sum them in the kernel's
-order.
+edge by its dropped value, hashed in the kernel from its id and the draw
+(the salt pair read from device memory, so a launch captured in a CUDA
+graph takes each replay's draw); :func:`ell_degree_masked` sums those
+weights a row, with no ``x``.  Their plain versions take the draw's
+per-edge values (``stochastic.drawn_values``, which equal the kernel's
+weights bit for bit) and sum them in the kernel's order.
 """
 from __future__ import annotations
 
@@ -216,9 +217,8 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
                       device=x.device)
     if lst.n_units == 0 or x.shape[1] == 0:
         return out
-    from .stochastic import draw_scalars
-    blocked.launch(_library(), "gnntf_ell_gather_masked", lst, val, x, out,
-                   mask=draw_scalars(salt, keep, n_drop))
+    _launch_masked("gnntf_ell_gather_masked", lst, val, x, out, salt, keep,
+                   n_drop)
     ell_gather_masked.launches += 1
     return out
 
@@ -254,14 +254,23 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     out = torch.empty(lst.n_rows, dtype=torch.float32, device=val.device)
     if lst.n_units == 0:
         return out
-    from .stochastic import draw_scalars
-    blocked.launch(_library(), "gnntf_ell_degree", lst, val, None, out,
-                   mask=draw_scalars(salt, keep, n_drop), group=_DEGREE_GROUP)
+    _launch_masked("gnntf_ell_degree", lst, val, None, out, salt, keep,
+                   n_drop, group=_DEGREE_GROUP)
     ell_degree_masked.launches += 1
     return out
 
 
 ell_degree_masked.launches = 0
+
+
+def _launch_masked(entry, lst, val, x, out, salt, keep, n_drop, **kw):
+    """A masked entry's launch: the kernel reads the salt pair from device
+    memory (:func:`stochastic.device_salt`; a host salt is uploaded first),
+    the rest of the draw as kernel scalars."""
+    from .stochastic import device_salt, draw_scalars
+    salt = device_salt(salt, out.device)
+    blocked.launch(_library(), entry, lst, val, x, out,
+                   mask=(salt.data_ptr(), *draw_scalars(keep, n_drop)), **kw)
 
 
 @functools.cache

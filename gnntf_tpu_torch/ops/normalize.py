@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from ..graph.coo import Graph, add_self_loops
-from .stochastic import grids_eligible, stochastic_degree
+from .stochastic import (draw_salt, draw_uniform, grids_eligible,
+                         stochastic_degree)
 
 
 def _degree(graph: Graph, by: str = "col") -> torch.Tensor:
@@ -48,9 +49,11 @@ def edge_dropout(graph: Graph, rate: float,
                  generator: Optional[torch.Generator]) -> Graph:
     """Dropout on the edge values; the trailing self-loop entries are never
     dropped.  ``generator`` is a CPU generator, so the masks of a run are the
-    same on every device: where the training grids take the graph
-    (``grids_eligible``: at or above ``min_edges()`` edges) it draws the two
-    salts of a lazy draw, elsewhere an eager Bernoulli mask."""
+    same on every device (or a draw tape, which feeds a replayed epoch):
+    where the training grids take the graph (``grids_eligible``: at or above
+    ``min_edges()`` edges) it draws the two salts of a lazy draw, put on the
+    graph's device (``stochastic.draw_salt``), elsewhere an eager Bernoulli
+    mask."""
     if rate == 0.0 or generator is None:
         return graph
     if not 0.0 <= rate < 1.0:
@@ -58,12 +61,11 @@ def edge_dropout(graph: Graph, rate: float,
     keep = 1.0 - rate
     n_drop = graph.n_edges - graph.num_self_loop
     if grids_eligible(graph) and not graph.dropped:
-        salt = torch.randint(0, 1 << 32, (2,), generator=generator,
-                             dtype=torch.int64)
-        return dataclasses.replace(graph, drop_salt=salt, drop_keep=keep,
-                                   drop_n=n_drop)
+        return dataclasses.replace(
+            graph, drop_salt=draw_salt(generator, graph.device),
+            drop_keep=keep, drop_n=n_drop)
     graph = graph.materialized_dropout()  # stacking draws: realize the first
-    mask = (torch.rand(n_drop, generator=generator) < keep).to(graph.device)
+    mask = draw_uniform(generator, n_drop, graph.device) < keep
     head = graph.val[:n_drop]
     val = torch.cat([torch.where(mask, head / keep, torch.zeros_like(head)),
                      graph.val[n_drop:]])

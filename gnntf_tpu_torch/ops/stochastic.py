@@ -99,9 +99,12 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _salts(salt) -> Tuple[int, int]:
-    s0, s1 = (int(s) & _MASK32 for s in torch.as_tensor(salt).tolist())
-    return s0, s1
+def _salts(salt, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draw's two salts (a (2,) tensor on any device, or two ints) as
+    0-d int64 tensors of uint32 values on ``device``: the hash takes them
+    as tensor operands, so a salt in device memory is never read back."""
+    salt = torch.as_tensor(salt, dtype=torch.int64, device=device) & _MASK32
+    return salt[0], salt[1]
 
 
 def _threshold(keep: float) -> int:
@@ -112,8 +115,8 @@ def keep_mask(eids: torch.Tensor, salt, keep: float,
               n_drop: int) -> torch.Tensor:
     """Boolean keep decision per edge id (any shape, int64 ids).  Ids at or
     past ``n_drop`` (appended self-loops) are always kept."""
-    s0, s1 = _salts(salt)
     eids = eids.to(torch.int64)
+    s0, s1 = _salts(salt, eids.device)
     h = _fmix32(_fmix32(eids ^ s0) ^ s1)
     return ((h >> 8) < _threshold(keep)) | (eids >= n_drop)
 
@@ -123,21 +126,60 @@ def dropped_values(val: torch.Tensor, eids: torch.Tensor, salt, keep: float,
     """Inverted-dropout values: ``val / keep`` for kept ids below
     ``n_drop``, ``val`` at or past it, 0 for dropped ids."""
     kept = keep_mask(eids, salt, keep, n_drop)
-    inv_keep = torch.tensor(1.0 / keep, dtype=val.dtype, device=val.device)
+    inv_keep = torch.full((), 1.0 / keep, dtype=val.dtype, device=val.device)
     scale = torch.where(eids < n_drop, inv_keep, torch.ones_like(inv_keep))
     return torch.where(kept, val * scale, torch.zeros_like(val))
 
 
-def draw_scalars(salt, keep: float, n_drop: int) -> tuple:
-    """A draw as the masked kernels take it: ``(s0, s1, thresh, n_drop,
-    scale)``, the threshold as :func:`keep_mask` computes it and ``scale``
-    the float32 ``1 / keep`` of :func:`dropped_values`."""
-    s0, s1 = _salts(salt)
+def draw_scalars(keep: float, n_drop: int) -> tuple:
+    """The part of a draw that the masked kernels take as scalars, fixed for
+    a layer over a run: ``(thresh, n_drop, scale)``, the threshold as
+    :func:`keep_mask` computes it and ``scale`` the float32 ``1 / keep`` of
+    :func:`dropped_values`.  The salts stay in device memory
+    (:func:`device_salt`)."""
     scale = float(torch.tensor(1.0 / keep, dtype=torch.float32))
-    return s0, s1, _threshold(keep), int(n_drop), scale
+    return _threshold(keep), int(n_drop), scale
 
 
-# (salt, val, keep, n_drop, values) of the last draw realized
+def device_salt(salt, device) -> torch.Tensor:
+    """``salt`` as the contiguous (2,) int64 tensor on ``device`` that the
+    masked kernels read.  A salt on another device is copied; one on the
+    host goes to a card through pinned memory, without blocking."""
+    salt = torch.as_tensor(salt, dtype=torch.int64)
+    device = torch.device(device)
+    if salt.device.type != device.type:
+        if device.type == "cuda":
+            salt = salt.pin_memory()
+        salt = salt.to(device, non_blocking=True)
+    return salt.contiguous()
+
+
+def host_salt(generator: torch.Generator) -> torch.Tensor:
+    """Two salts drawn from a CPU generator, as edge dropout draws them."""
+    return torch.randint(0, 1 << 32, (2,), generator=generator,
+                         dtype=torch.int64)
+
+
+def draw_salt(source, device) -> torch.Tensor:
+    """A lazy draw's salt pair on ``device``, from ``source``: a CPU
+    ``torch.Generator`` (:func:`host_salt`, then :func:`device_salt`), or a
+    draw tape (``nn/core.py::DrawTape``), which hands out the device slot
+    that each replayed epoch refills."""
+    if isinstance(source, torch.Generator):
+        return device_salt(host_salt(source), device)
+    return source.salt(device)
+
+
+def draw_uniform(source, n: int, device) -> torch.Tensor:
+    """``n`` uniforms on ``device`` for an eager Bernoulli edge mask, from a
+    CPU ``torch.Generator`` or a draw tape (as :func:`draw_salt`)."""
+    if isinstance(source, torch.Generator):
+        return torch.rand(n, generator=source).to(device)
+    return source.uniform(n, device)
+
+
+# (salt, val, (their versions, keep, n_drop), values) of the last draw
+# realized
 _last_draw = None
 
 
@@ -146,17 +188,20 @@ def drawn_values(val: torch.Tensor, salt, keep: float,
     """Per-edge dropped values of the draw (``salt``, ``keep``, ``n_drop``)
     over the base values ``val``, by edge id.  The values of the last draw
     are kept, keyed on the identity of its salt and value tensors, which
-    every copy of a dropped graph shares: a layer's degree sum and its SpMM
-    hash the edge ids once.  Values that carry a gradient are not kept."""
+    every copy of a dropped graph shares, and on their versions, which a
+    write in place (a salt buffer refilled for the next draw) advances: a
+    layer's degree sum and its SpMM hash the edge ids once.  Values that
+    carry a gradient are not kept."""
     global _last_draw
+    key = (getattr(salt, "_version", None), val._version, keep, n_drop)
     hit = _last_draw
     if hit is not None and hit[0] is salt and hit[1] is val \
-            and hit[2:4] == (keep, n_drop):
-        return hit[4]
+            and hit[2] == key:
+        return hit[3]
     eids = torch.arange(val.shape[0], dtype=torch.int64, device=val.device)
     out = dropped_values(val, eids, salt, keep, n_drop)
     if not out.requires_grad:
-        _last_draw = (salt, val, keep, n_drop, out)
+        _last_draw = (salt, val, key, out)
     return out
 
 

@@ -14,6 +14,13 @@ class Predictor:
     def refresh(self) -> None:
         """Host-side per-use resampling hook (e.g. negative sampling)."""
 
+    @property
+    def static(self) -> bool:
+        """True when ``batch()`` is the same at every epoch: the fused
+        multi-epoch trainer (``fit(block_epochs=N)``) then puts it on the
+        model's device once."""
+        return True
+
     def batch(self) -> Any:
         """The task's tensors consumed by loss/predict/evaluate."""
         return ()

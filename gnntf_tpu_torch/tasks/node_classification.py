@@ -11,7 +11,8 @@ from .base import Predictor
 
 class NodeClassification(Predictor):
     """Softmax classification over a set of node ids.  Node ids and labels
-    are held on the CPU and moved to the activations' device on use.
+    are held on the CPU and moved to the activations' device on use; a
+    batch already there (the fused trainer moves it once) is not copied.
 
     The loss is the reference's literal composition — ``log_softmax``, then
     softmax cross-entropy from logits on top (graph_predictor.py:24-25) —

@@ -14,6 +14,13 @@
 * early stopping on the validation loss with a patience counter, a snapshot
   of the parameters at every strict improvement, and the best snapshot
   restored at the end.
+
+``fit(block_epochs=N)`` with static tasks takes the fused path of the JAX
+package (``_fit_fused``): blocks of N epochs whose state (parameters,
+optimizer moments, the best parameters, the least loss, the patience left
+and a ``stopped`` flag) stays on the device and is read back once a block.
+On a card one epoch is captured in a CUDA graph and replayed; on the CPU
+the same epoch runs eagerly.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import measures
-from ..nn.core import Network
+from ..nn.core import DrawTape, Network
 from ..ops.spmm import _IMPL_NAMES, spmm_impl as _impl_scope
 from ..tasks.base import Predictor
 from ..utils.device import resolve_device
@@ -50,19 +57,27 @@ class KerasAdam:
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
         return {"count": 0, "m": zeros(), "v": zeros()}
 
+    def step_size(self, count: int) -> float:
+        """``alpha`` of update ``count`` (from 1), computed in float32."""
+        t = torch.tensor(float(count), dtype=torch.float32)
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+        return float(f32(self.learning_rate) * torch.sqrt(
+            1.0 - torch.pow(f32(self.b2), t))
+            / (1.0 - torch.pow(f32(self.b1), t)))
+
     @torch.no_grad()
-    def update(self, grads: Mapping[str, torch.Tensor], state):
+    def update(self, grads: Mapping[str, torch.Tensor], state,
+               step_size: Optional[torch.Tensor] = None):
         """``(updates, new_state)``: the updates are added to the
-        parameters."""
+        parameters.  ``step_size``, a 0-d float32 tensor (the fused
+        trainer's entry of a table of :meth:`step_size`), replaces the step
+        size computed on the host from the count."""
         b1, b2 = self.b1, self.b2
         count = state["count"] + 1
         m = {k: b1 * state["m"][k] + (1.0 - b1) * g for k, g in grads.items()}
         v = {k: b2 * state["v"][k] + (1.0 - b2) * torch.square(g)
              for k, g in grads.items()}
-        t = torch.tensor(float(count), dtype=torch.float32)
-        f32 = lambda a: torch.tensor(a, dtype=torch.float32)
-        alpha = float(f32(self.learning_rate) * torch.sqrt(
-            1.0 - torch.pow(f32(b2), t)) / (1.0 - torch.pow(f32(b1), t)))
+        alpha = self.step_size(count) if step_size is None else step_size
         updates = {k: -alpha * m[k] / (torch.sqrt(v[k]) + self.eps)
                    for k in grads}
         return updates, {"count": count, "m": m, "v": v}
@@ -148,12 +163,11 @@ def _fold_in(seed: int, index: int) -> int:
 def _unported(**options):
     """Raise for the options of the JAX package's ``fit`` that the port
     does not have yet (ROADMAP.md, queue 1)."""
-    where = {"mesh": "item 16 (scale-out)",
-             "spmm": "item 16 (scale-out executors)",
-             "checkpoint_dir": "item 15 (utils/checkpoint.py)",
-             "resume": "item 15 (utils/checkpoint.py)",
-             "remat": "item 9 (trainer: remat)",
-             "block_epochs": "item 9 (trainer: the fused multi-epoch path)"}
+    where = {"mesh": "item 12 (scale-out)",
+             "spmm": "item 12 (scale-out executors)",
+             "checkpoint_dir": "item 6 (utils/checkpoint.py)",
+             "resume": "item 6 (utils/checkpoint.py)",
+             "remat": "item 6 (remat)"}
     for name, value in options.items():
         if value:
             raise NotImplementedError(
@@ -191,10 +205,15 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     is any object with :class:`KerasAdam`'s ``init``/``update``.  The step's
     CPU generator is seeded from ``seed + 1`` (or ``measures.next_seed()``)
     and the step index, so a run's edge-dropout masks are the same on every
-    device."""
+    device.
+
+    ``block_epochs > 1`` with one batch, ``verbose`` off and static tasks
+    takes the fused path (:func:`_fit_fused`), as in the JAX package; its
+    history holds every epoch of the last block and ``epochs_run`` counts
+    them."""
     _unported(mesh=mesh is not None, spmm=spmm is not None,
               checkpoint_dir=checkpoint_dir is not None, resume=resume,
-              remat=remat, block_epochs=block_epochs > 1)
+              remat=remat)
     del checkpoint_every  # only meaningful with checkpoint_dir
     if spmm_impl is not None and spmm_impl not in _IMPL_NAMES:
         raise ValueError(f"spmm_impl must be one of {_IMPL_NAMES}, "
@@ -210,8 +229,15 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
         valid = train  # trainable.py:58-59
     trainable = model.trainable_mask()
     names = [k for k in params if trainable.get(k, True)]
-    opt_state = tx.init({k: p.detach() for k, p in params.items()})
     rng_seed = measures.next_seed() if seed is None else seed + 1
+    if (block_epochs > 1 and batches == 1 and not verbose and train.static
+            and valid.static):
+        return _fit_fused(
+            model, train, valid, tx, names, rng_seed, patience=patience,
+            epochs=epochs, degradation=degradation, block_epochs=block_epochs,
+            regularization=regularization, callbacks=callbacks,
+            spmm_impl=spmm_impl)
+    opt_state = tx.init({k: p.detach() for k, p in params.items()})
 
     def snapshot():
         return {k: p.detach().clone() for k, p in params.items()}
@@ -288,4 +314,211 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     history["epochs_run"] = epoch + 1
     if verbose:
         print("\r")
+    return history
+
+
+def _on(batch, device):
+    """A task's batch with its tensors on ``device``."""
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device)
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_on(b, device) for b in batch)
+    return batch
+
+
+class _FusedEpoch:
+    """One epoch of the fused path (the body of the JAX package's scan,
+    ``gnntf_tpu/train/trainer.py:516-544``) over tensors updated in place,
+    so that a card can capture it once in a CUDA graph and replay it.
+
+    The step (the training forward, whose draws come from :attr:`tape`;
+    the loss; the gradients of ``loss * degradation``; the optimizer
+    update) and the clean validation forward and loss; the parameters and
+    the optimizer state stay as they are once ``stopped`` is set; the best
+    parameters, the least validation loss, the patience left and
+    ``stopped`` are tensors.  Epoch ``step`` of the block reads its
+    degradation from :attr:`deg`, its step size from :attr:`alpha` (for
+    :class:`KerasAdam`) and its salts from :attr:`salt_table`, writes its
+    train loss, validation loss and improvement to column ``step`` of
+    :attr:`out`, and advances ``step``."""
+
+    def __init__(self, model, train, valid, tx, names, *, regularization,
+                 patience, block_epochs, spmm_impl):
+        device = model.device
+        self.model, self.tx, self.names = model, tx, names
+        self.train_task, self.valid_task = train, valid
+        train.refresh()
+        self.train_batch = _on(train.batch(), device)
+        valid.refresh()
+        self.valid_batch = _on(valid.batch(), device)
+        self.regularization, self.patience = regularization, patience
+        self.spmm_impl = spmm_impl
+        self.adam = isinstance(tx, KerasAdam)
+        params = model.params
+        self.state = tx.init({k: p.detach() for k, p in params.items()})
+        self.best = {k: p.detach().clone() for k, p in params.items()}
+        f32 = dict(dtype=torch.float32, device=device)
+        self.min_loss = torch.full((), float("inf"), **f32)
+        self.pat = torch.full((), patience, dtype=torch.int64, device=device)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.deg = torch.zeros(block_epochs, **f32)
+        self.alpha = torch.zeros(block_epochs, **f32)
+        self.out = torch.zeros(3, block_epochs, **f32)
+        self.tape = DrawTape()
+        self.salt_table = None  # (block_epochs, K, 2), once recorded
+
+    def __call__(self) -> None:
+        model, params, i = self.model, self.model.params, self.step
+        stopped = self.stopped
+        if not self.tape.recording and len(self.tape.salts):
+            self.tape.salts.copy_(self.salt_table.index_select(0, i)[0])
+        with _impl_scope(self.spmm_impl):
+            loss = _total_loss(model, self.train_task, self.train_batch,
+                               self.regularization, self.tape)
+            found = dict(zip(self.names, torch.autograd.grad(
+                loss, [params[k] for k in self.names], allow_unused=True)))
+        deg = self.deg.index_select(0, i).view(())
+        grads = {k: torch.zeros_like(p) if found.get(k) is None
+                 else found[k] * deg for k, p in params.items()}
+        with torch.no_grad():
+            if self.adam:
+                updates, new = self.tx.update(
+                    grads, self.state,
+                    step_size=self.alpha.index_select(0, i).view(()))
+                for part in ("m", "v"):
+                    for k, t in self.state[part].items():
+                        t.copy_(torch.where(stopped, t, new[part][k]))
+            else:  # the host only: fit raises for it on a card
+                updates, new = self.tx.update(grads, self.state)
+                if not bool(stopped):
+                    self.state = new
+            for k, u in updates.items():
+                params[k].copy_(torch.where(stopped, params[k],
+                                            params[k] + u))
+            with _impl_scope(self.spmm_impl):
+                acts = model.forward(model.features, training=False)
+            vloss = self.valid_task.loss(acts, self.valid_batch,
+                                         params=params)
+            improved = (vloss < self.min_loss) & ~stopped
+            pat = torch.where(stopped, self.pat, self.pat - 1)
+            for k, p in params.items():
+                self.best[k].copy_(torch.where(improved, p, self.best[k]))
+            self.min_loss.copy_(torch.where(improved, vloss, self.min_loss))
+            self.pat.copy_(torch.where(improved, self.patience, pat))
+            stopped.copy_(stopped | (self.pat <= 0))
+            self.out.index_copy_(1, i, torch.stack(
+                [loss.detach(), vloss, improved.to(torch.float32)])[:, None])
+            i.add_(1)
+
+
+def _capture(run: _FusedEpoch, stream) -> "torch.cuda.CUDAGraph":
+    """``run`` captured in a CUDA graph on ``stream`` (which ran the
+    recording epoch, so every memo is built), each feature dropout's
+    generator registered so that a replay takes its seed."""
+    graph = torch.cuda.CUDAGraph()
+    for generator in run.tape.generators:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream):
+        run()
+    return graph
+
+
+def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
+               names, rng_seed: int, *, patience, epochs, degradation,
+               block_epochs, regularization, callbacks, spmm_impl) -> Dict:
+    """The fused multi-epoch path (the JAX package's ``_fit_fused``,
+    ``gnntf_tpu/train/trainer.py:477-603``): blocks of ``min(block_epochs,
+    epochs - epoch)`` epochs of :class:`_FusedEpoch`, read back once a
+    block; the callbacks then see each epoch of the block with the running
+    best loss and ``patience_remaining=-1``; a block that ends stopped ends
+    the run, ``epochs_run`` is the epochs run, and the best parameters are
+    restored.
+
+    The first epoch records the draws (:class:`DrawTape`) from its
+    generator, as the host loop draws them; every later epoch is fed the
+    record rerun on its own generator, so the numbers equal the host
+    loop's.  On a card the first epoch runs on a side stream, which builds
+    every memo, and the next is captured there in a CUDA graph, replayed
+    once an epoch: a capture that fails raises, and the step size comes
+    from a device table that only :class:`KerasAdam` reads."""
+    device = model.device
+    cuda = device.type == "cuda"
+    if cuda and not isinstance(tx, KerasAdam):
+        raise NotImplementedError(
+            "fit(block_epochs > 1) on a card reads each epoch's step size "
+            "from a device table, which only keras_adam's KerasAdam does; "
+            "train with block_epochs=1 for another optimizer")
+    run = _FusedEpoch(model, train, valid, tx, names,
+                      regularization=regularization, patience=patience,
+                      block_epochs=block_epochs, spmm_impl=spmm_impl)
+    epoch_generator = lambda e: torch.Generator().manual_seed(
+        _fold_in(rng_seed, e))
+    history = {"train_loss": [], "valid_loss": [], "epochs_run": 0,
+               "best_epoch": -1}
+    graph, best_before = None, float("inf")
+    epoch = 0
+    while epoch < epochs:
+        n = min(block_epochs, epochs - epoch)
+        span = range(epoch, epoch + n)
+        run.deg[:n].copy_(torch.tensor([float(degradation(e)) for e in span],
+                                       dtype=torch.float32))
+        if run.adam:
+            run.alpha[:n].copy_(torch.tensor(
+                [tx.step_size(e + 1) for e in span], dtype=torch.float32))
+        run.step.zero_()
+        first = 0
+        if epoch == 0:
+            run.tape.record(epoch_generator(0))
+            if cuda:
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(stream):
+                    run()
+                torch.cuda.current_stream(device).wait_stream(stream)
+            else:
+                run()
+            run.tape.stop(device)
+            run.salt_table = torch.zeros(
+                (block_epochs,) + tuple(run.tape.salts.shape),
+                dtype=torch.int64, device=device)
+            if cuda and epochs > 1:
+                graph = _capture(run, stream)
+            first = 1
+        draws = [run.tape.draw(epoch_generator(e)) for e in span[first:]]
+        if draws and len(run.tape.salts):
+            run.salt_table[first:n].copy_(torch.stack([d[0] for d in draws]))
+        for _, seeds, uniforms in draws:
+            run.tape.feed(seeds, uniforms)
+            if graph is not None:
+                graph.replay()
+            else:
+                run()
+        # the block's numbers in one read
+        back = torch.cat([run.out[:, :n].reshape(-1), run.min_loss.view(1),
+                          run.stopped.view(1).to(torch.float32)]).cpu()
+        losses, vlosses = back[:n].numpy(), back[n:2 * n].numpy()
+        history["train_loss"].extend(losses.tolist())
+        history["valid_loss"].extend(vlosses.tolist())
+        for i in np.flatnonzero(back[2 * n:3 * n].numpy()):
+            history["best_epoch"] = epoch + int(i)
+        if callbacks:
+            running_best = np.minimum.accumulate(
+                np.minimum(vlosses, best_before))
+            for cb in callbacks:
+                for i in range(n):
+                    cb(epoch=epoch + i, params=model.params,
+                       valid_loss=float(vlosses[i]),
+                       best_loss=float(running_best[i]),
+                       patience_remaining=-1)
+        best_before = float(back[3 * n])
+        epoch += n
+        if back[3 * n + 1]:
+            break
+
+    with torch.no_grad():  # restore the best snapshot (trainable.py:101-102)
+        for k, p in model.params.items():
+            p.copy_(run.best[k])
+    model._act_cache = None
+    history["epochs_run"] = epoch
     return history

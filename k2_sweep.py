@@ -161,8 +161,9 @@ def sweep_train(graph, dev, card):
                               graph.val.cpu().numpy(), N_NODES)
     host = grids.lists("cpu")
     val = graph.val.to(torch.float32).contiguous()
+    # the salts in device memory, where the kernels read them
     salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
-                         generator=torch.Generator().manual_seed(9))
+                         generator=torch.Generator().manual_seed(9)).to(dev)
     draw = (salt, 0.5, graph.n_edges)
     w = stochastic.drawn_values(val, *draw)
     xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(

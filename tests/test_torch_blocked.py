@@ -259,7 +259,7 @@ def test_layout_is_cached_per_structure():
     before = len(tt.ops.blocked._BLOCK_CACHE)
     spmm_pallas(pg, x)
     spmm_pallas(dataclasses.replace(pg, val=pg.val * 3), x)
-    assert len(tt.ops.blocked._BLOCK_CACHE) == min(before + 1, 16)
+    assert len(tt.ops.blocked._BLOCK_CACHE) == before + 1
 
 
 def test_pallas_epoch_runs_k2_both_ways_without_value_scatter(monkeypatch):
@@ -274,7 +274,7 @@ def test_pallas_epoch_runs_k2_both_ways_without_value_scatter(monkeypatch):
     wrapped = tt.ops.blocked.blocked_spmm
 
     def record(lst, val, x):
-        prep = next(iter(tt.ops.blocked._BLOCK_CACHE.values()))[1]
+        prep = next(iter(tt.ops.blocked._BLOCK_CACHE._data.values()))[1]
         calls.append("T" if lst is prep.transposed else "A")
         return wrapped(lst, val, x)
 

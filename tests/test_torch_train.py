@@ -238,8 +238,7 @@ def test_training_forward_draws_from_the_generator():
 
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(spmm="halo"), dict(checkpoint_dir="ckpt"),
-    dict(resume=True), dict(remat=True), dict(block_epochs=2),
-    dict(spmm_impl="bogus")])
+    dict(resume=True), dict(remat=True), dict(spmm_impl="bogus")])
 def test_fit_unported_options_raise(option):
     g = tt.from_edges([0, 1, 2], [1, 2, 0], device="cpu")
     m = _stack(tt, g, np.ones((3, 4), np.float32), 2, device="cpu")
