@@ -30,13 +30,20 @@ Phases (any failure raises and exits non-zero):
    (the dropped graph's column sums): a small graph with empty rows and
    columns, a hub row and column split over many units, trailing self-loops
    (``n_drop < E``) and ``keep = 1``, and the benchmark graph's lists at
-   F=40 and F=128 beside ``torch.sparse.mm`` of the dropped A in CSR and
+   F=40, F=64 and F=128 beside ``torch.sparse.mm`` of the dropped A in CSR and
    ``index_add_`` of the dropped values, logging the bit-equal share
    against the plain versions on the CPU; then both walks with the draw's
    salt pair in a device buffer: two launches with the same arguments, the
    buffer rewritten between them, and a CUDA graph of the launches replayed
    after another rewrite, each output bit-equal to the CPU plain version of
    its draw;
+2d. the same for K1's backward walk, ``dx = A_rest^T dy`` over the
+   transposed list of K1's list (``ell_transposed_list``) in the walk's
+   store mode: a small random ELL with duplicates, an empty column and a
+   hub column split over many units, and the bench rest list at F=40 and
+   F=64 beside ``torch.sparse.mm`` of ``A_rest^T`` in CSR and the
+   ``index_add_`` route it replaced, logging the share bit-equal to the
+   plain version on the CPU;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -78,10 +85,28 @@ Phases (any failure raises and exits non-zero):
 6c. early stopping inside a block on the card: a small graph under
    ``min_edges_scope(0)``, ``patience=2``, ``epochs=12``, ``block_epochs=5``:
    the fused run's predictions equal the host loop's;
-7. print a ``{"kernels": [...]}`` line, the card's name and power limit from
-   nvidia-smi, and as the last line ``{"ok": true, "device": {...}}``.
+7. GCNII at its published configuration (latent 64, 64 convolutions,
+   ``alpha=0.1``, ``l=0.5``, dropout 0.6) on the benchmark graph with 40
+   classes: three forwards, three predict requests and one evaluate (64 K1
+   walks a forward) and a profile of one forward; the full-depth forward
+   against the CPU's with the same random weights (``rtol=1e-3,
+   atol=1e-4``, argmax agreement >= 99.9%); ``train(epochs=3)`` with no
+   ``spmm_impl`` (an epoch: 128 K1 walks, 64 backward walks over the
+   transposed list) and a profile of one step (no ``index_add_``); 3 epochs
+   at depth 8 without dropout on the card and on the CPU, compared as in
+   4b;
+8. GCN at its published configuration (latent 64, dropout and edge dropout
+   0.5): ``train(epochs=5)`` with no ``spmm_impl`` (an epoch: 2 masked
+   walks at F=64, 1 degree walk, 3 K1 walks, 1 backward walk at F=40), a
+   profile of one step, predict, then ``fit(block_epochs=5)`` against the
+   host loop at ``epochs=10`` (losses within ``rtol=1e-5``, the same best
+   epoch) and a profile of a fused run's replays;
+9. print each phase's seconds, a ``{"kernels": [...]}`` line, the card's
+   name and power limit from nvidia-smi, and as the last line ``{"ok":
+   true, "device": {...}}``.
 """
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -137,6 +162,20 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_OUTLIERS = 1e-3
 MAX_PARAM_DIFF = 1e-3
 LEARNING_RATE = 0.01
+# the published configurations of the JAX package's config.py (GCNIIConfig,
+# GCNConfig), copied: GCN's dropouts (0.5 feature, 0.5 edge) are its own
+GCNII_CONFIG = dict(latent_dims=(64,), a=0.1, l=0.5, iterations=64,
+                    dropout=0.6)
+GCN_CONFIG = dict(latent_dims=(64,))
+GCNII_EPOCHS, GCN_EPOCHS = 3, 5
+# GCNII's weights for the GPU vs CPU checks: U(-INIT_SCALE, INIT_SCALE), as
+# its zero-initialized convolution weights would hide the convolutions
+INIT_SCALE = 0.1
+# GCNII-64's GPU vs CPU forward: float32, 64 layers of sums in another
+# order (each SpMM, each 64-wide mix)
+GCNII_TOL = dict(rtol=1e-3, atol=1e-4)
+# the depth of the cross-device GCNII run
+CROSS_ITERATIONS = 8
 
 
 def log(msg):
@@ -307,9 +346,10 @@ def check_ell_kernel(label, lst, val, x, base, library=False):
     return res
 
 
-def phase_ell_kernel(graph, dev, x40, x128):
+def phase_ell_kernel(graph, dev, x40, x64, x128):
     """2: K1 against its plain version, small and on the bench graph's rest
-    ELL list, adding into random bases; returns the results."""
+    ELL list (F=128, 64 and 40), adding into random bases; returns the
+    results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, ell_gather_list,
                                      normalize_adjacency)
@@ -352,7 +392,7 @@ def phase_ell_kernel(graph, dev, x40, x128):
         f"{stats}")
     rng = np.random.RandomState(4)
     res = {}
-    for f, x in ((N_FEATURES, x128), (40, x40)):
+    for f, x in ((N_FEATURES, x128), (64, x64), (40, x40)):
         base = torch.from_numpy(rng.randn(N_NODES, f).astype(
             np.float32)).to(dev)
         res[f] = check_ell_kernel(f"bench F={f}", lst, val, x, base,
@@ -365,7 +405,7 @@ def phase_ell_kernel(graph, dev, x40, x128):
     log(f"K1 bench F=40 on the card against the plain version on the CPU: "
         f"bit-equal share {stats['bit_equal_to_cpu_plain_f40']}")
     return dict(small=small_res, bench=res[N_FEATURES], serving=res[40],
-                rest_list=stats)
+                gcn_width=res[64], rest_list=stats)
 
 
 def live_edges(lst):
@@ -556,7 +596,7 @@ def cpu_share(label, out, lst, val, draw, x=None):
     return share
 
 
-def phase_masked_kernels(graph, dev, x40, x128):
+def phase_masked_kernels(graph, dev, x40, x64, x128):
     """2c: K1's masked and degree walks against their plain versions, small
     and on the bench graph's training-grid lists; returns the results."""
     from gnntf_tpu_torch.ops import (build_train_grids, ell_degree_masked,
@@ -612,7 +652,7 @@ def phase_masked_kernels(graph, dev, x40, x128):
                          generator=torch.Generator().manual_seed(9)).to(dev)
     draw = (salt, KEEP, graph.n_edges)
     res = {}
-    for f, x in ((N_FEATURES, x128), (40, x40)):
+    for f, x in ((N_FEATURES, x128), (64, x64), (40, x40)):
         res["forward", f] = check_masked_kernel(
             f"masked bench row list F={f}", rows, val, draw, x, library=True)
         res["backward", f] = check_masked_kernel(
@@ -640,6 +680,8 @@ def phase_masked_kernels(graph, dev, x40, x128):
                 forward_bench=res["forward", N_FEATURES],
                 backward=res["backward", 40],
                 backward_bench=res["backward", N_FEATURES],
+                forward_gcn=res["forward", 64],
+                backward_gcn=res["backward", 64],
                 degree=res["degree"], degree_row=res["degree_row"],
                 lists=stats)
 
@@ -715,9 +757,15 @@ def hand_stack(graph, features, device, iterations=10):
 def profile_step(step, top=10):
     """Device time by kernel over one training step (torch.profiler): the
     share of it in ``index_add_`` kernels, in K2 (forward and backward
-    launches), in K1's masked walk and in its degree walk, and the walks of
-    each."""
+    launches), in K1's masked walk and in its degree walk, the walks of
+    each, and the wrappers' launch counts over the step (``counted``).
+    Late in a run a session's trace can miss its first few device events
+    (5 to 8 of a GCN step, its degree walk among them), so a walk's
+    launches are checked on the counts and the profile's walks are logged
+    beside them."""
+    before = launch_counts()
     rows, busy_us, wall_us = device_profile(step)
+    counted = {k: v - before[k] for k, v in launch_counts().items()}
 
     def family(*tags):
         hit = [r for r in rows if any(t in r[0] for t in tags)]
@@ -733,7 +781,8 @@ def profile_step(step, top=10):
     log(f"profile of one training step: wall {wall_us} us, device busy "
         f"{busy_us} us, idle share {1 - busy_us / wall_us}; index_add_ "
         f"kernels {index_add_us} us in {index_add_launches} launches; "
-        f"shares of busy {shares}; walks {walks}")
+        f"shares of busy {shares}; walks {walks}; the wrappers' counts "
+        f"{counted}")
     for key, us, count in rows[:top]:
         log(f"  {us} us in {count} launches: {key[:90]}")
     log_kernels("K2", rows, "blocked_spmm")
@@ -746,7 +795,7 @@ def profile_step(step, top=10):
                 k2_walks=walks["blocked_spmm_walk"],
                 masked_walks=walks["ell_gather_masked_walk"],
                 degree_walks=walks["ell_degree_walk"],
-                k1_walks=walks["ell_gather_walk"])
+                k1_walks=walks["ell_gather_walk"], counted=counted)
 
 
 def phase_blocked_kernel(graph, dev, x40, x128):
@@ -966,13 +1015,14 @@ def log_adam_state(name, far, steps_gpu, steps_cpu, eps, top=8):
 
 
 def launch_counts():
-    """The kernel wrappers' launch counts: K2, K1, K1's masked walk and its
-    degree walk."""
+    """The kernel wrappers' launch counts: K2, K1, K1's masked walk, its
+    degree walk and K1's backward walk over the transposed list."""
     from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
                                      ell_gather, ell_gather_masked)
     return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
                 masked=ell_gather_masked.launches,
-                degree=ell_degree_masked.launches)
+                degree=ell_degree_masked.launches,
+                backward=ell_gather.backward_launches)
 
 
 def zero_counts():
@@ -981,6 +1031,7 @@ def zero_counts():
     for fn in (blocked_spmm, ell_gather, ell_gather_masked,
                ell_degree_masked):
         fn.launches = 0
+    ell_gather.backward_launches = 0
 
 
 def per_epoch(marks):
@@ -998,8 +1049,47 @@ def per_epoch(marks):
 # in the validation forward under pallas, with K1's degree walk for the
 # step's degrees; under the default impl K1's masked walk in the step's
 # forward and backward, its degree walk, and K1 in the validation forward
-EPOCH_LAUNCHES = {"pallas": dict(k2=30, k1=0, masked=0, degree=10),
-                  None: dict(k2=0, k1=10, masked=20, degree=10)}
+EPOCH_LAUNCHES = {"pallas": dict(k2=30, k1=0, masked=0, degree=10,
+                                backward=0),
+                  None: dict(k2=0, k1=10, masked=20, degree=10, backward=0)}
+# GCNII-64 an epoch: K1 in each convolution of the step and of the
+# validation forward, the backward walk in each of the step; GCN: the
+# masked walk forward and backward and the degree walk in its hidden layer,
+# K1 and the backward walk in its output layer, K1 in both layers of the
+# validation forward
+GCNII_LAUNCHES = dict(k2=0, k1=128, masked=0, degree=0, backward=64)
+GCN_LAUNCHES = dict(k2=0, k1=3, masked=2, degree=1, backward=1)
+NO_LAUNCHES = dict(k2=0, k1=0, masked=0, degree=0, backward=0)
+
+
+def compare_params(label, params, adam, dev):
+    """GPU against CPU parameters after training (``params`` and ``adam``
+    keyed by device name): raises unless they agree within PARAM_TOL but
+    for at most PARAM_OUTLIERS of the elements, none off by more than
+    MAX_PARAM_DIFF; logs Adam's state where they do not.  Returns the
+    largest difference, the elements outside and the elements."""
+    worst, outside, total = 0.0, 0, 0
+    for k, p in params["cpu"].items():
+        q = params[str(dev)][k]
+        diff = (q - p).abs()
+        worst = max(worst, diff.max().item())
+        far = ~torch.isclose(q, p, **PARAM_TOL)
+        outside += int(far.sum())
+        total += p.numel()
+        log(f"  parameter {k} {tuple(p.shape)}: max |diff| "
+            f"{diff.max().item()}, {int(far.sum())} elements outside "
+            f"{PARAM_TOL}, largest |value| there "
+            f"{p[far].abs().max().item() if far.any() else 0.0}")
+        if far.any():
+            log_adam_state(k, far, adam[str(dev)].steps,
+                           adam["cpu"].steps, adam["cpu"].eps)
+    log(f"GPU vs CPU parameters after {label}: max |diff| {worst} (limit "
+        f"{MAX_PARAM_DIFF}), {outside} of {total} elements outside "
+        f"{PARAM_TOL}")
+    if outside > PARAM_OUTLIERS * total or worst > MAX_PARAM_DIFF:
+        raise AssertionError(f"parameters differ between devices after "
+                             f"{label}")
+    return worst, outside, total
 
 
 def phase_devices(g_rcm, perm, inv, features, dev):
@@ -1030,8 +1120,7 @@ def phase_devices(g_rcm, perm, inv, features, dev):
                 callbacks=[lambda **_: marks.append(launch_counts())])
             seconds[str(device)] = time.perf_counter() - t0
             counts[str(device)] = per_epoch(marks)
-            want = (EPOCH_LAUNCHES[impl] if device == dev
-                    else dict(k2=0, k1=0, masked=0, degree=0))
+            want = EPOCH_LAUNCHES[impl] if device == dev else NO_LAUNCHES
             if counts[str(device)] != [want] * CROSS_EPOCHS:
                 raise AssertionError(f"launches an epoch under {impl} on "
                                      f"{device}: {counts[str(device)]}, "
@@ -1045,27 +1134,9 @@ def phase_devices(g_rcm, perm, inv, features, dev):
             f"({seconds['cpu']} s)")
         for key in ("train_loss", "valid_loss"):
             np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
-        worst, outside, total = 0.0, 0, 0
-        for k, p in params["cpu"].items():
-            q = params[str(dev)][k]
-            diff = (q - p).abs()
-            worst = max(worst, diff.max().item())
-            far = ~torch.isclose(q, p, **PARAM_TOL)
-            outside += int(far.sum())
-            total += p.numel()
-            log(f"  parameter {k} {tuple(p.shape)}: max |diff| "
-                f"{diff.max().item()}, {int(far.sum())} elements outside "
-                f"{PARAM_TOL}, largest |value| there "
-                f"{p[far].abs().max().item() if far.any() else 0.0}")
-            if far.any():
-                log_adam_state(k, far, adam[str(dev)].steps,
-                               adam["cpu"].steps, adam["cpu"].eps)
-        log(f"GPU vs CPU parameters after training under "
-            f"{impl or 'the default impl'} (best epoch {gpu['best_epoch']}):"
-            f" max |diff| {worst} (limit {MAX_PARAM_DIFF}), {outside} of "
-            f"{total} elements outside {PARAM_TOL}")
-        if outside > PARAM_OUTLIERS * total or worst > MAX_PARAM_DIFF:
-            raise AssertionError("parameters differ between devices")
+        worst, outside, total = compare_params(
+            f"training under {impl or 'the default impl'} (best epoch "
+            f"{gpu['best_epoch']})", params, adam, dev)
         out[impl or "default"] = dict(
             cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)],
             max_param_diff=worst, outside=outside,
@@ -1357,6 +1428,414 @@ def fused_launches(result, walk, counter):
                 counted=result["counted"][counter])
 
 
+def k1_module():
+    """K1's module (``gnntf_tpu_torch.ops`` exports its function
+    ``ell_gather`` under the same name)."""
+    return importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+
+
+def check_backward_kernel(label, lst, lst_t, val, dy, library=False):
+    """K1's backward walk over its transposed list ``lst_t`` (``dx =
+    A_rest^T dy``) against its plain version on the card; times kernel,
+    plain version and (``library``) ``torch.sparse.mm`` of ``A_rest^T`` in
+    CSR and the route it replaced, ``dy[dst] * val`` then ``index_add_``
+    over K1's list's slots.  The bound is blocked_bound's reckoning over the
+    transposed list (store mode; its ``eid`` is read)."""
+    from gnntf_tpu_torch.ops import blocked_spmm_plain
+
+    k1 = k1_module()
+    kernel = lambda: k1.ell_gather_transposed(lst_t, val, dy)
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = blocked_spmm_plain(lst_t, val, dy)
+    scale = blocked_spmm_plain(lst_t, val.abs(), dy.abs())
+    err = check_close(f"K1 backward {label}", out, ref, scale)
+    res = dict(max_abs_err=err, ms=time_ms(kernel),
+               plain_ms=time_ms(lambda: blocked_spmm_plain(lst_t, val, dy)))
+    res["bound_ms"], res["bound_by"], n_bytes = blocked_bound(
+        lst_t, dy.shape[1])
+    res["library_ms"] = res["index_add_ms"] = None
+    if library:
+        n, f = lst_t.n_rows, dy.shape[1]
+        rows, dst = live_edges(lst_t)
+        a_t = torch.sparse_coo_tensor(
+            torch.stack([rows, dst]), val[lst_t.eid.long()],
+            (n, dy.shape[0])).coalesce().to_sparse_csr()
+        call = lambda: torch.sparse.mm(a_t, dy)
+        check_close(f"library sparse.mm of A_rest^T {label}", call(), ref,
+                    scale)
+        res["library_ms"] = time_ms(call)
+        k1_dst = list_rows(lst)
+        k1_dst = lst.rows.long()[k1_dst]
+        k1_src = lst.idx.long()
+        old = lambda: dy.new_zeros(n, f).index_add_(
+            0, k1_src, dy[k1_dst] * val[:, None])
+        check_close(f"index_add_ route {label}", old(), ref, scale)
+        res["index_add_ms"] = time_ms(old)
+    log(f"K1 backward {label}: kernel {res['ms']} ms, plain "
+        f"{res['plain_ms']} ms, library {res['library_ms']} ms, index_add_ "
+        f"route {res['index_add_ms']} ms, bound {res['bound_ms']} ms "
+        f"({res['bound_by']}, {n_bytes} B), slots {lst_t.n_edges}, units "
+        f"{lst_t.n_units}, split columns {lst_t.split.shape[0]}, "
+        f"N={lst_t.n_rows} F={dy.shape[1]}")
+    return res
+
+
+def phase_backward_kernel(graph, dev, x40, x64):
+    """2d: K1's backward walk over the transposed list of its list against
+    its plain version, small (duplicates, an empty column, a hub column
+    split over many units) and on the bench rest list at F=40 and F=64;
+    returns the results."""
+    from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
+                                     ell_edge_list, normalize_adjacency)
+    from gnntf_tpu_torch.ops.spmm import build_ell
+
+    k1 = k1_module()
+    rng = np.random.RandomState(12)
+    n = 3000
+    # even rows; columns below n - 1 (column n - 1 stays empty); then
+    # 20,000 slots on column 33 from random rows (duplicate pairs coalesce)
+    row = np.concatenate([rng.randint(0, n // 2, 60_000) * 2,
+                          rng.randint(0, n // 2, 20_000) * 2])
+    col = np.concatenate([rng.randint(0, n - 1, 60_000),
+                          np.full(20_000, 33)])
+    layout = build_ell(row, col, n, 8)
+    small, slot = ell_edge_list(layout.idx, layout.vrow_row, n, dev)
+    small_t = k1.ell_transposed_list(small, n)
+    small_val = torch.from_numpy(rng.randn(len(slot)).astype(
+        np.float32)).to(dev)
+    for f in (6, 40):
+        dy = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dev)
+        small_res = check_backward_kernel(f"small F={f}", small, small_t,
+                                          small_val, dy)
+
+    prep = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
+    lst, val = prep.k1_list, prep.k1_val
+    t0 = time.perf_counter()
+    lst_t = k1.ell_transposed_list(lst, N_NODES)
+    torch.cuda.synchronize()
+    split = lst_t.split.cpu().numpy()
+    slots = lst_t.ptr.diff().cpu().numpy()
+    stats = dict(columns=lst_t.n_rows, slots=lst_t.n_edges,
+                 units=lst_t.n_units, split_columns=len(split),
+                 pieces=int(split[:, 2].sum()),
+                 heaviest_column_slots=int(slots.max(initial=0)),
+                 empty_columns=int((slots == 0).sum()),
+                 build_s=time.perf_counter() - t0)
+    log(f"bench rest list transposed: {stats}")
+    res = {}
+    for f, x in ((64, x64), (40, x40)):
+        res[f] = check_backward_kernel(f"bench F={f}", lst, lst_t, val, x,
+                                       library=True)
+        # the kernel rounds as the plain version does on the CPU, in its
+        # order
+        out = k1.ell_gather_transposed(lst_t, val, x).cpu()
+        ref = blocked_spmm_plain(list_to(lst_t, "cpu"), val.cpu(), x.cpu())
+        share = (out == ref).double().mean().item()
+        res[f]["bit_equal_to_cpu_plain"] = share
+        log(f"K1 backward bench F={f} on the card against the plain version "
+            f"on the CPU: bit-equal share {share}")
+    return dict(small=small_res, gcn=res[40], gcnii=res[64],
+                transposed_list=stats)
+
+
+def init_params(model, seed):
+    """Every parameter of ``model`` from U(-INIT_SCALE, INIT_SCALE), drawn
+    on the host (numpy), as ``{name: array}``."""
+    rng = np.random.RandomState(seed)
+    return {s.name: rng.uniform(-INIT_SCALE, INIT_SCALE, s.shape).astype(
+        np.float32) for s in model.param_specs}
+
+
+def timed(fn, reps=3):
+    """Host-clock ms of ``reps`` calls of ``fn`` after one warm call, each
+    ending in a synchronize."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def counted_train(model, tasks, epochs, want, **kw):
+    """``model.train(*tasks, epochs=...)`` with the counts zeroed just
+    before and read at each epoch's end; raises unless every epoch launched
+    ``want``.  Returns the history, the epochs' ms and the peak memory."""
+    marks, times = [], []
+
+    def mark(epoch, **_):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        marks.append(launch_counts())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = model.train(*tasks, epochs=epochs, patience=100, seed=0,
+                       callbacks=[mark], **kw)
+    counts = per_epoch(marks)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    epoch_ms = np.diff([t0] + times) * 1e3
+    if counts != [want] * epochs:
+        raise AssertionError(f"launches an epoch {counts}, expected {want}")
+    losses = np.array(hist["train_loss"] + hist["valid_loss"])
+    if len(losses) != 2 * epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"bad losses {hist}")
+    return hist, epoch_ms.tolist(), peak_mb
+
+
+def step_fn(model, train):
+    """One training step (forward, losses, gradients) of ``model``."""
+    from gnntf_tpu_torch.train.trainer import _total_loss
+    params = [p for p in model.params.values() if p.requires_grad]
+
+    def step():
+        loss = _total_loss(model, train, train.batch(), 5e-4,
+                           torch.Generator().manual_seed(1))
+        torch.autograd.grad(loss, params)
+    return step
+
+
+def check_predictions(model, valid):
+    preds = model.predict(valid).cpu()
+    accuracy = float(model.evaluate(valid))
+    if preds.shape != (VALID_NODES,) or int(preds.max()) >= N_CLASSES:
+        raise AssertionError(f"bad predictions {tuple(preds.shape)}")
+    return accuracy
+
+
+def phase_gcnii(graph, features, dev):
+    """7: GCNII at its published configuration on the bench graph: serving
+    (three forwards, three predict requests, one evaluate; 64 K1 walks a
+    forward), the full-depth forward against the CPU's with the same
+    random weights, ``train(epochs=3)`` with no spmm_impl (64 K1 walks and
+    64 backward walks a step, no index_add_), and 3 epochs at depth
+    CROSS_ITERATIONS without dropout on both devices."""
+    import gnntf_tpu_torch as tt
+
+    train, valid = fused_tasks()
+    model = tt.GCNII(graph, features, num_classes=N_CLASSES, device=dev,
+                     **GCNII_CONFIG)
+    init = init_params(model, 11)
+    tt.params_from_jax(init, model)
+    order = np.random.RandomState(7).permutation(N_NODES)
+    requests = [order[i * REQUEST_NODES:(i + 1) * REQUEST_NODES]
+                for i in range(N_REQUESTS)]
+    eval_nodes = order[N_REQUESTS * REQUEST_NODES:
+                       (N_REQUESTS + 1) * REQUEST_NODES]
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    t0 = time.perf_counter()
+    model.adjacency()  # normalized graph + PreparedSpMM, built once
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    forward_ms, request_ms, answers = [], [], []
+    for i in range(3):
+        model._act_cache = None
+        t0 = time.perf_counter()
+        acts = model._activations()
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    for nodes in requests:
+        t0 = time.perf_counter()
+        answers.append(model.predict(tt.NodeClassification(nodes)).cpu())
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    accuracy = float(model.evaluate(
+        tt.NodeClassification(eval_nodes, labels[eval_nodes])))
+    serving = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    want = dict(NO_LAUNCHES, k1=3 * GCNII_CONFIG["iterations"])
+    if serving != want:
+        raise AssertionError(f"GCNII serving launches {serving}, expected "
+                             f"{want}")
+    model._act_cache = None
+    profile = profile_forward("one GCNII forward", model._activations,
+                              top=12)
+    if profile["k1_walks"] != GCNII_CONFIG["iterations"]:
+        raise AssertionError(f"{profile['k1_walks']} K1 walks in a GCNII "
+                             "forward")
+    log(f"GCNII serving: set-up {setup_ms} ms, forward ms {forward_ms}, "
+        f"predict ms {request_ms}, evaluate {accuracy}, peak memory "
+        f"{peak_mb} MiB, launches {serving}")
+    gpu = acts.cpu()
+    if gpu.shape != (N_NODES, N_CLASSES) or not torch.isfinite(gpu).all():
+        raise AssertionError(f"bad GCNII logits: shape {tuple(gpu.shape)}")
+    for nodes, answer in zip(requests, answers):
+        if not torch.equal(answer, gpu[torch.from_numpy(nodes)].argmax(1)):
+            raise AssertionError("GCNII predict disagrees with the "
+                                 "activations")
+    t0 = time.perf_counter()
+    cpu_model = tt.GCNII(graph.to("cpu"), features, num_classes=N_CLASSES,
+                         device="cpu", **GCNII_CONFIG)
+    tt.params_from_jax(init, cpu_model)
+    ref = cpu_model._activations()
+    err = (gpu - ref).abs().max().item()
+    agree = (gpu.argmax(1) == ref.argmax(1)).double().mean().item()
+    forward = dict(max_abs_err=err, max_abs_logit=ref.abs().max().item(),
+                   argmax_agreement=agree,
+                   cpu_s=time.perf_counter() - t0)
+    log(f"GCNII GPU vs CPU full-depth forward: {forward}")
+    if not torch.allclose(gpu, ref, **GCNII_TOL):
+        raise AssertionError(f"GCNII GPU forward differs from CPU ({err})")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"GCNII argmax agreement {agree}")
+    del cpu_model, ref
+
+    hist, epoch_ms, train_peak = counted_train(
+        model, (train, valid), GCNII_EPOCHS, GCNII_LAUNCHES)
+    step = step_fn(model, train)
+    step_ms = timed(step)
+    with torch.no_grad():
+        eval_ms = timed(lambda: model.forward(model.features))
+    prof = profile_step(step, top=12)
+    want = dict(NO_LAUNCHES, k1=GCNII_CONFIG["iterations"],
+                backward=GCNII_CONFIG["iterations"])
+    if prof["index_add_launches"] or prof["counted"] != want:
+        raise AssertionError(f"GCNII step: {prof['index_add_launches']} "
+                             f"index_add_ launches in the profile (expected "
+                             f"0), launches {prof['counted']} (expected "
+                             f"{want})")
+    accuracy = check_predictions(model, valid)
+    log(f"GCNII training: epoch ms {epoch_ms}, step ms {step_ms}, "
+        f"validation forward ms {eval_ms}, peak memory {train_peak} MiB, "
+        f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}, "
+        f"accuracy {accuracy}")
+    cross = cross_device_gcnii(graph, features, train, valid, dev)
+    return dict(serving=dict(forward_ms=forward_ms, request_ms=request_ms,
+                             setup_ms=setup_ms, peak_mb=peak_mb,
+                             launches=serving, profile=profile),
+                forward=forward, epoch_ms=epoch_ms, step_ms=step_ms,
+                eval_forward_ms=eval_ms, peak_mb=train_peak,
+                step_busy_ms=prof["busy_us"] / 1e3, profile=prof,
+                launches_per_epoch=GCNII_LAUNCHES, cross=cross)
+
+
+def cross_device_gcnii(graph, features, train, valid, dev):
+    """7: GCNII at depth CROSS_ITERATIONS without dropout (no random draw
+    separates the devices), 3 epochs on the card and on the CPU from the
+    same weights: losses within LOSS_RTOL, parameters by phase 4b's
+    rules."""
+    import gnntf_tpu_torch as tt
+
+    config = dict(GCNII_CONFIG, iterations=CROSS_ITERATIONS, dropout=0.0)
+    runs, params, adam, seconds, init = {}, {}, {}, {}, None
+    for device, g in ((dev, graph), ("cpu", graph.to("cpu"))):
+        model = tt.GCNII(g, features, num_classes=N_CLASSES, device=device,
+                         **config)
+        init = init_params(model, 13) if init is None else init
+        adam[str(device)] = recording_adam(LEARNING_RATE)
+        zero_counts()
+        t0 = time.perf_counter()
+        runs[str(device)] = model.train(
+            train, valid, epochs=CROSS_EPOCHS, patience=100, seed=0,
+            optimizer=adam[str(device)], init_params=dict(init))
+        seconds[str(device)] = time.perf_counter() - t0
+        want = dict(GCNII_LAUNCHES, k1=2 * CROSS_ITERATIONS,
+                    backward=CROSS_ITERATIONS)
+        want = {k: CROSS_EPOCHS * v for k, v in want.items()}
+        if launch_counts() != (want if torch.device(device) == dev
+                               else NO_LAUNCHES):
+            raise AssertionError(f"GCNII-{CROSS_ITERATIONS} on {device}: "
+                                 f"launches {launch_counts()}")
+        params[str(device)] = {k: p.detach().cpu()
+                               for k, p in model.params.items()}
+    gpu, cpu = runs[str(dev)], runs["cpu"]
+    log(f"GCNII-{CROSS_ITERATIONS} GPU vs CPU training, {CROSS_EPOCHS} "
+        f"epochs, no dropout: GPU {gpu} ({seconds[str(dev)]} s), CPU {cpu} "
+        f"({seconds['cpu']} s)")
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
+    worst, outside, total = compare_params(
+        f"GCNII-{CROSS_ITERATIONS} training", params, adam, dev)
+    return dict(max_param_diff=worst, outside=outside, elements=total,
+                cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)])
+
+
+def phase_gcn(graph, features, dev):
+    """8: GCN at its published configuration on the bench graph:
+    ``train(epochs=5)`` with no spmm_impl (per step the masked walk at F=64
+    forward and backward and the degree walk in the hidden layer, K1 and
+    its backward walk at F=40 in the output layer; K1 twice in the
+    validation forward), predict, then ``fit(block_epochs=5)`` against the
+    host loop at ``epochs=10`` and a profile of a fused run's replays."""
+    import gnntf_tpu_torch as tt
+
+    train, valid = fused_tasks()
+    model = tt.GCN(graph, features, num_classes=N_CLASSES, device=dev,
+                   **GCN_CONFIG)
+    hist, epoch_ms, peak_mb = counted_train(model, (train, valid),
+                                            GCN_EPOCHS, GCN_LAUNCHES)
+    step = step_fn(model, train)
+    step_ms = timed(step)
+    with torch.no_grad():
+        eval_ms = timed(lambda: model.forward(model.features))
+    prof = profile_step(step)
+    want = dict(NO_LAUNCHES, k1=1, masked=2, degree=1, backward=1)
+    if prof["index_add_launches"] or prof["counted"] != want:
+        raise AssertionError(f"GCN step: {prof['index_add_launches']} "
+                             f"index_add_ launches in the profile (expected "
+                             f"0), launches {prof['counted']} (expected "
+                             f"{want})")
+    accuracy = check_predictions(model, valid)
+    log(f"GCN training: epoch ms {epoch_ms}, step ms {step_ms}, validation "
+        f"forward ms {eval_ms}, peak memory {peak_mb} MiB, train loss "
+        f"{hist['train_loss']}, valid loss {hist['valid_loss']}, accuracy "
+        f"{accuracy}")
+
+    fused, counts, t0, marks, _ = fused_run(model, (train, valid), None,
+                                            FUSED_BLOCK)
+    runs = 2 if dev.type == "cuda" else FUSED_EPOCHS
+    want = {k: runs * v for k, v in GCN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"GCN fused: launches counted {counts}, "
+                             f"expected {want}")
+    fused_epoch_ms = (marks[2 * FUSED_BLOCK - 1]
+                      - marks[FUSED_BLOCK - 1]) * 1e3 / FUSED_BLOCK
+    host, host_counts, h0, host_marks, _ = fused_run(
+        model, (train, valid), None, 1)
+    if host_counts != {k: FUSED_EPOCHS * v for k, v in GCN_LAUNCHES.items()}:
+        raise AssertionError(f"GCN host loop launches {host_counts}")
+    rel = {}
+    for key in ("train_loss", "valid_loss"):
+        a, b = np.array(fused[key]), np.array(host[key])
+        rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        np.testing.assert_allclose(a, b, rtol=FUSED_RTOL)
+    if fused["best_epoch"] != host["best_epoch"]:
+        raise AssertionError(f"GCN fused best epoch {fused['best_epoch']}, "
+                             f"host loop {host['best_epoch']}")
+    _, _, _, _, profiled = fused_run(model, (train, valid), None,
+                                     FUSED_BLOCK, profile=True)
+    # the walks of a replay are logged, not checked: the trace can miss a
+    # session's first events (profile_step); the losses equal to the host
+    # loop's show that each replay ran them
+    replay = replay_profile("GCN fused", profiled, {"index_add": 0})
+    host_ms = np.diff([h0] + host_marks) * 1e3
+    fused_out = dict(fused_epoch_ms=fused_epoch_ms,
+                     host_epoch_ms=host_ms.tolist(),
+                     max_rel_loss_diff=rel, best_epoch=fused["best_epoch"],
+                     counted=counts, replay=replay)
+    log(f"GCN fused: {fused_out}")
+    return dict(epoch_ms=epoch_ms, step_ms=step_ms, eval_forward_ms=eval_ms,
+                peak_mb=peak_mb, step_busy_ms=prof["busy_us"] / 1e3,
+                profile=prof, launches_per_epoch=GCN_LAUNCHES,
+                fused=fused_out)
+
+
+def kernel_launches(gcnii, gcn, key):
+    """A kernel's launches (its wrapper's count) a GCNII-64 serving forward
+    and an epoch of GCNII-64's and of GCN's training."""
+    return dict(
+        gcnii=dict(serving_forward=gcnii["serving"]["launches"][key] // 3,
+                   per_epoch=gcnii["launches_per_epoch"][key]),
+        gcn=dict(per_epoch=gcn["launches_per_epoch"][key]))
+
+
 def main(dev=None):
     """Every phase on the card; ``dev`` (another device) serves rehearsals
     of the control flow only."""
@@ -1391,19 +1870,34 @@ def main(dev=None):
     x128 = torch.from_numpy(features).to(dev)
     x40 = torch.from_numpy(np.random.RandomState(3).randn(
         N_NODES, N_CLASSES).astype(np.float32)).to(dev)
-    k1 = phase_ell_kernel(graph, dev, x40, x128)
+    x64 = torch.from_numpy(np.random.RandomState(10).randn(
+        N_NODES, 64).astype(np.float32)).to(dev)
+    seconds = {}
+    t0 = time.perf_counter()
+    k1 = phase_ell_kernel(graph, dev, x40, x64, x128)
+    seconds["2"] = time.perf_counter() - t0
 
     # 2b. K2 against its plain version, small and on the RCM bench layout
+    t0 = time.perf_counter()
     g_rcm, perm, inv, k2 = phase_blocked_kernel(graph, dev, x40, x128)
+    seconds["2b"] = time.perf_counter() - t0
 
     # 2c. K1's masked and degree walks, small and on the bench grids' lists
-    masked = phase_masked_kernels(graph, dev, x40, x128)
+    t0 = time.perf_counter()
+    masked = phase_masked_kernels(graph, dev, x40, x64, x128)
+    seconds["2c"] = time.perf_counter() - t0
+
+    # 2d. K1's backward walk over the transposed rest list
+    t0 = time.perf_counter()
+    backward = phase_backward_kernel(graph, dev, x40, x64)
+    seconds["2d"] = time.perf_counter() - t0
 
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
     # 3. the serving path at full width
+    t0_phase = time.perf_counter()
     model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
     order = np.random.RandomState(7).permutation(N_NODES)
     requests = [order[i * REQUEST_NODES:(i + 1) * REQUEST_NODES]
@@ -1480,22 +1974,46 @@ def main(dev=None):
     if agree < MIN_ARGMAX_AGREEMENT:
         raise AssertionError(f"argmax agreement {agree}")
 
+    seconds["3"] = time.perf_counter() - t0_phase
+
     # 4a. the training path through K2, 4b. the pallas and the default
     # path on both devices, 5. the default training path
     from gnntf_tpu_torch.ops import stochastic
+    t0 = time.perf_counter()
     trained = phase_train(g_rcm, perm, inv, features, dev)
+    seconds["4a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cross = phase_devices(g_rcm, perm, inv, features, dev)
+    seconds["4b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     default = phase_default_train(graph, features, dev)
+    seconds["5"] = time.perf_counter() - t0
     log(f"training summary: {json.dumps(dict(trained=trained, cross=cross, default=default))}")
 
     # 6. the fused trainer under the default impl, 6b. under pallas, 6c.
     # early stopping inside a block
+    t0 = time.perf_counter()
     fused = phase_fused("fused (default impl)", graph, features, dev)
+    seconds["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     fused_k2 = phase_fused("fused (pallas)", g_rcm, features[perm], dev,
                            impl="pallas", inv=inv)
+    seconds["6b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     patience = phase_fused_patience(dev)
+    seconds["6c"] = time.perf_counter() - t0
     log("fused summary: " + json.dumps(
         dict(default=fused, pallas=fused_k2, patience=patience)))
+
+    # 7. GCNII at its published configuration, 8. GCN at its own
+    t0 = time.perf_counter()
+    gcnii = phase_gcnii(graph, features, dev)
+    seconds["7"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gcn = phase_gcn(graph, features, dev)
+    seconds["8"] = time.perf_counter() - t0
+    log("GCN family summary: " + json.dumps(dict(gcnii=gcnii, gcn=gcn)))
+    log(f"phase seconds: {seconds}")
     # one grid build a structure over the run: the RCM graph on the card
     # (4a; 4b and 6b hit it) and on the CPU (4b), the natural graph on the
     # card (5; 6 hits it), 6c's small graph (a rehearsal on the CPU has one
@@ -1505,7 +2023,7 @@ def main(dev=None):
         raise AssertionError(f"{stochastic.train_grids.builds} grid builds "
                              f"over the run, expected {builds}")
 
-    # 7. report
+    # 9. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
     rest = k1["rest_list"]
@@ -1519,6 +2037,22 @@ def main(dev=None):
                       f"added into the hub product",
              "bench_width": dict(k1["bench"], shape="F=128"),
              "fused": fused_launches(fused, "ell_gather_walk", "k1"),
+             **kernel_launches(gcnii, gcn, "k1"),
+             "gcn_width": dict(k1["gcn_width"], shape="F=64"),
+             "backward": {
+                 "name": "ell_gather_transposed", "route": "cuda",
+                 "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
+                 "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+                 "launches": gcnii["launches_per_epoch"]["backward"]
+                 * GCNII_EPOCHS,
+                 **backward["gcnii"],
+                 "shape": f"rest list transposed, "
+                          f"{backward['transposed_list']['slots']} slots "
+                          f"over N=169343 columns, F=64 (GCNII)",
+                 **kernel_launches(gcnii, gcn, "backward"),
+                 "gcn_width": dict(backward["gcn"], shape="F=40 (GCN)"),
+                 "small": backward["small"],
+                 "transposed_list": backward["transposed_list"]},
              "small": k1["small"], "rest_list": rest,
              "serving_profile": dict(forward=fwd_profile,
                                      spmm=spmm_profile)}
@@ -1532,6 +2066,7 @@ def main(dev=None):
                        f"N=169343 F=40, forward list",
               "bench_width": dict(k2["bench"], shape="F=128"),
               "fused": fused_launches(fused_k2, "blocked_spmm_walk", "k2"),
+              **kernel_launches(gcnii, gcn, "k2"),
               "small": k2["small"],
               "transposed": dict(k2["train_t"], shape="A^T, F=40",
                                  bench_width=dict(k2["bench_t"],
@@ -1547,6 +2082,9 @@ def main(dev=None):
               "bench_width": dict(masked["forward_bench"], shape="F=128"),
               "fused": fused_launches(fused, "ell_gather_masked_walk",
                                       "masked"),
+              **kernel_launches(gcnii, gcn, "masked"),
+              "gcn_width": dict(masked["forward_gcn"], shape="F=64",
+                                backward=masked["backward_gcn"]),
               "backward": dict(masked["backward"], shape="column list, F=40",
                                bench_width=dict(masked["backward_bench"],
                                                 shape="F=128")),
@@ -1558,6 +2096,7 @@ def main(dev=None):
               "shape": f"bench training grids' column list, E={graph.n_edges} "
                        f"edges, N=169343, keep {KEEP}",
               "fused": fused_launches(fused, "ell_degree_walk", "degree"),
+              **kernel_launches(gcnii, gcn, "degree"),
               "row_list": masked["degree_row"]}
     print(json.dumps({"kernels": [entry, entry2, entry3, entry4]}),
           flush=True)

@@ -14,15 +14,29 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import measures  # noqa: E402
-from .graph import (Graph, add_self_loops, bandwidth, from_edges,  # noqa: E402
-                    graph2adj, graph2indices, permute_graph, rcm_order)
+from .graph import (Graph, add_self_loops, adj2graph,  # noqa: E402
+                    bandwidth, create_nx_graph, from_edges, graph2adj,
+                    graph2indices, permute_graph, rcm_order)
 from .interop import params_from_jax  # noqa: E402
-from .measures import acc, next_seed, set_seed  # noqa: E402
-from .models import APPNP, GNN, PPRIteration  # noqa: E402
-from .nn import Dense, Dropout, Forward, Layer, Network, ParamSpec  # noqa: E402
+from .measures import (acc, auc, avprec, bootstrap_ci, f1,  # noqa: E402
+                       next_seed, prec, rec, set_seed)
+from .models import (APPNP, APPNP2, GCN, GCNII, GNN, MLP,  # noqa: E402
+                     NGCF, APPNPReg, APPNPThrough, FastReg, GCNIILayer,
+                     GCNIIReg, GCNIISpectralPreservingLayer, GCNLayer,
+                     GCNSpectralPreservingLayer, NGCFLayer, PPRIteration,
+                     PPRSweep, StableIteration, Structural)
+from .nn import (LSTM, Activation, Branch, Concatenate, Dense,  # noqa: E402
+                 Dropout, Forward, Layer, Network, ParamSpec, Resume,
+                 Tradeoff, Wrap, batches)
 from .ops import (dropout, edge_dot, normalize_adjacency,  # noqa: E402
                   sddmm, set_spmm_impl, spmm, spmm_impl)
 from .tasks import NodeClassification, Predictor  # noqa: E402
 from .train import Trainable, fit, keras_adam  # noqa: E402
+
+# the reference's class names (layered.py / variables.py): the builder
+# Network plays both roles
+Layered = Network
+VariableGenerator = Network
+metrics = measures  # the reference exposes its measures module as `metrics`
 
 __version__ = "0.1.0"

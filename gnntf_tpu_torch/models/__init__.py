@@ -1,3 +1,8 @@
 from .appnp import APPNP
-from .gnn import GNN
-from .layers import PPRIteration
+from .experimental import (APPNP2, APPNPReg, APPNPThrough, FastReg, GCNIIReg,
+                           PPRSweep, StableIteration)
+from .gcn import GCN, GCNII, NGCF
+from .gnn import GNN, Structural
+from .layers import (GCNIILayer, GCNIISpectralPreservingLayer, GCNLayer,
+                     GCNSpectralPreservingLayer, NGCFLayer, PPRIteration)
+from .mlp import MLP

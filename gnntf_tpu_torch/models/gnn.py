@@ -1,4 +1,5 @@
-"""GNN base model (reference: gnntf/core/gnn/gnn.py)."""
+"""GNN base model and the Structural embedding preprocessor (reference:
+gnntf/core/gnn/gnn.py)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
@@ -6,10 +7,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..graph.coo import Graph
-from ..nn.core import Layer
+from ..nn.core import Forward, Layer, Network
 from ..ops.normalize import normalize_adjacency
 from ..ops.spmm import current_impl, prepare, spmm
 from ..train.trainer import Trainable
+from .layers import l2_normalize
 
 
 class GNN(Trainable):
@@ -62,3 +64,30 @@ class GNN(Trainable):
         return normalize_adjacency(self.graph, graph_dropout=0.0,
                                    normalized=normalized,
                                    add_eye=add_eye).materialized()
+
+
+class Structural(Layer):
+    """Free learnable node embeddings, optionally split into two bipartite
+    tables and optionally L2-normalized, concatenated feature-wise before
+    the input (pure-structural mode when the input width is 0) (reference
+    gnn.py:5-26).  Used as ``preprocessor=`` for featureless or
+    recommendation graphs; ``kwargs`` go to ``create_param``."""
+
+    def build(self, net: Network, dims: int = 16, l2_contraint: bool = False,
+              bipartite: int = 0, **kwargs):
+        n, d = net.top_shape()
+        self.l2_contraint = l2_contraint
+        self.emb_a = net.create_param((bipartite, dims), **kwargs)
+        self.emb_b = net.create_param((n - bipartite, dims), **kwargs)
+        self.bipartite = bipartite
+        return (n, dims + d)
+
+    def apply(self, fw: Forward, x):
+        emb = fw.param(self.emb_b)
+        if self.bipartite != 0:
+            emb = torch.cat([fw.param(self.emb_a), emb], dim=0)
+        if self.l2_contraint:
+            emb = l2_normalize(emb)
+        if x.shape[1] == 0:
+            return emb
+        return torch.cat([emb, x], dim=1)

@@ -219,8 +219,8 @@ class Forward:
     """Per-call forward context: the mode, the random state and each
     layer's output."""
 
-    __slots__ = ("net", "training", "acts", "_generator", "_layer_generator",
-                 "_tape")
+    __slots__ = ("net", "training", "acts", "extra_losses", "_generator",
+                 "_layer_generator", "_tape")
 
     def __init__(self, net: "Network", training: bool, generator=None):
         """``generator``: the step's CPU generator, or a :class:`DrawTape`
@@ -228,6 +228,7 @@ class Forward:
         self.net = net
         self.training = bool(training)
         self.acts: List[torch.Tensor] = []
+        self.extra_losses: List[torch.Tensor] = []
         self._tape = generator if isinstance(generator, DrawTape) else None
         self._generator = None if self._tape is not None else generator
         self._layer_generator = None
@@ -264,6 +265,10 @@ class Forward:
             raise ValueError(
                 "value_of() may only reference layers earlier in the stack")
         return self.acts[layer.index]
+
+    def add_loss(self, value) -> None:
+        """A layer's own loss term, summed by ``Network.layer_losses``."""
+        self.extra_losses.append(value)
 
     def dropout(self, x: torch.Tensor, rate: float = 0.5) -> torch.Tensor:
         """Feature dropout: the identity outside training; in training the
@@ -313,8 +318,15 @@ class Network(nn.Module):
         self.input_shape = tuple(int(s) for s in input_shape)
         self._layers: List[Layer] = []
         self.param_specs: List[ParamSpec] = []
+        self._shared: Dict[str, str] = {}
         self.dtype = torch.float32
         self.params = nn.ParameterDict()
+
+    def layers(self) -> List[Layer]:
+        return self._layers
+
+    def top_layer(self) -> Layer:
+        return self._layers[-1]
 
     def top_shape(self) -> Tuple[int, ...]:
         if not self._layers:
@@ -333,10 +345,19 @@ class Network(nn.Module):
         return layer
 
     def create_param(self, shape, normalization="small", trainable=True,
-                     regularize=True) -> str:
-        """Register a parameter; returns its name, ``p<i>`` in registration
-        order as in the JAX package (the handle layers store)."""
-        pname = f"p{len(self.param_specs)}"
+                     regularize=True, name=None, shared_name=None) -> str:
+        """Register a parameter; returns its name (the handle layers store):
+        ``name``, or ``p<i>`` in registration order as in the JAX package,
+        with ``_<i>`` appended where the name is taken.  A ``shared_name``
+        seen before returns that parameter's name and registers nothing
+        (reference variables.py:56-58)."""
+        if shared_name is not None and shared_name in self._shared:
+            return self._shared[shared_name]
+        pname = name or f"p{len(self.param_specs)}"
+        if any(s.name == pname for s in self.param_specs):
+            pname = f"{pname}_{len(self.param_specs)}"
+        if shared_name is not None:
+            self._shared[shared_name] = pname
         spec = ParamSpec(pname, shape, normalization, trainable, regularize)
         self.param_specs.append(spec)
         self.params[pname] = nn.Parameter(
@@ -345,12 +366,13 @@ class Network(nn.Module):
         return pname
 
     def create_var(self, shape=None, normalization="small", trainable=True,
-                   regularize=True):
+                   regularize=True, name=None, shared_name=None):
         """Reference name (create_var, variables.py:55); no shape gives the
         (1, 1) scalar of APPNP's learnable restart probability."""
         if shape is None:
             shape = (1, 1)
-        return self.create_param(shape, normalization, trainable, regularize)
+        return self.create_param(shape, normalization, trainable, regularize,
+                                 name=name, shared_name=shared_name)
 
     @torch.no_grad()
     def init(self, seed: Union[int, torch.Generator]) -> None:
@@ -378,10 +400,13 @@ class Network(nn.Module):
         return h
 
     def layer_losses(self, fw: Forward):
-        """Sum of the per-layer losses (trainable.py:72-74)."""
+        """Sum of the per-layer losses and of the losses the layers added
+        with :meth:`Forward.add_loss` (trainable.py:72-74)."""
         total = 0.0
         for layer, act in zip(self._layers, fw.acts):
             total = total + layer.loss(fw, act)
+        for extra in fw.extra_losses:
+            total = total + extra
         return total
 
     def weight_l2(self):

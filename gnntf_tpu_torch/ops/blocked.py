@@ -163,7 +163,7 @@ def block_coo(row, col, n_nodes: int, *, window: int = 256,
     )
 
 
-def _row_ptr(rows: np.ndarray, n_rows: int) -> np.ndarray:
+def row_ptr(rows: np.ndarray, n_rows: int) -> np.ndarray:
     """CSR row pointer (n_rows + 1,) of row ids sorted ascending."""
     return np.concatenate(
         [[0], np.cumsum(np.bincount(rows, minlength=n_rows))])
@@ -189,8 +189,8 @@ def edge_lists(layout: BlockedCOO):
            + layout.cols[perm])[eid]
     order = np.lexsort((dst, src))
     n = layout.n_nodes
-    lists = ((_row_ptr(dst, n), src, eid),
-             (_row_ptr(src[order], n), dst[order], eid[order]))
+    lists = ((row_ptr(dst, n), src, eid),
+             (row_ptr(src[order], n), dst[order], eid[order]))
     return tuple(tuple(a.astype(np.int32) for a in lst) for lst in lists)
 
 

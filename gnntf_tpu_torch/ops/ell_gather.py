@@ -23,6 +23,13 @@ take the ELL grid and derive the list per call.  A CPU tensor takes the
 plain version, ``blocked_spmm_plain`` over the list, which sums in the
 kernel's order; a CUDA tensor launches the kernel or raises.
 
+The backward's ``dx = A_rest^T dy`` walks the transposed list
+(:func:`ell_transposed_list`: K1's live slots stable-sorted by source,
+``ptr`` over the sources, each slot's output row as its ``idx`` and its
+place in K1's list as its ``eid``) in the walk's store mode, through K2's
+entry point, which takes such a list as it is (:func:`ell_gather_transposed`,
+counted apart in ``ell_gather.backward_launches``).
+
 Two more modes of the walk carry the training step's edge dropout
 (``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
 over all N rows, in store mode.  :func:`ell_gather_masked` weights each
@@ -169,6 +176,51 @@ def ell_gather_list(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
 
 
 ell_gather.launches = 0
+ell_gather.backward_launches = 0
+
+
+def ell_transposed_list(lst: EdgeList, n_in: int) -> EdgeList:
+    """The transposed list of K1's list ``lst`` on its device: its live
+    slots stable-sorted by source (so by (source, output row, slot), as
+    ``TrainGrids`` and ``edge_lists`` sort), ``ptr`` over the ``n_in``
+    sources, ``idx`` each slot's output row and ``eid`` its place in
+    ``lst`` (values are read through it), in units of ``_UNIT_ITEMS``
+    items.  Built on the host from the device list."""
+    ptr = lst.ptr.cpu().numpy()
+    src = lst.idx.cpu().numpy()
+    dst = np.repeat(lst.rows.cpu().numpy(), np.diff(ptr))
+    order = np.argsort(src, kind="stable")
+    return EdgeList.build(blocked.row_ptr(src[order], n_in), dst[order],
+                          order, lst.device, items=_UNIT_ITEMS)
+
+
+def ell_gather_transposed(lst_t: EdgeList, val: torch.Tensor,
+                          dy: torch.Tensor) -> torch.Tensor:
+    """K1's transposed product, the backward's ``dx = A_rest^T dy``, as an
+    (n_in, F) float32 tensor: ``dx[s] = sum_e val[eid[e]] * dy[idx[e]]``
+    over source s's slots of :func:`ell_transposed_list`, ``val`` K1's list
+    values.  ``dy`` has as many rows as ``dx``.
+
+    CPU tensors take ``blocked_spmm_plain``; CUDA tensors launch the walk in
+    store mode, K2's entry point (counted in
+    ``ell_gather.backward_launches``, not in ``blocked_spmm.launches``)."""
+    if lst_t.rows is not None:
+        raise ValueError("the transposed list stores row r at r "
+                         "(ell_transposed_list)")
+    blocked.check("ell_gather_transposed", lst_t, val, dy)
+    if dy.device.type == "cpu":
+        return blocked_spmm_plain(lst_t, val, dy)
+    if dy.device.type != "cuda":
+        raise ValueError(f"ell_gather_transposed runs on cpu or cuda, not "
+                         f"{dy.device}")
+    out = torch.empty(lst_t.n_rows, dy.shape[1], dtype=torch.float32,
+                      device=dy.device)
+    if lst_t.n_units == 0 or dy.shape[1] == 0:
+        return out
+    blocked.launch(blocked._library(), "gnntf_blocked_spmm", lst_t, val, dy,
+                   out)
+    ell_gather.backward_launches += 1
+    return out
 
 
 def _check_masked(what, lst, val):

@@ -7,7 +7,8 @@
   structure; each call routes the edge values into K1's list values (and
   the hub slice) with one ``index_add_`` each, runs the hub matmul, then
   the ELL gather-reduce kernel K1 (``ops/ell_gather.py``) adding into it.
-  Differentiable in ``x`` and in the values.
+  Differentiable in ``x`` (the walk over K1's transposed list) and in the
+  values.
 * :class:`PreparedSpMM` — the same with the values routed once, for a fixed
   adjacency; ``spmm`` keeps one per (structure, values) (``_prepared_cached``).
 * ``stochastic_spmm`` (``ops/stochastic.py``) — a lazily dropped graph
@@ -45,7 +46,8 @@ import torch
 from ..graph.coo import Graph
 from ..utils.idcache import IdLRU, sizeof
 from .blocked import spmm_pallas
-from .ell_gather import ell_edge_list, ell_gather_list
+from .ell_gather import (ell_edge_list, ell_gather_list,
+                         ell_gather_transposed, ell_transposed_list)
 
 _IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
 _ELL_MIN_EDGES = 65_536
@@ -331,15 +333,19 @@ def _route(slots: torch.Tensor, val: torch.Tensor, size: int) -> torch.Tensor:
 class _ELLGatherFn(torch.autograd.Function):
     """``(x, base, val) -> base + A_rest @ x`` through K1 over its list,
     adding into ``base`` in place (marked dirty).  The backward passes
-    ``dy`` to ``base`` and, in plain torch, gives ``x`` the transposed
-    product ``dx[idx[e]] += val[e] * dy[rows[r]]`` over each row r's slots
-    e, and ``val`` (only when it asks for it) ``dval[e] = <dy[rows[r]],
-    x[idx[e]]>``."""
+    ``dy`` to ``base``.  ``x`` gets the transposed product ``A_rest^T dy``
+    from one walk over the transposed list (``transposed``, a callable that
+    gives the list's :func:`ell_transposed_list`, built once by its owner;
+    without one the list is built per call): on a card the store-mode walk,
+    on the CPU its plain version, which sums in the same order.  ``val``,
+    only when it asks for it (no model's values do), gets ``dval[e] =
+    <dy[rows[r]], x[idx[e]]>`` over each row r's slots in plain torch."""
 
     @staticmethod
-    def forward(ctx, x, base, lst, val):
+    def forward(ctx, x, base, lst, val, transposed=None):
         ctx.mark_dirty(base)
         ctx.lst, ctx.n_in = lst, x.shape[0]
+        ctx.transposed = transposed
         ctx.save_for_backward(x if ctx.needs_input_grad[3] else None, val)
         return ell_gather_list(lst, val, x, base)
 
@@ -347,18 +353,17 @@ class _ELLGatherFn(torch.autograd.Function):
     def backward(ctx, dy):
         lst, (x, val) = ctx.lst, ctx.saved_tensors
         dx = dval = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[3]:
+        if ctx.needs_input_grad[0]:
+            lst_t = (ell_transposed_list(lst, ctx.n_in)
+                     if ctx.transposed is None else ctx.transposed())
+            dx = ell_gather_transposed(lst_t, val, dy.contiguous())
+        if ctx.needs_input_grad[3]:
             dst = torch.repeat_interleave(lst.rows.long(),
                                           lst.ptr.diff().long(),
                                           output_size=lst.n_edges)
-            src = lst.idx.long()
-            dy_e = dy[dst]
-            if ctx.needs_input_grad[0]:
-                dx = dy.new_zeros(ctx.n_in, dy.shape[1]).index_add_(
-                    0, src, dy_e * val[:, None])
-            if ctx.needs_input_grad[3]:
-                dval = (dy_e * x[src]).sum(-1)
-        return dx, dy if ctx.needs_input_grad[1] else None, None, dval
+            dval = (dy[dst] * x[lst.idx.long()]).sum(-1)
+        return (dx, dy if ctx.needs_input_grad[1] else None, None, dval,
+                None)
 
 
 class _RoutedLayout:
@@ -368,7 +373,10 @@ class _RoutedLayout:
     the list and in the hub slice.  :meth:`values` routes a vector of edge
     values into them, one ``index_add_`` each, so duplicates coalesce;
     :meth:`apply` runs the hub matmul (or zeros), then K1 adding into it.
-    Only the list, the routes and the hub ids are kept on the device."""
+    Only the list, the routes and the hub ids are kept on the device, and,
+    from the first backward on, the transposed list (:meth:`transposed`;
+    not in :meth:`nbytes`, which the cache reads when the layout is
+    new)."""
 
     def __init__(self, row: np.ndarray, col: np.ndarray, n_nodes: int,
                  k: int, device, hubs: bool):
@@ -383,6 +391,7 @@ class _RoutedLayout:
         self.ell = ell
         self.list, slot = ell_edge_list(ell.idx, ell.vrow_row, n_nodes,
                                         device)
+        self._transposed = None
         # each edge's list position; the sentinel (hub edges, V*k) maps to
         # the extra cell that _route drops
         position = np.full(ell.n_vrows * ell.k + 1, len(slot), np.int64)
@@ -420,8 +429,15 @@ class _RoutedLayout:
             out = x.new_zeros(self.n_nodes, x.shape[1])
         if torch.is_grad_enabled() and (x.requires_grad or out.requires_grad
                                         or list_val.requires_grad):
-            return _ELLGatherFn.apply(x, out, self.list, list_val)
+            return _ELLGatherFn.apply(x, out, self.list, list_val,
+                                      self.transposed)
         return ell_gather_list(self.list, list_val, x, out)
+
+    def transposed(self):
+        """K1's transposed list (the backward's), built on first use."""
+        if self._transposed is None:
+            self._transposed = ell_transposed_list(self.list, self.n_nodes)
+        return self._transposed
 
     def nbytes(self) -> int:
         return sizeof((self.list, self.to_list, self.to_dense, self.hub_ids,

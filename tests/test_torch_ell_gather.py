@@ -11,6 +11,11 @@ the kernel's order.  On the card the kernel is held bit for bit against the
 plain version run on the CPU: both round each product and each sum apart,
 in that order.
 
+K1's backward ``dx = A_rest^T dy`` walks the transposed list
+(``ell_transposed_list``) in the walk's store mode (``ell_gather_transposed``):
+on the CPU its plain version is held against autograd of the dense product
+(rtol=atol=1e-5), on the card the kernel bit for bit against the CPU.
+
 The masked and degree modes of the same walk (``ell_gather_masked``,
 ``ell_degree_masked``) run over the training grids' row and column lists of
 a dropped graph; they are held the same way, the plain versions against the
@@ -196,6 +201,86 @@ def test_gradient_for_x_and_base():
                                a[:, :n].T @ dy.numpy().astype(np.float64),
                                **TOL)
     assert torch.equal(leaf.grad, dy)
+
+
+def _transposed_inputs(seed, n=600, f=6, hub_col=0):
+    """K1's list of an ELL with duplicates, empty (odd) rows, a column no
+    slot references (n - 1) and ``hub_col`` extra slots on column 5, which
+    split that column over many units of the transposed list."""
+    rng = np.random.RandomState(seed)
+    row = rng.randint(0, n // 2, size=5 * n) * 2
+    col = rng.randint(0, n - 1, size=5 * n)
+    row = np.concatenate([row, rng.randint(0, n // 2, hub_col) * 2])
+    col = np.concatenate([col, np.full(hub_col, 5)])
+    layout = build_ell(row, col, n, 8)
+    lst, slot = ell_edge_list(layout.idx, layout.vrow_row, n, "cpu")
+    val = torch.from_numpy(rng.randn(len(slot)).astype(np.float32))
+    x = torch.from_numpy(rng.randn(n, f).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, f).astype(np.float32))
+    return layout, lst, slot, val, x, dy
+
+
+def test_transposed_list_sorts_slots_by_source():
+    layout, lst, _, val, _, _ = _transposed_inputs(7, hub_col=300)
+    n = layout.n_nodes
+    lst_t = k1_ops.ell_transposed_list(lst, n)
+    ptr, src = lst.ptr.numpy(), lst.idx.numpy()
+    dst = np.repeat(lst.rows.numpy(), np.diff(ptr))
+    order = np.lexsort((np.arange(len(src)), dst, src))
+    assert lst_t.rows is None and lst_t.n_rows == n
+    np.testing.assert_array_equal(lst_t.eid.numpy(), order)
+    np.testing.assert_array_equal(lst_t.idx.numpy(), dst[order])
+    np.testing.assert_array_equal(lst_t.ptr.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(src, minlength=n))]))
+    assert lst_t.ptr[n] == lst_t.ptr[n - 1]  # column n - 1 holds no slot
+    assert lst_t.split.shape[0] >= 1  # column 5 is split
+
+
+@pytest.mark.parametrize("f", [1, 6, 40])
+@pytest.mark.parametrize("hub_col", [0, 400])
+def test_backward_walk_matches_dense_autograd(f, hub_col):
+    """``_ELLGatherFn``'s ``dx``, one walk over the transposed list, against
+    autograd of the dense ``base + A_rest @ x`` in float64; the CPU counts
+    no launch."""
+    layout, lst, slot, val, x, dy = _transposed_inputs(8, f=f,
+                                                       hub_col=hub_col)
+    n = layout.n_nodes
+    vals = np.zeros(layout.n_vrows * layout.k, np.float32)
+    vals[slot] = val.numpy()
+    a = np.zeros((n, n + 1), np.float64)
+    np.add.at(a, (np.repeat(layout.vrow_row, layout.k),
+                  layout.idx.reshape(-1)), vals)
+    xd = x.double().requires_grad_()
+    (torch.from_numpy(a[:, :n]) @ xd).backward(dy.double())
+    before = (ell_gather.launches, ell_gather.backward_launches)
+    transposed = lambda: k1_ops.ell_transposed_list(lst, n)
+    xt = x.clone().requires_grad_()
+    _ELLGatherFn.apply(xt, torch.zeros(n, f), lst, val,
+                       transposed).backward(dy)
+    np.testing.assert_allclose(xt.grad.numpy(), xd.grad.numpy(), **TOL)
+    assert (ell_gather.launches, ell_gather.backward_launches) == before
+    # the walk's plain version over the same list, bit for bit
+    assert torch.equal(xt.grad, blocked_spmm_plain(transposed(), val, dy))
+
+
+def test_prepared_builds_the_transposed_list_once():
+    import gnntf_tpu_torch as tt
+    rng = np.random.RandomState(9)
+    n = 3000
+    g = tt.normalize_adjacency(tt.from_edges(
+        rng.randint(0, n, 40_000), rng.randint(0, n, 40_000), n_nodes=n,
+        directed=False, device="cpu"), graph_dropout=0.0)
+    prep = PreparedSpMM(g)
+    routed = prep._routed
+    assert routed._transposed is None  # nothing built before a backward
+    built = []
+    for _ in range(3):
+        xt = torch.from_numpy(rng.randn(n, 4).astype(np.float32))
+        xt.requires_grad_()
+        prep(xt).sum().backward()
+        built.append(routed._transposed)
+    assert built[0] is not None and all(b is built[0] for b in built)
+    assert built[0].n_edges == prep.k1_list.n_edges
 
 
 def test_empty_grid_leaves_the_base():
@@ -574,6 +659,70 @@ def test_stochastic_training_on_card_matches_cpu(cuda):
         launched = [a - b for a, b in zip(counts(), before)]
         assert launched == ([40, 20, 20, 1] if model.device.type == "cuda"
                             else [0, 0, 0, 1])
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
+                                   rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 6, 40, 64, 128])
+@pytest.mark.parametrize("hub_col", [0, 20_000])
+def test_backward_walk_matches_plain_on_card(cuda, f, hub_col):
+    """The backward walk over the transposed list on the card: one launch
+    counted in ``ell_gather.backward_launches`` (not in K2's count), ``dx``
+    bit-equal to the plain version on the CPU."""
+    layout, lst, slot, val, x, dy = _transposed_inputs(
+        10, n=3000, f=f, hub_col=hub_col)
+    n = layout.n_nodes
+    lst_t = k1_ops.ell_transposed_list(lst, n)
+    on = dataclasses.replace(lst, **{
+        fd.name: getattr(lst, fd.name).to(cuda)
+        for fd in dataclasses.fields(lst)
+        if isinstance(getattr(lst, fd.name), torch.Tensor)})
+    lst_t_card = k1_ops.ell_transposed_list(on, n)
+    assert torch.equal(lst_t_card.eid.cpu(), lst_t.eid)
+    before = (ell_gather.backward_launches, blocked_ops.blocked_spmm.launches)
+    xt = x.to(cuda).requires_grad_()
+    _ELLGatherFn.apply(xt, torch.zeros(n, f, device=cuda), on, val.to(cuda),
+                       lambda: lst_t_card).backward(dy.to(cuda))
+    torch.cuda.synchronize()
+    assert (ell_gather.backward_launches,
+            blocked_ops.blocked_spmm.launches) == (before[0] + 1, before[1])
+    assert torch.equal(xt.grad.cpu(), blocked_spmm_plain(lst_t, val, dy))
+
+
+@pytest.mark.cuda
+def test_gcnii_training_on_card_matches_cpu(cuda):
+    """GCNII trains through the prepared operator (``graph_dropout=0``):
+    each of its convolutions launches K1 forward and the backward walk in
+    the step, K1 again in the validation forward; no feature dropout, so
+    the losses agree with the CPU run (float32)."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    n = 5000
+    src, dst = random_power_law_edges(n, 40_000, seed=0)
+    rng = np.random.RandomState(1)
+    features = rng.randn(n, 16).astype(np.float32)
+    labels = rng.randint(0, 6, n)
+    init = None
+    hist = {}
+    for device in ("cpu", cuda):
+        graph = tt.from_edges(src, dst, n_nodes=n, directed=False,
+                              device=device)
+        model = tt.GCNII(graph, features, num_classes=6, iterations=4,
+                         latent_dims=(16,), dropout=0.0, device=device)
+        if init is None:
+            init = {s.name: rng.uniform(-0.2, 0.2, s.shape).astype(
+                np.float32) for s in model.param_specs}
+        before = (ell_gather.launches, ell_gather.backward_launches)
+        hist[str(device)] = model.train(
+            tt.NodeClassification(np.arange(1000), labels[:1000]),
+            tt.NodeClassification(np.arange(1000, 2000), labels[1000:2000]),
+            epochs=2, patience=100, seed=0, init_params=dict(init))
+        launched = (ell_gather.launches - before[0],
+                    ell_gather.backward_launches - before[1])
+        assert launched == ((16, 8) if model.device.type == "cuda"
+                            else (0, 0))
     for key in ("train_loss", "valid_loss"):
         np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
                                    rtol=1e-4)

@@ -131,8 +131,9 @@ def test_prepared_with_hub_slice_and_split_rows_matches_jax():
 
 
 def test_prepared_gradient_matches_jax():
-    """The prepared operator's ``dx`` (K1's plain transposed product, the
-    hub matmul's and the scales' gradients) against ``jax.vjp``."""
+    """The prepared operator's ``dx`` (K1's share from the walk over its
+    transposed list, the hub matmul's and the scales' gradients) against
+    ``jax.vjp``."""
     import jax
     jg, pg = _hub_and_split_graphs()
     jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
@@ -144,6 +145,32 @@ def test_prepared_gradient_matches_jax():
     xt = torch.from_numpy(x).requires_grad_()
     pp(xt).backward(torch.from_numpy(dy))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("f", [1, 40])
+@pytest.mark.parametrize("hubs", [True, False])
+def test_backward_walk_matches_jax_gradient(f, hubs):
+    """``dx`` of the prepared operator, K1's share from one walk over its
+    transposed list, against ``jax.vjp`` of the JAX ``PreparedSpMM``, with
+    and without a hub slice."""
+    import jax
+    if hubs:
+        jg, pg = _hub_and_split_graphs()
+    else:  # uniform sources: no hub slice
+        jg, pg = _graphs(6000, 40_000, 3, uniform=True)
+        jg = jax_normalize(jg, graph_dropout=0.0)
+        pg = normalize_adjacency(pg, graph_dropout=0.0)
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
+    assert (pp.dense is not None) == hubs
+    rng = np.random.RandomState(14)
+    x = rng.randn(jg.n_nodes, f).astype(np.float32)
+    dy = rng.randn(jg.n_nodes, f).astype(np.float32)
+    _, vjp = jax.vjp(jp, jnp.asarray(x))
+    (ref,) = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    pp(xt).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), **TOL)
+    assert pp._routed._transposed is not None
 
 
 @pytest.mark.parametrize("n,e", [(500, 3000), (6000, 40_000)])
