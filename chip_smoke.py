@@ -44,6 +44,18 @@ Phases (any failure raises and exits non-zero):
    F=64 beside ``torch.sparse.mm`` of ``A_rest^T`` in CSR and the
    ``index_add_`` route it replaced, logging the share bit-equal to the
    plain version on the CPU;
+2e. the same for the attention kernels A1-A4 (``csrc/attention.cu``: the
+   row pass's statistics and aggregation, the backward's row and column
+   passes), each on its kernel's inputs within ``1e-5 * sum|terms|`` and a
+   second launch bit-equal: a small random graph with duplicates, an
+   isolated destination and a hub row and column split over many units, and
+   the benchmark graph with its self-loops at GAT's layer shapes (8 heads
+   of 8; one head of 40), over the per-edge lists with a dropout draw (keep
+   0.4) and the coalesced lists without, beside ``torch.sparse.mm`` of the
+   realized coefficients (one head), logging the share bit-equal to the
+   plain versions on the CPU; then the chain with its salt pair in a
+   device buffer, rewritten between launches and before a CUDA graph's
+   replay, each output equal to a fresh launch with its draw;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -101,7 +113,23 @@ Phases (any failure raises and exits non-zero):
    profile of one step, predict, then ``fit(block_epochs=5)`` against the
    host loop at ``epochs=10`` (losses within ``rtol=1e-5``, the same best
    epoch) and a profile of a fused run's replays;
-9. print each phase's seconds, a ``{"kernels": [...]}`` line, the card's
+9. GAT at its configuration (``GATConfig``: latent 8, 8 heads, dropout
+   0.6; attention dropout 0.6) on the benchmark graph with its self-loops
+   and 40 classes: three forwards, three predict requests and one evaluate
+   (A1 and A2 in each layer of a forward, over the coalesced lists), a
+   profile of one forward, of one training step (A1-A4 twice each, no
+   ``index_add_``) and of the attention chain alone (no ``index_add_`` or
+   scatter kernel); the serving forward against the CPU's with the same
+   weights (``rtol=1e-4, atol=1e-5``, argmax agreement >= 99.9%);
+   ``train(epochs=3)`` (per-edge lists with the dropout draw in the step);
+   3 epochs without dropout on the card and on the CPU, compared as in 4b;
+   ``fit(block_epochs=5)`` with attention dropout against the host loop at
+   ``epochs=10`` (losses within ``rtol=1e-5``, the same best epoch) and a
+   profile of a fused run's replays;
+10. GraphSAGE and GIN at ``GraphSAGEConfig`` and ``GINConfig``: three
+   forwards each (K1 in each convolution), each against the CPU's with the
+   same weights, and ``train(epochs=3)`` (K1 and its backward walk);
+11. print each phase's seconds, a ``{"kernels": [...]}`` line, the card's
    name and power limit from nvidia-smi, and as the last line ``{"ok":
    true, "device": {...}}``.
 """
@@ -162,11 +190,12 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_OUTLIERS = 1e-3
 MAX_PARAM_DIFF = 1e-3
 LEARNING_RATE = 0.01
-# the published configurations of the JAX package's config.py (GCNIIConfig,
-# GCNConfig), copied: GCN's dropouts (0.5 feature, 0.5 edge) are its own
-GCNII_CONFIG = dict(latent_dims=(64,), a=0.1, l=0.5, iterations=64,
-                    dropout=0.6)
-GCN_CONFIG = dict(latent_dims=(64,))
+# the models run at their published configurations, the port's config.py
+# (GCNIIConfig: latent 64, 64 convolutions, alpha 0.1, l 0.5, dropout 0.6;
+# GCNConfig: latent 64, GCN's own dropouts 0.5 feature and 0.5 edge;
+# GATConfig, GraphSAGEConfig, GINConfig); GCNII's depth, read where it sets
+# a launch count
+GCNII_ITERATIONS = 64
 GCNII_EPOCHS, GCN_EPOCHS = 3, 5
 # GCNII's weights for the GPU vs CPU checks: U(-INIT_SCALE, INIT_SCALE), as
 # its zero-initialized convolution weights would hide the convolutions
@@ -205,18 +234,50 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+# spin kernels a profiler session launches before its work: torch.profiler
+# can drop the first device events of a session, from none to a whole
+# session's worth (PERF.md §7), so the work's events are all kept when at
+# least one primer kernel is; a session that kept none is taken again with
+# four times as many, up to PROFILE_TRIES sessions
+PRIMER_KERNELS = 256
+PROFILE_TRIES = 3
+
+
 def device_profile(fn):
     """Device time by kernel over one ``fn()`` (torch.profiler): rows
-    ``(name, us, launches)`` by time, busy and wall microseconds."""
-    span = ProfiledSpan()
-    span.start()
-    fn()
-    return span.stop()
+    ``(name, us, launches)`` by time, busy and wall microseconds, and the
+    wrappers' launch counts over the session."""
+    primer = PRIMER_KERNELS
+    for _ in range(PROFILE_TRIES):
+        before = launch_counts()
+        span = ProfiledSpan(primer)
+        span.start()
+        fn()
+        rows, busy_us, wall_us = span.stop()
+        if span.primed:
+            counted = {k: v - before[k] for k, v in launch_counts().items()}
+            return rows, busy_us, wall_us, counted
+        primer = lost_primer(primer)
+    raise RuntimeError(f"the profiler kept no primer kernel in "
+                       f"{PROFILE_TRIES} sessions")
+
+
+def lost_primer(primer):
+    """Log a session that kept none of its ``primer`` kernels; the next
+    session's primer."""
+    log(f"a profiler session kept none of its {primer} primer kernels: "
+        f"taken again with {4 * primer}")
+    return 4 * primer
 
 
 class ProfiledSpan:
     """torch.profiler from :meth:`start` to :meth:`stop` (which may be
-    called from two callbacks of one run)."""
+    called from two callbacks of one run), ``primer`` spin kernels at its
+    start, outside the rows and the times; ``primed`` (after ``stop``)
+    counts those that the profile kept."""
+
+    def __init__(self, primer=PRIMER_KERNELS):
+        self.primer = primer
 
     def start(self):
         from torch.profiler import ProfilerActivity, profile
@@ -224,6 +285,9 @@ class ProfiledSpan:
         self.prof = profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
         self.prof.start()
+        for _ in range(self.primer):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         self.t0 = time.perf_counter()
 
     def stop(self):
@@ -236,6 +300,8 @@ class ProfiledSpan:
                 for e in self.prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
+        self.primed = sum(r[2] for r in rows if "spin_kernel" in r[0])
+        rows = [r for r in rows if "spin_kernel" not in r[0]]
         rows.sort(key=lambda r: -r[1])
         return rows, sum(r[1] for r in rows), wall_us
 
@@ -256,11 +322,20 @@ def log_kernels(label, rows, tag):
                 f"us in {count} launches, {us / count} us a launch")
 
 
+def clean_forward(model):
+    """A call that runs ``model``'s forward anew each time (no cached
+    activations)."""
+    def forward():
+        model._act_cache = None
+        return model._activations()
+    return forward
+
+
 def profile_forward(label, fn, top=10):
     """Device time by kernel over one clean forward or one SpMM, the share
     of its wall time (under the profiler) that the device was busy, and
     K1's kernels apart."""
-    rows, busy_us, wall_us = device_profile(fn)
+    rows, busy_us, wall_us, _ = device_profile(fn)
     launches = sum(r[2] for r in rows)
     log(f"profile of {label}: wall {wall_us} us, device busy {busy_us} us "
         f"in {launches} launches, idle share {1 - busy_us / wall_us}")
@@ -758,14 +833,8 @@ def profile_step(step, top=10):
     """Device time by kernel over one training step (torch.profiler): the
     share of it in ``index_add_`` kernels, in K2 (forward and backward
     launches), in K1's masked walk and in its degree walk, the walks of
-    each, and the wrappers' launch counts over the step (``counted``).
-    Late in a run a session's trace can miss its first few device events
-    (5 to 8 of a GCN step, its degree walk among them), so a walk's
-    launches are checked on the counts and the profile's walks are logged
-    beside them."""
-    before = launch_counts()
-    rows, busy_us, wall_us = device_profile(step)
-    counted = {k: v - before[k] for k, v in launch_counts().items()}
+    each, and the wrappers' launch counts over the step (``counted``)."""
+    rows, busy_us, wall_us, counted = device_profile(step)
 
     def family(*tags):
         hit = [r for r in rows if any(t in r[0] for t in tags)]
@@ -1014,22 +1083,34 @@ def log_adam_state(name, far, steps_gpu, steps_cpu, eps, top=8):
                 f"{v_gpu[i].sqrt().item()} (eps {eps})")
 
 
+# the attention kernels A1-A4 (ops/attention.py), by their wrappers' names,
+# and the profile names of their walks (csrc/attention.cu)
+ATTN_KERNELS = ("attn_stats", "attn_aggregate", "attn_bwd_rows",
+                "attn_bwd_cols")
+ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
+              "attn_bwd_cols_walk")
 def launch_counts():
     """The kernel wrappers' launch counts: K2, K1, K1's masked walk, its
-    degree walk and K1's backward walk over the transposed list."""
-    from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
-                                     ell_gather, ell_gather_masked)
+    degree walk, K1's backward walk over the transposed list and the
+    attention kernels A1-A4."""
+    from gnntf_tpu_torch.ops import (attention, blocked_spmm,
+                                     ell_degree_masked, ell_gather,
+                                     ell_gather_masked)
     return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
                 masked=ell_gather_masked.launches,
                 degree=ell_degree_masked.launches,
-                backward=ell_gather.backward_launches)
+                backward=ell_gather.backward_launches,
+                **{name: getattr(attention, name).launches
+                   for name in ATTN_KERNELS})
 
 
 def zero_counts():
-    from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
-                                     ell_gather, ell_gather_masked)
+    from gnntf_tpu_torch.ops import (attention, blocked_spmm,
+                                     ell_degree_masked, ell_gather,
+                                     ell_gather_masked)
     for fn in (blocked_spmm, ell_gather, ell_gather_masked,
-               ell_degree_masked):
+               ell_degree_masked, *(getattr(attention, name)
+                                    for name in ATTN_KERNELS)):
         fn.launches = 0
     ell_gather.backward_launches = 0
 
@@ -1049,17 +1130,27 @@ def per_epoch(marks):
 # in the validation forward under pallas, with K1's degree walk for the
 # step's degrees; under the default impl K1's masked walk in the step's
 # forward and backward, its degree walk, and K1 in the validation forward
-EPOCH_LAUNCHES = {"pallas": dict(k2=30, k1=0, masked=0, degree=10,
-                                backward=0),
-                  None: dict(k2=0, k1=10, masked=20, degree=10, backward=0)}
+NO_LAUNCHES = dict(k2=0, k1=0, masked=0, degree=0, backward=0,
+                   **dict.fromkeys(ATTN_KERNELS, 0))
+EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
+                  None: dict(NO_LAUNCHES, k1=10, masked=20, degree=10)}
 # GCNII-64 an epoch: K1 in each convolution of the step and of the
 # validation forward, the backward walk in each of the step; GCN: the
 # masked walk forward and backward and the degree walk in its hidden layer,
 # K1 and the backward walk in its output layer, K1 in both layers of the
 # validation forward
-GCNII_LAUNCHES = dict(k2=0, k1=128, masked=0, degree=0, backward=64)
-GCN_LAUNCHES = dict(k2=0, k1=3, masked=2, degree=1, backward=1)
-NO_LAUNCHES = dict(k2=0, k1=0, masked=0, degree=0, backward=0)
+GCNII_LAUNCHES = dict(NO_LAUNCHES, k1=128, backward=64)
+GCN_LAUNCHES = dict(NO_LAUNCHES, k1=3, masked=2, degree=1, backward=1)
+# GAT an epoch: A1 and A2 in both layers of the step and of the validation
+# forward, A3 and A4 in both layers of the step's backward; GraphSAGE: K1
+# in both layers of the step and of the validation forward, the backward
+# walk in both layers of the step; GIN: K1 in its one convolution of the
+# step and of the validation forward (its input needs no gradient, so no
+# backward walk)
+GAT_LAUNCHES = dict(NO_LAUNCHES, attn_stats=4, attn_aggregate=4,
+                    attn_bwd_rows=2, attn_bwd_cols=2)
+SAGE_LAUNCHES = dict(NO_LAUNCHES, k1=4, backward=2)
+GIN_LAUNCHES = dict(NO_LAUNCHES, k1=2)
 
 
 def compare_params(label, params, adam, dev):
@@ -1267,14 +1358,15 @@ def fused_tasks(inv=None):
         nodes if inv is None else inv[nodes], labels[nodes]) for nodes in ids)
 
 
-def fused_run(model, tasks, impl, block_epochs, profile=False):
+def fused_run(model, tasks, impl, block_epochs, profile=False,
+              primer=PRIMER_KERNELS):
     """``model.train(epochs=FUSED_EPOCHS, block_epochs=..., patience=100,
     seed=0)`` with the counts zeroed just before and read just after: the
     history, the counts, the host clock at the start and at each callback
     (after a synchronize), and with ``profile`` the profile of the second
     block, from the first block's last callback to the second block's
-    first."""
-    marks, span, profiled = [], ProfiledSpan(), {}
+    first (``primer`` spin kernels at its start, ``ProfiledSpan``)."""
+    marks, span, profiled = [], ProfiledSpan(primer), {}
 
     def mark(epoch, **_):
         torch.cuda.synchronize()
@@ -1284,6 +1376,7 @@ def fused_run(model, tasks, impl, block_epochs, profile=False):
         if profile and epoch == FUSED_BLOCK:
             profiled["rows"], profiled["busy_us"], profiled["wall_us"] = \
                 span.stop()
+            profiled["primed"] = span.primed
 
     torch.cuda.synchronize()
     zero_counts()
@@ -1294,14 +1387,26 @@ def fused_run(model, tasks, impl, block_epochs, profile=False):
     return hist, launch_counts(), t0, marks, profiled
 
 
-def replay_profile(label, profiled, want):
-    """The kernels of the profiled block (FUSED_BLOCK replays) an epoch;
-    raises unless each of ``want`` (a name tag: walks an epoch) holds."""
+def replay_profile(label, take, want):
+    """The kernels of a profiled block (FUSED_BLOCK replays; ``take(primer)``
+    runs ``fused_run(..., profile=True, primer=primer)`` and gives its
+    profile) an epoch; raises unless each of ``want`` (a name tag: walks
+    an epoch) holds.  A block whose profile kept none of its primer
+    kernels is taken again with four times as many (``device_profile``)."""
+    primer = PRIMER_KERNELS
+    for _ in range(PROFILE_TRIES):
+        profiled = take(primer)
+        if profiled["primed"]:
+            break
+        primer = lost_primer(primer)
+    else:
+        raise RuntimeError(f"{label}: the profiler kept no primer kernel in "
+                           f"{PROFILE_TRIES} blocks")
     rows = profiled["rows"]
     count = lambda tag: sum(r[2] for r in rows if tag in r[0])
     walks = {tag: count(tag) / FUSED_BLOCK for tag in (
         "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
-        "blocked_spmm_walk")}
+        "blocked_spmm_walk", *ATTN_WALKS)}
     index_add = (count("indexFunc") + count("index_add")) / FUSED_BLOCK
     out = dict(walks_per_epoch=walks, index_add_per_epoch=index_add,
                launches_per_epoch=sum(r[2] for r in rows) / FUSED_BLOCK,
@@ -1360,9 +1465,10 @@ def phase_fused(label, graph, features, dev, impl=None, inv=None):
     if fused["best_epoch"] != host["best_epoch"]:
         raise AssertionError(f"{label}: best epoch {fused['best_epoch']}, "
                              f"host loop {host['best_epoch']}")
-    _, _, _, _, profiled = fused_run(model, tasks, impl, FUSED_BLOCK,
-                                     profile=True)
-    replay = replay_profile(label, profiled, REPLAY_WALKS[impl])
+    replay = replay_profile(
+        label, lambda primer: fused_run(model, tasks, impl, FUSED_BLOCK,
+                                        profile=True, primer=primer)[4],
+        REPLAY_WALKS[impl])
     epoch_ms = block_ms[1] / FUSED_BLOCK
     out = dict(fused_epoch_ms=epoch_ms, first_block_ms=block_ms[0],
                busy_ms_per_epoch=replay["busy_ms_per_epoch"],
@@ -1539,6 +1645,267 @@ def phase_backward_kernel(graph, dev, x40, x64):
                 transposed_list=stats)
 
 
+# attention dropout of phase 2e's per-edge lists, and the slope of GAT's
+# leaky_relu
+ATTN_KEEP = 0.4
+ATTN_SLOPE = 0.2
+# GAT's layers at GATConfig with 40 classes: (heads, features)
+GAT_SHAPES = ((8, 8), (1, N_CLASSES))
+def attn_calls(lists, h, ss, sd, g, salt, keep, plain=False, given=None):
+    """A1-A4 in the autograd Function's order over ``lists``
+    (``attn_chain``): the outputs by name, and each kernel's call (a
+    closure over its inputs).  With ``plain`` the plain versions run, each
+    on the inputs that ``given`` (the kernels' outputs) gave its kernel."""
+    from gnntf_tpu_torch.ops import attention as pa
+    calls = {}
+    outs = pa.attn_chain(lists, h, ss, sd, g, ATTN_SLOPE, salt, keep,
+                         plain=plain, given=given, calls=calls)
+    return outs, calls
+
+
+def attn_bound(name, lists, heads, feats, kept=None):
+    """Least time for attention kernel ``name`` over these lists: the list
+    (4 B a row pointer, 4 B a slot's index, 4 B its id where the list reads
+    one, 4 B a multiplicity), the gathered table rows (the score part of
+    every referenced row; the feature part of each (row, head) that a kept
+    (slot, head) references, ``kept`` (E, H) bool, all without dropout),
+    the per-row tables and the outputs once each.  Operations: ~10 fp32
+    operations a (slot, head) for the score and its exponential, the
+    dropout hash's where it is drawn, 2 a (slot, feature) for each product
+    with a feature row, at the fp32 rate."""
+    lst = lists.cols if name == "attn_bwd_cols" else lists.rows
+    n, e, w = lst.n_rows, lst.n_edges, heads * feats
+    idx = lst.idx.long()
+    n_bytes = (n + 1) * 4 + e * 4 + (0 if lst.eid is None else e * 4)
+    if lists.mult is not None:
+        n_bytes += lists.mult.numel() * 4
+    refs = int(torch.unique(idx).numel())
+    if kept is None:
+        feat_rows = refs * w * 4
+    else:
+        pairs = idx[:, None] * heads + torch.arange(heads, device=idx.device)
+        feat_rows = int(torch.unique(pairs[kept]).numel()) * feats * 4
+    hash_ops = 0 if kept is None else HASH_OPS
+    nh = n * heads * 4
+    if name == "attn_stats":
+        n_bytes += refs * heads * 4 + nh + 2 * nh
+        ops = e * heads * 10
+    elif name == "attn_aggregate":
+        n_bytes += refs * heads * 4 + feat_rows + 3 * nh + n * w * 4
+        ops = e * heads * (10 + hash_ops) + 2 * e * w
+    elif name == "attn_bwd_rows":
+        n_bytes += refs * heads * 4 + feat_rows + 3 * nh + n * w * 4 + 2 * nh
+        ops = e * heads * (14 + hash_ops) + 2 * e * w
+    else:  # the column pass: own rows [h | s_src], gathered [g | 4 heads]
+        n_bytes += n * (w + heads) * 4 + refs * 4 * heads * 4 + feat_rows \
+            + n * w * 4 + nh
+        ops = e * heads * (16 + hash_ops) + 4 * e * w
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes
+
+
+def attn_inputs(n, heads, feats, dev, seed):
+    rng = np.random.RandomState(seed)
+    t = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to(dev)
+    return t(n, heads, feats), t(n, heads), t(n, heads), t(n, heads * feats)
+
+
+def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
+                       cpu=False):
+    """A1-A4 over ``lists`` against their plain versions on the card, each
+    on its kernel's inputs, per element within ``KERNEL_RTOL * sum|terms|``
+    (``attn_error_scales``); a second launch of each bit-equal to the
+    first.  With ``timed``: kernel, plain version, bound and (layer 2's A2)
+    ``torch.sparse.mm`` of the realized coefficients in CSR; with ``cpu``:
+    the share of each output bit-equal to the plain version on the CPU."""
+    from gnntf_tpu_torch.ops import attention as pa
+    n, heads, feats = h.shape
+    outs, calls = attn_calls(lists, h, ss, sd, g, salt, keep)
+    torch.cuda.synchronize()
+    again, _ = attn_calls(lists, h, ss, sd, g, salt, keep)
+    ref, plain_calls = attn_calls(lists, h, ss, sd, g, salt, keep,
+                                  plain=True, given=outs)
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    scales = pa.attn_error_scales(lists, tab, sd, outs["rmax0"],
+                                  outs["dinv"], g, outs["rowdot"], heads,
+                                  feats, ATTN_SLOPE, salt, keep)
+    kept = None
+    if salt is not None:
+        kept = pa._attn_keep_scale(list_eids(lists.rows), salt, heads,
+                                   keep) > 0
+    res = {}
+    for name in ATTN_KERNELS:
+        r = dict(max_abs_err=max(
+            check_close(f"{name} {label} {o}", outs[o], ref[o], scales[o])
+            for o in pa.ATTN_OUTPUTS[name]))
+        for o in pa.ATTN_OUTPUTS[name]:
+            if not torch.isfinite(outs[o]).all():
+                raise AssertionError(f"{name} {label}: {o} not finite")
+            if not torch.equal(again[o], outs[o]):
+                raise AssertionError(f"{name} {label}: two launches differ "
+                                     f"in {o}")
+        if timed:
+            r["ms"] = time_ms(calls[name])
+            r["plain_ms"] = time_ms(plain_calls[name], reps=5, warmup=1)
+            kept_here = kept
+            if kept is not None and name == "attn_bwd_cols":
+                kept_here = pa._attn_keep_scale(list_eids(lists.cols), salt,
+                                                heads, keep) > 0
+            r["bound_ms"], r["bound_by"], r["bytes"] = attn_bound(
+                name, lists, heads, feats, kept_here)
+            r["library_ms"] = None
+        res[name] = r
+    if timed and heads == 1:
+        # yardstick only: one cuSPARSE product of the realized coefficients
+        rows, src, _, alpha = pa._alpha_rows(
+            lists.rows, lists.mult, tab, sd, outs["rmax0"], outs["dinv"],
+            heads, feats, ATTN_SLOPE)
+        if salt is not None:
+            alpha = alpha * pa._attn_keep_scale(list_eids(lists.rows), salt,
+                                                heads, keep)
+        a = torch.sparse_coo_tensor(torch.stack([rows, src]), alpha[:, 0],
+                                    (n, n)).coalesce().to_sparse_csr()
+        x = h.reshape(n, feats)
+        call = lambda: torch.sparse.mm(a, x)
+        check_close(f"library sparse.mm {label}", call(), ref["out"],
+                    scales["out"])
+        res["attn_aggregate"]["library_ms"] = time_ms(call)
+    if cpu:
+        on_cpu = dataclasses.replace(
+            lists, rows=list_to(lists.rows, "cpu"),
+            cols=list_to(lists.cols, "cpu"),
+            mult=None if lists.mult is None else lists.mult.cpu())
+        given = {k: v.cpu() for k, v in outs.items()}
+        cpu_ref, _ = attn_calls(on_cpu, h.cpu(), ss.cpu(), sd.cpu(), g.cpu(),
+                                None if salt is None else salt.cpu(), keep,
+                                plain=True, given=given)
+        for name in ATTN_KERNELS:
+            share = min((given[o] == cpu_ref[o]).double().mean().item()
+                        for o in pa.ATTN_OUTPUTS[name])
+            res[name]["bit_equal_to_cpu_plain"] = share
+    for name in ATTN_KERNELS:
+        log(f"{name} {label}: {res[name]}")
+    return res
+
+
+def check_attn_device_salts(lists, h, ss, sd, g, dev):
+    """2e: the chain over per-edge lists with its salt pair in one device
+    buffer: launched with draw A, the buffer rewritten to draw B and
+    launched again with the same arguments, then the chain captured in a
+    CUDA graph and replayed after a rewrite to draw C; each output must
+    equal, bit for bit, a fresh launch with its draw's salts."""
+    draws = [torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(s))
+             for s in (31, 32, 33)]
+    buf = draws[0].to(dev, copy=True)
+    checked = []
+
+    def hold(label, outs, draw):
+        fresh, _ = attn_calls(lists, h, ss, sd, g, draws[draw].to(dev),
+                              ATTN_KEEP)
+        for key, value in outs.items():
+            if not torch.equal(value, fresh[key]):
+                raise AssertionError(f"attention chain {label}: {key} "
+                                     f"differs from a launch with draw "
+                                     f"{draw}")
+        checked.append(f"{label} draw {draw}")
+
+    first, _ = attn_calls(lists, h, ss, sd, g, buf, ATTN_KEEP)
+    first = {k: v.clone() for k, v in first.items()}
+    buf.copy_(draws[1])
+    second, _ = attn_calls(lists, h, ss, sd, g, buf, ATTN_KEEP)
+    hold("first launch", first, 0)
+    hold("relaunch after a rewrite", second, 1)
+    if dev.type == "cuda":  # a rehearsal on the CPU: no graphs there
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outs, _ = attn_calls(lists, h, ss, sd, g, buf, ATTN_KEEP)
+        buf.copy_(draws[2])
+        graph.replay()
+        torch.cuda.synchronize()
+        hold("graph replay after a rewrite", outs, 2)
+    log(f"attention chain with device salts: equal to fresh launches: "
+        f"{checked}")
+    return checked
+
+
+def phase_attention_kernels(graph, dev):
+    """2e: the attention kernels A1-A4 against their plain versions, small
+    (a random graph with duplicates, an isolated destination, a hub row and
+    a hub column split over many units) and on the bench graph with its
+    self-loops at GAT's layer shapes, per-edge lists with a dropout draw
+    (keep ATTN_KEEP) and coalesced lists without; then the chain with
+    device salts."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import attention as pa
+
+    rng = np.random.RandomState(12)
+    n = 3000
+    src = np.concatenate([rng.randint(0, n - 1, 40_000),
+                          np.zeros(6000, np.int64),
+                          rng.randint(0, n - 1, 6000)])
+    dst = np.concatenate([rng.randint(0, n - 1, 40_000),
+                          rng.randint(0, n - 1, 6000),
+                          np.ones(6000, np.int64)])
+    src, dst = np.concatenate([src, src[:5000]]), np.concatenate(
+        [dst, dst[:5000]])
+    small = {}
+    salt = torch.tensor([0x9E3779B9, 77], device=dev)
+    for dedup in (False, True):
+        lists = pa.attn_lists(np.concatenate([src, dst]),
+                              np.concatenate([dst, src]), n, dev,
+                              dedup=dedup)
+        if not (lists.rows.split.shape[0] and lists.cols.split.shape[0]):
+            raise AssertionError("the small attention lists split no row")
+        for heads, feats in GAT_SHAPES:
+            h, ss, sd, g = attn_inputs(n, heads, feats, dev, heads)
+            label = (f"small {'coalesced' if dedup else 'per-edge'} "
+                     f"H={heads} F={feats}")
+            small[label] = check_attn_kernels(
+                label, lists, h, ss, sd, g, None if dedup else salt,
+                1.0 if dedup else ATTN_KEEP)
+            out, _ = attn_calls(lists, h, ss, sd, g, None, 1.0)
+            if out["out"][n - 1].abs().sum() or out["dh"][n - 1].abs().sum():
+                raise AssertionError("the isolated node got a value")
+
+    graph = tt.add_self_loops(graph)
+    stats, bench = {}, {}
+    for dedup in (False, True):
+        t0 = time.perf_counter()
+        lists = pa._attn_lists(graph, dedup=dedup)
+        torch.cuda.synchronize()
+        split = lists.rows.split.cpu().numpy()
+        stats["coalesced" if dedup else "per_edge"] = dict(
+            slots=lists.rows.n_edges, units=lists.rows.n_units,
+            split_rows=len(split), pieces=int(split[:, 2].sum()),
+            column_units=lists.cols.n_units,
+            split_columns=int(lists.cols.split.shape[0]),
+            build_s=time.perf_counter() - t0)
+        for heads, feats in GAT_SHAPES:
+            h, ss, sd, g = attn_inputs(N_NODES, heads, feats, dev,
+                                       20 + heads)
+            label = (f"bench {'coalesced' if dedup else 'per-edge'} "
+                     f"H={heads} F={feats}")
+            bench[dedup, heads] = check_attn_kernels(
+                label, lists, h, ss, sd, g, None if dedup else salt,
+                1.0 if dedup else ATTN_KEEP, timed=True,
+                cpu=(dedup == (heads == 1)))
+            if not dedup and heads == 8:
+                stats["device_salts"] = check_attn_device_salts(
+                    lists, h, ss, sd, g, dev)
+    log(f"bench attention lists (the graph with its {N_NODES} self-loops, "
+        f"{graph.n_edges} edges): {stats}")
+    return dict(small=small, lists=stats,
+                layer1=bench[False, 8], layer2=bench[False, 1],
+                layer1_coalesced=bench[True, 8],
+                layer2_coalesced=bench[True, 1])
+
+
 def init_params(model, seed):
     """Every parameter of ``model`` from U(-INIT_SCALE, INIT_SCALE), drawn
     on the host (numpy), as ``{name: array}``."""
@@ -1617,10 +1984,13 @@ def phase_gcnii(graph, features, dev):
     64 backward walks a step, no index_add_), and 3 epochs at depth
     CROSS_ITERATIONS without dropout on both devices."""
     import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
 
     train, valid = fused_tasks()
-    model = tt.GCNII(graph, features, num_classes=N_CLASSES, device=dev,
-                     **GCNII_CONFIG)
+    cfg = config.GCNIIConfig()
+    if cfg.iterations != GCNII_ITERATIONS:
+        raise AssertionError(f"GCNIIConfig has {cfg.iterations} iterations")
+    model = cfg.build(graph, features, N_CLASSES, device=dev)
     init = init_params(model, 11)
     tt.params_from_jax(init, model)
     order = np.random.RandomState(7).permutation(N_NODES)
@@ -1650,14 +2020,13 @@ def phase_gcnii(graph, features, dev):
         tt.NodeClassification(eval_nodes, labels[eval_nodes])))
     serving = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    want = dict(NO_LAUNCHES, k1=3 * GCNII_CONFIG["iterations"])
+    want = dict(NO_LAUNCHES, k1=3 * GCNII_ITERATIONS)
     if serving != want:
         raise AssertionError(f"GCNII serving launches {serving}, expected "
                              f"{want}")
-    model._act_cache = None
-    profile = profile_forward("one GCNII forward", model._activations,
+    profile = profile_forward("one GCNII forward", clean_forward(model),
                               top=12)
-    if profile["k1_walks"] != GCNII_CONFIG["iterations"]:
+    if profile["k1_walks"] != GCNII_ITERATIONS:
         raise AssertionError(f"{profile['k1_walks']} K1 walks in a GCNII "
                              "forward")
     log(f"GCNII serving: set-up {setup_ms} ms, forward ms {forward_ms}, "
@@ -1671,8 +2040,8 @@ def phase_gcnii(graph, features, dev):
             raise AssertionError("GCNII predict disagrees with the "
                                  "activations")
     t0 = time.perf_counter()
-    cpu_model = tt.GCNII(graph.to("cpu"), features, num_classes=N_CLASSES,
-                         device="cpu", **GCNII_CONFIG)
+    cpu_model = cfg.build(graph.to("cpu"), features, N_CLASSES,
+                          device="cpu")
     tt.params_from_jax(init, cpu_model)
     ref = cpu_model._activations()
     err = (gpu - ref).abs().max().item()
@@ -1694,8 +2063,8 @@ def phase_gcnii(graph, features, dev):
     with torch.no_grad():
         eval_ms = timed(lambda: model.forward(model.features))
     prof = profile_step(step, top=12)
-    want = dict(NO_LAUNCHES, k1=GCNII_CONFIG["iterations"],
-                backward=GCNII_CONFIG["iterations"])
+    want = dict(NO_LAUNCHES, k1=GCNII_ITERATIONS,
+                backward=GCNII_ITERATIONS)
     if prof["index_add_launches"] or prof["counted"] != want:
         raise AssertionError(f"GCNII step: {prof['index_add_launches']} "
                              f"index_add_ launches in the profile (expected "
@@ -1721,13 +2090,13 @@ def cross_device_gcnii(graph, features, train, valid, dev):
     separates the devices), 3 epochs on the card and on the CPU from the
     same weights: losses within LOSS_RTOL, parameters by phase 4b's
     rules."""
-    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
 
-    config = dict(GCNII_CONFIG, iterations=CROSS_ITERATIONS, dropout=0.0)
+    cfg = dataclasses.replace(config.GCNIIConfig(),
+                              iterations=CROSS_ITERATIONS, dropout=0.0)
     runs, params, adam, seconds, init = {}, {}, {}, {}, None
     for device, g in ((dev, graph), ("cpu", graph.to("cpu"))):
-        model = tt.GCNII(g, features, num_classes=N_CLASSES, device=device,
-                         **config)
+        model = cfg.build(g, features, N_CLASSES, device=device)
         init = init_params(model, 13) if init is None else init
         adam[str(device)] = recording_adam(LEARNING_RATE)
         zero_counts()
@@ -1764,11 +2133,10 @@ def phase_gcn(graph, features, dev):
     its backward walk at F=40 in the output layer; K1 twice in the
     validation forward), predict, then ``fit(block_epochs=5)`` against the
     host loop at ``epochs=10`` and a profile of a fused run's replays."""
-    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
 
     train, valid = fused_tasks()
-    model = tt.GCN(graph, features, num_classes=N_CLASSES, device=dev,
-                   **GCN_CONFIG)
+    model = config.GCNConfig().build(graph, features, N_CLASSES, device=dev)
     hist, epoch_ms, peak_mb = counted_train(model, (train, valid),
                                             GCN_EPOCHS, GCN_LAUNCHES)
     step = step_fn(model, train)
@@ -1809,12 +2177,13 @@ def phase_gcn(graph, features, dev):
     if fused["best_epoch"] != host["best_epoch"]:
         raise AssertionError(f"GCN fused best epoch {fused['best_epoch']}, "
                              f"host loop {host['best_epoch']}")
-    _, _, _, _, profiled = fused_run(model, (train, valid), None,
-                                     FUSED_BLOCK, profile=True)
-    # the walks of a replay are logged, not checked: the trace can miss a
-    # session's first events (profile_step); the losses equal to the host
-    # loop's show that each replay ran them
-    replay = replay_profile("GCN fused", profiled, {"index_add": 0})
+    # the walks of a replay are logged, not checked; the losses equal to
+    # the host loop's show that each replay ran them
+    replay = replay_profile(
+        "GCN fused", lambda primer: fused_run(model, (train, valid), None,
+                                              FUSED_BLOCK, profile=True,
+                                              primer=primer)[4],
+        {"index_add": 0})
     host_ms = np.diff([h0] + host_marks) * 1e3
     fused_out = dict(fused_epoch_ms=fused_epoch_ms,
                      host_epoch_ms=host_ms.tolist(),
@@ -1827,6 +2196,291 @@ def phase_gcn(graph, features, dev):
                 fused=fused_out)
 
 
+GAT_EPOCHS = SAGE_EPOCHS = 3
+# GAT's serving forward, GPU vs CPU: float32, sums in another order through
+# two attention layers
+GAT_FORWARD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def serving_run(label, model, per_forward):
+    """A warm forward (set-up: the model's adjacency and lists), then, with
+    the counts zeroed, three clean forwards, three predict requests of
+    REQUEST_NODES nodes and one evaluate; raises unless the launches are
+    three times ``per_forward`` or the predictions disagree with the
+    logits.  Returns the times, the launches, the peak memory and the
+    logits on the host."""
+    import gnntf_tpu_torch as tt
+    order = np.random.RandomState(7).permutation(N_NODES)
+    requests = [order[i * REQUEST_NODES:(i + 1) * REQUEST_NODES]
+                for i in range(N_REQUESTS)]
+    eval_nodes = order[N_REQUESTS * REQUEST_NODES:
+                       (N_REQUESTS + 1) * REQUEST_NODES]
+    labels = np.random.RandomState(8).randint(0, N_CLASSES, size=N_NODES)
+    t0 = time.perf_counter()
+    model._act_cache = None
+    model._activations()
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    forward_ms, request_ms, answers = [], [], []
+    for _ in range(3):
+        model._act_cache = None
+        t0 = time.perf_counter()
+        acts = model._activations()
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    for nodes in requests:
+        t0 = time.perf_counter()
+        answers.append(model.predict(tt.NodeClassification(nodes)).cpu())
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    accuracy = float(model.evaluate(
+        tt.NodeClassification(eval_nodes, labels[eval_nodes])))
+    launches = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    want = {k: 3 * v for k, v in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{label} serving launches {launches}, "
+                             f"expected {want}")
+    logits = acts.cpu()
+    if logits.shape != (N_NODES, N_CLASSES) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"bad {label} logits: {tuple(logits.shape)}")
+    for nodes, answer in zip(requests, answers):
+        if not torch.equal(answer, logits[torch.from_numpy(nodes)].argmax(1)):
+            raise AssertionError(f"{label} predict disagrees with the "
+                                 "activations")
+    log(f"{label} serving: set-up {setup_ms} ms (first forward), forward ms "
+        f"{forward_ms}, predict ms {request_ms}, evaluate {accuracy}, peak "
+        f"memory {peak_mb} MiB, launches {launches}")
+    return dict(setup_ms=setup_ms, forward_ms=forward_ms,
+                request_ms=request_ms, peak_mb=peak_mb,
+                launches=launches), logits
+
+
+def cpu_forward(label, build, g_cpu, logits, tol):
+    """The same model built on the CPU with the same weights
+    (``reset(seed=0)``): its forward against the card's ``logits``."""
+    t0 = time.perf_counter()
+    cpu_model = build(g_cpu, "cpu")
+    cpu_model.reset(seed=0)
+    ref = cpu_model._activations()
+    err = (logits - ref).abs().max().item()
+    agree = (logits.argmax(1) == ref.argmax(1)).double().mean().item()
+    out = dict(max_abs_err=err, max_abs_logit=ref.abs().max().item(),
+               argmax_agreement=agree, cpu_s=time.perf_counter() - t0)
+    log(f"{label} GPU vs CPU forward: {out}")
+    if not torch.allclose(logits, ref, **tol):
+        raise AssertionError(f"{label} GPU forward differs from CPU ({err})")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"{label} argmax agreement {agree}")
+    return out
+
+
+def walks_of(counts):
+    """The attention walks that the wrappers' ``counts`` launch, by
+    profile name."""
+    return {name + "_walk": counts[name] for name in ATTN_KERNELS}
+
+
+def attn_profile(label, fn, top=12):
+    """Device time by kernel over one ``fn()`` after a warm call: the
+    attention walks and their shares of the busy time, the wrappers'
+    counts over the session, and the launches of ``index_add_`` and
+    scatter kernels."""
+    fn()
+    rows, busy_us, wall_us, counted = device_profile(fn)
+    count = lambda *tags: sum(r[2] for r in rows
+                              if any(t in r[0] for t in tags))
+    out = dict(busy_us=busy_us, wall_us=wall_us, counted=counted,
+               launches=sum(r[2] for r in rows),
+               walks={w: count(w) for w in ATTN_WALKS},
+               shares={w: sum(r[1] for r in rows if w in r[0]) / busy_us
+                       for w in ATTN_WALKS},
+               attn_us=sum(r[1] for r in rows if "attn_" in r[0]),
+               index_add=count("indexFunc", "index_add"),
+               scatter=count("scatter"))
+    log(f"profile of {label}: {out}")
+    for key, us, n in rows[:top]:
+        log(f"  {us} us in {n} launches: {key[:90]}")
+    log_kernels("attention", rows, "attn_")
+    return out
+
+
+def phase_gat(graph, features, dev):
+    """9: GAT at GATConfig (latent 8, 8 heads, dropout 0.6, attention
+    dropout 0.6) on the bench graph with 40 classes: serving (A1 and A2 in
+    each layer of a forward, on the coalesced lists), a profile of one
+    forward and of one step, ``train(epochs=3)`` under the default impl
+    (the per-edge lists in the step), the serving forward against the
+    CPU's, 3 epochs without dropout on the card and on the CPU, and
+    ``fit(block_epochs=5)`` against the host loop at ``epochs=10``."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
+    from gnntf_tpu_torch.ops import attention as pa
+
+    cfg = config.GATConfig()
+    build = lambda g, device: cfg.build(g, features, N_CLASSES,
+                                        device=device)
+    train, valid = fused_tasks()
+    model = build(graph, dev)
+    model.reset(seed=0)
+    per_forward = dict(NO_LAUNCHES, attn_stats=2, attn_aggregate=2)
+    serving, logits = serving_run("GAT", model, per_forward)
+    serving["profile"] = attn_profile(
+        "one GAT forward",
+        clean_forward(model))
+    if (serving["profile"]["counted"] != per_forward
+            or serving["profile"]["walks"] != walks_of(per_forward)):
+        raise AssertionError(f"a GAT forward's profile: {serving['profile']}")
+    g_cpu = graph.to("cpu")
+    forward = cpu_forward("GAT", build, g_cpu, logits, GAT_FORWARD_TOL)
+
+    hist, epoch_ms, peak_mb = counted_train(model, (train, valid),
+                                            GAT_EPOCHS, GAT_LAUNCHES)
+    train_launches = launch_counts()
+    step = step_fn(model, train)
+    step_ms = timed(step)
+    with torch.no_grad():
+        eval_ms = timed(lambda: model.forward(model.features))
+    prof = attn_profile("one GAT training step", step, top=14)
+    want = dict(NO_LAUNCHES, attn_stats=2, attn_aggregate=2, attn_bwd_rows=2,
+                attn_bwd_cols=2)
+    if prof["index_add"] or prof["counted"] != want or prof[
+            "walks"] != walks_of(want):
+        raise AssertionError(f"GAT step: {prof['index_add']} index_add_ "
+                             f"launches (expected 0), launches "
+                             f"{prof['counted']} and walks {prof['walks']} "
+                             f"(expected {want})")
+    # the attention chain alone, forward and backward at layer 1's shape
+    # with attention dropout: its kernels and no index_add_ or scatter
+    sl = tt.add_self_loops(model.graph)
+    h, ss, sd, _ = attn_inputs(N_NODES, 8, 8, dev, 40)
+    h, ss, sd = (t.requires_grad_() for t in (h, ss, sd))
+    salt = torch.tensor([3, 4], device=dev)
+    chain = attn_profile(
+        "the attention chain (layer 1, dropout 0.6), forward and backward",
+        lambda: torch.autograd.backward(
+            pa.gat_attention(sl, h, ss, sd, attn_dropout=0.6, salt=salt),
+            torch.ones(N_NODES, 8, 8, device=dev)))
+    want = dict(NO_LAUNCHES, **dict.fromkeys(ATTN_KERNELS, 1))
+    if chain["index_add"] or chain["scatter"] or chain["counted"] != want \
+            or chain["walks"] != walks_of(want):
+        raise AssertionError(f"the attention chain's profile: {chain}")
+    accuracy = check_predictions(model, valid)
+    log(f"GAT training: epoch ms {epoch_ms}, step ms {step_ms}, validation "
+        f"forward ms {eval_ms}, peak memory {peak_mb} MiB, train loss "
+        f"{hist['train_loss']}, valid loss {hist['valid_loss']}, accuracy "
+        f"{accuracy}")
+    cross = cross_device_gat(graph, g_cpu, features, train, valid, dev)
+
+    fused, counts, t0, marks, _ = fused_run(model, (train, valid), None,
+                                            FUSED_BLOCK)
+    runs = 2 if dev.type == "cuda" else FUSED_EPOCHS
+    if counts != {k: runs * v for k, v in GAT_LAUNCHES.items()}:
+        raise AssertionError(f"GAT fused: launches counted {counts}")
+    fused_epoch_ms = (marks[2 * FUSED_BLOCK - 1]
+                      - marks[FUSED_BLOCK - 1]) * 1e3 / FUSED_BLOCK
+    host, host_counts, h0, host_marks, _ = fused_run(
+        model, (train, valid), None, 1)
+    if host_counts != {k: FUSED_EPOCHS * v for k, v in GAT_LAUNCHES.items()}:
+        raise AssertionError(f"GAT host loop launches {host_counts}")
+    rel = {}
+    for key in ("train_loss", "valid_loss"):
+        a, b = np.array(fused[key]), np.array(host[key])
+        rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        np.testing.assert_allclose(a, b, rtol=FUSED_RTOL)
+    if fused["best_epoch"] != host["best_epoch"]:
+        raise AssertionError(f"GAT fused best epoch {fused['best_epoch']}, "
+                             f"host loop {host['best_epoch']}")
+    replay = replay_profile(
+        "GAT fused", lambda primer: fused_run(model, (train, valid), None,
+                                              FUSED_BLOCK, profile=True,
+                                              primer=primer)[4],
+        dict(walks_of(GAT_LAUNCHES), index_add=0))
+    fused_out = dict(fused_epoch_ms=fused_epoch_ms,
+                     host_epoch_ms=(np.diff([h0] + host_marks)
+                                    * 1e3).tolist(),
+                     max_rel_loss_diff=rel, best_epoch=fused["best_epoch"],
+                     counted=counts, replay=replay)
+    log(f"GAT fused: {fused_out}")
+    return dict(serving=serving, forward=forward, epoch_ms=epoch_ms,
+                step_ms=step_ms, eval_forward_ms=eval_ms, peak_mb=peak_mb,
+                step_busy_ms=prof["busy_us"] / 1e3, profile=prof, chain=chain,
+                launches_per_epoch=GAT_LAUNCHES, launches=train_launches,
+                cross=cross,
+                fused=fused_out)
+
+
+def cross_device_gat(graph, g_cpu, features, train, valid, dev):
+    """9: GAT at GATConfig's widths without feature or attention dropout
+    (no random draw separates the devices), 3 epochs on the card and on the
+    CPU from the same U(-0.1, 0.1) weights: losses within LOSS_RTOL,
+    parameters by phase 4b's rules."""
+    import gnntf_tpu_torch as tt
+
+    runs, params, adam, seconds, init = {}, {}, {}, {}, None
+    for device, g in ((dev, graph), ("cpu", g_cpu)):
+        model = tt.GAT(g, features, num_classes=N_CLASSES, dropout=0.0,
+                       attn_dropout=0.0, device=device)
+        init = init_params(model, 17) if init is None else init
+        adam[str(device)] = recording_adam(LEARNING_RATE)
+        zero_counts()
+        t0 = time.perf_counter()
+        runs[str(device)] = model.train(
+            train, valid, epochs=CROSS_EPOCHS, patience=100, seed=0,
+            optimizer=adam[str(device)], init_params=dict(init))
+        seconds[str(device)] = time.perf_counter() - t0
+        want = {k: CROSS_EPOCHS * v for k, v in GAT_LAUNCHES.items()}
+        if launch_counts() != (want if torch.device(device) == dev
+                               else NO_LAUNCHES):
+            raise AssertionError(f"GAT on {device}: launches "
+                                 f"{launch_counts()}")
+        params[str(device)] = {k: p.detach().cpu()
+                               for k, p in model.params.items()}
+    gpu, cpu = runs[str(dev)], runs["cpu"]
+    log(f"GAT GPU vs CPU training, {CROSS_EPOCHS} epochs, no dropout: GPU "
+        f"{gpu} ({seconds[str(dev)]} s), CPU {cpu} ({seconds['cpu']} s)")
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
+    worst, outside, total = compare_params("GAT training", params, adam, dev)
+    return dict(max_param_diff=worst, outside=outside, elements=total,
+                cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)])
+
+
+def phase_sage_gin(graph, features, dev):
+    """10: GraphSAGE and GIN at GraphSAGEConfig and GINConfig on the bench
+    graph with 40 classes: serving (K1 in each convolution of a forward),
+    each forward against the CPU's with the same weights, and
+    ``train(epochs=3)`` (K1 forward and its backward walk through the
+    prepared operator)."""
+    from gnntf_tpu_torch import config
+
+    train, valid = fused_tasks()
+    g_cpu = graph.to("cpu")
+    out = {}
+    for name, cfg, k1, epoch in (
+            ("GraphSAGE", config.GraphSAGEConfig(), 2, SAGE_LAUNCHES),
+            ("GIN", config.GINConfig(), 1, GIN_LAUNCHES)):
+        build = lambda g, device, cfg=cfg: cfg.build(g, features, N_CLASSES,
+                                                     device=device)
+        model = build(graph, dev)
+        model.reset(seed=0)
+        serving, logits = serving_run(name, model, dict(NO_LAUNCHES, k1=k1))
+        forward = cpu_forward(name, build, g_cpu, logits, FORWARD_TOL)
+        hist, epoch_ms, peak_mb = counted_train(model, (train, valid),
+                                                SAGE_EPOCHS, epoch)
+        step_ms = timed(step_fn(model, train))
+        accuracy = check_predictions(model, valid)
+        log(f"{name} training: epoch ms {epoch_ms}, step ms {step_ms}, peak "
+            f"memory {peak_mb} MiB, train loss {hist['train_loss']}, valid "
+            f"loss {hist['valid_loss']}, accuracy {accuracy}")
+        out[name] = dict(serving=serving, forward=forward, epoch_ms=epoch_ms,
+                         step_ms=step_ms, peak_mb=peak_mb,
+                         launches_per_epoch=epoch)
+    return out
+
+
 def kernel_launches(gcnii, gcn, key):
     """A kernel's launches (its wrapper's count) a GCNII-64 serving forward
     and an epoch of GCNII-64's and of GCN's training."""
@@ -1834,6 +2488,42 @@ def kernel_launches(gcnii, gcn, key):
         gcnii=dict(serving_forward=gcnii["serving"]["launches"][key] // 3,
                    per_epoch=gcnii["launches_per_epoch"][key]),
         gcn=dict(per_epoch=gcn["launches_per_epoch"][key]))
+
+
+def attention_entries(attention, gat):
+    """The ``kernels`` line's entries of A1-A4: phase 2e's numbers at GAT's
+    layer 1 over the per-edge lists (the training step's shapes), with
+    layer 2 and the coalesced lists beside them, and phase 9's launches."""
+    entries = []
+    for name in ATTN_KERNELS:
+        backward_pass = name.startswith("attn_bwd")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "gnntf_tpu_torch/csrc/attention.cu",
+            "replaces": "gnntf_tpu/ops/attention.py:"
+                        + ("357" if backward_pass else "321"),
+            "launches": gat["launches"][name],
+            **{k: attention["layer1"][name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "shape": f"bench graph with self-loops, per-edge lists "
+                     f"({attention['lists']['per_edge']['slots']} slots), "
+                     f"H=8 F=8, attention dropout keep {ATTN_KEEP}",
+            "bytes": attention["layer1"][name]["bytes"],
+            "layer2": dict(attention["layer2"][name], shape="H=1 F=40"),
+            "coalesced": dict(
+                attention["layer1_coalesced"][name],
+                shape=f"coalesced lists "
+                      f"({attention['lists']['coalesced']['slots']} slots), "
+                      f"H=8 F=8, no dropout",
+                layer2=attention["layer2_coalesced"][name]),
+            "per_serving_forward": gat["serving"]["launches"][name] // 3,
+            "per_epoch": GAT_LAUNCHES[name],
+            "fused": dict(
+                per_replayed_epoch=gat["fused"]["replay"]["walks_per_epoch"][
+                    name + "_walk"],
+                counted=gat["fused"]["counted"][name])})
+    return entries
 
 
 def main(dev=None):
@@ -1892,6 +2582,11 @@ def main(dev=None):
     backward = phase_backward_kernel(graph, dev, x40, x64)
     seconds["2d"] = time.perf_counter() - t0
 
+    # 2e. the attention kernels A1-A4, small and on the bench graph's lists
+    t0 = time.perf_counter()
+    attention = phase_attention_kernels(graph, dev)
+    seconds["2e"] = time.perf_counter() - t0
+
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1935,8 +2630,7 @@ def main(dev=None):
         raise AssertionError(f"{launches} K1 launches on the serving path")
     op = model.operator(adj)
     spmm_ms = time_ms(lambda: op(acts))
-    model._act_cache = None
-    fwd_profile = profile_forward("one forward", model._activations)
+    fwd_profile = profile_forward("one forward", clean_forward(model))
     spmm_profile = profile_forward(f"one SpMM at F={acts.shape[1]}",
                                    lambda: op(acts))
     if fwd_profile["k1_walks"] != 10 or spmm_profile["k1_walks"] != 1:
@@ -2013,7 +2707,26 @@ def main(dev=None):
     gcn = phase_gcn(graph, features, dev)
     seconds["8"] = time.perf_counter() - t0
     log("GCN family summary: " + json.dumps(dict(gcnii=gcnii, gcn=gcn)))
+
+    # 9. GAT at its configuration, 10. GraphSAGE and GIN at theirs
+    from gnntf_tpu_torch.ops import attention as pa
+    t0 = time.perf_counter()
+    gat = phase_gat(graph, features, dev)
+    seconds["9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sage_gin = phase_sage_gin(graph, features, dev)
+    seconds["10"] = time.perf_counter() - t0
+    log("attention summary: " + json.dumps(dict(
+        kernels=attention, gat=gat, sage_gin=sage_gin)))
     log(f"phase seconds: {seconds}")
+    # one attention list build a structure and flavour: the bench graph's
+    # per-edge and coalesced lists on the card (2e; phase 9 hits them), its
+    # coalesced lists on the CPU (phase 9's CPU forward and CPU training; a
+    # rehearsal on the CPU has one bench graph)
+    builds = 3 if dev.type == "cuda" else 2
+    if pa._attn_lists.builds != builds:
+        raise AssertionError(f"{pa._attn_lists.builds} attention list "
+                             f"builds over the run, expected {builds}")
     # one grid build a structure over the run: the RCM graph on the card
     # (4a; 4b and 6b hit it) and on the CPU (4b), the natural graph on the
     # card (5; 6 hits it), 6c's small graph (a rehearsal on the CPU has one
@@ -2098,8 +2811,9 @@ def main(dev=None):
               "fused": fused_launches(fused, "ell_degree_walk", "degree"),
               **kernel_launches(gcnii, gcn, "degree"),
               "row_list": masked["degree_row"]}
-    print(json.dumps({"kernels": [entry, entry2, entry3, entry4]}),
-          flush=True)
+    attn_entries = attention_entries(attention, gat)
+    print(json.dumps({"kernels": [entry, entry2, entry3, entry4,
+                                  *attn_entries]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,16 +20,18 @@ from .graph import (Graph, add_self_loops, adj2graph,  # noqa: E402
 from .interop import params_from_jax  # noqa: E402
 from .measures import (acc, auc, avprec, bootstrap_ci, f1,  # noqa: E402
                        next_seed, prec, rec, set_seed)
-from .models import (APPNP, APPNP2, GCN, GCNII, GNN, MLP,  # noqa: E402
-                     NGCF, APPNPReg, APPNPThrough, FastReg, GCNIILayer,
-                     GCNIIReg, GCNIISpectralPreservingLayer, GCNLayer,
-                     GCNSpectralPreservingLayer, NGCFLayer, PPRIteration,
-                     PPRSweep, StableIteration, Structural)
+from .models import (APPNP, APPNP2, GAT, GCN, GCNII, GIN,  # noqa: E402
+                     GNN, MLP, NGCF, APPNPReg, APPNPThrough, FastReg,
+                     GATLayer, GCNIILayer, GCNIIReg,
+                     GCNIISpectralPreservingLayer, GCNLayer,
+                     GCNSpectralPreservingLayer, GINLayer, GraphSAGE,
+                     NGCFLayer, PPRIteration, PPRSweep, SAGELayer,
+                     StableIteration, Structural)
 from .nn import (LSTM, Activation, Branch, Concatenate, Dense,  # noqa: E402
                  Dropout, Forward, Layer, Network, ParamSpec, Resume,
                  Tradeoff, Wrap, batches)
 from .ops import (dropout, edge_dot, normalize_adjacency,  # noqa: E402
-                  sddmm, set_spmm_impl, spmm, spmm_impl)
+                  sddmm, segment_softmax, set_spmm_impl, spmm, spmm_impl)
 from .tasks import NodeClassification, Predictor  # noqa: E402
 from .train import Trainable, fit, keras_adam  # noqa: E402
 

@@ -284,6 +284,14 @@ class Forward:
                 _draw_seed(self.next_generator()))
         return dropout(x, rate, generator)
 
+    def attention_salt(self) -> torch.Tensor:
+        """An attention dropout's salt pair on the model's device
+        (``ops/attention.py``), drawn as edge dropout's: from the layer's
+        CPU generator, or from the :class:`DrawTape`'s slot."""
+        from ..ops.stochastic import draw_salt
+        return draw_salt(self._tape if self._tape is not None
+                         else self.next_generator(), self.net.device)
+
     def adjacency(self, graph_dropout: float = 0.5,
                   normalized: str = "symmetric", add_eye: str = "none"):
         """The normalized adjacency (reference GNN.get_adjacency,

@@ -1,3 +1,9 @@
+from .attention import (AttnGrids, AttnLists, attn_aggregate,
+                        attn_aggregate_plain, attn_bwd_cols,
+                        attn_bwd_cols_plain, attn_bwd_rows,
+                        attn_bwd_rows_plain, attn_chain, attn_lists,
+                        attn_stats, attn_stats_plain, build_attn_grids,
+                        gat_attention)
 from .blocked import (BlockedCOO, BlockedSpMM, EdgeList, block_coo,
                       blocked_spmm, blocked_spmm_plain, scatter_values,
                       spmm_pallas)
@@ -7,6 +13,7 @@ from .ell_gather import (ell_degree_masked, ell_degree_masked_plain,
                          ell_gather_masked, ell_gather_masked_plain,
                          ell_gather_plain, ell_list)
 from .normalize import edge_dropout, normalize_adjacency
+from .segment import segment_softmax
 from .spmm import (PreparedSpMM, build_ell, build_hybrid, edge_dot, prepare,
                    sddmm, set_spmm_executor, set_spmm_impl, spmm,
                    spmm_ell, spmm_executor, spmm_hybrid, spmm_impl,

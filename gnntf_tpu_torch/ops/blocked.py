@@ -352,13 +352,25 @@ def blocked_spmm_plain(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
 
 def _row_sums(lst: EdgeList, val: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
-    n, f = lst.n_rows, x.shape[1]
-    dev = x.device
-    rows = torch.repeat_interleave(
-        torch.arange(n, device=dev), lst.ptr.diff().long(),
-        output_size=lst.n_edges)
     w = val if lst.eid is None else val[lst.eid.long()]
-    terms = x[lst.idx.long()] * w[:, None]
+    return ordered_row_sums(lst, x[lst.idx.long()] * w[:, None])
+
+
+def list_rows(lst: EdgeList) -> torch.Tensor:
+    """The list row of each edge of ``lst`` (int64)."""
+    return torch.repeat_interleave(
+        torch.arange(lst.n_rows, device=lst.device), lst.ptr.diff().long(),
+        output_size=lst.n_edges)
+
+
+def ordered_row_sums(lst: EdgeList, terms: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum of terms[e]`` over row r's edges of ``lst`` (``terms``
+    (E, F) float32, one row an edge in list order), in the walk's order:
+    a row, or a piece of a split row, in edge order; then a split row's
+    pieces in ``lst.parts`` parts and the parts in order."""
+    n, f = lst.n_rows, terms.shape[1]
+    dev = terms.device
+    rows = list_rows(lst)
     split = lst.split.long()
     n_split = split.shape[0]
     if n_split == 0 or f == 0:

@@ -258,10 +258,7 @@ def test_flat_api_aliases():
     # package are not part of it)
     names = [n for n in dir(gt) if not n.startswith("_")
              and not inspect.ismodule(getattr(gt, n))]
-    # the names still to port are GAT's, GraphSAGE/GIN's and link
-    # prediction's (ROADMAP.md queue 1)
+    # the names still to port are link prediction's (ROADMAP.md queue 1)
     missing = {n for n in names if not hasattr(tt, n)}
-    assert missing <= {"GAT", "GATLayer", "GIN", "GINLayer", "GraphSAGE",
-                       "SAGELayer", "LinkPrediction", "MeanLinkPrediction",
-                       "negative_sampling", "recommend_all",
-                       "segment_softmax"}
+    assert missing <= {"LinkPrediction", "MeanLinkPrediction",
+                       "negative_sampling", "recommend_all"}

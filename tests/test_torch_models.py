@@ -119,6 +119,13 @@ MODELS = {
     "Structural-bipartite-l2": _structural(100, True, 24),
     "Structural-width-0": _structural(0, True, 0),
     "Structural-bipartite-width-0": _structural(120, False, 0),
+    "GAT": lambda pkg, *a, **kw: pkg.GAT(*a, latent_dims=(8,), heads=4,
+                                         **kw),
+    "GraphSAGE": lambda pkg, *a, **kw: pkg.GraphSAGE(*a, latent_dims=(16,),
+                                                     **kw),
+    "GraphSAGE-normalize": lambda pkg, *a, **kw: pkg.GraphSAGE(
+        *a, latent_dims=(16,), normalize=True, **kw),
+    "GIN": lambda pkg, *a, **kw: pkg.GIN(*a, latent_dims=(16,), **kw),
 }
 
 
@@ -192,6 +199,12 @@ TRAINED = {
     "GCN": lambda pkg, *a, **kw: pkg.GCN(
         *a, latent_dims=(16,), layer_type=_no_dropout(pkg, "GCNLayer"),
         **kw),
+    "GAT": lambda pkg, *a, **kw: pkg.GAT(
+        *a, latent_dims=(8,), heads=4, dropout=0.0, attn_dropout=0.0, **kw),
+    "GraphSAGE": lambda pkg, *a, **kw: pkg.GraphSAGE(
+        *a, latent_dims=(16,), dropout=0.0, **kw),
+    "GIN": lambda pkg, *a, **kw: pkg.GIN(*a, latent_dims=(16,), dropout=0.0,
+                                         **kw),
 }
 
 
@@ -241,7 +254,8 @@ def test_appnp_through_writes_the_labels_in_place():
     assert feats[:, -c:].sum() == len(nodes)
 
 
-@pytest.mark.parametrize("name", ["GCN", "GCNII", "NGCF", "MLP"])
+@pytest.mark.parametrize("name", ["GCN", "GCNII", "NGCF", "MLP", "GAT",
+                                  "GraphSAGE", "GIN"])
 def test_models_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -252,3 +266,49 @@ def test_models_default_to_cuda(name):
             tt.MLP(features, num_classes=c)
         else:
             getattr(tt, name)(pg, features, num_classes=c)
+
+
+def _gat_run(block_epochs):
+    """GAT with feature and attention dropout on a small graph under
+    ``min_edges_scope(0)`` (the grid path, per-edge lists in the step,
+    coalesced in the validation forward), 10 epochs from ``reset(seed=3)``:
+    the history, the parameters and the predictions."""
+    from gnntf_tpu_torch.ops import stochastic
+    src, dst, n, features, labels, c = _data("small")
+    graph = tt.from_edges(src, dst, n_nodes=n, directed=False, device="cpu")
+    model = tt.GAT(graph, features, num_classes=c, latent_dims=(8,), heads=4,
+                   device="cpu")
+    with stochastic.min_edges_scope(0):
+        hist = model.train(tt.NodeClassification(np.arange(100),
+                                                 labels[:100]),
+                           tt.NodeClassification(np.arange(100, 200),
+                                                 labels[100:200]),
+                           epochs=10, patience=100, seed=3,
+                           block_epochs=block_epochs)
+        pred = model.predict(tt.NodeClassification(np.arange(200, n)))
+    return hist, {k: p.detach().clone() for k, p in model.params.items()}, \
+        pred
+
+
+def test_gat_fused_equals_host_loop():
+    """``fit(block_epochs=5)`` replays the host loop's draws, attention
+    salts included (``Forward.attention_salt`` through the ``DrawTape``):
+    the history, the parameters and the predictions are equal."""
+    (hf, pf, yf), (hh, ph, yh) = _gat_run(5), _gat_run(1)
+    for key in ("train_loss", "valid_loss", "best_epoch"):
+        assert hf[key] == hh[key], key
+    for k in pf:
+        assert torch.equal(pf[k], ph[k]), k
+    assert torch.equal(yf, yh)
+    assert len(set(hh["train_loss"])) == len(hh["train_loss"])
+
+
+@pytest.mark.parametrize("name", ["GAT", "GraphSAGE", "GIN"])
+def test_params_from_jax_carries_the_new_models(name):
+    """The JAX parameter names line up: ``params_from_jax`` copies a JAX
+    model's parameters into the port's model of the same build, which then
+    holds them exactly."""
+    jm, pm, _ = _pair(name, "small")
+    for k, v in jm.params.items():
+        assert torch.equal(pm.params[k].detach(),
+                           torch.from_numpy(np.array(v))), k
