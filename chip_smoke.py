@@ -24,19 +24,24 @@ Phases (any failure raises and exits non-zero):
    column split over many units of work, and the layout of the
    RCM-reordered benchmark graph at F=40 and F=128 (each direction beside
    the cuSPARSE CSR product of A or A^T), with the layout's statistics;
-2c. the same for K1's masked mode (each edge weighted by its dropped value,
-   the mask hashed in the kernel) over the training grids' row list (the
-   step's forward) and column list (its backward), and for K1's degree mode
-   (the dropped graph's column sums): a small graph with empty rows and
-   columns, a hub row and column split over many units, trailing self-loops
-   (``n_drop < E``) and ``keep = 1``, and the benchmark graph's lists at
-   F=40, F=64 and F=128 beside ``torch.sparse.mm`` of the dropped A in CSR and
-   ``index_add_`` of the dropped values, logging the bit-equal share
-   against the plain versions on the CPU; then both walks with the draw's
-   salt pair in a device buffer: two launches with the same arguments, the
-   buffer rewritten between them, and a CUDA graph of the launches replayed
-   after another rewrite, each output bit-equal to the CPU plain version of
-   its draw;
+2c. the same for K1's dropout walks (``csrc/drop_walk.cuh``): the masked
+   walk (each edge weighted by its dropped value, the mask hashed in the
+   kernel, only kept edges' x rows gathered) over the training grids' row
+   list (the step's forward) and column list (its backward), and the
+   degree walk (the dropped graph's column sums): a small graph with empty
+   rows and columns, a hub row and column split over many units, trailing
+   self-loops (``n_drop < E``) and ``keep = 1``, and the benchmark graph's
+   lists at F=40, F=64 and F=128 beside ``torch.sparse.mm`` of the dropped
+   A in CSR and ``index_add_`` of the dropped values, each call's device
+   time by kernel (the masked walk's two passes and its flag's memset,
+   the degree walk) from the profiler, the share bit-equal to the plain
+   versions on the CPU at F=40 (all of it); an inf and a NaN in x rows
+   that only dropped edges read (the masked walk's second pass then
+   gathers every edge's row: NaNs where the plain version's are); then
+   both walks with the draw's salt pair in a device buffer: two launches
+   with the same arguments, the buffer rewritten between them, and a CUDA
+   graph of the launches replayed after another rewrite, each output
+   bit-equal to the CPU plain version of its draw;
 2d. the same for K1's backward walk, ``dx = A_rest^T dy`` over the
    transposed list of K1's list (``ell_transposed_list``) in the walk's
    store mode: a small random ELL with duplicates, an empty column and a
@@ -630,6 +635,10 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
         return plain_fn()
 
     res = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain))
+    # one call's device time by kernel: the masked walk's two passes (and
+    # its flag's memset), or the degree walk
+    res["us_by_kernel"] = {kernel_name(key): us
+                           for key, us, _ in device_profile(kernel)[0]}
     kept = stochastic.keep_mask(list_eids(lst), draw[0], draw[1], draw[2])
     res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
         lst, kept, None if x is None else x.shape[1])
@@ -650,8 +659,10 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
         f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
         f"({res['bound_by']}, {n_bytes} B), kept {int(kept.sum())} of "
         f"{lst.n_edges} edges, units {lst.n_units}, split rows "
-        f"{lst.split.shape[0]}, eid {'identity' if lst.eid is None else 'read'}"
-        f", N={lst.n_rows}" + ("" if x is None else f" F={x.shape[1]}"))
+        f"{lst.split.shape[0]}, tiles {lst.n_tiles} (caps {lst.tile_caps}), "
+        f"eid {'identity' if lst.eid is None else 'read'}"
+        f", N={lst.n_rows}" + ("" if x is None else f" F={x.shape[1]}")
+        + f"; one call's device us by kernel {res['us_by_kernel']}")
     return res
 
 
@@ -748,7 +759,12 @@ def phase_masked_kernels(graph, dev, x40, x64, x128):
         degree=cpu_share("degree bench column list",
                          ell_degree_masked(cols, val, *draw), cols, val,
                          draw))
+    if any(share != 1.0 for share in shares.values()):
+        raise AssertionError(f"bench outputs at F=40 not bit-equal to the "
+                             f"plain versions on the CPU: {shares}")
     stats["bit_equal_to_cpu_plain"] = shares
+    stats["nonfinite_nan_elements"] = check_nonfinite(rows, cols, val, draw,
+                                                      x40)
     stats["device_salts"] = check_device_salts(rows, cols, val, x40, x128,
                                                dev)
     return dict(small=small, forward=res["forward", 40],
@@ -759,6 +775,39 @@ def phase_masked_kernels(graph, dev, x40, x64, x128):
                 backward_gcn=res["backward", 64],
                 degree=res["degree"], degree_row=res["degree_row"],
                 lists=stats)
+
+
+def check_nonfinite(rows, cols, val, draw, x):
+    """2c: an inf and a NaN in x rows that only dropped edges read (the
+    masked walk then gathers every edge's row, as JAX's product does):
+    NaNs where the plain version run on the CPU has them, every other
+    element bit-equal to it; returns the NaN counts."""
+    from gnntf_tpu_torch.ops import ell_gather_masked, ell_gather_masked_plain
+    from gnntf_tpu_torch.ops import stochastic
+    counts = {}
+    for name, lst in (("row", rows), ("column", cols)):
+        kept = stochastic.keep_mask(list_eids(lst), *draw)
+        src = lst.idx.long()
+        only = np.setdiff1d(src[~kept].cpu().numpy(),
+                            src[kept].cpu().numpy())
+        bad = x.clone()
+        bad[int(only[0]), 0] = float("inf")
+        bad[int(only[-1]), x.shape[1] - 1] = float("nan")
+        got = ell_gather_masked(lst, val, *draw, bad).cpu()
+        ref = ell_gather_masked_plain(list_to(lst, "cpu"), val.cpu(),
+                                      draw[0].cpu(), *draw[1:], bad.cpu())
+        nan = torch.isnan(ref)
+        log(f"masked bench {name} list F={x.shape[1]} with an inf and a NaN "
+            f"in {len(only)} sources only dropped edges read: "
+            f"{int(nan.sum())} NaN elements in the plain version, "
+            f"{int(torch.isnan(got).sum())} in the kernel's output")
+        if not (nan.any() and torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], ref[~nan])):
+            raise AssertionError(f"masked {name} list: the kernel's output "
+                                 "with non-finite x differs from the plain "
+                                 "version")
+        counts[name] = int(nan.sum())
+    return counts
 
 
 def check_device_salts(rows, cols, val, x40, x128, dev):

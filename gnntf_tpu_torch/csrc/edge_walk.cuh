@@ -34,21 +34,8 @@
 // geometry does not change it, so the result is the same from launch to
 // launch and on the CPU.
 //
-// Two more modes serve the training step's edge dropout (ops/stochastic.py).
-// With kMasked, edge e's weight is its dropped value under the draw (Mask):
-// with id = eid[e],
-//
-//     w = keep(id) ? val[id] * scale(id) : +0,
-//     keep(id) = fmix32(fmix32(id ^ s0) ^ s1) >> 8 < thresh  or  id >= n_drop,
-//     scale(id) = fp32(1 / keep) below n_drop, else 1,
-//
-// in uint32 arithmetic, one rounded product, bit-equal to the host's
-// dropped_values.  The lane that loads an edge's idx and val in the batch
-// computes its weight, once an edge, and passes the weight out with
-// __shfl_sync where val is passed otherwise; a dropped edge's val is not
-// read.  With kDegree (masked, T = float, fv = 1) there is no x: a row's
-// sum is the sum of its weights, in list order, by the group's first lane,
-// with the same units, parts and fix-up, so the order is fixed as above.
+// K1's two dropout walks (the masked and the degree walk) have a design of
+// their own, drop_walk.cuh, which takes this header's parts and fix-up.
 //
 // Each source that includes this header defines its own __global__ kernels,
 // thin wrappers named after it and its mode (so a profile tells them
@@ -95,34 +82,6 @@ struct Args {
   int n_units, n_split, n_part_items, fv, group, parts;
 };
 
-// The dropout draw of the masked modes.  The salt pair is read from device
-// memory, once a thread at the kernel's start, so a launch captured in a
-// CUDA graph takes the draw that the buffer holds at each replay; the rest
-// is fixed for a layer over a run and comes as kernel scalars
-// (ops/stochastic.py::draw_scalars).
-struct Mask {
-  const int64_t* salt;  // (2,) int64 holding the draw's two uint32 salts
-  uint32_t thresh;      // round(keep * 2^24), at most 2^24
-  uint32_t n_drop;      // ids at or past it are always kept, unscaled
-  float scale;          // fp32(1 / keep)
-};
-
-// The draw as the walk uses it, the salts in registers.
-struct Draw {
-  uint32_t s0, s1, thresh, n_drop;
-  float scale;
-};
-
-__device__ __forceinline__ Draw load_draw(const Mask& m) {
-  Draw d;
-  d.s0 = (uint32_t)m.salt[0];
-  d.s1 = (uint32_t)m.salt[1];
-  d.thresh = m.thresh;
-  d.n_drop = m.n_drop;
-  d.scale = m.scale;
-  return d;
-}
-
 // murmur3's 32-bit finalizer
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -131,18 +90,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
-}
-
-// The weight of edge id `e`: val[e], or with kMasked its dropped value (+0
-// where the edge is dropped, and then val is not read).
-template <bool kMasked>
-__device__ __forceinline__ float weight(const float* __restrict__ val, int e,
-                                        const Draw& m) {
-  if (!kMasked) return val[e];
-  const uint32_t id = (uint32_t)e;
-  const bool low = id < m.n_drop;
-  if (low && (fmix32(fmix32(id ^ m.s0) ^ m.s1) >> 8) >= m.thresh) return 0.f;
-  return __fmul_rn(val[e], low ? m.scale : 1.f);
 }
 
 __device__ __forceinline__ void set_zero(float& a) { a = 0.f; }
@@ -230,14 +177,14 @@ __device__ __forceinline__ long long group_item(int group, long long n_items,
 
 // Unit u holds edges unit_edge[u] .. unit_edge[u+1]; unit_row[u] is its
 // first row, or ~row for a piece of a split row.
-template <typename T, bool kAdd, bool kMasked, bool kDegree>
+template <typename T, bool kAdd>
 __device__ __forceinline__ void walk_units(
     const int32_t* __restrict__ ptr, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ eid, const int32_t* __restrict__ rows,
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
     const int32_t* __restrict__ unit_edge, const T* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
-    int group, const Draw& m) {
+    int group) {
   int lane;
   const long long unit = group_item(group, n_units, lane);
   if (unit < 0) return;
@@ -264,8 +211,8 @@ __device__ __forceinline__ void walk_units(
     int next_src = 0;
     float next_w = 0.f;
     if (e0 + lane < e1) {
-      if (!kDegree) next_src = idx[e0 + lane];
-      next_w = weight<kMasked>(val, eid ? eid[e0 + lane] : e0 + lane, m);
+      next_src = idx[e0 + lane];
+      next_w = val[eid ? eid[e0 + lane] : e0 + lane];
     }
     for (int b = e0; b < e1; b += group) {
       const int n = min(group, e1 - b);
@@ -273,8 +220,8 @@ __device__ __forceinline__ void walk_units(
       const float my_w = next_w;
       const int pe = b + group + lane;
       if (pe < e1) {
-        if (!kDegree) next_src = idx[pe];
-        next_w = weight<kMasked>(val, eid ? eid[pe] : pe, m);
+        next_src = idx[pe];
+        next_w = val[eid ? eid[pe] : pe];
       }
       for (int k = 0; k < n; k += kUnroll) {
         T a[kUnroll];
@@ -284,10 +231,8 @@ __device__ __forceinline__ void walk_units(
           const int from = lane0 + min(k + u, n - 1);
           w[u] = __shfl_sync(mask, my_w, from);
           set_zero(a[u]);
-          if (!kDegree) {
-            const int s = __shfl_sync(mask, my_src, from);
-            if (on && k + u < n) a[u] = x[(long long)s * fv + j];
-          }
+          const int s = __shfl_sync(mask, my_src, from);
+          if (on && k + u < n) a[u] = x[(long long)s * fv + j];
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -300,10 +245,7 @@ __device__ __forceinline__ void walk_units(
               row_end = ptr[row + 1];
               if (kAdd && on) base = *row_at<kAdd>(out, rows, row, fv, j);
             }
-            if constexpr (kDegree)
-              add_into(acc, w[u]);
-            else
-              mul_add(acc, w[u], a[u]);
+            mul_add(acc, w[u], a[u]);
           }
         }
       }
@@ -322,16 +264,12 @@ __device__ __forceinline__ void walk_units(
   }
 }
 
-template <typename T, bool kAdd, bool kMasked = false, bool kDegree = false>
-__device__ __forceinline__ void walk(const Args& a, const Mask& m = Mask{}) {
-  static_assert(!kDegree || (kMasked && !kAdd),
-                "the degree mode is masked and stores its rows");
-  Draw d{};
-  if constexpr (kMasked) d = load_draw(m);
-  walk_units<T, kAdd, kMasked, kDegree>(
+template <typename T, bool kAdd>
+__device__ __forceinline__ void walk(const Args& a) {
+  walk_units<T, kAdd>(
       a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
       static_cast<const T*>(a.x), static_cast<T*>(a.out),
-      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, d);
+      static_cast<T*>(a.carry), a.n_units, a.fv, a.group);
 }
 
 // Item i, part_item[i] = s * parts + g: part g of split row s, the sum of
@@ -405,7 +343,6 @@ inline unsigned group_blocks(long long n_items, int group, int threads) {
 }
 
 typedef void (*Kernel)(Args);
-typedef void (*MaskedKernel)(Args, Mask);
 
 // After the walk's launch: (only where a row is split) the parts and the
 // fix-up, on `stream`; both run in blocks of one warp, so their items spread
@@ -427,14 +364,6 @@ inline int launch(Kernel walk_k, Kernel parts_k, Kernel fixup_k,
                   const Args& a, cudaStream_t stream) {
   walk_k<<<group_blocks(a.n_units, a.group, kThreads), kThreads, 0,
            stream>>>(a);
-  return finish(parts_k, fixup_k, a, stream);
-}
-
-// The same for a masked walk, which takes the draw as well.
-inline int launch(MaskedKernel walk_k, Kernel parts_k, Kernel fixup_k,
-                  const Args& a, const Mask& m, cudaStream_t stream) {
-  walk_k<<<group_blocks(a.n_units, a.group, kThreads), kThreads, 0,
-           stream>>>(a, m);
   return finish(parts_k, fixup_k, a, stream);
 }
 

@@ -33,32 +33,39 @@
 // quarter of K2's) spread them over the card, and the fix-up adds a split
 // row's pieces in the same fixed order as K2's.
 //
-// Two more modes of the same walk carry the training step under the default
-// implementation (ops/stochastic.py::TrainGrids, the counterpart of the JAX
-// package's TrainGrids.core and stochastic_degree), over the row list (A) or
-// the column list (A^T) of every edge, ptr over all N rows, in store mode:
+// Two more walks carry the training step under the default implementation
+// (ops/stochastic.py::TrainGrids, the counterpart of the JAX package's
+// TrainGrids.core and stochastic_degree), over the row list (A) or the
+// column list (A^T) of every edge, ptr over all N rows, in store mode, with
+// the design of drop_walk.cuh (a warp stages a tile's kept edges in shared
+// memory, then sums them):
 //
-// * ell_gather_masked_*: out[r] = sum_e w(eid[e]) * x[idx[e]], w the edge's
-//   dropped value, hashed in the walk from its id (edge_walk.cuh, kMasked);
-//   the step's forward over the row list, its dx = A^T dy over the column
-//   list.  Bound: the list (ptr; idx and val of the kept edges; eid of every
-//   edge where it is read), the x rows of kept edges once, out once: at
-//   F = 40 on the bench graph's row list with half of its 2,332,478 edges
-//   kept, 63,357,536 B, 18.9 us at 3.35 TB/s (chip_smoke.py phase 2c).  The
-//   hash is ~21 integer operations an edge, far below the card's rate.
-// * ell_degree_*: deg[r] = sum_e w(eid[e]), no x, `group` lanes a unit (one
-//   lane an edge for the loads and the hash, the sum in list order by the
-//   group's first lane): the dropped graph's column (or row) sums, with no
-//   atomics.  Bound on the bench graph's column list: ptr, eid of every
-//   edge, val of the kept ones and deg, 15,352,020 B, 4.6 us; its serial
-//   sums bound it by instruction throughput instead, which fewer lanes a
-//   unit spread over more units a warp (ops/ell_gather.py::_DEGREE_GROUP).
+// * ell_gather_masked_walk: out[r] = sum_e w(eid[e]) * x[idx[e]], w the
+//   edge's dropped value, hashed in the walk from its id; the step's
+//   forward over the row list, its dx = A^T dy over the column list.  Only
+//   kept edges' x rows are read, unless pass 0 finds an inf or a NaN in x
+//   (then pass 1, ell_gather_masked_nonfinite, walks again reading every
+//   edge's, as JAX's product does).
+//   Bound: the list (ptr; idx and val of the kept edges; eid of every edge
+//   where it is read), the x rows of kept edges once, out once: at F = 40
+//   on the bench graph's row list with half of its 2,332,478 edges kept,
+//   63,357,536 B, 18.9 us at 3.35 TB/s (chip_smoke.py phase 2c).  The hash
+//   is ~21 integer operations an edge, far below the card's rate.
+// * ell_degree_walk: deg[r] = sum_e w(eid[e]), no x: the dropped graph's
+//   column (or row) sums, with no atomics, lane i of a warp summing the
+//   tile's segment i.  Bound on the bench graph's column list: ptr, eid of
+//   every edge, val of the kept ones and deg, 15,352,020 B, 4.6 us.
+// Both add a split row's pieces after the walk with edge_walk's parts and
+// fix-up kernels (ell_gather_masked_parts/_fixup, ell_degree_parts/_fixup).
+#include "drop_walk.cuh"
 #include "edge_walk.cuh"
 
 namespace {
 
+using drop_walk::Mask;
+using drop_walk::Pass;
+using drop_walk::Tiles;
 using edge_walk::Args;
-using edge_walk::Mask;
 
 template <typename T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
@@ -77,9 +84,19 @@ __global__ void __launch_bounds__(32) ell_gather_fixup(const Args a) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
-    ell_gather_masked_walk(const Args a, const Mask m) {
-  edge_walk::walk<T, false, true>(a, m);
+__global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
+    ell_gather_masked_walk(const Args a, const Tiles t, const Mask m,
+                           const Pass p) {
+  drop_walk::walk<T, true>(a, t, m, p);
+}
+
+// pass 1 of the masked walk: returns at once unless pass 0 found an inf or
+// a NaN in x
+template <typename T>
+__global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
+    ell_gather_masked_nonfinite(const Args a, const Tiles t, const Mask m,
+                                const Pass p) {
+  drop_walk::walk<T, true>(a, t, m, p);
 }
 
 template <typename T>
@@ -92,9 +109,10 @@ __global__ void __launch_bounds__(32) ell_gather_masked_fixup(const Args a) {
   edge_walk::fixup<T, false>(a);
 }
 
-__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
-    ell_degree_walk(const Args a, const Mask m) {
-  edge_walk::walk<float, false, true, true>(a, m);
+__global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
+    ell_degree_walk(const Args a, const Tiles t, const Mask m,
+                    const Pass p) {
+  drop_walk::walk<float, false>(a, t, m, p);
 }
 
 __global__ void __launch_bounds__(32) ell_degree_parts(const Args a) {
@@ -103,16 +121,6 @@ __global__ void __launch_bounds__(32) ell_degree_parts(const Args a) {
 
 __global__ void __launch_bounds__(32) ell_degree_fixup(const Args a) {
   edge_walk::fixup<float, false>(a);
-}
-
-Mask make_mask(const void* salt, unsigned thresh, unsigned n_drop,
-               float scale) {
-  Mask m;
-  m.salt = static_cast<const int64_t*>(salt);
-  m.thresh = thresh;
-  m.n_drop = n_drop;
-  m.scale = scale;
-  return m;
 }
 
 }  // namespace
@@ -140,52 +148,75 @@ extern "C" int gnntf_ell_gather(
 }
 
 // The masked walk in store mode: out (n, f) float32 needs no zero-fill
-// (rows is ignored); val holds the graph's E base values, read at eid;
-// salt (a (2,) int64 device buffer), thresh, n_drop and scale are the draw
-// (edge_walk.cuh, Mask); the other arguments are as gnntf_ell_gather's.
+// (rows is ignored); val holds the graph's E base values, read at eid; the
+// tiles (tile_seg, tile_edge, seg_end, seg_out, n_tiles, cap_edges,
+// cap_segs) are drop_walk.cuh's Tiles; salt (a (2,) int64
+// device buffer), thresh, n_drop and scale are the draw (drop_walk.cuh,
+// Mask); flag is one int32 of scratch on the card and n_floats x's size;
+// carry holds the pieces' and parts' sums as gnntf_ell_gather's; the other
+// arguments are as gnntf_ell_gather's.
 extern "C" int gnntf_ell_gather_masked(
     const void* ptr, const void* idx, const void* eid, const void* rows,
     const void* unit_row, const void* unit_edge, const void* split,
     const void* part_item, const void* val, const void* x, void* out,
     void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, const void* salt, unsigned thresh,
-    unsigned n_drop, float scale, void* stream) {
+    int vec, int group, int parts, const void* tile_seg,
+    const void* tile_edge, const void* seg_end, const void* seg_out,
+    int n_tiles, int cap_edges, int cap_segs, const void* salt,
+    unsigned thresh, unsigned n_drop,
+    float scale, void* flag, long long n_floats, void* stream) {
   (void)rows;
+  if (flag == nullptr) return (int)cudaErrorInvalidValue;
   const Args a = edge_walk::make_args(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
-  const Mask m = make_mask(salt, thresh, n_drop, scale);
+  const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
+                                        seg_out, n_tiles, cap_edges,
+                                        cap_segs);
+  const Mask m = drop_walk::make_mask(salt, thresh, n_drop, scale);
+  const long long n_x = n_floats / vec;  // x's T's (float4 or float)
+  int* fl = static_cast<int*>(flag);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4)
-    return edge_walk::launch(ell_gather_masked_walk<float4>,
-                             ell_gather_masked_parts<float4>,
-                             ell_gather_masked_fixup<float4>, a, m, s);
-  return edge_walk::launch(ell_gather_masked_walk<float>,
-                           ell_gather_masked_parts<float>,
-                           ell_gather_masked_fixup<float>, a, m, s);
+    return drop_walk::launch(
+        ell_gather_masked_walk<float4>, ell_gather_masked_nonfinite<float4>,
+        ell_gather_masked_parts<float4>, ell_gather_masked_fixup<float4>, a,
+        t, m, fl, n_x, s);
+  return drop_walk::launch(
+      ell_gather_masked_walk<float>, ell_gather_masked_nonfinite<float>,
+      ell_gather_masked_parts<float>, ell_gather_masked_fixup<float>, a, t,
+      m, fl, n_x, s);
 }
 
-// The degree mode: out (n,) float32, each list row's sum of its dropped
-// weights, needs no zero-fill; x, rows and idx are not read; f and vec are
-// 1 and group is the lanes a unit (ops/ell_gather.py::_DEGREE_GROUP); carry
-// is (n_units + n_split * parts,) float32 scratch.
+// The degree walk: out (n,) float32, each list row's sum of its dropped
+// weights, needs no zero-fill; x, rows, idx, flag and n_floats are not
+// read; f and vec are 1; carry is (n_units + n_split * parts,) float32
+// scratch.
 extern "C" int gnntf_ell_degree(
     const void* ptr, const void* idx, const void* eid, const void* rows,
     const void* unit_row, const void* unit_edge, const void* split,
     const void* part_item, const void* val, const void* x, void* out,
     void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, const void* salt, unsigned thresh,
-    unsigned n_drop, float scale, void* stream) {
+    int vec, int group, int parts, const void* tile_seg,
+    const void* tile_edge, const void* seg_end, const void* seg_out,
+    int n_tiles, int cap_edges, int cap_segs, const void* salt,
+    unsigned thresh, unsigned n_drop,
+    float scale, void* flag, long long n_floats, void* stream) {
   (void)rows;
   (void)x;
+  (void)flag;
+  (void)n_floats;
   if (f != 1 || vec != 1) return (int)cudaErrorInvalidValue;
   const Args a = edge_walk::make_args(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,
       nullptr, out, carry, n_units, n_split, n_part_items, 1, 1, group,
       parts);
-  const Mask m = make_mask(salt, thresh, n_drop, scale);
-  return edge_walk::launch(ell_degree_walk, ell_degree_parts,
-                           ell_degree_fixup, a, m,
+  const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
+                                        seg_out, n_tiles, cap_edges,
+                                        cap_segs);
+  const Mask m = drop_walk::make_mask(salt, thresh, n_drop, scale);
+  return drop_walk::launch(ell_degree_walk, nullptr, ell_degree_parts,
+                           ell_degree_fixup, a, t, m, nullptr, 0,
                            static_cast<cudaStream_t>(stream));
 }
 

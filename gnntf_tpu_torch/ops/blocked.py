@@ -242,14 +242,56 @@ def part_items(split: np.ndarray, parts: int) -> np.ndarray:
     return (s * parts + g)[np.lexsort((s, g))].astype(np.int32)
 
 
+def drop_tiles(ptr: np.ndarray, unit_row: np.ndarray,
+               unit_edge: np.ndarray, items: int):
+    """The tiles of K1's dropout walks (``csrc/drop_walk.cuh``) over a list
+    cut into units (:func:`work_units`).  A segment is a row of a unit of
+    whole rows, or a piece of a split row, in list order: ``seg_end[s]`` is
+    the edge where it ends (it starts where segment ``s - 1`` ends) and
+    ``seg_out[s]`` its row, or ``~unit`` for a piece (the piece's carry
+    slot).  A tile is a run of consecutive segments of about ``items``
+    items, a segment costing its edges and one more: tile ``t`` holds
+    segments ``tile_seg[t]:tile_seg[t + 1]`` and edges
+    ``tile_edge[t]:tile_edge[t + 1]``.  The tiles change where a warp
+    works, not the order of any sum.  Returns int32 ``(tile_seg,
+    tile_edge, seg_end, seg_out)`` and the most edges and segments of a
+    tile."""
+    ptr = np.asarray(ptr, np.int64)
+    unit_row = np.asarray(unit_row, np.int64)
+    unit_edge = np.asarray(unit_edge, np.int64)
+    head, after = unit_row[:-1], unit_row[1:]
+    piece = head < 0
+    first = np.where(piece, ~head, head)
+    count = np.where(piece, 1, np.where(after < 0, ~after, after) - first)
+    unit = np.repeat(np.arange(len(head)), count)
+    row = first[unit] + np.arange(len(unit)) - np.repeat(
+        np.cumsum(count) - count, count)
+    in_piece = piece[unit]
+    seg_out = np.where(in_piece, ~unit, row)
+    seg_end = np.where(in_piece, unit_edge[1:][unit], ptr[row + 1])
+    seg_start = np.concatenate([[0], seg_end[:-1]])
+    cost = seg_end - seg_start + 1
+    bucket = (np.cumsum(cost) - cost) // items
+    starts = np.flatnonzero(np.concatenate([[True],
+                                            bucket[1:] != bucket[:-1]]))
+    starts = starts[:len(seg_end)]
+    tile_seg = np.append(starts, len(seg_end))
+    tile_edge = np.append(seg_start[starts], ptr[-1])
+    caps = (int(np.diff(tile_edge).max(initial=0)),
+            int(np.diff(tile_seg).max(initial=0)))
+    return tuple(a.astype(np.int32) for a in (tile_seg, tile_edge, seg_end,
+                                              seg_out)) + caps
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeList:
     """The walk's work on a device: a CSR list (``ptr``, ``idx``, ``eid``;
     ``eid`` is None where it is the identity), its units of work
     (:func:`work_units`), the fix-up's items (:func:`part_items`) and the
-    number of parts that fixes its order, and, for K1's lists, the output
-    row of each list row (``rows``; None for K2's, where row r is output
-    row r)."""
+    number of parts that fixes its order, for K1's lists the output row of
+    each list row (``rows``; None for K2's, where row r is output row r),
+    and, for the lists of K1's dropout walks, their tiles
+    (:func:`drop_tiles`; None where the list was built without them)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -260,12 +302,20 @@ class EdgeList:
     part_item: torch.Tensor  # (I,) int32
     parts: int
     rows: Optional[torch.Tensor] = None  # (N,) int32 output rows
+    tile_seg: Optional[torch.Tensor] = None   # (T+1,) int32
+    tile_edge: Optional[torch.Tensor] = None  # (T+1,) int32
+    seg_end: Optional[torch.Tensor] = None    # (S,) int32
+    seg_out: Optional[torch.Tensor] = None    # (S,) int32
+    tile_caps: tuple = (0, 0)  # most edges and segments of a tile
 
     @classmethod
-    def build(cls, ptr, idx, eid, device, rows=None, items=None):
+    def build(cls, ptr, idx, eid, device, rows=None, items=None,
+              tile_items=None):
         """The list on ``device``, cut into units of ``items`` items
         (default ``_UNIT_ITEMS``), its split rows summed in
-        ``_FIXUP_PARTS`` parts; ``eid`` None means the identity."""
+        ``_FIXUP_PARTS`` parts, with tiles of ``tile_items`` items for the
+        dropout walks (:func:`drop_tiles`; none without ``tile_items``);
+        ``eid`` None means the identity."""
         if len(idx) >= 2**31 - 1:
             raise ValueError(f"{len(idx)} edges exceed the walk's int32 "
                              "indices")
@@ -277,10 +327,17 @@ class EdgeList:
         identity = eid is None or np.array_equal(eid, np.arange(len(eid)))
         units = work_units(ptr, _UNIT_ITEMS if items is None else items)
         parts = _FIXUP_PARTS
+        tiles = {}
+        if tile_items is not None:
+            *arrays, cap_edges, cap_segs = drop_tiles(ptr, units[0],
+                                                      units[1], tile_items)
+            tiles = dict(zip(("tile_seg", "tile_edge", "seg_end", "seg_out"),
+                             map(put, arrays)),
+                         tile_caps=(cap_edges, cap_segs))
         return cls(put(ptr), put(idx), None if identity else put(eid),
                    *(put(a) for a in units),
                    put(part_items(units[2], parts)), parts,
-                   rows=None if rows is None else put(rows))
+                   rows=None if rows is None else put(rows), **tiles)
 
     @property
     def n_rows(self) -> int:
@@ -309,6 +366,22 @@ class EdgeList:
         return (tuple(None if a is None else a.data_ptr() for a in arrays),
                 (self.n_units, int(self.split.shape[0]),
                  int(self.part_item.shape[0])))
+
+    @property
+    def n_tiles(self) -> int:
+        return 0 if self.tile_seg is None else int(self.tile_seg.shape[0]) - 1
+
+    @functools.cached_property
+    def tile_addresses(self) -> tuple:
+        """The tiles' device addresses and int arguments, in the dropout
+        walks' C order: tile_seg, tile_edge, seg_end, seg_out, n_tiles,
+        cap_edges, cap_segs."""
+        if self.tile_seg is None:
+            raise ValueError("the list was built without tiles "
+                             "(EdgeList.build(tile_items=...))")
+        return (*(a.data_ptr() for a in (self.tile_seg, self.tile_edge,
+                                         self.seg_end, self.seg_out)),
+                self.n_tiles, *self.tile_caps)
 
 
 class BlockedSpMM:
@@ -431,31 +504,39 @@ def check(what, lst, val, x, base=None):
         raise ValueError(f"{what} inputs must be contiguous")
 
 
-def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
-           x: Optional[torch.Tensor], out: torch.Tensor, mask=(),
-           group: Optional[int] = None) -> None:
-    """Run the walk through the C ``entry`` of a built library (K1's or
-    K2's), writing into ``out`` on the current stream; counts nothing.
-    ``mask`` holds a masked entry's draw (the salt pair's device address,
-    then ``stochastic.draw_scalars``; ``ops/ell_gather.py``); with no
-    ``x`` (the degree mode) the walk sums one value a row, ``group`` lanes
-    a unit."""
+def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
+               out: torch.Tensor, extra=()):
+    """The C arguments of a walk's entry point but the stream (the list's,
+    then ``extra``), and the scratch tensor they point into (None where no
+    row is split), to be kept until the launch."""
     f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
-    if n_units == 0 or f == 0:
-        return
     # float4 loads where rows are 16-byte aligned; a group of lanes a unit
     x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
     vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
                 and out_at % 16 == 0) else 1
-    if group is None:
-        group = max(1, min(32, f // vec))
+    group = max(1, min(32, f // vec))
     # the pieces' sums, then the split rows' parts
     carry = (torch.empty(n_units + n_split * lst.parts, f,
-                         dtype=torch.float32, device=out.device).data_ptr()
+                         dtype=torch.float32, device=out.device)
              if n_split else None)
-    args = (*addresses, val.data_ptr(), x_at, out_at, carry, n_units,
-            n_split, n_part_items, f, vec, group, lst.parts, *mask)
+    args = (*addresses, val.data_ptr(), x_at, out_at,
+            None if carry is None else carry.data_ptr(), n_units, n_split,
+            n_part_items, f, vec, group, lst.parts, *extra)
+    return args, carry
+
+
+def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
+           x: Optional[torch.Tensor], out: torch.Tensor,
+           extra=()) -> None:
+    """Run the walk through the C ``entry`` of a built library (K1's or
+    K2's), writing into ``out`` on the current stream; counts nothing.
+    ``extra`` holds the arguments a dropout walk's entry takes after the
+    list's (``ops/ell_gather.py``: the tiles, the draw, the flag); with no
+    ``x`` (the degree walk) the walk sums one value a row."""
+    if lst.n_units == 0 or (x is not None and x.shape[1] == 0):
+        return
+    args, _carry = entry_args(lst, val, x, out, extra)
     device = out.device
     if device.index == torch.cuda.current_device():
         rc = getattr(lib, entry)(
@@ -500,17 +581,20 @@ blocked_spmm.launches = 0
 # f, vec, group, parts; stream
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
-# the masked entry points (gnntf_ell_gather_masked, gnntf_ell_degree) take
-# the draw before the stream: the salt pair's device address, thresh,
-# n_drop, scale
-MASKED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [
-    ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-    ctypes.c_void_p]
+# the dropout walks' entry points (gnntf_ell_gather_masked,
+# gnntf_ell_degree) take before the stream the tiles (tile_seg, tile_edge,
+# seg_end, seg_out; n_tiles, cap_edges, cap_segs), the draw (the salt
+# pair's device address, thresh, n_drop, scale), the flag's device address
+# and x's size in floats
+DROP_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                         ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p]
 
 
-def declare(entry, masked: bool = False) -> None:
+def declare(entry, drop: bool = False) -> None:
     entry.restype = ctypes.c_int
-    entry.argtypes = MASKED_ARGTYPES if masked else ENTRY_ARGTYPES
+    entry.argtypes = DROP_ARGTYPES if drop else ENTRY_ARGTYPES
 
 
 @functools.cache

@@ -30,15 +30,20 @@ place in K1's list as its ``eid``) in the walk's store mode, through K2's
 entry point, which takes such a list as it is (:func:`ell_gather_transposed`,
 counted apart in ``ell_gather.backward_launches``).
 
-Two more modes of the walk carry the training step's edge dropout
+Two more walks carry the training step's edge dropout
 (``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
-over all N rows, in store mode.  :func:`ell_gather_masked` weights each
+over all N rows, in store mode, with a design of their own
+(``csrc/drop_walk.cuh``: a warp stages a tile of the list, its kept edges
+in shared memory, then sums them).  :func:`ell_gather_masked` weights each
 edge by its dropped value, hashed in the kernel from its id and the draw
 (the salt pair read from device memory, so a launch captured in a CUDA
-graph takes each replay's draw); :func:`ell_degree_masked` sums those
-weights a row, with no ``x``.  Their plain versions take the draw's
-per-edge values (``stochastic.drawn_values``, which equal the kernel's
-weights bit for bit) and sum them in the kernel's order.
+graph takes each replay's draw), and gathers only the kept edges' ``x``
+rows unless ``x`` holds an inf or a NaN (then a second pass gathers every
+edge's, as JAX's product multiplies them);
+:func:`ell_degree_masked` sums those weights a row, with no ``x``.  Their
+lists carry tiles (``EdgeList.build(tile_items=)``).  Their plain versions
+take the draw's per-edge values (``stochastic.drawn_values``, which equal
+the kernel's weights bit for bit) and sum them in the kernel's order.
 """
 from __future__ import annotations
 
@@ -56,12 +61,11 @@ from .blocked import EdgeList, blocked_spmm_plain
 # quarter of K2's, so its units are smaller than K2's to fill the card (32
 # is the fastest of 32, 64 and 128 at F=40 in k2_sweep.py)
 _UNIT_ITEMS = 32
-# lanes a unit in the degree mode: a group loads and hashes a batch of
-# that many edges, one a lane, and its first lane sums them in list order;
-# every lane of a group runs the serial sum, so fewer lanes put more units
-# in a warp (8 was the fastest of 1 to 32 at 128 items a unit in
-# k2_sweep.py --kernels train)
-_DEGREE_GROUP = 8
+# the dropout walks' lists (ops/stochastic.py::TrainGrids.lists): a split
+# row's pieces of at most _DROP_ITEMS edges, tiles of about _TILE_ITEMS
+# items (k2_sweep.py --kernels train)
+_DROP_ITEMS = 128
+_TILE_ITEMS = 256
 
 
 def ell_list(idx: np.ndarray, vrow_row: np.ndarray, n_nodes: int):
@@ -227,6 +231,9 @@ def _check_masked(what, lst, val):
     if lst.rows is not None:
         raise ValueError(f"{what} stores row r at r; a list with row ids is "
                          "K1's (ell_list)")
+    if lst.tile_seg is None:
+        raise ValueError(f"{what} walks a list built with tiles "
+                         "(EdgeList.build(tile_items=...))")
     if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
         raise TypeError(f"{what}: values must be ({lst.n_edges},) float32, "
                         f"one an edge id, got {tuple(val.shape)} {val.dtype}")
@@ -242,7 +249,8 @@ def ell_gather_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
                             x: torch.Tensor) -> torch.Tensor:
     """The plain version of :func:`ell_gather_masked`:
     ``blocked_spmm_plain`` over the draw's per-edge values, in the kernel's
-    order."""
+    order (a dropped edge's ``+0 * x`` included, so an inf or a NaN there
+    gives NaN, as in JAX's product)."""
     from .stochastic import drawn_values
     return blocked_spmm_plain(lst, drawn_values(val, salt, keep, n_drop), x)
 
@@ -256,8 +264,10 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     the graph's base values, one an edge id.
 
     CPU tensors take :func:`ell_gather_masked_plain`; CUDA tensors launch
-    the masked walk, which hashes the mask in the kernel (counted in
-    ``ell_gather_masked.launches``)."""
+    the masked walk, which hashes the mask in the kernel and gathers only
+    the kept edges' rows of ``x``, unless ``x`` holds an inf or a NaN
+    (counted in ``ell_gather_masked.launches``: one a call, of its two
+    passes)."""
     _check_masked("ell_gather_masked", lst, val)
     blocked.check("ell_gather_masked", lst, val, x)
     if x.device.type == "cpu":
@@ -269,8 +279,9 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
                       device=x.device)
     if lst.n_units == 0 or x.shape[1] == 0:
         return out
-    _launch_masked("gnntf_ell_gather_masked", lst, val, x, out, salt, keep,
-                   n_drop)
+    flag = torch.empty(1, dtype=torch.int32, device=x.device)
+    _launch_drop("gnntf_ell_gather_masked", lst, val, x, out, salt, keep,
+                 n_drop, flag)
     ell_gather_masked.launches += 1
     return out
 
@@ -306,8 +317,8 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     out = torch.empty(lst.n_rows, dtype=torch.float32, device=val.device)
     if lst.n_units == 0:
         return out
-    _launch_masked("gnntf_ell_degree", lst, val, None, out, salt, keep,
-                   n_drop, group=_DEGREE_GROUP)
+    _launch_drop("gnntf_ell_degree", lst, val, None, out, salt, keep,
+                 n_drop)
     ell_degree_masked.launches += 1
     return out
 
@@ -315,14 +326,26 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
 ell_degree_masked.launches = 0
 
 
-def _launch_masked(entry, lst, val, x, out, salt, keep, n_drop, **kw):
-    """A masked entry's launch: the kernel reads the salt pair from device
+def drop_args(lst, salt, keep, n_drop, flag=None, x=None) -> tuple:
+    """A dropout walk's arguments after the list's: the tiles, the draw (the
+    salt pair's device address, then ``stochastic.draw_scalars``), the
+    address of the masked walk's flag (one int32 of scratch, zeroed by the
+    launch) and ``x``'s size in floats (None and 0 for the degree walk)."""
+    from .stochastic import draw_scalars
+    return (*lst.tile_addresses, salt.data_ptr(),
+            *draw_scalars(keep, n_drop),
+            None if flag is None else flag.data_ptr(),
+            0 if x is None else x.numel())
+
+
+def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, flag=None):
+    """A dropout walk's launch: the kernel reads the salt pair from device
     memory (:func:`stochastic.device_salt`; a host salt is uploaded first),
     the rest of the draw as kernel scalars."""
-    from .stochastic import device_salt, draw_scalars
+    from .stochastic import device_salt
     salt = device_salt(salt, out.device)
     blocked.launch(_library(), entry, lst, val, x, out,
-                   mask=(salt.data_ptr(), *draw_scalars(keep, n_drop)), **kw)
+                   extra=drop_args(lst, salt, keep, n_drop, flag, x))
 
 
 @functools.cache
@@ -330,7 +353,13 @@ def _library():
     """The built kernel library with its C signatures declared (built on
     first use, never at import)."""
     lib = kernels.load("ell_gather")
-    blocked.declare(lib.gnntf_ell_gather)
-    blocked.declare(lib.gnntf_ell_gather_masked, masked=True)
-    blocked.declare(lib.gnntf_ell_degree, masked=True)
+    declare(lib)
     return lib
+
+
+def declare(lib) -> None:
+    """Declare the C signatures of K1's library (the built one, or one
+    built with other settings)."""
+    blocked.declare(lib.gnntf_ell_gather)
+    blocked.declare(lib.gnntf_ell_gather_masked, drop=True)
+    blocked.declare(lib.gnntf_ell_degree, drop=True)

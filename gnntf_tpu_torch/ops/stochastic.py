@@ -237,7 +237,7 @@ class TrainGrids:
     def lists(self, device) -> Tuple[EdgeList, EdgeList]:
         """The row list and the column list on ``device`` (built on first
         use there): each grid's live slots in grid order, ``ptr`` over all
-        N rows, in units of the walk's default size."""
+        N rows, with the dropout walks' units and tiles."""
         key = str(torch.device(device))
         if key not in self._lists:
             self._lists[key] = tuple(
@@ -258,14 +258,17 @@ class TrainGrids:
 def _grid_list(idx: np.ndarray, vrow: np.ndarray, eid: np.ndarray,
                n_nodes: int, device) -> EdgeList:
     """A grid's live slots in grid order (``ell_list``'s) as an
-    :class:`EdgeList` with ``ptr`` over all ``n_nodes`` rows."""
+    :class:`EdgeList` with ``ptr`` over all ``n_nodes`` rows, cut for the
+    dropout walks (``ell_gather._DROP_ITEMS``, ``_TILE_ITEMS``)."""
+    from .ell_gather import _DROP_ITEMS, _TILE_ITEMS  # read at each build
     rows, ptr, src, slot = ell_list(idx, vrow, n_nodes)
     count = np.zeros(n_nodes, np.int64)
     count[rows] = np.diff(ptr)
     full = np.zeros(n_nodes + 1, np.int64)
     np.cumsum(count, out=full[1:])
     return EdgeList.build(full, src, eid.reshape(-1)[slot].astype(np.int64),
-                          device)
+                          device, items=_DROP_ITEMS,
+                          tile_items=_TILE_ITEMS)
 
 
 class _TrainGridsFn(torch.autograd.Function):

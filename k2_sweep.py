@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train]
+    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train] [--ab DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -25,13 +25,27 @@ the default 4) at the default unit size and unroll; one ``ell_gather.cu`` librar
 each build setting, and each setting's three kernels are timed apart with
 ``torch.profiler``.
 
-Train (K1's masked and degree walks): over the training grids' lists of
-the natural-order benchmark graph (a draw keeping half the edges), it
-times the masked walk over the row and the column list at F=40 and F=128
-for each unit size (``ops/blocked.py::_UNIT_ITEMS``: 32, 64, 128, 256
-items), and the degree walk over the column list for each unit size and
-number of lanes a unit (``ops/ell_gather.py::_DEGREE_GROUP``: 1 to 32);
-no library is rebuilt.
+Train (K1's dropout walks, ``csrc/drop_walk.cuh``): over the training
+grids' lists of the natural-order benchmark graph (a draw keeping half the
+edges), it times the masked walk over the row and the column list at F=40
+and F=64 and the degree walk over both lists, for each pair of piece size
+(``ops/ell_gather.py::_DROP_ITEMS``: 64, 128 items) and tile size
+(``_TILE_ITEMS``: 128, 256, 384, 512 items), and for x rows in flight a
+sub-group, the least resident blocks the walks ask for and the batches of
+32 edges a warp loads at once when it stages (``DROP_RING``,
+``DROP_MIN_BLOCKS``, ``DROP_BATCHES`` in ``csrc/drop_walk.cuh``;
+``DROP_BUILDS`` below, one library built for each) at the default
+sizes.  The
+degree walk has no knob of lanes: a warp stages a tile and lane i sums its
+segment i.  Each line gives each kernel's device time (the masked walk's
+two passes, its flag's memset) from ``torch.profiler``.
+
+With ``--ab DIR`` it times instead, in four processes started in turn
+(the tree in DIR, this tree, this tree, DIR), the dropout walks of each
+tree at their defaults: the masked walk over both lists at F=40 and F=64
+and the degree walk over both lists, with the device time of each
+kernel; DIR is another checkout (for example the parent commit, unpacked
+with ``git archive`` into a directory of its own).
 
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|).  One JSON object a line goes to
@@ -55,41 +69,49 @@ ITEMS = (64, 128, 256)
 UNROLLS = (2, 4, 8)
 PARTS = (16, 64, 256)
 K1_ITEMS = (32, 64, 128)
-TRAIN_ITEMS = (32, 64, 128, 256)
-DEGREE_GROUPS = (1, 2, 4, 8, 16, 32)
+DROP_ITEMS = (64, 128)
+TILE_ITEMS = (128, 256, 384, 512)
+# (DROP_RING, DROP_MIN_BLOCKS, DROP_BATCHES) builds of the dropout walks;
+# the first is the header's default
+DROP_BUILDS = ((8, 3, 4), (4, 3, 4), (8, 2, 8), (4, 4, 4), (8, 4, 4),
+               (16, 2, 4))
 # WALK_MIN_BLOCKS: the header's default, and the others K1's sweep builds
 MIN_BLOCKS_DEFAULT = 4
 MIN_BLOCKS = (1, 2, 3)
 
 
-def build_variants(name, entry, ref, builds):
-    """One ``lib<name>_u<unroll>_b<min blocks>.so`` for each (unroll, min
-    blocks) pair, nvcc runs started together; returns ``{pair:
-    ctypes.CDLL}`` with the C signature of ``entry`` in the default library
-    ``ref``, and logs each library's registers and spills."""
+def build_variants(name, entry, ref, builds, macros=("WALK_UNROLL",
+                                                     "WALK_MIN_BLOCKS")):
+    """One ``lib<name>_<values>.so`` for each tuple of ``builds``, the
+    values of ``macros`` in turn, nvcc runs started together; returns
+    ``{values: ctypes.CDLL}`` with the C signature of ``entry`` (a name or a
+    tuple of names) in the default library ``ref``, and logs each
+    library's registers and spills."""
     from gnntf_tpu_torch.utils import kernels
     src = kernels.CSRC / f"{name}.cu"
+    entries = (entry,) if isinstance(entry, str) else tuple(entry)
     procs = {}
-    for u, b in builds:
-        out = kernels.BUILD / f"lib{name}_u{u}_b{b}.so"
-        procs[u, b] = (out, subprocess.Popen(
-            [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DWALK_UNROLL={u}",
-             f"-DWALK_MIN_BLOCKS={b}", "-o", str(out), str(src)],
+    for values in builds:
+        tag = "_".join(str(v) for v in values)
+        flags = [f"-D{m}={v}" for m, v in zip(macros, values)]
+        out = kernels.BUILD / f"lib{name}_{tag}.so"
+        procs[values] = (out, flags, subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, *flags, "-o", str(out),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for (u, b), (out, proc) in procs.items():
+    for values, (out, flags, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc -DWALK_UNROLL={u} -DWALK_MIN_BLOCKS="
-                               f"{b} failed:\n{text}")
+            raise RuntimeError(f"nvcc {' '.join(flags)} failed:\n{text}")
         for line in text.splitlines():
             if "_walk" in line or "registers" in line or "spill" in line:
-                log(f"  {name} u{u} b{b}: {line.strip()}")
+                log(f"  {name} {' '.join(flags)}: {line.strip()}")
         lib = ctypes.CDLL(str(out))
-        for fn in (entry, "gnntf_cuda_error_string"):
+        for fn in (*entries, "gnntf_cuda_error_string"):
             getattr(lib, fn).restype = getattr(ref, fn).restype
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
-        libs[u, b] = lib
+        libs[values] = lib
     return libs
 
 
@@ -133,7 +155,7 @@ def sweep_k1(graph, dev, card):
             def run():
                 ell_gather_list(lst, val, x, scratch)
 
-            rows, _, _ = device_profile(run)
+            rows, _, _, _ = device_profile(run)
             line = dict(kernel="K1", items=items, unroll=unroll,
                         min_blocks=blocks, f=f,
                         units=lst.n_units,
@@ -149,17 +171,15 @@ def sweep_k1(graph, dev, card):
 
 
 def sweep_train(graph, dev, card):
-    """K1's masked walk (unit size) and degree walk (unit size, lanes a
-    unit) over the bench graph's training-grid lists; returns the JSON
-    lines."""
-    from gnntf_tpu_torch.ops import (EdgeList, blocked_spmm_plain,
-                                     build_train_grids, ell_degree_masked,
-                                     ell_gather_masked, stochastic)
+    """K1's dropout walks (piece size, tile size, x rows in flight) over
+    the bench graph's training-grid lists; returns the JSON lines."""
+    from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
+                                     ell_degree_masked, ell_gather_masked,
+                                     stochastic)
     k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
     grids = build_train_grids(graph.row.cpu().numpy(),
                               graph.col.cpu().numpy(),
                               graph.val.cpu().numpy(), N_NODES)
-    host = grids.lists("cpu")
     val = graph.val.to(torch.float32).contiguous()
     # the salts in device memory, where the kernels read them
     salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
@@ -168,42 +188,115 @@ def sweep_train(graph, dev, card):
     w = stochastic.drawn_values(val, *draw)
     xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
         N_NODES, f).astype(np.float32)).to(dev)
-        for f, seed in ((40, 3), (N_FEATURES, 2))}
-    default, lines = k1._DEGREE_GROUP, []
+        for f, seed in ((40, 3), (64, 10))}
+    ones = torch.ones(N_NODES, 1, device=dev)
+    entries = ("gnntf_ell_gather_masked", "gnntf_ell_degree")
+    libs = build_variants("ell_gather", entries, k1._library(), DROP_BUILDS,
+                          macros=("DROP_RING", "DROP_MIN_BLOCKS",
+                                  "DROP_BATCHES"))
+    defaults = k1._DROP_ITEMS, k1._TILE_ITEMS, k1._library
+    settings = [(i, t, DROP_BUILDS[0]) for i in DROP_ITEMS
+                for t in TILE_ITEMS]
+    settings += [(defaults[0], defaults[1], b) for b in DROP_BUILDS[1:]]
+    lines = []
 
     def emit(line, run):
-        rows, _, _ = device_profile(run)
+        rows, _, _, _ = device_profile(run)
         line.update(ms=time_ms(run), card=card, us_by_kernel={
-            kernel_name(key): us
-            for key, us, _ in rows})
+            kernel_name(key): us for key, us, _ in rows})
         print(json.dumps(line), flush=True)
         lines.append(line)
 
-    for items in TRAIN_ITEMS:
-        lists = {name: EdgeList.build(
-            lst.ptr.numpy(), lst.idx.numpy(),
-            None if lst.eid is None else lst.eid.numpy(), dev, items=items)
-            for name, lst in zip(("row", "column"), host)}
+    for items, tile, (ring, blocks, batches) in settings:
+        k1._DROP_ITEMS, k1._TILE_ITEMS = items, tile
+        k1._library = lambda lib=libs[ring, blocks, batches]: lib
+        grids._lists = {}  # built anew with these sizes
+        lists = dict(zip(("row", "column"), grids.lists(dev)))
         for name, lst in lists.items():
+            common = dict(items=items, tile=tile, ring=ring,
+                          min_blocks=blocks, batches=batches, list=name,
+                          units=lst.n_units, tiles=lst.n_tiles,
+                          caps=list(lst.tile_caps),
+                          pieces=int(lst.split[:, 2].sum()))
             for f, x in xs.items():
-                check_close(f"masked items={items} {name} F={f}",
+                check_close(f"masked items={items} tile={tile} ring={ring} "
+                            f"min_blocks={blocks} batches={batches} {name} "
+                            f"F={f}",
                             ell_gather_masked(lst, val, *draw, x),
                             blocked_spmm_plain(lst, w, x),
                             blocked_spmm_plain(lst, w.abs(), x.abs()))
-                emit(dict(kernel="masked", items=items, list=name, f=f,
-                          units=lst.n_units),
+                emit(dict(kernel="masked", f=f, **common),
                      lambda: ell_gather_masked(lst, val, *draw, x))
-        lst = lists["column"]
-        ones = torch.ones(N_NODES, 1, device=dev)
-        ref = blocked_spmm_plain(lst, w, ones)[:, 0]
-        for group in DEGREE_GROUPS:
-            k1._DEGREE_GROUP = group
-            check_close(f"degree items={items} group={group}",
-                        ell_degree_masked(lst, val, *draw), ref, ref.abs())
-            emit(dict(kernel="degree", items=items, group=group,
-                      units=lst.n_units),
+            ref = blocked_spmm_plain(lst, w, ones)[:, 0]
+            check_close(f"degree items={items} tile={tile} ring={ring} "
+                        f"min_blocks={blocks} batches={batches} {name}",
+                        ell_degree_masked(lst, val, *draw), ref,
+                        blocked_spmm_plain(lst, w.abs(), ones)[:, 0])
+            emit(dict(kernel="degree", **common),
                  lambda: ell_degree_masked(lst, val, *draw))
-    k1._DEGREE_GROUP = default
+    k1._DROP_ITEMS, k1._TILE_ITEMS, k1._library = defaults
+    return lines
+
+
+# One process of the A/B: the dropout walks of the tree it runs in, at that
+# tree's defaults, on the bench graph's training-grid lists; one JSON line
+# a (kernel, list, F).  It uses only what the parent tree has too.
+AB_CODE = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+import gnntf_tpu_torch as tt
+from gnntf_tpu_torch.data import random_power_law_edges
+from gnntf_tpu_torch.ops import (build_train_grids, ell_degree_masked,
+                                 ell_gather_masked)
+from gnntf_tpu_torch.utils import kernels
+kernels.build(["ell_gather"], force=True)
+dev = torch.device("cuda")
+src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
+g = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False, device=dev)
+lists = build_train_grids(g.row.cpu().numpy(), g.col.cpu().numpy(),
+                          g.val.cpu().numpy(), cs.N_NODES).lists(dev)
+val = g.val.to(torch.float32).contiguous()
+salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                     generator=torch.Generator().manual_seed(9)).to(dev)
+draw = (salt, cs.KEEP, g.n_edges)
+xs = {40: np.random.RandomState(3), 64: np.random.RandomState(10)}
+xs = {f: torch.from_numpy(r.randn(cs.N_NODES, f).astype(np.float32)).to(dev)
+      for f, r in xs.items()}
+runs = [("masked", name, f, lambda lst=lst, x=x: ell_gather_masked(
+            lst, val, *draw, x))
+        for name, lst in zip(("row", "column"), lists) for f, x in xs.items()]
+runs += [("degree", name, None, lambda lst=lst: ell_degree_masked(
+             lst, val, *draw)) for name, lst in zip(("row", "column"), lists)]
+for kernel, name, f, run in runs:
+    rows = cs.device_profile(run)[0]
+    print(json.dumps(dict(tree=sys.argv[1], kernel=kernel, list=name, f=f,
+                          ms=cs.time_ms(run), us_by_kernel={
+                              cs.kernel_name(k): us for k, us, _ in rows})),
+          flush=True)
+"""
+
+
+def ab(parent, card):
+    """The A/B of the dropout walks: this tree and the tree in ``parent``
+    in turn (parent, change, change, parent), each in its own process;
+    returns the JSON lines."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    for tree, where in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", AB_CODE, tree],
+                             cwd=where, capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"A/B run in {where} failed:\n{out.stdout}"
+                               f"\n{out.stderr}")
+        for text in out.stdout.splitlines():
+            if text.startswith("{"):
+                line = dict(json.loads(text), card=card)
+                print(json.dumps(line), flush=True)
+                lines.append(line)
     return lines
 
 
@@ -213,6 +306,9 @@ def main():
     parser.add_argument("--kernels", default="k1,k2,train",
                         help="which sweeps to run (k1, k2, train; "
                              "comma-separated)")
+    parser.add_argument("--ab", metavar="DIR",
+                        help="time the dropout walks of this tree and of "
+                             "the checkout in DIR in turn, and nothing else")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -226,6 +322,9 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
+    if args.ab:
+        write(args.out, ab(args.ab, card))
+        return
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)

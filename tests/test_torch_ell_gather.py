@@ -16,12 +16,16 @@ K1's backward ``dx = A_rest^T dy`` walks the transposed list
 on the CPU its plain version is held against autograd of the dense product
 (rtol=atol=1e-5), on the card the kernel bit for bit against the CPU.
 
-The masked and degree modes of the same walk (``ell_gather_masked``,
-``ell_degree_masked``) run over the training grids' row and column lists of
-a dropped graph; they are held the same way, the plain versions against the
-dense dropped matrix on the CPU, the kernels against the plain versions on
-the card (within ``1e-5 * sum|terms|`` per element, and bit for bit against
-the CPU).
+The two dropout walks (``ell_gather_masked``, ``ell_degree_masked``;
+``csrc/drop_walk.cuh``) run over the training grids' row and column lists
+of a dropped graph, cut into tiles (``drop_tiles``); they are held the same
+way, the plain versions against the dense dropped matrix on the CPU, the
+kernels against the plain versions on the card (within ``1e-5 *
+sum|terms|`` per element, and bit for bit against the CPU and a relaunch),
+also with other piece and tile sizes and with an inf and a NaN on dropped
+edges' sources (NaNs where the plain version's are).  On the CPU, a
+one-addition-at-a-time sum of the kept edges alone equals the plain
+version bit for bit: leaving the dropped edges out changes no bit.
 """
 import dataclasses
 import importlib
@@ -37,7 +41,7 @@ from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
                                  ell_gather_masked, ell_gather_masked_plain,
                                  ell_gather_plain, ell_list)
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _ELLGatherFn, build_ell
-from gnntf_tpu_torch.ops.stochastic import keep_mask
+from gnntf_tpu_torch.ops.stochastic import drawn_values, keep_mask
 
 # the module, not the function that ``gnntf_tpu_torch.ops`` exports as
 # ``ell_gather``
@@ -417,6 +421,176 @@ def test_masked_wrappers_reject_bad_inputs():
                           n_drop)
 
 
+@pytest.mark.parametrize("items,tile_items", [(128, 128), (32, 64),
+                                              (16, 300), (64, 8)])
+def test_drop_tiles_cover_the_list_in_order(items, tile_items):
+    """The dropout walks' segments are the rows of the units of whole rows
+    and the pieces of the split rows, in list order, each ending where the
+    next starts; tiles are runs of them of about ``tile_items`` items."""
+    row, col = _masked_inputs(7, heavy=700, n_loops=50)[-1]
+    grids = build_train_grids(row, col, np.ones(len(row), np.float32), 600)
+    for idx, vrow, eid in ((grids.r_idx, grids.r_vrow, grids.r_eid),
+                           (grids.c_idx, grids.c_vrow, grids.c_eid)):
+        rows, ptr, _, _ = ell_list(idx, vrow, 600)
+        full = np.zeros(601, np.int64)
+        full[rows + 1] = np.diff(ptr)
+        full = np.cumsum(full)
+        unit_row, unit_edge, split = blocked_ops.work_units(full, items)
+        tile_seg, tile_edge, seg_end, seg_out, cap_e, cap_s = \
+            blocked_ops.drop_tiles(full, unit_row, unit_edge, tile_items)
+        want_end, want_out = [], []
+        for u in range(len(unit_row) - 1):
+            if unit_row[u] < 0:
+                want_end.append(unit_edge[u + 1])
+                want_out.append(~u)
+            else:
+                nxt = unit_row[u + 1]
+                for r in range(unit_row[u], ~nxt if nxt < 0 else nxt):
+                    want_end.append(full[r + 1])
+                    want_out.append(r)
+        assert seg_end.tolist() == want_end and seg_out.tolist() == want_out
+        # every row once, as itself or as its pieces
+        split_rows = set(split[:, 0].tolist())
+        assert sorted(set(seg_out[seg_out >= 0].tolist()) | split_rows) == \
+            list(range(600))
+        assert not split_rows & set(seg_out[seg_out >= 0].tolist())
+        starts = np.concatenate([[0], seg_end[:-1]])
+        assert tile_seg[0] == 0 and tile_seg[-1] == len(seg_end)
+        assert (np.diff(tile_seg) > 0).all()
+        assert tile_edge.tolist() == starts[tile_seg[:-1]].tolist() + [
+            full[-1]]
+        cost = seg_end - starts + 1
+        for t in range(len(tile_seg) - 1):
+            first, last = tile_seg[t], tile_seg[t + 1] - 1
+            # a tile's segments start inside one run of tile_items items
+            before = int(cost[:first].sum())
+            assert before // tile_items == int(
+                cost[:last].sum()) // tile_items
+        assert cap_e == np.diff(tile_edge).max()
+        assert cap_s == np.diff(tile_seg).max()
+
+
+def test_drop_tiles_of_an_empty_list():
+    unit_row, unit_edge, _ = blocked_ops.work_units(np.zeros(1, np.int64),
+                                                     128)
+    tile_seg, tile_edge, seg_end, seg_out, cap_e, cap_s = \
+        blocked_ops.drop_tiles(np.zeros(1, np.int64), unit_row, unit_edge,
+                               128)
+    assert tile_seg.tolist() == [0] and tile_edge.tolist() == [0]
+    assert len(seg_end) == len(seg_out) == 0
+    assert (cap_e, cap_s) == (0, 0)
+
+
+def _kept_only_sums(lst, w, x):
+    """The dropout walks' order, one float32 addition at a time: each
+    segment (a row, or a piece of a split row) sums its kept edges (w != 0)
+    in list order, then a split row's pieces in ``lst.parts`` parts and the
+    parts in order."""
+    ptr, idx = lst.ptr.numpy(), lst.idx.numpy()
+    eid = np.arange(lst.n_edges) if lst.eid is None else lst.eid.numpy()
+    w, x = w.numpy(), x.numpy()
+    seg_end, seg_out = lst.seg_end.numpy(), lst.seg_out.numpy()
+    out = np.zeros((lst.n_rows, x.shape[1]), np.float32)
+    carry = np.zeros((lst.n_units, x.shape[1]), np.float32)
+    start = 0
+    for end, to in zip(seg_end, seg_out):
+        acc = np.zeros(x.shape[1], np.float32)
+        for e in range(start, end):
+            if w[eid[e]] != 0:
+                acc = acc + np.float32(w[eid[e]]) * x[idx[e]]
+        if to >= 0:
+            out[to] = acc
+        else:
+            carry[~to] = acc
+        start = end
+    for r, first, count in lst.split.numpy():
+        parts = np.zeros((lst.parts, x.shape[1]), np.float32)
+        for k in range(count):
+            parts[k % lst.parts] = parts[k % lst.parts] + carry[first + k]
+        acc = np.zeros(x.shape[1], np.float32)
+        for g in range(min(count, lst.parts)):
+            acc = acc + parts[g]
+        out[r] = acc
+    assert ptr[-1] == lst.n_edges
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("keep", [0.5, 0.05])
+def test_kept_edges_alone_give_the_plain_sums(monkeypatch, keep):
+    """What the dropout walks compute, leaving the dropped edges out, is
+    the plain version bit for bit (which adds their +0 * x terms), for
+    finite x: a sum that starts at +0 is never -0, so adding +-0 changes
+    no bit."""
+    monkeypatch.setattr(blocked_ops, "_FIXUP_PARTS", 3)
+    (rows, cols), val, x, n_drop, _ = _masked_inputs(8, e=3000, f=3,
+                                                     heavy=500, n_loops=20)
+    x[::7] = -x[::7]
+    x[::11] = 0.0
+    x[::13] = -0.0
+    salt = torch.tensor((3, 4))
+    w = drawn_values(val, salt, keep, n_drop)
+    for lst in (rows, cols):
+        assert lst.split.shape[0] and lst.parts == 3
+        want = ell_gather_masked_plain(lst, val, salt, keep, n_drop, x)
+        assert torch.equal(_kept_only_sums(lst, w, x), want)
+        ones = torch.ones(600, 1)
+        assert torch.equal(_kept_only_sums(lst, w, ones)[:, 0],
+                           ell_degree_masked_plain(lst, val, salt, keep,
+                                                   n_drop))
+
+
+def test_dropout_walks_need_a_list_with_tiles():
+    """A list built without tiles is refused by both dropout walks (and its
+    tile addresses do not exist); the training grids' lists have them."""
+    (rows, _), val, x, n_drop, _ = _masked_inputs(9)
+    assert rows.tile_seg is not None and rows.n_tiles > 0
+    bare = blocked_ops.EdgeList.build(
+        rows.ptr.numpy(), rows.idx.numpy(),
+        None if rows.eid is None else rows.eid.numpy(), "cpu")
+    assert bare.tile_seg is None and bare.n_tiles == 0
+    salt = torch.tensor((1, 2))
+    with pytest.raises(ValueError, match="tiles"):
+        ell_gather_masked(bare, val, salt, 0.5, n_drop, x)
+    with pytest.raises(ValueError, match="tiles"):
+        ell_degree_masked(bare, val, salt, 0.5, n_drop)
+    with pytest.raises(ValueError, match="tiles"):
+        bare.tile_addresses
+
+
+def test_entry_args_follow_the_list():
+    """The C arguments of a dropout walk: the list's, x and out, the
+    scratch of a split row's pieces and parts, the widths, then the tiles,
+    the draw, the flag and x's size."""
+    (rows, _), val, x, n_drop, _ = _masked_inputs(10, f=8, heavy=700)
+    out = torch.empty(600, 8)
+    flag = torch.zeros(1, dtype=torch.int32)
+    salt = torch.tensor((5, 6))
+    extra = k1_ops.drop_args(rows, salt, 0.5, n_drop, flag, x)
+    args, carry = blocked_ops.entry_args(rows, val, x, out, extra)
+    addresses, (n_units, n_split, n_items) = rows.addresses
+    assert args[:8] == addresses
+    assert args[8:11] == (val.data_ptr(), x.data_ptr(), out.data_ptr())
+    assert carry.shape == (n_units + n_split * rows.parts, 8)
+    assert args[11] == carry.data_ptr()
+    vec = 4 if x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+    assert args[12:19] == (n_units, n_split, n_items, 8, vec, 8 // vec,
+                           rows.parts)
+    assert args[19:26] == (rows.tile_seg.data_ptr(),
+                           rows.tile_edge.data_ptr(),
+                           rows.seg_end.data_ptr(), rows.seg_out.data_ptr(),
+                           rows.n_tiles, *rows.tile_caps)
+    from gnntf_tpu_torch.ops.stochastic import draw_scalars
+    assert args[26:] == (salt.data_ptr(), *draw_scalars(0.5, n_drop),
+                         flag.data_ptr(), 600 * 8)
+    assert len(args) == len(blocked_ops.DROP_ARGTYPES) - 1
+    # the degree walk: one value a row, no x and no flag
+    deg_args, _ = blocked_ops.entry_args(
+        rows, val, None, torch.empty(600),
+        k1_ops.drop_args(rows, salt, 0.5, n_drop))
+    assert deg_args[9] is None and deg_args[-2:] == (None, 0)
+    assert deg_args[15:18] == (1, 1, 1)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -584,7 +758,7 @@ def test_prepared_gradient_on_card_matches_cpu(cuda):
 def _check_masked_kernels(lists, val, x, salt, keep, n_drop, cuda):
     """Each list's masked product and degree on the card: within 1e-5 of
     the sum of the terms' magnitudes of the plain version run on the card,
-    and bit-equal to the plain version run on the CPU."""
+    bit-equal to the plain version run on the CPU and to a relaunch."""
     salt = torch.tensor(salt)
     for lst in lists:
         on = dataclasses.replace(lst, **{
@@ -608,19 +782,104 @@ def _check_masked_kernels(lists, val, x, salt, keep, n_drop, cuda):
             lst, val, salt, keep, n_drop, x))
         assert torch.equal(deg.cpu(), ell_degree_masked_plain(
             lst, val, salt, keep, n_drop))
+        # a relaunch is the same
+        assert torch.equal(ell_gather_masked(on, val_c, salt, keep, n_drop,
+                                             x_c), out)
+        assert torch.equal(ell_degree_masked(on, val_c, salt, keep, n_drop),
+                           deg)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [1, 6, 40, 128, 260])
-@pytest.mark.parametrize("keep,n_loops", [(0.5, 0), (0.3, 300), (1.0, 300)])
+@pytest.mark.parametrize("f", [1, 6, 40, 64, 128, 260])
+@pytest.mark.parametrize("keep,n_loops", [(0.5, 0), (0.3, 300), (1.0, 300),
+                                          (0.05, 300)])
 def test_masked_kernels_match_plain_on_card(cuda, f, keep, n_loops):
     """Empty rows and columns, a hub row and a hub column split over many
-    units, ``n_drop < E`` (trailing self-loops) and ``keep = 1``."""
+    units, ``n_drop < E`` (trailing self-loops) and ``keep = 1``; at keep
+    0.05 many tiles keep no edge at all."""
     lists, val, x, n_drop, _ = _masked_inputs(
         4, n=3000, e=60_000, f=f, heavy=20_000, n_loops=n_loops)
     assert lists[0].split.shape[0] and lists[1].split.shape[0]
     _check_masked_kernels(lists, val, x, (0x9E3779B9, 77), keep, n_drop,
                           cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("items,tile_items", [(32, 64), (16, 300), (64, 8),
+                                              (128, 256)])
+@pytest.mark.parametrize("f", [6, 40])
+def test_masked_kernels_follow_the_list_cut_on_card(cuda, monkeypatch, items,
+                                                    tile_items, f):
+    """Other piece and tile sizes: tiles of a segment or two, and tiles of
+    more than 128 edges, which a warp stages in turns."""
+    monkeypatch.setattr(k1_ops, "_DROP_ITEMS", items)
+    monkeypatch.setattr(k1_ops, "_TILE_ITEMS", tile_items)
+    lists, val, x, n_drop, _ = _masked_inputs(
+        5, n=3000, e=60_000, f=f, heavy=20_000, n_loops=300)
+    assert lists[0].tile_caps[0] > 128 or tile_items < 128
+    _check_masked_kernels(lists, val, x, (5, 0xDEADBEEF), 0.5, n_drop, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 40])
+def test_masked_kernels_over_fully_dropped_tiles_on_card(cuda, f):
+    """Keep 1e-4: most tiles keep no edge at all (their rows are written as
+    zeros, their pieces' carries as zeros) and a few keep one."""
+    lists, val, x, n_drop, _ = _masked_inputs(
+        7, n=3000, e=60_000, f=f, heavy=20_000)
+    salt, keep = (11, 12), 1e-4
+    for lst in lists:
+        eids = (torch.arange(lst.n_edges) if lst.eid is None
+                else lst.eid.long())
+        kept = keep_mask(eids, torch.tensor(salt), keep, n_drop)
+        per_tile = torch.zeros(lst.n_tiles, dtype=torch.int64).index_add_(
+            0, torch.searchsorted(lst.tile_edge.long(),
+                                  torch.arange(lst.n_edges), right=True) - 1,
+            kept.long())
+        assert (per_tile == 0).any() and kept.any()
+    _check_masked_kernels(lists, val, x, salt, keep, n_drop, cuda)
+
+
+def _only_dropped_sources(lst, salt, keep, n_drop):
+    """Sources that only dropped edges of ``lst`` reference."""
+    eids = (torch.arange(lst.n_edges) if lst.eid is None
+            else lst.eid.long())
+    kept = keep_mask(eids, torch.tensor(salt), keep, n_drop)
+    src = lst.idx.long()
+    return np.setdiff1d(src[~kept].numpy(), src[kept].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [6, 40, 64, 128])
+@pytest.mark.parametrize("keep", [0.3, 0.5])
+def test_masked_walk_keeps_nan_of_dropped_sources_on_card(cuda, f, keep):
+    """An inf and a NaN in x rows that only dropped edges reference: the
+    walk gathers every edge's row then, so its NaNs are where the plain
+    version's are (``+0 * inf``), and every other element is bit-equal to
+    the plain version run on the CPU.  A sparse graph (~5 edges a source),
+    so some sources only dropped edges read, with a hub row and column."""
+    lists, val, x, n_drop, _ = _masked_inputs(
+        6, n=3000, e=3000, f=f, heavy=2000)
+    salt = (77, 0x9E3779B9)
+    for lst in lists:
+        bad = _only_dropped_sources(lst, salt, keep, n_drop)
+        assert len(bad) >= 2
+        xb = x.clone()
+        xb[bad[0], 0] = float("inf")
+        xb[bad[-1], f - 1] = float("nan")
+        on = dataclasses.replace(lst, **{
+            fl.name: getattr(lst, fl.name).to(cuda)
+            for fl in dataclasses.fields(lst)
+            if isinstance(getattr(lst, fl.name), torch.Tensor)})
+        assert lst.split.shape[0]
+        out = ell_gather_masked(on, val.to(cuda), torch.tensor(salt), keep,
+                                n_drop, xb.to(cuda)).cpu()
+        ref = ell_gather_masked_plain(lst, val, torch.tensor(salt), keep,
+                                      n_drop, xb)
+        assert torch.isnan(ref).any()
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+        finite = ~torch.isnan(ref)
+        assert torch.equal(out[finite], ref[finite])
 
 
 @pytest.mark.cuda

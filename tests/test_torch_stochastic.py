@@ -13,7 +13,11 @@ division ulp).  Edge weights and features are small dyadic rationals and
 ``1/keep`` a power of two where a product is compared, so every product and
 sum is exact in float32 whatever its order and the tolerances hold the
 functions, not the orders (the kernels' order is held bit for bit against
-their plain versions in test_torch_ell_gather.py).
+their plain versions in test_torch_ell_gather.py).  With an inf and a NaN
+that only dropped edges read (keep 0.3 and 0.5), the NaNs and infs of the
+product and of its gradient are where JAX's are, and every other element
+is within ``1e-5`` of the sum of its terms' magnitudes (``1/0.3`` is not a
+power of two).
 """
 import dataclasses
 import importlib
@@ -166,6 +170,96 @@ def test_stochastic_spmm_and_dx_match_jax(grid_scope, salt, keep, weighted,
                                **SPMM_TOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx),
                                **SPMM_TOL)
+
+
+def _only_dropped(lst, pd):
+    """Rows of the product's input that only dropped edges of ``lst`` read
+    (and one that a kept edge reads)."""
+    eids = torch.arange(lst.n_edges) if lst.eid is None else lst.eid.long()
+    kept = pst.keep_mask(eids, pd.drop_salt, pd.drop_keep, pd.drop_n)
+    src = lst.idx.long()
+    return (np.setdiff1d(src[~kept].numpy(), src[kept].numpy()),
+            int(src[kept][0]))
+
+
+def _plant(a, only_dropped, read_kept):
+    """An inf and a NaN in rows that only dropped edges read, an inf in one
+    that a kept edge reads."""
+    a = a.copy()
+    a[only_dropped[0], 0] = np.inf
+    a[only_dropped[-1], -1] = np.nan
+    a[read_kept, 1] = -np.inf
+    return a
+
+
+def _same_nonfinite(ours, ref, scale):
+    """NaN and inf where ``ref`` has them; elsewhere within ``1e-5`` of the
+    sum of the terms' magnitudes (``scale``: keep 0.3's 1/keep is not a
+    power of two, so the two orders of the sum round apart)."""
+    np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+    np.testing.assert_array_equal(np.isposinf(ours), np.isposinf(ref))
+    np.testing.assert_array_equal(np.isneginf(ours), np.isneginf(ref))
+    finite = np.isfinite(ref)
+    assert (np.abs(ours[finite] - ref[finite])
+            <= 1e-5 * scale[finite] + 1e-6).all()
+
+
+@pytest.mark.parametrize("keep", [0.3, 0.5])
+def test_nonfinite_inputs_of_dropped_edges_give_jax_nans(grid_scope, keep):
+    """An inf or a NaN that only a dropped edge reads: JAX multiplies the
+    edge's +0 by it (NaN), and so does the port, in the product (x) and in
+    its gradient (dy); an inf that a kept edge reads stays an inf."""
+    jg, pg = _pair(seed=11, weighted=True)
+    jd, pd = _dropped(jg, pg, SALTS[1], keep)
+    rows, cols = pst.train_grids(pd).lists("cpu")
+    rng = np.random.RandomState(12)
+    x = _plant(_dyadic(rng, pg.n_nodes, 6), *_only_dropped(rows, pd))
+    dy = _plant(_dyadic(rng, pg.n_nodes, 6), *_only_dropped(cols, pd))
+    ref, vjp = jax.vjp(lambda v: jst.stochastic_spmm(jd, v), jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = pst.stochastic_spmm(pd, xt)
+    out.backward(torch.from_numpy(dy))
+    # the sums of the terms' magnitudes (the values are positive)
+    size = lambda a: torch.from_numpy(np.nan_to_num(
+        np.abs(a), nan=0.0, posinf=0.0))
+    xs = size(x).requires_grad_()
+    scale = pst.stochastic_spmm(pd, xs)
+    scale.backward(size(dy))
+    assert np.isnan(np.asarray(ref)).any() and np.isnan(
+        np.asarray(ref_dx)).any()
+    _same_nonfinite(out.detach().numpy(), np.asarray(ref),
+                    scale.detach().numpy())
+    _same_nonfinite(xt.grad.numpy(), np.asarray(ref_dx), xs.grad.numpy())
+
+
+@pytest.mark.parametrize("items,tile_items", [(16, 32), (32, 300)])
+def test_stochastic_spmm_matches_jax_for_other_list_cuts(
+        grid_scope, monkeypatch, items, tile_items):
+    """Lists cut into other pieces and tiles (the walks' knobs) give the
+    same product, gradient and degrees, within the float32 tolerance."""
+    k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+    monkeypatch.setattr(k1, "_DROP_ITEMS", items)
+    monkeypatch.setattr(k1, "_TILE_ITEMS", tile_items)
+    jg, pg = _pair(seed=13, weighted=True, loops=True)
+    jd, pd = _dropped(jg, pg, SALTS[0], 0.25)
+    rows, cols = pst.train_grids(pd).lists("cpu")
+    assert rows.split.shape[0] and cols.split.shape[0]
+    rng = np.random.RandomState(14)
+    x, dy = _dyadic(rng, pg.n_nodes, 10), _dyadic(rng, pg.n_nodes, 10)
+    ref, vjp = jax.vjp(lambda v: jst.stochastic_spmm(jd, v), jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = pst.stochastic_spmm(pd, xt)
+    out.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               **SPMM_TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx),
+                               **SPMM_TOL)
+    for by in ("col", "row"):
+        np.testing.assert_allclose(
+            pst.stochastic_degree(pd, by=by).numpy(),
+            np.asarray(jst.stochastic_degree(jd, by=by)), rtol=RTOL)
 
 
 @pytest.mark.parametrize("by", ["col", "row"])
