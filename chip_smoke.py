@@ -8,13 +8,15 @@ Run from the repository root, on a machine with a CUDA card:
 Phases (any failure raises and exits non-zero):
 
 1. build every CUDA kernel from ``gnntf_tpu_torch/csrc`` with nvcc, one
-   process per source, all started together;
+   process per source, all started together, and beside them the C++
+   sampler (``native/gnntf_native.cc``, g++) into ``gnntf_tpu_torch/build``;
 2. hold K1 (the ELL gather-reduce, an edge-balanced walk over the live
    slots of the ELL grid that adds each row into a base) against its plain
    PyTorch version on the card, adding into a random base — a small random
    ELL graph with duplicates, empty rows and a row split over many units,
-   and the list of the benchmark graph's hub-free ("rest") ELL at F=128 and
-   at the serving width F=40 — timing kernel, plain version and one PyTorch
+   and the list of the benchmark graph's hub-free ("rest") ELL at F=128,
+   64, 16 (NGCF) and at the serving width F=40 — timing kernel, plain
+   version and one PyTorch
    library call (``torch.sparse.addmm``) with CUDA events, and logging the
    share of the bench output at F=40 bit-equal to the plain version run on
    the CPU;
@@ -45,8 +47,8 @@ Phases (any failure raises and exits non-zero):
 2d. the same for K1's backward walk, ``dx = A_rest^T dy`` over the
    transposed list of K1's list (``ell_transposed_list``) in the walk's
    store mode: a small random ELL with duplicates, an empty column and a
-   hub column split over many units, and the bench rest list at F=40 and
-   F=64 beside ``torch.sparse.mm`` of ``A_rest^T`` in CSR and the
+   hub column split over many units, and the bench rest list at F=40,
+   F=64 and F=16 beside ``torch.sparse.mm`` of ``A_rest^T`` in CSR and the
    ``index_add_`` route it replaced, logging the share bit-equal to the
    plain version on the CPU;
 2e. the same for the attention kernels A1-A4 (``csrc/attention.cu``: the
@@ -134,15 +136,41 @@ Phases (any failure raises and exits non-zero):
 10. GraphSAGE and GIN at ``GraphSAGEConfig`` and ``GINConfig``: three
    forwards each (K1 in each convolution), each against the CPU's with the
    same weights, and ``train(epochs=3)`` (K1 and its backward walk);
-11. print each phase's seconds, a ``{"kernels": [...]}`` line, the card's
-   name and power limit from nvidia-smi, and as the last line ``{"ok":
-   true, "device": {...}}``.
+11. NGCF link prediction at the configuration of demos/link_prediction.py
+   (``NGCF(num_classes=16)``: latent [16, 16], dropout 0.1) on the bench
+   graph: BPR over every edge with one negative a pair, redrawn each epoch
+   by the C++ sampler (``utils/native.py``, asserted to run) on a prefetch
+   thread, validated by BCE on 10,000 held edges with 2 negatives each;
+   one sampler call timed, ``train(epochs=3)`` (an epoch: 6 K1 walks at
+   F=128, 16, 16 and 2 backward walks at F=16; the wait on the prefetch
+   thread each epoch), a profile of one step (``edge_dot``'s two
+   ``index_add_`` scatters) and ``edge_dot``'s own time, evaluate's AUC;
+   ``fit(epochs=10, block_epochs=5)`` with the block's draws stacked
+   against the host loop, timed and with a replay profile, their losses'
+   drift logged; the same pair with NGCF's output regularization off (a
+   constant: its gradient is rounding noise that Adam scales up): losses
+   within ``LP_FUSED_RTOL``, the same best epoch; ``MeanLinkPrediction(
+   k=5)`` over 200 nodes,
+   peak memory; then 3 epochs without dropout on the card and on the CPU
+   on a graph of 80,000 counted edges from one static draw, compared as in
+   4b;
+12. remat and resume: GCNII-64 at ``GCNIIConfig`` trained 2 epochs with
+   and without ``remat`` (dropout on, the same seed): equal histories and
+   parameters, each run's peak memory; APPNP under the default impl
+   stopped after 3 epochs and resumed from its checkpoint against 6
+   epochs straight through, on the host loop and on the fused path:
+   equal;
+13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1 and its
+   backward walk with NGCF's launches and an F=16 reading, phases 2 and
+   2d), the card's name and power limit from nvidia-smi, and as the last
+   line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import importlib
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -426,9 +454,9 @@ def check_ell_kernel(label, lst, val, x, base, library=False):
     return res
 
 
-def phase_ell_kernel(graph, dev, x40, x64, x128):
+def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
     """2: K1 against its plain version, small and on the bench graph's rest
-    ELL list (F=128, 64 and 40), adding into random bases; returns the
+    ELL list (F=128, 64, 40 and 16), adding into random bases; returns the
     results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, ell_gather_list,
@@ -472,7 +500,7 @@ def phase_ell_kernel(graph, dev, x40, x64, x128):
         f"{stats}")
     rng = np.random.RandomState(4)
     res = {}
-    for f, x in ((N_FEATURES, x128), (64, x64), (40, x40)):
+    for f, x in ((N_FEATURES, x128), (64, x64), (16, x16), (40, x40)):
         base = torch.from_numpy(rng.randn(N_NODES, f).astype(
             np.float32)).to(dev)
         res[f] = check_ell_kernel(f"bench F={f}", lst, val, x, base,
@@ -485,7 +513,7 @@ def phase_ell_kernel(graph, dev, x40, x64, x128):
     log(f"K1 bench F=40 on the card against the plain version on the CPU: "
         f"bit-equal share {stats['bit_equal_to_cpu_plain_f40']}")
     return dict(small=small_res, bench=res[N_FEATURES], serving=res[40],
-                gcn_width=res[64], rest_list=stats)
+                gcn_width=res[64], ngcf_width=res[16], rest_list=stats)
 
 
 def live_edges(lst):
@@ -1636,11 +1664,11 @@ def check_backward_kernel(label, lst, lst_t, val, dy, library=False):
     return res
 
 
-def phase_backward_kernel(graph, dev, x40, x64):
+def phase_backward_kernel(graph, dev, x16, x40, x64):
     """2d: K1's backward walk over the transposed list of its list against
     its plain version, small (duplicates, an empty column, a hub column
-    split over many units) and on the bench rest list at F=40 and F=64;
-    returns the results."""
+    split over many units) and on the bench rest list at F=40, F=64 and
+    F=16; returns the results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, normalize_adjacency)
     from gnntf_tpu_torch.ops.spmm import build_ell
@@ -1679,7 +1707,7 @@ def phase_backward_kernel(graph, dev, x40, x64):
                  build_s=time.perf_counter() - t0)
     log(f"bench rest list transposed: {stats}")
     res = {}
-    for f, x in ((64, x64), (40, x40)):
+    for f, x in ((64, x64), (40, x40), (16, x16)):
         res[f] = check_backward_kernel(f"bench F={f}", lst, lst_t, val, x,
                                        library=True)
         # the kernel rounds as the plain version does on the CPU, in its
@@ -1690,7 +1718,7 @@ def phase_backward_kernel(graph, dev, x40, x64):
         res[f]["bit_equal_to_cpu_plain"] = share
         log(f"K1 backward bench F={f} on the card against the plain version "
             f"on the CPU: bit-equal share {share}")
-    return dict(small=small_res, gcn=res[40], gcnii=res[64],
+    return dict(small=small_res, gcn=res[40], gcnii=res[64], ngcf=res[16],
                 transposed_list=stats)
 
 
@@ -2530,6 +2558,365 @@ def phase_sage_gin(graph, features, dev):
     return out
 
 
+# phase 11: NGCF link prediction at the configuration of
+# demos/link_prediction.py (NGCF(num_classes=16): latent [16, 16], dropout
+# 0.1), BPR over every edge with one negative redrawn each epoch by the C++
+# sampler, validated by BCE on LP_HELD held edges with 2 negatives each
+LP_CLASSES = 16
+LP_HELD = 10_000
+LP_EPOCHS = 3
+LP_MEAN_NODES = 200
+# K1 in each of NGCF's 3 convolutions of the step (F=128, 16, 16) and of the
+# validation forward; the backward walk in the 2 convolutions whose input
+# needs a gradient (the first one's input is the features)
+LP_LAUNCHES = dict(NO_LAUNCHES, k1=6, backward=2)
+LP_REPLAY = {"ell_gather_walk": 6, "blocked_spmm_walk": 2,
+             "ell_gather_masked_walk": 0, "ell_degree_walk": 0,
+             "index_add": 2}
+# fused vs host loop on the card, NGCF without its output regularization
+# (``without_output_regularization``): edge_dot's backward scatters with
+# index_add_'s atomics, so the two runs' gradients differ in their last
+# bits (relative ~1e-7), which 10 Adam steps leave far below this.  With
+# the regularization on, each run's last bits re-roll its gradient's
+# rounding noise, which Adam scales up, and the runs drift apart by more
+# (logged, not held to a limit)
+LP_FUSED_RTOL = 1e-4
+# the card-vs-CPU run: a graph of LP_CROSS_EDGES pairs, symmetrized to at
+# least 65,536 counted edges (the prepared operator's gate)
+LP_CROSS_NODES, LP_CROSS_EDGES = 20_000, 40_000
+
+
+def without_output_regularization(model):
+    """NGCF's output regularization turned off: it is 0.5 a node and layer
+    whatever the weights (each row l2-normalized), so in exact arithmetic
+    its gradient is zero, and in float32 it is rounding noise that differs
+    between devices and that Adam's first steps scale to whole steps."""
+    for layer in model.layers():
+        layer.output_regularize = 0.0
+    return model
+
+
+def link_tasks(tt, model, pos, graph, held, waits=None, seed=0):
+    """``set_seed(seed)``, a prefetching sampler over every pair of ``pos``
+    and the sampled BPR task over it (``waits`` gets each call's wait on
+    the prefetch thread), and the static BCE task over ``held``."""
+    edges, labels = held
+    tt.set_seed(seed)
+    sampler = tt.negative_sampling(pos, graph, samples=1)
+
+    def draw():
+        out = sampler()
+        if waits is not None:
+            waits.append(sampler.wait_seconds * 1e3)
+        if not sampler.native:
+            raise AssertionError("the sampler took its Python path: "
+                                 f"{native_error()}")
+        return out
+
+    return (tt.LinkPrediction(draw, gnn=model, loss="diff"),
+            tt.LinkPrediction(edges, labels, gnn=model, loss="bce"))
+
+
+def native_error():
+    from gnntf_tpu_torch.utils import native
+    return native.error
+
+
+def edge_dot_ms(model, train):
+    """Device ms of the step's edge_dot, forward and backward, on the
+    model's activations and the task's current edges."""
+    from gnntf_tpu_torch.ops import edge_dot
+    with torch.no_grad():
+        acts = model.forward(model.features)
+    x = acts.clone().requires_grad_()
+    y = acts.clone().requires_grad_()
+    edges = train.batch()[0].to(acts.device)
+    u, v = edges[:, 0], edges[:, 1]
+    return time_ms(lambda: torch.autograd.grad(edge_dot(u, v, x, y).sum(),
+                                               [x, y]))
+
+
+def phase_link_prediction(graph, src, dst, features, dev):
+    """11: NGCF link prediction at full width: the native sampler over every
+    edge, 3 epochs of the host loop (6 K1 and 2 backward walks an epoch),
+    a step profile, evaluate's AUC, ``fit(block_epochs=5)`` against the
+    host loop at ``epochs=10`` with a replay profile (as configured, then
+    checked without the output regularization), MeanLinkPrediction over
+    LP_MEAN_NODES nodes, and 3 epochs without dropout on the card and on
+    the CPU on a smaller graph."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.utils import native
+
+    pos = np.stack([src, dst], 1)
+    model = tt.NGCF(graph, features, num_classes=LP_CLASSES, device=dev)
+    tt.set_seed(0)
+    held_pos = pos[np.random.RandomState(21).choice(len(pos), LP_HELD,
+                                                    replace=False)]
+    t1 = time.perf_counter()
+    once = tt.negative_sampling(held_pos, graph, samples=2, prefetch=False)
+    held = once()
+    sync = tt.negative_sampling(pos, graph, samples=1, prefetch=False)
+    sampler_build_s = time.perf_counter() - t1
+    sampler_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        sync()
+        sampler_ms.append((time.perf_counter() - t1) * 1e3)
+    if not (once.native and sync.native and native.available()):
+        raise AssertionError(f"the native sampler did not run: "
+                             f"{native.error}")
+    del sync
+    log(f"link prediction: {len(pos)} positive pairs, "
+        f"{2 * len(pos)} scored pairs an epoch, {len(held[0])} validation "
+        f"pairs; sampler set-up {sampler_build_s} s, one sampler call ms "
+        f"{sampler_ms} (C++ path)")
+
+    waits = []
+    train, valid = link_tasks(tt, model, pos, graph, held, waits)
+    hist, epoch_ms, peak_mb = counted_train(model, (train, valid), LP_EPOCHS,
+                                            LP_LAUNCHES)
+    train_waits = waits[1:]  # the first call, at the task's construction,
+    step = step_fn(model, train)  # joins no thread
+    step_ms = timed(step)
+    prof = profile_step(step, top=12)
+    want = dict(NO_LAUNCHES, k1=3, backward=2)
+    if prof["counted"] != want or prof["index_add_launches"] != 2 or \
+            prof["k1_walks"] != 3:
+        raise AssertionError(f"NGCF step: launches {prof['counted']} "
+                             f"(expected {want}), index_add_ "
+                             f"{prof['index_add_launches']} (expected 2, "
+                             f"edge_dot's backward), K1 walks "
+                             f"{prof['k1_walks']}")
+    dot_ms = edge_dot_ms(model, train)
+    auc = float(model.evaluate(valid))
+    if not 0.0 <= auc <= 1.0:
+        raise AssertionError(f"AUC {auc}")
+    log(f"NGCF link prediction host loop: epoch ms {epoch_ms}, sampler "
+        f"wait ms an epoch {train_waits}, step ms {step_ms}, step busy "
+        f"{prof['busy_us'] / 1e3} ms, edge_dot forward+backward "
+        f"{dot_ms} ms ({dot_ms / (prof['busy_us'] / 1e3)} of the step's "
+        f"busy time), peak memory {peak_mb} MiB, train loss "
+        f"{hist['train_loss']}, valid loss {hist['valid_loss']}, AUC {auc}")
+
+    # the fused stacked path against the host loop, from the same draws:
+    # NGCF as configured (timed; its runs drift apart, LP_FUSED_RTOL), then
+    # without the output regularization (held within LP_FUSED_RTOL)
+    fused_waits, pair = [], {}
+    for regularized in (True, False):
+        if not regularized:
+            without_output_regularization(model)
+        torch.cuda.reset_peak_memory_stats()
+        pair[regularized] = {block: fused_run(model, link_tasks(
+            tt, model, pos, graph, held,
+            fused_waits if block > 1 and regularized else None, seed=1),
+            None, block) for block in (FUSED_BLOCK, 1)}
+        if regularized:
+            fused_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            replay = replay_profile(
+                "NGCF fused", lambda primer: fused_run(
+                    model, link_tasks(tt, model, pos, graph, held, seed=1),
+                    None, FUSED_BLOCK, profile=True, primer=primer)[4],
+                LP_REPLAY)
+    fused_runs = 2 if dev.type == "cuda" else FUSED_EPOCHS
+    drift = {}
+    for regularized, runs in pair.items():
+        (fused, counts, _, marks, _), (host, host_counts, h0, host_marks,
+                                       _) = runs[FUSED_BLOCK], runs[1]
+        if counts != {k: fused_runs * v for k, v in LP_LAUNCHES.items()} or \
+                host_counts != {k: FUSED_EPOCHS * v
+                                for k, v in LP_LAUNCHES.items()}:
+            raise AssertionError(f"NGCF fused launches {counts}, host loop "
+                                 f"{host_counts}")
+        rel = {}
+        for key in ("train_loss", "valid_loss"):
+            a, b = np.array(fused[key]), np.array(host[key])
+            if not (np.isfinite(a).all() and np.isfinite(b).all()):
+                raise AssertionError(f"NGCF fused losses {fused}, host {host}")
+            rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        name = "as configured" if regularized else \
+            "output regularization off"
+        drift[name] = rel
+        log(f"NGCF fused vs host loop ({name}): fused {fused}, host {host}, "
+            f"max relative loss difference {rel}")
+        if regularized:
+            fused_epoch_ms = (marks[2 * FUSED_BLOCK - 1]
+                              - marks[FUSED_BLOCK - 1]) * 1e3 / FUSED_BLOCK
+            host_epoch_ms = (np.diff([h0] + host_marks) * 1e3).tolist()
+            fused_counts = counts
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(fused[key], host[key], rtol=LP_FUSED_RTOL)
+    if fused["best_epoch"] != host["best_epoch"]:
+        raise AssertionError(f"NGCF fused best epoch {fused['best_epoch']}, "
+                             f"host loop {host['best_epoch']}")
+    log(f"NGCF fused: epoch {fused_epoch_ms} ms (second block, wall, its "
+        f"{FUSED_BLOCK} draws stacked and uploaded before it), device busy "
+        f"{replay['busy_ms_per_epoch']} ms an epoch; host loop epoch ms "
+        f"{host_epoch_ms}; sampler waits in the fused run ms {fused_waits}; "
+        f"peak memory {fused_peak_mb} MiB; fused vs host loop {drift} "
+        f"(limit {LP_FUSED_RTOL} without the output regularization)")
+
+    t0_mean = time.perf_counter()
+    nodes = list(dict.fromkeys(int(u) for u in held_pos[:, 0]))[
+        :LP_MEAN_NODES]
+    mean = tt.MeanLinkPrediction(held_pos, np.ones(len(held_pos)),
+                                 gnn=model, graph=graph,
+                                 positive_nodes=nodes, k=5)
+    f1 = model.evaluate(mean)
+    mean_s = time.perf_counter() - t0_mean
+    if not 0.0 <= f1 <= 1.0:
+        raise AssertionError(f"mean F1 {f1}")
+    log(f"MeanLinkPrediction(k=5) over {len(nodes)} nodes: mean F1@5 {f1} "
+        f"in {mean_s} s")
+    cross = cross_device_link_prediction(dev)
+    return dict(pairs=2 * len(pos), sampler_ms=sampler_ms,
+                sampler_build_s=sampler_build_s, epoch_ms=epoch_ms,
+                sampler_wait_ms=train_waits, step_ms=step_ms,
+                step_busy_ms=prof["busy_us"] / 1e3, profile=prof,
+                edge_dot_ms=dot_ms,
+                edge_dot_share=dot_ms / (prof["busy_us"] / 1e3),
+                peak_mb=peak_mb, auc=auc, train_loss=hist["train_loss"],
+                valid_loss=hist["valid_loss"],
+                launches_per_epoch=LP_LAUNCHES,
+                fused=dict(fused_epoch_ms=fused_epoch_ms,
+                           host_epoch_ms=host_epoch_ms,
+                           max_rel_loss_diff=drift,
+                           best_epoch=fused["best_epoch"],
+                           counted=fused_counts,
+                           replay=replay, sampler_wait_ms=fused_waits,
+                           peak_mb=fused_peak_mb),
+                mean_f1=f1, mean_s=mean_s, cross=cross)
+
+
+def cross_device_link_prediction(dev):
+    """11: NGCF link prediction without dropout and without its output
+    regularization (``without_output_regularization``), 3 epochs on the
+    card and on the CPU from the same weights and one static draw of the
+    sampler, on a graph of LP_CROSS_EDGES pairs: losses within LOSS_RTOL,
+    parameters by phase 4b's rules."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+
+    src, dst = random_power_law_edges(LP_CROSS_NODES, LP_CROSS_EDGES, seed=2)
+    g_cpu = tt.from_edges(src, dst, n_nodes=LP_CROSS_NODES, directed=False,
+                          device="cpu")
+    if g_cpu.n_edges < 65_536:
+        raise AssertionError(f"{g_cpu.n_edges} counted edges: below the "
+                             "prepared operator's gate")
+    features = np.random.RandomState(22).randn(
+        LP_CROSS_NODES, N_FEATURES).astype(np.float32)
+    pos = np.stack([src, dst], 1)
+    tt.set_seed(3)
+    draw = tt.negative_sampling(pos, g_cpu, samples=1, prefetch=False)()
+    held = tt.negative_sampling(pos[:2000], g_cpu, samples=2,
+                                prefetch=False)()
+    runs, params, adam, seconds = {}, {}, {}, {}
+    for device, g in ((dev, g_cpu.to(dev)), ("cpu", g_cpu)):
+        model = without_output_regularization(tt.NGCF(
+            g, features, num_classes=LP_CLASSES, dropout=0.0, device=device))
+        train = tt.LinkPrediction(*draw, gnn=model, loss="diff")
+        valid = tt.LinkPrediction(*held, gnn=model, loss="bce")
+        adam[str(device)] = recording_adam(LEARNING_RATE)
+        zero_counts()
+        t0 = time.perf_counter()
+        runs[str(device)] = model.train(
+            train, valid, epochs=CROSS_EPOCHS, patience=100, seed=0,
+            optimizer=adam[str(device)])
+        seconds[str(device)] = time.perf_counter() - t0
+        want = {k: CROSS_EPOCHS * v for k, v in LP_LAUNCHES.items()}
+        if launch_counts() != (want if torch.device(device) == dev
+                               else NO_LAUNCHES):
+            raise AssertionError(f"NGCF on {device}: launches "
+                                 f"{launch_counts()}")
+        params[str(device)] = {k: p.detach().cpu()
+                               for k, p in model.params.items()}
+    gpu, cpu = runs[str(dev)], runs["cpu"]
+    log(f"NGCF link prediction GPU vs CPU, {CROSS_EPOCHS} epochs, "
+        f"{g_cpu.n_edges} counted edges, no dropout: GPU {gpu} "
+        f"({seconds[str(dev)]} s), CPU {cpu} ({seconds['cpu']} s)")
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=LOSS_RTOL)
+    worst, outside, total = compare_params(
+        "NGCF link prediction training", params, adam, dev)
+    return dict(counted_edges=g_cpu.n_edges, max_param_diff=worst,
+                outside=outside, elements=total, gpu=gpu, cpu=cpu,
+                cpu_seconds=seconds["cpu"], gpu_seconds=seconds[str(dev)])
+
+
+# phase 12: remat and resume
+REMAT_EPOCHS = 2
+RESUME_EPOCHS, RESUME_CUT = 6, 3
+
+
+def trained(model, tasks, **kw):
+    """``model.train(*tasks, patience=100, seed=0, **kw)``: the history,
+    the parameters on the host and the peak memory (MiB) of the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = model.train(*tasks, patience=100, seed=0, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    return hist, {k: p.detach().cpu() for k, p in model.params.items()}, peak
+
+
+def same_params(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_remat_resume(graph, features, dev):
+    """12: GCNII-64 at GCNIIConfig trained REMAT_EPOCHS epochs with and
+    without remat (dropout on, the same seed): equal histories and
+    parameters, and each run's peak memory; APPNP under the default impl
+    stopped after RESUME_CUT epochs and resumed from its checkpoint,
+    against RESUME_EPOCHS epochs straight through, on the host loop and
+    the fused path: equal histories and parameters."""
+    import tempfile
+
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
+    from gnntf_tpu_torch.utils import kernels
+
+    tasks = fused_tasks()
+    model = config.GCNIIConfig().build(graph, features, N_CLASSES,
+                                       device=dev)
+    model.train(*tasks, epochs=1, seed=0)  # builds the operator and lists
+    remat = {flag: trained(model, tasks, epochs=REMAT_EPOCHS, remat=flag)
+             for flag in (False, True)}
+    (h0, p0, peak0), (h1, p1, peak1) = remat[False], remat[True]
+    log(f"GCNII-64 remat: without {h0} peak {peak0} MiB; with {h1} peak "
+        f"{peak1} MiB")
+    if h0 != h1 or not same_params(p0, p1):
+        raise AssertionError("GCNII-64 with remat differs from without")
+    del model
+
+    appnp = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+    resume = {}
+    for block in (1, RESUME_CUT):
+        straight = trained(appnp, tasks, epochs=RESUME_EPOCHS,
+                           block_epochs=block)
+        kernels.BUILD.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD) as ckpt:
+            kw = dict(block_epochs=block, checkpoint_dir=ckpt,
+                      checkpoint_every=RESUME_CUT)
+            first = trained(appnp, tasks, epochs=RESUME_CUT, **kw)
+            later = trained(appnp, tasks, epochs=RESUME_EPOCHS, resume=True,
+                            **kw)
+        joined = {k: first[0][k] + later[0][k]
+                  for k in ("train_loss", "valid_loss")}
+        equal = (joined == {k: straight[0][k] for k in joined}
+                 and later[0]["best_epoch"] == straight[0]["best_epoch"]
+                 and same_params(later[1], straight[1]))
+        name = "host loop" if block == 1 else "fused"
+        log(f"APPNP resume ({name}): straight {straight[0]}, stopped "
+            f"{first[0]}, resumed {later[0]}; equal {equal}")
+        if not equal:
+            raise AssertionError(f"APPNP resumed ({name}) differs from the "
+                                 "uninterrupted run")
+        resume[name] = dict(train_loss=straight[0]["train_loss"],
+                            valid_loss=straight[0]["valid_loss"])
+    return dict(remat=dict(equal=True, peak_mib=peak1, plain_peak_mib=peak0,
+                           train_loss=h1["train_loss"]),
+                resume=resume)
+
+
 def kernel_launches(gcnii, gcn, key):
     """A kernel's launches (its wrapper's count) a GCNII-64 serving forward
     and an epoch of GCNII-64's and of GCN's training."""
@@ -2585,15 +2972,21 @@ def main(dev=None):
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
     from gnntf_tpu_torch.ops import ell_gather
-    from gnntf_tpu_torch.utils import kernels
+    from gnntf_tpu_torch.utils import kernels, native
 
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
 
-    # 1. build
+    # 1. build: the CUDA kernels, and beside them the C++ sampler
     t0 = time.perf_counter()
+    sampler_build = threading.Thread(target=native.available)
+    sampler_build.start()
     built = kernels.build(force=True)
-    log(f"build: {sorted(built)} in {time.perf_counter() - t0} s")
+    sampler_build.join()
+    if not native.available():
+        raise RuntimeError(f"the C++ sampler did not build: {native.error}")
+    log(f"build: {sorted(built)} and {native.LIBRARY.name} in "
+        f"{time.perf_counter() - t0} s")
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
@@ -2611,9 +3004,11 @@ def main(dev=None):
         N_NODES, N_CLASSES).astype(np.float32)).to(dev)
     x64 = torch.from_numpy(np.random.RandomState(10).randn(
         N_NODES, 64).astype(np.float32)).to(dev)
+    x16 = torch.from_numpy(np.random.RandomState(14).randn(
+        N_NODES, LP_CLASSES).astype(np.float32)).to(dev)
     seconds = {}
     t0 = time.perf_counter()
-    k1 = phase_ell_kernel(graph, dev, x40, x64, x128)
+    k1 = phase_ell_kernel(graph, dev, x16, x40, x64, x128)
     seconds["2"] = time.perf_counter() - t0
 
     # 2b. K2 against its plain version, small and on the RCM bench layout
@@ -2628,7 +3023,7 @@ def main(dev=None):
 
     # 2d. K1's backward walk over the transposed rest list
     t0 = time.perf_counter()
-    backward = phase_backward_kernel(graph, dev, x40, x64)
+    backward = phase_backward_kernel(graph, dev, x16, x40, x64)
     seconds["2d"] = time.perf_counter() - t0
 
     # 2e. the attention kernels A1-A4, small and on the bench graph's lists
@@ -2767,6 +3162,16 @@ def main(dev=None):
     seconds["10"] = time.perf_counter() - t0
     log("attention summary: " + json.dumps(dict(
         kernels=attention, gat=gat, sage_gin=sage_gin)))
+
+    # 11. NGCF link prediction at full width, 12. remat and resume
+    t0 = time.perf_counter()
+    lp = phase_link_prediction(graph, src, dst, features, dev)
+    seconds["11"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rr = phase_remat_resume(graph, features, dev)
+    seconds["12"] = time.perf_counter() - t0
+    log("link prediction summary: " + json.dumps(dict(
+        link_prediction=lp, remat_resume=rr)))
     log(f"phase seconds: {seconds}")
     # one attention list build a structure and flavour: the bench graph's
     # per-edge and coalesced lists on the card (2e; phase 9 hits them), its
@@ -2785,7 +3190,7 @@ def main(dev=None):
         raise AssertionError(f"{stochastic.train_grids.builds} grid builds "
                              f"over the run, expected {builds}")
 
-    # 9. report
+    # 13. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
     rest = k1["rest_list"]
@@ -2801,6 +3206,10 @@ def main(dev=None):
              "fused": fused_launches(fused, "ell_gather_walk", "k1"),
              **kernel_launches(gcnii, gcn, "k1"),
              "gcn_width": dict(k1["gcn_width"], shape="F=64"),
+             "ngcf_width": dict(k1["ngcf_width"], shape="F=16"),
+             "ngcf": dict(per_epoch=lp["launches_per_epoch"]["k1"],
+                          fused=fused_launches(lp["fused"],
+                                               "ell_gather_walk", "k1")),
              "backward": {
                  "name": "ell_gather_transposed", "route": "cuda",
                  "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
@@ -2813,6 +3222,11 @@ def main(dev=None):
                           f"over N=169343 columns, F=64 (GCNII)",
                  **kernel_launches(gcnii, gcn, "backward"),
                  "gcn_width": dict(backward["gcn"], shape="F=40 (GCN)"),
+                 "ngcf_width": dict(backward["ngcf"], shape="F=16 (NGCF)"),
+                 "ngcf": dict(per_epoch=lp["launches_per_epoch"]["backward"],
+                              fused=fused_launches(lp["fused"],
+                                                   "blocked_spmm_walk",
+                                                   "backward")),
                  "small": backward["small"],
                  "transposed_list": backward["transposed_list"]},
              "small": k1["small"], "rest_list": rest,

@@ -32,7 +32,9 @@ from .nn import (LSTM, Activation, Branch, Concatenate, Dense,  # noqa: E402
                  Tradeoff, Wrap, batches)
 from .ops import (dropout, edge_dot, normalize_adjacency,  # noqa: E402
                   sddmm, segment_softmax, set_spmm_impl, spmm, spmm_impl)
-from .tasks import NodeClassification, Predictor  # noqa: E402
+from .tasks import (LinkPrediction, MeanLinkPrediction,  # noqa: E402
+                    NodeClassification, Predictor, negative_sampling,
+                    recommend_all)
 from .train import Trainable, fit, keras_adam  # noqa: E402
 
 # the reference's class names (layered.py / variables.py): the builder

@@ -85,6 +85,13 @@ def _draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 1 << 62, (1,), generator=generator))
 
 
+def _generator_at(state: torch.Tensor) -> torch.Generator:
+    """A CPU generator in ``state``."""
+    generator = torch.Generator()
+    generator.set_state(state)
+    return generator
+
+
 class DrawTape:
     """The random draws of a training forward, recorded once so that every
     later epoch's draws can be fed to a forward that reads them from fixed
@@ -144,9 +151,10 @@ class DrawTape:
 
     def _next(self, kind) -> int:
         """The index of this op's draw among those of its kind, its kind
-        recorded or checked against the record."""
+        recorded or checked against the record (a recompute under remat
+        checks the ops its layer recorded)."""
         ops = self.layers[self._layer_at]
-        if self.recording:
+        if self.recording and self._op_at == len(ops):
             ops.append(kind)
         elif self._op_at >= len(ops) or ops[self._op_at] != kind:
             raise RuntimeError(
@@ -169,9 +177,11 @@ class DrawTape:
         """The generator of a feature dropout's mask, on ``device``."""
         seed = _draw_seed(self._layer) if self.recording else None
         i = self._next("seed")
-        if self.recording:
+        if self.recording and i == len(self.generators):
             self.generators.append(
                 torch.Generator(device=device).manual_seed(seed))
+        elif self.recording:  # a recompute under remat
+            self.generators[i].manual_seed(seed)
         return self.generators[i]
 
     def uniform(self, n: int, device) -> torch.Tensor:
@@ -185,7 +195,9 @@ class DrawTape:
                 "or under min_edges_scope(0)")
         i = self._next(("uniform", n))
         if self.recording:
-            self.uniforms.append(torch.rand(n, generator=self._layer))
+            drawn = torch.rand(n, generator=self._layer)
+            if i == len(self.uniforms):
+                self.uniforms.append(drawn)
         return self.uniforms[i]
 
     def draw(self, generator: torch.Generator):
@@ -206,6 +218,22 @@ class DrawTape:
         salts = torch.stack(salts) if salts else torch.zeros(
             0, 2, dtype=torch.int64)
         return salts, seeds, uniforms
+
+    def mark(self):
+        """Where the tape stands in the current layer, and the state of
+        every generator it holds: :meth:`rewind` returns there, so that a
+        recompute under remat draws the layer's draws again."""
+        layer = None if self._layer is None else self._layer.get_state()
+        return (self._layer_at, self._op_at, dict(self._drawn), layer,
+                [g.get_state() for g in self.generators])
+
+    def rewind(self, mark) -> None:
+        self._layer_at, self._op_at, drawn, layer, states = mark
+        self._drawn = dict(drawn)
+        if layer is not None:
+            self._layer = _generator_at(layer)
+        for generator, state in zip(self.generators, states):
+            generator.set_state(state)
 
     def feed(self, seeds, uniforms) -> None:
         """Seed each feature dropout's generator and set the eager masks'
@@ -242,6 +270,23 @@ class Forward:
         elif self._generator is not None:
             self._layer_generator = torch.Generator().manual_seed(
                 _draw_seed(self._generator))
+
+    def draw_point(self):
+        """What the current layer's draws depend on: the layer's CPU
+        generator's state, or the tape's :meth:`DrawTape.mark`."""
+        if self._tape is not None:
+            return self._tape.mark()
+        if self._layer_generator is None:
+            return None
+        return self._layer_generator.get_state()
+
+    def rewind(self, point) -> None:
+        """Return to ``point`` (from :meth:`draw_point`), so that the
+        layer's ops draw what they drew from there."""
+        if self._tape is not None:
+            self._tape.rewind(point)
+        elif point is not None:
+            self._layer_generator = _generator_at(point)
 
     def next_generator(self) -> torch.Generator:
         """The layer's CPU generator, for a stochastic op."""
@@ -393,15 +438,22 @@ class Network(nn.Module):
                 init_param(generator, spec.shape, spec.init, self.dtype))
 
     def forward(self, x: torch.Tensor, *, training: bool = False,
-                generator=None, return_ctx: bool = False):
+                generator=None, return_ctx: bool = False,
+                remat: bool = False):
         """Sequential forward fold (layered.py:52-55).  ``generator`` is the
         step's CPU generator (or a :class:`DrawTape`), needed when
-        ``training`` draws dropout."""
+        ``training`` draws dropout.
+
+        ``remat=True`` runs each layer under ``torch.utils.checkpoint``: the
+        backward recomputes the layer's internals instead of keeping them.
+        The recompute starts from the layer's :meth:`Forward.draw_point`, so
+        it draws the same masks and salts as the forward did.  A layer that
+        calls :meth:`Forward.add_loss` raises ``ValueError``."""
         fw = Forward(self, training, generator)
         h = x
         for layer in self._layers:
             fw.begin_layer()
-            h = layer.apply(fw, h)
+            h = _remat(fw, layer, h) if remat else layer.apply(fw, h)
             fw.acts.append(h)
         if return_ctx:
             return h, fw
@@ -430,6 +482,25 @@ class Network(nn.Module):
 
     def trainable_mask(self) -> Dict[str, bool]:
         return {s.name: s.trainable for s in self.param_specs}
+
+
+def _remat(fw: Forward, layer: Layer, h: torch.Tensor) -> torch.Tensor:
+    """``layer.apply(fw, h)`` under ``torch.utils.checkpoint``, each run
+    rewound to the layer's draw point."""
+    from torch.utils.checkpoint import checkpoint
+    point = fw.draw_point()
+    n_losses = len(fw.extra_losses)
+
+    def run(h):
+        fw.rewind(point)
+        return layer.apply(fw, h)
+
+    out = checkpoint(run, h, use_reentrant=False)
+    if len(fw.extra_losses) != n_losses:
+        raise ValueError(
+            f"{type(layer).__name__} emits add_loss() side outputs, which "
+            "cannot escape a remat scope — train with remat=False")
+    return out
 
 
 class _Alias(Layer):

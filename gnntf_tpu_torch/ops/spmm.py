@@ -615,13 +615,34 @@ def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     return _per_call(impl, graph, x)
 
 
+class _EdgeDotFn(torch.autograd.Function):
+    """``(x[row] * y[col]).sum(-1)`` whose backward scatters with
+    ``index_add_``: on the CPU it sums in a fixed order, where the backward
+    of ``x[row]`` (``index_put_`` with ``accumulate``) does not."""
+
+    @staticmethod
+    def forward(ctx, row, col, x, y):
+        ctx.save_for_backward(row, col, x, y)
+        return (x[row] * y[col]).sum(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        row, col, x, y = ctx.saved_tensors
+        g = g[:, None]
+        dx = dy = None
+        if ctx.needs_input_grad[2]:
+            dx = torch.zeros_like(x).index_add_(0, row, g * y[col])
+        if ctx.needs_input_grad[3]:
+            dy = torch.zeros_like(y).index_add_(0, col, g * x[row])
+        return None, None, dx, dy
+
+
 def edge_dot(row: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
              y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-pair dot products ``s[e] = <x[row[e]], y[col[e]]>`` (``y``
     defaults to ``x``): the SDDMM core on an explicit index list, in plain
     torch (the JAX package has no kernel for it)."""
-    y = x if y is None else y
-    return (x[row] * y[col]).sum(-1)
+    return _EdgeDotFn.apply(row, col, x, x if y is None else y)
 
 
 def sddmm(graph: Graph, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

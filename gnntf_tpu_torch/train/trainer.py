@@ -15,12 +15,18 @@
   of the parameters at every strict improvement, and the best snapshot
   restored at the end.
 
-``fit(block_epochs=N)`` with static tasks takes the fused path of the JAX
-package (``_fit_fused``): blocks of N epochs whose state (parameters,
-optimizer moments, the best parameters, the least loss, the patience left
-and a ``stopped`` flag) stays on the device and is read back once a block.
-On a card one epoch is captured in a CUDA graph and replayed; on the CPU
-the same epoch runs eagerly.
+``fit(block_epochs=N)`` with static tasks, or a sampled training task that
+stacks its batches, takes the fused path of the JAX package
+(``_fit_fused``): blocks of N epochs whose state (parameters, optimizer
+moments, the best parameters, the least loss, the patience left and a
+``stopped`` flag) stays on the device and is read back once a block.  On a
+card one epoch is captured in a CUDA graph and replayed; on the CPU the
+same epoch runs eagerly.
+
+``fit(checkpoint_dir=, checkpoint_every=, resume=)`` writes and restores
+the early-stopping state (``utils/checkpoint.py``) on both paths;
+``fit(remat=True)`` recomputes each layer in the backward
+(``Network.forward``).
 """
 from __future__ import annotations
 
@@ -164,10 +170,7 @@ def _unported(**options):
     """Raise for the options of the JAX package's ``fit`` that the port
     does not have yet (ROADMAP.md, queue 1)."""
     where = {"mesh": "item 12 (scale-out)",
-             "spmm": "item 12 (scale-out executors)",
-             "checkpoint_dir": "item 6 (utils/checkpoint.py)",
-             "resume": "item 6 (utils/checkpoint.py)",
-             "remat": "item 6 (remat)"}
+             "spmm": "item 12 (scale-out executors)"}
     for name, value in options.items():
         if value:
             raise NotImplementedError(
@@ -176,12 +179,79 @@ def _unported(**options):
 
 
 def _total_loss(model: Trainable, task: Predictor, batch, regularization,
-                generator):
+                generator, remat=False):
     out, fw = model.forward(model.features, training=True,
-                            generator=generator, return_ctx=True)
+                            generator=generator, return_ctx=True, remat=remat)
     loss = task.loss(out, batch, params=model.params)
     loss = loss + model.layer_losses(fw)
     return loss + regularization * model.weight_l2()
+
+
+def _like(template, restored):
+    """``restored`` (nested dicts of numpy arrays, from a checkpoint) in the
+    form of ``template``: tensors on the template's device and dtype,
+    Python numbers as numbers."""
+    if isinstance(template, dict):
+        return {k: _like(v, restored[k]) for k, v in template.items()}
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(np.asarray(restored), dtype=template.dtype,
+                               device=template.device)
+    return type(template)(np.asarray(restored).item())
+
+
+class _RunState:
+    """The early-stopping state of a run that a checkpoint holds: the
+    optimizer state, the best parameters, the least validation loss, the
+    patience left, the history, the first epoch to run and the seed of the
+    run's draws (the JAX package's ``fit``,
+    ``gnntf_tpu/train/trainer.py:359-391``)."""
+
+    def __init__(self, model, tx, patience, rng_seed):
+        params = model.params
+        self.opt_state = tx.init({k: p.detach() for k, p in params.items()})
+        self.best = {k: p.detach().clone() for k, p in params.items()}
+        self.min_loss = float("inf")
+        self.patience_remaining = patience
+        self.history = {"train_loss": [], "valid_loss": [], "epochs_run": 0,
+                        "best_epoch": -1}
+        self.start_epoch = 0
+        self.rng_seed = rng_seed
+
+    @torch.no_grad()
+    def restore(self, model, directory) -> None:
+        """Continue from the latest checkpoint in ``directory``, if any."""
+        from ..utils.checkpoint import restore_checkpoint
+        restored = restore_checkpoint(directory)
+        if restored is None:
+            return
+        step, state = restored
+        params = model.params
+        for k, p in params.items():
+            p.copy_(torch.as_tensor(state["params"][k]))
+        if state["opt_state"] is not None:
+            self.opt_state = _like(self.opt_state, state["opt_state"])
+        if state["best_params"] is not None:
+            self.best = _like(self.best, state["best_params"])
+        meta = state["meta"]
+        self.start_epoch = int(meta.get("epoch", step)) + 1
+        self.min_loss = float(meta.get("min_loss", self.min_loss))
+        self.patience_remaining = int(meta.get("patience_remaining",
+                                               self.patience_remaining))
+        self.history["best_epoch"] = int(meta.get("best_epoch", -1))
+        # the seed of the draws, so that a resumed seed=None run draws what
+        # the uninterrupted one would
+        self.rng_seed = int(meta.get("rng_seed", self.rng_seed))
+        model._act_cache = None
+
+    def save(self, directory, epoch, params) -> None:
+        from ..utils.checkpoint import save_checkpoint
+        save_checkpoint(
+            directory, epoch, params=dict(params), opt_state=self.opt_state,
+            best_params=self.best,
+            meta={"epoch": epoch, "min_loss": self.min_loss,
+                  "patience_remaining": self.patience_remaining,
+                  "best_epoch": self.history["best_epoch"],
+                  "rng_seed": self.rng_seed})
 
 
 def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
@@ -207,14 +277,19 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     and the step index, so a run's edge-dropout masks are the same on every
     device.
 
-    ``block_epochs > 1`` with one batch, ``verbose`` off and static tasks
-    takes the fused path (:func:`_fit_fused`), as in the JAX package; its
-    history holds every epoch of the last block and ``epochs_run`` counts
-    them."""
-    _unported(mesh=mesh is not None, spmm=spmm is not None,
-              checkpoint_dir=checkpoint_dir is not None, resume=resume,
-              remat=remat)
-    del checkpoint_every  # only meaningful with checkpoint_dir
+    ``remat=True`` runs each layer of the training forward under
+    ``torch.utils.checkpoint`` (``Network.forward``).  With
+    ``checkpoint_dir`` the early-stopping state is written every
+    ``checkpoint_every`` epochs and at the end (``utils/checkpoint.py``);
+    ``resume=True`` continues from the latest checkpoint there.  The
+    sampler of a sampled task is not saved, as in the JAX package.
+
+    ``block_epochs > 1`` with one batch, ``verbose`` off, a static
+    validation task and a static or stackable (``supports_stacking``)
+    training task takes the fused path (:func:`_fit_fused`), as in the JAX
+    package; its history holds every epoch of the last block and
+    ``epochs_run`` counts them."""
+    _unported(mesh=mesh is not None, spmm=spmm is not None)
     if spmm_impl is not None and spmm_impl not in _IMPL_NAMES:
         raise ValueError(f"spmm_impl must be one of {_IMPL_NAMES}, "
                          f"got {spmm_impl!r}")
@@ -229,26 +304,24 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
         valid = train  # trainable.py:58-59
     trainable = model.trainable_mask()
     names = [k for k in params if trainable.get(k, True)]
-    rng_seed = measures.next_seed() if seed is None else seed + 1
-    if (block_epochs > 1 and batches == 1 and not verbose and train.static
-            and valid.static):
+    run = _RunState(model, tx, patience,
+                    measures.next_seed() if seed is None else seed + 1)
+    if checkpoint_dir and resume:
+        run.restore(model, checkpoint_dir)
+    history = run.history
+    train_stackable = (not train.static
+                       and getattr(train, "supports_stacking", False))
+    if (block_epochs > 1 and batches == 1 and not verbose
+            and (train.static or train_stackable) and valid.static):
         return _fit_fused(
-            model, train, valid, tx, names, rng_seed, patience=patience,
-            epochs=epochs, degradation=degradation, block_epochs=block_epochs,
+            model, train, valid, tx, names, run, patience=patience,
+            epochs=epochs,
+            degradation=degradation, block_epochs=block_epochs,
             regularization=regularization, callbacks=callbacks,
-            spmm_impl=spmm_impl)
-    opt_state = tx.init({k: p.detach() for k, p in params.items()})
-
-    def snapshot():
-        return {k: p.detach().clone() for k, p in params.items()}
-
-    min_loss = float("inf")
-    best_params = snapshot()
-    patience_remaining = patience
-    history = {"train_loss": [], "valid_loss": [], "epochs_run": 0,
-               "best_epoch": -1}
+            spmm_impl=spmm_impl, remat=remat, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)
     stop = False
-    epoch = 0
+    epoch = run.start_epoch
     while epoch < epochs and not stop:
         epoch_loss = 0.0
         deg = torch.tensor(float(degradation(epoch)), dtype=torch.float32)
@@ -256,10 +329,10 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
             train.refresh()
             batch = train.batch()
             generator = torch.Generator().manual_seed(
-                _fold_in(rng_seed, epoch * batches + b))
+                _fold_in(run.rng_seed, epoch * batches + b))
             with _impl_scope(spmm_impl):
                 loss = _total_loss(model, train, batch, regularization,
-                                   generator)
+                                   generator, remat)
                 found = dict(zip(names, torch.autograd.grad(
                     loss, [params[k] for k in names], allow_unused=True)))
             # gradient of loss * degradation(epoch) (trainable.py:78); frozen
@@ -269,7 +342,7 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
                 g = found.get(k)
                 grads[k] = torch.zeros_like(p) if g is None \
                     else g * deg.to(g.device)
-            updates, opt_state = tx.update(grads, opt_state)
+            updates, run.opt_state = tx.update(grads, run.opt_state)
             with torch.no_grad():
                 for k, u in updates.items():
                     params[k].add_(u)
@@ -278,38 +351,43 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
         # clean validation forward (dropout off), trainable.py:83
         with torch.no_grad(), _impl_scope(spmm_impl):
             acts = model.forward(model.features, training=False)
-        valid.refresh()
-        valid_loss = float(valid.loss(acts, valid.batch(), params=params))
+            valid.refresh()
+            valid_loss = float(valid.loss(acts, valid.batch(), params=params))
 
-        patience_remaining -= 1
-        improved = valid_loss < min_loss  # strict improvement (:96)
+        run.patience_remaining -= 1
+        improved = valid_loss < run.min_loss  # strict improvement (:96)
         if verbose and improved:
             train_acc = float(train.evaluate(acts, train.batch(), params))
             valid_acc = float(valid.evaluate(acts, valid.batch(), params))
             test_acc = float("nan") if test is None else float(
                 test.evaluate(acts, test.batch(), params))
-            print(f"\rEpoch {epoch}  patience {patience_remaining}  "
+            print(f"\rEpoch {epoch}  patience {run.patience_remaining}  "
                   f"Train loss {epoch_loss:.3f} Validation loss "
                   f"{valid_loss:.3f}  Train {train_acc:.3f} Validation "
                   f"{valid_acc:.3f}  Test {test_acc:.3f}", end="")
         if improved:
-            min_loss = valid_loss
-            best_params = snapshot()
-            patience_remaining = patience
+            run.min_loss = valid_loss
+            run.best = {k: p.detach().clone() for k, p in params.items()}
+            run.patience_remaining = patience
             history["best_epoch"] = epoch
         history["train_loss"].append(epoch_loss)
         history["valid_loss"].append(valid_loss)
         for cb in callbacks:
             stop = bool(cb(epoch=epoch, params=params, valid_loss=valid_loss,
-                           best_loss=min_loss,
-                           patience_remaining=patience_remaining)) or stop
-        if patience_remaining == 0:
+                           best_loss=run.min_loss,
+                           patience_remaining=run.patience_remaining)) or stop
+        if checkpoint_dir and checkpoint_every and \
+                (epoch + 1) % checkpoint_every == 0:
+            run.save(checkpoint_dir, epoch, params)
+        if run.patience_remaining == 0:
             break
         epoch += 1
 
+    if checkpoint_dir:
+        run.save(checkpoint_dir, min(epoch, epochs - 1), params)
     with torch.no_grad():  # restore the best snapshot (trainable.py:101-102)
         for k, p in params.items():
-            p.copy_(best_params[k])
+            p.copy_(run.best[k])
     model._act_cache = None
     history["epochs_run"] = epoch + 1
     if verbose:
@@ -335,38 +413,56 @@ class _FusedEpoch:
     the loss; the gradients of ``loss * degradation``; the optimizer
     update) and the clean validation forward and loss; the parameters and
     the optimizer state stay as they are once ``stopped`` is set; the best
-    parameters, the least validation loss, the patience left and
-    ``stopped`` are tensors.  Epoch ``step`` of the block reads its
-    degradation from :attr:`deg`, its step size from :attr:`alpha` (for
+    parameters, the least validation loss, the patience left, the updates
+    applied and ``stopped`` are tensors.  Epoch ``step`` of the block reads
+    its degradation from :attr:`deg`, its step size from :attr:`alpha` (for
     :class:`KerasAdam`) and its salts from :attr:`salt_table`, writes its
     train loss, validation loss and improvement to column ``step`` of
-    :attr:`out`, and advances ``step``."""
+    :attr:`out`, and advances ``step``.  A stacked (sampled) training task
+    reads its batch from the fixed tensors of :attr:`train_batch`, which
+    :meth:`feed` fills with the epoch's slice of the block's stack."""
 
-    def __init__(self, model, train, valid, tx, names, *, regularization,
-                 patience, block_epochs, spmm_impl):
+    def __init__(self, model, train, valid, tx, names, run: _RunState, *,
+                 stacked, regularization, patience, block_epochs, spmm_impl,
+                 remat):
         device = model.device
         self.model, self.tx, self.names = model, tx, names
         self.train_task, self.valid_task = train, valid
-        train.refresh()
-        self.train_batch = _on(train.batch(), device)
+        self.train_batch = None  # a stacked task's, made by the first feed
+        if not stacked:
+            train.refresh()
+            self.train_batch = _on(train.batch(), device)
         valid.refresh()
         self.valid_batch = _on(valid.batch(), device)
         self.regularization, self.patience = regularization, patience
-        self.spmm_impl = spmm_impl
+        self.spmm_impl, self.remat = spmm_impl, remat
         self.adam = isinstance(tx, KerasAdam)
-        params = model.params
-        self.state = tx.init({k: p.detach() for k, p in params.items()})
-        self.best = {k: p.detach().clone() for k, p in params.items()}
+        self.state = run.opt_state
+        self.best = {k: p.clone() for k, p in run.best.items()}
         f32 = dict(dtype=torch.float32, device=device)
-        self.min_loss = torch.full((), float("inf"), **f32)
-        self.pat = torch.full((), patience, dtype=torch.int64, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        self.min_loss = torch.full((), run.min_loss, **f32)
+        self.pat = torch.full((), run.patience_remaining, **i64)
         self.stopped = torch.zeros((), dtype=torch.bool, device=device)
-        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.count = torch.full((), run.opt_state.get("count", 0)
+                                if self.adam else 0, **i64)
+        self.step = torch.zeros(1, **i64)
         self.deg = torch.zeros(block_epochs, **f32)
         self.alpha = torch.zeros(block_epochs, **f32)
         self.out = torch.zeros(3, block_epochs, **f32)
         self.tape = DrawTape()
         self.salt_table = None  # (block_epochs, K, 2), once recorded
+
+    def feed(self, stack, i: int) -> None:
+        """Copy epoch ``i`` of a stacked task's block (``stack_batches``)
+        into :attr:`train_batch`."""
+        if self.train_batch is None:
+            self.train_batch = tuple(None if t is None else t[i].clone()
+                                     for t in stack)
+            return
+        for fixed, t in zip(self.train_batch, stack):
+            if t is not None:
+                fixed.copy_(t[i])
 
     def __call__(self) -> None:
         model, params, i = self.model, self.model.params, self.step
@@ -375,7 +471,7 @@ class _FusedEpoch:
             self.tape.salts.copy_(self.salt_table.index_select(0, i)[0])
         with _impl_scope(self.spmm_impl):
             loss = _total_loss(model, self.train_task, self.train_batch,
-                               self.regularization, self.tape)
+                               self.regularization, self.tape, self.remat)
             found = dict(zip(self.names, torch.autograd.grad(
                 loss, [params[k] for k in self.names], allow_unused=True)))
         deg = self.deg.index_select(0, i).view(())
@@ -389,6 +485,7 @@ class _FusedEpoch:
                 for part in ("m", "v"):
                     for k, t in self.state[part].items():
                         t.copy_(torch.where(stopped, t, new[part][k]))
+                self.count.add_((~stopped).to(torch.int64))
             else:  # the host only: fit raises for it on a card
                 updates, new = self.tx.update(grads, self.state)
                 if not bool(stopped):
@@ -411,6 +508,12 @@ class _FusedEpoch:
                 [loss.detach(), vloss, improved.to(torch.float32)])[:, None])
             i.add_(1)
 
+    def opt_state(self):
+        """The optimizer state as the host loop keeps it."""
+        if not self.adam:
+            return self.state
+        return dict(self.state, count=int(self.count))
+
 
 def _capture(run: _FusedEpoch, stream) -> "torch.cuda.CUDAGraph":
     """``run`` captured in a CUDA graph on ``stream`` (which ran the
@@ -425,23 +528,32 @@ def _capture(run: _FusedEpoch, stream) -> "torch.cuda.CUDAGraph":
 
 
 def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
-               names, rng_seed: int, *, patience, epochs, degradation,
-               block_epochs, regularization, callbacks, spmm_impl) -> Dict:
+               names, state: _RunState, *, patience, epochs, degradation,
+               block_epochs,
+               regularization, callbacks, spmm_impl, remat, checkpoint_dir,
+               checkpoint_every) -> Dict:
     """The fused multi-epoch path (the JAX package's ``_fit_fused``,
     ``gnntf_tpu/train/trainer.py:477-603``): blocks of ``min(block_epochs,
     epochs - epoch)`` epochs of :class:`_FusedEpoch`, read back once a
     block; the callbacks then see each epoch of the block with the running
-    best loss and ``patience_remaining=-1``; a block that ends stopped ends
-    the run, ``epochs_run`` is the epochs run, and the best parameters are
-    restored.
+    best loss and ``patience_remaining=-1``; with ``checkpoint_dir`` and
+    ``checkpoint_every`` each block ends with a checkpoint; a block that
+    ends stopped ends the run, ``epochs_run`` is the epochs run, and the
+    best parameters are restored.
 
-    The first epoch records the draws (:class:`DrawTape`) from its
+    A sampled task (``supports_stacking``) draws the block's batches with
+    ``stack_batches`` before the block, uploaded once, and each epoch is
+    fed its slice (:meth:`_FusedEpoch.feed`, one device-to-device copy).
+
+    The run's first epoch records the draws (:class:`DrawTape`) from its
     generator, as the host loop draws them; every later epoch is fed the
     record rerun on its own generator, so the numbers equal the host
     loop's.  On a card the first epoch runs on a side stream, which builds
     every memo, and the next is captured there in a CUDA graph, replayed
     once an epoch: a capture that fails raises, and the step size comes
-    from a device table that only :class:`KerasAdam` reads."""
+    from a device table that only :class:`KerasAdam` reads.  Remat on a
+    card raises: a capture cannot read or set the generators' states that
+    its recompute rewinds."""
     device = model.device
     cuda = device.type == "cuda"
     if cuda and not isinstance(tx, KerasAdam):
@@ -449,15 +561,24 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
             "fit(block_epochs > 1) on a card reads each epoch's step size "
             "from a device table, which only keras_adam's KerasAdam does; "
             "train with block_epochs=1 for another optimizer")
-    run = _FusedEpoch(model, train, valid, tx, names,
-                      regularization=regularization, patience=patience,
-                      block_epochs=block_epochs, spmm_impl=spmm_impl)
+    if cuda and remat:
+        raise NotImplementedError(
+            "fit(block_epochs > 1, remat=True) on a card: a CUDA graph "
+            "cannot carry the generator states a recompute rewinds; train "
+            "with block_epochs=1 or remat=False (ROADMAP.md queue 1, "
+            "item 13)")
+    stacked = not train.static
+    run = _FusedEpoch(model, train, valid, tx, names, state, stacked=stacked,
+                      regularization=regularization,
+                      patience=patience,
+                      block_epochs=block_epochs, spmm_impl=spmm_impl,
+                      remat=remat)
     epoch_generator = lambda e: torch.Generator().manual_seed(
-        _fold_in(rng_seed, e))
-    history = {"train_loss": [], "valid_loss": [], "epochs_run": 0,
-               "best_epoch": -1}
-    graph, best_before = None, float("inf")
-    epoch = 0
+        _fold_in(state.rng_seed, e))
+    history = state.history
+    count0 = int(run.count)
+    graph, best_before = None, state.min_loss
+    epoch = first_epoch = state.start_epoch
     while epoch < epochs:
         n = min(block_epochs, epochs - epoch)
         span = range(epoch, epoch + n)
@@ -465,11 +586,15 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                                        dtype=torch.float32))
         if run.adam:
             run.alpha[:n].copy_(torch.tensor(
-                [tx.step_size(e + 1) for e in span], dtype=torch.float32))
+                [tx.step_size(count0 + e - first_epoch + 1) for e in span],
+                dtype=torch.float32))
+        stack = train.stack_batches(n, device=device) if stacked else None
         run.step.zero_()
         first = 0
-        if epoch == 0:
-            run.tape.record(epoch_generator(0))
+        if epoch == first_epoch:
+            if stacked:
+                run.feed(stack, 0)
+            run.tape.record(epoch_generator(epoch))
             if cuda:
                 stream = torch.cuda.Stream(device)
                 stream.wait_stream(torch.cuda.current_stream(device))
@@ -482,13 +607,15 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
             run.salt_table = torch.zeros(
                 (block_epochs,) + tuple(run.tape.salts.shape),
                 dtype=torch.int64, device=device)
-            if cuda and epochs > 1:
+            if cuda and epochs - first_epoch > 1:
                 graph = _capture(run, stream)
             first = 1
         draws = [run.tape.draw(epoch_generator(e)) for e in span[first:]]
         if draws and len(run.tape.salts):
             run.salt_table[first:n].copy_(torch.stack([d[0] for d in draws]))
-        for _, seeds, uniforms in draws:
+        for i, (_, seeds, uniforms) in enumerate(draws, start=first):
+            if stacked:
+                run.feed(stack, i)
             run.tape.feed(seeds, uniforms)
             if graph is not None:
                 graph.replay()
@@ -496,7 +623,8 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                 run()
         # the block's numbers in one read
         back = torch.cat([run.out[:, :n].reshape(-1), run.min_loss.view(1),
-                          run.stopped.view(1).to(torch.float32)]).cpu()
+                          run.stopped.view(1).to(torch.float32),
+                          run.pat.view(1).to(torch.float32)]).cpu()
         losses, vlosses = back[:n].numpy(), back[n:2 * n].numpy()
         history["train_loss"].extend(losses.tolist())
         history["valid_loss"].extend(vlosses.tolist())
@@ -513,6 +641,11 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                        patience_remaining=-1)
         best_before = float(back[3 * n])
         epoch += n
+        if checkpoint_dir and checkpoint_every:
+            state.opt_state, state.best = run.opt_state(), run.best
+            state.min_loss = best_before
+            state.patience_remaining = int(back[3 * n + 2])
+            state.save(checkpoint_dir, epoch - 1, model.params)
         if back[3 * n + 1]:
             break
 
