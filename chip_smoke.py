@@ -160,10 +160,31 @@ Phases (any failure raises and exits non-zero):
    stopped after 3 epochs and resumed from its checkpoint against 6
    epochs straight through, on the host loop and on the fused path:
    equal;
+14. single-host scale-out (``gnntf_tpu_torch/parallel``; the card machine
+   has one GPU, so no multi-GPU figure exists): (a) the bench graph cut
+   into 4 parts by the halo and the ring plans, each rank's halo local and
+   remote lists and its 4 ring groups walked at F=40 against their plain
+   versions on the card (``1e-5 * sum|terms|``), with realized values (K2's
+   store mode) and with a lazy draw at keep 0.9 hashed by global edge id
+   (K1's masked walk), each timed beside its bound and ``torch.sparse.mm``
+   of the rank's block, the plans' halo and hub sizes logged (the table a
+   halo exchange fills is built in the process: no collective); (b)
+   ``fit(mesh=make_mesh(1, 1), spmm=s)`` over NCCL at world size 1 for s
+   in None, "halo", "ring", APPNP at its defaults with dropout, 5 epochs,
+   each against ``fit()`` on one device from the same seed (losses within
+   ``rtol=1e-5``, the same best epoch), with each run's launches (counts
+   zeroed just before), its epochs' wall seconds and one epoch's device
+   busy time; (c) ``fit(mesh=, block_epochs=5)`` against (b)'s gspmd run;
+   (d) at Cora's scale (2,708 nodes, 10,556 counted edges) two identical
+   APPNP and GAT runs bit-equal, a profiled step of each with no
+   ``index_add_`` kernel, and the walk over the graph's per-edge lists
+   timed against the ``index_add_`` route it replaced; (e) the process
+   group destroyed;
 13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1 and its
    backward walk with NGCF's launches and an F=16 reading, phases 2 and
-   2d), the card's name and power limit from nvidia-smi, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   2d; K2 and the masked walk with phase 14's per-rank walks and
+   launches), the card's name and power limit from nvidia-smi, and as the
+   last line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import importlib
@@ -551,6 +572,10 @@ def check_blocked_kernel(label, lst, val, x, library=False):
     res = dict(max_abs_err=err,
                ms=time_ms(lambda: blocked_spmm(lst, val, x)),
                plain_ms=time_ms(lambda: blocked_spmm_plain(lst, val, x)))
+    # one call's device time (a profile): the walk, its parts and fix-up
+    rows, busy_us, _, _ = device_profile(lambda: blocked_spmm(lst, val, x))
+    res["device_ms"] = busy_us / 1e3
+    res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
     res["bound_ms"], res["bound_by"], n_bytes = blocked_bound(
         lst, x.shape[1])
     res["library_ms"] = None
@@ -559,13 +584,16 @@ def check_blocked_kernel(label, lst, val, x, library=False):
         rows, src = live_edges(lst)
         n = lst.n_rows
         w = val if lst.eid is None else val[lst.eid.long()]
-        a = torch.sparse_coo_tensor(torch.stack([rows, src]), w, (n, n))
+        a = torch.sparse_coo_tensor(torch.stack([rows, src]), w,
+                                    (n, x.shape[0]))
         a = a.coalesce().to_sparse_csr()
         check_close(f"library CSR product {label}", torch.sparse.mm(a, x),
                     ref, scale)
         res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
-    log(f"K2 {label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
-        f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
+    log(f"K2 {label}: kernel {res['ms']} ms (one call's device time "
+        f"{res['device_ms']} ms: {res['us_by_kernel']} us), plain "
+        f"{res['plain_ms']} ms, library {res['library_ms']} ms, bound "
+        f"{res['bound_ms']} ms "
         f"({res['bound_by']}, {n_bytes} B), edges {lst.n_edges}, units "
         f"{lst.n_units}, split rows {lst.split.shape[0]}, eid "
         f"{'identity' if lst.eid is None else 'read'}, N={lst.n_rows} "
@@ -637,7 +665,8 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     training-grid list against its plain version on the card; times kernel,
     plain version (the hash included) and (``library``) one PyTorch call of
     the same function on the realized values: ``torch.sparse.mm`` of the
-    dropped matrix in CSR, or ``index_add_`` for the degree."""
+    dropped matrix in CSR, or ``index_add_`` for the degree; one call's
+    device time, in all and by kernel (a profile)."""
     from gnntf_tpu_torch.ops import (blocked_spmm_plain, ell_degree_masked,
                                      ell_degree_masked_plain,
                                      ell_gather_masked,
@@ -665,8 +694,9 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     res = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain))
     # one call's device time by kernel: the masked walk's two passes (and
     # its flag's memset), or the degree walk
-    res["us_by_kernel"] = {kernel_name(key): us
-                           for key, us, _ in device_profile(kernel)[0]}
+    rows, busy_us, _, _ = device_profile(kernel)
+    res["device_ms"] = busy_us / 1e3
+    res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
     kept = stochastic.keep_mask(list_eids(lst), draw[0], draw[1], draw[2])
     res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
         lst, kept, None if x is None else x.shape[1])
@@ -690,7 +720,8 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
         f"{lst.split.shape[0]}, tiles {lst.n_tiles} (caps {lst.tile_caps}), "
         f"eid {'identity' if lst.eid is None else 'read'}"
         f", N={lst.n_rows}" + ("" if x is None else f" F={x.shape[1]}")
-        + f"; one call's device us by kernel {res['us_by_kernel']}")
+        + f"; one call's device time {res['device_ms']} ms, by kernel "
+        f"{res['us_by_kernel']} us")
     return res
 
 
@@ -2917,6 +2948,296 @@ def phase_remat_resume(graph, features, dev):
                 resume=resume)
 
 
+# phase 14: single-host scale-out.  The card machine has one GPU, so the
+# per-rank products run in one process over each rank's lists (the table a
+# halo exchange would fill, built in the process) and fit(mesh=) runs over
+# NCCL at world size 1; no multi-GPU figure exists.
+MESH_PARTS = 4
+MESH_KEEP = 0.9
+MESH_EPOCHS = 5
+# Cora's scale: 2,708 nodes, 5,278 undirected edges (10,556 counted)
+CORA_NODES, CORA_EDGES, CORA_CLASSES = 2708, 5278, 7
+
+
+def check_rank_walk(label, lst, val, draw, x):
+    """One rank's walk over ``lst`` against its plain version on the card:
+    K2's store-mode walk with the realized values, or K1's masked walk
+    under ``draw``; timed (CUDA events over back-to-back calls, and one
+    call's device time from a profile) beside ``torch.sparse.mm`` of the
+    rank's block."""
+    if draw is None:
+        return check_blocked_kernel(label, lst, val, x, library=True)
+    return check_masked_kernel(f"masked walk {label}", lst, val, draw, x,
+                               library=True)
+
+
+def phase_mesh_products(graph, dev, x40):
+    """14a: the bench graph cut into MESH_PARTS parts by the halo and the
+    ring plans; each rank's local and remote lists and its ring groups
+    walked at F=40 against their plain versions, with realized values and
+    with a lazy draw (keep MESH_KEEP) hashed by global edge id."""
+    from gnntf_tpu_torch.ops import stochastic
+    from gnntf_tpu_torch.parallel import (build_halo_partition,
+                                          build_ring_partition)
+    from gnntf_tpu_torch.parallel.halo import halo_lists, rank_table
+    from gnntf_tpu_torch.parallel.ring import ring_lists
+
+    t0 = time.perf_counter()
+    halo = build_halo_partition(graph, MESH_PARTS)
+    ring = build_ring_partition(graph, MESH_PARTS)
+    plan_s = time.perf_counter() - t0
+    val = graph.val.to(torch.float32).contiguous()
+    salt = stochastic.device_salt(torch.tensor([0x2545F491, 0x9E3779B9]),
+                                  dev)
+    draw = (salt, MESH_KEEP, graph.n_edges)
+    nr = halo.rows_per_part
+    xp = torch.cat([x40, x40.new_zeros(halo.padded_nodes - N_NODES, 40)])
+    stats = dict(halo_size=halo.halo_size, hub_rows=halo.hub_rows,
+                 halo_bytes_per_device=halo.halo_bytes_per_device,
+                 rows_per_part=nr, plan_seconds=plan_s, ranks=[])
+    walks = []
+    for r in range(MESH_PARTS):
+        t0 = time.perf_counter()
+        local, remote, _, _ = halo_lists(halo, r, dev)
+        groups = ring_lists(ring, r, dev)
+        lists_s = time.perf_counter() - t0
+        own, table = rank_table(halo, x40, r)
+        inputs = [("halo local", local, own), ("halo remote", remote, table)]
+        inputs += [(f"ring step {s}", groups[s], xp[
+            ((r + s) % MESH_PARTS) * nr:((r + s) % MESH_PARTS + 1) * nr])
+            for s in range(MESH_PARTS)]
+        edges = {}
+        for name, lists, x in inputs:
+            edges[name] = 0 if lists is None else lists[0].n_edges
+            if lists is None:
+                continue
+            for mode, d in (("realized", None), ("lazy", draw)):
+                res = check_rank_walk(f"rank {r} {name} ({mode})", lists[0],
+                                      val, d, x.contiguous())
+                walks.append(dict(res, rank=r, list=name, mode=mode,
+                                  edges=lists[0].n_edges))
+        stats["ranks"].append(dict(rank=r, edges=edges,
+                                   list_seconds=lists_s))
+    log(f"mesh partitions at P={MESH_PARTS}: {stats}")
+    return dict(stats=stats, walks=walks)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_epoch_profile(model, tasks, executor):
+    """Device busy and wall microseconds of one epoch's work (the step and
+    the validation forward) under ``executor``."""
+    from gnntf_tpu_torch.train.trainer import _scope, _train_step, keras_adam
+
+    tx = keras_adam(LEARNING_RATE)
+    state = tx.init({k: p.detach() for k, p in model.params.items()})
+    names = list(model.params)
+    deg = torch.tensor(1.0)
+
+    def epoch():
+        with _scope(None, executor):
+            _train_step(model, tasks[0], tasks[0].batch(), 5e-4,
+                        torch.Generator().manual_seed(9), False, names, tx,
+                        state, deg)
+            with torch.no_grad():
+                acts = model.forward(model.features, training=False)
+                tasks[1].loss(acts, tasks[1].batch())
+
+    epoch()
+    rows, busy_us, wall_us, counted = device_profile(epoch)
+    return dict(busy_us=busy_us, wall_us=wall_us, counted=counted)
+
+
+def timed_train(model, tasks, **kw):
+    """``model.train(*tasks, patience=100, seed=0, **kw)`` with the counts
+    zeroed just before and read just after: the history, the counts, and
+    the wall seconds of each epoch (host clock after a synchronize)."""
+    marks = []
+
+    def mark(**_):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = model.train(*tasks, patience=100, seed=0, callbacks=[mark], **kw)
+    counts = launch_counts()
+    return hist, counts, list(np.diff([t0] + marks))
+
+
+def phase_mesh_train(graph, features, dev):
+    """14b and 14c: APPNP at its defaults on the bench graph (dropout on),
+    fit(mesh=make_mesh(1, 1), spmm=s) over NCCL at world size 1 for s in
+    None, "halo", "ring", MESH_EPOCHS epochs, each against fit() on one
+    device from the same seed: losses within FUSED_RTOL, the same best
+    epoch; the launches of each run (counts zeroed just before, read just
+    after), its epochs' wall seconds and one epoch's device busy time.
+    Then fit(mesh=, block_epochs=MESH_EPOCHS) against the host loop's mesh
+    run."""
+    import torch.distributed as dist
+
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.parallel import make_mesh
+    from gnntf_tpu_torch.parallel.dist import executor_for
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        tasks = fused_tasks()
+        runs = {}
+        model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+        single = timed_train(model, tasks, epochs=MESH_EPOCHS)
+        for spmm in (None, "halo", "ring"):
+            hist, counts, walls = timed_train(
+                model, tasks, epochs=MESH_EPOCHS, mesh=mesh, spmm=spmm)
+            name = spmm or "gspmd"
+            for key in ("train_loss", "valid_loss"):
+                if not np.allclose(hist[key], single[0][key],
+                                   rtol=FUSED_RTOL, atol=0):
+                    raise AssertionError(f"fit(mesh, spmm={spmm}) {key} "
+                                         f"{hist[key]} vs one device "
+                                         f"{single[0][key]}")
+            if hist["best_epoch"] != single[0]["best_epoch"]:
+                raise AssertionError(f"fit(mesh, spmm={spmm}): best epoch "
+                                     f"{hist['best_epoch']} vs "
+                                     f"{single[0]['best_epoch']}")
+            for kernel in ("k2", "masked", "degree"):
+                if counts[kernel] == 0:
+                    raise AssertionError(f"fit(mesh, spmm={spmm}) launched "
+                                         f"no {kernel} walk")
+            profile = mesh_epoch_profile(model, tasks,
+                                         executor_for(mesh, spmm))
+            runs[name] = dict(
+                train_loss=hist["train_loss"], valid_loss=hist["valid_loss"],
+                launches=counts, launches_per_epoch={
+                    k: v / MESH_EPOCHS for k, v in counts.items()},
+                epoch_wall_s=walls, epoch_busy_us=profile["busy_us"],
+                epoch_profile_wall_us=profile["wall_us"])
+            log(f"fit(mesh=1x1, spmm={spmm}) over {backend}: losses "
+                f"{hist['train_loss']}, valid {hist['valid_loss']}, best "
+                f"epoch {hist['best_epoch']}; one device: "
+                f"{single[0]['train_loss']}; epoch walls {walls} s; one "
+                f"epoch's device busy {profile['busy_us']} us of "
+                f"{profile['wall_us']} us; launches {counts}")
+        runs["single"] = dict(train_loss=single[0]["train_loss"],
+                              valid_loss=single[0]["valid_loss"],
+                              launches=single[1], epoch_wall_s=single[2])
+        runs["fused"] = mesh_fused(model, tasks, mesh, runs["gspmd"])
+    finally:
+        dist.destroy_process_group()
+    return runs
+
+
+def mesh_fused(model, tasks, mesh, host):
+    """14c: fit(mesh=, block_epochs=MESH_EPOCHS) against the host loop's
+    gspmd run: losses within FUSED_RTOL."""
+    hist, counts, walls = timed_train(model, tasks, epochs=MESH_EPOCHS,
+                                      mesh=mesh, block_epochs=MESH_EPOCHS)
+    for key in ("train_loss", "valid_loss"):
+        if not np.allclose(hist[key], host[key], rtol=FUSED_RTOL, atol=0):
+            raise AssertionError(f"fused fit(mesh) {key} {hist[key]} vs the "
+                                 f"host loop's {host[key]}")
+    log(f"fused fit(mesh=1x1, block_epochs={MESH_EPOCHS}): losses "
+        f"{hist['train_loss']}, block wall {sum(walls)} s, launches {counts}")
+    return dict(train_loss=hist["train_loss"], launches=counts,
+                block_wall_s=sum(walls))
+
+
+def mesh_entry(products, train, mode, key):
+    """A ``kernels`` entry's phase 14 part: each rank's walks at
+    P=MESH_PARTS (``mode``: realized or lazy) and the launches (``key``)
+    of each executor's fit(mesh=) run at world size 1."""
+    fields = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")
+    return dict(
+        parts=MESH_PARTS, world_size=1,
+        walks=[dict(rank=w["rank"], list=w["list"], edges=w["edges"],
+                    **{k: w[k] for k in fields})
+               for w in products["walks"] if w["mode"] == mode],
+        launches={name: train[name]["launches"][key]
+                  for name in ("gspmd", "halo", "ring")},
+        fused_launches=train["fused"]["launches"][key])
+
+
+def phase_small_graphs(dev):
+    """14d: F7 on the card.  At Cora's scale two identical runs of APPNP
+    and of GAT (5 epochs, every dropout on) are bit-equal, and a profiled
+    step of each launches no index_add_ kernel; K2's walk over the graph's
+    lists (``spmm_segment`` on a card) timed against the index_add_ route it
+    replaced, with CUDA events over back-to-back calls and with one call's
+    device time from a profile."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops.blocked import blocked_layout
+
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, CORA_NODES, CORA_EDGES)
+    dst = rng.randint(0, CORA_NODES, CORA_EDGES)
+    graph = tt.from_edges(src, dst, n_nodes=CORA_NODES, directed=False,
+                          device=dev)
+    features = rng.rand(CORA_NODES, 64).astype(np.float32)
+    labels = rng.randint(0, CORA_CLASSES, CORA_NODES)
+    tasks = (tt.NodeClassification(np.arange(140), labels[:140]),
+             tt.NodeClassification(np.arange(200, 700), labels[200:700]))
+    out = dict(edges=graph.n_edges)
+    for name in ("APPNP", "GAT"):
+        runs = []
+        for _ in range(2):
+            model = getattr(tt, name)(graph, features,
+                                      num_classes=CORA_CLASSES, device=dev)
+            hist = model.train(*tasks, epochs=5, seed=1)
+            runs.append((hist, {k: p.detach().cpu()
+                                for k, p in model.params.items()}))
+        equal = runs[0][0] == runs[1][0] and same_params(runs[0][1],
+                                                         runs[1][1])
+        step = step_fn(model, tasks[0])
+        profile = profile_step(step)
+        log(f"{name} at Cora's scale: two runs bit-equal {equal}; step "
+            f"profile: {profile['index_add_launches']} index_add_ launches")
+        if not equal:
+            raise AssertionError(f"two identical {name} runs differ")
+        if profile["index_add_launches"]:
+            raise AssertionError(f"a {name} step at Cora's scale launches "
+                                 "index_add_")
+        out[name] = dict(losses=runs[0][0]["train_loss"],
+                         step_busy_us=profile["busy_us"],
+                         step_wall_us=profile["wall_us"],
+                         step_ms=time_ms(step, reps=10))
+    adj = tt.normalize_adjacency(graph)
+    prep = blocked_layout(adj)
+    val = adj.val.to(torch.float32).contiguous()
+    row, col = adj.row, adj.col
+    for f in (CORA_CLASSES, 64):
+        x = torch.randn(CORA_NODES, f, device=dev)
+        walk = check_blocked_kernel(f"Cora-scale walk F={f}", prep.forward,
+                                    val, x, library=True)
+        walk_t = check_blocked_kernel(f"Cora-scale walk A^T F={f}",
+                                      prep.transposed, val, x, library=True)
+        routes = {}
+        for name, dst, src in (("index_add", row, col),
+                               ("index_add_t", col, row)):
+            call = lambda dst=dst, src=src: torch.zeros_like(x).index_add_(
+                0, dst, x[src] * val[:, None])
+            routes[f"{name}_ms"] = time_ms(call)
+            routes[f"{name}_device_ms"] = device_profile(call)[1] / 1e3
+        log(f"Cora scale F={f}: walk {walk['ms']} ms, one call's device "
+            f"time {walk['device_ms']} ms (A^T {walk_t['ms']} ms, "
+            f"{walk_t['device_ms']} ms); index_add_ route "
+            f"{routes['index_add_ms']} ms, device "
+            f"{routes['index_add_device_ms']} ms (A^T "
+            f"{routes['index_add_t_ms']} ms, "
+            f"{routes['index_add_t_device_ms']} ms)")
+        out[f"F{f}"] = dict(walk=walk, walk_t=walk_t, **routes)
+    return out
+
+
 def kernel_launches(gcnii, gcn, key):
     """A kernel's launches (its wrapper's count) a GCNII-64 serving forward
     and an epoch of GCNII-64's and of GCN's training."""
@@ -3190,6 +3511,22 @@ def main(dev=None):
         raise AssertionError(f"{stochastic.train_grids.builds} grid builds "
                              f"over the run, expected {builds}")
 
+    # 14. single-host scale-out: the per-rank walks at P=4, fit(mesh=) over
+    # NCCL at world size 1 (the card machine has one GPU), fused on the
+    # mesh, and small graphs (F7)
+    t0 = time.perf_counter()
+    mesh_products = phase_mesh_products(graph, dev, x40)
+    seconds["14a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_train = phase_mesh_train(graph, features, dev)
+    seconds["14bc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = phase_small_graphs(dev)
+    seconds["14d"] = time.perf_counter() - t0
+    log("scale-out summary: " + json.dumps(dict(
+        products=mesh_products, train=mesh_train, small_graphs=small)))
+    log(f"phase seconds with 14: {seconds}")
+
     # 13. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
@@ -3244,6 +3581,13 @@ def main(dev=None):
               "fused": fused_launches(fused_k2, "blocked_spmm_walk", "k2"),
               **kernel_launches(gcnii, gcn, "k2"),
               "small": k2["small"],
+              "mesh": mesh_entry(mesh_products, mesh_train, "realized",
+                                 "k2"),
+              "small_graphs": {f: dict(
+                  small[f]["walk"], transposed=small[f]["walk_t"],
+                  index_add_ms=small[f]["index_add_ms"],
+                  index_add_device_ms=small[f]["index_add_device_ms"])
+                  for f in (f"F{CORA_CLASSES}", "F64")},
               "transposed": dict(k2["train_t"], shape="A^T, F=40",
                                  bench_width=dict(k2["bench_t"],
                                                   shape="A^T, F=128"),
@@ -3264,7 +3608,9 @@ def main(dev=None):
               "backward": dict(masked["backward"], shape="column list, F=40",
                                bench_width=dict(masked["backward_bench"],
                                                 shape="F=128")),
-              "small": masked["small"], "lists": lists}
+              "small": masked["small"], "lists": lists,
+              "mesh": mesh_entry(mesh_products, mesh_train, "lazy",
+                                 "masked")}
     entry4 = {"name": "ell_degree_masked", "route": "cuda",
               "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
               "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",

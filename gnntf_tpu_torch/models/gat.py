@@ -45,7 +45,7 @@ class GATLayer(Layer):
         return (n, width)
 
     def apply(self, fw: Forward, x):
-        graph: Graph = fw.net.graph
+        graph: Graph = fw.graph
         if graph.scaled or graph.eye_weight != 0.0:
             # attention reads the raw structure: fold any lazy normalization
             # so that appended self-loops appear as real entries

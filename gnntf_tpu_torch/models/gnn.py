@@ -9,7 +9,7 @@ import torch
 from ..graph.coo import Graph
 from ..nn.core import Forward, Layer, Network
 from ..ops.normalize import normalize_adjacency
-from ..ops.spmm import current_impl, prepare, spmm
+from ..ops.spmm import current_executor, current_impl, prepare, spmm
 from ..train.trainer import Trainable
 from .layers import l2_normalize
 
@@ -49,8 +49,10 @@ class GNN(Trainable):
 
     def operator(self, graph: Graph) -> Callable[[torch.Tensor], torch.Tensor]:
         """The cached ``x -> graph @ x`` when ``graph`` is one of the cached
-        adjacencies of the implementation in force, else the dispatching
-        ``spmm``."""
+        adjacencies of the implementation in force and no executor override
+        is in force, else the dispatching ``spmm``."""
+        if current_executor() is not None:
+            return lambda x: spmm(graph, x)
         impl = current_impl()
         for (_, _, key_impl), (cached, op) in self._adjacency.items():
             if cached is graph and key_impl == impl:

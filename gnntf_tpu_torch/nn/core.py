@@ -247,13 +247,17 @@ class Forward:
     """Per-call forward context: the mode, the random state and each
     layer's output."""
 
-    __slots__ = ("net", "training", "acts", "extra_losses", "_generator",
-                 "_layer_generator", "_tape")
+    __slots__ = ("net", "training", "acts", "extra_losses", "graph",
+                 "_generator", "_layer_generator", "_tape")
 
-    def __init__(self, net: "Network", training: bool, generator=None):
+    def __init__(self, net: "Network", training: bool, generator=None,
+                 graph=None):
         """``generator``: the step's CPU generator, or a :class:`DrawTape`
-        (the fused trainer's)."""
+        (the fused trainer's).  ``graph`` overrides the model's adjacency
+        for this forward."""
         self.net = net
+        self.graph = graph if graph is not None \
+            else getattr(net, "graph", None)
         self.training = bool(training)
         self.acts: List[torch.Tensor] = []
         self.extra_losses: List[torch.Tensor] = []
@@ -342,17 +346,20 @@ class Forward:
         """The normalized adjacency (reference GNN.get_adjacency,
         gnn.py:36-50): in training with ``graph_dropout``, a fresh edge
         dropout renormalized after the draw; otherwise the model's cached
-        one."""
-        if not hasattr(self.net, "adjacency"):
+        one (for a ``graph`` override, its normalization)."""
+        if self.graph is None:
             raise ValueError("adjacency() requires a graph-bearing model (GNN)")
+        from ..ops.normalize import normalize_adjacency
         if self.training and graph_dropout != 0.0:
-            from ..ops.normalize import normalize_adjacency
             return normalize_adjacency(
-                self.net.graph, graph_dropout=graph_dropout,
+                self.graph, graph_dropout=graph_dropout,
                 normalized=normalized, add_eye=add_eye,
                 generator=(self._tape if self._tape is not None
                            else self.next_generator()))
-        return self.net.adjacency(normalized, add_eye)
+        if self.graph is getattr(self.net, "graph", None):
+            return self.net.adjacency(normalized, add_eye)
+        return normalize_adjacency(self.graph, graph_dropout=0.0,
+                                   normalized=normalized, add_eye=add_eye)
 
     def spmm(self, graph, x: torch.Tensor) -> torch.Tensor:
         """``graph @ x`` through the model's prepared operator for it."""
@@ -439,17 +446,18 @@ class Network(nn.Module):
 
     def forward(self, x: torch.Tensor, *, training: bool = False,
                 generator=None, return_ctx: bool = False,
-                remat: bool = False):
+                remat: bool = False, graph=None):
         """Sequential forward fold (layered.py:52-55).  ``generator`` is the
         step's CPU generator (or a :class:`DrawTape`), needed when
-        ``training`` draws dropout.
+        ``training`` draws dropout.  ``graph`` overrides the model-bound
+        adjacency for this forward (the JAX package's ``apply(graph=)``).
 
         ``remat=True`` runs each layer under ``torch.utils.checkpoint``: the
         backward recomputes the layer's internals instead of keeping them.
         The recompute starts from the layer's :meth:`Forward.draw_point`, so
         it draws the same masks and salts as the forward did.  A layer that
         calls :meth:`Forward.add_loss` raises ``ValueError``."""
-        fw = Forward(self, training, generator)
+        fw = Forward(self, training, generator, graph)
         h = x
         for layer in self._layers:
             fw.begin_layer()

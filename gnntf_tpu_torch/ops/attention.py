@@ -11,8 +11,10 @@ together with the draw's two salts (:func:`_attn_keep_scale`, bit-equal to
 the JAX package's), so every path realizes the same mask.
 
 Small graphs (below ``stochastic.min_edges()`` edges, so
-``min_edges_scope`` moves the gate) take the segment form in plain torch.
-Larger ones take two lists on the device, built once per structure
+``min_edges_scope`` moves the gate) on the CPU take the segment form in
+plain torch, whose gathers sum their backward in a fixed order
+(``segment.gather_rows``).  Larger ones, and every graph on a card (where
+the segment form would scatter with atomics), take two lists on the device, built once per structure
 (:func:`attn_lists`): the row list (each destination's slots) and the
 column list (each source's), each stably sorted by its row, which is the
 order of the JAX package's attention grids flattened row by row at any
@@ -55,7 +57,7 @@ from ..graph.coo import Graph
 from ..utils import kernels
 from ..utils.idcache import IdLRU, sizeof
 from .blocked import EdgeList, list_rows, ordered_row_sums, row_ptr
-from .segment import segment_softmax
+from .segment import gather_rows, segment_softmax
 from .stochastic import (_MASK32, _fmix32, _salts, _threshold, device_salt,
                          min_edges)
 
@@ -239,7 +241,7 @@ def gat_attention(graph: Graph, h: torch.Tensor, s_src: torch.Tensor,
     signature."""
     if not (attn_dropout and salt is not None):
         salt = None
-    if _grid_eligible(graph):
+    if _grid_eligible(graph) or h.device.type == "cuda":
         return _gat_attention_ell(graph, h, s_src, s_dst,
                                   negative_slope=negative_slope,
                                   attn_dropout=attn_dropout, salt=salt)
@@ -251,16 +253,18 @@ def gat_attention(graph: Graph, h: torch.Tensor, s_src: torch.Tensor,
 
 def _gat_attention_segment(graph, h, s_src, s_dst, *, negative_slope,
                            attn_dropout, salt, sorted_by_row):
-    """The chain over the edge list in plain torch (small graphs)."""
+    """The chain over the edge list in plain torch (small graphs on the
+    CPU), every gather's backward summed in a fixed order."""
     row, col = graph.row, graph.col
     n, h_cnt, f = h.shape
-    scores = F.leaky_relu(s_src[col] + s_dst[row], negative_slope)
+    scores = F.leaky_relu(gather_rows(s_src, col) + gather_rows(s_dst, row),
+                          negative_slope)
     alpha = segment_softmax(scores, row, n, indices_are_sorted=sorted_by_row)
     if attn_dropout and salt is not None:
         eids = torch.arange(alpha.shape[0], device=alpha.device)
         alpha = alpha * _attn_keep_scale(eids, salt, h_cnt,
                                          1.0 - attn_dropout, alpha.dtype)
-    msgs = h[col] * alpha[:, :, None].to(h.dtype)
+    msgs = gather_rows(h, col) * alpha[:, :, None].to(h.dtype)
     out = torch.zeros(n, h_cnt * f, dtype=msgs.dtype, device=msgs.device)
     out = out.index_add(0, row, msgs.reshape(msgs.shape[0], h_cnt * f))
     return out.reshape(n, h_cnt, f)

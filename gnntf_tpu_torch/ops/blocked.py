@@ -307,15 +307,18 @@ class EdgeList:
     seg_end: Optional[torch.Tensor] = None    # (S,) int32
     seg_out: Optional[torch.Tensor] = None    # (S,) int32
     tile_caps: tuple = (0, 0)  # most edges and segments of a tile
+    n_x: Optional[int] = None     # x rows read; None: n_rows
+    n_ids: Optional[int] = None   # values read through eid; None: n_edges
 
     @classmethod
     def build(cls, ptr, idx, eid, device, rows=None, items=None,
-              tile_items=None):
+              tile_items=None, n_x=None, n_ids=None):
         """The list on ``device``, cut into units of ``items`` items
         (default ``_UNIT_ITEMS``), its split rows summed in
         ``_FIXUP_PARTS`` parts, with tiles of ``tile_items`` items for the
         dropout walks (:func:`drop_tiles`; none without ``tile_items``);
-        ``eid`` None means the identity."""
+        ``eid`` None means the identity.  ``n_x`` and ``n_ids`` give the
+        rows of ``x`` and the values a non-square list reads."""
         if len(idx) >= 2**31 - 1:
             raise ValueError(f"{len(idx)} edges exceed the walk's int32 "
                              "indices")
@@ -324,7 +327,8 @@ class EdgeList:
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 device)
 
-        identity = eid is None or np.array_equal(eid, np.arange(len(eid)))
+        identity = (eid is None or np.array_equal(
+            eid, np.arange(len(eid)))) and n_ids in (None, len(idx))
         units = work_units(ptr, _UNIT_ITEMS if items is None else items)
         parts = _FIXUP_PARTS
         tiles = {}
@@ -337,7 +341,8 @@ class EdgeList:
         return cls(put(ptr), put(idx), None if identity else put(eid),
                    *(put(a) for a in units),
                    put(part_items(units[2], parts)), parts,
-                   rows=None if rows is None else put(rows), **tiles)
+                   rows=None if rows is None else put(rows), **tiles,
+                   n_x=n_x, n_ids=n_ids)
 
     @property
     def n_rows(self) -> int:
@@ -346,6 +351,16 @@ class EdgeList:
     @property
     def n_edges(self) -> int:
         return int(self.idx.shape[0])
+
+    @property
+    def n_in(self) -> int:
+        """The rows of ``x`` the list reads."""
+        return self.n_rows if self.n_x is None else self.n_x
+
+    @property
+    def n_values(self) -> int:
+        """The values the list reads through ``eid``."""
+        return self.n_edges if self.n_ids is None else self.n_ids
 
     @property
     def n_units(self) -> int:
@@ -474,18 +489,18 @@ def ordered_row_sums(lst: EdgeList, terms: torch.Tensor) -> torch.Tensor:
 
 
 def check(what, lst, val, x, base=None):
-    """Raise unless the walk can take these inputs: ``x`` (N, F) float32
-    (any number of rows where the list adds into a ``base``), ``val`` one
-    float32 an edge, a ``base`` (M, F) float32 apart from ``x`` (the kernel
-    reads ``x`` while it writes ``base``), all contiguous and on the list's
-    device."""
-    n = lst.n_rows
+    """Raise unless the walk can take these inputs: ``x`` (``n_in``, F)
+    float32 (any number of rows where the list adds into a ``base``),
+    ``val`` ``n_values`` float32, a ``base`` (M, F) float32 apart from
+    ``x`` (the kernel reads ``x`` while it writes ``base``), all contiguous
+    and on the list's device."""
+    n = lst.n_in
     if x.dim() != 2 or x.dtype != torch.float32 or (
             base is None and x.shape[0] != n):
         raise TypeError(f"{what}: x must be ({n}, F) float32, got "
                         f"{tuple(x.shape)} {x.dtype}")
-    if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
-        raise TypeError(f"{what}: values must be ({lst.n_edges},) float32, "
+    if val.shape != (lst.n_values,) or val.dtype != torch.float32:
+        raise TypeError(f"{what}: values must be ({lst.n_values},) float32, "
                         f"got {tuple(val.shape)} {val.dtype}")
     tensors = [val, x]
     if base is not None:
@@ -641,8 +656,10 @@ class _BlockedSpMMFn(torch.autograd.Function):
 _BLOCK_CACHE = IdLRU()
 
 
-def _blocked_layout(graph: Graph, window: int, tile: int,
-                    block_edges: int) -> BlockedSpMM:
+def blocked_layout(graph: Graph, window: int = 256, tile: int = 256,
+                   block_edges: int = 1024) -> BlockedSpMM:
+    """K2's layout of ``graph``'s structure and its forward and transposed
+    lists on the graph's device, built once (``_BLOCK_CACHE``)."""
     key = (id(graph.row), id(graph.col), graph.n_nodes, window, tile,
            block_edges)
     anchors = (graph.row, graph.col)
@@ -670,5 +687,5 @@ def spmm_pallas(graph: Graph, x: torch.Tensor, *, window: int = 256,
             spmm_pallas, window=window, tile=tile, block_edges=block_edges),
             graph, x)
     graph = graph.materialized_dropout()
-    prep = _blocked_layout(graph, window, tile, block_edges)
+    prep = blocked_layout(graph, window, tile, block_edges)
     return _BlockedSpMMFn.apply(graph.val, x, prep, graph.row, graph.col)

@@ -183,6 +183,30 @@ ell_gather.launches = 0
 ell_gather.backward_launches = 0
 
 
+def pair_lists(dst, src, eid, n_out: int, n_in: int, device,
+               n_ids: Optional[int] = None):
+    """The lists of the edges ``src -> dst`` (numpy) on ``device``, for the
+    store-mode and the masked walks (units of ``_DROP_ITEMS`` items, tiles
+    of ``_TILE_ITEMS``): the forward list, one stable sort of the edges by
+    (dst, src), ``ptr`` over ``n_out`` rows and ``idx`` the sources; the
+    transposed list, one stable sort by (src, dst), ``ptr`` over ``n_in``
+    rows and ``idx`` the destinations.  Each edge keeps its id ``eid``
+    (None: its position), through which the walks read the values
+    (``n_ids`` of them; None: one an edge) and hash the dropout mask."""
+    dst = np.asarray(dst, np.int64)
+    src = np.asarray(src, np.int64)
+    eid = np.arange(len(dst)) if eid is None else np.asarray(eid, np.int64)
+
+    def one(r, c, n_r, n_c):
+        order = np.lexsort((c, r))
+        return EdgeList.build(blocked.row_ptr(r[order], n_r), c[order],
+                              eid[order], device, items=_DROP_ITEMS,
+                              tile_items=_TILE_ITEMS,
+                              n_x=n_c, n_ids=n_ids)
+
+    return one(dst, src, n_out, n_in), one(src, dst, n_in, n_out)
+
+
 def ell_transposed_list(lst: EdgeList, n_in: int) -> EdgeList:
     """The transposed list of K1's list ``lst`` on its device: its live
     slots stable-sorted by source (so by (source, output row, slot), as
@@ -234,8 +258,8 @@ def _check_masked(what, lst, val):
     if lst.tile_seg is None:
         raise ValueError(f"{what} walks a list built with tiles "
                          "(EdgeList.build(tile_items=...))")
-    if val.shape != (lst.n_edges,) or val.dtype != torch.float32:
-        raise TypeError(f"{what}: values must be ({lst.n_edges},) float32, "
+    if val.shape != (lst.n_values,) or val.dtype != torch.float32:
+        raise TypeError(f"{what}: values must be ({lst.n_values},) float32, "
                         f"one an edge id, got {tuple(val.shape)} {val.dtype}")
     if val.device != lst.device:
         raise ValueError(f"{what} inputs span devices {val.device} and "

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..graph.coo import Graph, add_self_loops
+from .spmm import edge_degree
 from .stochastic import (draw_salt, draw_uniform, grids_eligible,
                          stochastic_degree)
 
@@ -31,15 +32,13 @@ def _degree(graph: Graph, by: str = "col") -> torch.Tensor:
     A lazily dropped graph at or above ``min_edges()`` edges takes the
     degree walk over its training grids' column (or row) list, as the JAX
     package takes its grid reduction; below, the materialized dropped values
-    are summed with ``index_add_``.  A lazy ``eye_weight`` adds to every
+    are summed by ``spmm.edge_degree`` (below 65,536 edges on a card the
+    store-mode walk, no atomics).  A lazy ``eye_weight`` adds to every
     degree."""
     if graph.dropped and grids_eligible(graph):
         deg = stochastic_degree(graph, by=by)
     else:
-        g = graph.materialized_dropout()
-        idx = g.col if by == "col" else g.row
-        deg = torch.zeros(g.n_nodes, dtype=g.val.dtype, device=g.device)
-        deg.index_add_(0, idx, g.val)
+        deg = edge_degree(graph.materialized_dropout(), by=by)
     if graph.eye_weight != 0.0:
         deg = deg + graph.eye_weight
     return deg

@@ -1,7 +1,11 @@
 """Sparse matrix x dense matrix products (SpMM), SDDMM and the dispatcher.
 
-* ``spmm_segment`` — gather + ``index_add_``: the plain reference,
-  differentiable through autograd.
+* ``spmm_segment`` — on the CPU gather + ``index_add_``, the plain
+  reference, the gather's backward summing in a fixed order.  On a card,
+  at any size, it is ``spmm_pallas`` (K2's store-mode walk forward and
+  transposed), never a scatter with atomics: ``auto`` sends every fixed or
+  eagerly dropped graph below ``_ELL_MIN_EDGES`` edges to it, so that a
+  small graph's run repeats bit for bit.
 * ``spmm_ell`` / ``spmm_hybrid`` — the per-call forms: the layout (ELL, or
   the rest ELL beside a dense hub slice) and K1's list are built once per
   structure; each call routes the edge values into K1's list values (and
@@ -45,9 +49,10 @@ import torch
 
 from ..graph.coo import Graph
 from ..utils.idcache import IdLRU, sizeof
-from .blocked import spmm_pallas
+from .blocked import blocked_layout, blocked_spmm, spmm_pallas
 from .ell_gather import (ell_edge_list, ell_gather_list,
                          ell_gather_transposed, ell_transposed_list)
+from .segment import gather_rows
 
 _IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
 _ELL_MIN_EDGES = 65_536
@@ -115,6 +120,11 @@ def set_spmm_impl(name: str) -> None:
     _SPMM_IMPL_DEFAULT = name
 
 
+def current_executor():
+    """The executor override in force here, or None."""
+    return _SPMM_EXECUTOR_VAR.get()
+
+
 def current_impl() -> str:
     """The SpMM implementation in force here."""
     return _SPMM_IMPL_VAR.get() or _SPMM_IMPL_DEFAULT
@@ -139,13 +149,42 @@ def _scaled_call(fn, graph: Graph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """out[i, :] = sum_e{row[e]=i} val[e] * x[col[e], :]  (out = A @ X)."""
+    """out[i, :] = sum_e{row[e]=i} val[e] * x[col[e], :]  (out = A @ X).
+
+    On the CPU the gather and ``index_add_`` in plain torch, the gather's
+    backward an ``index_add_`` in index order (``segment.gather_rows``;
+    autograd's backward of ``x[col]`` sums in no fixed order); on a card
+    :func:`spmm_pallas`, K2's store-mode walk (its layout built once per
+    structure).  Differentiable in ``x`` and in the values."""
     if graph.scaled or graph.eye_weight != 0.0:
         return _scaled_call(spmm_segment, graph, x)
     graph = graph.materialized_dropout()
-    gathered = x[graph.col] * graph.val[:, None].to(x.dtype)
+    if x.device.type == "cuda":
+        return spmm_pallas(graph, x)
+    gathered = gather_rows(x, graph.col) * graph.val[:, None].to(x.dtype)
     out = x.new_zeros(graph.n_nodes, x.shape[1])
     return out.index_add_(0, graph.row, gathered)
+
+
+def edge_degree(graph: Graph, by: str = "col") -> torch.Tensor:
+    """The column sums (``by='col'``) or row sums of ``graph``'s values as
+    an (N,) tensor: below ``_ELL_MIN_EDGES`` edges on a card K2's
+    store-mode walk over the transposed (or forward) list of
+    :func:`spmm_pallas`'s layout with a column of ones, never a scatter with
+    atomics; elsewhere ``index_add_`` (in index order on the CPU; on a card
+    a larger fixed graph's degrees are summed once, when its normalized
+    adjacency is built)."""
+    if graph.device.type != "cuda" or graph.n_edges >= _ELL_MIN_EDGES:
+        idx = graph.col if by == "col" else graph.row
+        deg = torch.zeros(graph.n_nodes, dtype=graph.val.dtype,
+                          device=graph.device)
+        return deg.index_add_(0, idx, graph.val)
+    prep = blocked_layout(graph)
+    ones = torch.ones(graph.n_nodes, 1, dtype=torch.float32,
+                      device=graph.device)
+    return blocked_spmm(prep.transposed if by == "col" else prep.forward,
+                        graph.val.to(torch.float32).contiguous(),
+                        ones)[:, 0].to(graph.val.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -551,10 +590,11 @@ def prepare(graph: Graph, impl: Optional[str] = None
     """The operator ``x -> A @ x`` that :func:`spmm` applies to the fixed
     (undropped) ``graph`` under ``impl`` (default: the one in force), built
     once so a caller holding a fixed adjacency can reuse it: ``pallas`` runs
-    K2; ``segment`` the plain product; ``ell`` the per-call
-    :func:`spmm_ell`; ``auto``/``hybrid`` a :class:`PreparedSpMM` with the
-    scales folded in at or above ``_ELL_MIN_EDGES`` edges, below it the
-    plain product (``auto``) or the per-call :func:`spmm_hybrid`."""
+    K2; ``segment`` :func:`spmm_segment` (the plain product on the CPU, K2
+    on a card); ``ell`` the per-call :func:`spmm_ell`; ``auto``/``hybrid``
+    a :class:`PreparedSpMM` with the scales folded in at or above
+    ``_ELL_MIN_EDGES`` edges, below it :func:`spmm_segment` (``auto``) or
+    the per-call :func:`spmm_hybrid`."""
     impl = current_impl() if impl is None else impl
     if impl not in _IMPL_NAMES:
         raise ValueError(impl)

@@ -27,9 +27,15 @@ same epoch runs eagerly.
 the early-stopping state (``utils/checkpoint.py``) on both paths;
 ``fit(remat=True)`` recomputes each layer in the backward
 (``Network.forward``).
+
+``fit(mesh=, spmm=)`` trains on every rank of a mesh (``parallel/``): the
+model is replicated, and every SpMM of the step and of the evaluation goes
+through the mesh's executor (``spmm`` None or ``"gspmd"``, ``"halo"``,
+``"ring"``), scoped around each call.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -37,7 +43,7 @@ import torch
 
 from .. import measures
 from ..nn.core import DrawTape, Network
-from ..ops.spmm import _IMPL_NAMES, spmm_impl as _impl_scope
+from ..ops.spmm import _IMPL_NAMES, spmm_executor, spmm_impl as _impl_scope
 from ..tasks.base import Predictor
 from ..utils.device import resolve_device
 
@@ -166,16 +172,19 @@ def _fold_in(seed: int, index: int) -> int:
         1, np.uint64)[0])
 
 
-def _unported(**options):
-    """Raise for the options of the JAX package's ``fit`` that the port
-    does not have yet (ROADMAP.md, queue 1)."""
-    where = {"mesh": "item 12 (scale-out)",
-             "spmm": "item 12 (scale-out executors)"}
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet: ROADMAP.md queue 1, "
-                f"{where[name]}")
+_EXECUTORS = (None, "gspmd", "halo", "ring")
+
+
+@contextlib.contextmanager
+def _scope(spmm_impl: Optional[str], executor=None):
+    """The SpMM implementation, and with a mesh its executor, in force for
+    one step or evaluation."""
+    with _impl_scope(spmm_impl):
+        if executor is None:
+            yield
+        else:
+            with spmm_executor(executor):
+                yield
 
 
 def _total_loss(model: Trainable, task: Predictor, batch, regularization,
@@ -185,6 +194,28 @@ def _total_loss(model: Trainable, task: Predictor, batch, regularization,
     loss = task.loss(out, batch, params=model.params)
     loss = loss + model.layer_losses(fw)
     return loss + regularization * model.weight_l2()
+
+
+def _train_step(model: Trainable, task: Predictor, batch, regularization,
+                generator, remat, names, tx, opt_state, deg):
+    """One step of the host loop: the training forward and loss, the
+    gradients of ``loss * deg`` (frozen parameters get zeros, so their
+    moments stay zero) and the optimizer's update of ``model.params`` in
+    place; returns the new optimizer state and the loss."""
+    params = model.params
+    loss = _total_loss(model, task, batch, regularization, generator, remat)
+    found = dict(zip(names, torch.autograd.grad(
+        loss, [params[k] for k in names], allow_unused=True)))
+    # gradient of loss * degradation(epoch) (trainable.py:78)
+    grads = {}
+    for k, p in params.items():
+        g = found.get(k)
+        grads[k] = torch.zeros_like(p) if g is None else g * deg.to(g.device)
+    updates, opt_state = tx.update(grads, opt_state)
+    with torch.no_grad():
+        for k, u in updates.items():
+            params[k].add_(u)
+    return opt_state, loss
 
 
 def _like(template, restored):
@@ -288,8 +319,16 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     validation task and a static or stackable (``supports_stacking``)
     training task takes the fused path (:func:`_fit_fused`), as in the JAX
     package; its history holds every epoch of the last block and
-    ``epochs_run`` counts them."""
-    _unported(mesh=mesh is not None, spmm=spmm is not None)
+    ``epochs_run`` counts them.  A sampled task stacks only without a mesh.
+
+    ``mesh`` (``parallel.make_mesh``, inside an initialized process group)
+    runs every SpMM through the executor that ``spmm`` names: None or
+    ``"gspmd"`` the edge-sharded partials, ``"halo"`` or ``"ring"`` the
+    row-block exchanges; ``spmm`` is ignored without a mesh.  Every rank
+    trains the same replicated model from the same seed."""
+    if spmm not in _EXECUTORS:
+        raise ValueError(f"spmm executor must be None, 'gspmd', 'halo' or "
+                         f"'ring', got {spmm!r}")
     if spmm_impl is not None and spmm_impl not in _IMPL_NAMES:
         raise ValueError(f"spmm_impl must be one of {_IMPL_NAMES}, "
                          f"got {spmm_impl!r}")
@@ -304,12 +343,17 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
         valid = train  # trainable.py:58-59
     trainable = model.trainable_mask()
     names = [k for k in params if trainable.get(k, True)]
+    executor = None
+    if mesh is not None:
+        from ..parallel.dist import executor_for, place_state
+        place_state(model, mesh)
+        executor = executor_for(mesh, spmm)
     run = _RunState(model, tx, patience,
                     measures.next_seed() if seed is None else seed + 1)
     if checkpoint_dir and resume:
         run.restore(model, checkpoint_dir)
     history = run.history
-    train_stackable = (not train.static
+    train_stackable = (not train.static and mesh is None
                        and getattr(train, "supports_stacking", False))
     if (block_epochs > 1 and batches == 1 and not verbose
             and (train.static or train_stackable) and valid.static):
@@ -319,7 +363,7 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
             degradation=degradation, block_epochs=block_epochs,
             regularization=regularization, callbacks=callbacks,
             spmm_impl=spmm_impl, remat=remat, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every)
+            checkpoint_every=checkpoint_every, executor=executor)
     stop = False
     epoch = run.start_epoch
     while epoch < epochs and not stop:
@@ -330,26 +374,14 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
             batch = train.batch()
             generator = torch.Generator().manual_seed(
                 _fold_in(run.rng_seed, epoch * batches + b))
-            with _impl_scope(spmm_impl):
-                loss = _total_loss(model, train, batch, regularization,
-                                   generator, remat)
-                found = dict(zip(names, torch.autograd.grad(
-                    loss, [params[k] for k in names], allow_unused=True)))
-            # gradient of loss * degradation(epoch) (trainable.py:78); frozen
-            # parameters get zero gradients, so their moments stay zero
-            grads = {}
-            for k, p in params.items():
-                g = found.get(k)
-                grads[k] = torch.zeros_like(p) if g is None \
-                    else g * deg.to(g.device)
-            updates, run.opt_state = tx.update(grads, run.opt_state)
-            with torch.no_grad():
-                for k, u in updates.items():
-                    params[k].add_(u)
+            with _scope(spmm_impl, executor):
+                run.opt_state, loss = _train_step(
+                    model, train, batch, regularization, generator, remat,
+                    names, tx, run.opt_state, deg)
             epoch_loss += loss.item()
 
         # clean validation forward (dropout off), trainable.py:83
-        with torch.no_grad(), _impl_scope(spmm_impl):
+        with torch.no_grad(), _scope(spmm_impl, executor):
             acts = model.forward(model.features, training=False)
             valid.refresh()
             valid_loss = float(valid.loss(acts, valid.batch(), params=params))
@@ -424,7 +456,7 @@ class _FusedEpoch:
 
     def __init__(self, model, train, valid, tx, names, run: _RunState, *,
                  stacked, regularization, patience, block_epochs, spmm_impl,
-                 remat):
+                 remat, executor=None):
         device = model.device
         self.model, self.tx, self.names = model, tx, names
         self.train_task, self.valid_task = train, valid
@@ -436,6 +468,7 @@ class _FusedEpoch:
         self.valid_batch = _on(valid.batch(), device)
         self.regularization, self.patience = regularization, patience
         self.spmm_impl, self.remat = spmm_impl, remat
+        self.executor = executor
         self.adam = isinstance(tx, KerasAdam)
         self.state = run.opt_state
         self.best = {k: p.clone() for k, p in run.best.items()}
@@ -469,7 +502,7 @@ class _FusedEpoch:
         stopped = self.stopped
         if not self.tape.recording and len(self.tape.salts):
             self.tape.salts.copy_(self.salt_table.index_select(0, i)[0])
-        with _impl_scope(self.spmm_impl):
+        with _scope(self.spmm_impl, self.executor):
             loss = _total_loss(model, self.train_task, self.train_batch,
                                self.regularization, self.tape, self.remat)
             found = dict(zip(self.names, torch.autograd.grad(
@@ -493,7 +526,7 @@ class _FusedEpoch:
             for k, u in updates.items():
                 params[k].copy_(torch.where(stopped, params[k],
                                             params[k] + u))
-            with _impl_scope(self.spmm_impl):
+            with _scope(self.spmm_impl, self.executor):
                 acts = model.forward(model.features, training=False)
             vloss = self.valid_task.loss(acts, self.valid_batch,
                                          params=params)
@@ -531,7 +564,7 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                names, state: _RunState, *, patience, epochs, degradation,
                block_epochs,
                regularization, callbacks, spmm_impl, remat, checkpoint_dir,
-               checkpoint_every) -> Dict:
+               checkpoint_every, executor=None) -> Dict:
     """The fused multi-epoch path (the JAX package's ``_fit_fused``,
     ``gnntf_tpu/train/trainer.py:477-603``): blocks of ``min(block_epochs,
     epochs - epoch)`` epochs of :class:`_FusedEpoch`, read back once a
@@ -572,7 +605,7 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                       regularization=regularization,
                       patience=patience,
                       block_epochs=block_epochs, spmm_impl=spmm_impl,
-                      remat=remat)
+                      remat=remat, executor=executor)
     epoch_generator = lambda e: torch.Generator().manual_seed(
         _fold_in(state.rng_seed, e))
     history = state.history

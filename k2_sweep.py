@@ -5,6 +5,7 @@ NVIDIA GPU.
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train] [--ab DIR]
+                        [--ab-small DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -46,6 +47,13 @@ tree at their defaults: the masked walk over both lists at F=40 and F=64
 and the degree walk over both lists, with the device time of each
 kernel; DIR is another checkout (for example the parent commit, unpacked
 with ``git archive`` into a directory of its own).
+
+With ``--ab-small DIR`` it times, in the same four processes, one training
+step (forward, losses, gradients, every dropout on) of APPNP and of GAT at
+their defaults on the Cora-scale graph of ``chip_smoke.py``'s phase 14d
+(2,708 nodes, 10,556 counted edges): the step's CUDA-event time over
+back-to-back calls, and its device busy and wall time and its
+``index_add_`` launches from a profile.
 
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|).  One JSON object a line goes to
@@ -277,16 +285,47 @@ for kernel, name, f, run in runs:
 """
 
 
-def ab(parent, card):
-    """The A/B of the dropout walks: this tree and the tree in ``parent``
-    in turn (parent, change, change, parent), each in its own process;
-    returns the JSON lines."""
+# One process of the small-graph A/B: a training step of APPNP and of GAT
+# at Cora's scale in the tree it runs in (the data of chip_smoke.py's phase
+# 14d); one JSON line a model.  It uses only what the parent tree has too.
+AB_SMALL_CODE = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+import gnntf_tpu_torch as tt
+dev = torch.device("cuda")
+n, e, c = 2708, 5278, 7
+rng = np.random.RandomState(0)
+src, dst = rng.randint(0, n, e), rng.randint(0, n, e)
+graph = tt.from_edges(src, dst, n_nodes=n, directed=False, device=dev)
+features = rng.rand(n, 64).astype(np.float32)
+labels = rng.randint(0, c, n)
+train = tt.NodeClassification(np.arange(140), labels[:140])
+for name in ("APPNP", "GAT"):
+    model = getattr(tt, name)(graph, features, num_classes=c, device=dev)
+    step = cs.step_fn(model, train)
+    for _ in range(3):
+        step()
+    prof = cs.profile_step(step)
+    print(json.dumps(dict(
+        tree=sys.argv[1], model=name, edges=graph.n_edges,
+        step_ms=cs.time_ms(step, reps=20), busy_us=prof["busy_us"],
+        wall_us=prof["wall_us"], launches=prof["launches"],
+        index_add_launches=prof["index_add_launches"],
+        index_add_share=prof["index_add_share"])), flush=True)
+"""
+
+
+def ab(parent, card, code=AB_CODE):
+    """An A/B (``code``: the dropout walks, or ``AB_SMALL_CODE``): this tree
+    and the tree in ``parent`` in turn (parent, change, change, parent),
+    each in its own process; returns the JSON lines."""
     import os
     here = os.path.dirname(os.path.abspath(__file__))
     lines = []
     for tree, where in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        out = subprocess.run([sys.executable, "-c", AB_CODE, tree],
+        out = subprocess.run([sys.executable, "-c", code, tree],
                              cwd=where, capture_output=True, text=True,
                              timeout=900)
         if out.returncode:
@@ -309,6 +348,10 @@ def main():
     parser.add_argument("--ab", metavar="DIR",
                         help="time the dropout walks of this tree and of "
                              "the checkout in DIR in turn, and nothing else")
+    parser.add_argument("--ab-small", metavar="DIR",
+                        help="time a Cora-scale APPNP and GAT training step "
+                             "of this tree and of the checkout in DIR in "
+                             "turn, and nothing else")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -322,8 +365,9 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
-    if args.ab:
-        write(args.out, ab(args.ab, card))
+    if args.ab or args.ab_small:
+        write(args.out, ab(args.ab, card) if args.ab
+              else ab(args.ab_small, card, AB_SMALL_CODE))
         return
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,

@@ -212,11 +212,19 @@ def test_remat_refuses_add_loss_like_jax():
     assert messages[0] == messages[1]
 
 
-def test_fit_options_left_unported():
-    model, labels = _appnp()
-    for option in (dict(mesh=object()), dict(spmm="halo")):
-        with pytest.raises(NotImplementedError):
-            model.train(**_tasks(labels), epochs=1, **option)
+def test_fit_options_left_unported(tmp_path):
+    """``mesh`` and ``spmm``, ported since: on 2 gloo ranks under the halo
+    executor, a run stopped after 3 epochs and resumed from its checkpoint
+    (one directory a rank) equals 6 epochs straight through, on the host
+    loop and on the fused path."""
+    from test_torch_parallel_ranks import resume_body, spawn
+    src, dst, feats, labels, n = _data()
+    per_rank = spawn(2, resume_body, (src, dst, n, feats, labels),
+                     str(tmp_path))
+    for results in per_rank:
+        for straight, resumed in results:
+            assert resumed[0] == straight[0]
+            _assert_equal_params(resumed[1], straight[1])
 
 
 def test_train_logger_records_match_jax(tmp_path):

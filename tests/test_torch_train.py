@@ -237,22 +237,23 @@ def test_training_forward_draws_from_the_generator():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(spmm="halo"), dict(checkpoint_dir="ckpt"),
+    dict(spmm="bogus"), dict(spmm="halo"), dict(checkpoint_dir="ckpt"),
     dict(resume=True), dict(remat=True), dict(spmm_impl="bogus")])
 def test_fit_unported_options_raise(option, tmp_path):
-    """``mesh`` and ``spmm`` are not ported yet (ROADMAP.md queue 1, item
-    12) and raise, a bad ``spmm_impl`` raises ``ValueError``;
-    ``checkpoint_dir``, ``resume`` and ``remat``, ported since, run."""
+    """Every option of the JAX package's ``fit`` is ported: ``spmm`` is
+    ignored without a mesh, as in JAX, and ``checkpoint_dir``, ``resume``
+    and ``remat`` run; an unknown ``spmm`` or ``spmm_impl`` raises
+    ``ValueError`` (``mesh`` runs on gloo ranks:
+    ``tests/test_torch_parallel*.py``)."""
     g = tt.from_edges([0, 1, 2], [1, 2, 0], device="cpu")
     m = _stack(tt, g, np.ones((3, 4), np.float32), 2, device="cpu")
     task = tt.NodeClassification([0, 1], [0, 1])
     if "checkpoint_dir" in option:
         option = dict(checkpoint_dir=str(tmp_path / option["checkpoint_dir"]))
-    if option.keys() & {"checkpoint_dir", "resume", "remat"}:
+    if "bogus" not in option.values():
         assert len(m.train(task, epochs=1, **option)["train_loss"]) == 1
         return
-    error = ValueError if "spmm_impl" in option else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         m.train(task, epochs=1, **option)
 
 
