@@ -665,22 +665,28 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     training-grid list against its plain version on the card; times kernel,
     plain version (the hash included) and (``library``) one PyTorch call of
     the same function on the realized values: ``torch.sparse.mm`` of the
-    dropped matrix in CSR, or ``index_add_`` for the degree; one call's
-    device time, in all and by kernel (a profile)."""
+    dropped matrix in CSR, or ``index_add_`` for the degree (``library=
+    "csr"``: ``sparse.mm`` with a column of ones, whose sums do not add a
+    hub row's thousands of terms one atomic at a time); one call's device
+    time, in all and by kernel (a profile).  ``draw`` is ``(salt, keep,
+    n_drop)``, or with a fourth item the id base of a rank's slice (the
+    mask hashed at it plus the list's ids)."""
     from gnntf_tpu_torch.ops import (blocked_spmm_plain, ell_degree_masked,
                                      ell_degree_masked_plain,
                                      ell_gather_masked,
                                      ell_gather_masked_plain, stochastic)
 
     w = stochastic.drawn_values(val, *draw)
+    draw, base = draw[:3], draw[3:]
     if x is None:
-        kernel = lambda: ell_degree_masked(lst, val, *draw)
-        plain_fn = lambda: ell_degree_masked_plain(lst, val, *draw)
+        kernel = lambda: ell_degree_masked(lst, val, *draw, *base)
+        plain_fn = lambda: ell_degree_masked_plain(lst, val, *draw, *base)
         ones = torch.ones(lst.n_rows, 1, device=val.device)
         scale = blocked_spmm_plain(lst, w.abs(), ones)[:, 0]
     else:
-        kernel = lambda: ell_gather_masked(lst, val, *draw, x)
-        plain_fn = lambda: ell_gather_masked_plain(lst, val, *draw, x)
+        kernel = lambda: ell_gather_masked(lst, val, *draw, x, *base)
+        plain_fn = lambda: ell_gather_masked_plain(lst, val, *draw, x,
+                                                   *base)
         scale = blocked_spmm_plain(lst, w.abs(), x.abs())
     out = kernel()
     torch.cuda.synchronize()
@@ -697,15 +703,22 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     rows, busy_us, _, _ = device_profile(kernel)
     res["device_ms"] = busy_us / 1e3
     res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
-    kept = stochastic.keep_mask(list_eids(lst), draw[0], draw[1], draw[2])
+    kept = stochastic.keep_mask(list_eids(lst) + sum(base), draw[0],
+                                draw[1], draw[2])
     res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
         lst, kept, None if x is None else x.shape[1])
     res["library_ms"] = None
     if library:
         rows, w_items = list_rows(lst), w[list_eids(lst)]
-        if x is None:
+        if x is None and library != "csr":
             call = lambda: torch.zeros(lst.n_rows, device=val.device
                                        ).index_add_(0, rows, w_items)
+        elif x is None:
+            a = torch.sparse_coo_tensor(
+                torch.stack([rows, lst.idx.long()]), w_items,
+                (lst.n_rows, lst.n_rows)).coalesce().to_sparse_csr()
+            ones = torch.ones(lst.n_rows, 1, device=val.device)
+            call = lambda: torch.sparse.mm(a, ones)[:, 0]
         else:
             a = torch.sparse_coo_tensor(
                 torch.stack([rows, lst.idx.long()]), w_items,
@@ -1822,13 +1835,14 @@ def attn_inputs(n, heads, feats, dev, seed):
 
 
 def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
-                       cpu=False):
+                       cpu=False, profiled=False):
     """A1-A4 over ``lists`` against their plain versions on the card, each
     on its kernel's inputs, per element within ``KERNEL_RTOL * sum|terms|``
     (``attn_error_scales``); a second launch of each bit-equal to the
     first.  With ``timed``: kernel, plain version, bound and (layer 2's A2)
-    ``torch.sparse.mm`` of the realized coefficients in CSR; with ``cpu``:
-    the share of each output bit-equal to the plain version on the CPU."""
+    ``torch.sparse.mm`` of the realized coefficients in CSR, and with
+    ``profiled`` one call's device time (a profile); with ``cpu``: the share
+    of each output bit-equal to the plain version on the CPU."""
     from gnntf_tpu_torch.ops import attention as pa
     n, heads, feats = h.shape
     outs, calls = attn_calls(lists, h, ss, sd, g, salt, keep)
@@ -1865,6 +1879,8 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
             r["bound_ms"], r["bound_by"], r["bytes"] = attn_bound(
                 name, lists, heads, feats, kept_here)
             r["library_ms"] = None
+            if profiled:
+                r["device_ms"] = device_profile(calls[name])[1] / 1e3
         res[name] = r
     if timed and heads == 1:
         # yardstick only: one cuSPARSE product of the realized coefficients
@@ -3022,13 +3038,6 @@ def phase_mesh_products(graph, dev, x40):
     return dict(stats=stats, walks=walks)
 
 
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def mesh_epoch_profile(model, tasks, executor):
     """Device busy and wall microseconds of one epoch's work (the step and
     the validation forward) under ``executor``."""
@@ -3083,7 +3092,7 @@ def phase_mesh_train(graph, features, dev):
     import torch.distributed as dist
 
     import gnntf_tpu_torch as tt
-    from gnntf_tpu_torch.parallel import make_mesh
+    from gnntf_tpu_torch.parallel import free_port, make_mesh
     from gnntf_tpu_torch.parallel.dist import executor_for
 
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -3167,6 +3176,50 @@ def mesh_entry(products, train, mode, key):
         fused_launches=train["fused"]["launches"][key])
 
 
+WALK_FIELDS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def multihost_launches(multihost, key):
+    """A kernel's launches (its wrapper's count) in each of phase 15c's
+    runs at world size 1."""
+    return dict(hier=multihost["hier"]["launches"][key],
+                hier_fused=multihost["hier_fused"]["launches"][key],
+                gat_gspmd=multihost["gat"]["launches"][key],
+                shard=multihost["shard"]["launches"][key])
+
+
+def slice_entry(slices, multihost, key):
+    """A ``kernels`` entry's phase 15b part: each gspmd slice's degree walk
+    (``key`` "degree") or attention kernel ``key`` at P=MESH_PARTS, the
+    merged result's error, and the launches of 15c's runs."""
+    if key == "degree":
+        return dict(parts=MESH_PARTS, merged_max_abs_err=slices["degree_err"],
+                    walks=[{k: w[k] for k in ("rank", "edges") + WALK_FIELDS}
+                           for w in slices["degree"]],
+                    launches=multihost_launches(multihost, key))
+    return dict(parts=MESH_PARTS,
+                shape=f"H=8 F=8, per-edge lists with global ids, attention "
+                      f"dropout keep {ATTN_KEEP}",
+                merged_max_abs_err=slices["merged_err"],
+                ranks=[dict(rank=a["rank"], slots=a["slots"], **a[key])
+                       for a in slices["attention"]],
+                launches=multihost_launches(multihost, key))
+
+
+def hier_entry(products, multihost, mode, key):
+    """A ``kernels`` entry's phase 15 part: each rank's walks under the
+    hierarchical plan (``mode``: realized or lazy) and the launches of
+    15c's runs."""
+    return dict(
+        hosts=HIER_HOSTS, chips=HIER_CHIPS, world_size=1,
+        plan={k: v for k, v in products["stats"].items() if k != "ranks"},
+        walks=[dict(rank=w["rank"], list=w["list"], edges=w["edges"],
+                    **{k: w[k] for k in WALK_FIELDS})
+               for w in products["walks"] if w["mode"] == mode],
+        launches=multihost_launches(multihost, key))
+
+
 def phase_small_graphs(dev):
     """14d: F7 on the card.  At Cora's scale two identical runs of APPNP
     and of GAT (5 epochs, every dropout on) are bit-equal, and a profiled
@@ -3235,6 +3288,310 @@ def phase_small_graphs(dev):
             f"{routes['index_add_t_ms']} ms, "
             f"{routes['index_add_t_device_ms']} ms)")
         out[f"F{f}"] = dict(walk=walk, walk_t=walk_t, **routes)
+    return out
+
+
+# phase 15: multi-process scale-out.  The card machine has one GPU: the
+# hierarchical plan's per-rank walks (2 hosts x 2 chips) and the gspmd
+# slices' degree walks and A1-A4 run in one process, each rank's on its own
+# lists (15a, 15b); launch_distributed, make_pod_mesh and fit(mesh=) run
+# over NCCL at world size 1 (15c).  No multi-GPU figure exists.
+HIER_HOSTS = HIER_CHIPS = 2
+GAT_MESH_EPOCHS = 3
+SHARD_STEPS = 5
+
+
+def phase_hier_products(graph, dev, x40):
+    """15a: the bench graph under build_hier_halo_partition(graph, 2, 2):
+    each partition's local and remote lists walked at F=40 against their
+    plain versions, with realized values (K2) and a lazy draw (keep
+    MESH_KEEP, K1's masked walk hashed by global edge id), over the tables
+    the three phases and the hub gather would fill (built in the process);
+    the plan's sizes beside the flat plan's at P=4."""
+    from gnntf_tpu_torch.ops import stochastic
+    from gnntf_tpu_torch.parallel import (build_halo_partition,
+                                          build_hier_halo_partition)
+    from gnntf_tpu_torch.parallel.hier_halo import hier_lists, hier_rank_table
+
+    t0 = time.perf_counter()
+    hier = build_hier_halo_partition(graph, HIER_HOSTS, HIER_CHIPS)
+    plan_s = time.perf_counter() - t0
+    flat = build_halo_partition(graph, HIER_HOSTS * HIER_CHIPS)
+    val = graph.val.to(torch.float32).contiguous()
+    salt = stochastic.device_salt(torch.tensor([0x2545F491, 0x9E3779B9]),
+                                  dev)
+    draw = (salt, MESH_KEEP, graph.n_edges)
+    stats = dict(s1=hier.s1, s2=hier.s2, s3=hier.s3, hub_rows=hier.hub_rows,
+                 dcn_rows_per_device=hier.dcn_rows_per_device,
+                 table_rows=hier.table_rows, rows_per_part=hier.rows_per_part,
+                 plan_seconds=plan_s,
+                 flat=dict(halo_size=flat.halo_size, hub_rows=flat.hub_rows,
+                           rows_per_device=flat.n_parts * flat.halo_size,
+                           table_rows=flat.table_rows),
+                 ranks=[])
+    if hier.dcn_rows_per_device > flat.n_parts * flat.halo_size:
+        raise AssertionError(f"the hierarchical plan sends more rows "
+                             f"between hosts than the flat one: {stats}")
+    walks = []
+    for h in range(HIER_HOSTS):
+        for c in range(HIER_CHIPS):
+            r = h * HIER_CHIPS + c
+            lists = hier_lists(hier, h, c, dev)
+            own, table = hier_rank_table(hier, x40, h, c)
+            edges = {}
+            for name, lst, x in (("hier local", lists[0], own),
+                                 ("hier remote", lists[1], table)):
+                edges[name] = 0 if lst is None else lst[0].n_edges
+                if lst is None:
+                    continue
+                for mode, d in (("realized", None), ("lazy", draw)):
+                    res = check_rank_walk(f"rank {r} {name} ({mode})",
+                                          lst[0], val, d, x.contiguous())
+                    walks.append(dict(res, rank=r, list=name, mode=mode,
+                                      edges=lst[0].n_edges))
+            stats["ranks"].append(dict(rank=r, edges=edges))
+    log(f"hierarchical plan at {HIER_HOSTS}x{HIER_CHIPS}: {stats}")
+    return dict(stats=stats, walks=walks)
+
+
+def phase_gspmd_slices(graph, dev):
+    """15b: the bench graph's gspmd slices at P=MESH_PARTS: each rank's
+    degree walk over its slice's column list (a lazy draw, keep MESH_KEEP,
+    hashed at its id base plus its ids) and A1-A4 over its slice of GAT's
+    self-looped graph (GATConfig's layer 1, H=8 F=8, per-edge lists with
+    attention dropout keep ATTN_KEEP), each against its plain version and
+    timed; A3 with the merged rowdot against its plain version; then the
+    MESH_PARTS partials merged in the process (ops.attention.folded) against
+    the whole graph's degree walk and chain within KERNEL_RTOL of the sum of
+    the terms' magnitudes."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import attention as pa
+    from gnntf_tpu_torch.ops import blocked_spmm_plain, stochastic
+    from gnntf_tpu_torch.parallel.dist import RankSlice
+
+    def slices(g):
+        per = -(-g.n_edges // MESH_PARTS)
+        return [RankSlice(g.row[r * per:(r + 1) * per],
+                          g.col[r * per:(r + 1) * per], r * per, r * per,
+                          g.n_nodes, dev) for r in range(MESH_PARTS)]
+
+    salt = stochastic.device_salt(torch.tensor([0x2545F491, 0x9E3779B9]),
+                                  dev)
+    draw = (salt, MESH_KEEP, graph.n_edges)
+    val = graph.val.to(torch.float32).contiguous()
+    degree, parts = [], []
+    for r, sl in enumerate(slices(graph)):
+        cols = sl.grids()[1]
+        vs = sl.values(graph)
+        res = check_masked_kernel(f"rank {r} gspmd slice degree walk", cols,
+                                  vs, draw + (sl.base,), library="csr")
+        degree.append(dict(res, rank=r, edges=sl.n_edges))
+        parts.append(stochastic.ell_degree_masked(cols, vs, *draw, sl.base))
+    whole_cols = stochastic.train_grids(graph).lists(dev)[1]
+    whole = stochastic.ell_degree_masked(whole_cols, val, *draw)
+    w = stochastic.drawn_values(val, *draw)
+    scale = blocked_spmm_plain(whole_cols, w.abs(),
+                               torch.ones(N_NODES, 1, device=dev))[:, 0]
+    degree_err = check_close("gspmd degrees merged from the slices",
+                             pa.folded(parts, "sum"), whole, scale)
+
+    looped = tt.add_self_loops(graph)
+    heads, feats = GAT_SHAPES[0]
+    h, ss, sd, g = attn_inputs(N_NODES, heads, feats, dev, 28)
+    salt2 = torch.tensor([0x9E3779B9, 77], device=dev)
+    lists = [sl.attention(dedup=False) for sl in slices(looped)]
+    whole_lists = pa._attn_lists(looped, dedup=False)
+    want = pa.attn_chain(whole_lists, h, ss, sd, g, ATTN_SLOPE, salt2,
+                         ATTN_KEEP)
+    attention = []
+    for r, lst in enumerate(lists):
+        res = check_attn_kernels(f"rank {r} gspmd slice H={heads} F={feats}",
+                                 lst, h, ss, sd, g, salt2, ATTN_KEEP,
+                                 timed=True, profiled=True)
+        attention.append(dict(res, rank=r, slots=lst.rows.n_edges))
+    tab = pa.pack_table(h.reshape(N_NODES, -1), ss)
+    fwd = pa.sharded_forward(lists, tab, sd, heads, feats, ATTN_SLOPE, salt2,
+                             ATTN_KEEP, reduce=pa.folded)
+    bwd = pa.sharded_backward(lists, tab, sd, fwd["rmax0"], fwd["dinv"], g,
+                              heads, feats, ATTN_SLOPE, salt2, ATTN_KEEP,
+                              reduce=pa.folded)
+    scales = merged_scales(whole_lists, tab, sd, want, g, heads, feats,
+                           salt2, ATTN_KEEP)
+    merged_err = {name: check_close(f"gspmd attention merged: {name}", got,
+                                    want[name], scales[name])
+                  for name, got in {**fwd, **bwd}.items()}
+    # A3 with the merged rowdot R: ds_dst = P - R * Q over the slice, held
+    # to the magnitudes of P's and of R * Q's terms
+    given = []
+    w = heads * feats
+    abs_tab = pa.pack_table(tab[:, :w].abs(), tab[:, w:w + heads])
+    stats = (fwd["rmax0"], fwd["dinv"])
+    for r, lst in enumerate(lists):
+        args = (lst.rows, lst.mult, tab, sd, *stats, g, heads, feats,
+                ATTN_SLOPE, salt2, ATTN_KEEP)
+        got = pa.attn_bwd_rows(*args, rowdot=bwd["rowdot"])[1]
+        ref = pa.attn_bwd_rows_plain(*args, rowdot=bwd["rowdot"])[1]
+        sums = pa._row_pass_sums(lst.rows, lst.mult, abs_tab, sd, *stats,
+                                 g.abs(), heads, feats, ATTN_SLOPE, salt2,
+                                 ATTN_KEEP)
+        scale = sums[:, heads:2 * heads] + bwd["rowdot"].abs() * sums[
+            :, 2 * heads:]
+        given.append(check_close(f"rank {r} A3 with the merged rowdot", got,
+                                 ref, scale))
+    log(f"gspmd slices at P={MESH_PARTS}: degree err {degree_err}, merged "
+        f"attention errs {merged_err}, A3 with a given rowdot errs {given}")
+    return dict(degree=degree, attention=attention, degree_err=degree_err,
+                merged_err=merged_err, given_rowdot_err=given,
+                edges=graph.n_edges, looped_edges=looped.n_edges)
+
+
+def merged_scales(lists, tab, sd, want, g, heads, feats, salt, keep):
+    """``attn_error_scales`` of the whole graph's chain ``want`` for the
+    chain merged from slices: its ``rowdot`` differs from the whole one by
+    its own rounding, so ``ds_src`` (which adds ``alpha * rowdot`` terms)
+    is held to the terms' magnitudes with ``rowdot``'s scale in place of
+    ``|rowdot|``."""
+    from gnntf_tpu_torch.ops import attention as pa
+    args = (lists, tab, sd, want["rmax0"], want["dinv"], g)
+    rest = (heads, feats, ATTN_SLOPE, salt, keep)
+    scales = pa.attn_error_scales(*args, want["rowdot"], *rest)
+    scales["ds_src"] = pa.attn_error_scales(*args, scales["rowdot"],
+                                            *rest)["ds_src"]
+    return scales
+
+
+def check_mesh_run(label, hist, single, counts, kernels):
+    """Raise unless a mesh run's losses are within FUSED_RTOL of one
+    device's with the same best epoch, and each of ``kernels`` launched."""
+    for key in ("train_loss", "valid_loss"):
+        if not np.allclose(hist[key], single[key], rtol=FUSED_RTOL, atol=0):
+            raise AssertionError(f"{label} {key} {hist[key]} vs one device "
+                                 f"{single[key]}")
+    if hist["best_epoch"] != single["best_epoch"]:
+        raise AssertionError(f"{label}: best epoch {hist['best_epoch']} vs "
+                             f"{single['best_epoch']}")
+    for kernel in kernels:
+        if counts[kernel] == 0:
+            raise AssertionError(f"{label} launched no {kernel}")
+
+
+def mesh_run_entry(label, hist, counts, walls, epochs, profile):
+    log(f"{label}: losses {hist['train_loss']}, valid "
+        f"{hist['valid_loss']}, best epoch {hist['best_epoch']}; epoch walls "
+        f"{walls} s; one epoch's device busy {profile['busy_us']} us of "
+        f"{profile['wall_us']} us; launches {counts}")
+    return dict(train_loss=hist["train_loss"], valid_loss=hist["valid_loss"],
+                launches=counts, launches_per_epoch={
+                    k: v / epochs for k, v in counts.items()},
+                epoch_wall_s=walls, epoch_busy_us=profile["busy_us"],
+                epoch_profile_wall_us=profile["wall_us"])
+
+
+def shard_steps(model, task, mesh=None, graph=None):
+    """SHARD_STEPS train steps from seed 0's parameters, the draws of step
+    i from a generator seeded i, with the counts zeroed just before and
+    read just after: the losses, the counts, each step's wall seconds."""
+    from gnntf_tpu_torch.parallel import (make_distributed_train_step,
+                                          make_train_step_raw)
+    from gnntf_tpu_torch.train.trainer import keras_adam
+    model.reset(seed=0)
+    tx = keras_adam(LEARNING_RATE)
+    step = make_train_step_raw(model, task, tx) if mesh is None else \
+        make_distributed_train_step(model, task, mesh, tx, graph=graph)
+    state, losses, walls = tx.init(dict(model.params)), [], []
+    torch.cuda.synchronize()
+    zero_counts()
+    for i in range(SHARD_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, torch.Generator().manual_seed(i),
+                           torch.tensor(1.0), task.batch())
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return losses, launch_counts(), walls
+
+
+def phase_multihost_train(graph, features, dev):
+    """15c: launch_distributed(localhost, 1 process) over NCCL, then on one
+    device's runs from the same seed: APPNP under fit(mesh=make_pod_mesh(
+    hierarchical=True), spmm="halo") and fused (block_epochs=MESH_EPOCHS),
+    GAT at GATConfig under fit(mesh=make_mesh(1, 1)), and SHARD_STEPS
+    steps of APPNP built on its shard_graph_local shard (the whole list at
+    world size 1) through make_distributed_train_step; each within
+    FUSED_RTOL of one device with the same best epoch, its launches, epoch
+    walls and one epoch's device busy time."""
+    import torch.distributed as dist
+
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
+    from gnntf_tpu_torch.parallel import (free_port, launch_distributed,
+                                          make_mesh, make_pod_mesh,
+                                          shard_graph_local)
+    from gnntf_tpu_torch.parallel.dist import executor_for
+
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    if launch_distributed(f"localhost:{free_port()}", num_processes=1,
+                          process_id=0, device=device):
+        raise AssertionError("one process launched more than one")
+    try:
+        hier = make_pod_mesh(hierarchical=True)
+        tasks = fused_tasks()
+        out = dict(backend=dist.get_backend(), mesh=hier.shape)
+        model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+        single = timed_train(model, tasks, epochs=MESH_EPOCHS)
+        hist, counts, walls = timed_train(model, tasks, epochs=MESH_EPOCHS,
+                                          mesh=hier, spmm="halo")
+        check_mesh_run("fit(mesh=hierarchical, spmm=halo)", hist, single[0],
+                       counts, ("masked", "degree"))
+        out["hier"] = mesh_run_entry(
+            "fit(mesh=hierarchical 1x1x1, spmm=halo)", hist, counts, walls,
+            MESH_EPOCHS, mesh_epoch_profile(model, tasks,
+                                            executor_for(hier, "halo")))
+        fused, fcounts, fwalls = timed_train(
+            model, tasks, epochs=MESH_EPOCHS, mesh=hier, spmm="halo",
+            block_epochs=MESH_EPOCHS)
+        check_mesh_run("fused fit(mesh=hierarchical)", fused, hist, fcounts,
+                       ("masked", "degree"))
+        out["hier_fused"] = dict(train_loss=fused["train_loss"],
+                                 launches=fcounts, block_wall_s=sum(fwalls))
+        out["single_appnp"] = dict(train_loss=single[0]["train_loss"],
+                                   launches=single[1],
+                                   epoch_wall_s=single[2])
+
+        gat = config.GATConfig().build(graph, features, N_CLASSES,
+                                       device=dev)
+        g_single = timed_train(gat, tasks, epochs=GAT_MESH_EPOCHS)
+        mesh = make_mesh(1, 1)
+        ghist, gcounts, gwalls = timed_train(gat, tasks,
+                                             epochs=GAT_MESH_EPOCHS,
+                                             mesh=mesh)
+        check_mesh_run("GAT fit(mesh=1x1)", ghist, g_single[0], gcounts,
+                       ATTN_KERNELS)
+        out["gat"] = mesh_run_entry(
+            "GAT fit(mesh=1x1)", ghist, gcounts, gwalls, GAT_MESH_EPOCHS,
+            mesh_epoch_profile(gat, tasks, executor_for(mesh, None)))
+        out["single_gat"] = dict(train_loss=g_single[0]["train_loss"],
+                                 launches=g_single[1],
+                                 epoch_wall_s=g_single[2])
+
+        flat = make_pod_mesh()
+        shard = shard_graph_local(graph, flat, graph.n_edges, N_NODES)
+        on_shard = tt.APPNP(shard, features, num_classes=N_CLASSES,
+                            device=dev)
+        losses, scounts, swalls = shard_steps(on_shard, tasks[0], flat,
+                                              shard)
+        want, _, _ = shard_steps(model, tasks[0])
+        if not np.allclose(losses, want, rtol=FUSED_RTOL, atol=0):
+            raise AssertionError(f"shard steps {losses} vs one device {want}")
+        for kernel in ("masked", "degree"):
+            if scounts[kernel] == 0:
+                raise AssertionError(f"the shard steps launched no {kernel}")
+        out["shard"] = dict(losses=losses, single=want, launches=scounts,
+                            step_wall_s=swalls)
+        log(f"shard_graph_local steps at world size 1: losses {losses}, one "
+            f"device {want}, step walls {swalls} s, launches {scounts}")
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -3527,6 +3884,23 @@ def main(dev=None):
         products=mesh_products, train=mesh_train, small_graphs=small)))
     log(f"phase seconds with 14: {seconds}")
 
+    # 15. multi-process scale-out: the hierarchical plan's per-rank walks
+    # and the gspmd slices' degree walks and A1-A4 at P=4 in one process,
+    # launch_distributed and fit(mesh=) over NCCL at world size 1
+    t0 = time.perf_counter()
+    hier_products = phase_hier_products(graph, dev, x40)
+    seconds["15a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slices = phase_gspmd_slices(graph, dev)
+    seconds["15b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multihost = phase_multihost_train(graph, features, dev)
+    seconds["15c"] = time.perf_counter() - t0
+    log("multi-process summary: " + json.dumps(dict(
+        hier_products=hier_products, gspmd_slices=slices,
+        train=multihost)))
+    log(f"phase seconds with 15: {seconds}")
+
     # 13. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
@@ -3583,6 +3957,7 @@ def main(dev=None):
               "small": k2["small"],
               "mesh": mesh_entry(mesh_products, mesh_train, "realized",
                                  "k2"),
+              "hier": hier_entry(hier_products, multihost, "realized", "k2"),
               "small_graphs": {f: dict(
                   small[f]["walk"], transposed=small[f]["walk_t"],
                   index_add_ms=small[f]["index_add_ms"],
@@ -3610,7 +3985,8 @@ def main(dev=None):
                                                 shape="F=128")),
               "small": masked["small"], "lists": lists,
               "mesh": mesh_entry(mesh_products, mesh_train, "lazy",
-                                 "masked")}
+                                 "masked"),
+              "hier": hier_entry(hier_products, multihost, "lazy", "masked")}
     entry4 = {"name": "ell_degree_masked", "route": "cuda",
               "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
               "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
@@ -3619,8 +3995,11 @@ def main(dev=None):
                        f"edges, N=169343, keep {KEEP}",
               "fused": fused_launches(fused, "ell_degree_walk", "degree"),
               **kernel_launches(gcnii, gcn, "degree"),
-              "row_list": masked["degree_row"]}
+              "row_list": masked["degree_row"],
+              "gspmd_slices": slice_entry(slices, multihost, "degree")}
     attn_entries = attention_entries(attention, gat)
+    for e in attn_entries:
+        e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
     print(json.dumps({"kernels": [entry, entry2, entry3, entry4,
                                   *attn_entries]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)

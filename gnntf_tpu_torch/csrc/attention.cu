@@ -25,7 +25,9 @@
 //   rowdot) sigma'(pre), where dalpha = <h[src, h, :], g[dst, h, :]> *
 //   scale and sigma' is 1 where pre > 0, else slope; ds_dst is computed as
 //   P - rowdot * Q with P = sum alpha dalpha sigma' and Q = sum alpha
-//   sigma', so one pass over a row gives both;
+//   sigma', so one pass over a row gives both; where a rowdot is given
+//   (a rank's slice of the edges, whose rows' rowdot is the sum over every
+//   slice), ds_dst takes it in place of the row's own;
 // * attn_bwd_cols_* (A4): over the column list (the transpose: a row is a
 //   source c, its slots its destinations), dh[c, h, :] = sum alpha~
 //   g[dst, h, :] and ds_src[c, h] = sum (alpha dalpha - alpha rowdot[dst])
@@ -84,6 +86,7 @@ struct AttnArgs {
   const float* rmax0;        // (N, H), A2 and A3
   const float* dinv;         // (N, H), A2 and A3
   const float* g;            // (N, W), A3
+  const float* rowdot;       // (N, H), A3: given (null: the row's own sum)
   float* out;                // A1 rmax0, A2 out, A3 rowdot, A4 dh
   float* out2;               // A1 dinv, A3 ds_dst, A4 ds_src
   float* carry;              // pieces, then the split rows' parts
@@ -512,7 +515,7 @@ __global__ void __launch_bounds__(kThreads)
         c[2 * H] = Q;
       } else {
         a.out[rh] = rd;
-        a.out2[rh] = __fsub_rn(P, __fmul_rn(rd, Q));
+        a.out2[rh] = __fsub_rn(P, __fmul_rn(a.rowdot ? a.rowdot[rh] : rd, Q));
       }
     }
   }
@@ -538,8 +541,9 @@ __global__ void __launch_bounds__(32) attn_bwd_rows_fixup(const AttnArgs a) {
     const float rd = edge_walk::ordered_sum(ps + h, 3 * H, n);
     const float P = edge_walk::ordered_sum(ps + H + h, 3 * H, n);
     const float Q = edge_walk::ordered_sum(ps + 2 * H + h, 3 * H, n);
-    a.out[(long long)row * H + h] = rd;
-    a.out2[(long long)row * H + h] = __fsub_rn(P, __fmul_rn(rd, Q));
+    const long long rh = (long long)row * H + h;
+    a.out[rh] = rd;
+    a.out2[rh] = __fsub_rn(P, __fmul_rn(a.rowdot ? a.rowdot[rh] : rd, Q));
   }
 }
 
@@ -732,7 +736,8 @@ extern "C" int gnntf_attn_aggregate(const attention::AttnArgs* a,
                       attn_aggregate_fixup<float>, a->group, *a, s);
 }
 
-// A3: rowdot into out, ds_dst into out2 ((N, H) float32); carry holds
+// A3: rowdot into out, ds_dst into out2 ((N, H) float32), ds_dst with the
+// given rowdot where a->rowdot is set; carry holds
 // (n_units + n_split * parts) * 3H floats.
 extern "C" int gnntf_attn_bwd_rows(const attention::AttnArgs* a,
                                    void* stream) {

@@ -4,11 +4,13 @@
 // dropped value under the draw (Mask):
 //
 //     w = keep(id) ? val[id] * scale(id) : +0,
-//     keep(id) = fmix32(fmix32(id ^ s0) ^ s1) >> 8 < thresh  or  id >= n_drop,
-//     scale(id) = fp32(1 / keep) below n_drop, else 1,
+//     keep(id) = fmix32(fmix32(g ^ s0) ^ s1) >> 8 < thresh  or  g >= n_drop,
+//     scale(id) = fp32(1 / keep) below n_drop, else 1,   g = id + id_base,
 //
 // in uint32 arithmetic, one rounded product, bit-equal to the host's
-// dropped_values.
+// dropped_values.  val is read at id, the mask hashed at the global id g:
+// a rank that holds a slice of a larger edge list (id_base its offset)
+// reads its own values and draws the whole list's mask.
 //
 // The order of the sums is edge_walk.cuh's: a row, or a piece of a split row
 // (the units of ops/blocked.py::work_units), in list order, then a split
@@ -93,7 +95,8 @@ constexpr int kCheckTail = 4;
 struct Mask {
   const int64_t* salt;  // (2,) int64 holding the draw's two uint32 salts
   uint32_t thresh;      // round(keep * 2^24), at most 2^24
-  uint32_t n_drop;      // ids at or past it are always kept, unscaled
+  uint32_t n_drop;      // global ids at or past it are always kept, unscaled
+  uint32_t id_base;     // added to an id to give the global id hashed
   float scale;          // fp32(1 / keep)
 };
 
@@ -263,7 +266,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
       float wt[kBatches];
 #pragma unroll
       for (int b = 0; b < kBatches; ++b) {
-        const uint32_t u = (uint32_t)id[b];
+        const uint32_t u = (uint32_t)id[b] + m.id_base;
         const bool low = u < m.n_drop;
         kept[b] = c + 32 * b + lane < n_edge &&
                   (!low || (edge_walk::fmix32(edge_walk::fmix32(u ^ s0) ^
@@ -453,11 +456,12 @@ inline Tiles make_tiles(const void* tile_seg, const void* tile_edge,
 }
 
 inline Mask make_mask(const void* salt, unsigned thresh, unsigned n_drop,
-                      float scale) {
+                      unsigned id_base, float scale) {
   Mask m;
   m.salt = static_cast<const int64_t*>(salt);
   m.thresh = thresh;
   m.n_drop = n_drop;
+  m.id_base = id_base;
   m.scale = scale;
   return m;
 }

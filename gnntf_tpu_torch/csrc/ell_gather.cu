@@ -150,10 +150,10 @@ extern "C" int gnntf_ell_gather(
 // The masked walk in store mode: out (n, f) float32 needs no zero-fill
 // (rows is ignored); val holds the graph's E base values, read at eid; the
 // tiles (tile_seg, tile_edge, seg_end, seg_out, n_tiles, cap_edges,
-// cap_segs) are drop_walk.cuh's Tiles; salt (a (2,) int64
-// device buffer), thresh, n_drop and scale are the draw (drop_walk.cuh,
-// Mask); flag is one int32 of scratch on the card and n_floats x's size;
-// carry holds the pieces' and parts' sums as gnntf_ell_gather's; the other
+// cap_segs) are drop_walk.cuh's Tiles; salt (a (2,) int64 device buffer),
+// thresh, n_drop, id_base and scale are the draw (drop_walk.cuh, Mask);
+// flag is one int32 of scratch on the card and n_floats x's size; carry
+// holds the pieces' and parts' sums as gnntf_ell_gather's; the other
 // arguments are as gnntf_ell_gather's.
 extern "C" int gnntf_ell_gather_masked(
     const void* ptr, const void* idx, const void* eid, const void* rows,
@@ -163,7 +163,7 @@ extern "C" int gnntf_ell_gather_masked(
     int vec, int group, int parts, const void* tile_seg,
     const void* tile_edge, const void* seg_end, const void* seg_out,
     int n_tiles, int cap_edges, int cap_segs, const void* salt,
-    unsigned thresh, unsigned n_drop,
+    unsigned thresh, unsigned n_drop, unsigned id_base,
     float scale, void* flag, long long n_floats, void* stream) {
   (void)rows;
   if (flag == nullptr) return (int)cudaErrorInvalidValue;
@@ -173,7 +173,8 @@ extern "C" int gnntf_ell_gather_masked(
   const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
                                         seg_out, n_tiles, cap_edges,
                                         cap_segs);
-  const Mask m = drop_walk::make_mask(salt, thresh, n_drop, scale);
+  const Mask m =
+      drop_walk::make_mask(salt, thresh, n_drop, id_base, scale);
   const long long n_x = n_floats / vec;  // x's T's (float4 or float)
   int* fl = static_cast<int*>(flag);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -200,7 +201,7 @@ extern "C" int gnntf_ell_degree(
     int vec, int group, int parts, const void* tile_seg,
     const void* tile_edge, const void* seg_end, const void* seg_out,
     int n_tiles, int cap_edges, int cap_segs, const void* salt,
-    unsigned thresh, unsigned n_drop,
+    unsigned thresh, unsigned n_drop, unsigned id_base,
     float scale, void* flag, long long n_floats, void* stream) {
   (void)rows;
   (void)x;
@@ -214,7 +215,8 @@ extern "C" int gnntf_ell_degree(
   const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
                                         seg_out, n_tiles, cap_edges,
                                         cap_segs);
-  const Mask m = drop_walk::make_mask(salt, thresh, n_drop, scale);
+  const Mask m =
+      drop_walk::make_mask(salt, thresh, n_drop, id_base, scale);
   return drop_walk::launch(ell_degree_walk, nullptr, ell_degree_parts,
                            ell_degree_fixup, a, t, m, nullptr, 0,
                            static_cast<cudaStream_t>(stream));

@@ -22,6 +22,17 @@ dropout comes before renormalization.
 **Lazy post-scale identity** (``eye_weight``): the effective matrix is
 ``diag(row_scale) A diag(col_scale) + eye_weight * I`` — self-loops added
 *after* normalization stay a ``+ w*x`` in the SpMM.
+
+**Edge shards** (``global_edges``/``edge_offset``): a graph may hold one
+rank's contiguous slice of a larger edge list
+(``parallel.multihost.shard_graph_local``): its entries are the global
+edges ``edge_offset ..`` of ``global_edges``.  Every count that edge
+dropout takes (``n_drop``, the lazy-draw threshold) is the global one and
+every hashed id is global, so the slices of one draw over the ranks are
+the draw over the whole list.  Appended self-loops extend the global list
+at its end: the last slice holds them.  A shard's products, degrees and
+attention need an executor that all-reduces over the ranks
+(``parallel.dist.GspmdExecutor``).
 """
 from __future__ import annotations
 
@@ -55,10 +66,23 @@ class Graph:
     drop_keep: float = 1.0
     drop_n: int = 0
     eye_weight: float = 0.0
+    edge_offset: int = 0                       # a shard's first global id
+    global_edges: Optional[int] = None         # None: not a shard
 
     @property
     def n_edges(self) -> int:
         return int(self.row.shape[0])
+
+    @property
+    def is_shard(self) -> bool:
+        return self.global_edges is not None
+
+    @property
+    def n_edges_global(self) -> int:
+        """The whole edge list's length: a shard's ``global_edges``, else
+        :attr:`n_edges`."""
+        return self.n_edges if self.global_edges is None \
+            else self.global_edges
 
     @property
     def shape(self):
@@ -156,8 +180,17 @@ def from_edges(src, dst, values=None, *, n_nodes: Optional[int] = None,
 
 
 def _append_eye(graph: Graph, weight: float) -> Graph:
-    """Structurally append N identity entries to an *unscaled* graph."""
+    """Structurally append N identity entries to an *unscaled* graph: to a
+    shard, at the end of the global list, so only the last slice holds
+    them."""
     n = graph.n_nodes
+    if graph.is_shard:
+        last = graph.edge_offset + graph.n_edges == graph.global_edges
+        graph = dataclasses.replace(graph,
+                                    global_edges=graph.global_edges + n)
+        if not last:
+            return dataclasses.replace(
+                graph, num_self_loop=graph.num_self_loop + n)
     eye = torch.arange(n, dtype=graph.row.dtype, device=graph.device)
     return dataclasses.replace(
         graph,
@@ -190,7 +223,8 @@ def add_self_loops(graph: Graph, weight: float = 1.0) -> Graph:
         return dataclasses.replace(graph,
                                    eye_weight=graph.eye_weight + weight)
     key = ("eye", id(graph.row), id(graph.col), id(graph.val), float(weight),
-           graph.num_self_loop, graph.n_nodes)
+           graph.num_self_loop, graph.n_nodes, graph.edge_offset,
+           graph.global_edges)
     anchors = (graph.row, graph.col, graph.val)
     ext = _EYE_CACHE.get(key, anchors)
     if ext is None:

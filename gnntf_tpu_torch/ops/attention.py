@@ -58,6 +58,7 @@ from ..utils import kernels
 from ..utils.idcache import IdLRU, sizeof
 from .blocked import EdgeList, list_rows, ordered_row_sums, row_ptr
 from .segment import gather_rows, segment_softmax
+from .spmm import current_executor
 from .stochastic import (_MASK32, _fmix32, _salts, _threshold, device_salt,
                          min_edges)
 
@@ -178,13 +179,14 @@ def build_attn_grids(row, col, n_nodes: int, dedup: bool = False,
 
 
 def attn_lists(row, col, n_nodes: int, device, dedup: bool = False,
-               items: int = _ATTN_ITEMS) -> AttnLists:
+               items: int = _ATTN_ITEMS, id_base: int = 0) -> AttnLists:
     """The kernels' lists of a structure on ``device``, in units of
-    ``items`` items: per original edge (``eid`` the edge id), or with
-    ``dedup`` per unique (row, col) pair (``eid`` the pair id, in (row,
-    col) order) with the pairs' multiplicities.  Each list is the slots
-    stably sorted by their own row: the order of the JAX package's grids
-    flattened row by row."""
+    ``items`` items: per original edge (``eid`` the edge id, ``id_base``
+    plus its position: a slice of a larger edge list hashes the dropout at
+    its global ids), or with ``dedup`` per unique (row, col) pair (``eid``
+    the pair id, in (row, col) order) with the pairs' multiplicities.  Each
+    list is the slots stably sorted by their own row: the order of the JAX
+    package's grids flattened row by row."""
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     mult = None
@@ -192,10 +194,12 @@ def attn_lists(row, col, n_nodes: int, device, dedup: bool = False,
         row, col, by_id = _coalesce(row, col)
         mult = torch.from_numpy(by_id).to(device)
 
+    base = 0 if dedup else id_base
+
     def one(r, c):
         order = np.argsort(r, kind="stable")
-        return EdgeList.build(row_ptr(r[order], n_nodes), c[order], order,
-                              device, items=items)
+        return EdgeList.build(row_ptr(r[order], n_nodes), c[order],
+                              order + base, device, items=items)
 
     return AttnLists(one(row, col), one(col, row), mult)
 
@@ -224,7 +228,7 @@ _attn_lists.builds = 0
 def _grid_eligible(graph: Graph) -> bool:
     """The grid path needs enough edges to amortize its one-time build
     (``stochastic.min_edges()``, so ``min_edges_scope`` applies)."""
-    return graph.n_edges >= min_edges()
+    return graph.n_edges_global >= min_edges()
 
 
 def gat_attention(graph: Graph, h: torch.Tensor, s_src: torch.Tensor,
@@ -238,9 +242,35 @@ def gat_attention(graph: Graph, h: torch.Tensor, s_src: torch.Tensor,
     ``salt`` (the draw's two uint32 salts, a (2,) tensor, as edge dropout
     draws them) applies inverted dropout to the normalized coefficients,
     one draw per (edge, head).  ``sorted_by_row`` is accepted for the JAX
-    signature."""
+    signature.
+
+    An executor in force that offers ``attention`` (``parallel.dist.
+    GspmdExecutor``: each rank's slice of the edges) computes it; an edge
+    shard needs one."""
     if not (attn_dropout and salt is not None):
         salt = None
+    executor = current_executor()
+    if executor is not None and hasattr(executor, "attention"):
+        return executor.attention(graph, h, s_src, s_dst,
+                                  negative_slope=negative_slope,
+                                  attn_dropout=attn_dropout, salt=salt)
+    if graph.is_shard:
+        raise ValueError("GAT's attention over an edge shard needs the "
+                         "gspmd executor in force (parallel.dist."
+                         "GspmdExecutor)")
+    return gat_attention_local(graph, h, s_src, s_dst,
+                               negative_slope=negative_slope,
+                               attn_dropout=attn_dropout, salt=salt,
+                               sorted_by_row=sorted_by_row)
+
+
+def gat_attention_local(graph: Graph, h: torch.Tensor, s_src: torch.Tensor,
+                        s_dst: torch.Tensor, *, negative_slope: float = 0.2,
+                        attn_dropout: float = 0.0, salt=None,
+                        sorted_by_row: bool = False) -> torch.Tensor:
+    """:func:`gat_attention` on this device over the whole graph: the
+    lists' chain (A1-A4) on a card or at or above ``min_edges()`` edges,
+    else the segment form."""
     if _grid_eligible(graph) or h.device.type == "cuda":
         return _gat_attention_ell(graph, h, s_src, s_dst,
                                   negative_slope=negative_slope,
@@ -395,6 +425,75 @@ def attn_chain(lists, h, s_src, s_dst, g, slope, salt=None, keep=1.0,
                                    keep, **kw)}
 
 
+# ---- the chain over slices of the edges -----------------------------------
+#
+# Each rank walks its slice's row and column lists (the edges of a row may
+# lie in several slices), and the per-row statistics are merged over the
+# ranks with ``reduce(parts, op)``: ``parts`` the partials this process
+# computed (one a rank under torch.distributed, where ``reduce`` is an
+# all-reduce; every rank's in one process, where it folds the list), ``op``
+# "max" or "sum".  A1 gives each slice's row maximum and denominator; the
+# maxima merge by MAX (rows a slice does not hold count as -inf), the
+# denominators are rescaled to the merged maximum and summed; A2's partial
+# aggregations are summed.  In the backward A3's partial ``rowdot`` is
+# summed first, then each slice's ``ds_dst`` is taken with that ``rowdot``
+# (A3 again, given it) and summed, as are A4's ``dh`` and ``ds_src``.
+
+def row_held(lst: EdgeList) -> torch.Tensor:
+    """(N, 1) bool: the rows of ``lst`` that hold a slot."""
+    return (lst.ptr[1:] > lst.ptr[:-1])[:, None]
+
+
+def sharded_forward(ranks, tab, s_dst, heads, feats, slope, salt=None,
+                    keep=1.0, *, reduce) -> dict:
+    """A1 and A2 over the :class:`AttnLists` of the slices in ``ranks``,
+    merged by ``reduce`` (above): ``rmax0``, ``dinv`` and ``out`` of the
+    whole edge list, by name."""
+    stats = [attn_stats(lst.rows, lst.mult, tab, s_dst, heads, feats, slope)
+             for lst in ranks]
+    held = [row_held(lst.rows) for lst in ranks]
+    ninf = tab.new_full((), float("-inf"))
+    mx = reduce([torch.where(hd, r0, ninf)
+                 for (r0, _), hd in zip(stats, held)], "max")
+    rmax0 = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    sums = reduce([torch.where(hd, torch.exp(r0 - rmax0) / dinv,
+                               torch.zeros_like(dinv))
+                   for (r0, dinv), hd in zip(stats, held)], "sum")
+    dinv = 1.0 / sums.clamp(min=1e-30)
+    out = reduce([attn_aggregate(lst.rows, lst.mult, tab, s_dst, rmax0,
+                                 dinv, heads, feats, slope, salt, keep)
+                  for lst in ranks], "sum")
+    return dict(rmax0=rmax0, dinv=dinv, out=out)
+
+
+def sharded_backward(ranks, tab, s_dst, rmax0, dinv, g, heads, feats, slope,
+                     salt=None, keep=1.0, *, reduce) -> dict:
+    """A3 and A4 over the slices in ``ranks`` with the merged ``rmax0`` and
+    ``dinv``, merged by ``reduce``: ``rowdot``, ``ds_dst``, ``dh`` and
+    ``ds_src`` by name."""
+    args = (s_dst, rmax0, dinv, g, heads, feats, slope, salt, keep)
+    rowdot = reduce([attn_bwd_rows(lst.rows, lst.mult, tab, *args)[0]
+                     for lst in ranks], "sum")
+    ds_dst = reduce([attn_bwd_rows(lst.rows, lst.mult, tab, *args,
+                                   rowdot=rowdot)[1]
+                     for lst in ranks], "sum")
+    tabc = pack_table(g, s_dst, rmax0, dinv, rowdot)
+    cols = [attn_bwd_cols(lst.cols, lst.mult, tab, tabc, heads, feats, slope,
+                          salt, keep) for lst in ranks]
+    return dict(rowdot=rowdot, ds_dst=ds_dst,
+                dh=reduce([c[0] for c in cols], "sum"),
+                ds_src=reduce([c[1] for c in cols], "sum"))
+
+
+def folded(parts, op):
+    """``reduce`` over every rank's partials held in one process: their
+    maximum, or their sum in rank order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p) if op == "max" else out + p
+    return out.contiguous()
+
+
 # ---- the kernels' plain versions ------------------------------------------
 
 def _slot_ids(lst: EdgeList) -> torch.Tensor:
@@ -475,12 +574,13 @@ def attn_aggregate_plain(lst, mult, tab, s_dst, rmax0, dinv, heads, feats,
 
 
 def attn_bwd_rows_plain(lst, mult, tab, s_dst, rmax0, dinv, g, heads, feats,
-                        slope, salt=None, keep=1.0):
+                        slope, salt=None, keep=1.0, rowdot=None):
     """The plain version of :func:`attn_bwd_rows`."""
     sums = _row_pass_sums(lst, mult, tab, s_dst, rmax0, dinv, g, heads,
                           feats, slope, salt, keep)
-    rowdot = sums[:, :heads]
-    return rowdot, sums[:, heads:2 * heads] - rowdot * sums[:, 2 * heads:]
+    own = sums[:, :heads]
+    given = own if rowdot is None else rowdot
+    return own, sums[:, heads:2 * heads] - given * sums[:, 2 * heads:]
 
 
 def _row_pass_sums(lst, mult, tab, s_dst, rmax0, dinv, g, heads, feats,
@@ -552,7 +652,7 @@ def attn_bwd_cols_plain(lst, mult, tab, tabc, heads, feats, slope, salt=None,
 
 _POINTERS = ("ptr", "idx", "eid", "unit_row", "unit_edge", "split",
              "part_item", "mult", "salt", "tab", "tabc", "s_dst", "rmax0",
-             "dinv", "g", "out", "out2", "carry", "carry2")
+             "dinv", "g", "rowdot", "out", "out2", "carry", "carry2")
 _INTS = ("n_units", "n_split", "n_part_items", "parts", "heads", "feats",
          "ld", "ldc", "vec", "group", "sgroup")
 
@@ -707,29 +807,35 @@ attn_aggregate.launches = 0
 
 
 def attn_bwd_rows(lst: EdgeList, mult, tab, s_dst, rmax0, dinv, g, heads: int,
-                  feats: int, slope: float, salt=None, keep: float = 1.0):
+                  feats: int, slope: float, salt=None, keep: float = 1.0,
+                  rowdot=None):
     """A3: the backward's row pass over the row list, with ``g`` (N, H * F)
     the output's gradient: ``rowdot = sum alpha dalpha`` and ``ds_dst = sum
     (alpha dalpha - alpha rowdot) sigma'(pre)``, computed as ``P - rowdot
     * Q``, each (N, H) float32 (``dalpha = <h[src], g[dst]>`` per head
-    times the dropout's scale).  CPU tensors take
-    :func:`attn_bwd_rows_plain`; CUDA tensors launch the kernel (counted in
-    ``attn_bwd_rows.launches``)."""
+    times the dropout's scale).  A given ``rowdot`` (N, H) takes the place
+    of the row's own in ``ds_dst`` (a slice of the edges: the sum over every
+    slice).  CPU tensors take :func:`attn_bwd_rows_plain`; CUDA tensors
+    launch the kernel (counted in ``attn_bwd_rows.launches``)."""
+    given = [] if rowdot is None else [(rowdot, heads)]
     _check("attn_bwd_rows", lst, tab, heads, feats,
            per_row=[(s_dst, heads), (rmax0, heads), (dinv, heads),
-                    (g, heads * feats)])
+                    (g, heads * feats)] + given)
     if tab.device.type == "cpu":
         return attn_bwd_rows_plain(lst, mult, tab, s_dst, rmax0, dinv, g,
-                                   heads, feats, slope, salt, keep)
-    rowdot = torch.empty(lst.n_rows, heads, dtype=torch.float32,
-                         device=tab.device)
-    ds_dst = torch.empty_like(rowdot)
+                                   heads, feats, slope, salt, keep, rowdot)
+    own = torch.empty(lst.n_rows, heads, dtype=torch.float32,
+                      device=tab.device)
+    ds_dst = torch.empty_like(own)
     if lst.n_units:
+        tensors = dict(tab=tab, s_dst=s_dst, rmax0=rmax0, dinv=dinv, g=g,
+                       out=own, out2=ds_dst)
+        if rowdot is not None:
+            tensors["rowdot"] = rowdot
         _launch("gnntf_attn_bwd_rows", lst, mult, heads, feats, slope, salt,
-                keep, dict(tab=tab, s_dst=s_dst, rmax0=rmax0, dinv=dinv, g=g,
-                           out=rowdot, out2=ds_dst), 3 * heads)
+                keep, tensors, 3 * heads)
         attn_bwd_rows.launches += 1
-    return rowdot, ds_dst
+    return own, ds_dst
 
 
 attn_bwd_rows.launches = 0

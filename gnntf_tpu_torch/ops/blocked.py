@@ -599,12 +599,12 @@ ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
 # the dropout walks' entry points (gnntf_ell_gather_masked,
 # gnntf_ell_degree) take before the stream the tiles (tile_seg, tile_edge,
 # seg_end, seg_out; n_tiles, cap_edges, cap_segs), the draw (the salt
-# pair's device address, thresh, n_drop, scale), the flag's device address
-# and x's size in floats
+# pair's device address, thresh, n_drop, id_base, scale), the flag's device
+# address and x's size in floats
 DROP_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p] * 4 + [
     ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
-                         ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p]
+                         ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
+                         ctypes.c_longlong, ctypes.c_void_p]
 
 
 def declare(entry, drop: bool = False) -> None:

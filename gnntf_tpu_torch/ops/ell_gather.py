@@ -269,23 +269,27 @@ def _check_masked(what, lst, val):
 
 
 def ell_gather_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
-                            keep: float, n_drop: int,
-                            x: torch.Tensor) -> torch.Tensor:
+                            keep: float, n_drop: int, x: torch.Tensor,
+                            id_base: int = 0) -> torch.Tensor:
     """The plain version of :func:`ell_gather_masked`:
     ``blocked_spmm_plain`` over the draw's per-edge values, in the kernel's
     order (a dropped edge's ``+0 * x`` included, so an inf or a NaN there
     gives NaN, as in JAX's product)."""
     from .stochastic import drawn_values
-    return blocked_spmm_plain(lst, drawn_values(val, salt, keep, n_drop), x)
+    return blocked_spmm_plain(
+        lst, drawn_values(val, salt, keep, n_drop, id_base), x)
 
 
 def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
-                      n_drop: int, x: torch.Tensor) -> torch.Tensor:
+                      n_drop: int, x: torch.Tensor,
+                      id_base: int = 0) -> torch.Tensor:
     """The product of the dropped graph's list with ``x`` as an (N, F)
     float32 tensor: ``out[r] = sum_e w(eid[e]) * x[idx[e]]`` over row r's
     edges, where ``w(e)`` is edge e's dropped value under the draw (``salt``,
     ``keep``, ``n_drop``; ``stochastic.dropped_values``) and ``val`` holds
-    the graph's base values, one an edge id.
+    the graph's base values, one an edge id.  The mask is hashed at the
+    global id ``id_base + eid[e]`` (a rank's slice of a larger edge list),
+    the value read at ``eid[e]``.
 
     CPU tensors take :func:`ell_gather_masked_plain`; CUDA tensors launch
     the masked walk, which hashes the mask in the kernel and gathers only
@@ -295,7 +299,8 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     _check_masked("ell_gather_masked", lst, val)
     blocked.check("ell_gather_masked", lst, val, x)
     if x.device.type == "cpu":
-        return ell_gather_masked_plain(lst, val, salt, keep, n_drop, x)
+        return ell_gather_masked_plain(lst, val, salt, keep, n_drop, x,
+                                       id_base)
     if x.device.type != "cuda":
         raise ValueError(f"ell_gather_masked runs on cpu or cuda, not "
                          f"{x.device}")
@@ -305,7 +310,7 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
         return out
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
     _launch_drop("gnntf_ell_gather_masked", lst, val, x, out, salt, keep,
-                 n_drop, flag)
+                 n_drop, id_base, flag)
     ell_gather_masked.launches += 1
     return out
 
@@ -314,27 +319,29 @@ ell_gather_masked.launches = 0
 
 
 def ell_degree_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
-                            keep: float, n_drop: int) -> torch.Tensor:
+                            keep: float, n_drop: int,
+                            id_base: int = 0) -> torch.Tensor:
     """The plain version of :func:`ell_degree_masked`: the walk's order over
     a column of ones, each product ``w * 1`` equal to ``w``."""
     from .stochastic import drawn_values
     ones = torch.ones(1, 1, dtype=torch.float32,
                       device=val.device).expand(lst.n_rows, 1)
     return blocked_spmm_plain(
-        lst, drawn_values(val, salt, keep, n_drop), ones)[:, 0]
+        lst, drawn_values(val, salt, keep, n_drop, id_base), ones)[:, 0]
 
 
 def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
-                      n_drop: int) -> torch.Tensor:
+                      n_drop: int, id_base: int = 0) -> torch.Tensor:
     """Each list row's sum of its edges' dropped values as an (N,) float32
     tensor: over the column list the dropped graph's column sums, over the
-    row list its row sums.
+    row list its row sums (``id_base`` as in :func:`ell_gather_masked`).
 
     CPU tensors take :func:`ell_degree_masked_plain`; CUDA tensors launch
     the degree walk (counted in ``ell_degree_masked.launches``)."""
     _check_masked("ell_degree_masked", lst, val)
     if val.device.type == "cpu":
-        return ell_degree_masked_plain(lst, val, salt, keep, n_drop)
+        return ell_degree_masked_plain(lst, val, salt, keep, n_drop,
+                                       id_base)
     if val.device.type != "cuda":
         raise ValueError(f"ell_degree_masked runs on cpu or cuda, not "
                          f"{val.device}")
@@ -342,7 +349,7 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     if lst.n_units == 0:
         return out
     _launch_drop("gnntf_ell_degree", lst, val, None, out, salt, keep,
-                 n_drop)
+                 n_drop, id_base)
     ell_degree_masked.launches += 1
     return out
 
@@ -350,26 +357,29 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
 ell_degree_masked.launches = 0
 
 
-def drop_args(lst, salt, keep, n_drop, flag=None, x=None) -> tuple:
+def drop_args(lst, salt, keep, n_drop, flag=None, x=None,
+              id_base=0) -> tuple:
     """A dropout walk's arguments after the list's: the tiles, the draw (the
     salt pair's device address, then ``stochastic.draw_scalars``), the
     address of the masked walk's flag (one int32 of scratch, zeroed by the
     launch) and ``x``'s size in floats (None and 0 for the degree walk)."""
     from .stochastic import draw_scalars
     return (*lst.tile_addresses, salt.data_ptr(),
-            *draw_scalars(keep, n_drop),
+            *draw_scalars(keep, n_drop, id_base),
             None if flag is None else flag.data_ptr(),
             0 if x is None else x.numel())
 
 
-def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, flag=None):
+def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, id_base,
+                 flag=None):
     """A dropout walk's launch: the kernel reads the salt pair from device
     memory (:func:`stochastic.device_salt`; a host salt is uploaded first),
     the rest of the draw as kernel scalars."""
     from .stochastic import device_salt
     salt = device_salt(salt, out.device)
     blocked.launch(_library(), entry, lst, val, x, out,
-                   extra=drop_args(lst, salt, keep, n_drop, flag, x))
+                   extra=drop_args(lst, salt, keep, n_drop, flag, x,
+                                   id_base))
 
 
 @functools.cache

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..graph.coo import Graph, add_self_loops
-from .spmm import edge_degree
+from .spmm import current_executor, edge_degree
 from .stochastic import (draw_salt, draw_uniform, grids_eligible,
                          stochastic_degree)
 
@@ -33,9 +33,17 @@ def _degree(graph: Graph, by: str = "col") -> torch.Tensor:
     degree walk over its training grids' column (or row) list, as the JAX
     package takes its grid reduction; below, the materialized dropped values
     are summed by ``spmm.edge_degree`` (below 65,536 edges on a card the
-    store-mode walk, no atomics).  A lazy ``eye_weight`` adds to every
-    degree."""
-    if graph.dropped and grids_eligible(graph):
+    store-mode walk, no atomics).  An executor in force that offers
+    ``degree`` (``parallel.dist.GspmdExecutor``: each rank's partial over
+    its slice of the edges, summed over the ranks) computes them; an edge
+    shard needs one.  A lazy ``eye_weight`` adds to every degree."""
+    executor = current_executor()
+    if executor is not None and hasattr(executor, "degree"):
+        deg = executor.degree(graph, by=by)
+    elif graph.is_shard:
+        raise ValueError("the degrees of an edge shard need the gspmd "
+                         "executor in force (parallel.dist.GspmdExecutor)")
+    elif graph.dropped and grids_eligible(graph):
         deg = stochastic_degree(graph, by=by)
     else:
         deg = edge_degree(graph.materialized_dropout(), by=by)
@@ -58,18 +66,21 @@ def edge_dropout(graph: Graph, rate: float,
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     keep = 1.0 - rate
-    n_drop = graph.n_edges - graph.num_self_loop
+    n_drop = graph.n_edges_global - graph.num_self_loop
     if grids_eligible(graph) and not graph.dropped:
         return dataclasses.replace(
             graph, drop_salt=draw_salt(generator, graph.device),
             drop_keep=keep, drop_n=n_drop)
     graph = graph.materialized_dropout()  # stacking draws: realize the first
-    mask = draw_uniform(generator, n_drop, graph.device) < keep
-    head = graph.val[:n_drop]
+    # one draw over the whole list; a shard keeps its slice of it
+    lo = graph.edge_offset
+    held = min(max(n_drop - lo, 0), graph.n_edges)
+    mask = (draw_uniform(generator, n_drop, graph.device) < keep)[
+        lo:lo + held]
+    head = graph.val[:held]
     val = torch.cat([torch.where(mask, head / keep, torch.zeros_like(head)),
-                     graph.val[n_drop:]])
-    return Graph(graph.row, graph.col, val, graph.n_nodes,
-                 graph.num_self_loop, graph.sorted_by_row)
+                     graph.val[held:]])
+    return dataclasses.replace(graph, val=val)
 
 
 def normalize_adjacency(

@@ -166,15 +166,17 @@ def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, graph.row, gathered)
 
 
-def edge_degree(graph: Graph, by: str = "col") -> torch.Tensor:
+def edge_degree(graph: Graph, by: str = "col",
+                walk: bool = False) -> torch.Tensor:
     """The column sums (``by='col'``) or row sums of ``graph``'s values as
-    an (N,) tensor: below ``_ELL_MIN_EDGES`` edges on a card K2's
-    store-mode walk over the transposed (or forward) list of
-    :func:`spmm_pallas`'s layout with a column of ones, never a scatter with
-    atomics; elsewhere ``index_add_`` (in index order on the CPU; on a card
-    a larger fixed graph's degrees are summed once, when its normalized
-    adjacency is built)."""
-    if graph.device.type != "cuda" or graph.n_edges >= _ELL_MIN_EDGES:
+    an (N,) tensor: below ``_ELL_MIN_EDGES`` edges on a card, or at any size
+    with ``walk``, K2's store-mode walk over the transposed (or forward)
+    list of :func:`spmm_pallas`'s layout with a column of ones, never a
+    scatter with atomics; elsewhere ``index_add_`` (in index order on the
+    CPU; on a card a larger fixed graph's degrees are summed once, when its
+    normalized adjacency is built)."""
+    if graph.device.type != "cuda" or (graph.n_edges >= _ELL_MIN_EDGES
+                                       and not walk):
         idx = graph.col if by == "col" else graph.row
         deg = torch.zeros(graph.n_nodes, dtype=graph.val.dtype,
                           device=graph.device)
@@ -601,6 +603,8 @@ def prepare(graph: Graph, impl: Optional[str] = None
     if graph.dropped:
         raise ValueError("prepare() takes a fixed adjacency; a dropped graph "
                          "goes through spmm()")
+    if graph.is_shard:  # only the executor in force multiplies by a shard
+        return functools.partial(spmm, graph)
     if impl in ("auto", "hybrid") and graph.n_edges >= _ELL_MIN_EDGES:
         return PreparedSpMM(graph, _ELL_DEFAULT_K)
     return functools.partial(_per_call, impl, graph)
@@ -642,6 +646,9 @@ def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
                                          False):
             graph = graph.materialized_dropout()
         return executor(graph, x)
+    if graph.is_shard:
+        raise ValueError("the product of an edge shard needs the gspmd "
+                         "executor in force (parallel.dist.GspmdExecutor)")
     impl = current_impl()
     if graph.dropped:
         from .stochastic import grids_eligible, stochastic_spmm

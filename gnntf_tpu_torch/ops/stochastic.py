@@ -131,14 +131,15 @@ def dropped_values(val: torch.Tensor, eids: torch.Tensor, salt, keep: float,
     return torch.where(kept, val * scale, torch.zeros_like(val))
 
 
-def draw_scalars(keep: float, n_drop: int) -> tuple:
+def draw_scalars(keep: float, n_drop: int, id_base: int = 0) -> tuple:
     """The part of a draw that the masked kernels take as scalars, fixed for
-    a layer over a run: ``(thresh, n_drop, scale)``, the threshold as
-    :func:`keep_mask` computes it and ``scale`` the float32 ``1 / keep`` of
+    a layer over a run: ``(thresh, n_drop, id_base, scale)``, the threshold
+    as :func:`keep_mask` computes it, the offset that turns a list's ids
+    into the global ids hashed, and ``scale`` the float32 ``1 / keep`` of
     :func:`dropped_values`.  The salts stay in device memory
     (:func:`device_salt`)."""
     scale = float(torch.tensor(1.0 / keep, dtype=torch.float32))
-    return _threshold(keep), int(n_drop), scale
+    return _threshold(keep), int(n_drop), int(id_base), scale
 
 
 def device_salt(salt, device) -> torch.Tensor:
@@ -183,22 +184,25 @@ def draw_uniform(source, n: int, device) -> torch.Tensor:
 _last_draw = None
 
 
-def drawn_values(val: torch.Tensor, salt, keep: float,
-                 n_drop: int) -> torch.Tensor:
+def drawn_values(val: torch.Tensor, salt, keep: float, n_drop: int,
+                 id_base: int = 0) -> torch.Tensor:
     """Per-edge dropped values of the draw (``salt``, ``keep``, ``n_drop``)
-    over the base values ``val``, by edge id.  The values of the last draw
-    are kept, keyed on the identity of its salt and value tensors, which
-    every copy of a dropped graph shares, and on their versions, which a
-    write in place (a salt buffer refilled for the next draw) advances: a
-    layer's degree sum and its SpMM hash the edge ids once.  Values that
-    carry a gradient are not kept."""
+    over the base values ``val``, by edge id: value ``i`` has the global id
+    ``id_base + i`` (a slice of a larger edge list at that offset).  The
+    values of the last draw are kept, keyed on the identity of its salt and
+    value tensors, which every copy of a dropped graph shares, and on their
+    versions, which a write in place (a salt buffer refilled for the next
+    draw) advances: a layer's degree sum and its SpMM hash the edge ids
+    once.  Values that carry a gradient are not kept."""
     global _last_draw
-    key = (getattr(salt, "_version", None), val._version, keep, n_drop)
+    key = (getattr(salt, "_version", None), val._version, keep, n_drop,
+           id_base)
     hit = _last_draw
     if hit is not None and hit[0] is salt and hit[1] is val \
             and hit[2] == key:
         return hit[3]
-    eids = torch.arange(val.shape[0], dtype=torch.int64, device=val.device)
+    eids = torch.arange(id_base, id_base + val.shape[0], dtype=torch.int64,
+                        device=val.device)
     out = dropped_values(val, eids, salt, keep, n_drop)
     if not out.requires_grad:
         _last_draw = (salt, val, key, out)
@@ -209,7 +213,7 @@ def materialize_dropped(graph: Graph) -> torch.Tensor:
     """Per-edge dropped values of a lazily dropped graph (the same numbers
     every grid and kernel computes): :func:`drawn_values` of its draw."""
     return drawn_values(graph.val, graph.drop_salt, graph.drop_keep,
-                        graph.drop_n)
+                        graph.drop_n, graph.edge_offset)
 
 
 @dataclasses.dataclass
@@ -349,7 +353,7 @@ train_grids.builds = 0
 def grids_eligible(graph: Graph) -> bool:
     """The grid path needs enough edges to amortize the one-time build
     (:func:`min_edges`)."""
-    return graph.n_edges >= min_edges()
+    return graph.n_edges_global >= min_edges()
 
 
 def masked_row_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:

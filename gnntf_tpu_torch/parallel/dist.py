@@ -1,34 +1,41 @@
-"""Single-host scale-out on ``torch.distributed`` (the JAX package's
+"""Scale-out on ``torch.distributed`` (the JAX package's
 ``parallel/dist.py``).
 
 The design is SPMD with a replicated model: every rank of the mesh holds
 the parameters, the features and the batch, and computes the same loss, so
 the parameter gradients, and after the optimizer's update the parameters,
-are equal on every rank.  Only the propagation is sharded, by an executor
+are equal on every rank.  Only the edges are sharded, by an executor
 installed through ``ops.spmm.spmm_executor``:
 
 * :class:`GspmdExecutor` (``fit(mesh=, spmm=None | "gspmd")``, JAX's GSPMD
   path): each rank takes its contiguous slice of the padded edge list
-  (:func:`shard_graph`), computes its partial ``A_r @ x`` over all N rows
-  and all-reduces it over the ``edge`` group (JAX's psum); the backward's
-  ``dx = sum_r A_r^T dy`` is all-reduced the same way;
+  (:func:`shard_graph`, or the slice it holds alone,
+  ``multihost.shard_graph_local``) and computes over it every pass that
+  reads the edges, each partial all-reduced over the ``edge`` group (JAX's
+  psum): the product ``A_r @ x`` over all N rows (the backward's ``dx =
+  sum_r A_r^T dy`` likewise), the degrees of ``normalize_adjacency`` and
+  GAT's attention chain (``ops/attention.py``'s chain over slices, its row
+  statistics merged by MAX and SUM);
 * ``halo.HaloExecutor`` and ``ring.RingExecutor`` (``spmm="halo"`` and
-  ``"ring"``).
+  ``"ring"``), which need the whole structure on every rank.
 
 Each rank's product is a walk over its lists (``dropgrids.rank_walk``):
 K2's store-mode walk with realized values, or K1's masked walk under a
-lazy draw, hashed by global edge id.  What is not an SpMM (the degree pass
-of ``normalize_adjacency``, GAT's attention chain) runs replicated over the
-whole graph on every rank; JAX's GSPMD edge-shards it (ROADMAP.md).
+lazy draw, hashed by global edge id.  Its degrees are K1's degree walk
+over its slice's column list under a lazy draw, else K2's store-mode walk
+with a column of ones; its attention is A1-A4 over its slice's lists.
 
 Mesh axes, as in the JAX package: ``edge`` shards the edges; ``feat`` is
 the feature axis, over which this port replicates every parameter
-(:func:`param_shardings` gives JAX's decisions).  The mesh is built inside
-an initialized process group: the caller runs ``init_process_group`` with
-its address, world size and rank.
+(:func:`param_shardings` gives JAX's decisions); a hierarchical mesh
+(``multihost.make_pod_mesh(hierarchical=True)``) has an ``edge_host`` axis
+before them.  The mesh is built inside an initialized process group
+(``multihost.launch_distributed``, or the caller's ``init_process_group``).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from collections import OrderedDict
 from typing import Optional
 
@@ -39,7 +46,7 @@ import torch.distributed as dist
 from ..graph.coo import Graph
 from ..ops.spmm import _scaled_call, spmm_executor
 from .collectives import all_reduce, rank_of
-from .dropgrids import executor_drop_state, rank_lists, rank_walk
+from .dropgrids import rank_lists, rank_walk
 from .partition import pad_graph
 
 EDGE_AXIS = "edge"
@@ -47,19 +54,39 @@ FEAT_AXIS = "feat"
 
 
 class Mesh:
-    """An (edge, feat) mesh of the process group's ranks over a
+    """A mesh of the process group's ranks over a
     ``torch.distributed.device_mesh.DeviceMesh``: ``shape`` maps each axis
-    name to its size, :meth:`group` gives an axis's process group."""
+    name to its size, :meth:`group` gives an axis's process group.
 
-    def __init__(self, device_mesh):
+    ``flatten`` names leading axes, such as ``("edge_host", "edge")``, that
+    also get one group spanning them all, its ranks in the order ``p = h *
+    C + c`` (JAX's order for a collective over several axes).  Every rank
+    makes every such group with ``dist.new_group``, in one order, when the
+    mesh is built (``DeviceMesh._flatten`` would do it, but it is private
+    and its signature differs between torch versions)."""
+
+    def __init__(self, device_mesh, flatten: Optional[tuple] = None):
         self.device_mesh = device_mesh
+        self._flat = {}
+        if flatten is not None:
+            ranks = device_mesh.mesh.reshape(
+                int(np.prod(device_mesh.shape[:len(flatten)])), -1)
+            me = dist.get_rank()
+            for column in ranks.T.tolist():
+                group = dist.new_group(column)
+                if me in column:
+                    self._flat[tuple(flatten)] = group
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.device_mesh.mesh_dim_names,
                         self.device_mesh.shape))
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of ``axis``, or of the axes in a tuple given to
+        ``flatten``."""
+        if isinstance(axis, tuple):
+            return self._flat[axis]
         return self.device_mesh.get_group(axis)
 
     @property
@@ -183,12 +210,116 @@ class _StructureCache:
         return value
 
 
+class RankSlice:
+    """This rank's slice of one structure's edge list: its ``row`` and
+    ``col`` (views), where it starts in the graph's own arrays (``start``:
+    0 for a shard, which holds only its slice) and the global id of its
+    first edge (``base``), with its lists built on first use: the product's
+    (:meth:`products`), the degree walk's (:meth:`grids`) and the attention
+    chain's (:meth:`attention`).  Every list reads values and ids local to
+    the slice; the dropout hashes ``base`` plus them."""
+
+    def __init__(self, row, col, start: int, base: int, n_nodes: int,
+                 device):
+        self.row, self.col = row, col
+        self.start, self.base = start, base
+        self.n_nodes, self.device = n_nodes, device
+        self._lists = {}
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.row.shape[0])
+
+    def values(self, graph: Graph) -> torch.Tensor:
+        """The slice of ``graph``'s values (base values under a lazy draw)
+        as float32."""
+        return graph.val[self.start:self.start + self.n_edges].to(
+            torch.float32).contiguous()
+
+    def _memo(self, key, build):
+        if key not in self._lists:
+            self._lists[key] = build(self.row.cpu().numpy(),
+                                     self.col.cpu().numpy())
+        return self._lists[key]
+
+    def products(self):
+        """The forward and transposed lists (``dropgrids.rank_lists``), or
+        None without edges."""
+        return self._memo("products", lambda r, c: rank_lists(
+            r, c, None, self.n_nodes, self.n_nodes, self.n_edges,
+            self.device))
+
+    def grids(self):
+        """The row and column lists of the slice's training grids
+        (``stochastic.TrainGrids``, as one device builds them for its
+        graph), for the degree walk."""
+        from ..ops.stochastic import build_train_grids
+        return self._memo("grids", lambda r, c: build_train_grids(
+            r, c, np.zeros(len(r), np.float32), self.n_nodes).lists(
+                self.device))
+
+    def attention(self, dedup: bool):
+        """The attention chain's lists (``ops.attention.attn_lists``, per
+        edge with global ids, or coalesced)."""
+        from ..ops.attention import attn_lists
+        return self._memo(("attention", dedup), lambda r, c: attn_lists(
+            r, c, self.n_nodes, self.device, dedup=dedup,
+            id_base=self.base))
+
+
+class _ShardAttnFn(torch.autograd.Function):
+    """``(h, s_src, s_dst) -> out``: GAT's attention over this rank's
+    slice, its row statistics and partials merged over ``group``
+    (``ops.attention.sharded_forward``/``sharded_backward``); the
+    gradients, all-reduced, are equal on every rank."""
+
+    @staticmethod
+    def forward(ctx, h, s_src, s_dst, lists, salt, keep, slope, group):
+        from ..ops.attention import pack_table, sharded_forward
+        n, heads, feats = h.shape
+        tab = pack_table(h.reshape(n, heads * feats), s_src)
+        s_dst = s_dst.to(torch.float32).contiguous()
+        reduce = _reducer(group)
+        outs = sharded_forward(lists, tab, s_dst, heads, feats, slope, salt,
+                               keep, reduce=reduce)
+        ctx.save_for_backward(tab, s_dst, outs["rmax0"], outs["dinv"])
+        ctx.lists, ctx.draw, ctx.reduce = lists, (slope, salt, keep), reduce
+        ctx.shape = (n, heads, feats)
+        return outs["out"].view(n, heads, feats)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.attention import sharded_backward
+        tab, s_dst, rmax0, dinv = ctx.saved_tensors
+        n, heads, feats = ctx.shape
+        g = g.reshape(n, heads * feats).to(torch.float32).contiguous()
+        outs = sharded_backward(ctx.lists, tab, s_dst, rmax0, dinv, g, heads,
+                                feats, *ctx.draw, reduce=ctx.reduce)
+        return (outs["dh"].view(n, heads, feats), outs["ds_src"],
+                outs["ds_dst"], None, None, None, None, None)
+
+
+def _reducer(group):
+    """The chain's ``reduce`` over ``group``: this rank's one partial,
+    all-reduced (MAX or SUM)."""
+    def reduce(parts, op):
+        t = parts[0].contiguous()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
+        return t
+    return reduce
+
+
 class GspmdExecutor(_StructureCache):
-    """An ``ops.spmm`` executor: each product is this rank's partial over
-    its slice of the padded edge list, all-reduced over the ``edge`` group
-    (module docstring).  A lazily dropped graph arrives with its draw and is
-    hashed by global edge id in the masked walk; padding slots have value 0
-    and are left out of the lists."""
+    """An ``ops.spmm`` executor over this rank's slice of the padded edge
+    list (module docstring): the product, all-reduced over the ``edge``
+    group, and, offered to ``normalize_adjacency`` and ``gat_attention``,
+    the degrees and GAT's attention.  It takes the whole graph (each rank
+    slices it, :func:`graph_shardings`; padding slots have value 0 and are
+    left out of the lists) or an edge shard (``multihost.
+    shard_graph_local``), whose arrays are the slice.  A lazily dropped
+    graph arrives with its draw and is hashed by global edge id in the
+    masked and degree walks."""
 
     supports_lazy_dropout = True
 
@@ -197,28 +328,79 @@ class GspmdExecutor(_StructureCache):
         self.mesh = mesh
         self.group = mesh.group(EDGE_AXIS)
 
-    def lists_for(self, graph: Graph):
-        """This rank's forward and transposed lists of ``graph``'s
-        structure (None when its slice holds no edge)."""
+    def slice_of(self, graph: Graph) -> RankSlice:
+        """This rank's :class:`RankSlice` of ``graph``'s structure."""
         def build():
+            if graph.is_shard:
+                return RankSlice(graph.row, graph.col, 0, graph.edge_offset,
+                                 graph.n_nodes, self.mesh.device)
             e = graph.n_edges
             part = graph_shardings(self.mesh, graph)
-            stop = min(part.stop, e)
-            row = graph.row[part.start:stop].cpu().numpy()
-            col = graph.col[part.start:stop].cpu().numpy()
-            return rank_lists(row, col, np.arange(part.start, stop),
-                              graph.n_nodes, graph.n_nodes, e,
-                              self.mesh.device)
+            start, stop = min(part.start, e), min(part.stop, e)
+            return RankSlice(graph.row[start:stop], graph.col[start:stop],
+                             start, start, graph.n_nodes, self.mesh.device)
         return self.get(graph, build)
+
+    @staticmethod
+    def _draw(graph: Graph, sl: RankSlice):
+        if not graph.dropped:
+            return None
+        return (graph.drop_salt, graph.drop_keep, graph.drop_n, sl.base)
 
     def __call__(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
         if graph.scaled or graph.eye_weight != 0.0:
             return _scaled_call(self, graph, x)
         check_device(self.mesh, x)
-        val, draw = executor_drop_state(graph)
-        partial = _PartialFn.apply(x, val, draw, self.lists_for(graph),
-                                   self.group)
+        sl = self.slice_of(graph)
+        partial = _PartialFn.apply(x, sl.values(graph), self._draw(graph, sl),
+                                   sl.products(), self.group)
         return all_reduce(partial, self.group)
+
+    def degree(self, graph: Graph, by: str = "col") -> torch.Tensor:
+        """The column (or row) sums of ``graph``'s (dropped) values: this
+        rank's partial over its slice, all-reduced.  Under a lazy draw at or
+        above ``min_edges()`` edges, K1's degree walk over the slice's
+        column (row) list; otherwise K2's store-mode walk over its layout
+        with a column of ones on a card, ``index_add_`` on the CPU (as one
+        device sums)."""
+        from ..ops.spmm import edge_degree
+        from ..ops.stochastic import (drawn_values, ell_degree_masked,
+                                      grids_eligible)
+        sl = self.slice_of(graph)
+        val = sl.values(graph)
+        draw = self._draw(graph, sl)
+        if sl.n_edges == 0:
+            part = val.new_zeros(graph.n_nodes)
+        elif draw is not None and grids_eligible(graph):
+            rows, cols = sl.grids()
+            part = ell_degree_masked(cols if by == "col" else rows, val,
+                                     *draw)
+        else:
+            if draw is not None:
+                val = drawn_values(val, *draw)
+            part = edge_degree(Graph(sl.row, sl.col, val, graph.n_nodes), by,
+                               walk=True)
+        return all_reduce(part.to(graph.val.dtype), self.group)
+
+    def attention(self, graph: Graph, h, s_src, s_dst, *, negative_slope,
+                  attn_dropout, salt) -> torch.Tensor:
+        """GAT's attention over ``graph`` (``ops.attention.gat_attention``'s
+        arguments, ``salt`` None without dropout): over this rank's slice,
+        merged over the ranks.  A mesh of one rank runs one device's chain
+        over the whole graph."""
+        from ..ops.attention import gat_attention_local
+        check_device(self.mesh, h)
+        keep = 1.0 - attn_dropout if salt is not None else 1.0
+        if self.group.size() == 1:
+            whole = dataclasses.replace(graph, edge_offset=0,
+                                        global_edges=None)
+            return gat_attention_local(whole, h, s_src, s_dst,
+                                       negative_slope=negative_slope,
+                                       attn_dropout=attn_dropout, salt=salt)
+        lists = self.slice_of(graph).attention(dedup=keep >= 1.0)
+        return _ShardAttnFn.apply(h, s_src, s_dst, [lists],
+                                  salt if keep < 1.0 else None, keep,
+                                  float(negative_slope), self.group)
 
 
 def executor_for(mesh: Mesh, spmm: Optional[str]):
@@ -234,30 +416,35 @@ def executor_for(mesh: Mesh, spmm: Optional[str]):
     return GspmdExecutor(mesh)
 
 
-def make_train_step_raw(model, task, tx, regularization: float = 5e-4):
+def make_train_step_raw(model, task, tx, regularization: float = 5e-4,
+                        graph: Optional[Graph] = None):
     """The train step's body ``step(opt_state, generator, deg, batch) ->
     (opt_state, loss)``: the training forward with the draws of
-    ``generator``, the task loss with the layer losses and ``regularization``
-    times the weight L2, the gradients of ``loss * deg`` and the optimizer's
-    update of ``model.params`` in place (``train/trainer.py``'s host loop).
-    The loss is a 0-d tensor."""
+    ``generator`` (over ``graph`` in place of the model's own, where given:
+    the JAX package passes the sharded graph to its step), the task loss
+    with the layer losses and ``regularization`` times the weight L2, the
+    gradients of ``loss * deg`` and the optimizer's update of
+    ``model.params`` in place (``train/trainer.py``'s host loop).  The loss
+    is a 0-d tensor."""
     from ..train.trainer import _train_step
     names = [k for k, t in model.trainable_mask().items() if t]
 
     def step(opt_state, generator, deg, batch):
         return _train_step(model, task, batch, regularization, generator,
-                           False, names, tx, opt_state, deg)
+                           False, names, tx, opt_state, deg, graph)
 
     return step
 
 
 def make_distributed_train_step(model, task, mesh: Mesh, tx,
                                 regularization: float = 5e-4,
-                                spmm: Optional[str] = None):
+                                spmm: Optional[str] = None,
+                                graph: Optional[Graph] = None):
     """:func:`make_train_step_raw` with every SpMM of the step through the
-    mesh's executor (:func:`executor_for`)."""
-    return _scoped(make_train_step_raw(model, task, tx, regularization),
-                   executor_for(mesh, spmm))
+    mesh's executor (:func:`executor_for`); ``graph`` may be this rank's
+    edge shard (``multihost.shard_graph_local``) under gspmd."""
+    return _scoped(make_train_step_raw(model, task, tx, regularization,
+                                       graph), executor_for(mesh, spmm))
 
 
 def make_eval_raw(model):
@@ -268,9 +455,14 @@ def make_eval_raw(model):
     return eval_fn
 
 
-def make_distributed_eval(model, mesh: Mesh, spmm: Optional[str] = None):
-    """:func:`make_eval_raw` through the mesh's executor."""
-    return _scoped(make_eval_raw(model), executor_for(mesh, spmm))
+def make_distributed_eval(model, mesh: Mesh, spmm: Optional[str] = None,
+                          graph: Optional[Graph] = None):
+    """:func:`make_eval_raw` through the mesh's executor, over ``graph``
+    (this rank's edge shard, say) where given and the call gives none."""
+    eval_fn = make_eval_raw(model)
+    if graph is not None:
+        eval_fn = functools.partial(eval_fn, graph=graph)
+    return _scoped(eval_fn, executor_for(mesh, spmm))
 
 
 def _scoped(fn, executor):

@@ -79,12 +79,15 @@ def executor_drop_state(graph: Graph):
 
 def rank_walk(lst, val: torch.Tensor, draw, x: torch.Tensor) -> torch.Tensor:
     """One rank's product over ``lst``: K2's store-mode walk with the
-    realized values ``val`` (read by global id), or with a ``draw`` K1's
-    masked walk over the base values.  On the CPU the plain versions."""
+    realized values ``val`` (read by the list's ids), or with a ``draw``
+    ``(salt, keep, n_drop[, id_base])`` K1's masked walk over the base
+    values, the mask hashed at ``id_base`` plus the list's id.  On the CPU
+    the plain versions."""
     x = x.to(torch.float32).contiguous()
     if draw is None:
         return blocked_spmm(lst, val, x)
-    return ell_gather_masked(lst, val, *draw, x)
+    salt, keep, n_drop, *base = draw
+    return ell_gather_masked(lst, val, salt, keep, n_drop, x, *base)
 
 
 def rank_lists(dst, src, eid, n_out: int, n_in: int, n_edges: int,

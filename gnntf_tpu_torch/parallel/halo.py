@@ -377,32 +377,46 @@ def halo_spmm(part: HaloPartition, x: torch.Tensor, mesh: Mesh,
 
 class HaloExecutor(_StructureCache):
     """An ``ops.spmm`` executor routing every propagation layer's SpMM
-    through :func:`halo_spmm` (``fit(mesh=, spmm="halo")``).  Plans and this
-    rank's lists are built on the host once per graph structure, keyed on
-    the identity of ``row``/``col`` with strong references kept, bounded
-    LRU (16).  A lazily dropped graph arrives with its draw
-    (``supports_lazy_dropout``).  The JAX package's hierarchical mesh (an
-    ``edge_host`` axis) is not ported: it raises."""
+    through :func:`halo_spmm` (``fit(mesh=, spmm="halo")``), or, on a
+    hierarchical mesh (an ``edge_host`` axis, ``multihost.make_pod_mesh(
+    hierarchical=True)``), through ``hier_halo.hier_halo_spmm``'s
+    three-phase exchange, selected from the mesh's axes as the JAX package
+    selects it.  Plans and this rank's lists are built on the host once per
+    graph structure, keyed on the identity of ``row``/``col`` with strong
+    references kept, bounded LRU (16).  A lazily dropped graph arrives with
+    its draw (``supports_lazy_dropout``).  The plans need the whole
+    structure: an edge shard raises ``ValueError``."""
 
     supports_lazy_dropout = True
 
     def __init__(self, mesh: Mesh):
         super().__init__()
-        if "edge_host" in mesh.shape:
-            raise NotImplementedError(
-                "a hierarchical (edge_host) mesh and its three-phase halo "
-                "exchange are not ported yet: ROADMAP.md queue 1, item 12d")
+        from .multihost import EDGE_HOST_AXIS
         self.mesh = mesh
+        self.hierarchical = EDGE_HOST_AXIS in mesh.shape
 
     def partition_for(self, graph: Graph):
         """``(plan, lists)``: the structure's plan and this rank's lists."""
+        if graph.is_shard:
+            raise ValueError("the halo plans need the whole edge structure "
+                             "on every rank, not an edge shard")
+
         def build():
-            plan = build_halo_partition(Graph(
+            structure = Graph(
                 row=graph.row, col=graph.col,
                 val=torch.ones(graph.n_edges), n_nodes=graph.n_nodes,
                 num_self_loop=graph.num_self_loop,
-                sorted_by_row=graph.sorted_by_row),
-                self.mesh.shape[EDGE_AXIS])
+                sorted_by_row=graph.sorted_by_row)
+            if self.hierarchical:
+                from .hier_halo import (build_hier_halo_partition,
+                                        hier_groups, hier_lists)
+                edge, host, _ = hier_groups(self.mesh)
+                plan = build_hier_halo_partition(
+                    structure, host.size(), edge.size())
+                return plan, hier_lists(plan, rank_of(host), rank_of(edge),
+                                        self.mesh.device)
+            plan = build_halo_partition(structure,
+                                        self.mesh.shape[EDGE_AXIS])
             rank = rank_of(self.mesh.group(EDGE_AXIS))
             return plan, halo_lists(plan, rank, self.mesh.device)
         return self.get(graph, build)
@@ -412,4 +426,8 @@ class HaloExecutor(_StructureCache):
             return _scaled_call(self, graph, x)
         plan, lists = self.partition_for(graph)
         val, draw = executor_drop_state(graph)
+        if self.hierarchical:
+            from .hier_halo import hier_halo_spmm
+            return hier_halo_spmm(plan, x, self.mesh, val, drop=draw,
+                                  lists=lists)
         return halo_spmm(plan, x, self.mesh, val, drop=draw, lists=lists)

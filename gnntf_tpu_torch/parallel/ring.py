@@ -215,6 +215,10 @@ class RingExecutor(_StructureCache):
 
     def partition_for(self, graph: Graph):
         """``(plan, lists)``: the structure's plan and this rank's lists."""
+        if graph.is_shard:
+            raise ValueError("the ring plan needs the whole edge structure "
+                             "on every rank, not an edge shard")
+
         def build():
             plan = build_ring_partition(Graph(
                 row=graph.row, col=graph.col,

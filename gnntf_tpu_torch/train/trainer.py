@@ -188,22 +188,25 @@ def _scope(spmm_impl: Optional[str], executor=None):
 
 
 def _total_loss(model: Trainable, task: Predictor, batch, regularization,
-                generator, remat=False):
+                generator, remat=False, graph=None):
     out, fw = model.forward(model.features, training=True,
-                            generator=generator, return_ctx=True, remat=remat)
+                            generator=generator, return_ctx=True, remat=remat,
+                            graph=graph)
     loss = task.loss(out, batch, params=model.params)
     loss = loss + model.layer_losses(fw)
     return loss + regularization * model.weight_l2()
 
 
 def _train_step(model: Trainable, task: Predictor, batch, regularization,
-                generator, remat, names, tx, opt_state, deg):
-    """One step of the host loop: the training forward and loss, the
-    gradients of ``loss * deg`` (frozen parameters get zeros, so their
-    moments stay zero) and the optimizer's update of ``model.params`` in
-    place; returns the new optimizer state and the loss."""
+                generator, remat, names, tx, opt_state, deg, graph=None):
+    """One step of the host loop: the training forward (over ``graph`` in
+    place of the model's own, where given) and loss, the gradients of
+    ``loss * deg`` (frozen parameters get zeros, so their moments stay zero)
+    and the optimizer's update of ``model.params`` in place; returns the new
+    optimizer state and the loss."""
     params = model.params
-    loss = _total_loss(model, task, batch, regularization, generator, remat)
+    loss = _total_loss(model, task, batch, regularization, generator, remat,
+                       graph)
     found = dict(zip(names, torch.autograd.grad(
         loss, [params[k] for k in names], allow_unused=True)))
     # gradient of loss * degradation(epoch) (trainable.py:78)

@@ -309,7 +309,8 @@ def test_keep_mask_takes_a_salt_tensor(salt):
 
 
 def test_draw_scalars_leave_the_salt_in_device_memory():
-    assert pst.draw_scalars(0.5, 10) == (1 << 23, 10, 2.0)
+    assert pst.draw_scalars(0.5, 10) == (1 << 23, 10, 0, 2.0)
+    assert pst.draw_scalars(0.5, 10, 7) == (1 << 23, 10, 7, 2.0)
     salt = torch.tensor([3, 4])
     assert pst.device_salt(salt, "cpu").data_ptr() == salt.data_ptr()
     assert pst.device_salt((3, 4), "cpu").tolist() == [3, 4]

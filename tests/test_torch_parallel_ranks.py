@@ -8,11 +8,9 @@ collectives' gradients, parameters equal across ranks).  Each test spawns
 its ranks once and runs all of its cases in them.
 """
 import os
-import socket
 import tempfile
 
 import numpy as np
-import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -20,30 +18,32 @@ import torch.multiprocessing as mp
 import gnntf_tpu_torch as tt
 from gnntf_tpu_torch.graph.coo import Graph
 from gnntf_tpu_torch.ops.spmm import spmm_segment
+from gnntf_tpu_torch.parallel.multihost import free_port, launch_distributed
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(rank, world, port, body, args, out_dir):
+def _entry(rank, world, port, body, args, out_dir, launch):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
+    if launch:
+        launch_distributed(f"localhost:{port}", num_processes=world,
+                           process_id=rank, device="cpu")
+    else:
+        args = (port,) + args
     try:
         result = body(rank, *args)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
 
 
-def spawn(world: int, body, *args) -> list:
-    """``body(rank, *args)`` on ``world`` gloo ranks of the CPU; returns
-    each rank's result."""
+def spawn(world: int, body, *args, launch=True) -> list:
+    """``body(rank, *args)`` on ``world`` gloo ranks of the CPU, the process
+    group initialized by ``multihost.launch_distributed``; returns each
+    rank's result.  With ``launch=False`` the body is called as ``body(rank,
+    port, *args)`` and initializes the group itself."""
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(_entry, args=(world, free_port(), body, args, out_dir),
+        mp.spawn(_entry, args=(world, free_port(), body, args, out_dir,
+                               launch),
                  nprocs=world)
         return [torch.load(os.path.join(out_dir, f"{r}.pt"),
                            weights_only=False) for r in range(world)]
@@ -106,14 +106,24 @@ def products_body(rank, cases):
     return results
 
 
+def mesh_of(shape):
+    """The mesh of a run's ``mesh``: None, ``make_mesh(*shape)`` for a
+    tuple, ``make_pod_mesh(1, **shape)`` for a dict."""
+    from gnntf_tpu_torch.parallel import make_mesh, make_pod_mesh
+    if not shape:
+        return None
+    if isinstance(shape, dict):
+        return make_pod_mesh(1, **shape)
+    return make_mesh(*shape)
+
+
 def train_body(rank, runs):
     """Each run's ``fit`` on a mesh: ``(history, {name: param})``.  A run
     gives the graph, the features, the labels and split, the mesh shape,
     the model's keyword arguments and ``fit``'s."""
-    from gnntf_tpu_torch.parallel import make_mesh
     results = []
     for run in runs:
-        mesh = make_mesh(*run["mesh"]) if run["mesh"] else None
+        mesh = mesh_of(run["mesh"])
         model = build_model(run)
         hist = model.train(*tasks(run), mesh=mesh, seed=0, **run["fit"])
         results.append((hist, {k: p.detach().clone()
@@ -284,17 +294,6 @@ def mesh_shapes_body(rank, graph):
     shard = shard_graph(torch_graph(*graph), mesh)
     return (mesh.shape, make_mesh().shape, raised,
             tuple(getattr(shard, f).numpy() for f in ("row", "col", "val")))
-
-
-def test_hierarchical_mesh_raises_naming_the_roadmap_item():
-    """The JAX package's hierarchical (``edge_host``) mesh is not ported:
-    the halo executor raises, naming ROADMAP item 12d."""
-    from types import SimpleNamespace
-
-    from gnntf_tpu_torch.parallel import HaloExecutor
-    mesh = SimpleNamespace(shape={"edge_host": 2, "edge": 2, "feat": 1})
-    with pytest.raises(NotImplementedError, match="12d"):
-        HaloExecutor(mesh)
 
 
 def train_step_body(rank, run, steps=8):
