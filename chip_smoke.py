@@ -180,6 +180,20 @@ Phases (any failure raises and exits non-zero):
    ``index_add_`` kernel, and the walk over the graph's per-edge lists
    timed against the ``index_add_`` route it replaced; (e) the process
    group destroyed;
+16. the fused trainer's cases that ran only on the host loop on a card
+   before, each fused run against the host loop on the card from the same
+   seed (losses within ``rtol=1e-5``, the same best epoch, the recorded
+   epoch's and the capture's launches twice an epoch's, each walk's
+   launches in a profiled replay equal to the host loop's an epoch, the
+   second block's wall time an epoch, a replay's device busy time): (a)
+   APPNP at its defaults at Cora's scale, its eager edge masks' uniforms
+   read from the tape's per-block tables (K2's store-mode walks), the
+   tables' bytes; (b) GCNII-64 at ``GCNIIConfig`` with ``remat=True``,
+   ``block_epochs=2``, against the host loop with remat and the fused run
+   without it, both fused peaks with the graph's pool (K1 and its backward
+   walk); (c) APPNP at its defaults on the bench graph with momentum SGD
+   and optax-style Adam (the masked and degree walks); (d) (a)'s APPNP
+   with a layer that scales by a draw from ``next_generator(device)``;
 13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1 and its
    backward walk with NGCF's launches and an F=16 reading, phases 2 and
    2d; K2 and the masked walk with phase 14's per-rank walks and
@@ -1480,21 +1494,23 @@ def fused_tasks(inv=None):
 
 
 def fused_run(model, tasks, impl, block_epochs, profile=False,
-              primer=PRIMER_KERNELS):
-    """``model.train(epochs=FUSED_EPOCHS, block_epochs=..., patience=100,
-    seed=0)`` with the counts zeroed just before and read just after: the
-    history, the counts, the host clock at the start and at each callback
-    (after a synchronize), and with ``profile`` the profile of the second
-    block, from the first block's last callback to the second block's
-    first (``primer`` spin kernels at its start, ``ProfiledSpan``)."""
+              primer=PRIMER_KERNELS, epochs=FUSED_EPOCHS, block=FUSED_BLOCK,
+              **kw):
+    """``model.train(epochs=epochs, block_epochs=..., patience=100,
+    seed=0, **kw)`` with the counts zeroed just before and read just
+    after: the history, the counts, the host clock at the start and at each
+    callback (after a synchronize), and with ``profile`` the profile of the
+    second block of ``block`` epochs, from the first block's last callback
+    to the second block's first (``primer`` spin kernels at its start,
+    ``ProfiledSpan``)."""
     marks, span, profiled = [], ProfiledSpan(primer), {}
 
     def mark(epoch, **_):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        if profile and epoch == FUSED_BLOCK - 1:
+        if profile and epoch == block - 1:
             span.start()
-        if profile and epoch == FUSED_BLOCK:
+        if profile and epoch == block:
             profiled["rows"], profiled["busy_us"], profiled["wall_us"] = \
                 span.stop()
             profiled["primed"] = span.primed
@@ -1502,14 +1518,14 @@ def fused_run(model, tasks, impl, block_epochs, profile=False,
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    hist = model.train(*tasks, epochs=FUSED_EPOCHS, patience=100, seed=0,
+    hist = model.train(*tasks, epochs=epochs, patience=100, seed=0,
                        spmm_impl=impl, block_epochs=block_epochs,
-                       callbacks=[mark])
+                       callbacks=[mark], **kw)
     return hist, launch_counts(), t0, marks, profiled
 
 
-def replay_profile(label, take, want):
-    """The kernels of a profiled block (FUSED_BLOCK replays; ``take(primer)``
+def replay_profile(label, take, want, replays=FUSED_BLOCK):
+    """The kernels of a profiled block (``replays`` replays; ``take(primer)``
     runs ``fused_run(..., profile=True, primer=primer)`` and gives its
     profile) an epoch; raises unless each of ``want`` (a name tag: walks
     an epoch) holds.  A block whose profile kept none of its primer
@@ -1525,16 +1541,16 @@ def replay_profile(label, take, want):
                            f"{PROFILE_TRIES} blocks")
     rows = profiled["rows"]
     count = lambda tag: sum(r[2] for r in rows if tag in r[0])
-    walks = {tag: count(tag) / FUSED_BLOCK for tag in (
+    walks = {tag: count(tag) / replays for tag in (
         "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
         "blocked_spmm_walk", *ATTN_WALKS)}
-    index_add = (count("indexFunc") + count("index_add")) / FUSED_BLOCK
+    index_add = (count("indexFunc") + count("index_add")) / replays
     out = dict(walks_per_epoch=walks, index_add_per_epoch=index_add,
-               launches_per_epoch=sum(r[2] for r in rows) / FUSED_BLOCK,
-               busy_ms_per_epoch=profiled["busy_us"] / FUSED_BLOCK / 1e3,
-               profiled_wall_ms_per_epoch=(profiled["wall_us"] / FUSED_BLOCK
+               launches_per_epoch=sum(r[2] for r in rows) / replays,
+               busy_ms_per_epoch=profiled["busy_us"] / replays / 1e3,
+               profiled_wall_ms_per_epoch=(profiled["wall_us"] / replays
                                            / 1e3))
-    log(f"{label} replay profile ({FUSED_BLOCK} replays): {out}")
+    log(f"{label} replay profile ({replays} replays): {out}")
     for key, us, n in rows[:12]:
         log(f"  {us} us in {n} launches: {key[:90]}")
     got = dict(walks, index_add=index_add)
@@ -3595,6 +3611,252 @@ def phase_multihost_train(graph, features, dev):
     return out
 
 
+# phase 16: the fused trainer's cases that earlier slices ran only on the
+# host loop on a card: a small graph's eager edge masks, remat, an optimizer
+# whose state is tensors, a layer's own draws
+PHASE16_EPOCHS, PHASE16_BLOCK = 10, 5
+REMAT16_EPOCHS, REMAT16_BLOCK = 4, 2
+# a replay's walks by profile name, and the wrappers' counts each one is
+# (K1's backward walk is K2's store-mode kernel)
+WALK_COUNTERS = {"ell_gather_walk": ("k1",),
+                 "ell_gather_masked_walk": ("masked",),
+                 "ell_degree_walk": ("degree",),
+                 "blocked_spmm_walk": ("k2", "backward")}
+
+
+class MomentumSGD:
+    """``optax.sgd(learning_rate, momentum)``: a trace ``t = g + m t``,
+    the update ``-learning_rate * t``."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9):
+        self.learning_rate, self.momentum = learning_rate, momentum
+
+    def init(self, params):
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads, state):
+        trace = {k: g + self.momentum * state["trace"][k]
+                 for k, g in grads.items()}
+        return ({k: -self.learning_rate * t for k, t in trace.items()},
+                {"trace": trace})
+
+
+class OptaxAdam:
+    """``optax.adam(learning_rate)``: the moments bias-corrected by a count
+    kept as a device tensor, ``eps`` added outside the square root."""
+
+    def __init__(self, learning_rate=0.01, b1=0.9, b2=0.999, eps=1e-8):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": zeros(), "nu": zeros()}
+
+    def update(self, grads, state):
+        b1, b2 = self.b1, self.b2
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * torch.square(g) + b2 * state["nu"][k]
+              for k, g in grads.items()}
+        count = state["count"] + 1
+        t = count.to(torch.float32)
+        c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+        updates = {k: -self.learning_rate * (mu[k] / c1)
+                   / (torch.sqrt(nu[k] / c2) + self.eps) for k in grads}
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def scales_by_a_draw():
+    """A layer that scales its input by ``1 + 0.1 u``, ``u`` a draw from a
+    generator of its own on the card (``Forward.next_generator``)."""
+    import gnntf_tpu_torch as tt
+
+    class ScalesByADraw(tt.Layer):
+        def build(self, net):
+            return net.top_shape()
+
+        def apply(self, fw, x):
+            if not fw.training:
+                return x
+            g = fw.next_generator(x.device)
+            return x * (1.0 + 0.1 * torch.rand(1, generator=g,
+                                               device=x.device))
+
+    return ScalesByADraw()
+
+
+def uniform_table_bytes():
+    """Wrap ``DrawTape.stop`` to keep the bytes of the eager masks'
+    uniform tables each recording makes; returns that list and the undo."""
+    from gnntf_tpu_torch.nn import core
+    stop, made = core.DrawTape.stop, []
+
+    def recording_stop(self, *args, **kw):
+        stop(self, *args, **kw)
+        made.append(sum(t.numel() * t.element_size() for t in self.uniforms))
+
+    core.DrawTape.stop = recording_stop
+    return made, lambda: setattr(core.DrawTape, "stop", stop)
+
+
+def fused_case(label, model, tasks, epochs, block, **kw):
+    """16: ``fit(block_epochs=block)`` against the host loop on the card
+    from the same seed (``kw`` to both): losses within ``FUSED_RTOL``, the
+    same best epoch; the counts of the recorded epoch and the capture twice
+    the host loop's an epoch; the second block's wall time an epoch; a
+    second fused run's second block profiled, each walk a replay equal to
+    the host loop's launches of its kernel an epoch; peak memory with the
+    graph's pool.  A clean forward first builds the model's cached
+    adjacency and operator, so that both runs launch alike."""
+    model.reset(seed=0)
+    model._activations()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused, counts, t0, marks, _ = fused_run(model, tasks, None, block,
+                                            epochs=epochs, block=block, **kw)
+    peak = dict(allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20)
+    host, host_counts, h0, host_marks, _ = fused_run(model, tasks, None, 1,
+                                                     epochs=epochs, **kw)
+    per_epoch = {k: v / epochs for k, v in host_counts.items()}
+    # the recorded epoch and the capture (a rehearsal on the CPU runs every
+    # epoch)
+    runs = 2 if model.device.type == "cuda" else epochs
+    if counts != {k: runs * v for k, v in per_epoch.items()}:
+        raise AssertionError(f"{label}: launches counted {counts}, host loop "
+                             f"an epoch {per_epoch}")
+    rel = {}
+    for key in ("train_loss", "valid_loss"):
+        a, b = np.array(fused[key]), np.array(host[key])
+        rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        np.testing.assert_allclose(a, b, rtol=FUSED_RTOL)
+    if fused["best_epoch"] != host["best_epoch"]:
+        raise AssertionError(f"{label}: best epoch {fused['best_epoch']}, "
+                             f"host loop {host['best_epoch']}")
+    want = {tag: sum(per_epoch[c] for c in counters)
+            for tag, counters in WALK_COUNTERS.items()}
+    replay = replay_profile(
+        label, lambda primer: fused_run(
+            model, tasks, None, block, profile=True, primer=primer,
+            epochs=epochs, block=block, **kw)[4], want, replays=block)
+    epoch_ms = (marks[2 * block - 1] - marks[block - 1]) * 1e3 / block
+    host_ms = np.diff([h0] + host_marks) * 1e3
+    out = dict(fused_epoch_ms=epoch_ms,
+               first_block_ms=(marks[block - 1] - t0) * 1e3,
+               busy_ms_per_epoch=replay["busy_ms_per_epoch"],
+               host_epoch_ms=host_ms.tolist(), max_rel_loss_diff=rel,
+               best_epoch=fused["best_epoch"], counted=counts,
+               host_per_epoch=per_epoch, walks_per_replay={
+                   tag: replay["walks_per_epoch"][tag] for tag in want},
+               peak=peak, train_loss=fused["train_loss"])
+    log(f"{label}: fused epoch {epoch_ms} ms (second block, wall), device "
+        f"busy {replay['busy_ms_per_epoch']} ms a replay; host loop epoch "
+        f"ms {host_ms.tolist()}; max relative loss difference {rel} (limit "
+        f"{FUSED_RTOL}), best epoch {fused['best_epoch']}; walks a replay "
+        f"{out['walks_per_replay']}; peak memory with the graph pool {peak}"
+        f"; card {nvidia_smi('name,power.limit')}")
+    return out
+
+
+def cora_graph(dev):
+    """Phase 14d's graph at Cora's scale, features, labels and split."""
+    import gnntf_tpu_torch as tt
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, CORA_NODES, CORA_EDGES)
+    dst = rng.randint(0, CORA_NODES, CORA_EDGES)
+    graph = tt.from_edges(src, dst, n_nodes=CORA_NODES, directed=False,
+                          device=dev)
+    features = rng.rand(CORA_NODES, 64).astype(np.float32)
+    labels = rng.randint(0, CORA_CLASSES, CORA_NODES)
+    tasks = (tt.NodeClassification(np.arange(140), labels[:140]),
+             tt.NodeClassification(np.arange(200, 700), labels[200:700]))
+    return graph, features, tasks
+
+
+def phase_fused_gaps(graph, features, dev):
+    """16a: APPNP at its defaults at Cora's scale, its eager edge masks'
+    uniforms from the tape's tables (K2's store-mode walks); 16b: GCNII-64
+    at ``GCNIIConfig`` with remat, fused against the host loop with remat
+    and against the fused run without it, both fused peaks; 16c: APPNP at
+    its defaults on the bench graph with momentum SGD and optax-style Adam
+    (the masked and degree walks); 16d: 16a's APPNP with a layer that
+    scales by a draw from ``next_generator(device)``."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch import config
+    from gnntf_tpu_torch.ops import stochastic
+
+    out = {}
+    cora, cora_features, cora_tasks = cora_graph(dev)
+    if cora.n_edges >= stochastic.min_edges():
+        raise AssertionError("the Cora-scale graph takes the lazy draw")
+    made, undo = uniform_table_bytes()
+    try:
+        model = tt.APPNP(cora, cora_features, num_classes=CORA_CLASSES,
+                         device=dev)
+        out["16a"] = fused_case("16a APPNP eager masks (Cora scale)", model,
+                                cora_tasks, PHASE16_EPOCHS, PHASE16_BLOCK)
+    finally:
+        undo()
+    out["16a"]["uniform_table_bytes"] = made[0]
+    log(f"16a: the uniform tables of a {PHASE16_BLOCK}-epoch block hold "
+        f"{made[0]} bytes ({cora.n_edges} edges)")
+    if out["16a"]["walks_per_replay"]["blocked_spmm_walk"] <= 0:
+        raise AssertionError("16a: no K2 walk in a replay")
+
+    model = config.GCNIIConfig().build(graph, features, N_CLASSES,
+                                       device=dev)
+    tasks = fused_tasks()
+    plain = fused_case("16b GCNII-64 fused without remat", model, tasks,
+                       REMAT16_EPOCHS, REMAT16_BLOCK)
+    remat = fused_case("16b GCNII-64 fused with remat", model, tasks,
+                       REMAT16_EPOCHS, REMAT16_BLOCK, remat=True)
+    np.testing.assert_allclose(remat["train_loss"], plain["train_loss"],
+                               rtol=FUSED_RTOL)
+    if remat["best_epoch"] != plain["best_epoch"]:
+        raise AssertionError("16b: remat changes the best epoch")
+    walks = remat["walks_per_replay"]
+    if walks["ell_gather_walk"] <= 0 or walks["blocked_spmm_walk"] <= 0:
+        raise AssertionError(f"16b: K1 or its backward walk missing from a "
+                             f"replay: {walks}")
+    log(f"16b: fused peaks without remat {plain['peak']}, with remat "
+        f"{remat['peak']}")
+    out["16b"] = dict(remat=remat, plain=plain)
+    del model
+
+    out["16c"] = {}
+    for name, make in (("sgd_momentum", MomentumSGD),
+                       ("optax_adam", OptaxAdam)):
+        model = tt.APPNP(graph, features, num_classes=N_CLASSES, device=dev)
+        case = fused_case(f"16c APPNP with {name}", model, fused_tasks(),
+                          PHASE16_EPOCHS, PHASE16_BLOCK, optimizer=make())
+        walks = case["walks_per_replay"]
+        if walks["ell_gather_masked_walk"] <= 0 or (
+                walks["ell_degree_walk"] <= 0):
+            raise AssertionError(f"16c {name}: no masked or degree walk in "
+                                 f"a replay: {walks}")
+        out["16c"][name] = case
+
+    model = tt.APPNP(cora, cora_features, num_classes=CORA_CLASSES,
+                     device=dev)
+    model.add(scales_by_a_draw())
+    out["16d"] = fused_case("16d APPNP with next_generator draws (Cora "
+                            "scale)", model, cora_tasks, PHASE16_EPOCHS,
+                            PHASE16_BLOCK)
+    return out
+
+
+def gaps_entry(gaps, tag, names):
+    """A ``kernels`` entry's phase 16 part: its walk's launches in one
+    replay of each case of ``names``."""
+    cases = {"16a_eager_masks": gaps["16a"], "16b_remat": gaps["16b"]["remat"],
+             "16b_plain": gaps["16b"]["plain"],
+             **{f"16c_{k}": v for k, v in gaps["16c"].items()},
+             "16d_next_generator": gaps["16d"]}
+    return {name: cases[name]["walks_per_replay"][tag] for name in names}
+
+
 def kernel_launches(gcnii, gcn, key):
     """A kernel's launches (its wrapper's count) a GCNII-64 serving forward
     and an epoch of GCNII-64's and of GCN's training."""
@@ -3901,6 +4163,14 @@ def main(dev=None):
         train=multihost)))
     log(f"phase seconds with 15: {seconds}")
 
+    # 16. the fused trainer's gaps closed on the card: eager edge masks,
+    # remat, optimizers whose state is tensors, a layer's own draws
+    t0 = time.perf_counter()
+    gaps = phase_fused_gaps(graph, features, dev)
+    seconds["16"] = time.perf_counter() - t0
+    log("fused gaps summary: " + json.dumps(gaps))
+    log(f"phase seconds with 16: {seconds}")
+
     # 13. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
@@ -3915,6 +4185,9 @@ def main(dev=None):
                       f"added into the hub product",
              "bench_width": dict(k1["bench"], shape="F=128"),
              "fused": fused_launches(fused, "ell_gather_walk", "k1"),
+             "fused_gaps": gaps_entry(gaps, "ell_gather_walk", (
+                 "16b_remat", "16b_plain", "16c_sgd_momentum",
+                 "16c_optax_adam")),
              **kernel_launches(gcnii, gcn, "k1"),
              "gcn_width": dict(k1["gcn_width"], shape="F=64"),
              "ngcf_width": dict(k1["ngcf_width"], shape="F=16"),
@@ -3932,6 +4205,8 @@ def main(dev=None):
                           f"{backward['transposed_list']['slots']} slots "
                           f"over N=169343 columns, F=64 (GCNII)",
                  **kernel_launches(gcnii, gcn, "backward"),
+                 "fused_gaps": gaps_entry(gaps, "blocked_spmm_walk", (
+                     "16b_remat", "16b_plain")),
                  "gcn_width": dict(backward["gcn"], shape="F=40 (GCN)"),
                  "ngcf_width": dict(backward["ngcf"], shape="F=16 (NGCF)"),
                  "ngcf": dict(per_epoch=lp["launches_per_epoch"]["backward"],
@@ -3953,6 +4228,8 @@ def main(dev=None):
                        f"N=169343 F=40, forward list",
               "bench_width": dict(k2["bench"], shape="F=128"),
               "fused": fused_launches(fused_k2, "blocked_spmm_walk", "k2"),
+              "fused_gaps": gaps_entry(gaps, "blocked_spmm_walk", (
+                  "16a_eager_masks", "16d_next_generator")),
               **kernel_launches(gcnii, gcn, "k2"),
               "small": k2["small"],
               "mesh": mesh_entry(mesh_products, mesh_train, "realized",
@@ -3977,6 +4254,8 @@ def main(dev=None):
               "bench_width": dict(masked["forward_bench"], shape="F=128"),
               "fused": fused_launches(fused, "ell_gather_masked_walk",
                                       "masked"),
+              "fused_gaps": gaps_entry(gaps, "ell_gather_masked_walk", (
+                  "16c_sgd_momentum", "16c_optax_adam")),
               **kernel_launches(gcnii, gcn, "masked"),
               "gcn_width": dict(masked["forward_gcn"], shape="F=64",
                                 backward=masked["backward_gcn"]),
@@ -3994,6 +4273,8 @@ def main(dev=None):
               "shape": f"bench training grids' column list, E={graph.n_edges} "
                        f"edges, N=169343, keep {KEEP}",
               "fused": fused_launches(fused, "ell_degree_walk", "degree"),
+              "fused_gaps": gaps_entry(gaps, "ell_degree_walk", (
+                  "16c_sgd_momentum", "16c_optax_adam")),
               **kernel_launches(gcnii, gcn, "degree"),
               "row_list": masked["degree_row"],
               "gspmd_slices": slice_entry(slices, multihost, "degree")}

@@ -12,9 +12,11 @@ Randomness in training: the step passes one CPU ``torch.Generator``; each
 layer draws its own CPU generator from it, in layer order, and the layer's
 stochastic ops draw from that.  Edge dropout takes its salts from the CPU
 generator, so a step's edge masks are the same on every device; feature
-dropout seeds a generator on the model's device.  The fused trainer passes
-a :class:`DrawTape` instead, which records those draws once and then feeds
-each epoch's draws to a forward that reads them from fixed places.
+dropout seeds a generator on the model's device; a layer's own draws come
+from a fresh generator seeded the same way (``Forward.next_generator``).
+The fused trainer passes a :class:`DrawTape` instead, which records those
+draws once and then feeds each epoch's draws to a forward that reads them
+from fixed places.
 """
 from __future__ import annotations
 
@@ -99,23 +101,30 @@ class DrawTape:
 
     Recording (:meth:`record`), the forward draws as the host loop does: a
     CPU generator a layer, drawn from the epoch's generator, and from it
-    each stochastic op's draw, two edge-dropout salts, a feature-dropout
-    seed or an eager edge mask's uniforms; the tape keeps their kinds in
-    order.  Replaying (after :meth:`stop`), the forward reads each salt pair
-    from its slot of :attr:`salts`, each feature-dropout mask from the op's
-    own generator on the forward's device (made once, while recording, so
-    a CUDA graph can register it) and each eager mask's uniforms from
-    :attr:`uniforms`.  :meth:`draw` reruns the record on the host on an
-    epoch's generator; :meth:`feed` seeds the generators and sets the
-    uniforms, and the caller copies the salts into :attr:`salts`.  A forward
-    whose draws differ from the record raises."""
+    each stochastic op's draw, two edge-dropout salts, a generator's seed
+    (a feature dropout's, or :meth:`Forward.next_generator`'s) or an eager
+    edge mask's uniforms; the tape keeps their kinds in order.  Replaying
+    (after :meth:`stop`), the forward reads each salt pair from its slot of
+    :attr:`salts`, each generator is the op's own (made once, while
+    recording, so a CUDA graph can register it) and each eager mask's
+    uniforms are row :attr:`row` of the mask's table in :attr:`uniforms`.
+    A recompute under remat draws from a twin of each generator
+    (:attr:`twins`), seeded alike, so that no generator is ever rewound.
+    :meth:`draw` reruns the record on the host on an epoch's generator;
+    :meth:`fill` writes epochs' uniforms into the tables, :meth:`feed`
+    seeds the generators, and the caller copies the salts into
+    :attr:`salts`.  A forward whose draws differ from the record raises."""
 
     def __init__(self):
         # the kinds a layer draws: "salt", "seed" or ("uniform", n)
         self.layers: List[list] = []
         self.generators: List[torch.Generator] = []
+        self.twins: Dict[int, torch.Generator] = {}
         self.salts: Optional[torch.Tensor] = None  # (K, 2) int64 slots
+        # while recording each eager mask's uniforms; after stop, its
+        # (rows, n) table
         self.uniforms: List[torch.Tensor] = []
+        self.row: Optional[torch.Tensor] = None  # (1,) int64, the table row
         self._epoch = None  # the epoch's generator while recording
         self._layer = None  # the layer's generator while recording
         self.begin_forward()
@@ -127,17 +136,27 @@ class DrawTape:
     def record(self, generator: torch.Generator) -> None:
         """Record the next forward's draws, made from ``generator``."""
         self.layers, self.generators, self.uniforms = [], [], []
+        self.twins = {}
         self._epoch = generator
 
-    def stop(self, device) -> None:
-        """End the recording; the salt slots are made on ``device``."""
+    def stop(self, device, rows: int = 1,
+             row: Optional[torch.Tensor] = None) -> None:
+        """End the recording: the salt slots and a table of ``rows`` rows
+        for each eager mask's uniforms are made on ``device``; a replayed
+        forward reads the table row that ``row`` (a (1,) int64 tensor on
+        ``device``, updated in place) holds, row 0 without one."""
         self._epoch = self._layer = None
         n = sum(kind == "salt" for kinds in self.layers for kind in kinds)
         self.salts = torch.zeros(n, 2, dtype=torch.int64, device=device)
+        self.uniforms = [torch.zeros(rows, u.shape[0], dtype=u.dtype,
+                                     device=device) for u in self.uniforms]
+        self.row = torch.zeros(1, dtype=torch.int64, device=device) \
+            if row is None else row
 
     def begin_forward(self) -> None:
         self._layer_at, self._op_at = -1, 0
         self._drawn = {"salt": 0, "seed": 0, "uniform": 0}
+        self._handed = set()  # the generators this forward has handed out
 
     def begin_layer(self) -> None:
         self._layer_at, self._op_at = self._layer_at + 1, 0
@@ -173,32 +192,39 @@ class DrawTape:
             return draw_salt(self._layer, device)
         return self.salts[i]
 
-    def dropout_generator(self, device) -> torch.Generator:
-        """The generator of a feature dropout's mask, on ``device``."""
+    def generator(self, device) -> torch.Generator:
+        """The generator of a feature dropout's mask, or of a layer's own
+        draws, on ``device``: the op's slot, seeded from the layer's CPU
+        generator; the slot's twin when the op draws again in the same
+        forward (a recompute under remat)."""
         seed = _draw_seed(self._layer) if self.recording else None
         i = self._next("seed")
-        if self.recording and i == len(self.generators):
-            self.generators.append(
-                torch.Generator(device=device).manual_seed(seed))
-        elif self.recording:  # a recompute under remat
-            self.generators[i].manual_seed(seed)
-        return self.generators[i]
+        if i in self._handed:
+            if i not in self.twins:
+                if not self.recording:
+                    raise RuntimeError(
+                        f"generator {i} is drawn again, unlike the "
+                        "recorded forward")
+                self.twins[i] = torch.Generator(device=device)
+            generator = self.twins[i]
+        else:
+            if self.recording:
+                self.generators.append(torch.Generator(device=device))
+            generator = self.generators[i]
+        if self.recording:
+            generator.manual_seed(seed)
+        self._handed.add(i)
+        return generator
 
     def uniform(self, n: int, device) -> torch.Tensor:
-        """An eager edge mask's ``n`` uniforms, on the host only: a card
-        would need them copied in at every replay."""
-        if torch.device(device).type != "cpu":
-            raise NotImplementedError(
-                "fit(block_epochs > 1) on a card cannot replay the eager "
-                "Bernoulli edge mask of a graph below min_edges() edges "
-                "(ops/normalize.py::edge_dropout); train with block_epochs=1 "
-                "or under min_edges_scope(0)")
+        """An eager edge mask's ``n`` uniforms on ``device``."""
         i = self._next(("uniform", n))
         if self.recording:
             drawn = torch.rand(n, generator=self._layer)
             if i == len(self.uniforms):
                 self.uniforms.append(drawn)
-        return self.uniforms[i]
+            return drawn.to(device)
+        return self.uniforms[i].index_select(0, self.row)[0]
 
     def draw(self, generator: torch.Generator):
         """The recorded forward's draws on ``generator``, as the host loop
@@ -220,27 +246,36 @@ class DrawTape:
         return salts, seeds, uniforms
 
     def mark(self):
-        """Where the tape stands in the current layer, and the state of
-        every generator it holds: :meth:`rewind` returns there, so that a
-        recompute under remat draws the layer's draws again."""
+        """Where the tape stands in the current layer, and the state of the
+        layer's CPU generator while recording: :meth:`rewind` returns there,
+        so that a recompute under remat draws the layer's draws again."""
         layer = None if self._layer is None else self._layer.get_state()
-        return (self._layer_at, self._op_at, dict(self._drawn), layer,
-                [g.get_state() for g in self.generators])
+        return self._layer_at, self._op_at, dict(self._drawn), layer
 
     def rewind(self, mark) -> None:
-        self._layer_at, self._op_at, drawn, layer, states = mark
+        self._layer_at, self._op_at, drawn, layer = mark
         self._drawn = dict(drawn)
         if layer is not None:
             self._layer = _generator_at(layer)
-        for generator, state in zip(self.generators, states):
-            generator.set_state(state)
 
-    def feed(self, seeds, uniforms) -> None:
-        """Seed each feature dropout's generator and set the eager masks'
-        uniforms for the next replayed forward."""
-        for generator, seed in zip(self.generators, seeds):
+    def fill(self, row: int, uniforms) -> None:
+        """Write forwards' uniforms (a list of :meth:`draw`'s third item,
+        one a forward) into the tables from ``row`` on: one copy a
+        table."""
+        for j, table in enumerate(self.uniforms):
+            table[row:row + len(uniforms)].copy_(
+                torch.stack([u[j] for u in uniforms]))
+
+    def feed(self, seeds, uniforms=()) -> None:
+        """Seed each generator and its twin for the next replayed forward;
+        ``uniforms`` (one forward's, from :meth:`draw`) go into row 0 of
+        the tables."""
+        for i, (generator, seed) in enumerate(zip(self.generators, seeds)):
             generator.manual_seed(seed)
-        self.uniforms = list(uniforms)
+            if i in self.twins:
+                self.twins[i].manual_seed(seed)
+        if uniforms:
+            self.fill(0, [uniforms])
 
 
 class Forward:
@@ -292,21 +327,38 @@ class Forward:
         elif point is not None:
             self._layer_generator = _generator_at(point)
 
-    def next_generator(self) -> torch.Generator:
-        """The layer's CPU generator, for a stochastic op."""
-        if self._tape is not None:
-            raise NotImplementedError(
-                "a stochastic op draws from the layer's CPU generator "
-                "directly, which fit(block_epochs > 1) cannot replay; train "
-                "with block_epochs=1")
+    def _stream(self) -> torch.Generator:
+        """The layer's CPU generator, which the layer's draws are made
+        from."""
         if self._layer_generator is None:
             raise ValueError(
                 "Stochastic op requested without a generator; pass "
                 "generator= to forward() when training=True")
         return self._layer_generator
 
+    def next_generator(self, device=None) -> torch.Generator:
+        """A fresh generator for a stochastic op of the layer, on
+        ``device`` (the CPU by default), seeded by a draw from the layer's
+        stream as a feature dropout's is: the counterpart of the JAX
+        package's ``next_rng()``, each call a generator of its own.  Under
+        the fused trainer (a :class:`DrawTape`) it is the tape's slot for
+        the draw, seeded anew before each replayed forward; on a card it
+        must lie on the card (``device=``), since a CUDA graph replays no
+        CPU draw."""
+        device = torch.device("cpu" if device is None else device)
+        if self._tape is not None:
+            if device.type == "cpu" and self.net.device.type != "cpu":
+                raise ValueError(
+                    "fit(block_epochs > 1) on a card replays the epoch in a "
+                    "CUDA graph, which cannot replay a CPU generator's "
+                    "draws: pass device= (the model's device) to "
+                    "next_generator()")
+            return self._tape.generator(device)
+        return torch.Generator(device=device).manual_seed(
+            _draw_seed(self._stream()))
+
     def param(self, ref) -> torch.Tensor:
-        return self.net.params[ref]
+        return self.net.param(ref)
 
     def value_of(self, layer: Layer) -> torch.Tensor:
         """Another layer's output in *this* forward pass."""
@@ -327,10 +379,10 @@ class Forward:
             return x
         from ..ops.dropout import dropout
         if self._tape is not None:
-            generator = self._tape.dropout_generator(x.device)
+            generator = self._tape.generator(x.device)
         else:
             generator = torch.Generator(device=x.device).manual_seed(
-                _draw_seed(self.next_generator()))
+                _draw_seed(self._stream()))
         return dropout(x, rate, generator)
 
     def attention_salt(self) -> torch.Tensor:
@@ -339,7 +391,7 @@ class Forward:
         CPU generator, or from the :class:`DrawTape`'s slot."""
         from ..ops.stochastic import draw_salt
         return draw_salt(self._tape if self._tape is not None
-                         else self.next_generator(), self.net.device)
+                         else self._stream(), self.net.device)
 
     def adjacency(self, graph_dropout: float = 0.5,
                   normalized: str = "symmetric", add_eye: str = "none"):
@@ -355,7 +407,7 @@ class Forward:
                 self.graph, graph_dropout=graph_dropout,
                 normalized=normalized, add_eye=add_eye,
                 generator=(self._tape if self._tape is not None
-                           else self.next_generator()))
+                           else self._stream()))
         if self.graph is getattr(self.net, "graph", None):
             return self.net.adjacency(normalized, add_eye)
         return normalize_adjacency(self.graph, graph_dropout=0.0,
@@ -381,6 +433,9 @@ class Network(nn.Module):
         self._shared: Dict[str, str] = {}
         self.dtype = torch.float32
         self.params = nn.ParameterDict()
+        # while fit(mesh=) holds column blocks of the hidden weights
+        # (parallel.dist.place_state): their gathers
+        self.shards = None
 
     def layers(self) -> List[Layer]:
         return self._layers
@@ -477,13 +532,20 @@ class Network(nn.Module):
             total = total + extra
         return total
 
+    def param(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` whole: a column block that ``fit(mesh=)``
+        holds (``parallel.dist.FeatShards``) gathered over the ``feat``
+        group, its gradient this rank's columns."""
+        p = self.params[name]
+        return p if self.shards is None else self.shards.whole(name, p)
+
     def weight_l2(self):
         """``sum_var reg_weight * l2_loss(var)``; the trainer multiplies it by
         the global ``regularization`` factor (trainable.py:75-77)."""
         total = 0.0
         for spec in self.param_specs:
             if spec.regularize != 0.0:
-                w = self.params[spec.name]
+                w = self.param(spec.name)
                 total = total + spec.regularize * 0.5 * torch.sum(
                     torch.square(w.to(torch.float32)))
         return total
@@ -503,7 +565,9 @@ def _remat(fw: Forward, layer: Layer, h: torch.Tensor) -> torch.Tensor:
         fw.rewind(point)
         return layer.apply(fw, h)
 
-    out = checkpoint(run, h, use_reentrant=False)
+    # every draw of the port names its generator, so checkpoint need not
+    # stash the default ones (a CUDA graph could not read them)
+    out = checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
     if len(fw.extra_losses) != n_losses:
         raise ValueError(
             f"{type(layer).__name__} emits add_loss() side outputs, which "

@@ -1,11 +1,11 @@
 """Scale-out on ``torch.distributed`` (the JAX package's
 ``parallel/dist.py``).
 
-The design is SPMD with a replicated model: every rank of the mesh holds
-the parameters, the features and the batch, and computes the same loss, so
-the parameter gradients, and after the optimizer's update the parameters,
-are equal on every rank.  Only the edges are sharded, by an executor
-installed through ``ops.spmm.spmm_executor``:
+The design is SPMD: every rank of the mesh holds the features and the
+batch, and computes the same loss from the same parameters, so the
+parameter gradients, and after the optimizer's update the parameters, are
+equal on every rank.  The edges are sharded, by an executor installed
+through ``ops.spmm.spmm_executor``:
 
 * :class:`GspmdExecutor` (``fit(mesh=, spmm=None | "gspmd")``, JAX's GSPMD
   path): each rank takes its contiguous slice of the padded edge list
@@ -26,10 +26,17 @@ over its slice's column list under a lazy draw, else K2's store-mode walk
 with a column of ones; its attention is A1-A4 over its slice's lists.
 
 Mesh axes, as in the JAX package: ``edge`` shards the edges; ``feat`` is
-the feature axis, over which this port replicates every parameter
-(:func:`param_shardings` gives JAX's decisions); a hierarchical mesh
-(``multihost.make_pod_mesh(hierarchical=True)``) has an ``edge_host`` axis
-before them.  The mesh is built inside an initialized process group
+the feature axis.  Under gspmd (``fit(mesh=, spmm=None | "gspmd")``) each
+rank of the ``feat`` group holds only its column block of every 2-D hidden
+weight that JAX's GSPMD shards (:func:`param_shardings`, :func:`place_state`),
+and its optimizer moments are made on that block: a layer's read gathers
+the whole weight over the group (:class:`FeatShards`, through
+``Network.param``), and the backward keeps this rank's columns of the
+gradient, which every rank computes whole.  So only the parameters' and
+the moments' memory is split, and a run equals the replicated one bit for
+bit; halo and ring keep every parameter whole, as in JAX.  A hierarchical
+mesh (``multihost.make_pod_mesh(hierarchical=True)``) has an ``edge_host``
+axis before them.  The mesh is built inside an initialized process group
 (``multihost.launch_distributed``, or the caller's ``init_process_group``).
 """
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch.distributed as dist
 
 from ..graph.coo import Graph
 from ..ops.spmm import _scaled_call, spmm_executor
-from .collectives import all_reduce, rank_of
+from .collectives import all_gather, all_reduce, rank_of
 from .dropgrids import rank_lists, rank_walk
 from .partition import pad_graph
 
@@ -140,8 +147,8 @@ def shard_graph(graph: Graph, mesh: Mesh) -> Graph:
 def param_shardings(model, mesh: Mesh) -> dict:
     """JAX's layout decision for each parameter: ``("feat",)`` where it
     column-shards a 2-D hidden weight over ``feat`` (divisible columns, more
-    than one row), else ``()`` (replicated).  This port replicates every
-    parameter: the numbers do not depend on the layout."""
+    than one row), else ``()`` (replicated).  :func:`place_state` holds
+    each rank's block of the sharded ones (:class:`FeatShards`)."""
     n_feat = mesh.shape[FEAT_AXIS]
     out = {}
     for spec in model.param_specs:
@@ -472,13 +479,91 @@ def _scoped(fn, executor):
     return wrapped
 
 
-def place_state(model, mesh: Mesh):
-    """The parameters and the features, replicated on every rank: raises
-    unless they lie on the mesh's kind of device."""
+class FeatShards:
+    """This rank's column blocks of the parameters that
+    :func:`param_shardings` marks ``("feat",)``: rank ``r`` of the ``feat``
+    group holds columns ``[r * c, (r + 1) * c)`` of each, ``c`` its columns
+    over the axis's size.  :meth:`whole` gathers a block back (the layers'
+    reads, through ``Network.param``); :meth:`blocks` and :meth:`wholes`
+    map a tree of them (parameters, optimizer moments, a checkpoint's
+    arrays) either way, a leaf taken for a block where its dict key names a
+    sharded parameter."""
+
+    def __init__(self, mesh: Mesh, names):
+        self.group = mesh.group(FEAT_AXIS)
+        self.n = mesh.shape[FEAT_AXIS]
+        self.rank = rank_of(self.group)
+        self.names = frozenset(names)
+
+    def block(self, whole):
+        """This rank's columns of ``whole`` (a tensor or an array)."""
+        c = whole.shape[1] // self.n
+        part = whole[:, self.rank * c:(self.rank + 1) * c]
+        return part.contiguous() if isinstance(part, torch.Tensor) \
+            else np.ascontiguousarray(part)
+
+    def whole(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """Parameter ``name`` whole: the blocks of every rank side by side
+        in column order (``collectives.all_gather`` of the transposes,
+        whose backward takes this rank's columns of the gradient), or
+        ``p`` where it is not sharded."""
+        if name not in self.names:
+            return p
+        return all_gather(p.t(), self.group).t().contiguous()
+
+    def _map(self, tree, fn, key=None):
+        if isinstance(tree, dict):
+            return {k: self._map(v, fn, k) for k, v in tree.items()}
+        if key in self.names and getattr(tree, "ndim", 0) == 2:
+            return fn(key, tree)
+        return tree
+
+    def blocks(self, tree):
+        """``tree`` with each whole sharded leaf cut to this rank's
+        block."""
+        return self._map(tree, lambda _, t: self.block(t))
+
+    @torch.no_grad()
+    def wholes(self, tree):
+        """``tree`` with each sharded block gathered whole."""
+        return self._map(tree, self.whole)
+
+
+def place_state(model, mesh: Mesh, shard: bool = True):
+    """The features replicated on every rank and the parameters placed as
+    JAX's GSPMD places them (``shard``: ``fit``'s gspmd executor; halo and
+    ring keep every parameter whole): each parameter that
+    :func:`param_shardings` marks ``("feat",)`` replaced by this rank's
+    column block, ``model.shards`` their :class:`FeatShards`.  Raises
+    unless the parameters and features lie on the mesh's kind of device.
+    :func:`unshard` puts the whole parameters back."""
     params = model.params
     for name, p in params.items():
         if p.device.type != mesh.device.type:
             raise ValueError(f"parameter {name} is on {p.device}, the mesh "
                              f"on {mesh.device}")
     check_device(mesh, model.features)
+    names = [k for k, axes in param_shardings(model, mesh).items()
+             if axes == (FEAT_AXIS,)] if shard else []
+    if names:
+        shards = FeatShards(mesh, names)
+        for name in names:
+            p = params[name]
+            params[name] = torch.nn.Parameter(shards.block(p.detach()),
+                                              requires_grad=p.requires_grad)
+        model.shards = shards
     return params, model.features
+
+
+def unshard(model) -> None:
+    """Put the whole parameters back in place of the column blocks that
+    :func:`place_state` left (every rank of the ``feat`` group joins)."""
+    shards = model.shards
+    if shards is None:
+        return
+    params = model.params
+    for name in sorted(shards.names):
+        p = params[name]
+        params[name] = torch.nn.Parameter(shards.whole(name, p.detach()),
+                                          requires_grad=p.requires_grad)
+    model.shards = None

@@ -28,14 +28,17 @@ the early-stopping state (``utils/checkpoint.py``) on both paths;
 ``fit(remat=True)`` recomputes each layer in the backward
 (``Network.forward``).
 
-``fit(mesh=, spmm=)`` trains on every rank of a mesh (``parallel/``): the
-model is replicated, and every SpMM of the step and of the evaluation goes
-through the mesh's executor (``spmm`` None or ``"gspmd"``, ``"halo"``,
-``"ring"``), scoped around each call.
+``fit(mesh=, spmm=)`` trains on every rank of a mesh (``parallel/``):
+every SpMM of the step and of the evaluation goes through the mesh's
+executor (``spmm`` None or ``"gspmd"``, ``"halo"``, ``"ring"``), scoped
+around each call; under gspmd each rank holds its column block of the
+hidden weights and of their moments (``parallel.dist.place_state``), the
+whole parameters put back at the end.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -242,6 +245,7 @@ class _RunState:
 
     def __init__(self, model, tx, patience, rng_seed):
         params = model.params
+        self.shards = model.shards  # a checkpoint holds whole arrays
         self.opt_state = tx.init({k: p.detach() for k, p in params.items()})
         self.best = {k: p.detach().clone() for k, p in params.items()}
         self.min_loss = float("inf")
@@ -259,6 +263,9 @@ class _RunState:
         if restored is None:
             return
         step, state = restored
+        if self.shards is not None:
+            state = dict(state, **{k: self.shards.blocks(state[k]) for k in (
+                "params", "opt_state", "best_params")})
         params = model.params
         for k, p in params.items():
             p.copy_(torch.as_tensor(state["params"][k]))
@@ -279,9 +286,11 @@ class _RunState:
 
     def save(self, directory, epoch, params) -> None:
         from ..utils.checkpoint import save_checkpoint
+        whole = (lambda tree: tree) if self.shards is None \
+            else self.shards.wholes
         save_checkpoint(
-            directory, epoch, params=dict(params), opt_state=self.opt_state,
-            best_params=self.best,
+            directory, epoch, params=whole(dict(params)),
+            opt_state=whole(self.opt_state), best_params=whole(self.best),
             meta={"epoch": epoch, "min_loss": self.min_loss,
                   "patience_remaining": self.patience_remaining,
                   "best_epoch": self.history["best_epoch"],
@@ -328,7 +337,10 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     runs every SpMM through the executor that ``spmm`` names: None or
     ``"gspmd"`` the edge-sharded partials, ``"halo"`` or ``"ring"`` the
     row-block exchanges; ``spmm`` is ignored without a mesh.  Every rank
-    trains the same replicated model from the same seed."""
+    trains the same model from the same seed; under gspmd on a mesh with a
+    ``feat`` axis each holds its column block of the hidden weights and of
+    their moments (``parallel.dist.place_state``), and the callbacks, the
+    checkpoints and ``model.params`` after the run see whole arrays."""
     if spmm not in _EXECUTORS:
         raise ValueError(f"spmm executor must be None, 'gspmd', 'halo' or "
                          f"'ring', got {spmm!r}")
@@ -349,7 +361,7 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
     executor = None
     if mesh is not None:
         from ..parallel.dist import executor_for, place_state
-        place_state(model, mesh)
+        place_state(model, mesh, shard=spmm in (None, "gspmd"))
         executor = executor_for(mesh, spmm)
     run = _RunState(model, tx, patience,
                     measures.next_seed() if seed is None else seed + 1)
@@ -407,8 +419,9 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
             history["best_epoch"] = epoch
         history["train_loss"].append(epoch_loss)
         history["valid_loss"].append(valid_loss)
+        seen = _whole(model) if callbacks else None
         for cb in callbacks:
-            stop = bool(cb(epoch=epoch, params=params, valid_loss=valid_loss,
+            stop = bool(cb(epoch=epoch, params=seen, valid_loss=valid_loss,
                            best_loss=run.min_loss,
                            patience_remaining=run.patience_remaining)) or stop
         if checkpoint_dir and checkpoint_every and \
@@ -420,14 +433,30 @@ def fit(model: Trainable, train: Predictor, valid: Optional[Predictor] = None,
 
     if checkpoint_dir:
         run.save(checkpoint_dir, min(epoch, epochs - 1), params)
-    with torch.no_grad():  # restore the best snapshot (trainable.py:101-102)
-        for k, p in params.items():
-            p.copy_(run.best[k])
-    model._act_cache = None
+    _restore_best(model, run.best)
     history["epochs_run"] = epoch + 1
     if verbose:
         print("\r")
     return history
+
+
+def _whole(model):
+    """The parameters as the callbacks see them: whole arrays."""
+    if model.shards is None:
+        return model.params
+    return model.shards.wholes(dict(model.params))
+
+
+def _restore_best(model, best) -> None:
+    """Put the best snapshot in place (trainable.py:101-102) and, on a mesh
+    that held column blocks, the whole parameters back."""
+    with torch.no_grad():
+        for k, p in model.params.items():
+            p.copy_(best[k])
+    if model.shards is not None:
+        from ..parallel.dist import unshard
+        unshard(model)
+    model._act_cache = None
 
 
 def _on(batch, device):
@@ -439,6 +468,41 @@ def _on(batch, device):
     return batch
 
 
+def _tree_leaves(tree, path=()):
+    """``(path, leaf)`` of each leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _tree_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over the leaves of two trees of dicts, in
+    the form of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _check_capturable(state, device) -> None:
+    """Raise ``ValueError`` naming the first leaf of an optimizer's state
+    that a CUDA graph cannot carry: one that is not a tensor on
+    ``device``'s kind of device."""
+    for path, leaf in _tree_leaves(state):
+        if not isinstance(leaf, torch.Tensor):
+            found = type(leaf).__name__
+        elif leaf.device.type != device.type:
+            found = f"a tensor on {leaf.device}"
+        else:
+            continue
+        raise ValueError(
+            f"fit(block_epochs > 1) on a card replays the optimizer's update "
+            f"in a CUDA graph, which needs every leaf of its state to be a "
+            f"tensor on {device}; leaf {'/'.join(path)!r} is {found} (train "
+            f"with block_epochs=1, or keep it as a tensor)")
+
+
 class _FusedEpoch:
     """One epoch of the fused path (the body of the JAX package's scan,
     ``gnntf_tpu/train/trainer.py:516-544``) over tensors updated in place,
@@ -447,15 +511,18 @@ class _FusedEpoch:
     The step (the training forward, whose draws come from :attr:`tape`;
     the loss; the gradients of ``loss * degradation``; the optimizer
     update) and the clean validation forward and loss; the parameters and
-    the optimizer state stay as they are once ``stopped`` is set; the best
-    parameters, the least validation loss, the patience left, the updates
-    applied and ``stopped`` are tensors.  Epoch ``step`` of the block reads
-    its degradation from :attr:`deg`, its step size from :attr:`alpha` (for
-    :class:`KerasAdam`) and its salts from :attr:`salt_table`, writes its
-    train loss, validation loss and improvement to column ``step`` of
-    :attr:`out`, and advances ``step``.  A stacked (sampled) training task
-    reads its batch from the fixed tensors of :attr:`train_batch`, which
-    :meth:`feed` fills with the epoch's slice of the block's stack."""
+    the optimizer state stay as they are once ``stopped`` is set (each
+    tensor of the state written in place, any other leaf, on the host
+    only, rebound); the best parameters, the least validation loss, the
+    patience left, the updates applied and ``stopped`` are tensors.  Epoch
+    ``step`` of the block reads its degradation from :attr:`deg`, its step
+    size from :attr:`alpha` (for :class:`KerasAdam`), its salts from
+    :attr:`salt_table` and its eager masks' uniforms from row ``step`` of
+    the tape's tables, writes its train loss, validation loss and
+    improvement to column ``step`` of :attr:`out`, and advances ``step``.
+    A stacked (sampled) training task reads its batch from the fixed
+    tensors of :attr:`train_batch`, which :meth:`feed` fills with the
+    epoch's slice of the block's stack."""
 
     def __init__(self, model, train, valid, tx, names, run: _RunState, *,
                  stacked, regularization, patience, block_epochs, spmm_impl,
@@ -470,6 +537,7 @@ class _FusedEpoch:
         valid.refresh()
         self.valid_batch = _on(valid.batch(), device)
         self.regularization, self.patience = regularization, patience
+        self.block_epochs = block_epochs
         self.spmm_impl, self.remat = spmm_impl, remat
         self.executor = executor
         self.adam = isinstance(tx, KerasAdam)
@@ -488,6 +556,15 @@ class _FusedEpoch:
         self.out = torch.zeros(3, block_epochs, **f32)
         self.tape = DrawTape()
         self.salt_table = None  # (block_epochs, K, 2), once recorded
+
+    def stop_recording(self) -> None:
+        """End the tape's recording: its salt slots, the block's salt table
+        and its tables of uniforms, their row the epoch's ``step``."""
+        device = self.model.device
+        self.tape.stop(device, rows=self.block_epochs, row=self.step)
+        self.salt_table = torch.zeros(
+            (self.block_epochs,) + tuple(self.tape.salts.shape),
+            dtype=torch.int64, device=device)
 
     def feed(self, stack, i: int) -> None:
         """Copy epoch ``i`` of a stacked task's block (``stack_batches``)
@@ -514,18 +591,16 @@ class _FusedEpoch:
         grads = {k: torch.zeros_like(p) if found.get(k) is None
                  else found[k] * deg for k, p in params.items()}
         with torch.no_grad():
-            if self.adam:
+            if self.adam:  # the step size from the host-computed table
                 updates, new = self.tx.update(
                     grads, self.state,
                     step_size=self.alpha.index_select(0, i).view(()))
-                for part in ("m", "v"):
-                    for k, t in self.state[part].items():
-                        t.copy_(torch.where(stopped, t, new[part][k]))
+                new["count"] = self.state["count"]  # counted in self.count
                 self.count.add_((~stopped).to(torch.int64))
-            else:  # the host only: fit raises for it on a card
+            else:
                 updates, new = self.tx.update(grads, self.state)
-                if not bool(stopped):
-                    self.state = new
+            self.state = _tree_map(functools.partial(_gated, stopped),
+                                   self.state, new)
             for k, u in updates.items():
                 params[k].copy_(torch.where(stopped, params[k],
                                             params[k] + u))
@@ -551,12 +626,23 @@ class _FusedEpoch:
         return dict(self.state, count=int(self.count))
 
 
+def _gated(stopped, old, new):
+    """A leaf of the optimizer's state after an epoch: a tensor keeps its
+    buffer, written with ``new`` unless ``stopped``; another leaf (the CPU
+    only: ``fit`` refuses it on a card) is ``new`` unless ``stopped``."""
+    if isinstance(old, torch.Tensor):
+        return old.copy_(torch.where(stopped, old, new))
+    if new is old:
+        return old
+    return old if bool(stopped) else new
+
+
 def _capture(run: _FusedEpoch, stream) -> "torch.cuda.CUDAGraph":
     """``run`` captured in a CUDA graph on ``stream`` (which ran the
-    recording epoch, so every memo is built), each feature dropout's
-    generator registered so that a replay takes its seed."""
+    recording epoch, so every memo is built), each of the tape's generators
+    and twins registered so that a replay takes its seed."""
     graph = torch.cuda.CUDAGraph()
-    for generator in run.tape.generators:
+    for generator in [*run.tape.generators, *run.tape.twins.values()]:
         graph.register_generator_state(generator)
     with torch.cuda.graph(graph, stream=stream):
         run()
@@ -584,31 +670,25 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
     The run's first epoch records the draws (:class:`DrawTape`) from its
     generator, as the host loop draws them; every later epoch is fed the
     record rerun on its own generator, so the numbers equal the host
-    loop's.  On a card the first epoch runs on a side stream, which builds
-    every memo, and the next is captured there in a CUDA graph, replayed
-    once an epoch: a capture that fails raises, and the step size comes
-    from a device table that only :class:`KerasAdam` reads.  Remat on a
-    card raises: a capture cannot read or set the generators' states that
-    its recompute rewinds."""
+    loop's: the salts and the eager masks' uniforms of a block go to device
+    tables once a block, each generator is seeded before its epoch.  On a
+    card the first epoch runs on a side stream, which builds every memo,
+    and the next is captured there in a CUDA graph, replayed once an epoch:
+    a capture that fails raises.  :class:`KerasAdam` reads its step size
+    from a host-computed table; any other optimizer runs its own update in
+    the capture, every leaf of its state a tensor on the card (else
+    ``ValueError``).  Under remat a recompute draws from the tape's twin
+    generators, also registered with the graph."""
     device = model.device
     cuda = device.type == "cuda"
-    if cuda and not isinstance(tx, KerasAdam):
-        raise NotImplementedError(
-            "fit(block_epochs > 1) on a card reads each epoch's step size "
-            "from a device table, which only keras_adam's KerasAdam does; "
-            "train with block_epochs=1 for another optimizer")
-    if cuda and remat:
-        raise NotImplementedError(
-            "fit(block_epochs > 1, remat=True) on a card: a CUDA graph "
-            "cannot carry the generator states a recompute rewinds; train "
-            "with block_epochs=1 or remat=False (ROADMAP.md queue 1, "
-            "item 13)")
     stacked = not train.static
     run = _FusedEpoch(model, train, valid, tx, names, state, stacked=stacked,
                       regularization=regularization,
                       patience=patience,
                       block_epochs=block_epochs, spmm_impl=spmm_impl,
                       remat=remat, executor=executor)
+    if cuda and not run.adam:
+        _check_capturable(run.state, device)
     epoch_generator = lambda e: torch.Generator().manual_seed(
         _fold_in(state.rng_seed, e))
     history = state.history
@@ -639,20 +719,19 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
                 torch.cuda.current_stream(device).wait_stream(stream)
             else:
                 run()
-            run.tape.stop(device)
-            run.salt_table = torch.zeros(
-                (block_epochs,) + tuple(run.tape.salts.shape),
-                dtype=torch.int64, device=device)
+            run.stop_recording()
             if cuda and epochs - first_epoch > 1:
                 graph = _capture(run, stream)
             first = 1
         draws = [run.tape.draw(epoch_generator(e)) for e in span[first:]]
         if draws and len(run.tape.salts):
             run.salt_table[first:n].copy_(torch.stack([d[0] for d in draws]))
-        for i, (_, seeds, uniforms) in enumerate(draws, start=first):
+        if draws:
+            run.tape.fill(first, [d[2] for d in draws])
+        for i, (_, seeds, _) in enumerate(draws, start=first):
             if stacked:
                 run.feed(stack, i)
-            run.tape.feed(seeds, uniforms)
+            run.tape.feed(seeds)
             if graph is not None:
                 graph.replay()
             else:
@@ -669,9 +748,10 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
         if callbacks:
             running_best = np.minimum.accumulate(
                 np.minimum(vlosses, best_before))
+            params = _whole(model)
             for cb in callbacks:
                 for i in range(n):
-                    cb(epoch=epoch + i, params=model.params,
+                    cb(epoch=epoch + i, params=params,
                        valid_loss=float(vlosses[i]),
                        best_loss=float(running_best[i]),
                        patience_remaining=-1)
@@ -685,9 +765,6 @@ def _fit_fused(model: Trainable, train: Predictor, valid: Predictor, tx,
         if back[3 * n + 1]:
             break
 
-    with torch.no_grad():  # restore the best snapshot (trainable.py:101-102)
-        for k, p in model.params.items():
-            p.copy_(run.best[k])
-    model._act_cache = None
+    _restore_best(model, run.best)
     history["epochs_run"] = epoch
     return history

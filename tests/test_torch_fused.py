@@ -10,6 +10,8 @@ over the same in-place state that a card captures in a CUDA graph.
   dropout, with the JAX initial parameters carried over: ``TRAJ_TOL``
   (float32, sums in another order over several propagation steps and
   optimizer updates), and the best epoch and ``epochs_run`` equal.
+* A layer's own draws (``Forward.next_generator``) fed to each fused
+  epoch: equal to the host loop.
 * The draw tape, ``Predictor.static``, the hash with a salt tensor, and the
   repaired faults: re-adding a layer (F2), the memo of ``add_self_loops``
   (H3) and K2's lists keyed on ``row`` and ``col`` (H4).
@@ -202,7 +204,8 @@ def test_tape_rejects_a_forward_unlike_its_record():
 
 
 class _DrawsItself(tt.Layer):
-    """A layer whose op draws from the layer's CPU generator directly."""
+    """A layer whose op draws from a generator of its own
+    (``Forward.next_generator``)."""
 
     def build(self, net):
         return net.top_shape()
@@ -214,14 +217,21 @@ class _DrawsItself(tt.Layer):
 
 
 def test_fused_raises_for_a_direct_generator_draw():
+    """A layer's own draws (``next_generator()``, JAX's ``next_rng()``)
+    are recorded and fed to each fused epoch: the fused run equals the
+    host loop bit for bit."""
     src, dst, feats, labels, n = _data(3)
-    m = tt.GNN(tt.from_edges(src, dst, n_nodes=n, device="cpu"), feats,
-               device="cpu")
-    m.add(tt.Dense(3))
-    m.add(_DrawsItself())
-    m.train(**_tasks(tt, labels), epochs=2, seed=0)  # the host loop draws
-    with pytest.raises(NotImplementedError):
-        m.train(**_tasks(tt, labels), epochs=2, seed=0, block_epochs=2)
+    runs = []
+    for block_epochs in (1, 3):
+        m = tt.GNN(tt.from_edges(src, dst, n_nodes=n, device="cpu"), feats,
+                   device="cpu")
+        m.add(tt.Dense(3))
+        m.add(_DrawsItself())
+        h = m.train(**_tasks(tt, labels), epochs=5, seed=0,
+                    block_epochs=block_epochs)
+        runs.append((h, {k: p.detach().clone() for k, p in m.params.items()},
+                     m.predict(tt.NodeClassification(np.arange(160, n)))))
+    _assert_same_run(*runs)
 
 
 def test_verbose_block_epochs_takes_the_host_loop(capsys):

@@ -13,8 +13,10 @@ installed:
   within ``rtol=1e-5`` of the host loop's on the card (the same kernels in
   the same order; the capture may pick other library algorithms) and its
   best epoch and predictions equal; the launch counts show one recorded
-  and one captured epoch; a draw the capture cannot be fed, and an
-  optimizer without a device step size, raise.
+  and one captured epoch; so for a small graph's eager edge masks, a
+  layer's own draws from ``next_generator(device)`` and optimizers whose
+  state is tensors (momentum SGD, optax-style Adam); a CPU generator, or
+  an optimizer state holding a Python number, raises ``ValueError``.
 
 Every test skips without a card.
 """
@@ -208,38 +210,141 @@ def test_fused_patience_on_card(cuda):
     assert torch.equal(preds[0], preds[1])
 
 
+def _same_runs(host, fused):
+    """The fused run's losses within ``LOSS_RTOL`` of the host loop's on
+    the card, the same best epoch."""
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(fused[key], host[key], rtol=LOSS_RTOL)
+    assert fused["best_epoch"] == host["best_epoch"]
+
+
+class DrawsItself(tt.Layer):
+    """A layer that scales its input by draws from a generator of its own
+    on the card (``Forward.next_generator(device)``)."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.device = device
+
+    def build(self, net):
+        return net.top_shape()
+
+    def apply(self, fw, x):
+        if not fw.training:
+            return x
+        g = fw.next_generator(x.device if self.device is None
+                              else self.device)
+        return x * torch.rand(x.shape, generator=g, device=g.device).to(
+            x.device)
+
+
 @pytest.mark.cuda
 def test_fused_raises_for_an_unfeedable_draw_on_card(cuda):
-    """Below ``min_edges()`` edges edge dropout draws an eager mask on the
-    host, which a replay cannot take; a direct draw from the layer's CPU
-    generator cannot be replayed either."""
-    model = _model(cuda, n=500, e=2000, iterations=2)
-    with pytest.raises(NotImplementedError, match="eager Bernoulli"):
-        model.train(*_tasks(500), epochs=4, seed=0, block_epochs=2)
+    """The draws a replay is fed on the card: below ``min_edges()`` edges
+    the eager Bernoulli edge mask's uniforms, from the tape's per-block
+    table (K2's store-mode walks take the products and degrees), and a
+    layer's own draws from ``next_generator(device)``: each fused run
+    within ``rtol=1e-5`` of the host loop.  A CPU generator asked for under
+    the capture raises ``ValueError``."""
+    runs = {}
+    for block_epochs in (1, 4):
+        model = _model(cuda, n=500, e=2000, iterations=2)
+        assert model.graph.n_edges < stochastic.min_edges()
+        before = _counts()
+        runs[block_epochs] = model.train(*_tasks(500), epochs=8, seed=0,
+                                         patience=100,
+                                         block_epochs=block_epochs)
+        launched = _counts() - before
+    _same_runs(runs[1], runs[4])
+    assert launched[3] > 0 and launched[:3].sum() == 0
 
-    class DrawsItself(tt.Layer):
-        def build(self, net):
-            return net.top_shape()
-
-        def apply(self, fw, x):
-            return x * torch.rand(1, generator=fw.next_generator()).to(
-                x.device) if fw.training else x
-
+    runs = {}
+    for block_epochs in (1, 4):
+        model = _model(cuda, iterations=1)
+        model.add(DrawsItself())
+        with stochastic.min_edges_scope(0):
+            runs[block_epochs] = model.train(*_tasks(), epochs=8, seed=0,
+                                             patience=100,
+                                             block_epochs=block_epochs)
+    _same_runs(runs[1], runs[4])
     model = _model(cuda, iterations=1)
-    model.add(DrawsItself())
-    with stochastic.min_edges_scope(0), pytest.raises(NotImplementedError):
+    model.add(DrawsItself(device="cpu"))
+    with stochastic.min_edges_scope(0), pytest.raises(ValueError,
+                                                      match="device="):
         model.train(*_tasks(), epochs=4, seed=0, block_epochs=2)
 
 
+class MomentumSGD:
+    """``optax.sgd(learning_rate, momentum)``."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9):
+        self.learning_rate, self.momentum = learning_rate, momentum
+
+    def init(self, params):
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads, state):
+        trace = {k: g + self.momentum * state["trace"][k]
+                 for k, g in grads.items()}
+        return ({k: -self.learning_rate * t for k, t in trace.items()},
+                {"trace": trace})
+
+
+class OptaxAdam:
+    """``optax.adam(learning_rate)``, its count a device tensor."""
+
+    def __init__(self, learning_rate=0.01, b1=0.9, b2=0.999, eps=1e-8):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": zeros(), "nu": zeros()}
+
+    def update(self, grads, state):
+        b1, b2 = self.b1, self.b2
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * torch.square(g) + b2 * state["nu"][k]
+              for k, g in grads.items()}
+        count = state["count"] + 1
+        t = count.to(torch.float32)
+        c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+        updates = {k: -self.learning_rate * (mu[k] / c1)
+                   / (torch.sqrt(nu[k] / c2) + self.eps) for k in grads}
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
 @pytest.mark.cuda
-def test_fused_needs_keras_adam_on_card(cuda):
-    class SGD:
+@pytest.mark.parametrize("make", [MomentumSGD, OptaxAdam],
+                         ids=["sgd-momentum", "optax-adam"])
+def test_fused_needs_keras_adam_on_card(cuda, make):
+    """Any optimizer whose state is tensors on the card runs its update in
+    the captured epoch: within ``rtol=1e-5`` of the host loop, also after
+    early stopping inside a block; one with a Python number in its state
+    raises ``ValueError`` naming the leaf."""
+    for kw in (dict(epochs=8, patience=100),
+               dict(epochs=16, patience=2, learning_rate=0.05)):
+        runs = {}
+        for block_epochs in (1, 4):
+            with stochastic.min_edges_scope(0):
+                runs[block_epochs] = _model(cuda, iterations=3).train(
+                    *_tasks(), seed=0, block_epochs=block_epochs,
+                    optimizer=make(), **kw)
+        n = len(runs[1]["valid_loss"])
+        np.testing.assert_allclose(runs[4]["valid_loss"][:n],
+                                   runs[1]["valid_loss"], rtol=LOSS_RTOL)
+        assert runs[4]["best_epoch"] == runs[1]["best_epoch"]
+
+    class CountingSGD(MomentumSGD):
         def init(self, params):
-            return {}
+            return dict(super().init(params), count=0)
 
         def update(self, grads, state):
-            return {k: -0.1 * g for k, g in grads.items()}, state
+            updates, new = super().update(grads, state)
+            return updates, dict(new, count=state["count"] + 1)
 
-    with pytest.raises(NotImplementedError, match="KerasAdam"):
+    with pytest.raises(ValueError, match="'count'"):
         _model(cuda).train(*_tasks(), epochs=4, seed=0, block_epochs=2,
-                           optimizer=SGD())
+                           optimizer=CountingSGD())

@@ -19,7 +19,10 @@
   gradient's rounding noise, which Adam scales up), the same best epoch.
 * ``remat=True`` equal to ``remat=False`` with dropout on; a run resumed
   from its checkpoint equal to the uninterrupted one, on the host loop and
-  on the fused path; the fused path refuses remat on the card.  These run
+  on the fused path; the fused path with remat (the recompute's draws
+  from twin generators registered with the CUDA graph) within
+  ``rtol=1e-5`` of the host loop with remat and of the fused run without
+  it.  These run
   on graphs of at least 65,536 counted edges, whose products are the walks
   (each sums in a fixed order): below it a product scatters with
   ``index_add_``'s atomics, and two runs may differ in the last bit.
@@ -158,8 +161,17 @@ def test_remat_on_card_equals_plain(cuda):
     assert runs[False][0] == runs[True][0]
     for k, p in runs[False][1].items():
         assert torch.equal(p, runs[True][1][k]), k
-    with pytest.raises(NotImplementedError):
-        model.train(*tasks, epochs=4, seed=1, remat=True, block_epochs=2)
+    # the fused path: the recompute draws from the tape's twin generators,
+    # registered with the CUDA graph; equal to the host loop with remat and
+    # to the fused run without it within the fused tolerance
+    fused = {remat: model.train(*tasks, epochs=4, seed=1, remat=remat,
+                                block_epochs=2) for remat in (False, True)}
+    host = model.train(*tasks, epochs=4, seed=1, remat=True)
+    for other in (host, fused[False]):
+        for key in ("train_loss", "valid_loss"):
+            np.testing.assert_allclose(fused[True][key], other[key],
+                                       rtol=1e-5)
+        assert fused[True]["best_epoch"] == other["best_epoch"]
 
 
 @pytest.mark.cuda

@@ -34,6 +34,27 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+# the test files that run where JAX is not installed: the card tests and
+# the bodies of spawned ranks
+JAX_FREE_TESTS = sorted(
+    p.stem for p in (PKG.parent / "tests").glob("test_torch_*.py")
+    if p.stem.endswith(("_cuda", "_ranks")))
+
+
+@pytest.mark.parametrize("name", JAX_FREE_TESTS)
+def test_jax_free_test_files_import_no_jax(name):
+    code = ("import sys; before = set(sys.modules); import " + name + "; "
+            "added = set(sys.modules) - before; "
+            "print(sorted(m for m in added if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'gnntf_tpu')))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(PKG.parent), str(PKG.parent / "tests")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120,
+                         cwd=str(PKG.parent), env=env)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_no_source_mentions_the_jax_package():
     pattern = re.compile(r"(^\s*(import|from)\s+(jax|jaxlib|optax)\b)"
                          r"|(\bgnntf_tpu\.)", re.M)
