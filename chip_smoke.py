@@ -176,10 +176,15 @@ Phases (any failure raises and exits non-zero):
    zeroed just before), its epochs' wall seconds and one epoch's device
    busy time; (c) ``fit(mesh=, block_epochs=5)`` against (b)'s gspmd run;
    (d) at Cora's scale (2,708 nodes, 10,556 counted edges) two identical
-   APPNP and GAT runs bit-equal, a profiled step of each with no
-   ``index_add_`` kernel, and the walk over the graph's per-edge lists
-   timed against the ``index_add_`` route it replaced; (e) the process
-   group destroyed;
+   APPNP and GAT runs bit-equal, K2's launches in APPNP's runs (counts
+   zeroed just before), a profiled step of each with no ``index_add_``
+   kernel (APPNP's K2 walks all ``blocked_spmm_walk_narrow``), and on the
+   uniform graph and a power-law one (hub rows split) K2 over both lists at
+   F=1 (a column of ones: the degree walk), 7 and 64, cut by
+   ``unit_items`` and at 128 items side by side, each against its plain
+   version, the program's cut bit-equal to the plain version on the CPU,
+   with one call's device time by kernel (walk, parts, fix-up) beside the
+   ``index_add_`` route it replaced; (e) the process group destroyed;
 16. the fused trainer's cases that ran only on the host loop on a card
    before, each fused run against the host loop on the card from the same
    seed (losses within ``rtol=1e-5``, the same best epoch, the recorded
@@ -977,8 +982,8 @@ def profile_step(step, top=10):
 
     index_add_us, index_add_launches = family("indexFunc", "index_add")
     walks = {name: family(name)[1] for name in (
-        "blocked_spmm_walk", "ell_gather_masked_walk", "ell_degree_walk",
-        "ell_gather_walk")}
+        "blocked_spmm_walk", "blocked_spmm_walk_narrow",
+        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk")}
     shares = {name: family(tag)[0] / busy_us for name, tag in (
         ("k2", "blocked_spmm"), ("masked", "ell_gather_masked"),
         ("degree", "ell_degree"))}
@@ -997,6 +1002,7 @@ def profile_step(step, top=10):
                 index_add_share=index_add_us / busy_us,
                 index_add_launches=index_add_launches, shares=shares,
                 k2_walks=walks["blocked_spmm_walk"],
+                narrow_walks=walks["blocked_spmm_walk_narrow"],
                 masked_walks=walks["ell_gather_masked_walk"],
                 degree_walks=walks["ell_degree_walk"],
                 k1_walks=walks["ell_gather_walk"], counted=counted)
@@ -3236,74 +3242,133 @@ def hier_entry(products, multihost, mode, key):
         launches=multihost_launches(multihost, key))
 
 
+def small_graph_walks(name, graph, dev):
+    """K2 over one Cora-scale graph's normalized lists at F=1 (over a
+    column of ones: the degree walk), CORA_CLASSES and 64, both ways: the
+    lists as the program cuts them (``blocked_layout``, units of
+    ``unit_items``) and cut at 128 items (``BlockedSpMM(items=128)``, the
+    cut before ``unit_items``), each against its plain version and timed
+    (events, and one call's device time by kernel from a profile); the
+    program's cut equal bit for bit to the plain version on the CPU; the
+    ``index_add_`` route that the walk replaced (and at F=1 ``index_add_``
+    of the values, the degrees' route)."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import blocked_spmm, blocked_spmm_plain
+    from gnntf_tpu_torch.ops.blocked import (BlockedSpMM, blocked_layout,
+                                             graph_lists)
+
+    adj = tt.normalize_adjacency(graph)
+    val = adj.val.to(torch.float32).contiguous()
+    row, col = adj.row, adj.col
+    lists = graph_lists(row.cpu().numpy(), col.cpu().numpy(), CORA_NODES)
+    cuts = {cut: (prep.forward, prep.transposed) for cut, prep in (
+        ("new", blocked_layout(adj)),
+        ("items_128", BlockedSpMM(lists, dev, items=128)),
+        ("cpu", BlockedSpMM(lists, "cpu")))}
+    out = dict(edges=graph.n_edges)
+    for cut in ("new", "items_128"):
+        out[f"{cut}_lists"] = [dict(units=lst.n_units,
+                                    split_rows=int(lst.split.shape[0]),
+                                    pieces=int(lst.split[:, 2].sum()))
+                               for lst in cuts[cut]]
+    for f in (1, CORA_CLASSES, 64):
+        x = (torch.ones(CORA_NODES, 1, device=dev) if f == 1 else
+             torch.from_numpy(np.random.RandomState(f).randn(
+                 CORA_NODES, f).astype(np.float32)).to(dev))
+        res = {}
+        for way, k, dst, src in (("", 0, row, col), ("_t", 1, col, row)):
+            lst = cuts["new"][k]
+            res["walk" + way] = check_blocked_kernel(
+                f"Cora-scale {name} walk{way} F={f}", lst, val, x,
+                library=True)
+            res["items_128" + way] = check_blocked_kernel(
+                f"Cora-scale {name} walk{way} F={f}, units of 128 items",
+                cuts["items_128"][k], val, x)
+            same = torch.equal(blocked_spmm(lst, val, x).cpu(),
+                               blocked_spmm_plain(cuts["cpu"][k], val.cpu(),
+                                                  x.cpu()))
+            if not same:
+                raise AssertionError(f"Cora-scale {name} walk{way} F={f} "
+                                     "differs from the CPU plain version")
+            res["bit_equal_to_cpu_plain" + way] = same
+            call = lambda dst=dst, src=src: torch.zeros_like(x).index_add_(
+                0, dst, x[src] * val[:, None])
+            res["index_add" + way + "_ms"] = time_ms(call)
+            res["index_add" + way + "_device_ms"] = device_profile(
+                call)[1] / 1e3
+            if f == 1:
+                call = lambda dst=dst: torch.zeros(
+                    CORA_NODES, device=dev).index_add_(0, dst, val)
+                res["degree_index_add" + way + "_ms"] = time_ms(call)
+                res["degree_index_add" + way + "_device_ms"] = \
+                    device_profile(call)[1] / 1e3
+        log(f"Cora-scale {name} F={f}: one call's device time, walk "
+            f"{res['walk']['device_ms']} ms (A^T {res['walk_t']['device_ms']}"
+            f"), units of 128 items {res['items_128']['device_ms']} ms (A^T "
+            f"{res['items_128_t']['device_ms']}); index_add_ route "
+            f"{res['index_add_device_ms']} ms (A^T "
+            f"{res['index_add_t_device_ms']})")
+        out[f"F{f}"] = res
+    return out
+
+
 def phase_small_graphs(dev):
     """14d: F7 on the card.  At Cora's scale two identical runs of APPNP
-    and of GAT (5 epochs, every dropout on) are bit-equal, and a profiled
-    step of each launches no index_add_ kernel; K2's walk over the graph's
-    lists (``spmm_segment`` on a card) timed against the index_add_ route it
-    replaced, with CUDA events over back-to-back calls and with one call's
-    device time from a profile."""
+    and of GAT (5 epochs, every dropout on) are bit-equal, K2 launches in
+    APPNP's runs, and a profiled step of each launches no index_add_
+    kernel (APPNP's K2 walks all narrow); K2's walk over each Cora-scale
+    graph's lists (``small_graph_walks``)."""
     import gnntf_tpu_torch as tt
-    from gnntf_tpu_torch.ops.blocked import blocked_layout
+    from gnntf_tpu_torch.data import random_power_law_edges
 
-    rng = np.random.RandomState(0)
-    src = rng.randint(0, CORA_NODES, CORA_EDGES)
-    dst = rng.randint(0, CORA_NODES, CORA_EDGES)
-    graph = tt.from_edges(src, dst, n_nodes=CORA_NODES, directed=False,
-                          device=dev)
-    features = rng.rand(CORA_NODES, 64).astype(np.float32)
-    labels = rng.randint(0, CORA_CLASSES, CORA_NODES)
-    tasks = (tt.NodeClassification(np.arange(140), labels[:140]),
-             tt.NodeClassification(np.arange(200, 700), labels[200:700]))
+    graph, features, tasks = cora_graph(dev)
+    # hub rows longer than any unit, so rows split
+    power_law = tt.from_edges(*random_power_law_edges(
+        CORA_NODES, CORA_EDGES, seed=0), n_nodes=CORA_NODES, directed=False,
+        device=dev)
     out = dict(edges=graph.n_edges)
     for name in ("APPNP", "GAT"):
         runs = []
+        zero_counts()
         for _ in range(2):
             model = getattr(tt, name)(graph, features,
                                       num_classes=CORA_CLASSES, device=dev)
             hist = model.train(*tasks, epochs=5, seed=1)
             runs.append((hist, {k: p.detach().cpu()
                                 for k, p in model.params.items()}))
+        launches = launch_counts()
         equal = runs[0][0] == runs[1][0] and same_params(runs[0][1],
                                                          runs[1][1])
         step = step_fn(model, tasks[0])
         profile = profile_step(step)
-        log(f"{name} at Cora's scale: two runs bit-equal {equal}; step "
-            f"profile: {profile['index_add_launches']} index_add_ launches")
+        log(f"{name} at Cora's scale: two runs bit-equal {equal}; launches "
+            f"{launches}; step profile: {profile['index_add_launches']} "
+            f"index_add_ launches, {profile['k2_walks']} K2 walks, "
+            f"{profile['narrow_walks']} of them narrow")
         if not equal:
             raise AssertionError(f"two identical {name} runs differ")
         if profile["index_add_launches"]:
             raise AssertionError(f"a {name} step at Cora's scale launches "
                                  "index_add_")
+        if name == "APPNP" and not (
+                launches["k2"] > 0 and profile["k2_walks"] > 0
+                and profile["narrow_walks"] == profile["k2_walks"]):
+            raise AssertionError(f"APPNP at Cora's scale: K2 launches "
+                                 f"{launches['k2']}, step walks "
+                                 f"{profile['k2_walks']} (narrow "
+                                 f"{profile['narrow_walks']})")
         out[name] = dict(losses=runs[0][0]["train_loss"],
+                         launches=launches,
                          step_busy_us=profile["busy_us"],
                          step_wall_us=profile["wall_us"],
+                         step_k2_walks=profile["k2_walks"],
+                         step_narrow_walks=profile["narrow_walks"],
+                         step_k2_share=profile["shares"]["k2"],
                          step_ms=time_ms(step, reps=10))
-    adj = tt.normalize_adjacency(graph)
-    prep = blocked_layout(adj)
-    val = adj.val.to(torch.float32).contiguous()
-    row, col = adj.row, adj.col
-    for f in (CORA_CLASSES, 64):
-        x = torch.randn(CORA_NODES, f, device=dev)
-        walk = check_blocked_kernel(f"Cora-scale walk F={f}", prep.forward,
-                                    val, x, library=True)
-        walk_t = check_blocked_kernel(f"Cora-scale walk A^T F={f}",
-                                      prep.transposed, val, x, library=True)
-        routes = {}
-        for name, dst, src in (("index_add", row, col),
-                               ("index_add_t", col, row)):
-            call = lambda dst=dst, src=src: torch.zeros_like(x).index_add_(
-                0, dst, x[src] * val[:, None])
-            routes[f"{name}_ms"] = time_ms(call)
-            routes[f"{name}_device_ms"] = device_profile(call)[1] / 1e3
-        log(f"Cora scale F={f}: walk {walk['ms']} ms, one call's device "
-            f"time {walk['device_ms']} ms (A^T {walk_t['ms']} ms, "
-            f"{walk_t['device_ms']} ms); index_add_ route "
-            f"{routes['index_add_ms']} ms, device "
-            f"{routes['index_add_device_ms']} ms (A^T "
-            f"{routes['index_add_t_ms']} ms, "
-            f"{routes['index_add_t_device_ms']} ms)")
-        out[f"F{f}"] = dict(walk=walk, walk_t=walk_t, **routes)
+    out["graphs"] = {name: small_graph_walks(name, g, dev) for name, g in
+                     (("uniform", graph), ("power_law", power_law))}
+    out["card"] = nvidia_smi("name,power.limit")
+    log(f"14d's walks timed on {out['card']}")
     return out
 
 
@@ -4235,11 +4300,14 @@ def main(dev=None):
               "mesh": mesh_entry(mesh_products, mesh_train, "realized",
                                  "k2"),
               "hier": hier_entry(hier_products, multihost, "realized", "k2"),
-              "small_graphs": {f: dict(
-                  small[f]["walk"], transposed=small[f]["walk_t"],
-                  index_add_ms=small[f]["index_add_ms"],
-                  index_add_device_ms=small[f]["index_add_device_ms"])
-                  for f in (f"F{CORA_CLASSES}", "F64")},
+              "small_graphs": dict(
+                  launches=small["APPNP"]["launches"]["k2"],
+                  card=small["card"],
+                  shape=f"Cora scale, N={CORA_NODES}, uniform and power-law "
+                        f"edges, normalized; F=1 over a column of ones (the "
+                        f"degree walk), F={CORA_CLASSES}, F=64; walk: "
+                        f"unit_items' cut, items_128: units of 128 items",
+                  **small["graphs"]),
               "transposed": dict(k2["train_t"], shape="A^T, F=40",
                                  bench_width=dict(k2["bench_t"],
                                                   shape="A^T, F=128"),

@@ -27,12 +27,34 @@
 // row ids: every row of the list is stored once (rows without edges as
 // zeros), so out is never zero-filled.  One bench row holds 27% of the
 // edges; it is cut into pieces of about 128 items that the walk sums apart
-// and the fix-up adds in a fixed order.
+// and the fix-up adds in a fixed order.  The host sizes a list's units
+// from its item count (ops/blocked.py::unit_items): a small list gets small
+// units, so that its walk spreads over the SMs.
+//
+// Narrow rows.  Where a group would have fewer than kNarrowLanes lanes
+// (fewer than 8 vectors a row: the degree walk's F = 1, F = 7 classes),
+// edge_walk's walk leaves most of a warp idle and chains a unit's loads a
+// few edges at a time (one edge at a time at F = 1).  blocked_spmm_walk_narrow
+// takes those widths instead: a warp a unit, its lanes over edges as well
+// as elements, so a batch of 32 edges' gathers are all in flight at once.
+// It sums each row in edge order with the same roundings, so its result is
+// bit for bit the wide walk's and the plain version's.  At Cora's scale
+// (10,556 edges) neither bound holds it: the bytes take 0.04-0.4 us at
+// 3.35 TB/s, while a launch and a warp's chain of dependent loads (the
+// unit, its edges, their x rows) take ~4-6 us; small units keep that chain
+// to one batch.
+
 #include "edge_walk.cuh"
 
 namespace {
 
 using edge_walk::Args;
+using edge_walk::add_into;
+using edge_walk::set_zero;
+
+// groups of fewer lanes than this take the narrow walk
+constexpr int kNarrowLanes = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
@@ -50,15 +72,162 @@ __global__ void __launch_bounds__(32) blocked_spmm_fixup(const Args a) {
   edge_walk::fixup<T, false>(a);
 }
 
+__device__ __forceinline__ float product(float w, float v) {
+  return __fmul_rn(w, v);
+}
+__device__ __forceinline__ float4 product(float w, float4 v) {
+  return make_float4(__fmul_rn(w, v.x), __fmul_rn(w, v.y), __fmul_rn(w, v.z),
+                     __fmul_rn(w, v.w));
+}
+
+__device__ __forceinline__ float shuffle(float v, int from) {
+  return __shfl_sync(kFull, v, from);
+}
+__device__ __forceinline__ float4 shuffle(float4 v, int from) {
+  return make_float4(shuffle(v.x, from), shuffle(v.y, from),
+                     shuffle(v.z, from), shuffle(v.w, from));
+}
+
+// The narrow walk over rows of FV < kNarrowLanes elements of T (float or
+// float4), a warp a unit (a run of whole rows, or a piece of a split row;
+// ops/blocked.py::work_units).  Lane l loads the idx/val of edge l of a batch
+// of 32, then the batch's x rows are gathered in kRounds rounds: in round r
+// lane l takes element l % FV of edge r * kEdges + l / FV, rounds the product
+// w * x (__fmul_rn) and keeps it.  All of a batch's gathers are issued
+// before its sum, and the next batch's idx/val load meanwhile.  The products
+// then pass through __shfl_sync in edge order to every lane of their element,
+// which adds each to its row sum (__fadd_rn), so the sum of a row, or of a
+// piece, has the roundings of edge_walk's mul_add in edge order: the plain
+// version's.  The unit's row ends are loaded 32 at a time, one a lane, and
+// read through __shfl_sync as the walk passes rows.  Lanes 0..FV-1 store a
+// row; the rows without edges after the unit's last edge are stored as zeros
+// by the warp's lanes, kEdges rows at a time.  All control flow that
+// reaches a __shfl_sync is the same over the warp (n, row and row_end are).
+template <typename T, int FV>
+__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
+    blocked_spmm_walk_narrow(const Args a) {
+  constexpr int kEdges = 32 / FV;                      // edges a round
+  constexpr int kRounds = (32 + kEdges - 1) / kEdges;  // rounds a batch
+  const long long unit =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (unit >= a.n_units) return;
+  const int lane = threadIdx.x & 31;
+  const int j = lane % FV, q = lane / FV;
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const int32_t* __restrict__ idx = a.idx;
+  const int32_t* __restrict__ eid = a.eid;
+  const float* __restrict__ val = a.val;
+  const int head = a.unit_row[unit];
+  const bool piece = head < 0;
+  int r1 = a.unit_row[unit + 1];
+  r1 = r1 < 0 ? ~r1 : r1;
+  const int e0 = a.unit_edge[unit], e1 = a.unit_edge[unit + 1];
+  int row = piece ? ~head : head;
+  // lane l holds the end of row first + l (rows of this unit only)
+  int first = row;
+  int ends = INT_MAX;
+  if (!piece && row + lane < r1) ends = a.ptr[row + lane + 1];
+  int row_end = piece ? INT_MAX : __shfl_sync(kFull, ends, 0);
+  T acc;
+  set_zero(acc);
+  int next_src = 0;
+  float next_w = 0.f;
+  if (e0 + lane < e1) {
+    next_src = idx[e0 + lane];
+    next_w = val[eid ? eid[e0 + lane] : e0 + lane];
+  }
+  for (int b = e0; b < e1; b += 32) {
+    const int n = min(32, e1 - b);
+    const int my_src = next_src;
+    const float my_w = next_w;
+    const int pe = b + 32 + lane;
+    if (pe < e1) {
+      next_src = idx[pe];
+      next_w = val[eid ? eid[pe] : pe];
+    }
+    T p[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int k = r * kEdges + q;  // the batch's edge this lane gathers
+      const int from = min(k, 31);
+      const int s = __shfl_sync(kFull, my_src, from);
+      const float w = __shfl_sync(kFull, my_w, from);
+      set_zero(p[r]);
+      if (q < kEdges && k < n) p[r] = product(w, x[(long long)s * FV + j]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+#pragma unroll
+      for (int t = 0; t < kEdges; ++t) {
+        const int k = r * kEdges + t;
+        if (k < 32 && k < n) {
+          const T v = shuffle(p[r], t * FV + j);
+          while (b + k >= row_end) {  // rows ending before edge b + k
+            if (lane < FV) out[(long long)row * FV + j] = acc;
+            set_zero(acc);
+            ++row;
+            if (row - first == 32) {
+              first = row;
+              ends = row + lane < r1 ? a.ptr[row + lane + 1] : INT_MAX;
+            }
+            row_end = __shfl_sync(kFull, ends, row - first);
+          }
+          add_into(acc, v);
+        }
+      }
+    }
+  }
+  if (piece) {
+    if (lane < FV) static_cast<T*>(a.carry)[unit * FV + j] = acc;
+    return;
+  }
+  // the last row, then the rows without edges after it
+  if (lane < FV) out[(long long)row * FV + j] = acc;
+  if (q < kEdges) {
+    T zero;
+    set_zero(zero);
+    for (int r = row + 1 + q; r < r1; r += kEdges)
+      out[(long long)r * FV + j] = zero;
+  }
+}
+
+// The narrow walk at FV, then edge_walk's parts and fix-up (their groups of
+// a.group = FV lanes), on `stream`.
+template <typename T, int FV>
+int launch_narrow(const Args& a, cudaStream_t stream) {
+  blocked_spmm_walk_narrow<T, FV>
+      <<<edge_walk::group_blocks(a.n_units, 32, edge_walk::kThreads),
+         edge_walk::kThreads, 0, stream>>>(a);
+  return edge_walk::finish(blocked_spmm_parts<T>, blocked_spmm_fixup<T>, a,
+                           stream);
+}
+
+template <typename T>
+int narrow(const Args& a, cudaStream_t stream) {
+  static_assert(kNarrowLanes == 8, "one case a width below kNarrowLanes");
+  switch (a.fv) {
+    case 1: return launch_narrow<T, 1>(a, stream);
+    case 2: return launch_narrow<T, 2>(a, stream);
+    case 3: return launch_narrow<T, 3>(a, stream);
+    case 4: return launch_narrow<T, 4>(a, stream);
+    case 5: return launch_narrow<T, 5>(a, stream);
+    case 6: return launch_narrow<T, 6>(a, stream);
+    case 7: return launch_narrow<T, 7>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // out (n, f) float32 needs no zero-fill; carry (n_units + n_split * parts,
 // f) float32 is scratch, needed only when n_split > 0; eid may be null (the
 // identity); rows is ignored (K2 stores row r at r); part_item holds the
 // fix-up's n_part_items items.  vec is 4 (float4 loads; f % 4 == 0, x
-// 16-byte aligned) or 1; group is the lanes per unit, min(32, f / vec);
-// parts is the number of parts a split row's pieces are summed in.
-// Launches on `stream` and returns a CUDA error code (0 on success).
+// 16-byte aligned) or 1; group is the lanes per unit, min(32, f / vec), and
+// below kNarrowLanes selects the narrow walk (a warp a unit); parts is the
+// number of parts a split row's pieces are summed in.  Launches on `stream`
+// and returns a CUDA error code (0 on success).
 extern "C" int gnntf_blocked_spmm(
     const void* ptr, const void* idx, const void* eid, const void* rows,
     const void* unit_row, const void* unit_edge, const void* split,
@@ -70,6 +239,8 @@ extern "C" int gnntf_blocked_spmm(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < kNarrowLanes)
+    return vec == 4 ? narrow<float4>(a, s) : narrow<float>(a, s);
   if (vec == 4)
     return edge_walk::launch(blocked_spmm_walk<float4>,
                              blocked_spmm_parts<float4>,

@@ -11,9 +11,11 @@ edges fill their chunks.
 
 The kernel does not walk the slot grid.  :func:`edge_lists` turns the
 layout's live slots into two per-edge CSR lists, one for ``A`` and one for
-``A^T``, and :func:`work_units` cuts each list into units of about
-``_UNIT_ITEMS`` edges and row ends for the kernel's workers.
-:class:`BlockedSpMM` holds the two lists on a device.
+``A^T``; :func:`graph_lists` derives the same two lists from the edges with
+two stable sorts, which is what :func:`blocked_layout` does.
+:func:`work_units` cuts each list into units of :func:`unit_items` edges
+and row ends for the kernel's workers.  :class:`BlockedSpMM` holds the two
+lists on a device.
 
 ``blocked_spmm`` is the kernel's wrapper.  It replaces the TPU kernel
 ``gnntf_tpu/ops/pallas/spmm.py::_kernel``; the CUDA source,
@@ -40,8 +42,11 @@ from ..graph.coo import Graph
 from ..utils import kernels
 from ..utils.idcache import IdLRU, sizeof
 
-# items (edges and row ends) per unit of the kernel's work
-_UNIT_ITEMS = 128
+# the unit sizes (items: edges and row ends) that unit_items picks from,
+# and its scale: a list of n items takes the least size s with n <=
+# (_UNIT_SCALE * s)^2, so s grows as the square root of n
+_UNIT_SIZES = (16, 32, 64, 128)
+_UNIT_SCALE = 12
 # a split row's pieces are summed in this many parts: part g takes pieces
 # g, g + P, g + 2P, ... in turn, then the parts are added in order.  This
 # fixes the order of the sum; the kernel's launch geometry does not.  A list
@@ -187,11 +192,53 @@ def edge_lists(layout: BlockedCOO):
     dst = (win * layout.window + rel)[eid]
     src = (layout.chunk_tile[chunk].astype(np.int64) * layout.tile
            + layout.cols[perm])[eid]
+    return _both_lists(dst, src, eid, layout.n_nodes)
+
+
+def graph_lists(row, col, n_nodes: int, tile: int = 256):
+    """:func:`edge_lists` of ``block_coo(row, col, n_nodes, tile=tile)``,
+    bit for bit, from the edges alone: the forward list is the edges stably
+    sorted by (row, col // tile), the order in which the layout holds a
+    row's edges (tile by tile, each tile's in edge order); the transposed
+    list is that stably sorted by (col, row).  The window and the chunk size
+    do not change the lists."""
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    eid = np.lexsort((col // tile, row))
+    return _both_lists(row[eid], col[eid], eid, n_nodes)
+
+
+def _both_lists(dst, src, eid, n):
+    """The forward list of the edges ``src -> dst`` in the given order and
+    the transposed list, the same stably sorted by (src, dst), int32."""
     order = np.lexsort((dst, src))
-    n = layout.n_nodes
     lists = ((row_ptr(dst, n), src, eid),
              (row_ptr(src[order], n), dst[order], eid[order]))
     return tuple(tuple(a.astype(np.int32) for a in lst) for lst in lists)
+
+
+def unit_items(n_items: int) -> int:
+    """The unit size of a list of ``n_items`` items (edges and row ends):
+    the least of ``_UNIT_SIZES`` with ``n_items <= (_UNIT_SCALE * size) **
+    2``, else the largest: 16 up to 36,864 items, 32 up to 147,456, 64 up
+    to 589,824, then 128.  A pure function of the count, so the card and
+    the CPU plain version cut a list alike.
+
+    Why.  A unit is one worker's chain of dependent loads, so its time
+    grows with its size; the units' count sets how many workers the card
+    must hold and schedule.  The sum is least near a size that grows as
+    the square root of the list; ``_UNIT_SCALE`` fits it to
+    ``k2_sweep.py --kernels k2small`` (NVIDIA H100 80GB HBM3, 700 W; one
+    call's device time over the forward and the transposed list at F = 1, 7
+    and 64; PERF.md §6): at Cora's 13,264 items 16 was the fastest (4.5-5.9
+    us on uniform edges, against 11.7-22.5 at 128; 8 splits 52 rows and
+    takes 8.3-9.7), at 99,994 items 16 or 32, at 752,462 items 64 or 128,
+    and at the benchmark graph's 2,501,821 items 128, the size its own
+    sweep chose."""
+    for size in _UNIT_SIZES:
+        if n_items <= (_UNIT_SCALE * size) ** 2:
+            return size
+    return _UNIT_SIZES[-1]
 
 
 def work_units(ptr: np.ndarray, items: int):
@@ -314,11 +361,12 @@ class EdgeList:
     def build(cls, ptr, idx, eid, device, rows=None, items=None,
               tile_items=None, n_x=None, n_ids=None):
         """The list on ``device``, cut into units of ``items`` items
-        (default ``_UNIT_ITEMS``), its split rows summed in
-        ``_FIXUP_PARTS`` parts, with tiles of ``tile_items`` items for the
-        dropout walks (:func:`drop_tiles`; none without ``tile_items``);
-        ``eid`` None means the identity.  ``n_x`` and ``n_ids`` give the
-        rows of ``x`` and the values a non-square list reads."""
+        (default :func:`unit_items` of its edges and rows), its split rows
+        summed in ``_FIXUP_PARTS`` parts, with tiles of ``tile_items`` items
+        for the dropout walks (:func:`drop_tiles`; none without
+        ``tile_items``); ``eid`` None means the identity.  ``n_x`` and
+        ``n_ids`` give the rows of ``x`` and the values a non-square list
+        reads."""
         if len(idx) >= 2**31 - 1:
             raise ValueError(f"{len(idx)} edges exceed the walk's int32 "
                              "indices")
@@ -329,7 +377,9 @@ class EdgeList:
 
         identity = (eid is None or np.array_equal(
             eid, np.arange(len(eid)))) and n_ids in (None, len(idx))
-        units = work_units(ptr, _UNIT_ITEMS if items is None else items)
+        if items is None:
+            items = unit_items(len(idx) + len(ptr) - 1)
+        units = work_units(ptr, items)
         parts = _FIXUP_PARTS
         tiles = {}
         if tile_items is not None:
@@ -400,13 +450,18 @@ class EdgeList:
 
 
 class BlockedSpMM:
-    """The forward and transposed :class:`EdgeList` of one
-    :class:`BlockedCOO` layout, on a device (the layout is not kept)."""
+    """The forward and transposed :class:`EdgeList` of one structure on a
+    device: of a :class:`BlockedCOO` layout (:func:`edge_lists`; the layout
+    is not kept) or of the two lists themselves (:func:`graph_lists`), cut
+    into units of ``items`` items (default: each list's
+    :func:`unit_items`)."""
 
-    def __init__(self, layout: BlockedCOO, device):
-        fwd, tr = edge_lists(layout)
-        self.forward = EdgeList.build(*fwd, device)
-        self.transposed = EdgeList.build(*tr, device)
+    def __init__(self, lists, device, items: Optional[int] = None):
+        if isinstance(lists, BlockedCOO):
+            lists = edge_lists(lists)
+        fwd, tr = lists
+        self.forward = EdgeList.build(*fwd, device, items=items)
+        self.transposed = EdgeList.build(*tr, device, items=items)
 
 
 def scatter_values(layout: BlockedCOO, val: torch.Tensor) -> torch.Tensor:
@@ -658,17 +713,17 @@ _BLOCK_CACHE = IdLRU()
 
 def blocked_layout(graph: Graph, window: int = 256, tile: int = 256,
                    block_edges: int = 1024) -> BlockedSpMM:
-    """K2's layout of ``graph``'s structure and its forward and transposed
-    lists on the graph's device, built once (``_BLOCK_CACHE``)."""
-    key = (id(graph.row), id(graph.col), graph.n_nodes, window, tile,
-           block_edges)
+    """The forward and transposed lists of K2's layout of ``graph``'s
+    structure on the graph's device, built once (``_BLOCK_CACHE``) from the
+    edges (:func:`graph_lists`, equal to the layout's :func:`edge_lists`;
+    ``window`` and ``block_edges`` do not change them)."""
+    key = (id(graph.row), id(graph.col), graph.n_nodes, tile)
     anchors = (graph.row, graph.col)
     prep = _BLOCK_CACHE.get(key, anchors)
     if prep is None:
-        layout = block_coo(graph.row.cpu().numpy(), graph.col.cpu().numpy(),
-                           graph.n_nodes, window=window, tile=tile,
-                           block_edges=block_edges)
-        prep = BlockedSpMM(layout, graph.device)
+        prep = BlockedSpMM(graph_lists(graph.row.cpu().numpy(),
+                                       graph.col.cpu().numpy(),
+                                       graph.n_nodes, tile), graph.device)
         _BLOCK_CACHE.put(key, anchors, prep,
                          nbytes=sizeof((prep.forward, prep.transposed)))
     return prep

@@ -4,18 +4,31 @@ NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train] [--ab DIR]
-                        [--ab-small DIR]
+    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small]
+                        [--ab DIR] [--ab-small DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
 as ``chip_smoke.py`` does) at:
 
-- every pair of unit size (``ops/blocked.py::_UNIT_ITEMS``: 64, 128, 256
-  items) and gathers of x rows in flight (``WALK_UNROLL`` in
-  ``csrc/edge_walk.cuh``: 2, 4, 8; one library built for each);
-- fix-up parts (``_FIXUP_PARTS``: 16, 64, 256) at the default unit size and
-  unroll.
+- every pair of unit size (64, 128, 256 items; ``ops/blocked.py::
+  unit_items`` gives this list 128) and gathers of x rows in flight
+  (``WALK_UNROLL`` in ``csrc/edge_walk.cuh``: 2, 4, 8; one library built
+  for each);
+- fix-up parts (``_FIXUP_PARTS``: 16, 64, 256) at 128 items and the
+  default unroll.
+
+K2 on small lists (``--kernels k2small``, not run by default): unit sizes
+of 8, 16, 32, 64 and 128 items (``ops/blocked.py::unit_items`` picks from
+the last four), over the forward and the transposed list of graphs of
+~13 K items (Cora's scale: 2,708 nodes, 5,278 undirected edges, uniform
+and power-law), ~100 K items (20,000 nodes, 40,000 power-law edges),
+~752 K items (the benchmark graph's first quarter of edges over all its
+rows, the list a gspmd slice's degree walk takes) and 2,501,821 items (the
+RCM benchmark graph), at F=1 (the degree walk), 7 (Cora's classes) and
+64, with each kernel's device time from one call's profile (the walk, the
+narrow walk, the parts, the fix-up) beside the CUDA-event mean, and, on
+the Cora-scale lists, the ``index_add_`` route that the walk replaced.
 
 K1: on the list of the benchmark graph's hub-free ELL (``PreparedSpMM``),
 adding into a random base at F=40 and F=128, it times K1 at every pair of
@@ -53,7 +66,9 @@ step (forward, losses, gradients, every dropout on) of APPNP and of GAT at
 their defaults on the Cora-scale graph of ``chip_smoke.py``'s phase 14d
 (2,708 nodes, 10,556 counted edges): the step's CUDA-event time over
 back-to-back calls, and its device busy and wall time and its
-``index_add_`` launches from a profile.
+``index_add_`` launches from a profile; then K2's walk over that graph's
+normalized lists (``blocked_layout``, forward and transposed) at F=1, 7
+and 64, with one call's device time by kernel from a profile.
 
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|).  One JSON object a line goes to
@@ -74,6 +89,8 @@ from chip_smoke import (N_EDGES, N_FEATURES, N_NODES, check_close,
                         time_ms)
 
 ITEMS = (64, 128, 256)
+SMALL_ITEMS = (8, 16, 32, 64, 128)
+SMALL_WIDTHS = (1, 7, 64)
 UNROLLS = (2, 4, 8)
 PARTS = (16, 64, 256)
 K1_ITEMS = (32, 64, 128)
@@ -313,6 +330,21 @@ for name in ("APPNP", "GAT"):
         wall_us=prof["wall_us"], launches=prof["launches"],
         index_add_launches=prof["index_add_launches"],
         index_add_share=prof["index_add_share"])), flush=True)
+from gnntf_tpu_torch.ops.blocked import blocked_layout, blocked_spmm
+adj = tt.normalize_adjacency(graph)
+prep = blocked_layout(adj)
+val = adj.val.to(torch.float32).contiguous()
+for f in (1, 7, 64):
+    x = torch.from_numpy(np.random.RandomState(f).randn(n, f).astype(
+        np.float32)).to(dev)
+    for name, lst in (("A", prep.forward), ("AT", prep.transposed)):
+        run = lambda lst=lst, x=x: blocked_spmm(lst, val, x)
+        rows, busy, _, _ = cs.device_profile(run)
+        print(json.dumps(dict(
+            tree=sys.argv[1], kernel="K2", list=name, f=f,
+            units=lst.n_units, split_rows=int(lst.split.shape[0]),
+            ms=cs.time_ms(run), device_ms=busy / 1e3, us_by_kernel={
+                cs.kernel_name(k): us for k, us, _ in rows})), flush=True)
 """
 
 
@@ -339,11 +371,92 @@ def ab(parent, card, code=AB_CODE):
     return lines
 
 
+def small_lists():
+    """The graphs of ``--kernels k2small``: ``(name, n_nodes, row, col)``
+    each, its edges (numpy) in the order its lists take them."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    from chip_smoke import CORA_EDGES, CORA_NODES
+
+    def undirected(src, dst, n):
+        g = tt.from_edges(src, dst, n_nodes=n, directed=False, device="cpu")
+        return g.row.numpy(), g.col.numpy()
+
+    rng = np.random.RandomState(0)
+    out = [("cora_uniform", CORA_NODES, *undirected(
+        rng.randint(0, CORA_NODES, CORA_EDGES),
+        rng.randint(0, CORA_NODES, CORA_EDGES), CORA_NODES))]
+    out.append(("cora_power_law", CORA_NODES, *undirected(
+        *random_power_law_edges(CORA_NODES, CORA_EDGES, seed=0),
+        CORA_NODES)))
+    out.append(("power_law_20k", 20_000, *undirected(
+        *random_power_law_edges(20_000, 40_000, seed=1), 20_000)))
+    g = tt.from_edges(*random_power_law_edges(N_NODES, N_EDGES, seed=0),
+                      n_nodes=N_NODES, directed=False, device="cpu")
+    quarter = g.n_edges // 4
+    out.append(("bench_quarter", N_NODES, g.row.numpy()[:quarter],
+                g.col.numpy()[:quarter]))
+    g, _ = tt.permute_graph(g, tt.rcm_order(g))
+    out.append(("bench_rcm", N_NODES, g.row.numpy(), g.col.numpy()))
+    return out
+
+
+def sweep_small(dev, card):
+    """K2 over small and bench-size lists at each unit size of
+    ``SMALL_ITEMS`` and width of ``SMALL_WIDTHS``, each line with the size
+    ``unit_items`` would take (``rule``); returns the JSON lines."""
+    from gnntf_tpu_torch.ops import blocked, blocked_spmm, blocked_spmm_plain
+    lines = []
+    for name, n, row, col in small_lists():
+        lists = blocked.graph_lists(row, col, n)
+        rng = np.random.RandomState(6)
+        val = torch.from_numpy(rng.uniform(0.1, 1.0, len(row)).astype(
+            np.float32)).to(dev)
+        xs = {f: torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(
+            dev) for f in SMALL_WIDTHS}
+        items_n = len(row) + n
+        for items in SMALL_ITEMS:
+            prep = blocked.BlockedSpMM(lists, dev, items=items)
+            for lname, lst in (("A", prep.forward), ("AT", prep.transposed)):
+                for f, x in xs.items():
+                    label = f"k2small {name} items={items} {lname} F={f}"
+                    check_close(label, blocked_spmm(lst, val, x),
+                                blocked_spmm_plain(lst, val, x),
+                                blocked_spmm_plain(lst, val.abs(), x.abs()))
+                    run = lambda lst=lst, x=x: blocked_spmm(lst, val, x)
+                    rows, busy, _, _ = device_profile(run)
+                    line = dict(kernel="K2small", graph=name, n_items=items_n,
+                                rule=blocked.unit_items(items_n),
+                                items=items, list=lname, f=f,
+                                units=lst.n_units,
+                                split_rows=int(lst.split.shape[0]),
+                                pieces=int(lst.split[:, 2].sum()),
+                                ms=time_ms(run), device_ms=busy / 1e3,
+                                us_by_kernel={kernel_name(key): us
+                                              for key, us, _ in rows},
+                                card=card)
+                    print(json.dumps(line), flush=True)
+                    lines.append(line)
+        if name.startswith("cora"):
+            dst, src = (torch.from_numpy(a).to(dev) for a in (row, col))
+            for f, x in xs.items():
+                for lname, d, s in (("A", dst, src), ("AT", src, dst)):
+                    run = lambda d=d, s=s, x=x: torch.zeros_like(x).index_add_(
+                        0, d, x[s] * val[:, None])
+                    _, busy, _, _ = device_profile(run)
+                    line = dict(kernel="index_add_route", graph=name,
+                                list=lname, f=f, ms=time_ms(run),
+                                device_ms=busy / 1e3, card=card)
+                    print(json.dumps(line), flush=True)
+                    lines.append(line)
+    return lines
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
     parser.add_argument("--kernels", default="k1,k2,train",
-                        help="which sweeps to run (k1, k2, train; "
+                        help="which sweeps to run (k1, k2, train, k2small; "
                              "comma-separated)")
     parser.add_argument("--ab", metavar="DIR",
                         help="time the dropout walks of this tree and of "
@@ -369,10 +482,15 @@ def main():
         write(args.out, ab(args.ab, card) if args.ab
               else ab(args.ab_small, card, AB_SMALL_CODE))
         return
+    lines = sweep_small(dev, card) if "k2small" in which else []
+    if not which & {"k1", "k2", "train"}:
+        write(args.out, lines)
+        return
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)
-    lines = sweep_k1(graph, dev, card) if "k1" in which else []
+    if "k1" in which:
+        lines += sweep_k1(graph, dev, card)
     if "train" in which:
         lines += sweep_train(graph, dev, card)
     if "k2" not in which:
@@ -390,15 +508,15 @@ def main():
         N_NODES, f).astype(np.float32)[perm]).to(dev)
         for f, seed in ((40, 3), (N_FEATURES, 2))}
 
-    defaults = blocked._UNIT_ITEMS, blocked._FIXUP_PARTS
-    settings = [(i, u, defaults[1]) for i in ITEMS for u in UNROLLS]
-    settings += [(defaults[0], 4, p) for p in PARTS if p != defaults[1]]
+    default_parts = blocked._FIXUP_PARTS
+    settings = [(i, u, default_parts) for i in ITEMS for u in UNROLLS]
+    settings += [(128, 4, p) for p in PARTS if p != default_parts]
     preps = {}
     for items, unroll, parts in settings:
-        blocked._UNIT_ITEMS, blocked._FIXUP_PARTS = items, parts
+        blocked._FIXUP_PARTS = parts
         blocked._library = lambda lib=libs[unroll, MIN_BLOCKS_DEFAULT]: lib
         if (items, parts) not in preps:  # a list keeps its parts
-            preps[items, parts] = BlockedSpMM(lay, dev)
+            preps[items, parts] = BlockedSpMM(lay, dev, items=items)
         prep = preps[items, parts]
         for f, x in xs.items():
             for name, lst in (("A", prep.forward), ("AT", prep.transposed)):
@@ -415,7 +533,7 @@ def main():
                             card=card)
                 print(json.dumps(line), flush=True)
                 lines.append(line)
-    blocked._UNIT_ITEMS, blocked._FIXUP_PARTS = defaults
+    blocked._FIXUP_PARTS = default_parts
     write(args.out, lines)
 
 
