@@ -60,9 +60,10 @@ Phases (any failure raises and exits non-zero):
    of 8; one head of 40), over the per-edge lists with a dropout draw (keep
    0.4) and the coalesced lists without, beside ``torch.sparse.mm`` of the
    realized coefficients (one head), logging the share bit-equal to the
-   plain versions on the CPU; then the chain with its salt pair in a
-   device buffer, rewritten between launches and before a CUDA graph's
-   replay, each output equal to a fresh launch with its draw;
+   plain versions on the CPU and each bench call's device time by kernel
+   (A3 and A4: at most 3 launches a call); then the chain with its salt
+   pair in a device buffer, rewritten between launches and before a CUDA
+   graph's replay, each output equal to a fresh launch with its draw;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -125,7 +126,8 @@ Phases (any failure raises and exits non-zero):
    and 40 classes: three forwards, three predict requests and one evaluate
    (A1 and A2 in each layer of a forward, over the coalesced lists), a
    profile of one forward, of one training step (A1-A4 twice each, no
-   ``index_add_``) and of the attention chain alone (no ``index_add_`` or
+   ``index_add_``; its busy time and A1-A4's share of it) and of the
+   attention chain alone (no ``index_add_`` or
    scatter kernel); the serving forward against the CPU's with the same
    weights (``rtol=1e-4, atol=1e-5``, argmax agreement >= 99.9%);
    ``train(epochs=3)`` (per-edge lists with the dropout draw in the step);
@@ -1794,6 +1796,8 @@ ATTN_KEEP = 0.4
 ATTN_SLOPE = 0.2
 # GAT's layers at GATConfig with 40 classes: (heads, features)
 GAT_SHAPES = ((8, 8), (1, N_CLASSES))
+
+
 def attn_calls(lists, h, ss, sd, g, salt, keep, plain=False, given=None):
     """A1-A4 in the autograd Function's order over ``lists``
     (``attn_chain``): the outputs by name, and each kernel's call (a
@@ -1863,8 +1867,10 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
     (``attn_error_scales``); a second launch of each bit-equal to the
     first.  With ``timed``: kernel, plain version, bound and (layer 2's A2)
     ``torch.sparse.mm`` of the realized coefficients in CSR, and with
-    ``profiled`` one call's device time (a profile); with ``cpu``: the share
-    of each output bit-equal to the plain version on the CPU."""
+    ``profiled`` one call's device time by kernel (a profile; A3 and A4
+    launch at most 3 kernels a call: the walk, the parts, the fix-up); with
+    ``cpu``: the share of each output bit-equal to the plain version on the
+    CPU."""
     from gnntf_tpu_torch.ops import attention as pa
     n, heads, feats = h.shape
     outs, calls = attn_calls(lists, h, ss, sd, g, salt, keep)
@@ -1902,7 +1908,16 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
                 name, lists, heads, feats, kept_here)
             r["library_ms"] = None
             if profiled:
-                r["device_ms"] = device_profile(calls[name])[1] / 1e3
+                rows, busy_us, _, _ = device_profile(calls[name])
+                r["device_ms"] = busy_us / 1e3
+                r["device_us_by_kernel"] = {kernel_name(k): us
+                                            for k, us, _ in rows}
+                r["kernel_launches"] = sum(n for _, _, n in rows)
+            if name in ("attn_bwd_rows", "attn_bwd_cols") and profiled \
+                    and r["kernel_launches"] > 3:
+                raise AssertionError(f"{name} {label}: "
+                                     f"{r['kernel_launches']} launches "
+                                     f"a call (at most 3)")
         res[name] = r
     if timed and heads == 1:
         # yardstick only: one cuSPARSE product of the realized coefficients
@@ -2040,7 +2055,13 @@ def phase_attention_kernels(graph, dev):
             bench[dedup, heads] = check_attn_kernels(
                 label, lists, h, ss, sd, g, None if dedup else salt,
                 1.0 if dedup else ATTN_KEEP, timed=True,
-                cpu=(dedup == (heads == 1)))
+                cpu=(dedup == (heads == 1)), profiled=True)
+            for name in ("attn_bwd_rows", "attn_bwd_cols"):
+                r = bench[dedup, heads][name]
+                if not dedup:
+                    log(f"{name} {label}: device {r['device_ms']} ms "
+                        f"{r['device_us_by_kernel']} us, events {r['ms']} "
+                        f"ms, bound {r['bound_ms']} ms")
             if not dedup and heads == 8:
                 stats["device_salts"] = check_attn_device_salts(
                     lists, h, ss, sd, g, dev)
@@ -2446,6 +2467,7 @@ def attn_profile(label, fn, top=12):
                attn_us=sum(r[1] for r in rows if "attn_" in r[0]),
                index_add=count("indexFunc", "index_add"),
                scatter=count("scatter"))
+    out["attn_share"] = out["attn_us"] / busy_us
     log(f"profile of {label}: {out}")
     for key, us, n in rows[:top]:
         log(f"  {us} us in {n} launches: {key[:90]}")
@@ -3946,7 +3968,7 @@ def attention_entries(attention, gat):
             "launches": gat["launches"][name],
             **{k: attention["layer1"][name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
+                "library_ms", "device_ms", "device_us_by_kernel")},
             "shape": f"bench graph with self-loops, per-edge lists "
                      f"({attention['lists']['per_edge']['slots']} slots), "
                      f"H=8 F=8, attention dropout keep {ATTN_KEEP}",

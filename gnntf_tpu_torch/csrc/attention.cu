@@ -35,25 +35,28 @@
 //
 // Tables.  A slot gathers one row of a packed table, as the JAX package
 // does (:299-307, :385-396): the row pass reads `tab` = [h | s_src] at src,
-// the column pass `tabc` = [g | s_dst | rmax0 | dinv | rowdot] at dst, each
-// padded to a multiple of 4 floats a row (`ld`, `ldc`), so a lane's
-// feature part is one aligned float4 and the narrow parts sit in the same
-// lines.  The column pass reads its own row's h and s_src from `tab`.
+// the column pass `tabc` = [g | s_dst, rmax0, dinv, rowdot of each head] at
+// dst, each padded to a multiple of 4 floats a row (`ld`, `ldc`), so a
+// lane's feature part is one aligned float4 (and A4's four scalars of a
+// head another) and the narrow parts sit in the same lines.  The column pass reads its own row's h and s_src from `tab`.
 //
 // Work.  The units of edge_walk.cuh (ops/blocked.py::work_units): a run of
-// whole rows, or a piece of a longer row.  The per-feature walks (A2, A4's
-// dh) give a unit `group` lanes over the row's W = H * F features, float4
-// loads where F is a multiple of 4, each lane computing the coefficient of
-// its head; the per-head walks (A1, A3, A4's ds_src) give a unit `sgroup`
-// lanes, one a head, each walking the unit's slots in list order (the dots
-// of A3 and A4 in feature order).  Each lane issues the index and gather
-// loads of kLoads slots before it adds their terms.  Rows without slots are
-// written (rmax0 0, dinv 1e30, sums 0), so nothing is zero-filled.  A
-// piece writes its sums to `carry`; a split row's pieces are summed in
-// `parts` parts (edge_walk.cuh's sum_parts) and the parts in order.  A1
-// takes the row's maximum first (the pieces' maxima, in parts, then the
-// row's), then the pieces' sums with it; A3 merges its three sums after
-// the fix-up.  So
+// whole rows, or a piece of a longer row.  A2 gives a unit `group` lanes
+// over the row's W = H * F features, float4 loads where F is a multiple of
+// 4, each lane computing the coefficient of its head; A3 and A4 give it
+// whole heads of lanes over the same features (head_lanes below), each
+// slot's dot over a head summed across the head's lanes by shuffles in a
+// fixed tree; A1 gives a unit `sgroup` lanes, one a head, each walking the
+// unit's slots in list order.  Each lane issues the index and gather loads
+// of kLoads slots before it adds their terms.  A4 is one walk over the
+// column list: a slot's `tabc` row is
+// gathered once for dh and ds_src.  Rows without slots are written (rmax0
+// 0, dinv 1e30, sums 0), so nothing is zero-filled.  A piece writes its
+// sums to `carry`; a split row's pieces are summed in `parts` parts
+// (edge_walk.cuh's sum_parts; A3's three sums and A4's dh and ds_src in
+// one carry row, a warp an item) and the parts in order.  A1 takes the
+// row's maximum first (the pieces' maxima, in parts, then the row's), then
+// the pieces' sums with it; A3 merges its three sums after the fix-up.  So
 // every sum runs in a fixed order, with no atomics: two launches give the
 // same bits, and the plain versions (ops/attention.py) repeat the order.
 // Arithmetic: expf (not __expf), explicit _rn roundings, no fused
@@ -61,7 +64,10 @@
 //
 // Bound.  Memory: a slot's index (and its id where the list reads one) and
 // its gathered row of the table, the per-row tables and the outputs once.
-// The exponentials are far below the card's fp32 rate.  chip_smoke.py
+// The exponentials are far below the card's fp32 rate.  A3 and A4 lose
+// most to the latency of their gathers: per-feature lanes issue a slot's
+// row as one 16-byte load a lane, a few slots at once, where a lane a head
+// issued its F-wide dot's loads one after another.  chip_smoke.py
 // phase 2e computes each kernel's bytes from the lists and tables it runs.
 #include <math.h>
 
@@ -81,7 +87,7 @@ struct AttnArgs {
   const float* mult;         // one an id; null: 1
   const int64_t* salt;       // (2,) the dropout's salts; null: no dropout
   const float* tab;          // [h | s_src], ld floats a row
-  const float* tabc;         // [g | s_dst | rmax0 | dinv | rowdot], ldc
+  const float* tabc;         // [g | (s_dst, rmax0, dinv, rowdot) a head], ldc
   const float* s_dst;        // (N, H), the row pass
   const float* rmax0;        // (N, H), A2 and A3
   const float* dinv;         // (N, H), A2 and A3
@@ -90,7 +96,6 @@ struct AttnArgs {
   float* out;                // A1 rmax0, A2 out, A3 rowdot, A4 dh
   float* out2;               // A1 dinv, A3 ds_dst, A4 ds_src
   float* carry;              // pieces, then the split rows' parts
-  float* carry2;             // A4's per-head walk's
   int n_units, n_split, n_part_items, parts;
   int heads, feats, ld, ldc;
   int vec, group, sgroup;
@@ -112,6 +117,13 @@ constexpr int kThreads = edge_walk::kThreads;
 constexpr uint32_t kGold = 0x9E3779B9u;
 // slots whose loads a lane issues before it adds their terms
 constexpr int kLoads = 4;
+// the same for A3 and for A4, and the least resident blocks of their walks
+// an SM, as __launch_bounds__ asks the compiler for: of (A3, A4, blocks) in
+// (4,2,4) (2,4,4) (8,1,4) (4,2,3) (2,4,3) (8,1,3), these were the fastest
+// over both layer shapes on an H100 (PERF.md, attention)
+constexpr int kRowsLoads = 4;
+constexpr int kColsLoads = 2;
+constexpr int kBwdMinBlocks = 4;
 
 struct Drop {
   bool on;
@@ -208,12 +220,13 @@ __device__ __forceinline__ void slots(const AttnArgs& a, const Unit& t, int r,
   end = t.piece ? t.e1 : a.ptr[r + 1];
 }
 
-// The index and id of kLoads slots from e (the last slot repeated past end,
-// so every load is unconditional).
+// The index and id of N slots from e (the last slot repeated past end, so
+// every load is unconditional).
+template <int N = kLoads>
 __device__ __forceinline__ void load_slots(const AttnArgs& a, int e, int end,
                                            int* src, uint32_t* id) {
 #pragma unroll
-  for (int u = 0; u < kLoads; ++u) {
+  for (int u = 0; u < N; ++u) {
     const int s = min(e + u, end - 1);
     src[u] = a.idx[s];
     id[u] = a.eid ? (uint32_t)a.eid[s] : (uint32_t)s;
@@ -462,44 +475,143 @@ __global__ void __launch_bounds__(32) attn_aggregate_fixup(const AttnArgs a) {
       reinterpret_cast<T*>(a.out), a.n_split, fv, a.group, a.parts);
 }
 
+// ---- A3 and A4: per-feature lanes, a head's dot reduced by shuffles ------
+//
+// A unit's `group` lanes span hp heads of ne lanes each (ops/attention.py::
+// head_lanes): a head's F features are nq = F / kv vectors (float4 where F
+// is a multiple of 4), ne = min(nq, 32), and lane i of a head takes its
+// vectors i, i + ne, ... (chunks c = 0, 1, ...: one unless nq > 32); a pass
+// takes hp heads, the passes go over the H heads.  A lane keeps its
+// chunk-0 vector of the row's own table row (A3: g[r], A4: h[c]) in
+// registers and gathers, for a few slots at once (kRowsLoads, kColsLoads),
+// its vector of the slot's table row with the slot's per-head scalars.  A
+// slot's dot over a head is each lane's partial (its features in order,
+// from +0), then summed over the head's lanes by __shfl_sync in a fixed
+// tree (head_sums); every lane of a head computes the slot's coefficient,
+// and lane 0 of the head adds the slot's terms to its sums in slot order.
+
+struct HeadLanes {
+  int nq, ne, hp, nc;  // vectors a head, lanes a head, heads a pass, chunks
+  int hh, i;           // this lane's head in a pass, its place in the head
+  int me, last;        // this lane and the group's last, in the warp
+  unsigned mask;       // the group's lanes
+};
+
+__device__ __forceinline__ HeadLanes head_lanes(const AttnArgs& a, int kv,
+                                                int lane) {
+  HeadLanes l;
+  l.nq = a.feats / kv;
+  l.ne = min(l.nq, 32);
+  l.hp = a.group / l.ne;
+  l.nc = (l.nq + l.ne - 1) / l.ne;
+  l.hh = lane / l.ne;
+  l.i = lane - l.hh * l.ne;
+  l.me = threadIdx.x & 31;
+  const int lane0 = l.me - lane;
+  l.last = lane0 + a.group - 1;
+  l.mask = a.group == 32 ? 0xffffffffu : ((1u << a.group) - 1u) << lane0;
+  return l;
+}
+
+// Each slot's dot over the head from its lanes' partials p: in steps s = 1,
+// 2, 4, ..., lane i (a multiple of 2s, i + s < ne) adds lane i + s's, so
+// lane 0 of the head ends with the dot (ops/attention.py::_dots repeats
+// the order).
+template <int N>
+__device__ __forceinline__ void head_sums(const HeadLanes& l, float (&p)[N]) {
+  for (int s = 1; s < l.ne; s *= 2) {
+    const int from = min(l.me + s, l.last);
+    const bool take = (l.i & (2 * s - 1)) == 0 && l.i + s < l.ne;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const float o = __shfl_sync(l.mask, p[u], from);
+      if (take) p[u] = __fadd_rn(p[u], o);
+    }
+  }
+}
+
+// The partials of the chunks after the first (nq > 32): p[u] += <x_u, y>
+// over this lane's vectors c * ne + i, c >= 1, the x_u at x[u] and y at y.
+template <typename T, int N>
+__device__ __forceinline__ void later_chunks(const HeadLanes& l,
+                                             const float* const (&x)[N],
+                                             const float* y, float (&p)[N]) {
+  constexpr int kv = sizeof(T) / sizeof(float);
+  for (int c = 1; c < l.nc; ++c) {
+    const int q = c * l.ne + l.i;
+    if (q >= l.nq) break;
+    const T yv = load<T>(y + q * kv);
+#pragma unroll
+    for (int u = 0; u < N; ++u) dot_add(p[u], load<T>(x[u] + q * kv), yv);
+  }
+}
+
+// A piece's carry row of `cols` floats, padded to a multiple of 4 so that
+// its parts are summed a float4 at a time (the padding's sums are never
+// read).
+__device__ __forceinline__ int carry_stride(int cols) {
+  return (cols + 3) & ~3;
+}
+
 // ---- A3: the backward's row pass -----------------------------------------
 
 // Per (row, head): rowdot, P and Q; whole rows write rowdot and ds_dst =
-// P - rowdot * Q, a piece its three sums into carry (3H a unit).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// P - rowdot * Q, a piece its three sums into carry.  kWide: heads of more
+// than 32 vectors (nc > 1 chunks a lane).
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
     attn_bwd_rows_walk(const AttnArgs a) {
+  constexpr int N = kRowsLoads;
+  constexpr int kv = sizeof(T) / sizeof(float);
   int lane;
-  const long long unit = group_item(a.sgroup, a.n_units, lane);
+  const long long unit = group_item(a.group, a.n_units, lane);
   if (unit < 0) return;
+  const HeadLanes l = head_lanes(a, kv, lane);
   const Unit t = unit_at(a, unit);
   const Drop d = load_drop(a);
   const int H = a.heads, F = a.feats, W = a.heads * a.feats;
-  for (int h = lane; h < H; h += a.sgroup) {
+  for (int h0 = 0; h0 < H; h0 += l.hp) {
+    // lanes past the last head repeat it and write nothing
+    const bool on = h0 + l.hh < H;
+    const int head = on ? h0 + l.hh : H - 1;
+    const int off = head * F + l.i * kv;
     for (int r = t.r0; r < t.r1; ++r) {
       int b, end;
       slots(a, t, r, b, end);
-      const long long rh = (long long)r * H + h;
+      const long long rh = (long long)r * H + head;
       const float sd = a.s_dst[rh], m0 = a.rmax0[rh], di = a.dinv[rh];
-      const float* gr = a.g + (long long)r * W + h * F;
+      const float* gr = a.g + (long long)r * W + head * F;
+      const T gv = load<T>(gr + l.i * kv);
       float rd = 0.f, P = 0.f, Q = 0.f;
-      for (int e = b; e < end; e += kLoads) {
-        int src[kLoads];
-        uint32_t id[kLoads];
-        load_slots(a, e, end, src, id);
-        float ss[kLoads], mu[kLoads];
+      for (int e = b; e < end; e += N) {
+        int src[N];
+        uint32_t id[N];
+        load_slots<N>(a, e, end, src, id);
+        const float* row[N];
+        float ss[N], mu[N], p[N];
+        T v[N];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          ss[u] = a.tab[(long long)src[u] * a.ld + W + h];
+        for (int u = 0; u < N; ++u) {
+          row[u] = a.tab + (long long)src[u] * a.ld;
+          ss[u] = row[u][W + head];
+          v[u] = load<T>(row[u] + off);
           mu[u] = mult_of(a, id[u]);
         }
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
+        for (int u = 0; u < N; ++u) {
+          p[u] = 0.f;
+          dot_add(p[u], v[u], gv);
+          row[u] += head * F;
+        }
+        if (kWide) later_chunks<T>(l, row, gr, p);
+        head_sums(l, p);
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
           if (e + u < end) {
             const float pre = __fadd_rn(ss[u], sd);
             const float al = __fmul_rn(weight(pre, m0, mu[u], a.slope), di);
-            float da = dot<T>(a.tab + (long long)src[u] * a.ld + h * F, gr, F);
-            if (d.on) da = __fmul_rn(da, keep_scale(d, id[u], h));
+            float da = p[u];
+            if (d.on) da = __fmul_rn(da, keep_scale(d, id[u], head));
             const float w = __fmul_rn(al, da);
             const float sp = slope_of(pre, a.slope);
             rd = __fadd_rn(rd, w);
@@ -508,8 +620,9 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       }
+      if (!on || l.i != 0) continue;
       if (t.piece) {
-        float* c = a.carry + unit * 3 * H + h;
+        float* c = a.carry + unit * carry_stride(3 * H) + head;
         c[0] = rd;
         c[H] = P;
         c[2 * H] = Q;
@@ -521,155 +634,197 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(32) attn_bwd_rows_parts(const AttnArgs a) {
-  edge_walk::sum_parts<float>(a.split, a.part_item, a.carry,
-                              a.carry + (long long)a.n_units * 3 * a.heads,
-                              a.n_part_items, 3 * a.heads, a.sgroup,
-                              a.parts);
+// Item i, part_item[i] = s * parts + g: part g of split row s, the sum of
+// its pieces g, g + parts, ... in turn (edge_walk.cuh's sum_parts), over
+// carry rows of `stride` floats, a warp an item, lanes over the float4s.
+__device__ __forceinline__ void carry_parts(const AttnArgs& a, int stride) {
+  int lane;
+  const long long item = group_item(32, a.n_part_items, lane);
+  if (item < 0) return;
+  const int v = a.part_item[item];
+  const long long s = v / a.parts;
+  const int g = v - (int)s * a.parts;
+  const long long first = a.split[3 * s + 1];
+  const int n = (a.split[3 * s + 2] - g + a.parts - 1) / a.parts;
+  const int fv = stride / 4;
+  const float4* carry = reinterpret_cast<const float4*>(a.carry);
+  float4* part_sum = reinterpret_cast<float4*>(a.carry) +
+                     ((long long)a.n_units + s * a.parts + g) * fv;
+  for (int j = lane; j < fv; j += 32)
+    part_sum[j] = edge_walk::ordered_sum(carry + (first + g) * fv + j,
+                                         (long long)a.parts * fv, n);
 }
 
+__global__ void __launch_bounds__(32) attn_bwd_rows_parts(const AttnArgs a) {
+  carry_parts(a, carry_stride(3 * a.heads));
+}
+
+// Split row s, a warp: its parts in order, 10 heads at a time (lanes 0-9
+// sum rowdot, 10-19 P, 20-29 Q), then rowdot and ds_dst.
 __global__ void __launch_bounds__(32) attn_bwd_rows_fixup(const AttnArgs a) {
   int lane;
-  const long long s = group_item(a.sgroup, a.n_split, lane);
+  const long long s = group_item(32, a.n_split, lane);
   if (s < 0) return;
   const int H = a.heads;
   const int row = a.split[3 * s];
   const int n = min(a.parts, a.split[3 * s + 2]);
-  const float* ps =
-      a.carry + (long long)a.n_units * 3 * H + s * a.parts * 3 * H;
-  for (int h = lane; h < H; h += a.sgroup) {
-    const float rd = edge_walk::ordered_sum(ps + h, 3 * H, n);
-    const float P = edge_walk::ordered_sum(ps + H + h, 3 * H, n);
-    const float Q = edge_walk::ordered_sum(ps + 2 * H + h, 3 * H, n);
-    const long long rh = (long long)row * H + h;
-    a.out[rh] = rd;
-    a.out2[rh] = __fsub_rn(P, __fmul_rn(a.rowdot ? a.rowdot[rh] : rd, Q));
+  const int stride = carry_stride(3 * H);
+  const float* ps = a.carry + ((long long)a.n_units + s * a.parts) * stride;
+  const int which = lane / 10, k = lane - which * 10;
+  for (int h0 = 0; h0 < H; h0 += 10) {
+    const int h = h0 + k;
+    float v = 0.f;
+    if (which < 3 && h < H)
+      v = edge_walk::ordered_sum(ps + which * H + h, stride, n);
+    const float P = __shfl_sync(0xffffffffu, v, min(lane + 10, 31));
+    const float Q = __shfl_sync(0xffffffffu, v, min(lane + 20, 31));
+    if (which == 0 && h < H) {
+      const long long rh = (long long)row * H + h;
+      a.out[rh] = v;
+      a.out2[rh] = __fsub_rn(P, __fmul_rn(a.rowdot ? a.rowdot[rh] : v, Q));
+    }
   }
 }
 
 // ---- A4: the backward's column pass --------------------------------------
 
-// dh[c, :] over the column list: a row is a source c, its slots' idx the
-// destinations, whose [g | s_dst | rmax0 | dinv | rowdot] row is gathered.
+// A slot's s_dst, rmax0, dinv and rowdot of one head, side by side in its
+// tabc row (ops/attention.py::column_table): one float4 where the lanes
+// load float4s (W and ldc are then multiples of 4).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float4 head_scalars(const float* p) {
+  if (sizeof(T) == sizeof(float4)) return load<float4>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// One walk over the column list (a row is a source c, its slots' idx the
+// destinations, whose `tabc` row is gathered once a slot): dh[c, :] per
+// feature and ds_src[c, h] per head.  kWide: heads of more than 32
+// vectors, whose later chunks' dh take a sweep of their own over the row's
+// slots.
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
     attn_bwd_cols_walk(const AttnArgs a) {
   constexpr int kv = sizeof(T) / sizeof(float);
+  constexpr int N = kColsLoads;
   int lane;
   const long long unit = group_item(a.group, a.n_units, lane);
   if (unit < 0) return;
-  const Unit t = unit_at(a, unit);
-  const Drop d = load_drop(a);
-  const int H = a.heads, W = a.heads * a.feats, fv = W / kv;
-  T* out = reinterpret_cast<T*>(a.out);
-  T* carry = reinterpret_cast<T*>(a.carry);
-  for (int j = lane; j < fv; j += a.group) {
-    const int head = j * kv / a.feats;
-    for (int r = t.r0; r < t.r1; ++r) {
-      int b, end;
-      slots(a, t, r, b, end);
-      const float ssc = a.tab[(long long)r * a.ld + W + head];
-      T acc;
-      set_zero(acc);
-      for (int e = b; e < end; e += kLoads) {
-        int dst[kLoads];
-        uint32_t id[kLoads];
-        load_slots(a, e, end, dst, id);
-        float sd[kLoads], m0[kLoads], di[kLoads], mu[kLoads];
-        T v[kLoads];
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          const float* row = a.tabc + (long long)dst[u] * a.ldc;
-          sd[u] = row[W + head];
-          m0[u] = row[W + H + head];
-          di[u] = row[W + 2 * H + head];
-          v[u] = load<T>(row + j * kv);
-          mu[u] = mult_of(a, id[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          if (e + u < end) {
-            float al = __fmul_rn(
-                weight(__fadd_rn(ssc, sd[u]), m0[u], mu[u], a.slope), di[u]);
-            if (d.on) al = __fmul_rn(al, keep_scale(d, id[u], head));
-            mul_add(acc, al, v[u]);
-          }
-        }
-      }
-      if (t.piece)
-        carry[unit * fv + j] = acc;
-      else
-        out[(long long)r * fv + j] = acc;
-    }
-  }
-}
-
-// ds_src[c, h] over the column list, one lane a head.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attn_bwd_cols_scores(const AttnArgs a) {
-  int lane;
-  const long long unit = group_item(a.sgroup, a.n_units, lane);
-  if (unit < 0) return;
+  const HeadLanes l = head_lanes(a, kv, lane);
   const Unit t = unit_at(a, unit);
   const Drop d = load_drop(a);
   const int H = a.heads, F = a.feats, W = a.heads * a.feats;
-  for (int h = lane; h < H; h += a.sgroup) {
+  const int wc = carry_stride(W + H);  // dh, then ds_src
+  const int nc = kWide ? l.nc : 1;
+  for (int h0 = 0; h0 < H; h0 += l.hp) {
+    const bool on = h0 + l.hh < H;
+    const int head = on ? h0 + l.hh : H - 1;
     for (int r = t.r0; r < t.r1; ++r) {
       int b, end;
       slots(a, t, r, b, end);
       const float* own = a.tab + (long long)r * a.ld;
-      const float ssc = own[W + h];
-      float acc = 0.f;
-      for (int e = b; e < end; e += kLoads) {
-        int dst[kLoads];
-        uint32_t id[kLoads];
-        load_slots(a, e, end, dst, id);
-        float sd[kLoads], m0[kLoads], di[kLoads], rdot[kLoads], mu[kLoads];
+      const float ssc = own[W + head];
+      own += head * F;
+      // chunk 0 sums dh and ds_src; a later chunk its part of dh
+      for (int c = 0; c < nc; ++c) {
+        const int q = c * l.ne + l.i;
+        const bool q_on = !kWide || q < l.nq;
+        const int off = (q_on ? q : l.nq - 1) * kv;
+        const T hv = load<T>(own + off);
+        T acc;
+        set_zero(acc);
+        float ds = 0.f;
+        for (int e = b; e < end; e += N) {
+          int dst[N];
+          uint32_t id[N];
+          load_slots<N>(a, e, end, dst, id);
+          const float* row[N];
+          float sd[N], m0[N], di[N], rdot[N], mu[N];
+          T v[N];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          const float* row = a.tabc + (long long)dst[u] * a.ldc + W + h;
-          sd[u] = row[0];
-          m0[u] = row[H];
-          di[u] = row[2 * H];
-          rdot[u] = row[3 * H];
-          mu[u] = mult_of(a, id[u]);
-        }
+          for (int u = 0; u < N; ++u) {
+            row[u] = a.tabc + (long long)dst[u] * a.ldc;
+            const float4 sc = head_scalars<T>(row[u] + W + 4 * head);
+            sd[u] = sc.x;
+            m0[u] = sc.y;
+            di[u] = sc.z;
+            rdot[u] = sc.w;
+            row[u] += head * F;
+            v[u] = load<T>(row[u] + off);
+            mu[u] = mult_of(a, id[u]);
+          }
+          float al[N], keep[N];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          if (e + u < end) {
-            const float pre = __fadd_rn(ssc, sd[u]);
-            const float al =
-                __fmul_rn(weight(pre, m0[u], mu[u], a.slope), di[u]);
-            float da = dot<T>(own + h * F,
-                              a.tabc + (long long)dst[u] * a.ldc + h * F, F);
-            if (d.on) da = __fmul_rn(da, keep_scale(d, id[u], h));
-            const float dsig =
-                __fsub_rn(__fmul_rn(al, da), __fmul_rn(al, rdot[u]));
-            acc = __fadd_rn(acc, __fmul_rn(dsig, slope_of(pre, a.slope)));
+          for (int u = 0; u < N; ++u) {
+            al[u] = __fmul_rn(
+                weight(__fadd_rn(ssc, sd[u]), m0[u], mu[u], a.slope), di[u]);
+            keep[u] = d.on ? keep_scale(d, id[u], head) : 1.f;
+            if (e + u < end)
+              mul_add(acc, d.on ? __fmul_rn(al[u], keep[u]) : al[u], v[u]);
+          }
+          if (kWide && c > 0) continue;
+          float p[N];
+#pragma unroll
+          for (int u = 0; u < N; ++u) {
+            p[u] = 0.f;
+            dot_add(p[u], hv, v[u]);
+          }
+          if (kWide) later_chunks<T>(l, row, own, p);
+          head_sums(l, p);
+#pragma unroll
+          for (int u = 0; u < N; ++u) {
+            if (e + u < end) {
+              const float pre = __fadd_rn(ssc, sd[u]);
+              const float da = d.on ? __fmul_rn(p[u], keep[u]) : p[u];
+              const float dsig = __fsub_rn(__fmul_rn(al[u], da),
+                                           __fmul_rn(al[u], rdot[u]));
+              ds = __fadd_rn(ds, __fmul_rn(dsig, slope_of(pre, a.slope)));
+            }
           }
         }
+        if (!on) continue;
+        const long long j = (long long)head * F + q * kv;
+        if (q_on)
+          *reinterpret_cast<T*>(t.piece ? a.carry + unit * wc + j
+                                        : a.out + (long long)r * W + j) = acc;
+        if (c == 0 && l.i == 0) {
+          if (t.piece)
+            a.carry[unit * wc + W + head] = ds;
+          else
+            a.out2[(long long)r * H + head] = ds;
+        }
       }
-      if (t.piece)
-        a.carry2[unit * H + h] = acc;
-      else
-        a.out2[(long long)r * H + h] = acc;
     }
   }
 }
 
-__global__ void __launch_bounds__(32) attn_bwd_cols_score_parts(
-    const AttnArgs a) {
-  edge_walk::sum_parts<float>(a.split, a.part_item, a.carry2,
-                              a.carry2 + (long long)a.n_units * a.heads,
-                              a.n_part_items, a.heads, a.sgroup, a.parts);
+__global__ void __launch_bounds__(32) attn_bwd_cols_parts(const AttnArgs a) {
+  carry_parts(a, carry_stride(a.heads * a.feats + a.heads));
 }
 
-__global__ void __launch_bounds__(32) attn_bwd_cols_score_fixup(
-    const AttnArgs a) {
-  edge_walk::fix_rows<float, false>(
-      a.split, nullptr, a.carry2 + (long long)a.n_units * a.heads, a.out2,
-      a.n_split, a.heads, a.sgroup, a.parts);
+// Split row s, a warp: its parts in order, lanes over the float4s of the
+// carry row, dh into out and ds_src into out2.
+__global__ void __launch_bounds__(32) attn_bwd_cols_fixup(const AttnArgs a) {
+  int lane;
+  const long long s = group_item(32, a.n_split, lane);
+  if (s < 0) return;
+  const int H = a.heads, W = a.heads * a.feats, fv = carry_stride(W + H) / 4;
+  const int row = a.split[3 * s];
+  const int n = min(a.parts, a.split[3 * s + 2]);
+  const float4* ps = reinterpret_cast<const float4*>(a.carry) +
+                     ((long long)a.n_units + s * a.parts) * fv;
+  for (int j = lane; j < fv; j += 32) {
+    const float4 v4 = edge_walk::ordered_sum(ps + j, fv, n);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * j + k;
+      if (c < W)
+        a.out[(long long)row * W + c] = v[k];
+      else if (c < W + H)
+        a.out2[(long long)row * H + c - W] = v[k];
+    }
+  }
 }
 
 // ---- launches ------------------------------------------------------------
@@ -701,6 +856,25 @@ bool valid(const AttnArgs* a) {
          a->ld % a->vec == 0 && a->ldc % a->vec == 0;
 }
 
+// A3's and A4's lanes: whole heads of min(nq, 32) lanes a unit.
+bool head_lanes_valid(const AttnArgs* a) {
+  if (!valid(a)) return false;
+  const int ne = min(a->feats / a->vec, 32);
+  return a->group % ne == 0 && a->group / ne <= a->heads;
+}
+
+// A backward walk, then (where a row is split) its parts and fix-up, a
+// warp an item.
+int backward(Kernel walk, Kernel parts, Kernel fixup, const AttnArgs& a,
+             cudaStream_t s) {
+  int rc = launch(walk, a.n_units, a.group, kThreads, a, s);
+  if (rc || a.n_split == 0) return rc;
+  if (a.parts < 1) return (int)cudaErrorInvalidValue;
+  rc = launch(parts, a.n_part_items, 32, 32, a, s);
+  if (rc) return rc;
+  return launch(fixup, a.n_split, 32, 32, a, s);
+}
+
 }  // namespace
 
 // A1: rmax0 into out, dinv into out2 (both (N, H) float32, every row
@@ -723,7 +897,8 @@ extern "C" int gnntf_attn_stats(const attention::AttnArgs* a,
 }
 
 // A2: out (N, W) float32, every row written; carry holds (n_units +
-// n_split * parts) * W floats; vec 4 where F, ld and the addresses allow.
+// n_split * parts) * W floats; vec 4 where F % 4 == 0 (ops/attention.py::
+// feature_lanes), the tables' rows then 16-byte aligned.
 extern "C" int gnntf_attn_aggregate(const attention::AttnArgs* a,
                                     void* stream) {
   if (!valid(a)) return (int)cudaErrorInvalidValue;
@@ -738,45 +913,33 @@ extern "C" int gnntf_attn_aggregate(const attention::AttnArgs* a,
 
 // A3: rowdot into out, ds_dst into out2 ((N, H) float32), ds_dst with the
 // given rowdot where a->rowdot is set; carry holds
-// (n_units + n_split * parts) * 3H floats.
+// (n_units + n_split * parts) rows of carry_stride(3H) floats; group and
+// vec as head_lanes reads them.  At most three launches.
 extern "C" int gnntf_attn_bwd_rows(const attention::AttnArgs* a,
                                    void* stream) {
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  if (!head_lanes_valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = a->vec == 4
-                     ? launch(attn_bwd_rows_walk<float4>, a->n_units,
-                              a->sgroup, kThreads, *a, s)
-                     : launch(attn_bwd_rows_walk<float>, a->n_units,
-                              a->sgroup, kThreads, *a, s);
-  if (rc || a->n_split == 0) return rc;
-  if (a->parts < 1) return (int)cudaErrorInvalidValue;
-  int r2 = launch(attn_bwd_rows_parts, a->n_part_items, a->sgroup, 32, *a, s);
-  if (!r2) r2 = launch(attn_bwd_rows_fixup, a->n_split, a->sgroup, 32, *a, s);
-  return r2;
+  const bool wide = a->feats / a->vec > 32;
+  Kernel walk = a->vec == 4 ? (wide ? attn_bwd_rows_walk<float4, true>
+                                    : attn_bwd_rows_walk<float4, false>)
+                            : (wide ? attn_bwd_rows_walk<float, true>
+                                    : attn_bwd_rows_walk<float, false>);
+  return backward(walk, attn_bwd_rows_parts, attn_bwd_rows_fixup, *a, s);
 }
 
 // A4: dh into out ((N, W) float32), ds_src into out2 ((N, H)); carry holds
-// (n_units + n_split * parts) * W floats, carry2 the same times H.
+// (n_units + n_split * parts) rows of carry_stride(W + H) floats.  At most
+// three launches.
 extern "C" int gnntf_attn_bwd_cols(const attention::AttnArgs* a,
                                    void* stream) {
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  if (!head_lanes_valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (a->vec == 4) {
-    rc = walk_and_fix(attn_bwd_cols_walk<float4>,
-                      attn_aggregate_parts<float4>,
-                      attn_aggregate_fixup<float4>, a->group, *a, s);
-    if (!rc) rc = walk_and_fix(attn_bwd_cols_scores<float4>,
-                               attn_bwd_cols_score_parts,
-                               attn_bwd_cols_score_fixup, a->sgroup, *a, s);
-  } else {
-    rc = walk_and_fix(attn_bwd_cols_walk<float>, attn_aggregate_parts<float>,
-                      attn_aggregate_fixup<float>, a->group, *a, s);
-    if (!rc) rc = walk_and_fix(attn_bwd_cols_scores<float>,
-                               attn_bwd_cols_score_parts,
-                               attn_bwd_cols_score_fixup, a->sgroup, *a, s);
-  }
-  return rc;
+  const bool wide = a->feats / a->vec > 32;
+  Kernel walk = a->vec == 4 ? (wide ? attn_bwd_cols_walk<float4, true>
+                                    : attn_bwd_cols_walk<float4, false>)
+                            : (wide ? attn_bwd_cols_walk<float, true>
+                                    : attn_bwd_cols_walk<float, false>);
+  return backward(walk, attn_bwd_cols_parts, attn_bwd_cols_fixup, *a, s);
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

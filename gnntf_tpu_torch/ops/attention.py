@@ -326,6 +326,18 @@ def pack_table(*parts: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, dim=1).contiguous()
 
 
+def column_table(g: torch.Tensor, s_dst, rmax0, dinv,
+                 rowdot) -> torch.Tensor:
+    """A4's gathered table (``tabc``): ``[g | s_dst, rmax0, dinv, rowdot of
+    head 0 | ... of head H-1]``, the four (N, H) tables side by side a head
+    (one float4 a head, aligned where W is a multiple of 4), padded as
+    :func:`pack_table` pads."""
+    n, heads = s_dst.shape
+    scalars = torch.stack([t.to(torch.float32) for t in (s_dst, rmax0, dinv,
+                                                          rowdot)], 2)
+    return pack_table(g, scalars.reshape(n, 4 * heads))
+
+
 class _AttnFn(torch.autograd.Function):
     """``(h, s_src, s_dst) -> out`` over one :class:`AttnLists`: A1 and A2
     forward, A3 and A4 backward; only (N, ·) tensors are saved."""
@@ -403,7 +415,7 @@ def attn_backward(lists, tab, s_dst, rmax0, dinv, g, heads, feats, slope,
     run = _runner(plain, calls, outs)
     run("attn_bwd_rows", lists.rows, lists.mult, tab, s_dst, rmax0, dinv, g,
         heads, feats, slope, salt, keep)
-    tabc = pack_table(g, s_dst, rmax0, dinv, (given or outs)["rowdot"])
+    tabc = column_table(g, s_dst, rmax0, dinv, (given or outs)["rowdot"])
     run("attn_bwd_cols", lists.cols, lists.mult, tab, tabc, heads, feats,
         slope, salt, keep)
     return outs
@@ -477,7 +489,7 @@ def sharded_backward(ranks, tab, s_dst, rmax0, dinv, g, heads, feats, slope,
     ds_dst = reduce([attn_bwd_rows(lst.rows, lst.mult, tab, *args,
                                    rowdot=rowdot)[1]
                      for lst in ranks], "sum")
-    tabc = pack_table(g, s_dst, rmax0, dinv, rowdot)
+    tabc = column_table(g, s_dst, rmax0, dinv, rowdot)
     cols = [attn_bwd_cols(lst.cols, lst.mult, tab, tabc, heads, feats, slope,
                           salt, keep) for lst in ranks]
     return dict(rowdot=rowdot, ds_dst=ds_dst,
@@ -515,13 +527,45 @@ def _scale(lst, salt, keep, heads):
     return _attn_keep_scale(_slot_ids(lst), salt, heads, keep)
 
 
+def feature_lanes(heads: int, feats: int) -> Tuple[int, int]:
+    """A1's and A2's lanes: ``(vec, group)``, float4 where F is a multiple
+    of 4 (as :func:`head_lanes`), ``group`` lanes over the row's H * F
+    features."""
+    vec = 4 if feats % 4 == 0 else 1
+    return vec, max(1, min(32, heads * feats // vec))
+
+
+def head_lanes(heads: int, feats: int) -> Tuple[int, int, int]:
+    """A3's and A4's lanes (``csrc/attention.cu``, ``head_lanes``): ``(vec,
+    ne, group)``.  A head's F features are ``nq = F / vec`` vectors (float4
+    where F is a multiple of 4), over ``ne = min(nq, 32)`` lanes; a unit's
+    ``group`` lanes hold as many whole heads as fit in a warp."""
+    vec = 4 if feats % 4 == 0 else 1
+    ne = min(feats // vec, 32)
+    return vec, ne, min(heads, 32 // ne) * ne
+
+
 def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``sum_f a[..., f] * b[..., f]`` added in feature order, from +0, as
-    the kernels add it."""
-    d = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
-    for f in range(a.shape[-1]):
-        d = d + a[..., f] * b[..., f]
-    return d
+    """``sum_f a[..., f] * b[..., f]`` in A3's and A4's order: lane i of
+    the head's ``ne`` lanes (:func:`head_lanes`) adds, from +0, the
+    products of its vectors i, i + ne, ..., each vector's features in
+    order; then, in steps s = 1, 2, 4, ..., lane i (a multiple of 2s, i +
+    s < ne) adds lane i + s's sum, and lane 0's is the dot."""
+    f = a.shape[-1]
+    vec, ne, _ = head_lanes(1, f)
+    prods = (a * b).reshape(*a.shape[:-1], f // vec, vec)
+    lanes = torch.zeros(*a.shape[:-1], ne, dtype=torch.float32,
+                        device=a.device)
+    for c in range(0, f // vec, ne):
+        n = min(ne, f // vec - c)
+        for k in range(vec):
+            lanes[..., :n] = lanes[..., :n] + prods[..., c:c + n, k]
+    s = 1
+    while s < ne:
+        i = torch.arange(0, ne - s, 2 * s, device=a.device)
+        lanes[..., i] = lanes[..., i] + lanes[..., i + s]
+        s *= 2
+    return lanes[..., 0]
 
 
 def _slopes(pre, slope):
@@ -615,7 +659,7 @@ def attn_error_scales(lists, tab, s_dst, rmax0, dinv, g, rowdot, heads,
                                dinv, heads, feats, *args)
     sums = _row_pass_sums(lists.rows, lists.mult, abs_tab, s_dst, rmax0,
                           dinv, g.abs(), heads, feats, *args)
-    tabc = pack_table(g.abs(), s_dst, rmax0, dinv, -rowdot.abs())
+    tabc = column_table(g.abs(), s_dst, rmax0, dinv, -rowdot.abs())
     dh, ds_src = attn_bwd_cols_plain(lists.cols, lists.mult, abs_tab, tabc,
                                      heads, feats, *args)
     return dict(rmax0=rmax0.abs(), dinv=dinv, out=out,
@@ -631,9 +675,7 @@ def attn_bwd_cols_plain(lst, mult, tab, tabc, heads, feats, slope, salt=None,
     w = heads * feats
     own, dst = list_rows(lst), lst.idx.long()
     row = tabc[dst]
-    sd, m0 = row[:, w:w + heads], row[:, w + heads:w + 2 * heads]
-    di = row[:, w + 2 * heads:w + 3 * heads]
-    rdot = row[:, w + 3 * heads:w + 4 * heads]
+    sd, m0, di, rdot = row[:, w:w + 4 * heads].view(-1, heads, 4).unbind(2)
     pre = tab[own, w:w + heads] + sd
     alpha = _weights(pre, m0, _mults(lst, mult), slope) * di
     scale = _scale(lst, salt, keep, heads)
@@ -652,7 +694,7 @@ def attn_bwd_cols_plain(lst, mult, tab, tabc, heads, feats, slope, salt=None,
 
 _POINTERS = ("ptr", "idx", "eid", "unit_row", "unit_edge", "split",
              "part_item", "mult", "salt", "tab", "tabc", "s_dst", "rmax0",
-             "dinv", "g", "rowdot", "out", "out2", "carry", "carry2")
+             "dinv", "g", "rowdot", "out", "out2", "carry")
 _INTS = ("n_units", "n_split", "n_part_items", "parts", "heads", "feats",
          "ld", "ldc", "vec", "group", "sgroup")
 
@@ -700,11 +742,13 @@ def _check(what, lst, tab, heads, feats, per_row=(), gathered=()):
 
 
 def _launch(entry, lst, mult, heads, feats, slope, salt, keep, tensors,
-            carry_width, carry2_width=0):
+            carry_width, lanes):
     """Run ``entry`` of the library on the current stream.  ``tensors``
-    names the launch's tables and outputs (``_POINTERS``); the carries are
-    made here, ``carry_width`` (and ``carry2_width``) floats a unit and a
-    split row's part."""
+    names the launch's tables and outputs (``_POINTERS``); the carry is
+    made here, ``carry_width`` floats a unit and a split row's part.
+    ``lanes`` is the kernel's ``(vec, group)`` (:func:`feature_lanes`,
+    :func:`head_lanes`); a gathered table whose rows are not 16-byte
+    aligned is copied (:func:`_aligned`)."""
     (ptr, idx, eid, _, unit_row, unit_edge, split, part_item), (
         n_units, n_split, n_part_items) = lst.addresses
     device = lst.device
@@ -719,31 +763,23 @@ def _launch(entry, lst, mult, heads, feats, slope, salt, keep, tensors,
         args.salt = salt.data_ptr()
         args.thresh = _threshold(keep)
         args.scale = float(torch.tensor(1.0 / keep, dtype=torch.float32))
+    vec, group = lanes
+    tensors = {name: _aligned(t, vec) if name in ("tab", "tabc", "g") else t
+               for name, t in tensors.items()}
     for name, t in tensors.items():
         setattr(args, name, t.data_ptr())
-    rows = n_units + n_split * lst.parts
     if n_split:
-        for name, width in (("carry", carry_width), ("carry2", carry2_width)):
-            if width:
-                c = torch.empty(rows * width, dtype=torch.float32,
-                                device=device)
-                keep_alive.append(c)
-                setattr(args, name, c.data_ptr())
-    w = heads * feats
+        c = torch.empty((n_units + n_split * lst.parts) * carry_width,
+                        dtype=torch.float32, device=device)
+        keep_alive.append(c)
+        args.carry = c.data_ptr()
     tab, tabc = tensors["tab"], tensors.get("tabc")
-    # float4 loads where every table read (or output written) a float4 at
-    # a time is 16-byte aligned row by row
-    wide = [tab, tabc, tensors.get("g"), tensors["out"] if
-            tensors["out"].shape[1] == w else None]
-    vec = 4 if feats % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 and t.shape[1] % 4 == 0
-        for t in wide if t is not None) else 1
     args.n_units, args.n_split, args.n_part_items = n_units, n_split, \
         n_part_items
     args.parts, args.heads, args.feats = lst.parts, heads, feats
     args.ld = tab.shape[1]
     args.ldc = 0 if tabc is None else tabc.shape[1]
-    args.vec, args.group = vec, max(1, min(32, w // vec))
+    args.vec, args.group = vec, group
     args.sgroup = max(1, min(32, heads))
     args.slope = slope
     lib = _library()
@@ -752,6 +788,23 @@ def _launch(entry, lst, mult, heads, feats, slope, salt, keep, tensors,
                                  torch.cuda.current_stream(device).cuda_stream)
     kernels.check(lib, rc, f"{entry} launch")
     del keep_alive  # the stream orders their reuse after the kernels
+
+
+def _carry_width(cols: int) -> int:
+    """A3's and A4's carry row of ``cols`` floats (``csrc/attention.cu``,
+    ``carry_stride``): padded to a multiple of 4, summed a float4 at a
+    time."""
+    return -(-cols // 4) * 4
+
+
+def _aligned(t: torch.Tensor, vec: int) -> torch.Tensor:
+    """``t``, or where its rows are read a float4 at a time (``vec`` 4) and
+    do not each start 16-byte aligned, a copy padded as :func:`pack_table`
+    pads: the lanes, and so the order of A3's and A4's dots, depend on the
+    shapes alone."""
+    if vec == 1 or (t.data_ptr() % 16 == 0 and t.shape[1] % 4 == 0):
+        return t
+    return pack_table(t)
 
 
 def attn_stats(lst: EdgeList, mult, tab: torch.Tensor, s_dst: torch.Tensor,
@@ -772,7 +825,8 @@ def attn_stats(lst: EdgeList, mult, tab: torch.Tensor, s_dst: torch.Tensor,
     dinv = torch.empty_like(rmax0)
     if lst.n_units:
         _launch("gnntf_attn_stats", lst, mult, heads, feats, slope, None, 1.0,
-                dict(tab=tab, s_dst=s_dst, out=rmax0, out2=dinv), heads)
+                dict(tab=tab, s_dst=s_dst, out=rmax0, out2=dinv), heads,
+                feature_lanes(heads, feats))
         attn_stats.launches += 1
     return rmax0, dinv
 
@@ -798,7 +852,8 @@ def attn_aggregate(lst: EdgeList, mult, tab, s_dst, rmax0, dinv, heads: int,
     if lst.n_units:
         _launch("gnntf_attn_aggregate", lst, mult, heads, feats, slope, salt,
                 keep, dict(tab=tab, s_dst=s_dst, rmax0=rmax0, dinv=dinv,
-                           out=out), heads * feats)
+                           out=out), heads * feats,
+                feature_lanes(heads, feats))
         attn_aggregate.launches += 1
     return out
 
@@ -828,12 +883,13 @@ def attn_bwd_rows(lst: EdgeList, mult, tab, s_dst, rmax0, dinv, g, heads: int,
                       device=tab.device)
     ds_dst = torch.empty_like(own)
     if lst.n_units:
+        vec, _, group = head_lanes(heads, feats)
         tensors = dict(tab=tab, s_dst=s_dst, rmax0=rmax0, dinv=dinv, g=g,
                        out=own, out2=ds_dst)
         if rowdot is not None:
             tensors["rowdot"] = rowdot
         _launch("gnntf_attn_bwd_rows", lst, mult, heads, feats, slope, salt,
-                keep, tensors, 3 * heads)
+                keep, tensors, _carry_width(3 * heads), lanes=(vec, group))
         attn_bwd_rows.launches += 1
     return own, ds_dst
 
@@ -846,8 +902,8 @@ def attn_bwd_cols(lst: EdgeList, mult, tab, tabc, heads: int, feats: int,
     """A4: the column pass over the column list (a row is a source c): ``dh
     [c, h, :] = sum alpha~ g[dst, h, :]`` ((N, H * F) float32) and ``ds_src
     [c, h] = sum (alpha dalpha - alpha rowdot[dst]) sigma'(pre)`` ((N, H)),
-    ``tab`` as in :func:`attn_stats` and ``tabc`` = ``[g | s_dst | rmax0 |
-    dinv | rowdot]`` (:func:`pack_table`).  CPU tensors take
+    ``tab`` as in :func:`attn_stats` and ``tabc`` the destinations' ``g``
+    and per-head scalars (:func:`column_table`).  CPU tensors take
     :func:`attn_bwd_cols_plain`; CUDA tensors launch the kernel (counted in
     ``attn_bwd_cols.launches``)."""
     _check("attn_bwd_cols", lst, tab, heads, feats,
@@ -860,9 +916,10 @@ def attn_bwd_cols(lst: EdgeList, mult, tab, tabc, heads: int, feats: int,
     ds_src = torch.empty(lst.n_rows, heads, dtype=torch.float32,
                          device=tab.device)
     if lst.n_units:
+        vec, _, group = head_lanes(heads, feats)
         _launch("gnntf_attn_bwd_cols", lst, mult, heads, feats, slope, salt,
                 keep, dict(tab=tab, tabc=tabc, out=dh, out2=ds_src),
-                heads * feats, heads)
+                _carry_width(heads * feats + heads), lanes=(vec, group))
         attn_bwd_cols.launches += 1
     return dh, ds_src
 

@@ -5,7 +5,7 @@ NVIDIA GPU.
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small]
-                        [--ab DIR] [--ab-small DIR]
+                        [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -70,9 +70,19 @@ back-to-back calls, and its device busy and wall time and its
 normalized lists (``blocked_layout``, forward and transposed) at F=1, 7
 and 64, with one call's device time by kernel from a profile.
 
+With ``--ab-attn DIR`` it times, in the same four processes, GAT's
+attention kernels A1-A4 (``csrc/attention.cu``) on ``chip_smoke.py``'s
+phase 2e lists (the benchmark graph with its self-loops, per-edge with a
+dropout draw at keep 0.4 and coalesced, 2,501,821 and 1,389,223 slots) at
+GAT's layer shapes (8 heads of 8; one head of 40): each kernel's
+CUDA-event mean of 20 calls and one call's device time by kernel (walk,
+parts, fix-up) from a profile; then one training step of GAT at
+``GATConfig`` on the benchmark graph: its device busy and wall time and
+A1-A4's share of the busy time, from a profile.
+
 Each setting is first held against the plain version on the card (per
-element, within 1e-5 * sum|terms|).  One JSON object a line goes to
-standard output and, with ``--out``, to FILE.
+element, within 1e-5 * sum|terms|); the A/B runs hold nothing.  One JSON
+object a line goes to standard output and, with ``--out``, to FILE.
 """
 import argparse
 import ctypes
@@ -348,8 +358,67 @@ for f in (1, 7, 64):
 """
 
 
+# One process of the attention A/B: A1-A4 on phase 2e's bench lists and a
+# GAT training step at GATConfig (phase 9's model) in the tree it runs in;
+# one JSON line a (kernel, lists, shape), then one for the step.  It uses
+# only what the parent tree has too.
+AB_ATTN_CODE = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+import gnntf_tpu_torch as tt
+from gnntf_tpu_torch import config
+from gnntf_tpu_torch.data import random_power_law_edges
+from gnntf_tpu_torch.ops import attention as pa
+from gnntf_tpu_torch.utils import kernels
+kernels.build(["attention"], force=True)
+dev = torch.device("cuda")
+src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
+graph = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False,
+                      device=dev)
+looped = tt.add_self_loops(graph)
+salt = torch.tensor([0x9E3779B9, 77], device=dev)
+for dedup in (False, True):
+    lists = pa._attn_lists(looped, dedup=dedup)
+    for heads, feats in cs.GAT_SHAPES:
+        h, ss, sd, g = cs.attn_inputs(cs.N_NODES, heads, feats, dev,
+                                      20 + heads)
+        _, calls = cs.attn_calls(lists, h, ss, sd, g,
+                                 None if dedup else salt,
+                                 1.0 if dedup else cs.ATTN_KEEP)
+        for name in cs.ATTN_KERNELS:
+            rows, busy, _, _ = cs.device_profile(calls[name])
+            print(json.dumps(dict(
+                tree=sys.argv[1], kernel=name, heads=heads, feats=feats,
+                lists="coalesced" if dedup else "per_edge",
+                slots=lists.rows.n_edges, ms=cs.time_ms(calls[name]),
+                device_ms=busy / 1e3,
+                us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows},
+                launches=sum(n for _, _, n in rows))), flush=True)
+features = np.random.RandomState(2).randn(
+    cs.N_NODES, cs.N_FEATURES).astype(np.float32)
+model = config.GATConfig().build(graph, features, cs.N_CLASSES, device=dev)
+model.reset(seed=0)
+step = cs.step_fn(model, cs.fused_tasks()[0])
+for _ in range(3):
+    step()
+rows, busy, wall, _ = cs.device_profile(step)
+attn = {}
+for key, us, _ in rows:
+    if "attn_" in key:
+        name = cs.kernel_name(key)
+        attn[name] = attn.get(name, 0.0) + us
+print(json.dumps(dict(
+    tree=sys.argv[1], model="GAT", step_ms=cs.time_ms(step, reps=20),
+    busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+    attn_share=sum(attn.values()) / busy, attn_us_by_kernel=attn)),
+    flush=True)
+"""
+
+
 def ab(parent, card, code=AB_CODE):
-    """An A/B (``code``: the dropout walks, or ``AB_SMALL_CODE``): this tree
+    """An A/B (``code``: the dropout walks, ``AB_SMALL_CODE`` or
+    ``AB_ATTN_CODE``): this tree
     and the tree in ``parent`` in turn (parent, change, change, parent),
     each in its own process; returns the JSON lines."""
     import os
@@ -465,6 +534,10 @@ def main():
                         help="time a Cora-scale APPNP and GAT training step "
                              "of this tree and of the checkout in DIR in "
                              "turn, and nothing else")
+    parser.add_argument("--ab-attn", metavar="DIR",
+                        help="time the attention kernels A1-A4 and a GAT "
+                             "step of this tree and of the checkout in DIR "
+                             "in turn, and nothing else")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -478,9 +551,10 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
-    if args.ab or args.ab_small:
+    if args.ab or args.ab_small or args.ab_attn:
         write(args.out, ab(args.ab, card) if args.ab
-              else ab(args.ab_small, card, AB_SMALL_CODE))
+              else ab(args.ab_small, card, AB_SMALL_CODE) if args.ab_small
+              else ab(args.ab_attn, card, AB_ATTN_CODE))
         return
     lines = sweep_small(dev, card) if "k2small" in which else []
     if not which & {"k1", "k2", "train"}:

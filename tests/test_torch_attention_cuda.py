@@ -11,6 +11,12 @@ JAX, so it runs where JAX is not installed:
 * two launches with the same arguments bit-equal, and a captured launch
   replayed after its salt buffer is rewritten equal to a fresh launch with
   the new salts;
+* the backward kernels A3 (with the row's own ``rowdot`` and with a given
+  one) and A4 against their plain versions on the card at GAT's layer
+  shapes and at heads wider than a warp's lanes (41 and 160 features),
+  per-edge with a salt and coalesced, with split rows; each A3 and A4 call
+  launches at most three kernels (its walk, parts and fix-up, by a
+  profile's kernel names);
 * a GAT training run on the card against the CPU without dropout.
 
 Every test skips without a card.
@@ -89,6 +95,119 @@ def test_kernels_match_plain_on_card(cuda, dedup, heads, feats):
     again = _chain(lists, h, ss, sd, g, salt, keep, plain=False)
     for name in NAMES:
         assert torch.equal(again[name], got[name]), name
+
+
+def _kernel_launches(fn):
+    """Launches by kernel (names without namespace and template arguments)
+    of ``fn``.  The profiler on the card can drop a session's first device
+    events, so a session opens with spin kernels, and is taken again with
+    four times as many when it kept none of them (as ``chip_smoke.py``
+    does)."""
+    from torch.profiler import ProfilerActivity, profile
+    primer = 256
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("spin_kernel" in e.key for e in events):
+            return {e.key.split("(anonymous namespace)::")[-1].split("<")[0]
+                    .split("(")[0]: e.count for e in events
+                    if "spin_kernel" not in e.key}
+        primer *= 4
+    raise RuntimeError("the profiler kept no primer kernel in 3 sessions")
+
+
+def _backward_inputs(cuda, dedup, heads, feats):
+    """Lists with split rows, inputs, A1's outputs and the draw."""
+    src, dst, n = _graph(seed=5)
+    lists = pa.attn_lists(np.concatenate([src, dst]),
+                          np.concatenate([dst, src]), n, cuda, dedup=dedup)
+    assert lists.rows.split.shape[0] > 0 and lists.cols.split.shape[0] > 0
+    h, ss, sd, g = _inputs(n, heads, feats, cuda, seed=6)
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    rmax0, dinv = pa.attn_stats(lists.rows, lists.mult, tab, sd, heads,
+                                feats, 0.2)
+    salt, keep = ((None, 1.0) if dedup else
+                  (torch.tensor([0x2545F491, 9], device=cuda), 0.4))
+    return lists, tab, sd, rmax0, dinv, g, salt, keep
+
+
+def _within(name, got, ref, scale):
+    assert torch.isfinite(got).all(), name
+    diff = (got - ref).abs()
+    assert bool((diff <= KERNEL_RTOL * scale).all()), (
+        name, diff.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("heads,feats", [(8, 8), (1, 40), (1, 41),
+                                         (2, 160)])
+def test_backward_kernels_match_plain_on_card(cuda, dedup, heads, feats):
+    """A3 with its own ``rowdot`` and with a given one, and A4, against
+    their plain versions on the kernels' inputs (``sum|terms|`` of the
+    given mode: ``P + |rowdot| Q`` of the magnitudes); two launches give
+    the same bits."""
+    lists, tab, sd, rmax0, dinv, g, salt, keep = _backward_inputs(
+        cuda, dedup, heads, feats)
+    n = lists.rows.n_rows
+    args = (tab, sd, rmax0, dinv, g, heads, feats, 0.2, salt, keep)
+    rows = (lists.rows, lists.mult) + args
+    own, ds_dst = pa.attn_bwd_rows(*rows)
+    torch.cuda.synchronize()
+    ref_own, ref_ds = pa.attn_bwd_rows_plain(*rows)
+    tabc = pa.column_table(g, sd, rmax0, dinv, own)
+    cols = (lists.cols, lists.mult, tab, tabc, heads, feats, 0.2, salt, keep)
+    dh, ds_src = pa.attn_bwd_cols(*cols)
+    torch.cuda.synchronize()
+    ref_dh, ref_src = pa.attn_bwd_cols_plain(*cols)
+    scales = pa.attn_error_scales(lists, tab, sd, rmax0, dinv, g, own,
+                                  heads, feats, 0.2, salt, keep)
+    for name, got, ref in (("rowdot", own, ref_own), ("ds_dst", ds_dst,
+                                                       ref_ds),
+                           ("dh", dh, ref_dh), ("ds_src", ds_src, ref_src)):
+        _within(name, got, ref, scales[name])
+    given = (ref_own * 1.5 + 0.25).contiguous()
+    got = pa.attn_bwd_rows(*rows, rowdot=given)[1]
+    ref = pa.attn_bwd_rows_plain(*rows, rowdot=given)[1]
+    w = heads * feats
+    abs_tab = pa.pack_table(tab[:, :w].abs(), tab[:, w:w + heads])
+    sums = pa._row_pass_sums(lists.rows, lists.mult, abs_tab, sd, rmax0,
+                             dinv, g.abs(), heads, feats, 0.2, salt, keep)
+    _within("ds_dst given", got, ref, sums[:, heads:2 * heads]
+            + given.abs() * sums[:, 2 * heads:])
+    assert torch.equal(pa.attn_bwd_rows(*rows)[1], ds_dst)
+    assert torch.equal(pa.attn_bwd_rows(*rows, rowdot=given)[1], got)
+    again = pa.attn_bwd_cols(*cols)
+    assert torch.equal(again[0], dh) and torch.equal(again[1], ds_src)
+    assert torch.equal(dh[n - 1], torch.zeros_like(dh[n - 1]))
+    assert float(ds_src[n - 1].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_backward_calls_launch_at_most_three_kernels(cuda):
+    """One A3 call and one A4 call over lists with split rows: each its
+    walk, its parts and its fix-up, once."""
+    heads, feats = 8, 8
+    lists, tab, sd, rmax0, dinv, g, salt, keep = _backward_inputs(
+        cuda, False, heads, feats)
+    args = (tab, sd, rmax0, dinv, g, heads, feats, 0.2, salt, keep)
+    own = pa.attn_bwd_rows(lists.rows, lists.mult, *args)[0]
+    tabc = pa.column_table(g, sd, rmax0, dinv, own)
+    rows = _kernel_launches(
+        lambda: pa.attn_bwd_rows(lists.rows, lists.mult, *args))
+    cols = _kernel_launches(
+        lambda: pa.attn_bwd_cols(lists.cols, lists.mult, tab, tabc, heads,
+                                 feats, 0.2, salt, keep))
+    assert rows == {"attn_bwd_rows_walk": 1, "attn_bwd_rows_parts": 1,
+                    "attn_bwd_rows_fixup": 1}, rows
+    assert cols == {"attn_bwd_cols_walk": 1, "attn_bwd_cols_parts": 1,
+                    "attn_bwd_cols_fixup": 1}, cols
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@ collectives' gradients, parameters equal across ranks).  Each test spawns
 its ranks once and runs all of its cases in them.
 """
 import os
+import sys
 import tempfile
 
 import numpy as np
@@ -30,21 +31,46 @@ def _entry(rank, world, port, body, args, out_dir, launch):
         args = (port,) + args
     try:
         result = body(rank, *args)
+        if dist.is_initialized():
+            dist.barrier()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+    # A gloo worker thread may still be dropping the last collective's work,
+    # whose captured thread-local state holds a Python object.  Were the
+    # interpreter finalizing by then, the thread's call for the GIL would
+    # end it with pthread_exit, whose unwind through a noexcept destructor
+    # aborts the rank (SIGABRT, "terminate called without an active
+    # exception") after its work is done.  So a rank whose result is saved
+    # ends here, without finalizing.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+_BIND_TRIES = 3
 
 
 def spawn(world: int, body, *args, launch=True) -> list:
     """``body(rank, *args)`` on ``world`` gloo ranks of the CPU, the process
     group initialized by ``multihost.launch_distributed``; returns each
     rank's result.  With ``launch=False`` the body is called as ``body(rank,
-    port, *args)`` and initializes the group itself."""
+    port, *args)`` and initializes the group itself.
+
+    Rank 0 binds the rendezvous store on the port ``free_port`` gave.
+    Another process may take that port first; only then (the store's bind
+    failed with ``EADDRINUSE``) the ranks are spawned again on a fresh
+    port.  A rank ends its process once its result is saved (``_entry``)."""
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(_entry, args=(world, free_port(), body, args, out_dir,
-                               launch),
-                 nprocs=world)
+        for attempt in range(_BIND_TRIES):
+            try:
+                mp.spawn(_entry, args=(world, free_port(), body, args,
+                                       out_dir, launch), nprocs=world)
+                break
+            except mp.ProcessRaisedException as e:
+                if "EADDRINUSE" not in str(e) or attempt + 1 == _BIND_TRIES:
+                    raise
         return [torch.load(os.path.join(out_dir, f"{r}.pt"),
                            weights_only=False) for r in range(world)]
 
