@@ -19,7 +19,13 @@ Phases (any failure raises and exits non-zero):
    version and one PyTorch
    library call (``torch.sparse.addmm``) with CUDA events, and logging the
    share of the bench output at F=40 bit-equal to the plain version run on
-   the CPU;
+   the CPU; then K1's scaled walk, the prepared operator's route under
+   ``auto`` (every live slot of the hub-free ELL as a list over all rows,
+   the normalized adjacency's scales applied in the walk), over the bench
+   graph's whole list at the same widths beside ``torch.sparse.mm`` of the
+   normalized matrix, with the whole list's statistics (rows, units, split
+   rows), the device memory each operator holds and the share at F=40
+   bit-equal to the plain version on the CPU (all of it);
 2b. the same for K2 (the blocked-COO SpMM, an edge-balanced walk over
    per-edge lists) over its forward list (A) and its transposed list (A^T):
    a small random layout with duplicates, empty rows and a hub row and
@@ -68,9 +74,12 @@ Phases (any failure raises and exits non-zero):
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
    requests of 10,000 nodes and one evaluate, with the kernel launch counts
-   zeroed just before and read just after; a device profile of one forward
-   and of one SpMM; then the same forward on the CPU (plain versions) as
-   the reference;
+   zeroed just before and read just after (30 launches of K1's scaled
+   walk, nothing else); a device profile of one forward and of one SpMM
+   (the scaled walk, its parts and its fix-up, no GEMM); the same forwards
+   under ``hybrid`` (the hub slice's matmul and K1 adding into it: 30 K1
+   launches) with their profiles beside, the logits allclose to auto's;
+   then the same forward on the CPU (plain versions) as the reference;
 4a. drive the training path through K2: APPNP(num_classes=40) with its
    defaults on the RCM-reordered benchmark graph, ``train(...,
    spmm_impl="pallas", epochs=5)`` on 10,000 train and 10,000 valid nodes,
@@ -107,17 +116,18 @@ Phases (any failure raises and exits non-zero):
    the fused run's predictions equal the host loop's;
 7. GCNII at its published configuration (latent 64, 64 convolutions,
    ``alpha=0.1``, ``l=0.5``, dropout 0.6) on the benchmark graph with 40
-   classes: three forwards, three predict requests and one evaluate (64 K1
-   walks a forward) and a profile of one forward; the full-depth forward
+   classes: three forwards, three predict requests and one evaluate (64
+   walks of K1's scaled walk a forward, no hub-route K1) and a profile of
+   one forward; the full-depth forward
    against the CPU's with the same random weights (``rtol=1e-3,
    atol=1e-4``, argmax agreement >= 99.9%); ``train(epochs=3)`` with no
-   ``spmm_impl`` (an epoch: 128 K1 walks, 64 backward walks over the
+   ``spmm_impl`` (an epoch: 128 scaled walks, 64 backward walks over the
    transposed list) and a profile of one step (no ``index_add_``); 3 epochs
    at depth 8 without dropout on the card and on the CPU, compared as in
    4b;
 8. GCN at its published configuration (latent 64, dropout and edge dropout
    0.5): ``train(epochs=5)`` with no ``spmm_impl`` (an epoch: 2 masked
-   walks at F=64, 1 degree walk, 3 K1 walks, 1 backward walk at F=40), a
+   walks at F=64, 1 degree walk, 3 scaled walks, 1 backward walk at F=40), a
    profile of one step, predict, then ``fit(block_epochs=5)`` against the
    host loop at ``epochs=10`` (losses within ``rtol=1e-5``, the same best
    epoch) and a profile of a fused run's replays;
@@ -136,8 +146,9 @@ Phases (any failure raises and exits non-zero):
    ``epochs=10`` (losses within ``rtol=1e-5``, the same best epoch) and a
    profile of a fused run's replays;
 10. GraphSAGE and GIN at ``GraphSAGEConfig`` and ``GINConfig``: three
-   forwards each (K1 in each convolution), each against the CPU's with the
-   same weights, and ``train(epochs=3)`` (K1 and its backward walk);
+   forwards each (K1's scaled walk in each convolution), each against the
+   CPU's with the same weights, and ``train(epochs=3)`` (the scaled walk
+   and the backward walk); phases 7-10 log their launches an epoch;
 11. NGCF link prediction at the configuration of demos/link_prediction.py
    (``NGCF(num_classes=16)``: latent [16, 16], dropout 0.1) on the bench
    graph: BPR over every edge with one negative a pair, redrawn each epoch
@@ -201,9 +212,9 @@ Phases (any failure raises and exits non-zero):
    walk); (c) APPNP at its defaults on the bench graph with momentum SGD
    and optax-style Adam (the masked and degree walks); (d) (a)'s APPNP
    with a layer that scales by a draw from ``next_generator(device)``;
-13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1 and its
-   backward walk with NGCF's launches and an F=16 reading, phases 2 and
-   2d; K2 and the masked walk with phase 14's per-rank walks and
+13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1's
+   scaled walk, K1 and its backward walk with NGCF's launches and an F=16
+   reading, phases 2 and 2d; K2 and the masked walk with phase 14's per-rank walks and
    launches), the card's name and power limit from nvidia-smi, and as the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -420,7 +431,11 @@ def profile_forward(label, fn, top=10):
     return dict(busy_us=busy_us, wall_us=wall_us, launches=launches,
                 k1_us=sum(r[1] for r in rows if "ell_gather" in r[0]),
                 k1_walks=sum(r[2] for r in rows
-                             if "ell_gather_walk" in r[0]))
+                             if "ell_gather_walk" in r[0]),
+                k1s_walks=sum(r[2] for r in rows
+                              if "ell_gather_scaled_walk" in r[0]),
+                gemm_us=sum(r[1] for r in rows if "gemm" in r[0].lower()),
+                us_by_kernel={kernel_name(k): us for k, us, _ in rows})
 
 
 def ell_bound(lst, f):
@@ -496,12 +511,82 @@ def check_ell_kernel(label, lst, val, x, base, library=False):
     return res
 
 
+def scaled_bound(lst, f, scales, w):
+    """Least time for K1's scaled walk over this whole list: its row
+    pointer (4 B a row), each live slot's source and value (8 B), x read
+    once (the referenced rows, or every row where the identity reads it),
+    the scales (4 B a row each) and out written once; per slot and feature
+    a product and a sum (and cs's product), per row and feature rs's
+    product (and the identity's product and sum)."""
+    x_rows = lst.n_rows if w != 0.0 else int(torch.unique(lst.idx).numel())
+    n_scales = sum(v is not None for v in scales)
+    n_bytes = ((lst.n_rows + 1) * 4 + lst.n_edges * 8 + x_rows * f * 4
+               + n_scales * lst.n_rows * 4 + lst.n_rows * f * 4)
+    flops = ((2 + (scales[1] is not None)) * lst.n_edges
+             + ((scales[0] is not None) + 2 * (w != 0.0)) * lst.n_rows) * f
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes
+
+
+def check_scaled_kernel(label, op, x, library=False):
+    """K1's scaled walk of the prepared operator ``op`` (``auto``) against
+    its plain version on the card; times kernel, plain version and
+    (``library``) ``torch.sparse.mm`` of the normalized matrix (the scales
+    folded into its values) plus ``w * x``; one call's device time by
+    kernel from a profile."""
+    from gnntf_tpu_torch.ops import ell_gather_scaled, ell_gather_scaled_plain
+
+    lst, val, (rs, cs), w = op.k1_list, op.k1_val, op._scales, \
+        float(op.eye_weight)
+    out = ell_gather_scaled(lst, val, x, rs, cs, w)
+    torch.cuda.synchronize()
+    ref = ell_gather_scaled_plain(lst, val, x, rs, cs, w)
+    absent = lambda t: None if t is None else t.abs()
+    scale = ell_gather_scaled_plain(lst, val.abs(), x.abs(), absent(rs),
+                                    absent(cs), abs(w))
+    err = check_close(f"K1 scaled {label}", out, ref, scale)
+    run = lambda: ell_gather_scaled(lst, val, x, rs, cs, w)
+    res = dict(max_abs_err=err, ms=time_ms(run),
+               plain_ms=time_ms(lambda: ell_gather_scaled_plain(
+                   lst, val, x, rs, cs, w)))
+    rows, busy_us, _, _ = device_profile(run)
+    res["device_ms"] = busy_us / 1e3
+    res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+    res["bound_ms"], res["bound_by"], n_bytes = scaled_bound(
+        lst, x.shape[1], (rs, cs), w)
+    res["library_ms"] = None
+    if library:
+        # yardstick only: one cuSPARSE CSR product of the normalized matrix
+        r, c = live_edges(lst)
+        v = val * (1.0 if rs is None else rs[r]) * (1.0 if cs is None
+                                                    else cs[c])
+        a = torch.sparse_coo_tensor(torch.stack([r, c]), v,
+                                    (lst.n_rows, x.shape[0]))
+        a = a.coalesce().to_sparse_csr()
+        lib = (lambda: torch.sparse.mm(a, x)) if w == 0.0 else \
+            (lambda: torch.sparse.addmm(x, a, x, beta=w))
+        check_close(f"library sparse.mm {label}", lib(), ref, scale)
+        res["library_ms"] = time_ms(lib)
+    log(f"K1 scaled {label}: kernel {res['ms']} ms (one call's device time "
+        f"{res['device_ms']} ms: {res['us_by_kernel']} us), plain "
+        f"{res['plain_ms']} ms, library {res['library_ms']} ms, bound "
+        f"{res['bound_ms']} ms ({res['bound_by']}, {n_bytes} B), rows "
+        f"{lst.n_rows}, live slots {lst.n_edges}, units {lst.n_units}, "
+        f"split rows {lst.split.shape[0]}, F={x.shape[1]}")
+    return res
+
+
 def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
     """2: K1 against its plain version, small and on the bench graph's rest
-    ELL list (F=128, 64, 40 and 16), adding into random bases; returns the
-    results."""
+    ELL list (``hybrid``'s, F=128, 64, 40 and 16), adding into random
+    bases; K1's scaled walk over the whole list of the serving adjacency
+    (``auto``'s, the same widths); returns the results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, ell_gather_list,
+                                     ell_gather_scaled,
+                                     ell_gather_scaled_plain,
                                      normalize_adjacency)
     from gnntf_tpu_torch.ops.spmm import build_ell
 
@@ -522,10 +607,17 @@ def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
         small_res = check_ell_kernel(f"small F={f}", small, small_val, x,
                                      base)
 
-    t0 = time.perf_counter()
-    prep = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    adj = normalize_adjacency(graph, graph_dropout=0.0)
+    held = {}
+    for hubs in (True, False):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        held[hubs] = PreparedSpMM(adj, hubs=hubs)
+        torch.cuda.synchronize()
+        held[hubs] = (held[hubs], time.perf_counter() - t0,
+                      torch.cuda.memory_allocated() - before)
+    prep, setup_s, hybrid_bytes = held[True]
     lst, val = prep.k1_list, prep.k1_val
     split = lst.split.cpu().numpy()
     slots = lst.ptr.diff().cpu().numpy()
@@ -537,9 +629,9 @@ def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
                  rest_vrows=prep.ell.n_vrows,
                  hub_slice=list(prep.dense.shape),
                  hub_pairs=int(torch.count_nonzero(prep.dense)),
-                 prepared_s=setup_s)
+                 prepared_s=setup_s, operator_bytes=hybrid_bytes)
     log(f"bench graph: {graph.n_edges} counted edges; K1's rest list "
-        f"{stats}")
+        f"(hybrid) {stats}")
     rng = np.random.RandomState(4)
     res = {}
     for f, x in ((N_FEATURES, x128), (64, x64), (16, x16), (40, x40)):
@@ -554,8 +646,43 @@ def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
     stats["bit_equal_to_cpu_plain_f40"] = (out == ref).double().mean().item()
     log(f"K1 bench F=40 on the card against the plain version on the CPU: "
         f"bit-equal share {stats['bit_equal_to_cpu_plain_f40']}")
+
+    # K1's scaled walk: the auto operator, every live slot of the ELL
+    op, auto_s, auto_bytes = held[False]
+    whole = op.k1_list
+    split = whole.split.cpu().numpy()
+    slots = whole.ptr.diff().cpu().numpy()
+    whole_stats = dict(rows=whole.n_rows, held_rows=int((slots > 0).sum()),
+                       live_slots=whole.n_edges, units=whole.n_units,
+                       split_rows=len(split), pieces=int(split[:, 2].sum()),
+                       heaviest_row_slots=int(slots.max(initial=0)),
+                       hub_slice=None if op.dense is None else "built",
+                       prepared_s=auto_s, operator_bytes=auto_bytes,
+                       bytes_less_than_hybrid=hybrid_bytes - auto_bytes)
+    log(f"K1's whole list (auto, no hub slice): {whole_stats}")
+    if op.dense is not None or whole.rows is not None:
+        raise AssertionError("auto built a hub slice or a list of held rows")
+    scaled = {}
+    for f, x in ((N_FEATURES, x128), (64, x64), (16, x16), (40, x40)):
+        scaled[f] = check_scaled_kernel(f"bench F={f}", op, x, library=True)
+    out = ell_gather_scaled(whole, op.k1_val, x40, *op._scales,
+                            float(op.eye_weight)).cpu()
+    ref = ell_gather_scaled_plain(
+        list_to(whole, "cpu"), op.k1_val.cpu(), x40.cpu(),
+        *(None if v is None else v.cpu() for v in op._scales),
+        float(op.eye_weight))
+    whole_stats["bit_equal_to_cpu_plain_f40"] = (
+        out == ref).double().mean().item()
+    log(f"K1 scaled bench F=40 on the card against the plain version on the "
+        f"CPU: bit-equal share {whole_stats['bit_equal_to_cpu_plain_f40']}")
+    if whole_stats["bit_equal_to_cpu_plain_f40"] != 1.0:
+        raise AssertionError("K1's scaled walk is not bit-equal to its plain "
+                             "version on the CPU")
     return dict(small=small_res, bench=res[N_FEATURES], serving=res[40],
-                gcn_width=res[64], ngcf_width=res[16], rest_list=stats)
+                gcn_width=res[64], ngcf_width=res[16], rest_list=stats,
+                scaled=dict(serving=scaled[40], bench=scaled[N_FEATURES],
+                            gcn_width=scaled[64], ngcf_width=scaled[16],
+                            whole_list=whole_stats))
 
 
 def live_edges(lst):
@@ -985,7 +1112,8 @@ def profile_step(step, top=10):
     index_add_us, index_add_launches = family("indexFunc", "index_add")
     walks = {name: family(name)[1] for name in (
         "blocked_spmm_walk", "blocked_spmm_walk_narrow",
-        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk")}
+        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
+        "ell_gather_scaled_walk")}
     shares = {name: family(tag)[0] / busy_us for name, tag in (
         ("k2", "blocked_spmm"), ("masked", "ell_gather_masked"),
         ("degree", "ell_degree"))}
@@ -1007,7 +1135,8 @@ def profile_step(step, top=10):
                 narrow_walks=walks["blocked_spmm_walk_narrow"],
                 masked_walks=walks["ell_gather_masked_walk"],
                 degree_walks=walks["ell_degree_walk"],
-                k1_walks=walks["ell_gather_walk"], counted=counted)
+                k1_walks=walks["ell_gather_walk"],
+                k1s_walks=walks["ell_gather_scaled_walk"], counted=counted)
 
 
 def phase_blocked_kernel(graph, dev, x40, x128):
@@ -1233,13 +1362,14 @@ ATTN_KERNELS = ("attn_stats", "attn_aggregate", "attn_bwd_rows",
 ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
               "attn_bwd_cols_walk")
 def launch_counts():
-    """The kernel wrappers' launch counts: K2, K1, K1's masked walk, its
-    degree walk, K1's backward walk over the transposed list and the
-    attention kernels A1-A4."""
+    """The kernel wrappers' launch counts: K2, K1, K1's scaled walk, its
+    masked walk, its degree walk, K1's backward walk over the transposed
+    list and the attention kernels A1-A4."""
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
                                      ell_degree_masked, ell_gather,
-                                     ell_gather_masked)
+                                     ell_gather_masked, ell_gather_scaled)
     return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
+                k1s=ell_gather_scaled.launches,
                 masked=ell_gather_masked.launches,
                 degree=ell_degree_masked.launches,
                 backward=ell_gather.backward_launches,
@@ -1250,8 +1380,8 @@ def launch_counts():
 def zero_counts():
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
                                      ell_degree_masked, ell_gather,
-                                     ell_gather_masked)
-    for fn in (blocked_spmm, ell_gather, ell_gather_masked,
+                                     ell_gather_masked, ell_gather_scaled)
+    for fn in (blocked_spmm, ell_gather, ell_gather_scaled, ell_gather_masked,
                ell_degree_masked, *(getattr(attention, name)
                                     for name in ATTN_KERNELS)):
         fn.launches = 0
@@ -1272,28 +1402,30 @@ def per_epoch(marks):
 # launches an epoch on the card: K2 in the step's forward and backward and
 # in the validation forward under pallas, with K1's degree walk for the
 # step's degrees; under the default impl K1's masked walk in the step's
-# forward and backward, its degree walk, and K1 in the validation forward
-NO_LAUNCHES = dict(k2=0, k1=0, masked=0, degree=0, backward=0,
+# forward and backward, its degree walk, and the prepared operator (K1's
+# scaled walk, "k1s") in the validation forward.  K1 adding into a base
+# ("k1") runs only under hybrid and in the per-call ell route.
+NO_LAUNCHES = dict(k2=0, k1=0, k1s=0, masked=0, degree=0, backward=0,
                    **dict.fromkeys(ATTN_KERNELS, 0))
 EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
-                  None: dict(NO_LAUNCHES, k1=10, masked=20, degree=10)}
-# GCNII-64 an epoch: K1 in each convolution of the step and of the
-# validation forward, the backward walk in each of the step; GCN: the
-# masked walk forward and backward and the degree walk in its hidden layer,
-# K1 and the backward walk in its output layer, K1 in both layers of the
-# validation forward
-GCNII_LAUNCHES = dict(NO_LAUNCHES, k1=128, backward=64)
-GCN_LAUNCHES = dict(NO_LAUNCHES, k1=3, masked=2, degree=1, backward=1)
+                  None: dict(NO_LAUNCHES, k1s=10, masked=20, degree=10)}
+# GCNII-64 an epoch: the prepared operator in each convolution of the step
+# and of the validation forward, the backward walk in each of the step;
+# GCN: the masked walk forward and backward and the degree walk in its
+# hidden layer, the prepared operator and the backward walk in its output
+# layer, the prepared operator in both layers of the validation forward
+GCNII_LAUNCHES = dict(NO_LAUNCHES, k1s=128, backward=64)
+GCN_LAUNCHES = dict(NO_LAUNCHES, k1s=3, masked=2, degree=1, backward=1)
 # GAT an epoch: A1 and A2 in both layers of the step and of the validation
-# forward, A3 and A4 in both layers of the step's backward; GraphSAGE: K1
-# in both layers of the step and of the validation forward, the backward
-# walk in both layers of the step; GIN: K1 in its one convolution of the
-# step and of the validation forward (its input needs no gradient, so no
-# backward walk)
+# forward, A3 and A4 in both layers of the step's backward; GraphSAGE: the
+# prepared operator in both layers of the step and of the validation
+# forward, the backward walk in both layers of the step; GIN: the prepared
+# operator in its one convolution of the step and of the validation forward
+# (its input needs no gradient, so no backward walk)
 GAT_LAUNCHES = dict(NO_LAUNCHES, attn_stats=4, attn_aggregate=4,
                     attn_bwd_rows=2, attn_bwd_cols=2)
-SAGE_LAUNCHES = dict(NO_LAUNCHES, k1=4, backward=2)
-GIN_LAUNCHES = dict(NO_LAUNCHES, k1=2)
+SAGE_LAUNCHES = dict(NO_LAUNCHES, k1s=4, backward=2)
+GIN_LAUNCHES = dict(NO_LAUNCHES, k1s=2)
 
 
 def compare_params(label, params, adam, dev):
@@ -1551,7 +1683,7 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
     count = lambda tag: sum(r[2] for r in rows if tag in r[0])
     walks = {tag: count(tag) / replays for tag in (
         "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
-        "blocked_spmm_walk", *ATTN_WALKS)}
+        "ell_gather_scaled_walk", "blocked_spmm_walk", *ATTN_WALKS)}
     index_add = (count("indexFunc") + count("index_add")) / replays
     out = dict(walks_per_epoch=walks, index_add_per_epoch=index_add,
                launches_per_epoch=sum(r[2] for r in rows) / replays,
@@ -1570,10 +1702,11 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
 # walks a replayed epoch: the profile's kernel names
 REPLAY_WALKS = {
     None: {"ell_gather_masked_walk": 20, "ell_degree_walk": 10,
-           "ell_gather_walk": 10, "blocked_spmm_walk": 0, "index_add": 0},
+           "ell_gather_walk": 0, "ell_gather_scaled_walk": 10,
+           "blocked_spmm_walk": 0, "index_add": 0},
     "pallas": {"ell_gather_masked_walk": 0, "ell_degree_walk": 10,
-               "ell_gather_walk": 0, "blocked_spmm_walk": 30,
-               "index_add": 0}}
+               "ell_gather_walk": 0, "ell_gather_scaled_walk": 0,
+               "blocked_spmm_walk": 30, "index_add": 0}}
 
 
 def phase_fused(label, graph, features, dev, impl=None, inv=None):
@@ -1717,7 +1850,8 @@ def check_backward_kernel(label, lst, lst_t, val, dy, library=False):
                     scale)
         res["library_ms"] = time_ms(call)
         k1_dst = list_rows(lst)
-        k1_dst = lst.rows.long()[k1_dst]
+        if lst.rows is not None:
+            k1_dst = lst.rows.long()[k1_dst]
         k1_src = lst.idx.long()
         old = lambda: dy.new_zeros(n, f).index_add_(
             0, k1_src, dy[k1_dst] * val[:, None])
@@ -1735,8 +1869,9 @@ def check_backward_kernel(label, lst, lst_t, val, dy, library=False):
 def phase_backward_kernel(graph, dev, x16, x40, x64):
     """2d: K1's backward walk over the transposed list of its list against
     its plain version, small (duplicates, an empty column, a hub column
-    split over many units) and on the bench rest list at F=40, F=64 and
-    F=16; returns the results."""
+    split over many units) and on the transposed whole list of the bench
+    graph (the ``auto`` operator's, which its backward walks) at F=40, F=64
+    and F=16; returns the results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, normalize_adjacency)
     from gnntf_tpu_torch.ops.spmm import build_ell
@@ -1773,7 +1908,7 @@ def phase_backward_kernel(graph, dev, x16, x40, x64):
                  heaviest_column_slots=int(slots.max(initial=0)),
                  empty_columns=int((slots == 0).sum()),
                  build_s=time.perf_counter() - t0)
-    log(f"bench rest list transposed: {stats}")
+    log(f"bench whole list transposed: {stats}")
     res = {}
     for f, x in ((64, x64), (40, x40), (16, x16)):
         res[f] = check_backward_kernel(f"bench F={f}", lst, lst_t, val, x,
@@ -2115,6 +2250,7 @@ def counted_train(model, tasks, epochs, want, **kw):
     counts = per_epoch(marks)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     epoch_ms = np.diff([t0] + times) * 1e3
+    log(f"launches an epoch: {counts}")
     if counts != [want] * epochs:
         raise AssertionError(f"launches an epoch {counts}, expected {want}")
     losses = np.array(hist["train_loss"] + hist["valid_loss"])
@@ -2187,15 +2323,16 @@ def phase_gcnii(graph, features, dev):
         tt.NodeClassification(eval_nodes, labels[eval_nodes])))
     serving = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    want = dict(NO_LAUNCHES, k1=3 * GCNII_ITERATIONS)
+    want = dict(NO_LAUNCHES, k1s=3 * GCNII_ITERATIONS)
     if serving != want:
         raise AssertionError(f"GCNII serving launches {serving}, expected "
                              f"{want}")
     profile = profile_forward("one GCNII forward", clean_forward(model),
                               top=12)
-    if profile["k1_walks"] != GCNII_ITERATIONS:
-        raise AssertionError(f"{profile['k1_walks']} K1 walks in a GCNII "
-                             "forward")
+    if profile["k1s_walks"] != GCNII_ITERATIONS or profile["k1_walks"]:
+        raise AssertionError(f"{profile['k1s_walks']} K1 scaled walks and "
+                             f"{profile['k1_walks']} hub-route K1 walks in "
+                             "a GCNII forward")
     log(f"GCNII serving: set-up {setup_ms} ms, forward ms {forward_ms}, "
         f"predict ms {request_ms}, evaluate {accuracy}, peak memory "
         f"{peak_mb} MiB, launches {serving}")
@@ -2230,7 +2367,7 @@ def phase_gcnii(graph, features, dev):
     with torch.no_grad():
         eval_ms = timed(lambda: model.forward(model.features))
     prof = profile_step(step, top=12)
-    want = dict(NO_LAUNCHES, k1=GCNII_ITERATIONS,
+    want = dict(NO_LAUNCHES, k1s=GCNII_ITERATIONS,
                 backward=GCNII_ITERATIONS)
     if prof["index_add_launches"] or prof["counted"] != want:
         raise AssertionError(f"GCNII step: {prof['index_add_launches']} "
@@ -2272,7 +2409,7 @@ def cross_device_gcnii(graph, features, train, valid, dev):
             train, valid, epochs=CROSS_EPOCHS, patience=100, seed=0,
             optimizer=adam[str(device)], init_params=dict(init))
         seconds[str(device)] = time.perf_counter() - t0
-        want = dict(GCNII_LAUNCHES, k1=2 * CROSS_ITERATIONS,
+        want = dict(GCNII_LAUNCHES, k1s=2 * CROSS_ITERATIONS,
                     backward=CROSS_ITERATIONS)
         want = {k: CROSS_EPOCHS * v for k, v in want.items()}
         if launch_counts() != (want if torch.device(device) == dev
@@ -2311,7 +2448,7 @@ def phase_gcn(graph, features, dev):
     with torch.no_grad():
         eval_ms = timed(lambda: model.forward(model.features))
     prof = profile_step(step)
-    want = dict(NO_LAUNCHES, k1=1, masked=2, degree=1, backward=1)
+    want = dict(NO_LAUNCHES, k1s=1, masked=2, degree=1, backward=1)
     if prof["index_add_launches"] or prof["counted"] != want:
         raise AssertionError(f"GCN step: {prof['index_add_launches']} "
                              f"index_add_ launches in the profile (expected "
@@ -2634,7 +2771,8 @@ def phase_sage_gin(graph, features, dev):
                                                      device=device)
         model = build(graph, dev)
         model.reset(seed=0)
-        serving, logits = serving_run(name, model, dict(NO_LAUNCHES, k1=k1))
+        serving, logits = serving_run(name, model,
+                                      dict(NO_LAUNCHES, k1s=k1))
         forward = cpu_forward(name, build, g_cpu, logits, FORWARD_TOL)
         hist, epoch_ms, peak_mb = counted_train(model, (train, valid),
                                                 SAGE_EPOCHS, epoch)
@@ -2660,8 +2798,8 @@ LP_MEAN_NODES = 200
 # K1 in each of NGCF's 3 convolutions of the step (F=128, 16, 16) and of the
 # validation forward; the backward walk in the 2 convolutions whose input
 # needs a gradient (the first one's input is the features)
-LP_LAUNCHES = dict(NO_LAUNCHES, k1=6, backward=2)
-LP_REPLAY = {"ell_gather_walk": 6, "blocked_spmm_walk": 2,
+LP_LAUNCHES = dict(NO_LAUNCHES, k1s=6, backward=2)
+LP_REPLAY = {"ell_gather_scaled_walk": 6, "blocked_spmm_walk": 2,
              "ell_gather_masked_walk": 0, "ell_degree_walk": 0,
              "index_add": 2}
 # fused vs host loop on the card, NGCF without its output regularization
@@ -2770,14 +2908,14 @@ def phase_link_prediction(graph, src, dst, features, dev):
     step = step_fn(model, train)  # joins no thread
     step_ms = timed(step)
     prof = profile_step(step, top=12)
-    want = dict(NO_LAUNCHES, k1=3, backward=2)
+    want = dict(NO_LAUNCHES, k1s=3, backward=2)
     if prof["counted"] != want or prof["index_add_launches"] != 2 or \
-            prof["k1_walks"] != 3:
+            prof["k1s_walks"] != 3:
         raise AssertionError(f"NGCF step: launches {prof['counted']} "
                              f"(expected {want}), index_add_ "
                              f"{prof['index_add_launches']} (expected 2, "
                              f"edge_dot's backward), K1 walks "
-                             f"{prof['k1_walks']}")
+                             f"{prof['k1s_walks']}")
     dot_ms = edge_dot_ms(model, train)
     auc = float(model.evaluate(valid))
     if not 0.0 <= auc <= 1.0:
@@ -3706,6 +3844,7 @@ REMAT16_EPOCHS, REMAT16_BLOCK = 4, 2
 # a replay's walks by profile name, and the wrappers' counts each one is
 # (K1's backward walk is K2's store-mode kernel)
 WALK_COUNTERS = {"ell_gather_walk": ("k1",),
+                 "ell_gather_scaled_walk": ("k1s",),
                  "ell_gather_masked_walk": ("masked",),
                  "ell_degree_walk": ("degree",),
                  "blocked_spmm_walk": ("k2", "backward")}
@@ -3904,7 +4043,8 @@ def phase_fused_gaps(graph, features, dev):
     if remat["best_epoch"] != plain["best_epoch"]:
         raise AssertionError("16b: remat changes the best epoch")
     walks = remat["walks_per_replay"]
-    if walks["ell_gather_walk"] <= 0 or walks["blocked_spmm_walk"] <= 0:
+    if walks["ell_gather_scaled_walk"] <= 0 or \
+            walks["blocked_spmm_walk"] <= 0:
         raise AssertionError(f"16b: K1 or its backward walk missing from a "
                              f"replay: {walks}")
     log(f"16b: fused peaks without remat {plain['peak']}, with remat "
@@ -3998,7 +4138,7 @@ def main(dev=None):
         dev = torch.device("cuda")
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
-    from gnntf_tpu_torch.ops import ell_gather
+    from gnntf_tpu_torch.ops import ell_gather_scaled, spmm_impl
     from gnntf_tpu_torch.utils import kernels, native
 
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
@@ -4077,7 +4217,7 @@ def main(dev=None):
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
-    ell_gather.launches = 0
+    zero_counts()
     forward_ms, request_ms = [], []
     for i in range(3):
         model._act_cache = None  # each forward really runs
@@ -4085,9 +4225,10 @@ def main(dev=None):
         acts = model._activations()
         torch.cuda.synchronize()
         forward_ms.append((time.perf_counter() - t0) * 1e3)
-        if ell_gather.launches != 10 * (i + 1):
-            raise AssertionError(f"forward {i}: {ell_gather.launches} "
-                                 "K1 launches, expected 10 per forward")
+        if ell_gather_scaled.launches != 10 * (i + 1):
+            raise AssertionError(f"forward {i}: {ell_gather_scaled.launches}"
+                                 " K1 scaled launches, expected 10 per "
+                                 "forward")
     answers = []
     for nodes in requests:
         t0 = time.perf_counter()
@@ -4095,24 +4236,68 @@ def main(dev=None):
         request_ms.append((time.perf_counter() - t0) * 1e3)
     accuracy = float(model.evaluate(
         tt.NodeClassification(eval_nodes, labels[eval_nodes])))
-    launches = ell_gather.launches
+    serving_launches = launch_counts()
+    launches = serving_launches["k1s"]
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    if launches != 30:
-        raise AssertionError(f"{launches} K1 launches on the serving path")
+    if serving_launches != dict(NO_LAUNCHES, k1s=30):
+        raise AssertionError(f"launches on the serving path "
+                             f"{serving_launches}, expected 30 of K1's "
+                             "scaled walk and nothing else")
     op = model.operator(adj)
     spmm_ms = time_ms(lambda: op(acts))
     fwd_profile = profile_forward("one forward", clean_forward(model))
     spmm_profile = profile_forward(f"one SpMM at F={acts.shape[1]}",
                                    lambda: op(acts))
-    if fwd_profile["k1_walks"] != 10 or spmm_profile["k1_walks"] != 1:
-        raise AssertionError("K1 walks in the profiles: "
-                             f"{fwd_profile['k1_walks']} a forward (expected "
-                             f"10), {spmm_profile['k1_walks']} an SpMM "
-                             "(expected 1)")
+    if (fwd_profile["k1s_walks"] != 10 or spmm_profile["k1s_walks"] != 1
+            or spmm_profile["gemm_us"] or spmm_profile["k1_walks"]
+            or spmm_profile["launches"] != len(spmm_profile["us_by_kernel"])
+            or not set(spmm_profile["us_by_kernel"]) <= {
+                "ell_gather_scaled_walk", "ell_gather_scaled_parts",
+                "ell_gather_scaled_fixup"}):
+        raise AssertionError("the auto route's profiles: "
+                             f"{fwd_profile['k1s_walks']} scaled walks a "
+                             "forward (expected 10); one SpMM "
+                             f"{spmm_profile['us_by_kernel']} (expected the "
+                             "scaled walk, its parts and fix-up once each)")
     log(f"serving: set-up {setup_ms} ms (normalized graph + PreparedSpMM), "
         f"forward ms {forward_ms}, SpMM {spmm_ms} ms at F={acts.shape[1]}, "
         f"predict ms {request_ms}, evaluate {accuracy}, peak memory "
-        f"{peak_mb} MiB, K1 launches {launches}")
+        f"{peak_mb} MiB, K1 scaled launches {launches}")
+
+    # the same forward under hybrid (the JAX package's hub slice beside K1
+    # adding into its product), for K1's launches and the profiles beside
+    with spmm_impl("hybrid"):
+        model._act_cache = None
+        model._activations()  # builds the hybrid operator
+        torch.cuda.synchronize()
+        zero_counts()
+        hybrid_ms = []
+        for _ in range(3):
+            model._act_cache = None
+            t0 = time.perf_counter()
+            hybrid_acts = model._activations()
+            torch.cuda.synchronize()
+            hybrid_ms.append((time.perf_counter() - t0) * 1e3)
+        hybrid_launches = launch_counts()
+        hybrid_op = model.operator(model.adjacency())
+        hybrid_spmm_ms = time_ms(lambda: hybrid_op(acts))
+        hybrid_fwd = profile_forward("one forward under hybrid",
+                                     clean_forward(model))
+        hybrid_spmm = profile_forward(f"one SpMM under hybrid at "
+                                      f"F={acts.shape[1]}",
+                                      lambda: hybrid_op(acts))
+    if hybrid_launches != dict(NO_LAUNCHES, k1=30) or \
+            hybrid_spmm["k1_walks"] != 1 or not hybrid_spmm["gemm_us"]:
+        raise AssertionError(f"hybrid serving launches {hybrid_launches} "
+                             "(expected 30 of K1), one SpMM "
+                             f"{hybrid_spmm['us_by_kernel']}")
+    hybrid_err = (hybrid_acts - acts).abs().max().item()
+    log(f"serving under hybrid: forward ms {hybrid_ms}, SpMM "
+        f"{hybrid_spmm_ms} ms, launches {hybrid_launches}, max |logits - "
+        f"auto's| {hybrid_err}")
+    if not torch.allclose(hybrid_acts, acts, **FORWARD_TOL):
+        raise AssertionError(f"hybrid and auto logits differ ({hybrid_err})")
+    model._act_cache = None
 
     gpu = acts.cpu()
     if gpu.shape != (N_NODES, N_CLASSES) or not torch.isfinite(gpu).all():
@@ -4262,14 +4447,39 @@ def main(dev=None):
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
     rest = k1["rest_list"]
+    whole = k1["scaled"]["whole_list"]
+    scaled_entry = {
+        "name": "ell_gather_scaled", "route": "cuda",
+        "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+        "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+        "launches": launches, **k1["scaled"]["serving"],
+        "kernel_ms": k1["scaled"]["serving"]["ms"],
+        "shape": f"whole ELL list (auto, no hub slice) of the symmetric "
+                 f"normalized bench graph, N=169343 rows, "
+                 f"E={whole['live_slots']} live slots, F=40, the scales "
+                 f"applied in the walk",
+        "bench_width": dict(k1["scaled"]["bench"], shape="F=128"),
+        "fused": fused_launches(fused, "ell_gather_scaled_walk", "k1s"),
+        "fused_gaps": gaps_entry(gaps, "ell_gather_scaled_walk", (
+            "16b_remat", "16b_plain", "16c_sgd_momentum",
+            "16c_optax_adam")),
+        **kernel_launches(gcnii, gcn, "k1s"),
+        "gcn_width": dict(k1["scaled"]["gcn_width"], shape="F=64"),
+        "ngcf_width": dict(k1["scaled"]["ngcf_width"], shape="F=16"),
+        "ngcf": dict(per_epoch=lp["launches_per_epoch"]["k1s"],
+                     fused=fused_launches(lp["fused"],
+                                          "ell_gather_scaled_walk", "k1s")),
+        "whole_list": whole,
+        "serving_profile": dict(forward=fwd_profile, spmm=spmm_profile)}
     entry = {"name": "ell_gather", "route": "cuda",
              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
              "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
-             "launches": launches, **k1["serving"],
+             "launches": hybrid_launches["k1"], **k1["serving"],
              "kernel_ms": k1["serving"]["ms"],
              "shape": f"rest ELL list R={rest['held_rows']} held rows of "
                       f"N=169343, E={rest['live_slots']} live slots, F=40, "
-                      f"added into the hub product",
+                      f"added into the hub product (hybrid; launches: "
+                      f"phase 3's three forwards under hybrid)",
              "bench_width": dict(k1["bench"], shape="F=128"),
              "fused": fused_launches(fused, "ell_gather_walk", "k1"),
              "fused_gaps": gaps_entry(gaps, "ell_gather_walk", (
@@ -4288,7 +4498,7 @@ def main(dev=None):
                  "launches": gcnii["launches_per_epoch"]["backward"]
                  * GCNII_EPOCHS,
                  **backward["gcnii"],
-                 "shape": f"rest list transposed, "
+                 "shape": f"whole list transposed, "
                           f"{backward['transposed_list']['slots']} slots "
                           f"over N=169343 columns, F=64 (GCNII)",
                  **kernel_launches(gcnii, gcn, "backward"),
@@ -4303,8 +4513,7 @@ def main(dev=None):
                  "small": backward["small"],
                  "transposed_list": backward["transposed_list"]},
              "small": k1["small"], "rest_list": rest,
-             "serving_profile": dict(forward=fwd_profile,
-                                     spmm=spmm_profile)}
+             "serving_profile": dict(forward=hybrid_fwd, spmm=hybrid_spmm)}
     lay = k2["layout"]
     entry2 = {"name": "blocked_spmm", "route": "cuda",
               "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
@@ -4371,8 +4580,8 @@ def main(dev=None):
     attn_entries = attention_entries(attention, gat)
     for e in attn_entries:
         e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
-    print(json.dumps({"kernels": [entry, entry2, entry3, entry4,
-                                  *attn_entries]}), flush=True)
+    print(json.dumps({"kernels": [scaled_entry, entry, entry2, entry3,
+                                  entry4, *attn_entries]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,14 @@
 // geometry does not change it, so the result is the same from launch to
 // launch and on the CPU.
 //
+// With kScaled (K1's scaled walk, the prepared operator's whole product) the
+// walk finishes a normalized graph's product in its store, in the JAX
+// package's order rs * (A @ (cs * x)) + w * x: each gathered row is scaled by
+// its column's cs first, and each row is written as rs[row] * sum + w *
+// x[row] (Scale), each product and sum rounded apart, so the roundings are
+// those of the JAX package's separate passes.  Without it (every other walk)
+// none of that is compiled.
+//
 // K1's two dropout walks (the masked and the degree walk) have a design of
 // their own, drop_walk.cuh, which takes this header's parts and fix-up.
 //
@@ -82,6 +90,14 @@ struct Args {
   int n_units, n_split, n_part_items, fv, group, parts;
 };
 
+// The scaled walk's epilogue: out[r] = rs[r] * sum + w * x[r], the gathered
+// x[c] scaled by cs[c]; a null rs or cs scales by one, w == 0 adds nothing.
+struct Scale {
+  const float* rs;
+  const float* cs;
+  float w;
+};
+
 // murmur3's 32-bit finalizer
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -110,6 +126,14 @@ __device__ __forceinline__ void mul_add(float4& acc, float w, float4 v) {
   mul_add(acc.w, w, v.w);
 }
 
+__device__ __forceinline__ float scaled(float s, float v) {
+  return __fmul_rn(s, v);
+}
+__device__ __forceinline__ float4 scaled(float s, float4 v) {
+  return make_float4(__fmul_rn(s, v.x), __fmul_rn(s, v.y), __fmul_rn(s, v.z),
+                     __fmul_rn(s, v.w));
+}
+
 __device__ __forceinline__ void add_into(float& acc, float v) {
   acc = __fadd_rn(acc, v);
 }
@@ -131,13 +155,18 @@ __device__ __forceinline__ T* row_at(T* __restrict__ out,
 
 // Writes list row `row`'s sum: stores it, or, with kAdd, adds it to `base`,
 // the row's value in out, as the plain version's index_add_ into its base
-// does.
-template <bool kAdd, typename T>
+// does; with kScaled (store mode) stores rs[row] * sum + w * x[row].
+template <bool kAdd, bool kScaled = false, typename T>
 __device__ __forceinline__ void put_row(T* __restrict__ out,
                                         const int32_t* __restrict__ rows,
                                         int row, int fv, int j, T acc,
-                                        T base) {
+                                        T base, const Scale& sc = Scale{},
+                                        const T* __restrict__ x = nullptr) {
   if (kAdd) add_into(acc, base);
+  if constexpr (kScaled) {
+    if (sc.rs) acc = scaled(sc.rs[row], acc);
+    if (sc.w != 0.f) add_into(acc, scaled(sc.w, x[(long long)row * fv + j]));
+  }
   *row_at<kAdd>(out, rows, row, fv, j) = acc;
 }
 
@@ -177,14 +206,14 @@ __device__ __forceinline__ long long group_item(int group, long long n_items,
 
 // Unit u holds edges unit_edge[u] .. unit_edge[u+1]; unit_row[u] is its
 // first row, or ~row for a piece of a split row.
-template <typename T, bool kAdd>
+template <typename T, bool kAdd, bool kScaled = false>
 __device__ __forceinline__ void walk_units(
     const int32_t* __restrict__ ptr, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ eid, const int32_t* __restrict__ rows,
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
     const int32_t* __restrict__ unit_edge, const T* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
-    int group) {
+    int group, const Scale sc = Scale{}) {
   int lane;
   const long long unit = group_item(group, n_units, lane);
   if (unit < 0) return;
@@ -226,26 +255,36 @@ __device__ __forceinline__ void walk_units(
       for (int k = 0; k < n; k += kUnroll) {
         T a[kUnroll];
         float w[kUnroll];
+        float c[kUnroll];  // cs of the gathered rows (kScaled)
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int from = lane0 + min(k + u, n - 1);
           w[u] = __shfl_sync(mask, my_w, from);
           set_zero(a[u]);
+          c[u] = 1.f;
           const int s = __shfl_sync(mask, my_src, from);
-          if (on && k + u < n) a[u] = x[(long long)s * fv + j];
+          if (on && k + u < n) {
+            a[u] = x[(long long)s * fv + j];
+            if (kScaled && sc.cs) c[u] = sc.cs[s];
+          }
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (k + u < n) {
             const int e = b + k + u;
             while (e >= row_end) {  // rows ending before edge e
-              if (on) put_row<kAdd>(out, rows, row, fv, j, acc, base);
+              if (on)
+                put_row<kAdd, kScaled>(out, rows, row, fv, j, acc, base, sc,
+                                       x);
               set_zero(acc);
               ++row;
               row_end = ptr[row + 1];
               if (kAdd && on) base = *row_at<kAdd>(out, rows, row, fv, j);
             }
-            mul_add(acc, w[u], a[u]);
+            if constexpr (kScaled)
+              mul_add(acc, w[u], scaled(c[u], a[u]));
+            else
+              mul_add(acc, w[u], a[u]);
           }
         }
       }
@@ -255,7 +294,8 @@ __device__ __forceinline__ void walk_units(
     } else {
       // the last row, then rows without edges
       for (; row < r1; ++row) {
-        if (on) put_row<kAdd>(out, rows, row, fv, j, acc, base);
+        if (on)
+          put_row<kAdd, kScaled>(out, rows, row, fv, j, acc, base, sc, x);
         set_zero(acc);
         if (kAdd && on && row + 1 < r1)
           base = *row_at<kAdd>(out, rows, row + 1, fv, j);
@@ -270,6 +310,15 @@ __device__ __forceinline__ void walk(const Args& a) {
       a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
       static_cast<const T*>(a.x), static_cast<T*>(a.out),
       static_cast<T*>(a.carry), a.n_units, a.fv, a.group);
+}
+
+// The scaled walk (store mode, the epilogue of Scale).
+template <typename T>
+__device__ __forceinline__ void walk_scaled(const Args& a, const Scale& sc) {
+  walk_units<T, false, true>(
+      a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
+      static_cast<const T*>(a.x), static_cast<T*>(a.out),
+      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, sc);
 }
 
 // Item i, part_item[i] = s * parts + g: part g of split row s, the sum of
@@ -306,12 +355,14 @@ __device__ __forceinline__ void parts(const Args& a) {
 
 // Item s: split row split[3s], its parts that hold a piece added in order
 // and written.
-template <typename T, bool kAdd>
+template <typename T, bool kAdd, bool kScaled = false>
 __device__ __forceinline__ void fix_rows(const int32_t* __restrict__ split,
                                          const int32_t* __restrict__ rows,
                                          const T* __restrict__ part_sum,
                                          T* __restrict__ out, int n_split,
-                                         int fv, int group, int parts) {
+                                         int fv, int group, int parts,
+                                         const Scale sc = Scale{},
+                                         const T* __restrict__ x = nullptr) {
   int lane;
   const long long s = group_item(group, n_split, lane);
   if (s < 0) return;
@@ -321,9 +372,9 @@ __device__ __forceinline__ void fix_rows(const int32_t* __restrict__ split,
     T base;
     set_zero(base);
     if (kAdd) base = *row_at<kAdd>(out, rows, row, fv, j);
-    put_row<kAdd>(out, rows, row, fv, j,
-                  ordered_sum(part_sum + s * parts * fv + j, fv, n),
-                  base);
+    put_row<kAdd, kScaled>(out, rows, row, fv, j,
+                           ordered_sum(part_sum + s * parts * fv + j, fv, n),
+                           base, sc, x);
   }
 }
 
@@ -333,6 +384,18 @@ __device__ __forceinline__ void fixup(const Args& a) {
       a.split, a.rows,
       static_cast<const T*>(a.carry) + (long long)a.n_units * a.fv,
       static_cast<T*>(a.out), a.n_split, a.fv, a.group, a.parts);
+}
+
+// The scaled walk's fix-up: a split row written as the scaled walk writes
+// its rows.
+template <typename T>
+__device__ __forceinline__ void fixup_scaled(const Args& a,
+                                             const Scale& sc) {
+  fix_rows<T, false, true>(
+      a.split, a.rows,
+      static_cast<const T*>(a.carry) + (long long)a.n_units * a.fv,
+      static_cast<T*>(a.out), a.n_split, a.fv, a.group, a.parts, sc,
+      static_cast<const T*>(a.x));
 }
 
 // blocks of `threads` for n_items items of `group` lanes

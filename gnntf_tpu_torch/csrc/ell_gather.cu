@@ -33,6 +33,25 @@
 // quarter of K2's) spread them over the card, and the fix-up adds a split
 // row's pieces in the same fixed order as K2's.
 //
+// The scaled walk (ell_gather_scaled_walk, _parts, _fixup) is the prepared
+// operator's whole product on the H100 (ops/spmm.py::PreparedSpMM under
+// `auto`), where the JAX package runs ell + dense @ x[hubs] and the scales
+// around it.  The dense hub slice existed for the TPU, whose SpMM is bound by
+// its gather unit's issue rate; the H100 has no such limit, and its fp32
+// matmul over a slice stored at 1.4% density cost more than the walk.  So
+// one walk takes every live slot of the hub-free ELL, as a CSR list over all
+// N rows (ops/ell_gather.py::whole_list), in store mode, and finishes a
+// normalized graph's product in its store: out[r] = rs[r] * sum_e val[e] *
+// (cs[c] * x[c]) + w * x[r] (edge_walk.cuh, Scale), the JAX order, each
+// product and sum rounded apart.  Every row is written, rows without a slot
+// as rs[r] * 0 + w * x[r], so out is neither zero-filled nor read.
+// Bound, bytes: the list (ptr 4 B a row; idx and val 8 B a live slot), x
+// read once (gathers and identity), rs and cs once, out written once.  On
+// the symmetric normalized bench graph at F = 40 (N = 169,343 rows,
+// 1,219,880 live slots, no identity): 65,952,920 B, 19.7 us at 3.35 TB/s
+// (chip_smoke.py phase 2's scaled_bound).  Units of 64 items
+// (ops/ell_gather.py::_WHOLE_ITEMS) split 168 rows.
+//
 // Two more walks carry the training step under the default implementation
 // (ops/stochastic.py::TrainGrids, the counterpart of the JAX package's
 // TrainGrids.core and stochastic_degree), over the row list (A) or the
@@ -66,6 +85,7 @@ using drop_walk::Mask;
 using drop_walk::Pass;
 using drop_walk::Tiles;
 using edge_walk::Args;
+using edge_walk::Scale;
 
 template <typename T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
@@ -81,6 +101,44 @@ __global__ void __launch_bounds__(32) ell_gather_parts(const Args a) {
 template <typename T>
 __global__ void __launch_bounds__(32) ell_gather_fixup(const Args a) {
   edge_walk::fixup<T, true>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
+    ell_gather_scaled_walk(const Args a, const Scale sc) {
+  edge_walk::walk_scaled<T>(a, sc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) ell_gather_scaled_parts(const Args a) {
+  edge_walk::parts<T>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+    ell_gather_scaled_fixup(const Args a, const Scale sc) {
+  edge_walk::fixup_scaled<T>(a, sc);
+}
+
+// The scaled walk, then (only where a row is split) its parts and fix-up,
+// on `stream`; returns a CUDA error code (0 on success).
+template <typename T>
+int launch_scaled(const Args& a, const Scale& sc, cudaStream_t stream) {
+  ell_gather_scaled_walk<T>
+      <<<edge_walk::group_blocks(a.n_units, a.group, edge_walk::kThreads),
+         edge_walk::kThreads, 0, stream>>>(a, sc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 0) return (int)err;
+  if (a.parts < 1) return (int)cudaErrorInvalidValue;
+  ell_gather_scaled_parts<T>
+      <<<edge_walk::group_blocks(a.n_part_items, a.group, 32), 32, 0,
+         stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ell_gather_scaled_fixup<T>
+      <<<edge_walk::group_blocks(a.n_split, a.group, 32), 32, 0, stream>>>(
+          a, sc);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -145,6 +203,31 @@ extern "C" int gnntf_ell_gather(
                              ell_gather_fixup<float4>, a, s);
   return edge_walk::launch(ell_gather_walk<float>, ell_gather_parts<float>,
                            ell_gather_fixup<float>, a, s);
+}
+
+// The scaled walk in store mode over a list of all n rows (rows is
+// ignored): out (n, f) float32 gets rs[r] * sum + w * x[r] in every row and
+// needs no zero-fill; rs and cs are (n,) float32 or null (a scale of one),
+// w the identity's weight; x (n, f) is gathered scaled by cs.  The other
+// arguments are as gnntf_ell_gather's.
+extern "C" int gnntf_ell_gather_scaled(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, const void* rs, const void* cs, float w,
+    void* stream) {
+  (void)rows;
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
+      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
+  Scale sc;
+  sc.rs = static_cast<const float*>(rs);
+  sc.cs = static_cast<const float*>(cs);
+  sc.w = w;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) return launch_scaled<float4>(a, sc, s);
+  return launch_scaled<float>(a, sc, s);
 }
 
 // The masked walk in store mode: out (n, f) float32 needs no zero-fill

@@ -662,9 +662,16 @@ DROP_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p] * 4 + [
                          ctypes.c_longlong, ctypes.c_void_p]
 
 
-def declare(entry, drop: bool = False) -> None:
+# K1's scaled walk (gnntf_ell_gather_scaled) takes before the stream the
+# row and column scales' device addresses (or null) and the identity's weight
+SCALED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_float, ctypes.c_void_p]
+
+
+def declare(entry, drop: bool = False, scaled: bool = False) -> None:
     entry.restype = ctypes.c_int
-    entry.argtypes = DROP_ARGTYPES if drop else ENTRY_ARGTYPES
+    entry.argtypes = (DROP_ARGTYPES if drop else
+                      SCALED_ARGTYPES if scaled else ENTRY_ARGTYPES)
 
 
 @functools.cache

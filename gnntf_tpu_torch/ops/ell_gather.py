@@ -23,6 +23,15 @@ take the ELL grid and derive the list per call.  A CPU tensor takes the
 plain version, ``blocked_spmm_plain`` over the list, which sums in the
 kernel's order; a CUDA tensor launches the kernel or raises.
 
+The prepared operator's route on the card (``ops/spmm.py::PreparedSpMM``
+under ``auto``) has no hub slice: :func:`ell_gather_scaled` walks every
+live slot of the hub-free ELL, as :func:`whole_list` (K1's list with
+``ptr`` over all N rows), in the walk's store mode, and finishes a
+normalized graph's product in its store: ``out[r] = rs[r] * sum_e val[e] *
+(cs[c] * x[c]) + w * x[r]``, the JAX package's order, each product and sum
+rounded apart (``csrc/edge_walk.cuh``, ``Scale``).  Its plain version
+applies the same scales in the same order around ``blocked_spmm_plain``.
+
 The backward's ``dx = A_rest^T dy`` walks the transposed list
 (:func:`ell_transposed_list`: K1's live slots stable-sorted by source,
 ``ptr`` over the sources, each slot's output row as its ``idx`` and its
@@ -61,6 +70,9 @@ from .blocked import EdgeList, blocked_spmm_plain
 # quarter of K2's, so its units are smaller than K2's to fill the card (32
 # is the fastest of 32, 64 and 128 at F=40 in k2_sweep.py)
 _UNIT_ITEMS = 32
+# the scaled walk's whole list (every live slot, ptr over all N rows)
+# (k2_sweep.py --kernels k1)
+_WHOLE_ITEMS = 64
 # the dropout walks' lists (ops/stochastic.py::TrainGrids.lists): a split
 # row's pieces of at most _DROP_ITEMS edges, tiles of about _TILE_ITEMS
 # items (k2_sweep.py --kernels train)
@@ -93,6 +105,17 @@ def ell_edge_list(idx: np.ndarray, vrow_row: np.ndarray, n_nodes: int,
     rows, ptr, src, slot = ell_list(idx, vrow_row, n_nodes)
     return EdgeList.build(ptr, src, None, device, rows=rows,
                           items=_UNIT_ITEMS), slot
+
+
+def whole_list(rows, ptr, src, n_rows: int, device,
+               items: int = _WHOLE_ITEMS) -> EdgeList:
+    """K1's list (:func:`ell_list`'s ``rows``, ``ptr``, ``src``) over all
+    ``n_rows`` rows on ``device``: the same slots in the same order, ``ptr``
+    over every row (a row without a slot is empty), no row ids, for the
+    scaled walk's store mode; cut into units of ``items`` items."""
+    dst = np.repeat(np.asarray(rows, np.int64), np.diff(ptr))
+    return EdgeList.build(blocked.row_ptr(dst, n_rows), src, None, device,
+                          items=items)
 
 
 def _grid_list(idx, vals, vrow_row, n_nodes, device):
@@ -183,6 +206,68 @@ ell_gather.launches = 0
 ell_gather.backward_launches = 0
 
 
+def _check_scales(lst, x, rs, cs):
+    for name, v in (("rs", rs), ("cs", cs)):
+        if v is None:
+            continue
+        if (v.shape != (lst.n_rows,) or v.dtype != torch.float32
+                or v.device != x.device or not v.is_contiguous()):
+            raise TypeError(f"ell_gather_scaled: {name} must be a contiguous "
+                            f"({lst.n_rows},) float32 tensor on {x.device}, "
+                            f"got {tuple(v.shape)} {v.dtype} on {v.device}")
+
+
+def ell_gather_scaled_plain(lst: EdgeList, val: torch.Tensor,
+                            x: torch.Tensor, rs=None, cs=None,
+                            w: float = 0.0) -> torch.Tensor:
+    """The plain version of :func:`ell_gather_scaled`: ``cs * x``, the
+    store-mode sum in the kernel's order (``blocked_spmm_plain``), then
+    ``rs *`` it and ``+ w * x``, each a rounded pass of its own, as the
+    kernel rounds them."""
+    xin = x if cs is None else x * cs[:, None]
+    out = blocked_spmm_plain(lst, val, xin)
+    if rs is not None:
+        out = out * rs[:, None]
+    if w != 0.0:
+        out = out + w * x
+    return out
+
+
+def ell_gather_scaled(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
+                      rs: Optional[torch.Tensor] = None,
+                      cs: Optional[torch.Tensor] = None,
+                      w: float = 0.0) -> torch.Tensor:
+    """The normalized product ``rs ⊙ (A @ (cs ⊙ x)) + w·x`` over
+    :func:`whole_list` ``lst`` (every row stored; ``val`` one value a live
+    slot) as an (N, F) float32 tensor; ``rs``/``cs`` (N,) float32 or None (a
+    scale of one), ``w`` the identity's weight.
+
+    CPU tensors take :func:`ell_gather_scaled_plain`; CUDA tensors launch
+    the scaled walk, the scales and identity applied in its gathers and
+    its store (counted in ``ell_gather_scaled.launches``)."""
+    if lst.rows is not None:
+        raise ValueError("the scaled walk stores row r at r (whole_list)")
+    blocked.check("ell_gather_scaled", lst, val, x)
+    _check_scales(lst, x, rs, cs)
+    if x.device.type == "cpu":
+        return ell_gather_scaled_plain(lst, val, x, rs, cs, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"ell_gather_scaled runs on cpu or cuda, not "
+                         f"{x.device}")
+    out = torch.empty(lst.n_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    if lst.n_units == 0 or x.shape[1] == 0:
+        return out
+    address = lambda t: None if t is None else t.data_ptr()
+    blocked.launch(_library(), "gnntf_ell_gather_scaled", lst, val, x, out,
+                   extra=(address(rs), address(cs), float(w)))
+    ell_gather_scaled.launches += 1
+    return out
+
+
+ell_gather_scaled.launches = 0
+
+
 def pair_lists(dst, src, eid, n_out: int, n_in: int, device,
                n_ids: Optional[int] = None):
     """The lists of the edges ``src -> dst`` (numpy) on ``device``, for the
@@ -216,7 +301,9 @@ def ell_transposed_list(lst: EdgeList, n_in: int) -> EdgeList:
     items.  Built on the host from the device list."""
     ptr = lst.ptr.cpu().numpy()
     src = lst.idx.cpu().numpy()
-    dst = np.repeat(lst.rows.cpu().numpy(), np.diff(ptr))
+    rows = (np.arange(lst.n_rows) if lst.rows is None
+            else lst.rows.cpu().numpy())
+    dst = np.repeat(rows, np.diff(ptr))
     order = np.argsort(src, kind="stable")
     return EdgeList.build(blocked.row_ptr(src[order], n_in), dst[order],
                           order, lst.device, items=_UNIT_ITEMS)
@@ -395,5 +482,6 @@ def declare(lib) -> None:
     """Declare the C signatures of K1's library (the built one, or one
     built with other settings)."""
     blocked.declare(lib.gnntf_ell_gather)
+    blocked.declare(lib.gnntf_ell_gather_scaled, scaled=True)
     blocked.declare(lib.gnntf_ell_gather_masked, drop=True)
     blocked.declare(lib.gnntf_ell_degree, drop=True)

@@ -13,8 +13,13 @@
   the ELL gather-reduce kernel K1 (``ops/ell_gather.py``) adding into it.
   Differentiable in ``x`` (the walk over K1's transposed list) and in the
   values.
-* :class:`PreparedSpMM` — the same with the values routed once, for a fixed
-  adjacency; ``spmm`` keeps one per (structure, values) (``_prepared_cached``).
+* :class:`PreparedSpMM` — a fixed adjacency's operator, the values routed
+  once; ``spmm`` keeps one per (structure, values) (``_prepared_cached``).
+  Under ``auto`` it is one walk, K1's scaled walk over every live slot of
+  the hub-free ELL, with a normalized graph's scales and identity applied
+  in its gathers and its store (``ell_gather.ell_gather_scaled``); under
+  ``hybrid`` the JAX package's route, the dense hub slice's matmul and K1
+  adding the rest into it, the scales around them.
 * ``stochastic_spmm`` (``ops/stochastic.py``) — a lazily dropped graph
   through its training grids: K1's walk in masked mode, the mask hashed in
   the kernel, the backward over the column list.
@@ -49,9 +54,10 @@ import torch
 
 from ..graph.coo import Graph
 from ..utils.idcache import IdLRU, sizeof
-from .blocked import blocked_layout, blocked_spmm, spmm_pallas
-from .ell_gather import (ell_edge_list, ell_gather_list,
-                         ell_gather_transposed, ell_transposed_list)
+from .blocked import EdgeList, blocked_layout, blocked_spmm, spmm_pallas
+from .ell_gather import (_UNIT_ITEMS, ell_gather_list, ell_gather_scaled,
+                         ell_gather_transposed, ell_list, ell_transposed_list,
+                         whole_list)
 from .segment import gather_rows
 
 _IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
@@ -415,9 +421,9 @@ class _RoutedLayout:
     values into them, one ``index_add_`` each, so duplicates coalesce;
     :meth:`apply` runs the hub matmul (or zeros), then K1 adding into it.
     Only the list, the routes and the hub ids are kept on the device, and,
-    from the first backward on, the transposed list (:meth:`transposed`;
-    not in :meth:`nbytes`, which the cache reads when the layout is
-    new)."""
+    from first use on, the scaled walk's list over all rows (:meth:`whole`)
+    and the backward's transposed list (:meth:`transposed`; neither in
+    :meth:`nbytes`, which the cache reads when the layout is new)."""
 
     def __init__(self, row: np.ndarray, col: np.ndarray, n_nodes: int,
                  k: int, device, hubs: bool):
@@ -430,9 +436,11 @@ class _RoutedLayout:
             slots = hybrid.ell_slot_of_edge
         self.n_nodes = n_nodes
         self.ell = ell
-        self.list, slot = ell_edge_list(ell.idx, ell.vrow_row, n_nodes,
-                                        device)
-        self._transposed = None
+        rows, ptr, src, slot = ell_list(ell.idx, ell.vrow_row, n_nodes)
+        self.list = EdgeList.build(ptr, src, None, device, rows=rows,
+                                   items=_UNIT_ITEMS)
+        self._host_list = (rows, ptr, src)
+        self._transposed = self._whole = None
         # each edge's list position; the sentinel (hub edges, V*k) maps to
         # the extra cell that _route drops
         position = np.full(ell.n_vrows * ell.k + 1, len(slot), np.int64)
@@ -479,6 +487,15 @@ class _RoutedLayout:
         if self._transposed is None:
             self._transposed = ell_transposed_list(self.list, self.n_nodes)
         return self._transposed
+
+    def whole(self):
+        """K1's list over all rows (``ell_gather.whole_list``, the scaled
+        walk's; its slots and values are the list's), built on first
+        use."""
+        if self._whole is None:
+            self._whole = whole_list(*self._host_list, self.n_nodes,
+                                     self.list.device)
+        return self._whole
 
     def nbytes(self) -> int:
         return sizeof((self.list, self.to_list, self.to_dense, self.hub_ids,
@@ -528,19 +545,50 @@ def spmm_hybrid(graph: Graph, x: torch.Tensor,
     return routed.apply(*routed.values(graph.val), x)
 
 
+class _ScaledGatherFn(torch.autograd.Function):
+    """``x -> rs ⊙ (A @ (cs ⊙ x)) + w·x`` through K1's scaled walk over the
+    whole list (the values are constants).  The backward's ``dx = cs ⊙
+    (A^T (rs ⊙ dy)) + w·dy``: one walk over the transposed list (on a card
+    K2's store-mode entry, :func:`ell_gather_transposed`), the scales and
+    the identity around it in plain torch."""
+
+    @staticmethod
+    def forward(ctx, x, routed, val, rs, cs, w):
+        ctx.routed, ctx.val, ctx.rs, ctx.cs, ctx.w = routed, val, rs, cs, w
+        return ell_gather_scaled(routed.whole(), val, x, rs, cs, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = dy if ctx.rs is None else dy * ctx.rs[:, None]
+        dx = ell_gather_transposed(ctx.routed.transposed(), ctx.val,
+                                   g.contiguous())
+        if ctx.cs is not None:
+            dx = dx * ctx.cs[:, None]
+        if ctx.w != 0.0:
+            dx = dx + ctx.w * dy
+        return dx, None, None, None, None, None
+
+
 class PreparedSpMM:
     """``x -> A @ x`` for a fixed adjacency, with the layout, K1's list and
-    the value routing done once at construction, on the graph's device.
+    the value routing done once at construction, on the graph's device; a
+    normalized graph's lazy scales and identity apply in the JAX order,
+    ``rs ⊙ (A @ (cs ⊙ x)) + w·x``.
 
-    Per call: ``torch.matmul(dense, xin[hub_ids])`` when the graph has a hub
-    slice (else zeros), then K1 over the (hub-free) ELL's list, adding each
-    row it holds into that product (the JAX package's ``ell + dense @
-    x[hubs]``, one addition an element), then the lazy scales and identity
-    of a normalized graph.  Only the list, its values and the hub slice are
-    kept on the device; ``ell`` is the host layout.  The values are
-    constants: no gradient flows to them."""
+    The route (``hubs=False``, what ``auto`` takes): one walk per call, K1's
+    scaled walk over every live slot of the hub-free ELL
+    (``ell_gather.ell_gather_scaled``), which scales the gathered rows by
+    ``cs`` and writes each row as ``rs ⊙ sum + w·x``; no hub slice is
+    built.  With ``hubs`` (``impl="hybrid"``), the JAX package's route:
+    ``torch.matmul(dense, xin[hub_ids])`` when the graph has a hub slice
+    (else zeros), then K1 over the rest ELL's list adding into it (``ell +
+    dense @ x[hubs]``, one addition an element), the scales and identity
+    around them in plain torch.  Only the lists, the values and the hub
+    slice are kept on the device; ``ell`` is the host layout.  The values
+    are constants: no gradient flows to them."""
 
-    def __init__(self, graph: Graph, k: int = _ELL_DEFAULT_K):
+    def __init__(self, graph: Graph, k: int = _ELL_DEFAULT_K,
+                 hubs: bool = False):
         if graph.dropped:
             raise TypeError("PreparedSpMM is for fixed adjacencies; a lazily "
                             "dropped graph resamples per call: use spmm()")
@@ -548,13 +596,28 @@ class PreparedSpMM:
         self.row_scale = graph.row_scale
         self.col_scale = graph.col_scale
         self.eye_weight = graph.eye_weight
-        self._routed = _routed_layout(graph, k, hubs=True)
+        self._routed = _routed_layout(graph, k, hubs=hubs)
         self.ell = self._routed.ell
-        self.k1_list = self._routed.list
         self.hub_ids = self._routed.hub_ids
         self.k1_val, self.dense = self._routed.values(graph.val.detach())
+        self.hubs = hubs
+        if hubs:
+            self.k1_list = self._routed.list
+            return
+        self.k1_list = self._routed.whole()
+        self._scales = tuple(
+            None if v is None else v.to(torch.float32).contiguous()
+            for v in (self.row_scale, self.col_scale))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.hubs:
+            rs, cs = self._scales
+            x32 = x.to(torch.float32).contiguous()
+            if torch.is_grad_enabled() and x.requires_grad:
+                return _ScaledGatherFn.apply(x32, self._routed, self.k1_val,
+                                             rs, cs, float(self.eye_weight))
+            return ell_gather_scaled(self.k1_list, self.k1_val, x32, rs, cs,
+                                     float(self.eye_weight))
         xin = x
         if self.col_scale is not None:
             xin = xin * self.col_scale[:, None].to(x.dtype)
@@ -573,16 +636,17 @@ class PreparedSpMM:
 _PREPARED_CACHE = IdLRU()
 
 
-def _prepared_cached(graph: Graph, k: int) -> PreparedSpMM:
+def _prepared_cached(graph: Graph, k: int,
+                     hubs: bool = False) -> PreparedSpMM:
     """The :class:`PreparedSpMM` of an unscaled, undropped graph, built once
-    per (structure, values): memoized on the identity of ``row``, ``col``
-    and ``val`` (strong references kept and re-checked)."""
+    per (structure, values, route): memoized on the identity of ``row``,
+    ``col`` and ``val`` (strong references kept and re-checked)."""
     key = ("prep", id(graph.row), id(graph.col), id(graph.val),
-           graph.n_nodes, k)
+           graph.n_nodes, k, hubs)
     anchors = (graph.row, graph.col, graph.val)
     prep = _PREPARED_CACHE.get(key, anchors)
     if prep is None:
-        prep = PreparedSpMM(graph, k)
+        prep = PreparedSpMM(graph, k, hubs)
         _PREPARED_CACHE.put(key, anchors, prep, nbytes=prep.nbytes())
     return prep
 
@@ -595,8 +659,9 @@ def prepare(graph: Graph, impl: Optional[str] = None
     K2; ``segment`` :func:`spmm_segment` (the plain product on the CPU, K2
     on a card); ``ell`` the per-call :func:`spmm_ell`; ``auto``/``hybrid``
     a :class:`PreparedSpMM` with the scales folded in at or above
-    ``_ELL_MIN_EDGES`` edges, below it :func:`spmm_segment` (``auto``) or
-    the per-call :func:`spmm_hybrid`."""
+    ``_ELL_MIN_EDGES`` edges (``auto``: K1's scaled walk over every edge;
+    ``hybrid``: the hub slice beside K1), below it :func:`spmm_segment`
+    (``auto``) or the per-call :func:`spmm_hybrid`."""
     impl = current_impl() if impl is None else impl
     if impl not in _IMPL_NAMES:
         raise ValueError(impl)
@@ -606,16 +671,16 @@ def prepare(graph: Graph, impl: Optional[str] = None
     if graph.is_shard:  # only the executor in force multiplies by a shard
         return functools.partial(spmm, graph)
     if impl in ("auto", "hybrid") and graph.n_edges >= _ELL_MIN_EDGES:
-        return PreparedSpMM(graph, _ELL_DEFAULT_K)
+        return PreparedSpMM(graph, _ELL_DEFAULT_K, hubs=impl == "hybrid")
     return functools.partial(_per_call, impl, graph)
 
 
 def _per_call(impl: str, graph: Graph, x: torch.Tensor) -> torch.Tensor:
     """The product under ``impl`` with the values routed per call: ``auto``
-    takes ``hybrid`` at or above ``_ELL_MIN_EDGES`` edges, else
-    ``segment``."""
+    takes ``ell`` (K1 over every edge, no hub slice) at or above
+    ``_ELL_MIN_EDGES`` edges, else ``segment``."""
     if impl == "auto":
-        impl = "hybrid" if graph.n_edges >= _ELL_MIN_EDGES else "segment"
+        impl = "ell" if graph.n_edges >= _ELL_MIN_EDGES else "segment"
     if impl == "pallas":
         return spmm_pallas(graph, x)
     if impl == "hybrid":
@@ -658,7 +723,7 @@ def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
         return _per_call(impl, graph.materialized_dropout(), x)
     if (impl in ("auto", "hybrid") and graph.n_edges >= _ELL_MIN_EDGES
             and not graph.val.requires_grad):
-        return _prepared_cached(graph, _ELL_DEFAULT_K)(x)
+        return _prepared_cached(graph, _ELL_DEFAULT_K, impl == "hybrid")(x)
     return _per_call(impl, graph, x)
 
 

@@ -11,6 +11,7 @@ from .halo import (HaloExecutor, HaloPartition, build_halo_partition,
 from .hier_halo import (HierHaloPartition, build_hier_halo_partition,
                         hier_halo_spmm)
 from .multihost import (EDGE_HOST_AXIS, free_port, launch_distributed,
-                        make_pod_mesh, shard_graph_local)
+                        make_pod_mesh, shard_graph_local,
+                        shutdown_distributed)
 from .partition import pad_graph
 from .ring import RingExecutor, RingPartition, build_ring_partition, ring_spmm

@@ -16,12 +16,44 @@ backward returns the gradient of that one loss:
 
 The raw exchanges (:func:`exchange`, :func:`gather_into`) take
 ``async_op`` so that a caller can walk its local edges while one is in
-flight.  A group of one rank runs the collective all the same.
+flight; such work is kept in ``IN_FLIGHT`` (weakly) until it is freed, so
+that ``multihost.shutdown_distributed`` can wait on it.  A group of one
+rank runs the collective all the same.
+
+No object of the port holds a process group strongly: meshes, executors and
+autograd contexts keep a :class:`GroupRef`.  A group then lives as long as
+``torch.distributed`` holds it, and ``destroy_process_group`` frees it,
+with its worker threads, while the interpreter is live.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.distributed as dist
+
+# the async work the exchanges started and their callers still hold
+IN_FLIGHT: "weakref.WeakSet" = weakref.WeakSet()
+
+
+class GroupRef:
+    """A weak reference to a process group, which the port's meshes,
+    executors and autograd contexts keep in its place: calling it gives the
+    group, or raises once the group was destroyed."""
+
+    __slots__ = ("_ref", "name")
+
+    def __init__(self, group):
+        self._ref = weakref.ref(group)
+        self.name = group.group_name
+
+    def __call__(self):
+        group = self._ref()
+        if group is None:
+            raise RuntimeError(f"process group {self.name} is gone "
+                               "(shutdown_distributed or "
+                               "destroy_process_group ran)")
+        return group
 
 
 def rank_of(group) -> int:
@@ -32,17 +64,23 @@ def size_of(group) -> int:
     return dist.get_world_size(group)
 
 
+def _held(work):
+    if work is not None:
+        IN_FLIGHT.add(work)
+    return work
+
+
 def exchange(out: torch.Tensor, x: torch.Tensor, group, async_op=False):
     """``all_to_all_single``: block q of ``x`` (split on dim 0) goes to rank
     q, block q of ``out`` comes from rank q."""
-    return dist.all_to_all_single(out, x.contiguous(), group=group,
-                                  async_op=async_op)
+    return _held(dist.all_to_all_single(out, x.contiguous(), group=group,
+                                        async_op=async_op))
 
 
 def gather_into(out: torch.Tensor, x: torch.Tensor, group, async_op=False):
     """Every rank's ``x`` stacked on dim 0 into ``out``."""
-    return dist.all_gather_into_tensor(out, x.contiguous(), group=group,
-                                       async_op=async_op)
+    return _held(dist.all_gather_into_tensor(out, x.contiguous(),
+                                             group=group, async_op=async_op))
 
 
 class _AllReduce(torch.autograd.Function):
@@ -71,13 +109,13 @@ def _gathered(x: torch.Tensor, group) -> torch.Tensor:
 class _Slice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, rows):
-        ctx.group = group
+        ctx.group = GroupRef(group)
         r = rank_of(group)
         return x[r * rows:(r + 1) * rows].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _gathered(g, ctx.group), None, None
+        return _gathered(g, ctx.group()), None, None
 
 
 def slice_of_replicated(x: torch.Tensor, group, rows: int) -> torch.Tensor:
@@ -89,12 +127,12 @@ def slice_of_replicated(x: torch.Tensor, group, rows: int) -> torch.Tensor:
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
+        ctx.group, ctx.rows = GroupRef(group), x.shape[0]
         return _gathered(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        r = rank_of(ctx.group)
+        r = rank_of(ctx.group())
         return g[r * ctx.rows:(r + 1) * ctx.rows].contiguous(), None
 
 
@@ -106,7 +144,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group = GroupRef(group)
         out = torch.empty_like(x)
         exchange(out, x, group)
         return out
@@ -114,7 +152,7 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out = torch.empty_like(g)
-        exchange(out, g, ctx.group)
+        exchange(out, g, ctx.group())
         return out, None
 
 

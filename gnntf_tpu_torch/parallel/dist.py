@@ -52,7 +52,7 @@ import torch.distributed as dist
 
 from ..graph.coo import Graph
 from ..ops.spmm import _scaled_call, spmm_executor
-from .collectives import all_gather, all_reduce, rank_of
+from .collectives import GroupRef, all_gather, all_reduce, rank_of
 from .dropgrids import rank_lists, rank_walk
 from .partition import pad_graph
 
@@ -61,7 +61,7 @@ FEAT_AXIS = "feat"
 
 
 class Mesh:
-    """A mesh of the process group's ranks over a
+    """A mesh of the process group's ranks, read from a
     ``torch.distributed.device_mesh.DeviceMesh``: ``shape`` maps each axis
     name to its size, :meth:`group` gives an axis's process group.
 
@@ -70,11 +70,19 @@ class Mesh:
     C + c`` (JAX's order for a collective over several axes).  Every rank
     makes every such group with ``dist.new_group``, in one order, when the
     mesh is built (``DeviceMesh._flatten`` would do it, but it is private
-    and its signature differs between torch versions)."""
+    and its signature differs between torch versions).
+
+    The mesh keeps neither the ``DeviceMesh`` nor its groups, only weak
+    references to them (``collectives.GroupRef``): ``torch.distributed``
+    holds the groups, and ``multihost.shutdown_distributed`` frees them all
+    while the interpreter is live, whatever meshes are still referenced."""
 
     def __init__(self, device_mesh, flatten: Optional[tuple] = None):
-        self.device_mesh = device_mesh
-        self._flat = {}
+        names = tuple(device_mesh.mesh_dim_names)
+        self._shape = dict(zip(names, device_mesh.shape))
+        self.device_type = device_mesh.device_type
+        self._groups = {name: GroupRef(device_mesh.get_group(name))
+                        for name in names}
         if flatten is not None:
             ranks = device_mesh.mesh.reshape(
                 int(np.prod(device_mesh.shape[:len(flatten)])), -1)
@@ -82,27 +90,24 @@ class Mesh:
             for column in ranks.T.tolist():
                 group = dist.new_group(column)
                 if me in column:
-                    self._flat[tuple(flatten)] = group
+                    self._groups[tuple(flatten)] = GroupRef(group)
 
     @property
     def shape(self) -> dict:
-        return dict(zip(self.device_mesh.mesh_dim_names,
-                        self.device_mesh.shape))
+        return dict(self._shape)
 
     def group(self, axis):
         """The process group of ``axis``, or of the axes in a tuple given to
         ``flatten``."""
-        if isinstance(axis, tuple):
-            return self._flat[axis]
-        return self.device_mesh.get_group(axis)
+        return self._groups[axis]()
 
     @property
     def device(self) -> torch.device:
         """The device of this rank's tensors: its card under NCCL, else the
         CPU."""
-        if self.device_mesh.device_type == "cuda":
+        if self.device_type == "cuda":
             return torch.device("cuda", torch.cuda.current_device())
-        return torch.device(self.device_mesh.device_type)
+        return torch.device(self.device_type)
 
 
 def make_mesh(n_edge: Optional[int] = None, n_feat: int = 1) -> Mesh:
@@ -176,13 +181,14 @@ class _PartialFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, val, draw, lists, group):
-        ctx.val, ctx.draw, ctx.lists, ctx.group = val, draw, lists, group
+        ctx.val, ctx.draw, ctx.lists = val, draw, lists
+        ctx.group = GroupRef(group)
         return walk_or_zeros(lists, 0, val, draw, x, x.shape[0])
 
     @staticmethod
     def backward(ctx, dy):
         dx = walk_or_zeros(ctx.lists, 1, ctx.val, ctx.draw, dy, dy.shape[0])
-        dist.all_reduce(dx, group=ctx.group)
+        dist.all_reduce(dx, group=ctx.group())
         return dx, None, None, None, None
 
 
@@ -308,11 +314,14 @@ class _ShardAttnFn(torch.autograd.Function):
 
 def _reducer(group):
     """The chain's ``reduce`` over ``group``: this rank's one partial,
-    all-reduced (MAX or SUM)."""
+    all-reduced (MAX or SUM).  The backward keeps it, so it holds the
+    group weakly."""
+    ref = GroupRef(group)
+
     def reduce(parts, op):
         t = parts[0].contiguous()
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM, group=group)
+                        else dist.ReduceOp.SUM, group=ref())
         return t
     return reduce
 
@@ -333,7 +342,10 @@ class GspmdExecutor(_StructureCache):
     def __init__(self, mesh: Mesh):
         super().__init__()
         self.mesh = mesh
-        self.group = mesh.group(EDGE_AXIS)
+
+    @property
+    def group(self):
+        return self.mesh.group(EDGE_AXIS)
 
     def slice_of(self, graph: Graph) -> RankSlice:
         """This rank's :class:`RankSlice` of ``graph``'s structure."""
@@ -490,10 +502,14 @@ class FeatShards:
     sharded parameter."""
 
     def __init__(self, mesh: Mesh, names):
-        self.group = mesh.group(FEAT_AXIS)
+        self.mesh = mesh
         self.n = mesh.shape[FEAT_AXIS]
         self.rank = rank_of(self.group)
         self.names = frozenset(names)
+
+    @property
+    def group(self):
+        return self.mesh.group(FEAT_AXIS)
 
     def block(self, whole):
         """This rank's columns of ``whole`` (a tensor or an array)."""

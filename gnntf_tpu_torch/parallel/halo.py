@@ -36,8 +36,8 @@ import torch
 
 from ..graph.coo import Graph
 from ..ops.spmm import _scaled_call
-from .collectives import (all_gather, exchange, gather_into, rank_of,
-                          slice_of_replicated)
+from .collectives import (GroupRef, all_gather, exchange, gather_into,
+                          rank_of, slice_of_replicated)
 from .dist import (EDGE_AXIS, Mesh, _StructureCache, check_device,
                    walk_or_zeros)
 from .dropgrids import executor_drop_state, rank_lists, slot_ids
@@ -300,7 +300,7 @@ class _HaloFn(torch.autograd.Function):
         s, hq, f = part.halo_size, part.hub_rows, own.shape[1]
         own = own.to(torch.float32).contiguous()
         ctx.val, ctx.draw, ctx.lists = val, draw, lists
-        ctx.part, ctx.group = part, group
+        ctx.part, ctx.group = part, GroupRef(group)
         send, hub = lists[2], lists[3]
         # the sent rows are held until the waits
         sent = [own[send.reshape(-1)]]
@@ -321,7 +321,7 @@ class _HaloFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        part, group, lists = ctx.part, ctx.group, ctx.lists
+        part, group, lists = ctx.part, ctx.group(), ctx.lists
         p = part.n_parts
         s, hq, nr = part.halo_size, part.hub_rows, part.rows_per_part
         g = g.to(torch.float32).contiguous()

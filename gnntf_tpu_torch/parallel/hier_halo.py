@@ -46,8 +46,8 @@ import numpy as np
 import torch
 
 from ..graph.coo import Graph
-from .collectives import (all_gather, exchange, gather_into, rank_of,
-                          slice_of_replicated)
+from .collectives import (GroupRef, all_gather, exchange, gather_into,
+                          rank_of, slice_of_replicated)
 from .dist import EDGE_AXIS, Mesh, check_device, walk_or_zeros
 from .dropgrids import rank_lists, slot_ids
 from .halo import _padded, structure
@@ -330,7 +330,7 @@ class _HierHaloFn(torch.autograd.Function):
         f = own.shape[1]
         own = own.to(torch.float32).contiguous()
         ctx.val, ctx.draw, ctx.lists = val, draw, lists
-        ctx.part, ctx.groups = part, groups
+        ctx.part, ctx.groups = part, tuple(map(GroupRef, groups))
         edge, host, both = groups
         send1, send2, redis, hub = lists[2:]
         # the sent rows are held until the waits
@@ -357,7 +357,7 @@ class _HierHaloFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         part, lists = ctx.part, ctx.lists
-        edge, host, both = ctx.groups
+        edge, host, both = (ref() for ref in ctx.groups)
         H, C, nr = part.n_hosts, part.n_chips, part.rows_per_part
         s1, s2, s3, hq = part.s1, part.s2, part.s3, part.hub_rows
         g = g.to(torch.float32).contiguous()

@@ -10,6 +10,14 @@ the CPU; from explicit arguments, or from the variables ``torchrun`` sets
 ``hierarchical=True`` gives the ``(edge_host, edge, feat)`` mesh of
 ``hier_halo``'s three-phase exchange.
 
+:func:`shutdown_distributed` frees every process group of the process
+while the interpreter is live; ``launch_distributed`` registers it with
+``atexit`` when it initializes a group.  A gloo or NCCL group that is freed
+only when the interpreter finalizes can abort the process after its work is
+done: a worker thread still dropping the last collective's work asks for
+the GIL, which a finalizing interpreter answers with ``pthread_exit``, and
+that unwind through a ``noexcept`` destructor calls ``std::terminate``.
+
 :func:`shard_graph_local` gives a rank the edge shard it holds alone: no
 process ever holds, gathers or allocates the whole edge list.  The gspmd
 executor (``dist.GspmdExecutor``) takes such a shard directly; the halo and
@@ -18,8 +26,12 @@ do.
 """
 from __future__ import annotations
 
+import atexit
+import gc
 import os
 import socket
+import sys
+import warnings
 from typing import Optional, Sequence, Union
 
 import torch
@@ -27,7 +39,7 @@ import torch.distributed as dist
 
 from ..graph.coo import Graph
 from ..utils.device import resolve_device
-from .collectives import rank_of
+from .collectives import IN_FLIGHT, rank_of
 from .dist import EDGE_AXIS, FEAT_AXIS, Mesh
 
 EDGE_HOST_AXIS = "edge_host"  # hierarchical meshes: the hosts' part of edge
@@ -42,6 +54,41 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# the names (as /proc lists them, cut to 15 characters) of the threads that
+# the process groups and their store run: gloo's, NCCL's, the TCP store's
+_BACKEND_THREADS = ("gloo", "nccl", "tcpstore")
+
+
+def os_threads() -> Optional[list]:
+    """The names of this process's OS threads (``/proc/self/task``), None
+    where the OS does not list them."""
+    try:
+        tasks = os.listdir("/proc/self/task")
+    except OSError:
+        return None
+    names = []
+    for t in tasks:
+        try:
+            with open(f"/proc/self/task/{t}/comm") as f:
+                names.append(f.read().strip())
+        except OSError:  # the thread ended meanwhile
+            pass
+    return names
+
+
+def _backend_threads(names) -> int:
+    return sum(any(b in n for b in _BACKEND_THREADS) for n in names)
+
+
+class _Launch:
+    """What :func:`launch_distributed` recorded for the shutdown: the
+    backend threads before it initialized the group, whether the shutdown
+    is registered with ``atexit``, and whether it ran since."""
+    threads: Optional[int] = None
+    registered = False
+    done = True
 
 
 def launch_distributed(coordinator_address: Optional[str] = None,
@@ -60,7 +107,9 @@ def launch_distributed(coordinator_address: Optional[str] = None,
     ``WORLD_SIZE``, ``RANK``) when they are set, and otherwise does
     nothing.  The backend is NCCL, after ``torch.cuda.set_device`` to the
     first of ``local_device_ids`` (else ``LOCAL_RANK``, else 0); gloo when
-    ``device`` is the CPU.  Returns True when more than one process runs."""
+    ``device`` is the CPU.  When it initializes the group it registers
+    :func:`shutdown_distributed` with ``atexit`` (once a process).  Returns
+    True when more than one process runs."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -86,10 +135,67 @@ def launch_distributed(coordinator_address: Optional[str] = None,
             local = int(list(local_device_ids)[0])
         torch.cuda.set_device(local)
         backend = "nccl"
+    names = os_threads()
+    _Launch.threads = None if names is None else _backend_threads(names)
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
+    _Launch.done = False
+    if not _Launch.registered:
+        atexit.register(_shutdown_at_exit)
+        _Launch.registered = True
     return dist.get_world_size() > 1
+
+
+def shutdown_distributed(barrier: bool = True) -> bool:
+    """Free every process group of this process, and its worker threads,
+    while the interpreter is live.  ``launch_distributed`` registers it with
+    ``atexit``; a program may call it sooner, also for a group it
+    initialized itself.  A second call does nothing.
+
+    In order: a barrier over every rank (where more than one runs and
+    ``barrier`` is set; the shutdown at exit skips it when the program ends
+    in an exception, so a failed rank does not wait for the others: their
+    next collective then fails); a wait on the port's async exchanges still
+    held (``collectives.IN_FLIGHT``); ``destroy_process_group()``, which
+    drops ``torch.distributed``'s references to every group, the default
+    one, the meshes' axis groups and ``Mesh``'s flattened ones; then a
+    ``gc.collect()``, which frees a group that only a reference cycle still
+    reached.  No object of the port holds a group strongly (meshes,
+    executors and autograd contexts keep ``collectives.GroupRef``), so each
+    group's destructor runs here and joins its worker threads.
+
+    A barrier or a wait that fails (a peer failed or left) is reported as
+    a warning, and the groups are freed all the same.  Returns True when
+    this process's gloo, NCCL and store threads are as many as before
+    ``launch_distributed`` initialized the group (or the OS does not list
+    threads), False when some outlived the shutdown: an object outside the
+    port still holds a group or its work."""
+    if _Launch.done and not dist.is_initialized():
+        return True
+    _Launch.done = True
+    if dist.is_initialized():
+        try:
+            if barrier and dist.get_world_size() > 1:
+                dist.barrier()
+            for work in list(IN_FLIGHT):
+                work.wait()
+        except Exception as e:
+            warnings.warn(f"shutdown_distributed: {e}", RuntimeWarning)
+        dist.destroy_process_group()
+    gc.collect()
+    names = os_threads()
+    if names is None or _Launch.threads is None:
+        return True
+    return _backend_threads(names) <= _Launch.threads
+
+
+def _shutdown_at_exit() -> None:
+    failing = (getattr(sys, "last_exc", None) is not None
+               or getattr(sys, "last_value", None) is not None)
+    if not shutdown_distributed(barrier=not failing):
+        print("shutdown_distributed: gloo, NCCL or store threads outlived "
+              "the shutdown", file=sys.stderr)
 
 
 def _hosts() -> int:

@@ -29,7 +29,8 @@ import torch.distributed as dist
 
 from ..graph.coo import Graph
 from ..ops.spmm import _scaled_call
-from .collectives import all_gather, rank_of, slice_of_replicated
+from .collectives import (GroupRef, all_gather, rank_of,
+                          slice_of_replicated)
 from .dist import (EDGE_AXIS, Mesh, _StructureCache, check_device,
                    walk_or_zeros)
 from .dropgrids import executor_drop_state, rank_lists, slot_ids
@@ -145,7 +146,8 @@ class _RingFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, own, val, draw, lists, part, group):
         r, p = rank_of(group), part.n_parts
-        ctx.val, ctx.draw, ctx.lists, ctx.group = val, draw, lists, group
+        ctx.val, ctx.draw, ctx.lists = val, draw, lists
+        ctx.group = GroupRef(group)
         cur = own.to(torch.float32).contiguous()
         out = cur.new_zeros(part.rows_per_part, cur.shape[1])
         for s in range(p):
@@ -162,7 +164,7 @@ class _RingFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        lists, group = ctx.lists, ctx.group
+        lists, group = ctx.lists, ctx.group()
         r, p = rank_of(group), len(lists)
         g = g.to(torch.float32).contiguous()
         step = lambda t: walk_or_zeros(lists[t], 1, ctx.val, ctx.draw, g,

@@ -6,6 +6,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small]
                         [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
+                        [--ab-route DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -30,8 +31,16 @@ RCM benchmark graph), at F=1 (the degree walk), 7 (Cora's classes) and
 narrow walk, the parts, the fix-up) beside the CUDA-event mean, and, on
 the Cora-scale lists, the ``index_add_`` route that the walk replaced.
 
-K1: on the list of the benchmark graph's hub-free ELL (``PreparedSpMM``),
-adding into a random base at F=40 and F=128, it times K1 at every pair of
+K1's scaled walk (``--kernels k1``): over the whole list of the benchmark
+graph's normalized adjacency (``PreparedSpMM`` under ``auto``: every live
+slot, ``ptr`` over all rows, the scales applied in the walk) at F=40 and
+F=128, it times the walk at every pair of unit size
+(``ops/ell_gather.py::_WHOLE_ITEMS``: 32, 64, 128, 256 items) and gathers
+in flight (2, 4, 8), each call's kernels apart from a profile.
+
+K1: on the rest list of the benchmark graph's hub-free ELL
+(``PreparedSpMM(hubs=True)``, the ``hybrid`` route), adding into a random
+base at F=40 and F=128, it times K1 at every pair of
 unit size (``ops/ell_gather.py::_UNIT_ITEMS``: 32, 64, 128 items) and
 gathers in flight (2, 4, 8), and at the least resident blocks that the
 walk's ``__launch_bounds__`` asks for (``WALK_MIN_BLOCKS``: 1, 2, 3 beside
@@ -80,6 +89,20 @@ parts, fix-up) from a profile; then one training step of GAT at
 ``GATConfig`` on the benchmark graph: its device busy and wall time and
 A1-A4's share of the busy time, from a profile.
 
+With ``--ab-route DIR`` it times, in the same four processes, the
+prepared operator's routes on the benchmark graph's normalized adjacency
+(``normalize_adjacency(graph)``: row and column scales, no identity), one
+SpMM at F=16, 40, 64 and 128 each: ``auto`` (what ``prepare`` builds in the
+tree), ``hybrid`` (the hub slice's matmul and K1 over the rest ELL, the
+scales in torch), ``ell`` (K1 over the whole ELL's list adding into zeros,
+``_routed_layout(hubs=False)``, the scales in torch) and ``k2`` (K2's
+store-mode walk over ``blocked_layout``'s forward list of every edge, the
+scales in torch): each route's CUDA-event mean, one call's device time,
+launches and time by kernel from a profile, its largest difference from
+``hybrid``, and the device memory its operator holds; then a clean forward
+of APPNP and of GCNII-64 (``GCNIIConfig``) under ``auto`` and under
+``hybrid``: CUDA-event mean, device busy time and launches.
+
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|); the A/B runs hold nothing.  One JSON
 object a line goes to standard output and, with ``--out``, to FILE.
@@ -104,6 +127,7 @@ SMALL_WIDTHS = (1, 7, 64)
 UNROLLS = (2, 4, 8)
 PARTS = (16, 64, 256)
 K1_ITEMS = (32, 64, 128)
+WHOLE_ITEMS = (32, 64, 128, 256)
 DROP_ITEMS = (64, 128)
 TILE_ITEMS = (128, 256, 384, 512)
 # (DROP_RING, DROP_MIN_BLOCKS, DROP_BATCHES) builds of the dropout walks;
@@ -158,10 +182,13 @@ def sweep_k1(graph, dev, card):
     k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
     settings = [(i, u, MIN_BLOCKS_DEFAULT) for i in K1_ITEMS for u in UNROLLS]
     settings += [(K1_ITEMS[0], 4, b) for b in MIN_BLOCKS]
-    libs = build_variants("ell_gather", "gnntf_ell_gather", k1._library(),
+    libs = build_variants("ell_gather", ("gnntf_ell_gather",
+                                         "gnntf_ell_gather_scaled"),
+                          k1._library(),
                           sorted({(u, b) for _, u, b in settings}))
     norm = normalize_adjacency(graph, graph_dropout=0.0)
-    default, library, lines = k1._UNIT_ITEMS, k1._library, []
+    lines = sweep_k1_whole(norm, libs, dev, card)
+    default, library = k1._UNIT_ITEMS, k1._library
     rng = np.random.RandomState(4)
     bases = {f: torch.from_numpy(rng.randn(N_NODES, f).astype(
         np.float32)).to(dev) for f in (40, N_FEATURES)}
@@ -172,7 +199,7 @@ def sweep_k1(graph, dev, card):
     for items, unroll, blocks in settings:
         k1._UNIT_ITEMS = items
         if items not in preps:
-            prep = PreparedSpMM(norm)
+            prep = PreparedSpMM(norm, hubs=True)
             preps[items] = prep.k1_list, prep.k1_val
         lst, val = preps[items]
         k1._library = lambda lib=libs[unroll, blocks]: lib
@@ -202,6 +229,51 @@ def sweep_k1(graph, dev, card):
             print(json.dumps(line), flush=True)
             lines.append(line)
     k1._UNIT_ITEMS, k1._library = default, library
+    return lines
+
+
+def sweep_k1_whole(norm, libs, dev, card):
+    """K1's scaled walk's unit size and gathers in flight over the whole
+    list of the normalized bench graph (``libs``: ``sweep_k1``'s builds);
+    returns the JSON lines."""
+    from gnntf_tpu_torch.ops import (PreparedSpMM, ell_gather_scaled,
+                                     ell_gather_scaled_plain, whole_list)
+    k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
+    op = PreparedSpMM(norm)
+    rs, cs = op._scales
+    host = op._routed._host_list
+    xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
+        N_NODES, f).astype(np.float32)).to(dev)
+        for f, seed in ((40, 3), (N_FEATURES, 2))}
+    library, lines = k1._library, []
+    for items in WHOLE_ITEMS:
+        lst = whole_list(*host, N_NODES, dev, items=items)
+        for unroll in UNROLLS:
+            k1._library = lambda lib=libs[unroll, MIN_BLOCKS_DEFAULT]: lib
+            for f, x in xs.items():
+                label = f"K1 scaled items={items} unroll={unroll} F={f}"
+                check_close(label, ell_gather_scaled(lst, op.k1_val, x, rs,
+                                                     cs),
+                            ell_gather_scaled_plain(lst, op.k1_val, x, rs,
+                                                    cs),
+                            ell_gather_scaled_plain(lst, op.k1_val.abs(),
+                                                    x.abs(), rs, cs))
+
+                def run():
+                    ell_gather_scaled(lst, op.k1_val, x, rs, cs)
+
+                rows, busy, _, _ = device_profile(run)
+                line = dict(kernel="K1 scaled", items=items, unroll=unroll,
+                            f=f, units=lst.n_units,
+                            split_rows=int(lst.split.shape[0]),
+                            pieces=int(lst.split[:, 2].sum()),
+                            ms=time_ms(run), device_ms=busy / 1e3,
+                            card=card, us_by_kernel={
+                                kernel_name(key): us
+                                for key, us, _ in rows})
+                print(json.dumps(line), flush=True)
+                lines.append(line)
+    k1._library = library
     return lines
 
 
@@ -416,6 +488,97 @@ print(json.dumps(dict(
 """
 
 
+# One process of the route A/B: the prepared operator's routes and the
+# serving forwards of APPNP and GCNII-64 in the tree it runs in; one JSON
+# line a (route, F) and a (model, impl).  It uses only what the parent tree
+# has too.
+AB_ROUTE_CODE = """
+import dataclasses, importlib, json, sys
+import numpy as np, torch
+import chip_smoke as cs
+import gnntf_tpu_torch as tt
+from gnntf_tpu_torch import config
+from gnntf_tpu_torch.data import random_power_law_edges
+from gnntf_tpu_torch.ops import normalize_adjacency, prepare, spmm_impl
+from gnntf_tpu_torch.utils import kernels
+sp = importlib.import_module("gnntf_tpu_torch.ops.spmm")
+bl = importlib.import_module("gnntf_tpu_torch.ops.blocked")
+kernels.build()
+dev = torch.device("cuda")
+tree = sys.argv[1]
+src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
+graph = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False,
+                      device=dev)
+adj = normalize_adjacency(graph, graph_dropout=0.0)
+rs = adj.row_scale[:, None].to(torch.float32)
+cs_ = adj.col_scale[:, None].to(torch.float32)
+base = dataclasses.replace(adj, row_scale=None, col_scale=None,
+                           eye_weight=0.0)
+val32 = base.val.to(torch.float32).contiguous()
+
+
+def held(build):
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    op = build()
+    torch.cuda.synchronize()
+    return op, torch.cuda.memory_allocated() - before
+
+
+routes = {}
+routes["auto"] = held(lambda: prepare(adj))
+routes["hybrid"] = held(lambda: prepare(adj, "hybrid"))
+def ell_route():
+    routed = sp._routed_layout(base, 8, hubs=False)
+    lv, _ = routed.values(base.val)
+    return lambda x: routed.apply(lv, None, (x * cs_).contiguous()) * rs
+routes["ell"] = held(ell_route)
+def k2_route():
+    lay = bl.blocked_layout(base)
+    return lambda x: bl.blocked_spmm(lay.forward, val32,
+                                     (x * cs_).contiguous()) * rs
+routes["k2"] = held(k2_route)
+for f in (16, 40, 64, 128):
+    x = torch.from_numpy(np.random.RandomState(f).randn(
+        cs.N_NODES, f).astype(np.float32)).to(dev)
+    ref = routes["hybrid"][0](x)
+    for name, (op, nbytes) in routes.items():
+        run = lambda op=op: op(x)
+        diff = (run() - ref).abs().max().item()
+        rows, busy, _, _ = cs.device_profile(run)
+        print(json.dumps(dict(
+            tree=tree, route=name, f=f, ms=cs.time_ms(run),
+            device_ms=busy / 1e3, launches=sum(n for _, _, n in rows),
+            us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows},
+            max_diff_from_hybrid=diff, operator_bytes=nbytes)), flush=True)
+features = np.random.RandomState(2).randn(
+    cs.N_NODES, cs.N_FEATURES).astype(np.float32)
+for name in ("APPNP", "GCNII-64"):
+    for impl in ("auto", "hybrid"):
+        with spmm_impl(impl):
+            if name == "APPNP":
+                model = tt.APPNP(graph, features, num_classes=cs.N_CLASSES,
+                                 device=dev)
+                model.reset(seed=0)
+            else:
+                model = config.GCNIIConfig().build(graph, features,
+                                                   cs.N_CLASSES, device=dev)
+                tt.params_from_jax(cs.init_params(model, 11), model)
+            fwd = cs.clean_forward(model)
+            fwd()
+            rows, busy, wall, _ = cs.device_profile(fwd)
+            gemm = sum(us for k, us, _ in rows if "gemm" in k.lower())
+            print(json.dumps(dict(
+                tree=tree, model=name, impl=impl,
+                ms=cs.time_ms(fwd, reps=10), busy_ms=busy / 1e3,
+                wall_ms=wall / 1e3, launches=sum(n for _, _, n in rows),
+                gemm_ms=gemm / 1e3, top={cs.kernel_name(k): us
+                                         for k, us, _ in rows[:8]})),
+                flush=True)
+        del model, fwd
+"""
+
+
 def ab(parent, card, code=AB_CODE):
     """An A/B (``code``: the dropout walks, ``AB_SMALL_CODE`` or
     ``AB_ATTN_CODE``): this tree
@@ -538,6 +701,11 @@ def main():
                         help="time the attention kernels A1-A4 and a GAT "
                              "step of this tree and of the checkout in DIR "
                              "in turn, and nothing else")
+    parser.add_argument("--ab-route", metavar="DIR",
+                        help="time the prepared operator's routes and the "
+                             "APPNP and GCNII-64 serving forwards of this "
+                             "tree and of the checkout in DIR in turn, and "
+                             "nothing else")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k2_sweep: torch.cuda.is_available() is False")
@@ -551,10 +719,11 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
-    if args.ab or args.ab_small or args.ab_attn:
+    if args.ab or args.ab_small or args.ab_attn or args.ab_route:
         write(args.out, ab(args.ab, card) if args.ab
               else ab(args.ab_small, card, AB_SMALL_CODE) if args.ab_small
-              else ab(args.ab_attn, card, AB_ATTN_CODE))
+              else ab(args.ab_attn, card, AB_ATTN_CODE) if args.ab_attn
+              else ab(args.ab_route, card, AB_ROUTE_CODE))
         return
     lines = sweep_small(dev, card) if "k2small" in which else []
     if not which & {"k1", "k2", "train"}:

@@ -11,6 +11,13 @@ the kernel's order.  On the card the kernel is held bit for bit against the
 plain version run on the CPU: both round each product and each sum apart,
 in that order.
 
+K1's scaled walk (``ell_gather_scaled``, the prepared operator's route
+under ``auto``) walks ``whole_list`` (the same slots, ``ptr`` over every
+row) in store mode and writes ``rs * sum + w * x`` with the gathered rows
+scaled by ``cs``: its plain version is held against a float64 dense
+product on the CPU (rtol=atol=1e-5), the kernel against the plain version
+on the card (within ``1e-5 * sum|terms|``) and bit for bit against the CPU.
+
 K1's backward ``dx = A_rest^T dy`` walks the transposed list
 (``ell_transposed_list``) in the walk's store mode (``ell_gather_transposed``):
 on the CPU its plain version is held against autograd of the dense product
@@ -40,6 +47,9 @@ from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
                                  ell_edge_list, ell_gather, ell_gather_list,
                                  ell_gather_masked, ell_gather_masked_plain,
                                  ell_gather_plain, ell_list)
+from gnntf_tpu_torch.ops.ell_gather import (ell_gather_scaled,
+                                           ell_gather_scaled_plain,
+                                           whole_list)
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _ELLGatherFn, build_ell
 from gnntf_tpu_torch.ops.stochastic import drawn_values, keep_mask
 
@@ -591,6 +601,82 @@ def test_entry_args_follow_the_list():
     assert deg_args[15:18] == (1, 1, 1)
 
 
+def _scaled_inputs(seed, f, scaled, n=3000, e=60_000, heavy=20_000):
+    """The whole list of an ELL with duplicates, empty rows and a row split
+    over many units, its slot values, x, and (``scaled``) positive row and
+    column scales and an identity weight."""
+    layout, vals, x = _ell_inputs(seed, n=n, e=e, f=f, heavy=heavy)
+    rows, ptr, src, slot = ell_list(layout.idx, layout.vrow_row, n)
+    lst = whole_list(rows, ptr, src, n, "cpu")
+    val = torch.from_numpy(vals.reshape(-1)[slot])
+    rng = np.random.RandomState(seed + 1)
+    rs = cs = None
+    w = 0.0
+    if scaled:
+        rs, cs = (torch.from_numpy(rng.uniform(0.1, 2.0, n).astype(
+            np.float32)) for _ in range(2))
+        w = 0.75
+    return layout, lst, val, torch.from_numpy(x), rs, cs, w
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("f", [1, 6, 40])
+def test_scaled_plain_matches_dense(f, scaled):
+    layout, lst, val, x, rs, cs, w = _scaled_inputs(5, f, scaled, n=500,
+                                                    e=4000, heavy=600)
+    a = np.zeros((500, 501), np.float64)
+    np.add.at(a, (np.repeat(layout.vrow_row, layout.k),
+                  layout.idx.reshape(-1)), _ell_vals(layout, val))
+    x64 = x.numpy().astype(np.float64)
+    ones = np.ones(500)
+    r64 = ones if rs is None else rs.numpy().astype(np.float64)
+    c64 = ones if cs is None else cs.numpy().astype(np.float64)
+    ref = r64[:, None] * (a[:, :500] @ (c64[:, None] * x64)) + w * x64
+    out = ell_gather_scaled(lst, val, x, rs, cs, w)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+def _ell_vals(layout, val):
+    """The grid's values of a whole list's slot values (zeros in pads)."""
+    rows, ptr, src, slot = ell_list(layout.idx, layout.vrow_row,
+                                    layout.n_nodes)
+    grid = np.zeros(layout.idx.size, np.float64)
+    grid[slot] = val.numpy()
+    return grid
+
+
+def test_whole_list_holds_k1_slots_over_every_row():
+    """The whole list holds K1's slots in K1's order, ``ptr`` over every
+    row (rows without a slot empty), no row ids; its transposed list is
+    K1's."""
+    layout, vals, x = _ell_inputs(6, n=400, e=3000, heavy=500)
+    rows, ptr, src, slot = ell_list(layout.idx, layout.vrow_row, 400)
+    lst = whole_list(rows, ptr, src, 400, "cpu")
+    k1 = ell_edge_list(layout.idx, layout.vrow_row, 400, "cpu")[0]
+    assert lst.rows is None and lst.n_rows == 400
+    assert torch.equal(lst.idx, k1.idx)
+    count = np.zeros(400, np.int64)
+    count[rows] = np.diff(ptr)
+    assert np.array_equal(lst.ptr.diff().numpy(), count)
+    assert (count[1::2] == 0).all()
+    assert len(lst.split) and lst.split[:, 0].tolist() == [0]
+    a, b = (k1_ops.ell_transposed_list(t, 400) for t in (lst, k1))
+    for name in ("ptr", "idx", "eid"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+
+
+def test_scaled_wrapper_rejects_bad_inputs():
+    layout, lst, val, x, rs, cs, w = _scaled_inputs(7, 8, True, n=300,
+                                                    e=2000, heavy=0)
+    k1 = ell_edge_list(layout.idx, layout.vrow_row, 300, "cpu")[0]
+    with pytest.raises(ValueError):
+        ell_gather_scaled(k1, val, x, rs, cs, w)
+    with pytest.raises(TypeError):
+        ell_gather_scaled(lst, val, x, rs[:-1], cs, w)
+    with pytest.raises(TypeError):
+        ell_gather_scaled(lst, val, x, rs, cs.double(), w)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -700,7 +786,8 @@ def test_prepared_without_hub_slice_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_appnp_forward_on_card_matches_cpu(cuda):
-    """The serving forward through PreparedSpMM: 10 K1 launches on the card,
+    """The serving forward through PreparedSpMM: 10 launches of K1's scaled
+    walk on the card,
     logits close to the CPU run of the plain versions (float32, sums in
     another order over ten propagation steps)."""
     import gnntf_tpu_torch as tt
@@ -714,9 +801,9 @@ def test_appnp_forward_on_card_matches_cpu(cuda):
                               device=device)
         model = tt.APPNP(graph, features, num_classes=6, device=device)
         model.reset(seed=0)
-        before = ell_gather.launches
+        before = k1_ops.ell_gather_scaled.launches
         out[str(device)] = model._activations().cpu()
-        launched = ell_gather.launches - before
+        launched = k1_ops.ell_gather_scaled.launches - before
         assert launched == (10 if model.device.type == "cuda" else 0)
     np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
                                rtol=1e-4, atol=1e-5)
@@ -724,8 +811,9 @@ def test_appnp_forward_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_prepared_gradient_on_card_matches_cpu(cuda):
-    """Training without edge dropout under the default impl runs K1 in the
-    step too, with its plain transposed backward: 20 launches an epoch, and
+    """Training without edge dropout under the default impl runs K1's
+    scaled walk in the step too, with its transposed backward: 20 launches
+    an epoch, and
     the losses close to the CPU run (float32, sums in another order)."""
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
@@ -743,12 +831,12 @@ def test_prepared_gradient_on_card_matches_cpu(cuda):
         h0 = model.add(tt.Dense(6, regularize=False))
         for _ in range(10):
             model.add(tt.PPRIteration(h0, 0.1, graph_dropout=0.0))
-        before = ell_gather.launches
+        before = k1_ops.ell_gather_scaled.launches
         hist[str(device)] = model.train(
             tt.NodeClassification(np.arange(1000), labels[:1000]),
             tt.NodeClassification(np.arange(1000, 2000), labels[1000:2000]),
             epochs=2, patience=100, seed=0)
-        launched = ell_gather.launches - before
+        launched = k1_ops.ell_gather_scaled.launches - before
         assert launched == (40 if model.device.type == "cuda" else 0)
     for key in ("train_loss", "valid_loss"):
         np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
@@ -887,7 +975,8 @@ def test_stochastic_training_on_card_matches_cpu(cuda):
     """Training under the default impl on a dropped graph above
     ``min_edges()``: every propagation step of the step runs the masked
     walk forward and backward and the degree walk, the validation forward
-    K1; the grids are built once per device; the losses agree with the CPU
+    K1's scaled walk (the prepared operator); the grids are built once per
+    device; the losses agree with the CPU
     run (float32; the degrees and products are bit-equal, the dense layers
     and Adam are not)."""
     import gnntf_tpu_torch as tt
@@ -908,7 +997,8 @@ def test_stochastic_training_on_card_matches_cpu(cuda):
         for _ in range(10):
             model.add(tt.PPRIteration(h0, 0.1, graph_dropout=0.5))
         counts = lambda: (ell_gather_masked.launches,
-                          ell_degree_masked.launches, ell_gather.launches,
+                          ell_degree_masked.launches,
+                          k1_ops.ell_gather_scaled.launches,
                           stochastic.train_grids.builds)
         before = counts()
         hist[str(device)] = model.train(
@@ -953,7 +1043,8 @@ def test_backward_walk_matches_plain_on_card(cuda, f, hub_col):
 @pytest.mark.cuda
 def test_gcnii_training_on_card_matches_cpu(cuda):
     """GCNII trains through the prepared operator (``graph_dropout=0``):
-    each of its convolutions launches K1 forward and the backward walk in
+    each of its convolutions launches K1's scaled walk forward and the
+    backward walk in
     the step, K1 again in the validation forward; no feature dropout, so
     the losses agree with the CPU run (float32)."""
     import gnntf_tpu_torch as tt
@@ -973,15 +1064,74 @@ def test_gcnii_training_on_card_matches_cpu(cuda):
         if init is None:
             init = {s.name: rng.uniform(-0.2, 0.2, s.shape).astype(
                 np.float32) for s in model.param_specs}
-        before = (ell_gather.launches, ell_gather.backward_launches)
+        before = (k1_ops.ell_gather_scaled.launches,
+                  ell_gather.backward_launches)
         hist[str(device)] = model.train(
             tt.NodeClassification(np.arange(1000), labels[:1000]),
             tt.NodeClassification(np.arange(1000, 2000), labels[1000:2000]),
             epochs=2, patience=100, seed=0, init_params=dict(init))
-        launched = (ell_gather.launches - before[0],
+        launched = (k1_ops.ell_gather_scaled.launches - before[0],
                     ell_gather.backward_launches - before[1])
         assert launched == ((16, 8) if model.device.type == "cuda"
                             else (0, 0))
     for key in ("train_loss", "valid_loss"):
         np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],
                                    rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("f", [1, 6, 40, 64, 128, 260])
+def test_scaled_kernel_matches_plain_on_card(cuda, f, scaled):
+    """K1's scaled walk over a whole list with split rows: within ``1e-5 *
+    sum|terms|`` of its plain version on the card, bit for bit the plain
+    version on the CPU, one launch a call."""
+    _, lst, val, x, rs, cs, w = _scaled_inputs(8, f, scaled)
+    on = dataclasses.replace(lst, **{
+        fl.name: getattr(lst, fl.name).to(cuda)
+        for fl in dataclasses.fields(lst)
+        if isinstance(getattr(lst, fl.name), torch.Tensor)})
+    to = lambda t: None if t is None else t.to(cuda)
+    args = (to(val), to(x), to(rs), to(cs), w)
+    before = k1_ops.ell_gather_scaled.launches
+    out = ell_gather_scaled(on, *args)
+    torch.cuda.synchronize()
+    assert k1_ops.ell_gather_scaled.launches == before + 1
+    plain = ell_gather_scaled_plain(on, *args)
+    scale = ell_gather_scaled_plain(
+        on, *(None if t is None else t.abs() for t in args[:4]), abs(w))
+    assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+    assert torch.equal(out.cpu(), ell_gather_scaled_plain(
+        lst, val, x, rs, cs, w))
+
+
+@pytest.mark.cuda
+def test_auto_spmm_is_one_walk_without_gemm_on_card(cuda):
+    """One SpMM of a normalized power-law graph under ``auto``: no hub
+    slice, one wrapper launch, and in its profile K1's scaled walk, its
+    parts and its fix-up (a hub row is split) and no GEMM."""
+    import chip_smoke
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    n = 20_000
+    src, dst = random_power_law_edges(n, 200_000, seed=0)
+    g = tt.normalize_adjacency(tt.from_edges(src, dst, n_nodes=n,
+                                             directed=False, device=cuda),
+                               graph_dropout=0.0)
+    op = tt.ops.prepare(g)
+    assert isinstance(op, PreparedSpMM) and op.dense is None
+    assert len(op.k1_list.split)
+    x = torch.randn(n, 40, device=cuda)
+    op(x)
+    torch.cuda.synchronize()
+    before = k1_ops.ell_gather_scaled.launches
+    # chip_smoke's profile, whose primer kernels make sure that the
+    # profiler kept the session's device events
+    rows = chip_smoke.device_profile(lambda: op(x))[0]
+    assert k1_ops.ell_gather_scaled.launches == before + 1
+    names = [chip_smoke.kernel_name(key) for key, _, _ in rows]
+    assert not [k for k in names if "gemm" in k.lower()], names
+    assert sorted(names) == ["ell_gather_scaled_fixup",
+                             "ell_gather_scaled_parts",
+                             "ell_gather_scaled_walk"], names
+    assert [count for _, _, count in rows] == [1, 1, 1], rows

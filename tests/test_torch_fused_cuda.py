@@ -160,10 +160,12 @@ def _tasks(n=5000):
 
 
 def _counts():
+    """The masked, degree, prepared operator's (K1's scaled walk) and K2's
+    launches."""
     from gnntf_tpu_torch.ops import (blocked_spmm, ell_degree_masked,
-                                     ell_gather, ell_gather_masked)
+                                     ell_gather_masked, ell_gather_scaled)
     return np.array([ell_gather_masked.launches, ell_degree_masked.launches,
-                     ell_gather.launches, blocked_spmm.launches])
+                     ell_gather_scaled.launches, blocked_spmm.launches])
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ are zero-initialized, which would hide them).
 Tolerances:
 
 * clean forward, on a small graph and on one of 80,000 edges (>= 65,536,
-  where ``PreparedSpMM`` takes the hub slice): rtol=1e-4, atol=1e-5
+  where the port's ``PreparedSpMM`` walks every edge and JAX's takes the
+  hub slice): rtol=1e-4, atol=1e-5
   (float32, sums in another order over up to 8 propagation steps);
 * layer losses (``FastReg``'s, NGCF's output regularization): rtol=1e-5;
 * 3-epoch training trajectories with dropout off (losses, then the best

@@ -8,7 +8,6 @@ collectives' gradients, parameters equal across ranks).  Each test spawns
 its ranks once and runs all of its cases in them.
 """
 import os
-import sys
 import tempfile
 
 import numpy as np
@@ -19,7 +18,8 @@ import torch.multiprocessing as mp
 import gnntf_tpu_torch as tt
 from gnntf_tpu_torch.graph.coo import Graph
 from gnntf_tpu_torch.ops.spmm import spmm_segment
-from gnntf_tpu_torch.parallel.multihost import free_port, launch_distributed
+from gnntf_tpu_torch.parallel.multihost import (free_port, launch_distributed,
+                                                shutdown_distributed)
 
 
 def _entry(rank, world, port, body, args, out_dir, launch):
@@ -31,22 +31,14 @@ def _entry(rank, world, port, body, args, out_dir, launch):
         args = (port,) + args
     try:
         result = body(rank, *args)
-        if dist.is_initialized():
-            dist.barrier()
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    except BaseException:
+        # a failed rank frees its groups without waiting for the others
+        # (whose next collective then fails), then reports the error
+        shutdown_distributed(barrier=False)
+        raise
     torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
-    # A gloo worker thread may still be dropping the last collective's work,
-    # whose captured thread-local state holds a Python object.  Were the
-    # interpreter finalizing by then, the thread's call for the GIL would
-    # end it with pthread_exit, whose unwind through a noexcept destructor
-    # aborts the rank (SIGABRT, "terminate called without an active
-    # exception") after its work is done.  So a rank whose result is saved
-    # ends here, without finalizing.
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    # the rank ends normally: shutdown_distributed, which launch_distributed
+    # registered at exit, frees every group while the interpreter is live
 
 
 _BIND_TRIES = 3
@@ -61,7 +53,8 @@ def spawn(world: int, body, *args, launch=True) -> list:
     Rank 0 binds the rendezvous store on the port ``free_port`` gave.
     Another process may take that port first; only then (the store's bind
     failed with ``EADDRINUSE``) the ranks are spawned again on a fresh
-    port.  A rank ends its process once its result is saved (``_entry``)."""
+    port.  A rank's process ends normally once its result is saved
+    (``_entry``), through the port's shutdown at exit."""
     with tempfile.TemporaryDirectory() as out_dir:
         for attempt in range(_BIND_TRIES):
             try:

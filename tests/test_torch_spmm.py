@@ -2,8 +2,11 @@
 
 Tolerance rtol=1e-5, atol=1e-5: float32 both sides, summed in another
 order (the port sums a row's live slots in one run, JAX each virtual row's
-k slots and then the virtual rows; the hub matmul is added to that sum on
-both sides).  The kernel wrapper on its own, and
+k slots and then the virtual rows; under ``hybrid`` the hub matmul is added
+to that sum on both sides; under ``auto`` the port has no hub slice and
+sums every live slot of a row in the walk, where JAX adds its hub matmul).
+The hub route is reached by naming it (``PreparedSpMM(hubs=True)``, what
+``impl="hybrid"`` builds); ``route`` runs a case under both.  The kernel wrapper on its own, and
 the kernel against its plain version on the card, are in
 test_torch_ell_gather.py.
 """
@@ -84,9 +87,10 @@ def test_plain_matches_pallas_kernel(normalized):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("route", ["hybrid", "auto"])
 @pytest.mark.parametrize("case", ["hybrid", "plain_ell"])
 @pytest.mark.parametrize("add_eye", ["none", "after"])
-def test_prepared_matches_jax(case, add_eye):
+def test_prepared_matches_jax(case, add_eye, route):
     if case == "hybrid":
         jg, pg = _graphs(3000, 20_000, seed=1)
     else:  # uniform sources: hub coverage too low, falls back to ELL
@@ -94,8 +98,9 @@ def test_prepared_matches_jax(case, add_eye):
     jn = jax_normalize(jg, graph_dropout=0.0, add_eye=add_eye)
     pn = normalize_adjacency(pg, graph_dropout=0.0, add_eye=add_eye)
     x = np.random.RandomState(3).randn(jg.n_nodes, 24).astype(np.float32)
-    jp, pp = JaxPreparedSpMM(jn), PreparedSpMM(pn)
-    assert (jp.dense is None) == (pp.dense is None) == (case == "plain_ell")
+    jp, pp = JaxPreparedSpMM(jn), PreparedSpMM(pn, hubs=route == "hybrid")
+    assert (jp.dense is None) == (case == "plain_ell")
+    assert (pp.dense is None) == (case == "plain_ell" or route == "auto")
     np.testing.assert_allclose(pp(torch.from_numpy(x)).numpy(),
                                np.asarray(jp(jnp.asarray(x))), **TOL)
 
@@ -119,10 +124,12 @@ def _hub_and_split_graphs():
     return jg, pg
 
 
-def test_prepared_with_hub_slice_and_split_rows_matches_jax():
+@pytest.mark.parametrize("route", ["hybrid", "auto"])
+def test_prepared_with_hub_slice_and_split_rows_matches_jax(route):
     jg, pg = _hub_and_split_graphs()
-    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
-    assert pp.dense is not None and jp.dense is not None
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg, hubs=route == "hybrid")
+    assert jp.dense is not None
+    assert (pp.dense is not None) == (route == "hybrid")
     split = pp.k1_list.split.numpy()
     assert len(split) and split[:, 2].max() > 10
     x = np.random.RandomState(12).randn(jg.n_nodes, 40).astype(np.float32)
@@ -130,13 +137,15 @@ def test_prepared_with_hub_slice_and_split_rows_matches_jax():
                                np.asarray(jp(jnp.asarray(x))), **TOL)
 
 
-def test_prepared_gradient_matches_jax():
+@pytest.mark.parametrize("route", ["hybrid", "auto"])
+def test_prepared_gradient_matches_jax(route):
     """The prepared operator's ``dx`` (K1's share from the walk over its
-    transposed list, the hub matmul's and the scales' gradients) against
+    transposed list, the hub matmul's and the scales' gradients; under
+    ``auto`` the walk over every slot's transposed list) against
     ``jax.vjp``."""
     import jax
     jg, pg = _hub_and_split_graphs()
-    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg, hubs=route == "hybrid")
     rng = np.random.RandomState(13)
     x = rng.randn(jg.n_nodes, 12).astype(np.float32)
     dy = rng.randn(jg.n_nodes, 12).astype(np.float32)
@@ -160,7 +169,7 @@ def test_backward_walk_matches_jax_gradient(f, hubs):
         jg, pg = _graphs(6000, 40_000, 3, uniform=True)
         jg = jax_normalize(jg, graph_dropout=0.0)
         pg = normalize_adjacency(pg, graph_dropout=0.0)
-    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg)
+    jp, pp = JaxPreparedSpMM(jg), PreparedSpMM(pg, hubs=True)
     assert (pp.dense is not None) == hubs
     rng = np.random.RandomState(14)
     x = rng.randn(jg.n_nodes, f).astype(np.float32)

@@ -257,23 +257,37 @@ def test_fit_unported_options_raise(option, tmp_path):
         m.train(task, epochs=1, **option)
 
 
-def test_prepared_operator_gradient_matches_plain():
+@pytest.mark.parametrize("route", ["hybrid", "auto"])
+def test_prepared_operator_gradient_matches_plain(route):
     """On the card the prepared operator's gradient comes from
-    ``_ELLGatherFn``; on the CPU its backward is held against autograd
-    through the plain version."""
+    ``_ELLGatherFn`` (``hybrid``) or ``_ScaledGatherFn`` (``auto``, the
+    scales and identity around the transposed walk); on the CPU its
+    backward is held against autograd through the plain version."""
+    from gnntf_tpu_torch.ops.ell_gather import ell_gather_scaled_plain
+    from gnntf_tpu_torch.ops.spmm import _ScaledGatherFn
     rng = np.random.RandomState(4)
     n = 3000
     g = tt.normalize_adjacency(tt.from_edges(
         rng.randint(0, n, 40_000), rng.randint(0, n, 40_000), n_nodes=n,
-        directed=False, device="cpu"), graph_dropout=0.0)
-    prep = PreparedSpMM(g)
+        directed=False, device="cpu"), graph_dropout=0.0, add_eye="after")
+    prep = PreparedSpMM(g, hubs=route == "hybrid")
     x = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
     dy = torch.from_numpy(rng.randn(n, 6).astype(np.float32))
+    if route == "hybrid":
+        fns = (lambda x: _ELLGatherFn.apply(x, torch.zeros(n, 6),
+                                            prep.k1_list, prep.k1_val),
+               lambda x: tt.ops.blocked_spmm_plain(
+                   prep.k1_list, prep.k1_val, x, torch.zeros(n, 6)))
+    else:
+        args = (*prep._scales, float(prep.eye_weight))
+        fns = (lambda x: _ScaledGatherFn.apply(x, prep._routed, prep.k1_val,
+                                               *args),
+               lambda x: ell_gather_scaled_plain(prep.k1_list, prep.k1_val,
+                                                 x, *args))
     grads = []
-    for fn in (_ELLGatherFn.apply, lambda x, base, lst, val:
-               tt.ops.blocked_spmm_plain(lst, val, x, base)):
+    for fn in fns:
         xt = x.clone().requires_grad_()
-        fn(xt, torch.zeros(n, 6), prep.k1_list, prep.k1_val).backward(dy)
+        fn(xt).backward(dy)
         grads.append(xt.grad)
     np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(),
                                rtol=1e-5, atol=1e-5)
