@@ -10,6 +10,10 @@ Phases (any failure raises and exits non-zero):
 1. build every CUDA kernel from ``gnntf_tpu_torch/csrc`` with nvcc, one
    process per source, all started together, and beside them the C++
    sampler (``native/gnntf_native.cc``, g++) into ``gnntf_tpu_torch/build``;
+1b. the C++ host builders (``utils/native.py``) on the benchmark graph:
+   ``from_edges`` (its radix argsort) and ``build_ell`` without
+   deduplication, each timed with the library and with its numpy path,
+   equal results, the library's calls counted;
 2. hold K1 (the ELL gather-reduce, an edge-balanced walk over the live
    slots of the ELL grid that adds each row into a base) against its plain
    PyTorch version on the card, adding into a random base — a small random
@@ -70,6 +74,22 @@ Phases (any failure raises and exits non-zero):
    (A3 and A4: at most 3 launches a call); then the chain with its salt
    pair in a device buffer, rewritten between launches and before a CUDA
    graph's replay, each output equal to a fresh launch with its draw;
+2f. K2's bfloat16 mode (``spmm_pallas(bf16=True)``: x cast to bfloat16
+   once a call, each term rounded to bfloat16, the sums in float32) over
+   the RCM benchmark graph's forward list at F=40 and F=128 against its
+   plain version, the walk and the cast each timed beside its bound, beside
+   the float32 walk and ``torch.sparse.mm``, the share at F=40 bit-equal to
+   the plain version on the CPU; the slice's main path, a serving product
+   and a training step through ``spmm_pallas(bf16=True)`` with the counts
+   zeroed just before and read just after (2 launches of the mode, 1 of
+   K2's float32 walk for ``dx``), its output, ``dx`` and ``dval`` against
+   the CPU; the masked walk over the training grids' row and column lists
+   and the degree walk, the values of a weighted copy in bfloat16 (the
+   grids of ``GNNTF_GRID_VALUE_DTYPE=bfloat16``) beside float32, each
+   against its plain version; after phase 16, APPNP at its defaults on the
+   benchmark graph 3 epochs without and 3 under the knob (an epoch: 20
+   masked and 10 degree walks over bfloat16 values), the losses
+   bit-equal;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -215,7 +235,8 @@ Phases (any failure raises and exits non-zero):
 13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1's
    scaled walk, K1 and its backward walk with NGCF's launches and an F=16
    reading, phases 2 and 2d; K2 and the masked walk with phase 14's per-rank walks and
-   launches), the card's name and power limit from nvidia-smi, and as the
+   launches; K2's bfloat16 mode and the walks over bfloat16 values, phase
+   2f), the card's name and power limit from nvidia-smi, and as the
    last line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -324,28 +345,50 @@ def time_ms(fn, reps=20, warmup=3):
 # can drop the first device events of a session, from none to a whole
 # session's worth (PERF.md §7), so the work's events are all kept when at
 # least one primer kernel is; a session that kept none is taken again with
-# four times as many, up to PROFILE_TRIES sessions
+# four times as many, up to PROFILE_TRIES sessions.  It can drop the last
+# ones too (the work's one walk, right before the session stopped), so a
+# session waits PRIMER_WAIT_S a primer of PRIMER_KERNELS on the host
+# between its work's end and its stop, and a session that kept fewer walks
+# than the wrappers launched in it is taken again like one unprimed
 PRIMER_KERNELS = 256
-PROFILE_TRIES = 3
+PRIMER_WAIT_S = 0.002
+PROFILE_TRIES = 4
 
 
 def device_profile(fn):
     """Device time by kernel over one ``fn()`` (torch.profiler): rows
     ``(name, us, launches)`` by time, busy and wall microseconds, and the
-    wrappers' launch counts over the session."""
-    primer = PRIMER_KERNELS
+    wrappers' launch counts over the session.  After PROFILE_TRIES
+    sessions that each lost walks, the last one is returned for the
+    caller's checks to judge."""
+    primer, short = PRIMER_KERNELS, None
     for _ in range(PROFILE_TRIES):
         before = launch_counts()
         span = ProfiledSpan(primer)
         span.start()
         fn()
         rows, busy_us, wall_us = span.stop()
-        if span.primed:
-            counted = {k: v - before[k] for k, v in launch_counts().items()}
-            return rows, busy_us, wall_us, counted
-        primer = lost_primer(primer)
-    raise RuntimeError(f"the profiler kept no primer kernel in "
-                       f"{PROFILE_TRIES} sessions")
+        if not span.primed:
+            primer = lost_primer(primer)
+            continue
+        counted = {k: v - before[k] for k, v in launch_counts().items()}
+        short = rows, busy_us, wall_us, counted
+        if walk_launches(rows) >= sum(counted.values()):
+            return short
+        primer = lost_walks(primer, walk_launches(rows),
+                            sum(counted.values()))
+    if short is None:
+        raise RuntimeError(f"the profiler kept no primer kernel in "
+                           f"{PROFILE_TRIES} sessions")
+    return short
+
+
+def walk_launches(rows):
+    """Launches of the port's walks in a profile's rows: each wrapper's
+    counted launch runs one kernel whose name ends in ``_walk`` (or
+    ``_walk_narrow``) beside its parts and fix-up."""
+    return sum(r[2] for r in rows
+               if kernel_name(r[0]).endswith(("_walk", "_walk_narrow")))
 
 
 def lost_primer(primer):
@@ -353,6 +396,14 @@ def lost_primer(primer):
     session's primer."""
     log(f"a profiler session kept none of its {primer} primer kernels: "
         f"taken again with {4 * primer}")
+    return 4 * primer
+
+
+def lost_walks(primer, kept, launched):
+    """Log a session that kept ``kept`` of the ``launched`` walks run in
+    it; the next session's primer (its wait grows with it)."""
+    log(f"a profiler session kept {kept} of the {launched} walks launched "
+        f"in it: taken again with {4 * primer} primer kernels")
     return 4 * primer
 
 
@@ -381,6 +432,7 @@ class ProfiledSpan:
         microseconds."""
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - self.t0) * 1e6
+        time.sleep(PRIMER_WAIT_S * self.primer / PRIMER_KERNELS)
         self.prof.stop()
         rows = [(e.key, e.self_device_time_total, e.count)
                 for e in self.prof.key_averages()
@@ -783,24 +835,25 @@ def list_eids(lst):
             else lst.eid.long())
 
 
-def masked_bound(lst, kept, f=None):
+def masked_bound(lst, kept, f=None, val_bytes=4):
     """Least time for a masked walk over this list under a draw that keeps
     ``kept`` (one bool a list item): its row pointer (4 B a row), each
-    item's edge id where the list reads one (4 B), the source and value of
-    each kept edge (8 B; a dropped edge's are not needed), the x rows that
-    kept edges reference read once and out written once; 2 flops per kept
-    edge and feature and the hash's integer operations an edge.  With no
-    ``f`` (the degree walk): no sources and no x, one value a row out, an
-    addition per kept edge."""
+    item's edge id where the list reads one (4 B), the source (4 B) and
+    value (``val_bytes``: 4, or 2 in bfloat16) of each kept edge (a dropped
+    edge's are not needed), the x rows that kept edges reference read once
+    and out written once; 2 flops per kept edge and feature and the hash's
+    integer operations an edge.  With no ``f`` (the degree walk): no
+    sources and no x, one value a row out, an addition per kept edge."""
     n_kept = int(kept.sum())
     eid_bytes = 0 if lst.eid is None else 4 * lst.n_edges
     n_bytes = (lst.n_rows + 1) * 4 + eid_bytes
     if f is None:
-        n_bytes += n_kept * 4 + lst.n_rows * 4
+        n_bytes += n_kept * val_bytes + lst.n_rows * 4
         ops = n_kept + HASH_OPS * lst.n_edges
     else:
         x_rows = int(torch.unique(lst.idx[kept]).numel())
-        n_bytes += n_kept * 8 + x_rows * f * 4 + lst.n_rows * f * 4
+        n_bytes += (n_kept * (4 + val_bytes) + x_rows * f * 4
+                    + lst.n_rows * f * 4)
         ops = 2 * n_kept * f + HASH_OPS * lst.n_edges
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
@@ -854,7 +907,7 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     kept = stochastic.keep_mask(list_eids(lst) + sum(base), draw[0],
                                 draw[1], draw[2])
     res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
-        lst, kept, None if x is None else x.shape[1])
+        lst, kept, None if x is None else x.shape[1], val.element_size())
     res["library_ms"] = None
     if library:
         rows, w_items = list_rows(lst), w[list_eids(lst)]
@@ -1364,28 +1417,35 @@ ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
 def launch_counts():
     """The kernel wrappers' launch counts: K2, K1, K1's scaled walk, its
     masked walk, its degree walk, K1's backward walk over the transposed
-    list and the attention kernels A1-A4."""
+    list, the attention kernels A1-A4, K2's bfloat16 mode and the masked
+    and degree walks over bfloat16 values."""
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
-                                     ell_degree_masked, ell_gather,
-                                     ell_gather_masked, ell_gather_scaled)
+                                     blocked_spmm_bf16, ell_degree_masked,
+                                     ell_gather, ell_gather_masked,
+                                     ell_gather_scaled)
     return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
                 k1s=ell_gather_scaled.launches,
                 masked=ell_gather_masked.launches,
                 degree=ell_degree_masked.launches,
                 backward=ell_gather.backward_launches,
                 **{name: getattr(attention, name).launches
-                   for name in ATTN_KERNELS})
+                   for name in ATTN_KERNELS},
+                k2_bf16=blocked_spmm_bf16.launches,
+                masked_bf16=ell_gather_masked.bf16_launches,
+                degree_bf16=ell_degree_masked.bf16_launches)
 
 
 def zero_counts():
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
-                                     ell_degree_masked, ell_gather,
-                                     ell_gather_masked, ell_gather_scaled)
-    for fn in (blocked_spmm, ell_gather, ell_gather_scaled, ell_gather_masked,
-               ell_degree_masked, *(getattr(attention, name)
-                                    for name in ATTN_KERNELS)):
+                                     blocked_spmm_bf16, ell_degree_masked,
+                                     ell_gather, ell_gather_masked,
+                                     ell_gather_scaled)
+    for fn in (blocked_spmm, blocked_spmm_bf16, ell_gather,
+               ell_gather_scaled, ell_gather_masked, ell_degree_masked,
+               *(getattr(attention, name) for name in ATTN_KERNELS)):
         fn.launches = 0
     ell_gather.backward_launches = 0
+    ell_gather_masked.bf16_launches = ell_degree_masked.bf16_launches = 0
 
 
 def per_epoch(marks):
@@ -1406,7 +1466,8 @@ def per_epoch(marks):
 # scaled walk, "k1s") in the validation forward.  K1 adding into a base
 # ("k1") runs only under hybrid and in the per-call ell route.
 NO_LAUNCHES = dict(k2=0, k1=0, k1s=0, masked=0, degree=0, backward=0,
-                   **dict.fromkeys(ATTN_KERNELS, 0))
+                   **dict.fromkeys(ATTN_KERNELS, 0), k2_bf16=0,
+                   masked_bf16=0, degree_bf16=0)
 EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
                   None: dict(NO_LAUNCHES, k1s=10, masked=20, degree=10)}
 # GCNII-64 an epoch: the prepared operator in each convolution of the step
@@ -1669,14 +1730,22 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
     runs ``fused_run(..., profile=True, primer=primer)`` and gives its
     profile) an epoch; raises unless each of ``want`` (a name tag: walks
     an epoch) holds.  A block whose profile kept none of its primer
-    kernels is taken again with four times as many (``device_profile``)."""
-    primer = PRIMER_KERNELS
+    kernels, or fewer walks than ``want`` asks, is taken again with four
+    times as many (``device_profile``)."""
+    primer, profiled = PRIMER_KERNELS, None
     for _ in range(PROFILE_TRIES):
-        profiled = take(primer)
-        if profiled["primed"]:
+        taken = take(primer)
+        if not taken["primed"]:
+            primer = lost_primer(primer)
+            continue
+        profiled = taken
+        kept = walk_launches(taken["rows"])
+        wanted = replays * sum(n for tag, n in want.items()
+                               if tag != "index_add")
+        if kept >= wanted:
             break
-        primer = lost_primer(primer)
-    else:
+        primer = lost_walks(primer, kept, wanted)
+    if profiled is None:
         raise RuntimeError(f"{label}: the profiler kept no primer kernel in "
                            f"{PROFILE_TRIES} blocks")
     rows = profiled["rows"]
@@ -2206,6 +2275,299 @@ def phase_attention_kernels(graph, dev):
                 layer1=bench[False, 8], layer2=bench[False, 1],
                 layer1_coalesced=bench[True, 8],
                 layer2_coalesced=bench[True, 1])
+
+
+def phase_native_builders(src, dst):
+    """1b: the C++ host builders (``utils/native.py``) on the bench graph:
+    ``from_edges`` (the radix argsort of its counted edges) and ``build_ell``
+    without deduplication (the training grids' build), each timed with the
+    library and with its numpy path (the library unloaded), equal results,
+    and the library's calls counted."""
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import build_ell
+    from gnntf_tpu_torch.utils import native
+
+    def both(fn):
+        runs = (native.lexsort_edges.runs, native.build_ell_native.runs)
+        t0 = time.perf_counter()
+        fast = fn()
+        fast_s = time.perf_counter() - t0
+        ran = (native.lexsort_edges.runs - runs[0],
+               native.build_ell_native.runs - runs[1])
+        load, native._load = native._load, lambda: None
+        try:
+            t0 = time.perf_counter()
+            slow = fn()
+            slow_s = time.perf_counter() - t0
+        finally:
+            native._load = load
+        return fast, slow, fast_s, slow_s, ran
+
+    g, g_np, edges_s, edges_np_s, ran = both(lambda: tt.from_edges(
+        src, dst, n_nodes=N_NODES, directed=False, device="cpu"))
+    if ran != (1, 0) or not all(torch.equal(getattr(g, k), getattr(g_np, k))
+                                for k in ("row", "col", "val")):
+        raise AssertionError(f"from_edges: native calls {ran} (expected "
+                             "one sort), or its graph differs from numpy's")
+    row, col = g.row.numpy(), g.col.numpy()
+    ell, ell_np, ell_s, ell_np_s, ran = both(
+        lambda: build_ell(col, row, N_NODES, dedup=False))
+    if ran != (0, 1) or not all(np.array_equal(getattr(ell, k),
+                                               getattr(ell_np, k))
+                                for k in ("idx", "slot", "vrow_row")):
+        raise AssertionError(f"build_ell: native calls {ran} (expected one "
+                             "build), or its layout differs from numpy's")
+    res = dict(from_edges_s=edges_s, from_edges_numpy_s=edges_np_s,
+               build_ell_s=ell_s, build_ell_numpy_s=ell_np_s,
+               edges=g.n_edges)
+    log(f"native host builders on the bench graph: {res}")
+    return res
+
+
+def entry_numbers(res):
+    """The numbers of a ``kernels`` entry from a check's results."""
+    return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
+def bf16_bound(lst, f):
+    """Least time for K2's bfloat16 mode over this list: the list as
+    ``blocked_bound`` counts it, the referenced x rows read once in
+    bfloat16 (2 B an element), out written once in float32; 2 flops per
+    edge and feature."""
+    x_rows = int(torch.unique(lst.idx).numel())
+    edge_bytes = 8 if lst.eid is None else 12
+    n_bytes = ((lst.n_rows + 1) * 4 + lst.n_edges * edge_bytes
+               + x_rows * f * 2 + lst.n_rows * f * 4)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * lst.n_edges * f / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes
+
+
+def check_bf16_kernel(label, lst, val, x, library=False):
+    """K2's bfloat16 mode over ``lst`` on ``x`` (float32, cast once a call
+    as ``spmm_pallas(bf16=True)`` casts it) against its plain version on
+    the card; the walk and the cast timed apart (CUDA events, one call's
+    device time), each beside its bound, and beside them the float32 walk
+    and (``library``) ``torch.sparse.mm`` of the same matrix in float32."""
+    from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
+                                     blocked_spmm_bf16_plain,
+                                     blocked_spmm_plain)
+
+    xb = x.to(torch.bfloat16)
+    out = blocked_spmm_bf16(lst, val, xb)
+    torch.cuda.synchronize()
+    ref = blocked_spmm_bf16_plain(lst, val, xb)
+    scale = blocked_spmm_plain(lst, val.abs(), xb.to(torch.float32).abs())
+    err = check_close(f"K2 bf16 {label}", out, ref, scale)
+    walk = lambda: blocked_spmm_bf16(lst, val, xb)
+    cast = lambda: x.to(torch.bfloat16)
+    res = dict(max_abs_err=err, ms=time_ms(walk),
+               plain_ms=time_ms(lambda: blocked_spmm_bf16_plain(lst, val,
+                                                                xb)),
+               cast_ms=time_ms(cast),
+               float32_walk_ms=time_ms(lambda: blocked_spmm(lst, val, x)))
+    rows, busy_us, _, _ = device_profile(walk)
+    res["device_ms"] = busy_us / 1e3
+    res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+    rows, busy_us, _, _ = device_profile(cast)
+    res["cast_device_ms"] = busy_us / 1e3
+    res["bound_ms"], res["bound_by"], n_bytes = bf16_bound(lst, x.shape[1])
+    cast_bytes = x.numel() * 6
+    res["cast_bound_ms"] = cast_bytes / PEAK_BYTES_PER_S * 1e3
+    res["float32_bound_ms"] = blocked_bound(lst, x.shape[1])[0]
+    # the bfloat16 a lane loads (the output of torch.empty is 256-byte
+    # aligned)
+    res["vec"] = blocked.bf16_vec(x.shape[1], xb.data_ptr(), 0)
+    res["library_ms"] = None
+    if library:
+        rows, src = live_edges(lst)
+        w = val if lst.eid is None else val[lst.eid.long()]
+        a = torch.sparse_coo_tensor(torch.stack([rows, src]), w,
+                                    (lst.n_rows, x.shape[0]))
+        a = a.coalesce().to_sparse_csr()
+        res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
+    log(f"K2 bf16 {label}: kernel {res['ms']} ms (one call's device time "
+        f"{res['device_ms']} ms: {res['us_by_kernel']} us; loads of "
+        f"{res['vec']} bfloat16), bound {res['bound_ms']} ms "
+        f"({res['bound_by']}, {n_bytes} B); the cast {res['cast_ms']} ms "
+        f"(device {res['cast_device_ms']} ms, bound {res['cast_bound_ms']} "
+        f"ms, {cast_bytes} B); the float32 walk {res['float32_walk_ms']} ms "
+        f"(bound {res['float32_bound_ms']} ms); plain {res['plain_ms']} ms, "
+        f"library (float32 sparse.mm) {res['library_ms']} ms, edges "
+        f"{lst.n_edges}, units {lst.n_units}, split rows "
+        f"{lst.split.shape[0]}, N={lst.n_rows} F={x.shape[1]}")
+    return res
+
+
+def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
+    """2f: K2's bfloat16 mode (``spmm_pallas(bf16=True)``) on the RCM bench
+    graph's forward list at F=40 and 128 against its plain version, the
+    share at F=40 bit-equal to the plain version on the CPU; a serving
+    product and a training step through ``spmm_pallas(bf16=True)`` with the
+    counts zeroed just before and read just after, ``dx`` and ``dval``
+    against the CPU; then the masked and degree walks over a weighted copy
+    of the bench graph's training lists, the values in bfloat16 beside
+    float32; returns the results."""
+    from gnntf_tpu_torch.ops import (blocked, blocked_spmm_bf16_plain,
+                                     build_train_grids, ell_degree_masked,
+                                     ell_gather_masked, normalize_adjacency,
+                                     spmm_pallas)
+
+    norm = normalize_adjacency(g_rcm, graph_dropout=0.0)
+    prep = blocked.blocked_layout(norm)
+    base = norm.materialized()
+    val = base.val.to(torch.float32).contiguous()
+    res = {}
+    for f, x in ((N_FEATURES, x128), (N_CLASSES, x40)):
+        res[f] = check_bf16_kernel(f"RCM bench F={f}", prep.forward, val, x,
+                                   library=True)
+    cpu = blocked.blocked_layout(norm.to("cpu"))
+    x_cpu = x40.cpu()
+    out = blocked.blocked_spmm_bf16(prep.forward, val,
+                                    x40.to(torch.bfloat16)).cpu()
+    share = (out == blocked_spmm_bf16_plain(
+        cpu.forward, val.cpu(), x_cpu.to(torch.bfloat16))).double().mean()
+    res["bit_equal_to_cpu_plain_f40"] = share.item()
+    log(f"K2 bf16 RCM bench F=40 on the card against the plain version on "
+        f"the CPU: bit-equal share {share.item()}")
+    if share.item() != 1.0:
+        raise AssertionError("K2's bfloat16 mode is not bit-equal to its "
+                             "plain version on the CPU")
+
+    # the slice's main path: a serving product at full width, then a
+    # training step through it (its float32 backward)
+    dy = torch.from_numpy(np.random.RandomState(16).randn(
+        N_NODES, N_CLASSES).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    served = spmm_pallas(norm, x40, bf16=True)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    v = norm.val.detach().clone().requires_grad_()
+    xg = x40.clone().requires_grad_()
+    t0 = time.perf_counter()
+    out = spmm_pallas(dataclasses.replace(norm, val=v), xg, bf16=True)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    want = dict(NO_LAUNCHES, k2_bf16=2, k2=1)
+    log(f"spmm_pallas(bf16=True): serving product {serve_ms} ms, step "
+        f"(forward, backward) {step_ms} ms, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    n_cpu = norm.to("cpu")
+    v_cpu = n_cpu.val.detach().clone().requires_grad_()
+    x_cpu = x_cpu.clone().requires_grad_()
+    ref = spmm_pallas(dataclasses.replace(n_cpu, val=v_cpu), x_cpu,
+                         bf16=True)
+    ref.backward(dy.cpu())
+    step = dict(serve_ms=serve_ms, step_ms=step_ms, launches=counts)
+    for name, a, b in (("forward", served, ref), ("dx", xg.grad, x_cpu.grad),
+                       ("dval", v.grad, v_cpu.grad)):
+        a, b = a.detach().cpu(), b.detach()
+        step[f"{name}_max_abs_err"] = (a - b).abs().max().item()
+        step[f"{name}_bit_equal_share"] = (a == b).double().mean().item()
+        if not (torch.isfinite(a).all()
+                and torch.allclose(a, b, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"spmm_pallas(bf16=True) {name} on the "
+                                 f"card differs from the CPU: "
+                                 f"{step[f'{name}_max_abs_err']}")
+    log(f"spmm_pallas(bf16=True) card vs CPU: {step}")
+    res["step"] = step
+
+    # the dropout walks over a weighted copy of the bench training lists
+    t0 = time.perf_counter()
+    rows, cols = build_train_grids(graph.row.cpu().numpy(),
+                                   graph.col.cpu().numpy(),
+                                   np.ones(graph.n_edges, np.float32),
+                                   N_NODES).lists(dev)
+    lists_s = time.perf_counter() - t0
+    weights = torch.from_numpy(np.random.RandomState(17).uniform(
+        0.5, 1.5, graph.n_edges).astype(np.float32)).to(dev)
+    salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(9)).to(dev)
+    draw = (salt, KEEP, graph.n_edges)
+    masked = dict(lists_s=lists_s)
+    for dtype in (torch.bfloat16, torch.float32):
+        w = weights.to(dtype)
+        tag = "bf16" if dtype == torch.bfloat16 else "float32"
+        for name, lst in (("row", rows), ("column", cols)):
+            masked[tag, name] = check_masked_kernel(
+                f"masked bench {name} list F=40, {tag} weighted values", lst,
+                w, draw, x40, library=True)
+        # the yardstick sums a hub column's weights with sparse.mm, not
+        # with index_add_'s atomics, whose order moves their sum by more
+        # than the tolerance
+        masked[tag, "degree"] = check_masked_kernel(
+            f"degree bench column list, {tag} weighted values", cols, w,
+            draw, library="csr")
+    wb = weights.to(torch.bfloat16)
+    shares = dict(
+        forward_f40=cpu_share("masked bench row list F=40 bf16 values",
+                              ell_gather_masked(rows, wb, *draw, x40), rows,
+                              wb, draw, x40),
+        degree=cpu_share("degree bench column list bf16 values",
+                         ell_degree_masked(cols, wb, *draw), cols, wb,
+                         draw))
+    if any(share != 1.0 for share in shares.values()):
+        raise AssertionError(f"the walks over bfloat16 values are not "
+                             f"bit-equal to their plain versions on the "
+                             f"CPU: {shares}")
+    res["masked"] = {f"{k[0]}_{k[1]}" if isinstance(k, tuple) else k: v
+                     for k, v in masked.items()}
+    res["masked"]["bit_equal_to_cpu_plain"] = shares
+    return res
+
+
+BF16_EPOCHS = 3
+# launches an epoch of APPNP under GNNTF_GRID_VALUE_DTYPE=bfloat16: the
+# masked and degree walks over the grids' bfloat16 values
+BF16_LAUNCHES = dict(NO_LAUNCHES, k1s=10, masked_bf16=20, degree_bf16=10)
+
+
+def phase_bf16_train(graph, features, dev):
+    """2f, training: APPNP at its defaults on the bench graph (unit base
+    values), 3 epochs without and 3 under ``GNNTF_GRID_VALUE_DTYPE=
+    bfloat16``, from one seed, the counts zeroed just before each and read
+    at each epoch's end: the bfloat16 run's losses bit-equal to the float32
+    run's, its walks those over bfloat16 values."""
+    import os
+
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.ops import stochastic
+
+    tasks = fused_tasks()
+    res = {}
+    for name, want in (("float32", EPOCH_LAUNCHES[None]),
+                       ("bfloat16", BF16_LAUNCHES)):
+        os.environ["GNNTF_GRID_VALUE_DTYPE"] = name
+        try:
+            model = tt.APPNP(graph, features, num_classes=N_CLASSES,
+                             device=dev)
+            builds = stochastic.train_grids.builds
+            hist, epoch_ms, peak_mb = counted_train(model, tasks,
+                                                    BF16_EPOCHS, want)
+            builds = stochastic.train_grids.builds - builds
+        finally:
+            os.environ.pop("GNNTF_GRID_VALUE_DTYPE")
+        res[name] = dict(train_loss=hist["train_loss"],
+                         valid_loss=hist["valid_loss"], epoch_ms=epoch_ms,
+                         peak_mb=peak_mb, grid_builds=builds)
+        log(f"APPNP under GNNTF_GRID_VALUE_DTYPE={name}: {res[name]}")
+    if res["bfloat16"]["grid_builds"] != 1:
+        raise AssertionError("the bfloat16 run did not build its grids")
+    for key in ("train_loss", "valid_loss"):
+        if res["bfloat16"][key] != res["float32"][key]:
+            raise AssertionError(f"{key} under the knob differs: "
+                                 f"{res['bfloat16'][key]} against "
+                                 f"{res['float32'][key]}")
+    res["launches"] = {k: v * BF16_EPOCHS for k, v in BF16_LAUNCHES.items()
+                       if v}
+    return res
 
 
 def init_params(model, seed):
@@ -4160,8 +4522,14 @@ def main(dev=None):
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
 
-    # 2. K1 against its plain version, small and on the bench rest list
+    # 1b. the C++ host builders against their numpy paths
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
+    seconds = {}
+    t0 = time.perf_counter()
+    host_builders = phase_native_builders(src, dst)
+    seconds["1b"] = time.perf_counter() - t0
+
+    # 2. K1 against its plain version, small and on the bench rest list
     graph = tt.from_edges(src, dst, n_nodes=N_NODES, directed=False,
                           device=dev)
     features = np.random.RandomState(2).randn(
@@ -4173,7 +4541,6 @@ def main(dev=None):
         N_NODES, 64).astype(np.float32)).to(dev)
     x16 = torch.from_numpy(np.random.RandomState(14).randn(
         N_NODES, LP_CLASSES).astype(np.float32)).to(dev)
-    seconds = {}
     t0 = time.perf_counter()
     k1 = phase_ell_kernel(graph, dev, x16, x40, x64, x128)
     seconds["2"] = time.perf_counter() - t0
@@ -4197,6 +4564,11 @@ def main(dev=None):
     t0 = time.perf_counter()
     attention = phase_attention_kernels(graph, dev)
     seconds["2e"] = time.perf_counter() - t0
+
+    # 2f. K2's bfloat16 mode and the dropout walks over bfloat16 values
+    t0 = time.perf_counter()
+    bf16 = phase_bf16_kernels(graph, g_rcm, dev, x40, x128)
+    seconds["2f"] = time.perf_counter() - t0
 
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
@@ -4443,6 +4815,15 @@ def main(dev=None):
     log("fused gaps summary: " + json.dumps(gaps))
     log(f"phase seconds with 16: {seconds}")
 
+    # 2f, training: APPNP under GNNTF_GRID_VALUE_DTYPE=bfloat16
+    t0 = time.perf_counter()
+    bf16_train = phase_bf16_train(graph, features, dev)
+    seconds["2f_train"] = time.perf_counter() - t0
+    log("bfloat16 summary: " + json.dumps(dict(
+        host_builders=host_builders, train=bf16_train,
+        step=bf16["step"])))
+    log(f"phase seconds with 2f: {seconds}")
+
     # 13. report
     # the top-level numbers are at the width each path propagates (F=40:
     # APPNP's 40 classes); F=128 is the bench width of the kernel table
@@ -4580,8 +4961,36 @@ def main(dev=None):
     attn_entries = attention_entries(attention, gat)
     for e in attn_entries:
         e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
+    bf16_entries = [
+        {"name": "blocked_spmm_bf16", "route": "cuda",
+         "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
+         "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
+         "launches": bf16["step"]["launches"]["k2_bf16"],
+         **entry_numbers(bf16[N_CLASSES]),
+         "shape": "RCM bench graph's forward list, N=169343, F=40, x cast "
+                  "to bfloat16 once a call (launches: one serving product "
+                  "and one training step through spmm_pallas(bf16=True))",
+         "bench_width": dict(bf16[N_FEATURES], shape="F=128"),
+         "bit_equal_to_cpu_plain_f40": bf16["bit_equal_to_cpu_plain_f40"],
+         "step": bf16["step"]}]
+    for name, key, walk, shape in (
+            ("ell_gather_masked_bf16", "masked_bf16", "row", "row list, F=40"),
+            ("ell_degree_masked_bf16", "degree_bf16", "degree",
+             "column list")):
+        bf16_entries.append({
+            "name": name, "route": "cuda",
+            "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+            "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+            "launches": bf16_train["launches"][key],
+            **entry_numbers(bf16["masked"][f"bf16_{walk}"]),
+            "shape": f"bench training grids' {shape}, uniform(0.5, 1.5) "
+                     f"values in bfloat16, keep {KEEP} (launches: APPNP, "
+                     f"3 epochs under GNNTF_GRID_VALUE_DTYPE=bfloat16)",
+            "float32_values": bf16["masked"][f"float32_{walk}"]})
+    bf16_entries[1]["backward"] = bf16["masked"]["bf16_column"]
     print(json.dumps({"kernels": [scaled_entry, entry, entry2, entry3,
-                                  entry4, *attn_entries]}), flush=True)
+                                  entry4, *attn_entries, *bf16_entries]}),
+          flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

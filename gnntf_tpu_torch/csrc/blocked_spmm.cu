@@ -43,6 +43,29 @@
 // 3.35 TB/s, while a launch and a warp's chain of dependent loads (the
 // unit, its edges, their x rows) take ~4-6 us; small units keep that chain
 // to one batch.
+//
+// bfloat16 mode (gnntf_blocked_spmm_bf16; the TPU kernel's bf16=True,
+// spmm_pallas(bf16=True)).  x comes as bfloat16 (the wrapper casts it once
+// a call) and each term is
+//
+//     fp32(bf16_rn(fp32(val[e] * fp32(x[idx[e]])))),
+//
+// the JAX package's G * vals in float32 rounded to bfloat16, added to the
+// row's float sum in edge order; out, the pieces and the fix-up stay float,
+// so a row's sum is the plain version's (ops/blocked.py::
+// blocked_spmm_bf16_plain) bit for bit.  Each gather moves half the bytes
+// of the float walk's.  Bound at F = 40 on the RCM bench graph's forward
+// list: ptr 0.68 MB, idx and val 18.66 MB, bfloat16 x 13.55 MB, float out
+// 27.09 MB: 59.98 MB, 17.9 us at 3.35 TB/s (the cast before it, 27.09 MB
+// read and 13.55 MB written, 12.1 us, is a pass of its own).  A lane loads
+// vec bfloat16 at once (2, 4 or 8: 4, 8 or 16 bytes, or 1) and keeps vec
+// float sums (T); rows of fewer than kNarrowLanes loads take the narrow
+// walk, as in the float walk.  The host picks vec (ops/blocked.py::
+// bf16_vec): the widest load that F and the addresses allow and that
+// leaves a row kNarrowLanes loads, the fastest on the bench list at F = 16
+// to 128 (k2_sweep.py --kernels k2bf16).  The walk is no faster than the
+// float walk at F = 40, where its gathers hit L2 and wait on their chain,
+// not on bytes (PERF.md).
 
 #include "edge_walk.cuh"
 
@@ -50,16 +73,19 @@ namespace {
 
 using edge_walk::Args;
 using edge_walk::add_into;
+using edge_walk::bf16x4;
+using edge_walk::bf16x8;
+using edge_walk::float8;
 using edge_walk::set_zero;
 
 // groups of fewer lanes than this take the narrow walk
 constexpr int kNarrowLanes = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T>
+template <typename T, typename X = T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
     blocked_spmm_walk(const Args a) {
-  edge_walk::walk<T, false>(a);
+  edge_walk::walk<T, false, X>(a);
 }
 
 template <typename T>
@@ -79,6 +105,11 @@ __device__ __forceinline__ float4 product(float w, float4 v) {
   return make_float4(__fmul_rn(w, v.x), __fmul_rn(w, v.y), __fmul_rn(w, v.z),
                      __fmul_rn(w, v.w));
 }
+// the bfloat16 mode's terms (edge_walk::term)
+template <typename X>
+__device__ __forceinline__ auto product(float w, const X& v) {
+  return edge_walk::term(w, v);
+}
 
 __device__ __forceinline__ float shuffle(float v, int from) {
   return __shfl_sync(kFull, v, from);
@@ -87,13 +118,21 @@ __device__ __forceinline__ float4 shuffle(float4 v, int from) {
   return make_float4(shuffle(v.x, from), shuffle(v.y, from),
                      shuffle(v.z, from), shuffle(v.w, from));
 }
+__device__ __forceinline__ float2 shuffle(float2 v, int from) {
+  return make_float2(shuffle(v.x, from), shuffle(v.y, from));
+}
+__device__ __forceinline__ float8 shuffle(const float8& v, int from) {
+  return float8{shuffle(v.lo, from), shuffle(v.hi, from)};
+}
 
 // The narrow walk over rows of FV < kNarrowLanes elements of T (float or
-// float4), a warp a unit (a run of whole rows, or a piece of a split row;
-// ops/blocked.py::work_units).  Lane l loads the idx/val of edge l of a batch
-// of 32, then the batch's x rows are gathered in kRounds rounds: in round r
-// lane l takes element l % FV of edge r * kEdges + l / FV, rounds the product
-// w * x (__fmul_rn) and keeps it.  All of a batch's gathers are issued
+// float4; in the bfloat16 mode T is float, float2, float4 or float8 and x
+// holds X, its loads), a warp a unit (a run of whole rows, or a piece of a
+// split row; ops/blocked.py::work_units).  Lane l loads the idx/val of edge
+// l of a batch of 32, then the batch's x rows are gathered in kRounds
+// rounds: in round r lane l takes element l % FV of edge r * kEdges + l /
+// FV, rounds the product w * x (__fmul_rn; the bfloat16 mode's term) and
+// keeps it.  All of a batch's gathers are issued
 // before its sum, and the next batch's idx/val load meanwhile.  The products
 // then pass through __shfl_sync in edge order to every lane of their element,
 // which adds each to its row sum (__fadd_rn), so the sum of a row, or of a
@@ -103,7 +142,7 @@ __device__ __forceinline__ float4 shuffle(float4 v, int from) {
 // row; the rows without edges after the unit's last edge are stored as zeros
 // by the warp's lanes, kEdges rows at a time.  All control flow that
 // reaches a __shfl_sync is the same over the warp (n, row and row_end are).
-template <typename T, int FV>
+template <typename T, int FV, typename X = T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
     blocked_spmm_walk_narrow(const Args a) {
   constexpr int kEdges = 32 / FV;                      // edges a round
@@ -113,7 +152,7 @@ __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
   if (unit >= a.n_units) return;
   const int lane = threadIdx.x & 31;
   const int j = lane % FV, q = lane / FV;
-  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const X* __restrict__ x = static_cast<const X*>(a.x);
   T* __restrict__ out = static_cast<T*>(a.out);
   const int32_t* __restrict__ idx = a.idx;
   const int32_t* __restrict__ eid = a.eid;
@@ -194,28 +233,37 @@ __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
 
 // The narrow walk at FV, then edge_walk's parts and fix-up (their groups of
 // a.group = FV lanes), on `stream`.
-template <typename T, int FV>
+template <typename T, int FV, typename X>
 int launch_narrow(const Args& a, cudaStream_t stream) {
-  blocked_spmm_walk_narrow<T, FV>
+  blocked_spmm_walk_narrow<T, FV, X>
       <<<edge_walk::group_blocks(a.n_units, 32, edge_walk::kThreads),
          edge_walk::kThreads, 0, stream>>>(a);
   return edge_walk::finish(blocked_spmm_parts<T>, blocked_spmm_fixup<T>, a,
                            stream);
 }
 
-template <typename T>
+template <typename T, typename X = T>
 int narrow(const Args& a, cudaStream_t stream) {
   static_assert(kNarrowLanes == 8, "one case a width below kNarrowLanes");
   switch (a.fv) {
-    case 1: return launch_narrow<T, 1>(a, stream);
-    case 2: return launch_narrow<T, 2>(a, stream);
-    case 3: return launch_narrow<T, 3>(a, stream);
-    case 4: return launch_narrow<T, 4>(a, stream);
-    case 5: return launch_narrow<T, 5>(a, stream);
-    case 6: return launch_narrow<T, 6>(a, stream);
-    case 7: return launch_narrow<T, 7>(a, stream);
+    case 1: return launch_narrow<T, 1, X>(a, stream);
+    case 2: return launch_narrow<T, 2, X>(a, stream);
+    case 3: return launch_narrow<T, 3, X>(a, stream);
+    case 4: return launch_narrow<T, 4, X>(a, stream);
+    case 5: return launch_narrow<T, 5, X>(a, stream);
+    case 6: return launch_narrow<T, 6, X>(a, stream);
+    case 7: return launch_narrow<T, 7, X>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bfloat16 mode at sums of T over loads of X: the narrow walk below
+// kNarrowLanes lanes, else the wide walk.
+template <typename T, typename X>
+int bf16_walk(const Args& a, cudaStream_t stream) {
+  if (a.group < kNarrowLanes) return narrow<T, X>(a, stream);
+  return edge_walk::launch(blocked_spmm_walk<T, X>, blocked_spmm_parts<T>,
+                           blocked_spmm_fixup<T>, a, stream);
 }
 
 }  // namespace
@@ -247,6 +295,31 @@ extern "C" int gnntf_blocked_spmm(
                              blocked_spmm_fixup<float4>, a, s);
   return edge_walk::launch(blocked_spmm_walk<float>, blocked_spmm_parts<float>,
                            blocked_spmm_fixup<float>, a, s);
+}
+
+// K2's bfloat16 mode: x (n, f) bfloat16, out (n, f) float32; vec is 8, 4
+// or 2 (loads of that many bfloat16: f % vec == 0, x aligned to 2 * vec
+// bytes and out to 4 * vec, 16 at most) or 1; group is min(32, f / vec),
+// below kNarrowLanes the narrow walk; the other arguments are as
+// gnntf_blocked_spmm's.
+extern "C" int gnntf_blocked_spmm_bf16(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, void* stream) {
+  (void)rows;
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
+      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 8: return bf16_walk<float8, bf16x8>(a, s);
+    case 4: return bf16_walk<float4, bf16x4>(a, s);
+    case 2: return bf16_walk<float2, __nv_bfloat162>(a, s);
+    case 1: return bf16_walk<float, __nv_bfloat16>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

@@ -8,7 +8,11 @@
 //     scale(id) = fp32(1 / keep) below n_drop, else 1,   g = id + id_base,
 //
 // in uint32 arithmetic, one rounded product, bit-equal to the host's
-// dropped_values.  val is read at id, the mask hashed at the global id g:
+// dropped_values.  val holds float or __nv_bfloat16 (V: the training grids
+// of GNNTF_GRID_VALUE_DTYPE=bfloat16, ops/stochastic.py); a bfloat16 value
+// is widened exactly (__bfloat162float) before the product, so the weight
+// is the float walk's over the rounded value, and each read moves half the
+// bytes.  val is read at id, the mask hashed at the global id g:
 // a rank that holds a slice of a larger edge list (id_base its offset)
 // reads its own values and draws the whole list's mask.
 //
@@ -55,6 +59,7 @@
 // replay's x.  The degree walk has no x and one pass.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,6 +145,12 @@ __device__ __forceinline__ void put(T* __restrict__ out,
     carry[(long long)(~to) * fv + j] = acc;
 }
 
+// A base value as float: a bfloat16 value widened exactly.
+__device__ __forceinline__ float value(float v) { return v; }
+__device__ __forceinline__ float value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 __device__ __forceinline__ bool nonfinite(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
 }
@@ -171,8 +182,8 @@ __device__ __forceinline__ int share(const int* seg, int k, int n_kept,
 }
 
 // kX: the masked walk (sources, x, out of fv T's a row); else the degree
-// walk (one float a row, one pass).
-template <typename T, bool kX>
+// walk (one float a row, one pass).  V: the base values' type.
+template <typename T, bool kX, typename V>
 __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
                                      const Mask& m, const Pass& p) {
   extern __shared__ int smem[];
@@ -205,7 +216,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
 
   const int32_t* __restrict__ eid = a.eid;
   const int32_t* __restrict__ idx = a.idx;
-  const float* __restrict__ val = a.val;
+  const V* __restrict__ val = reinterpret_cast<const V*>(a.val);
   T* __restrict__ out = static_cast<T*>(a.out);
   T* __restrict__ carry = static_cast<T*>(a.carry);
   const int fv = a.fv;
@@ -258,7 +269,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
         v0[b] = 0.f;
         if (i < n_edge) {
           id[b] = eid ? eid[e0 + i] : e0 + i;
-          if (!eid) v0[b] = val[e0 + i];
+          if (!eid) v0[b] = value(val[e0 + i]);
           if (kX) from[b] = idx[e0 + i];
         }
       }
@@ -273,7 +284,8 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
                                               s1) >> 8) < m.thresh);
         wt[b] = 0.f;
         if (kept[b])
-          wt[b] = __fmul_rn(eid ? val[id[b]] : v0[b], low ? m.scale : 1.f);
+          wt[b] = __fmul_rn(eid ? value(val[id[b]]) : v0[b],
+                            low ? m.scale : 1.f);
       }
 #pragma unroll
       for (int b = 0; b < kBatches; ++b) {

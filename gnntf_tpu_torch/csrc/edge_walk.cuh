@@ -42,6 +42,12 @@
 // those of the JAX package's separate passes.  Without it (every other walk)
 // none of that is compiled.
 //
+// In K2's bfloat16 mode (blocked_spmm.cu, gnntf_blocked_spmm_bf16) x holds
+// bfloat16 (X: 2, 4 or 8 of them a lane's load, or one) while the sums,
+// out and carry stay float (T: float, float2, float4 or float8); each term
+// is then rounded to bfloat16 before it is added (mul_add over an X), the
+// JAX package's order.  Elsewhere X is T and nothing of it is compiled.
+//
 // K1's two dropout walks (the masked and the degree walk) have a design of
 // their own, drop_walk.cuh, which takes this header's parts and fix-up.
 //
@@ -52,6 +58,7 @@
 #pragma once
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,7 +80,8 @@ constexpr int kMinBlocks = WALK_MIN_BLOCKS;
 constexpr int kSumLoads = 16;
 
 // One launch's arguments, as the C entry points take them.  x, out and
-// carry hold T (float or float4); fv = F / (floats in T).
+// carry hold T (float or float4; the bfloat16 mode's x holds X); fv = F /
+// (floats in T).
 struct Args {
   const int32_t* ptr;
   const int32_t* idx;
@@ -108,9 +116,26 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
+// Eight floats, a lane's sums at the bfloat16 mode's 16-byte loads; four
+// and eight bfloat16, its 8- and 16-byte loads.
+struct __align__(16) float8 {
+  float4 lo, hi;
+};
+struct __align__(8) bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+struct __align__(16) bf16x8 {
+  __nv_bfloat162 a, b, c, d;
+};
+
 __device__ __forceinline__ void set_zero(float& a) { a = 0.f; }
 __device__ __forceinline__ void set_zero(float4& a) {
   a = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+// float2, float8 and the bfloat16 loads: all bits zero
+template <typename V>
+__device__ __forceinline__ void set_zero(V& a) {
+  a = V{};
 }
 
 // acc += w * v, rounding the product and the sum apart (no fused
@@ -124,6 +149,26 @@ __device__ __forceinline__ void mul_add(float4& acc, float w, float4 v) {
   mul_add(acc.y, w, v.y);
   mul_add(acc.z, w, v.z);
   mul_add(acc.w, w, v.w);
+}
+
+// The bfloat16 mode's term, fp32(bf16_rn(w * fp32(v))): the JAX package's
+// G * vals in float32, then G.astype(bfloat16), each rounded apart.
+__device__ __forceinline__ float term(float w, __nv_bfloat16 v) {
+  return __bfloat162float(
+      __float2bfloat16_rn(__fmul_rn(w, __bfloat162float(v))));
+}
+__device__ __forceinline__ float2 term(float w, __nv_bfloat162 v) {
+  return make_float2(term(w, v.x), term(w, v.y));
+}
+__device__ __forceinline__ float4 term(float w, bf16x4 v) {
+  const float2 lo = term(w, v.lo), hi = term(w, v.hi);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float8 term(float w, bf16x8 v) {
+  const float2 a = term(w, v.a), b = term(w, v.b), c = term(w, v.c),
+               d = term(w, v.d);
+  return float8{make_float4(a.x, a.y, b.x, b.y),
+                make_float4(c.x, c.y, d.x, d.y)};
 }
 
 __device__ __forceinline__ float scaled(float s, float v) {
@@ -143,6 +188,21 @@ __device__ __forceinline__ void add_into(float4& acc, float4 v) {
   add_into(acc.z, v.z);
   add_into(acc.w, v.w);
 }
+__device__ __forceinline__ void add_into(float2& acc, float2 v) {
+  add_into(acc.x, v.x);
+  add_into(acc.y, v.y);
+}
+__device__ __forceinline__ void add_into(float8& acc, const float8& v) {
+  add_into(acc.lo, v.lo);
+  add_into(acc.hi, v.hi);
+}
+
+// acc += the bfloat16 mode's term of each element of v, one rounded
+// addition an element.
+template <typename T, typename X>
+__device__ __forceinline__ void mul_add(T& acc, float w, const X& v) {
+  add_into(acc, term(w, v));
+}
 
 // The element of out that list row `row` writes: out row rows[row] in
 // accumulate mode, else out row `row`.
@@ -156,12 +216,12 @@ __device__ __forceinline__ T* row_at(T* __restrict__ out,
 // Writes list row `row`'s sum: stores it, or, with kAdd, adds it to `base`,
 // the row's value in out, as the plain version's index_add_ into its base
 // does; with kScaled (store mode) stores rs[row] * sum + w * x[row].
-template <bool kAdd, bool kScaled = false, typename T>
+template <bool kAdd, bool kScaled = false, typename T, typename X = T>
 __device__ __forceinline__ void put_row(T* __restrict__ out,
                                         const int32_t* __restrict__ rows,
                                         int row, int fv, int j, T acc,
                                         T base, const Scale& sc = Scale{},
-                                        const T* __restrict__ x = nullptr) {
+                                        const X* __restrict__ x = nullptr) {
   if (kAdd) add_into(acc, base);
   if constexpr (kScaled) {
     if (sc.rs) acc = scaled(sc.rs[row], acc);
@@ -205,13 +265,14 @@ __device__ __forceinline__ long long group_item(int group, long long n_items,
 }
 
 // Unit u holds edges unit_edge[u] .. unit_edge[u+1]; unit_row[u] is its
-// first row, or ~row for a piece of a split row.
-template <typename T, bool kAdd, bool kScaled = false>
+// first row, or ~row for a piece of a split row.  x holds X (T, or the
+// bfloat16 mode's loads).
+template <typename T, bool kAdd, bool kScaled = false, typename X = T>
 __device__ __forceinline__ void walk_units(
     const int32_t* __restrict__ ptr, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ eid, const int32_t* __restrict__ rows,
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
-    const int32_t* __restrict__ unit_edge, const T* __restrict__ x,
+    const int32_t* __restrict__ unit_edge, const X* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
     int group, const Scale sc = Scale{}) {
   int lane;
@@ -253,7 +314,7 @@ __device__ __forceinline__ void walk_units(
         next_w = val[eid ? eid[pe] : pe];
       }
       for (int k = 0; k < n; k += kUnroll) {
-        T a[kUnroll];
+        X a[kUnroll];
         float w[kUnroll];
         float c[kUnroll];  // cs of the gathered rows (kScaled)
 #pragma unroll
@@ -304,11 +365,11 @@ __device__ __forceinline__ void walk_units(
   }
 }
 
-template <typename T, bool kAdd>
+template <typename T, bool kAdd, typename X = T>
 __device__ __forceinline__ void walk(const Args& a) {
-  walk_units<T, kAdd>(
+  walk_units<T, kAdd, false, X>(
       a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
-      static_cast<const T*>(a.x), static_cast<T*>(a.out),
+      static_cast<const X*>(a.x), static_cast<T*>(a.out),
       static_cast<T*>(a.carry), a.n_units, a.fv, a.group);
 }
 
@@ -430,7 +491,8 @@ inline int launch(Kernel walk_k, Kernel parts_k, Kernel fixup_k,
   return finish(parts_k, fixup_k, a, stream);
 }
 
-// The Args of an entry point's C arguments; vec is 4 (float4) or 1.
+// The Args of an entry point's C arguments; vec is the floats in T (4:
+// float4, or 1; the bfloat16 mode's 1, 2, 4 or 8).
 inline Args make_args(const void* ptr, const void* idx, const void* eid,
                       const void* rows, const void* unit_row,
                       const void* unit_edge, const void* split,

@@ -76,6 +76,11 @@
 //   every edge, val of the kept ones and deg, 15,352,020 B, 4.6 us.
 // Both add a split row's pieces after the walk with edge_walk's parts and
 // fix-up kernels (ell_gather_masked_parts/_fixup, ell_degree_parts/_fixup).
+// Each walk is built for float base values and for bfloat16 ones (V; the
+// entry points gnntf_ell_gather_masked_bf16 and gnntf_ell_degree_bf16: the
+// training grids of GNNTF_GRID_VALUE_DTYPE=bfloat16, the counterpart of the
+// JAX package's bfloat16 value grids), which halve the values' bytes: 2 B
+// of the kept edges' 8 and of the degree walk's kept values.
 #include "drop_walk.cuh"
 #include "edge_walk.cuh"
 
@@ -141,20 +146,20 @@ int launch_scaled(const Args& a, const Scale& sc, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename V>
 __global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
     ell_gather_masked_walk(const Args a, const Tiles t, const Mask m,
                            const Pass p) {
-  drop_walk::walk<T, true>(a, t, m, p);
+  drop_walk::walk<T, true, V>(a, t, m, p);
 }
 
 // pass 1 of the masked walk: returns at once unless pass 0 found an inf or
 // a NaN in x
-template <typename T>
+template <typename T, typename V>
 __global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
     ell_gather_masked_nonfinite(const Args a, const Tiles t, const Mask m,
                                 const Pass p) {
-  drop_walk::walk<T, true>(a, t, m, p);
+  drop_walk::walk<T, true, V>(a, t, m, p);
 }
 
 template <typename T>
@@ -167,10 +172,11 @@ __global__ void __launch_bounds__(32) ell_gather_masked_fixup(const Args a) {
   edge_walk::fixup<T, false>(a);
 }
 
+template <typename V>
 __global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
     ell_degree_walk(const Args a, const Tiles t, const Mask m,
                     const Pass p) {
-  drop_walk::walk<float, false>(a, t, m, p);
+  drop_walk::walk<float, false, V>(a, t, m, p);
 }
 
 __global__ void __launch_bounds__(32) ell_degree_parts(const Args a) {
@@ -230,80 +236,114 @@ extern "C" int gnntf_ell_gather_scaled(
   return launch_scaled<float>(a, sc, s);
 }
 
-// The masked walk in store mode: out (n, f) float32 needs no zero-fill
-// (rows is ignored); val holds the graph's E base values, read at eid; the
-// tiles (tile_seg, tile_edge, seg_end, seg_out, n_tiles, cap_edges,
-// cap_segs) are drop_walk.cuh's Tiles; salt (a (2,) int64 device buffer),
-// thresh, n_drop, id_base and scale are the draw (drop_walk.cuh, Mask);
-// flag is one int32 of scratch on the card and n_floats x's size; carry
-// holds the pieces' and parts' sums as gnntf_ell_gather's; the other
-// arguments are as gnntf_ell_gather's.
-extern "C" int gnntf_ell_gather_masked(
-    const void* ptr, const void* idx, const void* eid, const void* rows,
-    const void* unit_row, const void* unit_edge, const void* split,
-    const void* part_item, const void* val, const void* x, void* out,
-    void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, const void* tile_seg,
-    const void* tile_edge, const void* seg_end, const void* seg_out,
-    int n_tiles, int cap_edges, int cap_segs, const void* salt,
-    unsigned thresh, unsigned n_drop, unsigned id_base,
-    float scale, void* flag, long long n_floats, void* stream) {
-  (void)rows;
+namespace {
+
+// The masked walk over base values of type V (gnntf_ell_gather_masked*).
+template <typename V>
+int masked(const void* ptr, const void* idx, const void* eid,
+           const void* unit_row, const void* unit_edge, const void* split,
+           const void* part_item, const void* val, const void* x, void* out,
+           void* carry, int n_units, int n_split, int n_part_items, int f,
+           int vec, int group, int parts, const Tiles& t, const Mask& m,
+           void* flag, long long n_floats, cudaStream_t s) {
   if (flag == nullptr) return (int)cudaErrorInvalidValue;
   const Args a = edge_walk::make_args(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
-  const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
-                                        seg_out, n_tiles, cap_edges,
-                                        cap_segs);
-  const Mask m =
-      drop_walk::make_mask(salt, thresh, n_drop, id_base, scale);
   const long long n_x = n_floats / vec;  // x's T's (float4 or float)
   int* fl = static_cast<int*>(flag);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4)
     return drop_walk::launch(
-        ell_gather_masked_walk<float4>, ell_gather_masked_nonfinite<float4>,
+        ell_gather_masked_walk<float4, V>,
+        ell_gather_masked_nonfinite<float4, V>,
         ell_gather_masked_parts<float4>, ell_gather_masked_fixup<float4>, a,
         t, m, fl, n_x, s);
   return drop_walk::launch(
-      ell_gather_masked_walk<float>, ell_gather_masked_nonfinite<float>,
+      ell_gather_masked_walk<float, V>, ell_gather_masked_nonfinite<float, V>,
       ell_gather_masked_parts<float>, ell_gather_masked_fixup<float>, a, t,
       m, fl, n_x, s);
 }
 
-// The degree walk: out (n,) float32, each list row's sum of its dropped
-// weights, needs no zero-fill; x, rows, idx, flag and n_floats are not
-// read; f and vec are 1; carry is (n_units + n_split * parts,) float32
-// scratch.
-extern "C" int gnntf_ell_degree(
-    const void* ptr, const void* idx, const void* eid, const void* rows,
-    const void* unit_row, const void* unit_edge, const void* split,
-    const void* part_item, const void* val, const void* x, void* out,
-    void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, const void* tile_seg,
-    const void* tile_edge, const void* seg_end, const void* seg_out,
-    int n_tiles, int cap_edges, int cap_segs, const void* salt,
-    unsigned thresh, unsigned n_drop, unsigned id_base,
-    float scale, void* flag, long long n_floats, void* stream) {
-  (void)rows;
-  (void)x;
-  (void)flag;
-  (void)n_floats;
+// The degree walk over base values of type V (gnntf_ell_degree*).
+template <typename V>
+int degree(const void* ptr, const void* idx, const void* eid,
+           const void* unit_row, const void* unit_edge, const void* split,
+           const void* part_item, const void* val, void* out, void* carry,
+           int n_units, int n_split, int n_part_items, int f, int vec,
+           int group, int parts, const Tiles& t, const Mask& m,
+           cudaStream_t s) {
   if (f != 1 || vec != 1) return (int)cudaErrorInvalidValue;
   const Args a = edge_walk::make_args(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,
       nullptr, out, carry, n_units, n_split, n_part_items, 1, 1, group,
       parts);
-  const Tiles t = drop_walk::make_tiles(tile_seg, tile_edge, seg_end,
-                                        seg_out, n_tiles, cap_edges,
-                                        cap_segs);
-  const Mask m =
-      drop_walk::make_mask(salt, thresh, n_drop, id_base, scale);
-  return drop_walk::launch(ell_degree_walk, nullptr, ell_degree_parts,
-                           ell_degree_fixup, a, t, m, nullptr, 0,
-                           static_cast<cudaStream_t>(stream));
+  return drop_walk::launch(ell_degree_walk<V>, nullptr, ell_degree_parts,
+                           ell_degree_fixup, a, t, m, nullptr, 0, s);
 }
+
+}  // namespace
+
+// The masked walk in store mode: out (n, f) float32 needs no zero-fill
+// (rows is ignored); val holds the graph's E base values as float (the _bf16
+// entry: as bfloat16), read at eid; the tiles (tile_seg, tile_edge,
+// seg_end, seg_out, n_tiles, cap_edges, cap_segs) are drop_walk.cuh's
+// Tiles; salt (a (2,) int64 device buffer), thresh, n_drop, id_base and
+// scale are the draw (drop_walk.cuh, Mask); flag is one int32 of scratch
+// on the card and n_floats x's size; carry holds the pieces' and parts'
+// sums as gnntf_ell_gather's; the other arguments are as
+// gnntf_ell_gather's.
+#define GNNTF_MASKED_ENTRY(NAME, V)                                          \
+  extern "C" int NAME(                                                       \
+      const void* ptr, const void* idx, const void* eid, const void* rows,   \
+      const void* unit_row, const void* unit_edge, const void* split,        \
+      const void* part_item, const void* val, const void* x, void* out,      \
+      void* carry, int n_units, int n_split, int n_part_items, int f,        \
+      int vec, int group, int parts, const void* tile_seg,                   \
+      const void* tile_edge, const void* seg_end, const void* seg_out,       \
+      int n_tiles, int cap_edges, int cap_segs, const void* salt,            \
+      unsigned thresh, unsigned n_drop, unsigned id_base, float scale,       \
+      void* flag, long long n_floats, void* stream) {                        \
+    (void)rows;                                                              \
+    return masked<V>(                                                        \
+        ptr, idx, eid, unit_row, unit_edge, split, part_item, val, x, out,   \
+        carry, n_units, n_split, n_part_items, f, vec, group, parts,         \
+        drop_walk::make_tiles(tile_seg, tile_edge, seg_end, seg_out,         \
+                              n_tiles, cap_edges, cap_segs),                 \
+        drop_walk::make_mask(salt, thresh, n_drop, id_base, scale), flag,    \
+        n_floats, static_cast<cudaStream_t>(stream));                        \
+  }
+GNNTF_MASKED_ENTRY(gnntf_ell_gather_masked, float)
+GNNTF_MASKED_ENTRY(gnntf_ell_gather_masked_bf16, __nv_bfloat16)
+
+// The degree walk: out (n,) float32, each list row's sum of its dropped
+// weights, needs no zero-fill; x, rows, idx, flag and n_floats are not
+// read; f and vec are 1; carry is (n_units + n_split * parts,) float32
+// scratch; val as the masked walk's.
+#define GNNTF_DEGREE_ENTRY(NAME, V)                                          \
+  extern "C" int NAME(                                                       \
+      const void* ptr, const void* idx, const void* eid, const void* rows,   \
+      const void* unit_row, const void* unit_edge, const void* split,        \
+      const void* part_item, const void* val, const void* x, void* out,      \
+      void* carry, int n_units, int n_split, int n_part_items, int f,        \
+      int vec, int group, int parts, const void* tile_seg,                   \
+      const void* tile_edge, const void* seg_end, const void* seg_out,       \
+      int n_tiles, int cap_edges, int cap_segs, const void* salt,            \
+      unsigned thresh, unsigned n_drop, unsigned id_base, float scale,       \
+      void* flag, long long n_floats, void* stream) {                        \
+    (void)rows;                                                              \
+    (void)x;                                                                 \
+    (void)flag;                                                              \
+    (void)n_floats;                                                          \
+    return degree<V>(                                                        \
+        ptr, idx, eid, unit_row, unit_edge, split, part_item, val, out,      \
+        carry, n_units, n_split, n_part_items, f, vec, group, parts,         \
+        drop_walk::make_tiles(tile_seg, tile_edge, seg_end, seg_out,         \
+                              n_tiles, cap_edges, cap_segs),                 \
+        drop_walk::make_mask(salt, thresh, n_drop, id_base, scale),          \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+GNNTF_DEGREE_ENTRY(gnntf_ell_degree, float)
+GNNTF_DEGREE_ENTRY(gnntf_ell_degree_bf16, __nv_bfloat16)
 
 extern "C" const char* gnntf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -144,14 +144,21 @@ class Graph:
         return a.view(g.n_nodes, g.n_nodes)
 
 
+# from_edges sorts this many edges or more with the C++ radix sort
+# (utils/native.py::lexsort_edges, the same order), as the JAX package does
+_NATIVE_SORT_EDGES = 100_000
+
+
 def from_edges(src, dst, values=None, *, n_nodes: Optional[int] = None,
                directed: bool = True, sort: bool = True,
                dtype=torch.float32, device="cuda") -> Graph:
     """Build a :class:`Graph` from edge arrays.
 
     With ``directed=False`` the reversed edges are appended (duplicates sum —
-    reference convention, graph_manipulation.py:29).  Values are float64 on
-    the host and cast to ``dtype``."""
+    reference convention, graph_manipulation.py:29).  With ``sort`` the
+    edges are stably sorted by (row, col), in C++ at or above
+    ``_NATIVE_SORT_EDGES`` edges where the library builds.  Values are
+    float64 on the host and cast to ``dtype``."""
     device = resolve_device(device)
     src = np.asarray(src, np.int32).reshape(-1)
     dst = np.asarray(dst, np.int32).reshape(-1)
@@ -168,7 +175,12 @@ def from_edges(src, dst, values=None, *, n_nodes: Optional[int] = None,
         col = np.concatenate([dst, src])
         values = np.concatenate([values, values])
     if sort:
-        order = np.lexsort((col, row))
+        order = None
+        if row.shape[0] >= _NATIVE_SORT_EDGES:
+            from ..utils.native import lexsort_edges
+            order = lexsort_edges(row, col)
+        if order is None:
+            order = np.lexsort((col, row))
         row, col, values = row[order], col[order], values[order]
     return Graph(
         row=torch.from_numpy(row.astype(np.int64)).to(device),

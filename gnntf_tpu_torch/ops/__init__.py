@@ -5,8 +5,9 @@ from .attention import (AttnGrids, AttnLists, attn_aggregate,
                         attn_stats, attn_stats_plain, build_attn_grids,
                         gat_attention)
 from .blocked import (BlockedCOO, BlockedSpMM, EdgeList, block_coo,
-                      blocked_spmm, blocked_spmm_plain, scatter_values,
-                      spmm_pallas)
+                      blocked_spmm, blocked_spmm_bf16,
+                      blocked_spmm_bf16_plain, blocked_spmm_plain,
+                      scatter_values, spmm_pallas)
 from .dropout import dropout
 from .ell_gather import (ell_degree_masked, ell_degree_masked_plain,
                          ell_edge_list, ell_gather, ell_gather_list,
@@ -16,9 +17,9 @@ from .ell_gather import (ell_degree_masked, ell_degree_masked_plain,
 from .normalize import edge_dropout, normalize_adjacency
 from .segment import segment_softmax
 from .spmm import (PreparedSpMM, build_ell, build_hybrid, edge_dot, prepare,
-                   sddmm, set_spmm_executor, set_spmm_impl, spmm,
-                   spmm_ell, spmm_executor, spmm_hybrid, spmm_impl,
+                   prepare_spmm, sddmm, set_spmm_executor, set_spmm_impl,
+                   spmm, spmm_ell, spmm_executor, spmm_hybrid, spmm_impl,
                    spmm_segment)
-from .stochastic import (TrainGrids, build_train_grids, grids_eligible,
-                         min_edges, min_edges_scope, stochastic_degree,
-                         stochastic_spmm, train_grids)
+from .stochastic import (TrainGrids, build_train_grids, grid_value_dtype,
+                         grids_eligible, min_edges, min_edges_scope,
+                         stochastic_degree, stochastic_spmm, train_grids)

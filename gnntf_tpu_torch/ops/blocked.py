@@ -27,6 +27,12 @@ raises.  ``spmm_pallas`` is the differentiable SpMM over it: the forward
 runs the kernel over the forward list, the backward's ``dx = A^T dy`` runs
 it over the transposed list, and the values' gradient (the JAX package's
 ``_pallas_vjp_fn``) is plain torch, computed only when asked for.
+
+``spmm_pallas(..., bf16=True)`` is the TPU kernel's bfloat16 mode: ``x`` is
+rounded to bfloat16 once a call and :func:`blocked_spmm_bf16` walks the
+forward list over it, each term ``val * x`` rounded to bfloat16 and summed
+in float32 (:func:`blocked_spmm_bf16_plain` on the CPU); the backward is
+the float32 one, over the unrounded ``x``, as the JAX package's is.
 """
 from __future__ import annotations
 
@@ -47,6 +53,13 @@ from ..utils.idcache import IdLRU, sizeof
 # (_UNIT_SCALE * s)^2, so s grows as the square root of n
 _UNIT_SIZES = (16, 32, 64, 128)
 _UNIT_SCALE = 12
+# K2's bfloat16 mode: None takes each width's load by bf16_vec's rule; a
+# number (8, 4, 2, 1) forces the widest load up to it, whatever the lanes
+# (k2_sweep.py --kernels k2bf16 times each)
+_BF16_VEC = None
+# the fewest loads a row that the wide walk takes (kNarrowLanes in
+# csrc/blocked_spmm.cu)
+_NARROW_LANES = 8
 # a split row's pieces are summed in this many parts: part g takes pieces
 # g, g + P, g + 2P, ... in turn, then the parts are added in order.  This
 # fixes the order of the sum; the kernel's launch geometry does not.  A list
@@ -543,20 +556,22 @@ def ordered_row_sums(lst: EdgeList, terms: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def check(what, lst, val, x, base=None):
-    """Raise unless the walk can take these inputs: ``x`` (``n_in``, F)
-    float32 (any number of rows where the list adds into a ``base``),
-    ``val`` ``n_values`` float32, a ``base`` (M, F) float32 apart from
-    ``x`` (the kernel reads ``x`` while it writes ``base``), all contiguous
-    and on the list's device."""
+def check(what, lst, val, x, base=None, values=(torch.float32,),
+          x_dtype=torch.float32):
+    """Raise unless the walk can take these inputs: ``x`` (``n_in``, F) of
+    ``x_dtype`` (any number of rows where the list adds into a ``base``),
+    ``val`` ``n_values`` of a dtype in ``values``, a ``base`` (M, F)
+    float32 apart from ``x`` (the kernel reads ``x`` while it writes
+    ``base``), all contiguous and on the list's device."""
     n = lst.n_in
-    if x.dim() != 2 or x.dtype != torch.float32 or (
+    if x.dim() != 2 or x.dtype != x_dtype or (
             base is None and x.shape[0] != n):
-        raise TypeError(f"{what}: x must be ({n}, F) float32, got "
+        raise TypeError(f"{what}: x must be ({n}, F) {x_dtype}, got "
                         f"{tuple(x.shape)} {x.dtype}")
-    if val.shape != (lst.n_values,) or val.dtype != torch.float32:
-        raise TypeError(f"{what}: values must be ({lst.n_values},) float32, "
-                        f"got {tuple(val.shape)} {val.dtype}")
+    if val.shape != (lst.n_values,) or val.dtype not in values:
+        raise TypeError(f"{what}: values must be ({lst.n_values},) of "
+                        f"{' or '.join(map(str, values))}, got "
+                        f"{tuple(val.shape)} {val.dtype}")
     tensors = [val, x]
     if base is not None:
         if (base.dim() != 2 or base.shape[1] != x.shape[1]
@@ -574,6 +589,26 @@ def check(what, lst, val, x, base=None):
         raise ValueError(f"{what} inputs must be contiguous")
 
 
+def bf16_vec(f: int, x_at: int, out_at: int) -> int:
+    """The bfloat16 elements a lane of K2's bfloat16 mode loads at once: the
+    most of 8, 4 and 2 that divides F, with ``x`` aligned to its bytes and
+    ``out`` to its floats' (16 bytes at most), and leaves a row at least
+    ``_NARROW_LANES`` loads (the wide walk), else 1.  On the RCM bench
+    graph's forward list that load was the fastest of the four at F = 16,
+    40, 64 and 128 (``k2_sweep.py --kernels k2bf16``, NVIDIA H100 80GB HBM3,
+    700 W; PERF.md §6): 2 at F=16, 4 at F=40, 8 at F=64 and 128; the
+    narrow walk over wider loads lost (F=40: 8 a lane 0.240 ms against
+    0.112).  ``_BF16_VEC`` set to a number forces the widest load up to it
+    instead."""
+    widest = 8 if _BF16_VEC is None else _BF16_VEC
+    for vec in (8, 4, 2):
+        if (vec <= widest and f % vec == 0 and x_at % (2 * vec) == 0
+                and out_at % min(16, 4 * vec) == 0
+                and (_BF16_VEC is not None or f // vec >= _NARROW_LANES)):
+            return vec
+    return 1
+
+
 def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
                out: torch.Tensor, extra=()):
     """The C arguments of a walk's entry point but the stream (the list's,
@@ -581,10 +616,14 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
     row is split), to be kept until the launch."""
     f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
-    # float4 loads where rows are 16-byte aligned; a group of lanes a unit
+    # float4 loads where rows are 16-byte aligned (bfloat16 x: bf16_vec); a
+    # group of lanes a unit
     x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
-    vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
-                and out_at % 16 == 0) else 1
+    if x is not None and x.dtype == torch.bfloat16:
+        vec = bf16_vec(f, x_at, out_at)
+    else:
+        vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
+                    and out_at % 16 == 0) else 1
     group = max(1, min(32, f // vec))
     # the pieces' sums, then the split rows' parts
     carry = (torch.empty(n_units + n_split * lst.parts, f,
@@ -645,10 +684,50 @@ def blocked_spmm(lst: EdgeList, val: torch.Tensor,
 blocked_spmm.launches = 0
 
 
+def blocked_spmm_bf16_plain(lst: EdgeList, val: torch.Tensor,
+                            xb: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`blocked_spmm_bf16`: each term
+    ``fp32(bf16_rn(val[eid[e]] * fp32(xb[idx[e]])))`` (one float32 product,
+    rounded to bfloat16 to nearest even), summed in the walk's order
+    (:func:`ordered_row_sums`)."""
+    w = val if lst.eid is None else val[lst.eid.long()]
+    terms = xb[lst.idx.long()].to(torch.float32) * w[:, None]
+    return ordered_row_sums(lst, terms.to(torch.bfloat16).to(torch.float32))
+
+
+def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
+                      xb: torch.Tensor) -> torch.Tensor:
+    """K2's bfloat16 mode (the TPU kernel's ``bf16=True``) over the list:
+    ``out[r] = sum_e fp32(bf16_rn(val[eid[e]] * fp32(xb[idx[e]])))`` as an
+    (N, F) float32 tensor, ``xb`` (``n_in``, F) bfloat16 and ``val``
+    float32.  CPU tensors take :func:`blocked_spmm_bf16_plain`; CUDA tensors
+    launch the walk over bfloat16 loads (:func:`bf16_vec`), counted in
+    ``blocked_spmm_bf16.launches``."""
+    if lst.rows is not None:
+        raise ValueError("blocked_spmm_bf16 stores row r at r; a list with "
+                         "row ids is K1's (ops/ell_gather.py)")
+    check("blocked_spmm_bf16", lst, val, xb, x_dtype=torch.bfloat16)
+    if xb.device.type == "cpu":
+        return blocked_spmm_bf16_plain(lst, val, xb)
+    if xb.device.type != "cuda":
+        raise ValueError(f"blocked_spmm_bf16 runs on cpu or cuda, not "
+                         f"{xb.device}")
+    out = torch.empty(lst.n_rows, xb.shape[1], dtype=torch.float32,
+                      device=xb.device)
+    if lst.n_units == 0 or xb.shape[1] == 0:
+        return out
+    launch(_library(), "gnntf_blocked_spmm_bf16", lst, val, xb, out)
+    blocked_spmm_bf16.launches += 1
+    return out
+
+
+blocked_spmm_bf16.launches = 0
+
+
 # the C signature of the walk's entry points (gnntf_blocked_spmm,
-# gnntf_ell_gather): ptr, idx, eid, rows, unit_row, unit_edge, split,
-# part_item (the list), val, x, out, carry; n_units, n_split, n_part_items,
-# f, vec, group, parts; stream
+# gnntf_blocked_spmm_bf16, gnntf_ell_gather): ptr, idx, eid, rows,
+# unit_row, unit_edge, split, part_item (the list), val, x, out, carry;
+# n_units, n_split, n_part_items, f, vec, group, parts; stream
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 # the dropout walks' entry points (gnntf_ell_gather_masked,
@@ -680,21 +759,29 @@ def _library() -> ctypes.CDLL:
     first use, never at import)."""
     lib = kernels.load("blocked_spmm")
     declare(lib.gnntf_blocked_spmm)
+    declare(lib.gnntf_blocked_spmm_bf16)
     return lib
 
 
 class _BlockedSpMMFn(torch.autograd.Function):
-    """``(val, x) -> A @ x`` through K2.  The backward is the JAX package's
-    ``_pallas_vjp_fn.f_bwd``: ``dx = A^T @ dy`` through K2 over the
-    transposed list and, only when the values need it, ``dval[e] =
-    <dy[row[e]], x[col[e]]>`` in plain torch."""
+    """``(val, x) -> A @ x`` through K2 (with ``bf16``, its bfloat16 mode
+    over ``x`` rounded to bfloat16 once, the output in ``x``'s dtype).  The
+    backward is the JAX package's ``_pallas_vjp_fn.f_bwd``, which ignores
+    ``bf16``: ``dx = A^T @ dy`` through K2 over the transposed list in
+    float32 and, only when the values need it, ``dval[e] = <dy[row[e]],
+    x[col[e]]>`` in plain torch over the unrounded ``x``."""
 
     @staticmethod
-    def forward(ctx, val, x, prep, row, col):
+    def forward(ctx, val, x, prep, row, col, bf16=False):
         val32 = val.to(torch.float32).contiguous()
-        out = blocked_spmm(prep.forward, val32, x.contiguous())
+        if bf16:
+            out = blocked_spmm_bf16(prep.forward, val32,
+                                    x.to(torch.bfloat16).contiguous())
+            out = out.to(x.dtype)
+        else:
+            out = blocked_spmm(prep.forward, val32, x.contiguous())
         ctx.prep = prep
-        ctx.val_dtype = val.dtype
+        ctx.val_dtype, ctx.x_dtype = val.dtype, x.dtype
         ctx.save_for_backward(val32, x if ctx.needs_input_grad[0] else None,
                               row, col)
         return out
@@ -706,9 +793,11 @@ class _BlockedSpMMFn(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dx = blocked_spmm(ctx.prep.transposed, val32,
                               dy.to(torch.float32).contiguous())
+            dx = dx.to(ctx.x_dtype)
         if ctx.needs_input_grad[0]:
-            dval = (dy[row] * x[col]).sum(-1).to(ctx.val_dtype)
-        return dval, dx, None, None, None
+            dval = (dy.to(torch.float32)[row]
+                    * x.to(torch.float32)[col]).sum(-1).to(ctx.val_dtype)
+        return dval, dx, None, None, None, None
 
 
 # The lists of one structure, memoized on the identity of the graph's ``row``
@@ -736,18 +825,23 @@ def blocked_layout(graph: Graph, window: int = 256, tile: int = 256,
     return prep
 
 
-def spmm_pallas(graph: Graph, x: torch.Tensor, *, window: int = 256,
-                tile: int = 256, block_edges: int = 1024) -> torch.Tensor:
+def spmm_pallas(graph: Graph, x: torch.Tensor, *, bf16: bool = False,
+                window: int = 256, tile: int = 256,
+                block_edges: int = 1024) -> torch.Tensor:
     """SpMM through K2 (the JAX package's ``spmm_impl="pallas"``).  Lazy
     scales and identity apply around it, lazy dropout is materialized
     first; the layout and its edge lists are built once per graph
-    structure, and the kernel reads the graph's values in place.
-    Differentiable in the values and in ``x``."""
+    structure, and the kernel reads the graph's values in place.  With
+    ``bf16`` the kernel's bfloat16 mode (the JAX package's
+    ``spmm_pallas(bf16=True)``): each term ``val * x`` rounded to bfloat16,
+    the sums in float32, the output in ``x``'s dtype.  Differentiable in
+    the values and in ``x`` (a float32 backward either way)."""
     if graph.scaled or graph.eye_weight != 0.0:
         from .spmm import _scaled_call
         return _scaled_call(functools.partial(
-            spmm_pallas, window=window, tile=tile, block_edges=block_edges),
-            graph, x)
+            spmm_pallas, bf16=bf16, window=window, tile=tile,
+            block_edges=block_edges), graph, x)
     graph = graph.materialized_dropout()
     prep = blocked_layout(graph, window, tile, block_edges)
-    return _BlockedSpMMFn.apply(graph.val, x, prep, graph.row, graph.col)
+    return _BlockedSpMMFn.apply(graph.val, x, prep, graph.row, graph.col,
+                                bf16)

@@ -52,7 +52,12 @@ edge's, as JAX's product multiplies them);
 :func:`ell_degree_masked` sums those weights a row, with no ``x``.  Their
 lists carry tiles (``EdgeList.build(tile_items=)``).  Their plain versions
 take the draw's per-edge values (``stochastic.drawn_values``, which equal
-the kernel's weights bit for bit) and sum them in the kernel's order.
+the kernel's weights bit for bit) and sum them in the kernel's order.  Both
+walks take the base values in float32 or in bfloat16 (the grids of
+``GNNTF_GRID_VALUE_DTYPE=bfloat16``, ``stochastic.grid_value_dtype``), each
+through an entry point of its own; a bfloat16 value is widened exactly and
+weighted in float32, so the weights are those of the float32 walk over the
+rounded values.
 """
 from __future__ import annotations
 
@@ -338,6 +343,11 @@ def ell_gather_transposed(lst_t: EdgeList, val: torch.Tensor,
     return out
 
 
+# the base values' dtypes that the dropout walks take, and the suffix of
+# each one's entry points
+_DROP_VALUES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 def _check_masked(what, lst, val):
     if lst.rows is not None:
         raise ValueError(f"{what} stores row r at r; a list with row ids is "
@@ -345,9 +355,10 @@ def _check_masked(what, lst, val):
     if lst.tile_seg is None:
         raise ValueError(f"{what} walks a list built with tiles "
                          "(EdgeList.build(tile_items=...))")
-    if val.shape != (lst.n_values,) or val.dtype != torch.float32:
-        raise TypeError(f"{what}: values must be ({lst.n_values},) float32, "
-                        f"one an edge id, got {tuple(val.shape)} {val.dtype}")
+    if val.shape != (lst.n_values,) or val.dtype not in _DROP_VALUES:
+        raise TypeError(f"{what}: values must be ({lst.n_values},) float32 "
+                        f"or bfloat16, one an edge id, got "
+                        f"{tuple(val.shape)} {val.dtype}")
     if val.device != lst.device:
         raise ValueError(f"{what} inputs span devices {val.device} and "
                          f"{lst.device}")
@@ -381,10 +392,10 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     CPU tensors take :func:`ell_gather_masked_plain`; CUDA tensors launch
     the masked walk, which hashes the mask in the kernel and gathers only
     the kept edges' rows of ``x``, unless ``x`` holds an inf or a NaN
-    (counted in ``ell_gather_masked.launches``: one a call, of its two
-    passes)."""
+    (counted in ``ell_gather_masked.launches``, or ``.bf16_launches`` over
+    bfloat16 values: one a call, of its two passes)."""
     _check_masked("ell_gather_masked", lst, val)
-    blocked.check("ell_gather_masked", lst, val, x)
+    blocked.check("ell_gather_masked", lst, val, x, values=_DROP_VALUES)
     if x.device.type == "cpu":
         return ell_gather_masked_plain(lst, val, salt, keep, n_drop, x,
                                        id_base)
@@ -398,11 +409,16 @@ def ell_gather_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
     _launch_drop("gnntf_ell_gather_masked", lst, val, x, out, salt, keep,
                  n_drop, id_base, flag)
-    ell_gather_masked.launches += 1
+    if val.dtype == torch.float32:
+        ell_gather_masked.launches += 1
+    else:
+        ell_gather_masked.bf16_launches += 1
     return out
 
 
+# launches over float32 values, and over bfloat16 ones
 ell_gather_masked.launches = 0
+ell_gather_masked.bf16_launches = 0
 
 
 def ell_degree_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
@@ -424,7 +440,8 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     row list its row sums (``id_base`` as in :func:`ell_gather_masked`).
 
     CPU tensors take :func:`ell_degree_masked_plain`; CUDA tensors launch
-    the degree walk (counted in ``ell_degree_masked.launches``)."""
+    the degree walk (counted in ``ell_degree_masked.launches``, or
+    ``.bf16_launches`` over bfloat16 values)."""
     _check_masked("ell_degree_masked", lst, val)
     if val.device.type == "cpu":
         return ell_degree_masked_plain(lst, val, salt, keep, n_drop,
@@ -437,11 +454,15 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
         return out
     _launch_drop("gnntf_ell_degree", lst, val, None, out, salt, keep,
                  n_drop, id_base)
-    ell_degree_masked.launches += 1
+    if val.dtype == torch.float32:
+        ell_degree_masked.launches += 1
+    else:
+        ell_degree_masked.bf16_launches += 1
     return out
 
 
 ell_degree_masked.launches = 0
+ell_degree_masked.bf16_launches = 0
 
 
 def drop_args(lst, salt, keep, n_drop, flag=None, x=None,
@@ -459,12 +480,14 @@ def drop_args(lst, salt, keep, n_drop, flag=None, x=None,
 
 def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, id_base,
                  flag=None):
-    """A dropout walk's launch: the kernel reads the salt pair from device
+    """A dropout walk's launch, through ``entry`` or its bfloat16 values'
+    twin (``entry + "_bf16"``): the kernel reads the salt pair from device
     memory (:func:`stochastic.device_salt`; a host salt is uploaded first),
     the rest of the draw as kernel scalars."""
     from .stochastic import device_salt
     salt = device_salt(salt, out.device)
-    blocked.launch(_library(), entry, lst, val, x, out,
+    blocked.launch(_library(), entry + _DROP_VALUES[val.dtype], lst, val, x,
+                   out,
                    extra=drop_args(lst, salt, keep, n_drop, flag, x,
                                    id_base))
 
@@ -483,5 +506,7 @@ def declare(lib) -> None:
     built with other settings)."""
     blocked.declare(lib.gnntf_ell_gather)
     blocked.declare(lib.gnntf_ell_gather_scaled, scaled=True)
-    blocked.declare(lib.gnntf_ell_gather_masked, drop=True)
-    blocked.declare(lib.gnntf_ell_degree, drop=True)
+    for suffix in _DROP_VALUES.values():
+        blocked.declare(getattr(lib, "gnntf_ell_gather_masked" + suffix),
+                        drop=True)
+        blocked.declare(getattr(lib, "gnntf_ell_degree" + suffix), drop=True)

@@ -225,7 +225,9 @@ class ELLLayout:
 def build_ell(row: np.ndarray, col: np.ndarray, n_nodes: int,
               k: int = _ELL_DEFAULT_K, dedup: bool = True) -> ELLLayout:
     """Build the row-split ELL layout (host, once per structure): stable
-    argsort by row, then a scatter of each edge to its virtual row."""
+    argsort by row, then a scatter of each edge to its virtual row; without
+    deduplication one C++ pass (``utils/native.py::build_ell_native``, the
+    same layout) where the library builds, as in the JAX package."""
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     e = row.shape[0]
@@ -243,6 +245,16 @@ def build_ell(row: np.ndarray, col: np.ndarray, n_nodes: int,
             return dataclasses.replace(
                 base, dup_order=order.astype(np.int32),
                 dup_seg=uid.astype(np.int32), n_unique=n_u, edge_slot=es)
+    if e and n_nodes < 2**31 and row.max() < n_nodes and col.max() <= n_nodes:
+        deg = np.bincount(row, minlength=n_nodes)
+        v_total = int(np.sum(-(-deg // k)))
+        if v_total > 0:
+            from ..utils.native import build_ell_native
+            built = build_ell_native(row, col, n_nodes, k, v_total)
+            if built is not None:
+                idx, slot, vrow_row = built
+                return ELLLayout(idx=idx, slot=slot, vrow_row=vrow_row, k=k,
+                                 n_nodes=n_nodes, edge_slot=slot)
     order = None
     if e and np.any(row[1:] < row[:-1]):
         order = np.argsort(row, kind="stable")
@@ -631,6 +643,12 @@ class PreparedSpMM:
     def nbytes(self) -> int:
         return sizeof((self.k1_val, self.dense, self.row_scale,
                        self.col_scale))
+
+
+def prepare_spmm(graph: Graph, k: int = _ELL_DEFAULT_K) -> PreparedSpMM:
+    """A :class:`PreparedSpMM` for a fixed (undropped) graph, as the JAX
+    package's ``prepare_spmm`` builds one: the route of ``auto``."""
+    return PreparedSpMM(graph, k)
 
 
 _PREPARED_CACHE = IdLRU()

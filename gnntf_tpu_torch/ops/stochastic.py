@@ -29,13 +29,20 @@ graph and is not stored).  The kernels read the graph's base values through
 * :func:`stochastic_degree` — the dropped graph's column (or row) sums, the
   degree walk over the column (or row) list, with no E-sized scatter.
 
-The JAX package's ``grid_value_dtype`` (bf16 value grids) has no
-counterpart: the walk reads ``graph.val`` through ``eid``, not a value grid.
+``GNNTF_GRID_VALUE_DTYPE=bfloat16`` (:func:`grid_value_dtype`, as in the
+JAX package) stores the grids' base values rounded to bfloat16 (numpy holds
+their bits as uint16).  The masked product, its backward and the degrees
+then weight each edge by its rounded value: on a device the walks read a
+bfloat16 copy of the values, one an edge id, that the grids make once
+(:meth:`TrainGrids.values`); with float32 grids they read ``graph.val``.
+Unit values (unweighted graphs) are exact in bfloat16, so there the knob
+changes no bit.
 """
 from __future__ import annotations
 
 import contextvars
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -203,7 +210,7 @@ def drawn_values(val: torch.Tensor, salt, keep: float, n_drop: int,
         return hit[3]
     eids = torch.arange(id_base, id_base + val.shape[0], dtype=torch.int64,
                         device=val.device)
-    out = dropped_values(val, eids, salt, keep, n_drop)
+    out = dropped_values(val.to(torch.float32), eids, salt, keep, n_drop)
     if not out.requires_grad:
         _last_draw = (salt, val, key, out)
     return out
@@ -227,7 +234,8 @@ class TrainGrids:
     # row-split (A @ x): gather sources, combine into destination rows
     r_idx: np.ndarray    # (Vr, k) int32 source ids (pad -> n_nodes)
     r_vrow: np.ndarray   # (Vr,)  int32 destination row per virtual row
-    r_val: np.ndarray    # (Vr, k) float32 base values (pad -> 0)
+    r_val: np.ndarray    # (Vr, k) float32 base values (pad -> 0), or
+                         # uint16 bfloat16 bits (grid_value_dtype)
     r_eid: np.ndarray    # (Vr, k) uint32 edge ids (pad -> 0)
     # column-split (A^T @ g, column sums): the same over the transpose
     c_idx: np.ndarray
@@ -237,6 +245,27 @@ class TrainGrids:
 
     def __post_init__(self):
         self._lists = {}
+        self._values = {}
+
+    @property
+    def value_dtype(self) -> torch.dtype:
+        """The dtype of the grids' base values: float32, or bfloat16 under
+        ``GNNTF_GRID_VALUE_DTYPE`` (numpy holds their bits as uint16)."""
+        return torch.bfloat16 if self.r_val.dtype == np.uint16 \
+            else torch.float32
+
+    def values(self, device) -> torch.Tensor:
+        """The base values one an edge id, as the row grid holds them (in
+        :attr:`value_dtype`), on ``device``, made once a device: what the
+        walks read through ``eid`` where the grids are bfloat16."""
+        key = str(torch.device(device))
+        if key not in self._values:
+            live = self.r_idx.reshape(-1) < self.n_nodes
+            eid = self.r_eid.reshape(-1)[live].astype(np.int64)
+            val = np.empty(len(eid), self.r_val.dtype)
+            val[eid] = self.r_val.reshape(-1)[live]
+            self._values[key] = _as_tensor(val).to(device)
+        return self._values[key]
 
     def lists(self, device) -> Tuple[EdgeList, EdgeList]:
         """The row list and the column list on ``device`` (built on first
@@ -252,11 +281,19 @@ class TrainGrids:
 
     def core(self, val: torch.Tensor, salt, keep: float, n_drop: int,
              x: torch.Tensor) -> torch.Tensor:
-        """``A_dropped @ x`` for base values ``val`` (float32, one an edge)
-        and the draw (``salt``, ``keep``, ``n_drop``), differentiable in
-        ``x``."""
+        """``A_dropped @ x`` for base values ``val`` (float32 or bfloat16,
+        one an edge) and the draw (``salt``, ``keep``, ``n_drop``),
+        differentiable in ``x``."""
         return _TrainGridsFn.apply(x, self.lists(x.device), val, salt, keep,
                                    n_drop)
+
+
+def _as_tensor(val: np.ndarray) -> torch.Tensor:
+    """A grid's values as a tensor: float32, or bfloat16 from their uint16
+    bits."""
+    if val.dtype == np.uint16:
+        return torch.from_numpy(val.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(val)
 
 
 def _grid_list(idx: np.ndarray, vrow: np.ndarray, eid: np.ndarray,
@@ -300,25 +337,44 @@ def _route(layout, arr: np.ndarray, fill) -> np.ndarray:
     return grid.reshape(layout.n_vrows, layout.k)
 
 
+def grid_value_dtype() -> torch.dtype:
+    """The dtype of the grids' base values, read from
+    ``GNNTF_GRID_VALUE_DTYPE`` as the JAX package reads it: ``bf16`` or
+    ``bfloat16`` gives ``torch.bfloat16`` (half the values' bytes; exact
+    for unit values, weighted graphs lose mantissa bits), anything else
+    ``torch.float32``."""
+    name = os.environ.get("GNNTF_GRID_VALUE_DTYPE", "float32")
+    return torch.bfloat16 if name in ("bf16", "bfloat16") else torch.float32
+
+
+def _grid_values(val) -> np.ndarray:
+    """``val`` in :func:`grid_value_dtype`: float32, or the uint16 bits of
+    its bfloat16 rounding (to nearest even, as ``ml_dtypes`` rounds)."""
+    val = torch.from_numpy(np.asarray(val).astype(np.float32))
+    if grid_value_dtype() == torch.float32:
+        return val.numpy()
+    return val.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
 def build_train_grids(row: np.ndarray, col: np.ndarray, val,
                       n_nodes: int, k: int = _K) -> TrainGrids:
     """One-time host build: per-original-edge row and column ELL layouts
     (``build_ell(..., dedup=False)`` on (row, col) and (col, row)) with
-    base-value and edge-id grids."""
+    base-value (:func:`grid_value_dtype`) and edge-id grids."""
     from .spmm import build_ell
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
-    val = np.asarray(val).astype(np.float32)
+    val = _grid_values(val)
     eids = np.arange(row.shape[0], dtype=np.uint32)
     rl = build_ell(row, col, n_nodes, k, dedup=False)
     cl = build_ell(col, row, n_nodes, k, dedup=False)
     return TrainGrids(
         n_nodes=n_nodes,
         r_idx=rl.idx, r_vrow=rl.vrow_row,
-        r_val=_route(rl, val, np.float32(0)),
+        r_val=_route(rl, val, val.dtype.type(0)),
         r_eid=_route(rl, eids, np.uint32(0)),
         c_idx=cl.idx, c_vrow=cl.vrow_row,
-        c_val=_route(cl, val, np.float32(0)),
+        c_val=_route(cl, val, val.dtype.type(0)),
         c_eid=_route(cl, eids, np.uint32(0)),
     )
 
@@ -330,9 +386,11 @@ def train_grids(graph: Graph, k: int = _K) -> TrainGrids:
     """The grids of ``graph``'s structure and base values, with its lists on
     its device, built once: memoized on the identity of ``row``, ``col`` and
     ``val`` (strong references kept and re-checked), which every layer's
-    dropped copy of a graph shares.  ``train_grids.builds`` counts the
-    builds."""
-    key = (id(graph.row), id(graph.col), id(graph.val), graph.n_nodes, k)
+    dropped copy of a graph shares, and on :func:`grid_value_dtype`, so a
+    change of ``GNNTF_GRID_VALUE_DTYPE`` builds them anew.
+    ``train_grids.builds`` counts the builds."""
+    key = (id(graph.row), id(graph.col), id(graph.val), graph.n_nodes, k,
+           str(grid_value_dtype()))
     anchors = (graph.row, graph.col, graph.val)
     grids = _GRIDS_CACHE.get(key, anchors)
     if grids is None:
@@ -340,9 +398,11 @@ def train_grids(graph: Graph, k: int = _K) -> TrainGrids:
                                   graph.col.cpu().numpy(),
                                   graph.val.detach().cpu().numpy(),
                                   graph.n_nodes, k)
-        lists = grids.lists(graph.device)
+        held = [grids.lists(graph.device)]
+        if grids.value_dtype != torch.float32:
+            held.append(grids.values(graph.device))
         _GRIDS_CACHE.put(key, anchors, grids,
-                         nbytes=sizeof(grids) + sizeof(lists))
+                         nbytes=sizeof(grids) + sizeof(held))
         train_grids.builds += 1
     return grids
 
@@ -357,19 +417,27 @@ def grids_eligible(graph: Graph) -> bool:
 
 
 def masked_row_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:
-    """The row grid's dropped values under ``graph``'s draw (host, plain;
-    the kernels hash the mask themselves)."""
-    return dropped_values(torch.from_numpy(grids.r_val),
+    """The row grid's dropped values under ``graph``'s draw (host, plain,
+    float32; the kernels hash the mask themselves)."""
+    return dropped_values(_as_tensor(grids.r_val).to(torch.float32),
                           torch.from_numpy(grids.r_eid.astype(np.int64)),
                           graph.drop_salt, graph.drop_keep, graph.drop_n)
 
 
 def masked_col_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:
     """The column grid's dropped values under ``graph``'s draw (host,
-    plain)."""
-    return dropped_values(torch.from_numpy(grids.c_val),
+    plain, float32)."""
+    return dropped_values(_as_tensor(grids.c_val).to(torch.float32),
                           torch.from_numpy(grids.c_eid.astype(np.int64)),
                           graph.drop_salt, graph.drop_keep, graph.drop_n)
+
+
+def _walk_values(grids: TrainGrids, graph: Graph) -> torch.Tensor:
+    """The base values the walks read through ``eid``: ``graph.val`` in
+    float32, or the grids' bfloat16 copy (:meth:`TrainGrids.values`)."""
+    if grids.value_dtype == torch.float32:
+        return graph.val.to(torch.float32).contiguous()
+    return grids.values(graph.device)
 
 
 def stochastic_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -377,8 +445,8 @@ def stochastic_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     lists.  The lazy scales are applied by the ``spmm`` dispatcher around
     this call; ``graph`` here is the unscaled base."""
     grids = train_grids(graph)
-    val = graph.val.to(torch.float32).contiguous()
-    return grids.core(val, graph.drop_salt, graph.drop_keep, graph.drop_n,
+    return grids.core(_walk_values(grids, graph), graph.drop_salt,
+                      graph.drop_keep, graph.drop_n,
                       x.to(torch.float32).contiguous())
 
 
@@ -387,7 +455,8 @@ def stochastic_degree(graph: Graph, by: str = "col") -> torch.Tensor:
     degree walk over the column list (``by='col'``: column sums, for the
     symmetric and bipartite normalizations) or the row list (``by='row'``:
     row sums)."""
-    rows, cols = train_grids(graph).lists(graph.device)
-    val = graph.val.to(torch.float32).contiguous()
-    return ell_degree_masked(cols if by == "col" else rows, val,
+    grids = train_grids(graph)
+    rows, cols = grids.lists(graph.device)
+    return ell_degree_masked(cols if by == "col" else rows,
+                             _walk_values(grids, graph),
                              graph.drop_salt, graph.drop_keep, graph.drop_n)

@@ -1,15 +1,17 @@
-"""ctypes bridge to the C++ negative sampler (``native/gnntf_native.cc``,
-the JAX package's native runtime ops).
-
-Only the part that link prediction needs is bridged: :func:`available`,
-:func:`_edge_hashes` and :func:`negative_sample_native`.  The source is
+"""ctypes bridge to the C++ host builders (``native/gnntf_native.cc``, the
+JAX package's native runtime ops): the negative sampler of link prediction
+(:func:`available`, :func:`_edge_hashes`, :func:`negative_sample_native`),
+the radix argsort of edges by (row, col) (:func:`lexsort_edges`, which
+``graph/coo.py::from_edges`` takes at or above 100,000 edges) and the
+one-pass row-split ELL build (:func:`build_ell_native`, which
+``ops/spmm.py::build_ell`` takes without deduplication).  The source is
 compiled with ``g++ -O3 -std=c++17 -fPIC -shared`` (the flags of
 ``native/Makefile``) into the port's ``gnntf_tpu_torch/build/
 libgnntf_native.so`` on first use, and again when the source is newer than
 the library; nothing is written into ``native/``.  When the library cannot
-be built or loaded, :func:`negative_sample_native` returns None and the
-sampler takes its Python path, as in the JAX package; :data:`error` then
-says why.
+be built or loaded, each function returns None and its caller takes its
+numpy or Python path, as in the JAX package; :data:`error` then says why.
+The two builders count the calls that the library served (``runs``).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ def _load() -> Optional[ctypes.CDLL]:
             error = f"{type(exc).__name__}: {exc}"
             return None
         i64 = ctypes.c_int64
+        p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         p64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         pu64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         lib.gnntf_negative_sample.restype = i64
@@ -71,6 +74,11 @@ def _load() -> Optional[ctypes.CDLL]:
             p64, i64, p64, i64, pu64, i64, i64, ctypes.c_uint64, p64]
         lib.gnntf_sort_unique_u64.restype = i64
         lib.gnntf_sort_unique_u64.argtypes = [pu64, i64]
+        lib.gnntf_lexsort_edges.restype = None
+        lib.gnntf_lexsort_edges.argtypes = [p32, p32, i64, p64]
+        lib.gnntf_build_ell.restype = i64
+        lib.gnntf_build_ell.argtypes = [p32, p32, i64, i64, i64, i64, p32,
+                                        p32, p32]
         _lib = lib
         return _lib
 
@@ -119,3 +127,47 @@ def negative_sample_native(sampler, out: np.ndarray,
     if rc != 0:
         return None
     return True
+
+
+def lexsort_edges(row: np.ndarray, col: np.ndarray) -> Optional[np.ndarray]:
+    """The stable argsort of the edges by (row, col), ``np.lexsort((col,
+    row))``, as int64, by an LSD radix sort in C++ (ids non-negative and
+    below 2**31); None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(row, np.int32)
+    col = np.ascontiguousarray(col, np.int32)
+    order = np.empty(len(row), np.int64)
+    lib.gnntf_lexsort_edges(row, col, len(row), order)
+    lexsort_edges.runs += 1
+    return order
+
+
+lexsort_edges.runs = 0
+
+
+def build_ell_native(row: np.ndarray, col: np.ndarray, n_nodes: int,
+                     k: int, n_vrows: int):
+    """The row-split ELL layout of ``ops/spmm.py::build_ell`` without
+    deduplication in one C++ pass over the edges in any order: int32
+    ``idx`` (``n_vrows``, k), ``slot`` (E,) and ``vrow_row``
+    (``n_vrows``,), where ``n_vrows`` is the sum over rows of
+    ``ceil(degree / k)``.  None when the library is unavailable or a row id
+    is out of range."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(row, np.int32)
+    col = np.ascontiguousarray(col, np.int32)
+    idx = np.empty(n_vrows * k, np.int32)
+    slot = np.empty(len(row), np.int32)
+    vrow_row = np.empty(n_vrows, np.int32)
+    if lib.gnntf_build_ell(row, col, len(row), n_nodes, k, n_vrows, idx,
+                           slot, vrow_row) != 0:
+        return None
+    build_ell_native.runs += 1
+    return idx.reshape(n_vrows, k), slot, vrow_row
+
+
+build_ell_native.runs = 0

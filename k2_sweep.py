@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small]
+    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small,k2bf16]
                         [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
                         [--ab-route DIR]
 
@@ -30,6 +30,14 @@ RCM benchmark graph), at F=1 (the degree walk), 7 (Cora's classes) and
 64, with each kernel's device time from one call's profile (the walk, the
 narrow walk, the parts, the fix-up) beside the CUDA-event mean, and, on
 the Cora-scale lists, the ``index_add_`` route that the walk replaced.
+
+K2's bfloat16 mode (``--kernels k2bf16``, not run by default): the widest
+load a lane may take, forced (``ops/blocked.py::_BF16_VEC``: 8, 4, 2 or 1
+bfloat16; ``bf16_vec`` narrows it to what F and the addresses allow, and
+rows of fewer than 8 loads take the narrow walk), over the forward list of
+the Cora-scale uniform graph and of the RCM benchmark graph at F=1, 7, 16,
+40, 64 and 128: each setting's CUDA-event mean and one call's device time
+by kernel, beside the float32 walk and the cast of x to bfloat16.
 
 K1's scaled walk (``--kernels k1``): over the whole list of the benchmark
 graph's normalized adjacency (``PreparedSpMM`` under ``auto``: every live
@@ -684,11 +692,72 @@ def sweep_small(dev, card):
     return lines
 
 
+BF16_WIDTHS = (1, 7, 16, 40, 64, 128)
+BF16_VECS = (8, 4, 2, 1)
+
+
+def sweep_bf16(dev, card):
+    """K2's bfloat16 mode at each widest load of ``BF16_VECS`` and width of
+    ``BF16_WIDTHS``, over the Cora-scale uniform and the RCM bench forward
+    lists, beside the float32 walk and the cast; returns the JSON lines."""
+    from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
+                                     blocked_spmm_bf16_plain,
+                                     blocked_spmm_plain)
+    default = blocked._BF16_VEC
+    lines = []
+    for name, n, row, col in small_lists():
+        if name not in ("cora_uniform", "bench_rcm"):
+            continue
+        lst = blocked.BlockedSpMM(blocked.graph_lists(row, col, n),
+                                  dev).forward
+        val = torch.from_numpy(np.random.RandomState(6).uniform(
+            0.1, 1.0, len(row)).astype(np.float32)).to(dev)
+        for f in BF16_WIDTHS:
+            x = torch.from_numpy(np.random.RandomState(f).randn(
+                n, f).astype(np.float32)).to(dev)
+            xb = x.to(torch.bfloat16)
+            seen = set()
+            for widest in BF16_VECS:
+                blocked._BF16_VEC = widest
+                vec = blocked.bf16_vec(f, xb.data_ptr(), 0)
+                if vec in seen:
+                    continue
+                seen.add(vec)
+                check_close(f"k2bf16 {name} F={f} vec={vec}",
+                            blocked_spmm_bf16(lst, val, xb),
+                            blocked_spmm_bf16_plain(lst, val, xb),
+                            blocked_spmm_plain(lst, val, x.abs()))
+                lines += _time_runs(dict(
+                    kernel="K2bf16", graph=name, f=f, vec=vec,
+                    walk="narrow" if min(32, f // vec) < 8 else "wide",
+                    edges=lst.n_edges, units=lst.n_units, card=card),
+                    lambda: blocked_spmm_bf16(lst, val, xb))
+            lines += _time_runs(dict(kernel="K2", graph=name, f=f,
+                                     edges=lst.n_edges, card=card),
+                                lambda: blocked_spmm(lst, val, x))
+            lines += _time_runs(dict(kernel="cast", graph=name, f=f,
+                                     card=card),
+                                lambda: x.to(torch.bfloat16))
+    blocked._BF16_VEC = default
+    return lines
+
+
+def _time_runs(fields, run):
+    """A one-line list: ``fields`` with ``run``'s CUDA-event mean and one
+    call's device time by kernel."""
+    rows, busy, _, _ = device_profile(run)
+    line = dict(fields, ms=time_ms(run), device_ms=busy / 1e3,
+                us_by_kernel={kernel_name(k): us for k, us, _ in rows})
+    print(json.dumps(line), flush=True)
+    return [line]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
     parser.add_argument("--kernels", default="k1,k2,train",
-                        help="which sweeps to run (k1, k2, train, k2small; "
+                        help="which sweeps to run (k1, k2, train, k2small, "
+                             "k2bf16; "
                              "comma-separated)")
     parser.add_argument("--ab", metavar="DIR",
                         help="time the dropout walks of this tree and of "
@@ -726,6 +795,8 @@ def main():
               else ab(args.ab_route, card, AB_ROUTE_CODE))
         return
     lines = sweep_small(dev, card) if "k2small" in which else []
+    if "k2bf16" in which:
+        lines += sweep_bf16(dev, card)
     if not which & {"k1", "k2", "train"}:
         write(args.out, lines)
         return
