@@ -74,17 +74,24 @@ Phases (any failure raises and exits non-zero):
    (A3 and A4: at most 3 launches a call); then the chain with its salt
    pair in a device buffer, rewritten between launches and before a CUDA
    graph's replay, each output equal to a fresh launch with its draw;
-2f. K2's bfloat16 mode (``spmm_pallas(bf16=True)``: x cast to bfloat16
-   once a call, each term rounded to bfloat16, the sums in float32) over
-   the RCM benchmark graph's forward list at F=40 and F=128 against its
-   plain version, the walk and the cast each timed beside its bound, beside
-   the float32 walk and ``torch.sparse.mm``, the share at F=40 bit-equal to
-   the plain version on the CPU; the slice's main path, a serving product
-   and a training step through ``spmm_pallas(bf16=True)`` with the counts
-   zeroed just before and read just after (2 launches of the mode, 1 of
-   K2's float32 walk for ``dx``), its output, ``dx`` and ``dval`` against
-   the CPU; the masked walk over the training grids' row and column lists
-   and the degree walk, the values of a weighted copy in bfloat16 (the
+2f. K2's bfloat16 mode (``spmm_pallas(bf16=True)``: x rounded to
+   bfloat16, each term rounded to bfloat16, the sums in float32) over the
+   RCM benchmark graph's forward list at F=16, 40, 64 and 128 against its
+   plain version: the walk ``bf16_plan`` picks (the staged walk,
+   ``csrc/bf16_walk.cuh``, at F=16 and 40, bit-equal to the plain version;
+   the generic walk at 64 and 128), the call from float32 x (cast,
+   then that walk) and, at F=16 and 40, the generic walk beside it, each
+   timed beside its bound, beside the cast, the float32 walk and
+   ``torch.sparse.mm``, the share at F=40 bit-equal to the plain version
+   on the CPU; the slice's main path, a serving product and
+   a training step at F=40 and a serving product at F=7 through
+   ``spmm_pallas(bf16=True)`` with the counts zeroed just before and read
+   just after (2 launches of the staged walk, 1 of the generic walk, 1 of
+   K2's float32 walk for ``dx``), the products and ``dx`` bit-equal to the
+   CPU's and ``dval`` close to it; the masked walk over the training
+   grids' row and column lists and the degree walk (beside
+   ``torch.sparse.mm`` of a column of ones), the values of a weighted
+   copy in bfloat16 (the
    grids of ``GNNTF_GRID_VALUE_DTYPE=bfloat16``) beside float32, each
    against its plain version; after phase 16, APPNP at its defaults on the
    benchmark graph 3 epochs without and 3 under the knob (an epoch: 20
@@ -911,15 +918,23 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     res["library_ms"] = None
     if library:
         rows, w_items = list_rows(lst), w[list_eids(lst)]
-        if x is None and library != "csr":
-            call = lambda: torch.zeros(lst.n_rows, device=val.device
-                                       ).index_add_(0, rows, w_items)
-        elif x is None:
+        if x is None:
+            # sparse.mm of a column of ones, timed for every degree walk
+            # (events and one call's device time)
             a = torch.sparse_coo_tensor(
                 torch.stack([rows, lst.idx.long()]), w_items,
                 (lst.n_rows, lst.n_rows)).coalesce().to_sparse_csr()
             ones = torch.ones(lst.n_rows, 1, device=val.device)
-            call = lambda: torch.sparse.mm(a, ones)[:, 0]
+            ones_call = lambda: torch.sparse.mm(a, ones)[:, 0]
+            check_close(f"sparse.mm of ones {label}", ones_call(), ref,
+                        scale)
+            res["ones_spmm_ms"] = time_ms(ones_call)
+            res["ones_spmm_device_ms"] = device_profile(ones_call)[1] / 1e3
+        if x is None and library != "csr":
+            call = lambda: torch.zeros(lst.n_rows, device=val.device
+                                       ).index_add_(0, rows, w_items)
+        elif x is None:
+            call = ones_call
         else:
             a = torch.sparse_coo_tensor(
                 torch.stack([rows, lst.idx.long()]), w_items,
@@ -928,7 +943,9 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
         check_close(f"library {label}", call(), ref, scale)
         res["library_ms"] = time_ms(call)
     log(f"{label}: kernel {res['ms']} ms, plain {res['plain_ms']} ms, "
-        f"library {res['library_ms']} ms, bound {res['bound_ms']} ms "
+        f"library {res['library_ms']} ms (sparse.mm of ones "
+        f"{res.get('ones_spmm_ms')} ms, device "
+        f"{res.get('ones_spmm_device_ms')} ms), bound {res['bound_ms']} ms "
         f"({res['bound_by']}, {n_bytes} B), kept {int(kept.sum())} of "
         f"{lst.n_edges} edges, units {lst.n_units}, split rows "
         f"{lst.split.shape[0]}, tiles {lst.n_tiles} (caps {lst.tile_caps}), "
@@ -1417,8 +1434,9 @@ ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
 def launch_counts():
     """The kernel wrappers' launch counts: K2, K1, K1's scaled walk, its
     masked walk, its degree walk, K1's backward walk over the transposed
-    list, the attention kernels A1-A4, K2's bfloat16 mode and the masked
-    and degree walks over bfloat16 values."""
+    list, the attention kernels A1-A4, K2's bfloat16 mode (the generic walk,
+    "k2_bf16", and the staged walk, "k2_bf16s") and the masked and
+    degree walks over bfloat16 values."""
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
                                      blocked_spmm_bf16, ell_degree_masked,
                                      ell_gather, ell_gather_masked,
@@ -1430,7 +1448,9 @@ def launch_counts():
                 backward=ell_gather.backward_launches,
                 **{name: getattr(attention, name).launches
                    for name in ATTN_KERNELS},
-                k2_bf16=blocked_spmm_bf16.launches,
+                k2_bf16=(blocked_spmm_bf16.launches
+                         - blocked_spmm_bf16.staged_launches),
+                k2_bf16s=blocked_spmm_bf16.staged_launches,
                 masked_bf16=ell_gather_masked.bf16_launches,
                 degree_bf16=ell_degree_masked.bf16_launches)
 
@@ -1446,6 +1466,7 @@ def zero_counts():
         fn.launches = 0
     ell_gather.backward_launches = 0
     ell_gather_masked.bf16_launches = ell_degree_masked.bf16_launches = 0
+    blocked_spmm_bf16.staged_launches = 0
 
 
 def per_epoch(marks):
@@ -1467,7 +1488,7 @@ def per_epoch(marks):
 # ("k1") runs only under hybrid and in the per-call ell route.
 NO_LAUNCHES = dict(k2=0, k1=0, k1s=0, masked=0, degree=0, backward=0,
                    **dict.fromkeys(ATTN_KERNELS, 0), k2_bf16=0,
-                   masked_bf16=0, degree_bf16=0)
+                   k2_bf16s=0, masked_bf16=0, degree_bf16=0)
 EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
                   None: dict(NO_LAUNCHES, k1s=10, masked=20, degree=10)}
 # GCNII-64 an epoch: the prepared operator in each convolution of the step
@@ -2345,67 +2366,96 @@ def bf16_bound(lst, f):
                                  else "operations"), n_bytes
 
 
-def check_bf16_kernel(label, lst, val, x, library=False):
-    """K2's bfloat16 mode over ``lst`` on ``x`` (float32, cast once a call
-    as ``spmm_pallas(bf16=True)`` casts it) against its plain version on
-    the card; the walk and the cast timed apart (CUDA events, one call's
-    device time), each beside its bound, and beside them the float32 walk
-    and (``library``) ``torch.sparse.mm`` of the same matrix in float32."""
+def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
+    """K2's bfloat16 mode over ``lst`` on ``x`` (float32, cast to bfloat16
+    as ``spmm_pallas(bf16=True)`` casts it) against its plain version:
+    the walk that ``bf16_plan`` picks ("walk": the staged walk,
+    ``csrc/bf16_walk.cuh``, at F % 8 == 0, 16 <= F <= 40 on this list), the
+    call from the float32 ``x`` (the cast, then that walk) and, where the
+    staged walk runs, the generic walk at its own load beside it, each
+    within ``1e-5 * sum|terms|`` of the plain version on the card and
+    compared with it on the CPU (``cpu_lst``: ``lst`` there), which the
+    staged walk must equal bit for bit.  Each is timed (CUDA events; one
+    call's device time) beside its bound, with the cast, the float32 walk,
+    the plain version and (``library``) ``torch.sparse.mm`` of the same
+    matrix in float32."""
     from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
                                      blocked_spmm_bf16_plain,
                                      blocked_spmm_plain)
 
+    f = x.shape[1]
     xb = x.to(torch.bfloat16)
-    out = blocked_spmm_bf16(lst, val, xb)
-    torch.cuda.synchronize()
     ref = blocked_spmm_bf16_plain(lst, val, xb)
+    ref_cpu = blocked_spmm_bf16_plain(cpu_lst, val.cpu(), xb.cpu())
     scale = blocked_spmm_plain(lst, val.abs(), xb.to(torch.float32).abs())
-    err = check_close(f"K2 bf16 {label}", out, ref, scale)
-    walk = lambda: blocked_spmm_bf16(lst, val, xb)
+    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+    runs = {"walk": lambda: blocked_spmm_bf16(lst, val, xb),
+            "call": lambda: blocked_spmm_bf16(lst, val,
+                                              x.to(torch.bfloat16))}
+    if plan.staged:
+        runs["generic"] = lambda: blocked_spmm_bf16(lst, val, xb)
+    res = {}
+    old = blocked._BF16_STAGED_EDGES
+    for name, run in runs.items():
+        # the generic walk: the staged walk at no width
+        blocked._BF16_STAGED_EDGES = {} if name == "generic" else old
+        try:
+            p = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            out = run()
+            torch.cuda.synchronize()
+            r = dict(staged=p.staged, vec=p.vec, group=p.group,
+                     ring=(p.depth, p.rows),
+                     max_abs_err=check_close(f"K2 bf16 {name} {label}", out,
+                                             ref, scale),
+                     bit_equal=bool(torch.equal(out.cpu(), ref_cpu)),
+                     ms=time_ms(run))
+            rows, busy_us, _, _ = device_profile(run)
+        finally:
+            blocked._BF16_STAGED_EDGES = old
+        r["device_ms"] = busy_us / 1e3
+        r["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+        r["bound_ms"], r["bound_by"], r["bound_bytes"] = bf16_bound(lst, f)
+        if p.staged and not r["bit_equal"]:
+            raise AssertionError(f"K2 bf16 {name} {label}: the staged walk "
+                                 f"is not bit-equal to the plain version on "
+                                 f"the CPU")
+        res[name] = r
     cast = lambda: x.to(torch.bfloat16)
-    res = dict(max_abs_err=err, ms=time_ms(walk),
-               plain_ms=time_ms(lambda: blocked_spmm_bf16_plain(lst, val,
-                                                                xb)),
-               cast_ms=time_ms(cast),
-               float32_walk_ms=time_ms(lambda: blocked_spmm(lst, val, x)))
-    rows, busy_us, _, _ = device_profile(walk)
-    res["device_ms"] = busy_us / 1e3
-    res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+    common = dict(plain_ms=time_ms(lambda: blocked_spmm_bf16_plain(lst, val,
+                                                                   xb)),
+                  cast_ms=time_ms(cast),
+                  cast_bound_ms=x.numel() * 6 / PEAK_BYTES_PER_S * 1e3,
+                  float32_walk_ms=time_ms(lambda: blocked_spmm(lst, val, x)),
+                  float32_bound_ms=blocked_bound(lst, f)[0],
+                  library_ms=None)
     rows, busy_us, _, _ = device_profile(cast)
-    res["cast_device_ms"] = busy_us / 1e3
-    res["bound_ms"], res["bound_by"], n_bytes = bf16_bound(lst, x.shape[1])
-    cast_bytes = x.numel() * 6
-    res["cast_bound_ms"] = cast_bytes / PEAK_BYTES_PER_S * 1e3
-    res["float32_bound_ms"] = blocked_bound(lst, x.shape[1])[0]
-    # the bfloat16 a lane loads (the output of torch.empty is 256-byte
-    # aligned)
-    res["vec"] = blocked.bf16_vec(x.shape[1], xb.data_ptr(), 0)
-    res["library_ms"] = None
+    common["cast_device_ms"] = busy_us / 1e3
     if library:
         rows, src = live_edges(lst)
         w = val if lst.eid is None else val[lst.eid.long()]
         a = torch.sparse_coo_tensor(torch.stack([rows, src]), w,
                                     (lst.n_rows, x.shape[0]))
         a = a.coalesce().to_sparse_csr()
-        res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
-    log(f"K2 bf16 {label}: kernel {res['ms']} ms (one call's device time "
-        f"{res['device_ms']} ms: {res['us_by_kernel']} us; loads of "
-        f"{res['vec']} bfloat16), bound {res['bound_ms']} ms "
-        f"({res['bound_by']}, {n_bytes} B); the cast {res['cast_ms']} ms "
-        f"(device {res['cast_device_ms']} ms, bound {res['cast_bound_ms']} "
-        f"ms, {cast_bytes} B); the float32 walk {res['float32_walk_ms']} ms "
-        f"(bound {res['float32_bound_ms']} ms); plain {res['plain_ms']} ms, "
-        f"library (float32 sparse.mm) {res['library_ms']} ms, edges "
-        f"{lst.n_edges}, units {lst.n_units}, split rows "
-        f"{lst.split.shape[0]}, N={lst.n_rows} F={x.shape[1]}")
+        common["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x))
+    for r in res.values():
+        r.update(common)
+    log(f"K2 bf16 {label} (edges {lst.n_edges}, units {lst.n_units}, split "
+        f"rows {lst.split.shape[0]}, N={lst.n_rows} F={f}): " + "; ".join(
+            f"{name} (staged {r['staged']}, vec {r['vec']}, group "
+            f"{r['group']}, ring {r['ring']}) {r['ms']} ms, device "
+            f"{r['device_ms']} ms {r['us_by_kernel']} us, bound "
+            f"{r['bound_ms']} ms ({r['bound_bytes']} B), bit-equal "
+            f"{r['bit_equal']}"
+            for name, r in res.items()) + f"; {common}")
     return res
 
 
-def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
+def phase_bf16_kernels(graph, g_rcm, dev, xs):
     """2f: K2's bfloat16 mode (``spmm_pallas(bf16=True)``) on the RCM bench
-    graph's forward list at F=40 and 128 against its plain version, the
-    share at F=40 bit-equal to the plain version on the CPU; a serving
-    product and a training step through ``spmm_pallas(bf16=True)`` with the
+    graph's forward list at each F of ``xs`` ({F: x}) against its plain
+    version, the share at F=40 bit-equal to the plain version on the CPU;
+    a serving product at F=40 and at F=7 (the generic walk) and a
+    training step at F=40 through ``spmm_pallas(bf16=True)`` with the
     counts zeroed just before and read just after, ``dx`` and ``dval``
     against the CPU; then the masked and degree walks over a weighted copy
     of the bench graph's training lists, the values in bfloat16 beside
@@ -2419,20 +2469,24 @@ def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
     prep = blocked.blocked_layout(norm)
     base = norm.materialized()
     val = base.val.to(torch.float32).contiguous()
-    res = {}
-    for f, x in ((N_FEATURES, x128), (N_CLASSES, x40)):
-        res[f] = check_bf16_kernel(f"RCM bench F={f}", prep.forward, val, x,
-                                   library=True)
     cpu = blocked.blocked_layout(norm.to("cpu"))
+    res = {}
+    for f, x in xs.items():
+        res[f] = check_bf16_kernel(f"RCM bench F={f}", prep.forward,
+                                   cpu.forward, val, x, library=True)
+    x40 = xs[N_CLASSES]
+    x7 = torch.from_numpy(np.random.RandomState(18).randn(
+        N_NODES, CORA_CLASSES).astype(np.float32)).to(dev)
     x_cpu = x40.cpu()
+    ref = blocked_spmm_bf16_plain(cpu.forward, val.cpu(),
+                                  x_cpu.to(torch.bfloat16))
     out = blocked.blocked_spmm_bf16(prep.forward, val,
                                     x40.to(torch.bfloat16)).cpu()
-    share = (out == blocked_spmm_bf16_plain(
-        cpu.forward, val.cpu(), x_cpu.to(torch.bfloat16))).double().mean()
-    res["bit_equal_to_cpu_plain_f40"] = share.item()
+    share = (out == ref).double().mean().item()
+    res["bit_equal_to_cpu_plain_f40"] = share
     log(f"K2 bf16 RCM bench F=40 on the card against the plain version on "
-        f"the CPU: bit-equal share {share.item()}")
-    if share.item() != 1.0:
+        f"the CPU: bit-equal share {share}")
+    if res["bit_equal_to_cpu_plain_f40"] != 1.0:
         raise AssertionError("K2's bfloat16 mode is not bit-equal to its "
                              "plain version on the CPU")
 
@@ -2453,10 +2507,17 @@ def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
     out.backward(dy)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    served7 = spmm_pallas(norm, x7, bf16=True)
+    torch.cuda.synchronize()
+    serve7_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
-    want = dict(NO_LAUNCHES, k2_bf16=2, k2=1)
+    # the staged walk in the F=40 product and step forward, the generic walk at
+    # F=7, K2's float32 walk for dx
+    want = dict(NO_LAUNCHES, k2_bf16s=2, k2_bf16=1, k2=1)
     log(f"spmm_pallas(bf16=True): serving product {serve_ms} ms, step "
-        f"(forward, backward) {step_ms} ms, launches {counts}")
+        f"(forward, backward) {step_ms} ms, serving product at F=7 "
+        f"{serve7_ms} ms, launches {counts}")
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     n_cpu = norm.to("cpu")
@@ -2465,9 +2526,12 @@ def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
     ref = spmm_pallas(dataclasses.replace(n_cpu, val=v_cpu), x_cpu,
                          bf16=True)
     ref.backward(dy.cpu())
-    step = dict(serve_ms=serve_ms, step_ms=step_ms, launches=counts)
+    ref7 = spmm_pallas(n_cpu, x7.cpu(), bf16=True)
+    step = dict(serve_ms=serve_ms, step_ms=step_ms, serve7_ms=serve7_ms,
+                launches=counts)
     for name, a, b in (("forward", served, ref), ("dx", xg.grad, x_cpu.grad),
-                       ("dval", v.grad, v_cpu.grad)):
+                       ("dval", v.grad, v_cpu.grad),
+                       ("forward_f7", served7, ref7)):
         a, b = a.detach().cpu(), b.detach()
         step[f"{name}_max_abs_err"] = (a - b).abs().max().item()
         step[f"{name}_bit_equal_share"] = (a == b).double().mean().item()
@@ -2476,6 +2540,10 @@ def phase_bf16_kernels(graph, g_rcm, dev, x40, x128):
             raise AssertionError(f"spmm_pallas(bf16=True) {name} on the "
                                  f"card differs from the CPU: "
                                  f"{step[f'{name}_max_abs_err']}")
+        # the products are the plain version's sums, dx K2's float32 walk's
+        if name != "dval" and step[f"{name}_bit_equal_share"] != 1.0:
+            raise AssertionError(f"spmm_pallas(bf16=True) {name} on the "
+                                 f"card is not bit-equal to the CPU's")
     log(f"spmm_pallas(bf16=True) card vs CPU: {step}")
     res["step"] = step
 
@@ -4567,7 +4635,8 @@ def main(dev=None):
 
     # 2f. K2's bfloat16 mode and the dropout walks over bfloat16 values
     t0 = time.perf_counter()
-    bf16 = phase_bf16_kernels(graph, g_rcm, dev, x40, x128)
+    bf16 = phase_bf16_kernels(graph, g_rcm, dev, {
+        N_FEATURES: x128, 64: x64, N_CLASSES: x40, LP_CLASSES: x16})
     seconds["2f"] = time.perf_counter() - t0
 
     log("card after the kernel timings (clocks.sm, power.draw, "
@@ -4961,18 +5030,30 @@ def main(dev=None):
     attn_entries = attention_entries(attention, gat)
     for e in attn_entries:
         e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
+    bf16_widths = {f"F={f}": bf16[f] for f in (LP_CLASSES, N_CLASSES, 64,
+                                                 N_FEATURES)}
     bf16_entries = [
+        {"name": "blocked_spmm_bf16_staged", "route": "cuda",
+         "source": "gnntf_tpu_torch/csrc/bf16_walk.cuh",
+         "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
+         "launches": bf16["step"]["launches"]["k2_bf16s"],
+         **entry_numbers(bf16[N_CLASSES]["walk"]),
+         "shape": "RCM bench graph's forward list, N=169343, F=40, over x "
+                  "cast to bfloat16 (launches: one serving product and one "
+                  "training step through spmm_pallas(bf16=True))",
+         "call_from_float32_x": bf16[N_CLASSES]["call"],
+         "widths": bf16_widths,
+         "bit_equal_to_cpu_plain_f40": bf16["bit_equal_to_cpu_plain_f40"],
+         "step": bf16["step"]},
         {"name": "blocked_spmm_bf16", "route": "cuda",
          "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
          "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
          "launches": bf16["step"]["launches"]["k2_bf16"],
-         **entry_numbers(bf16[N_CLASSES]),
-         "shape": "RCM bench graph's forward list, N=169343, F=40, x cast "
-                  "to bfloat16 once a call (launches: one serving product "
-                  "and one training step through spmm_pallas(bf16=True))",
-         "bench_width": dict(bf16[N_FEATURES], shape="F=128"),
-         "bit_equal_to_cpu_plain_f40": bf16["bit_equal_to_cpu_plain_f40"],
-         "step": bf16["step"]}]
+         **entry_numbers(bf16[N_CLASSES]["generic"]),
+         "shape": "the generic walk over x cast to bfloat16, timed on "
+                  "the RCM bench graph's forward list at F=40 (launches: "
+                  "one serving product at F=7, where the staged walk does "
+                  "not run)"}]
     for name, key, walk, shape in (
             ("ell_gather_masked_bf16", "masked_bf16", "row", "row list, F=40"),
             ("ell_degree_masked_bf16", "degree_bf16", "degree",
@@ -4987,7 +5068,7 @@ def main(dev=None):
                      f"values in bfloat16, keep {KEEP} (launches: APPNP, "
                      f"3 epochs under GNNTF_GRID_VALUE_DTYPE=bfloat16)",
             "float32_values": bf16["masked"][f"float32_{walk}"]})
-    bf16_entries[1]["backward"] = bf16["masked"]["bf16_column"]
+    bf16_entries[2]["backward"] = bf16["masked"]["bf16_column"]
     print(json.dumps({"kernels": [scaled_entry, entry, entry2, entry3,
                                   entry4, *attn_entries, *bf16_entries]}),
           flush=True)

@@ -44,29 +44,37 @@
 // unit, its edges, their x rows) take ~4-6 us; small units keep that chain
 // to one batch.
 //
-// bfloat16 mode (gnntf_blocked_spmm_bf16; the TPU kernel's bf16=True,
-// spmm_pallas(bf16=True)).  x comes as bfloat16 (the wrapper casts it once
-// a call) and each term is
+// bfloat16 mode (the TPU kernel's bf16=True, spmm_pallas(bf16=True)).  x
+// comes as bfloat16 (the wrapper casts it once a call) and each term is
 //
 //     fp32(bf16_rn(fp32(val[e] * fp32(x[idx[e]])))),
 //
 // the JAX package's G * vals in float32 rounded to bfloat16, added to the
 // row's float sum in edge order; out, the pieces and the fix-up stay float,
 // so a row's sum is the plain version's (ops/blocked.py::
-// blocked_spmm_bf16_plain) bit for bit.  Each gather moves half the bytes
-// of the float walk's.  Bound at F = 40 on the RCM bench graph's forward
-// list: ptr 0.68 MB, idx and val 18.66 MB, bfloat16 x 13.55 MB, float out
-// 27.09 MB: 59.98 MB, 17.9 us at 3.35 TB/s (the cast before it, 27.09 MB
-// read and 13.55 MB written, 12.1 us, is a pass of its own).  A lane loads
-// vec bfloat16 at once (2, 4 or 8: 4, 8 or 16 bytes, or 1) and keeps vec
-// float sums (T); rows of fewer than kNarrowLanes loads take the narrow
-// walk, as in the float walk.  The host picks vec (ops/blocked.py::
-// bf16_vec): the widest load that F and the addresses allow and that
-// leaves a row kNarrowLanes loads, the fastest on the bench list at F = 16
-// to 128 (k2_sweep.py --kernels k2bf16).  The walk is no faster than the
-// float walk at F = 40, where its gathers hit L2 and wait on their chain,
-// not on bytes (PERF.md).
+// blocked_spmm_bf16_plain) bit for bit.  Bound at F = 40 on the RCM bench
+// graph's forward list: ptr 0.68 MB, idx and val 18.66 MB, bfloat16 x 13.55
+// MB, float out 27.09 MB: 59.98 MB, 17.9 us at 3.35 TB/s (the cast before
+// it, 27.09 MB read and 13.55 MB written, 12.1 us, is a pass of its own).
+// Two walks take it; the host picks by width, alignment and the list's
+// edges (ops/blocked.py::bf16_plan):
+//
+// - the staged walk (gnntf_blocked_spmm_bf16_staged; bf16_walk.cuh): a
+//   group of F / 4 lanes a unit, its x rows copied by 16-byte cp.async
+//   copies into a ring of batches in shared memory, spread over several
+//   edges an instruction, and summed out of it in edge order, two terms a
+//   packed conversion.  It takes F % 8 == 0, 16 <= F <= 40, x and out
+//   16-byte aligned, and the host gives it lists large enough for it to
+//   win;
+// - the generic walk (gnntf_blocked_spmm_bf16; edge_walk.cuh's walk over
+//   loads of X): a lane loads vec bfloat16 at once (2, 4 or 8, or 1) and
+//   keeps vec float sums (T); rows of fewer than kNarrowLanes loads take
+//   the narrow walk, as in the float walk.  It takes the rest.  Its
+//   gathers hit L2 at F = 40 and wait on their chain (0.1049 ms of device
+//   time, 17% of the bound; PERF.md), which is what the staged walk was
+//   designed against.
 
+#include "bf16_walk.cuh"
 #include "edge_walk.cuh"
 
 namespace {
@@ -257,13 +265,50 @@ int narrow(const Args& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The bfloat16 mode at sums of T over loads of X: the narrow walk below
-// kNarrowLanes lanes, else the wide walk.
+// The bfloat16 mode's generic walk at sums of T over loads of X: the narrow
+// walk below kNarrowLanes lanes, else the wide walk.
 template <typename T, typename X>
-int bf16_walk(const Args& a, cudaStream_t stream) {
+int generic_walk(const Args& a, cudaStream_t stream) {
   if (a.group < kNarrowLanes) return narrow<T, X>(a, stream);
   return edge_walk::launch(blocked_spmm_walk<T, X>, blocked_spmm_parts<T>,
                            blocked_spmm_fixup<T>, a, stream);
+}
+
+// The staged walk (bf16_walk.cuh): kDepth batches of `rows` edges in its
+// ring.
+template <int kDepth>
+__global__ void __launch_bounds__(bf16_walk::kThreads)
+    blocked_spmm_bf16_walk(const Args a, int f, int rows) {
+  bf16_walk::walk<kDepth>(a, f, rows);
+}
+
+// The staged walk, then edge_walk's parts and fix-up over float4 sums.
+int staged(const Args& a, int f, int depth, int rows, cudaStream_t s) {
+  const long long smem = bf16_walk::smem_bytes(f, depth, rows);
+  if (f % 8 || f < bf16_walk::kMinF || f > bf16_walk::kMaxF ||
+      a.fv != f / 4 || a.group != bf16_walk::pair_lanes(f) || rows < 1 ||
+      rows > bf16_walk::kEdges * bf16_walk::pair_lanes(f) ||
+      (depth * rows) % 4 || smem > bf16_walk::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  switch (depth) {
+    case 2:
+      rc = bf16_walk::launch_walk(blocked_spmm_bf16_walk<2>, a, f, rows,
+                                  smem, s);
+      break;
+    case 3:
+      rc = bf16_walk::launch_walk(blocked_spmm_bf16_walk<3>, a, f, rows,
+                                  smem, s);
+      break;
+    case 4:
+      rc = bf16_walk::launch_walk(blocked_spmm_bf16_walk<4>, a, f, rows,
+                                  smem, s);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
+  return edge_walk::finish(blocked_spmm_parts<float4>,
+                           blocked_spmm_fixup<float4>, a, s);
 }
 
 }  // namespace
@@ -297,11 +342,11 @@ extern "C" int gnntf_blocked_spmm(
                            blocked_spmm_fixup<float>, a, s);
 }
 
-// K2's bfloat16 mode: x (n, f) bfloat16, out (n, f) float32; vec is 8, 4
-// or 2 (loads of that many bfloat16: f % vec == 0, x aligned to 2 * vec
-// bytes and out to 4 * vec, 16 at most) or 1; group is min(32, f / vec),
-// below kNarrowLanes the narrow walk; the other arguments are as
-// gnntf_blocked_spmm's.
+// K2's bfloat16 mode's generic walk: x (n, f) bfloat16, out (n, f)
+// float32; vec is 8, 4 or 2 (loads of that many bfloat16: f % vec == 0, x
+// aligned to 2 * vec bytes and out to 4 * vec, 16 at most) or 1; group is
+// min(32, f / vec), below kNarrowLanes the narrow walk; the other arguments
+// are as gnntf_blocked_spmm's.
 extern "C" int gnntf_blocked_spmm_bf16(
     const void* ptr, const void* idx, const void* eid, const void* rows,
     const void* unit_row, const void* unit_edge, const void* split,
@@ -314,12 +359,34 @@ extern "C" int gnntf_blocked_spmm_bf16(
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (vec) {
-    case 8: return bf16_walk<float8, bf16x8>(a, s);
-    case 4: return bf16_walk<float4, bf16x4>(a, s);
-    case 2: return bf16_walk<float2, __nv_bfloat162>(a, s);
-    case 1: return bf16_walk<float, __nv_bfloat16>(a, s);
+    case 8: return generic_walk<float8, bf16x8>(a, s);
+    case 4: return generic_walk<float4, bf16x4>(a, s);
+    case 2: return generic_walk<float2, __nv_bfloat162>(a, s);
+    case 1: return generic_walk<float, __nv_bfloat16>(a, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K2's bfloat16 mode's staged walk: x (n, f) bfloat16 and out (n, f)
+// float32, both 16-byte aligned, f % 8 == 0 and 16 <= f <= 40; vec is 4 and
+// group f / 4 (a lane's float4 of sums and the lanes a unit, in the walk
+// and in the parts and fix-up); depth is the batches in the ring (2, 3 or
+// 4) and rows the edges a batch (1 to 8 * f / 4, depth * rows a multiple
+// of 4, the block's rings within 48 KB); the other arguments are as
+// gnntf_blocked_spmm's.
+extern "C" int gnntf_blocked_spmm_bf16_staged(
+    const void* ptr, const void* idx, const void* eid, const void* rows,
+    const void* unit_row, const void* unit_edge, const void* split,
+    const void* part_item, const void* val, const void* x, void* out,
+    void* carry, int n_units, int n_split, int n_part_items, int f,
+    int vec, int group, int parts, int depth, int rows_a_batch,
+    void* stream) {
+  (void)rows;
+  if (vec != 4) return (int)cudaErrorInvalidValue;
+  const Args a = edge_walk::make_args(
+      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
+      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
+  return staged(a, f, depth, rows_a_batch, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

@@ -31,8 +31,10 @@ it over the transposed list, and the values' gradient (the JAX package's
 ``spmm_pallas(..., bf16=True)`` is the TPU kernel's bfloat16 mode: ``x`` is
 rounded to bfloat16 once a call and :func:`blocked_spmm_bf16` walks the
 forward list over it, each term ``val * x`` rounded to bfloat16 and summed
-in float32 (:func:`blocked_spmm_bf16_plain` on the CPU); the backward is
-the float32 one, over the unrounded ``x``, as the JAX package's is.
+in float32 (:func:`blocked_spmm_bf16_plain` on the CPU); :func:`bf16_plan`
+picks its walk (``csrc/bf16_walk.cuh``'s staged walk, or the generic walk
+of ``edge_walk.cuh``).  The backward is the float32 one, over the unrounded
+``x``, as the JAX package's is.
 """
 from __future__ import annotations
 
@@ -53,10 +55,23 @@ from ..utils.idcache import IdLRU, sizeof
 # (_UNIT_SCALE * s)^2, so s grows as the square root of n
 _UNIT_SIZES = (16, 32, 64, 128)
 _UNIT_SCALE = 12
-# K2's bfloat16 mode: None takes each width's load by bf16_vec's rule; a
-# number (8, 4, 2, 1) forces the widest load up to it, whatever the lanes
-# (k2_sweep.py --kernels k2bf16 times each)
+# K2's bfloat16 mode (bf16_plan): None takes each width's walk by the rule;
+# a number (8, 4, 2, 1) forces the generic walk at the widest load up to it,
+# whatever the lanes (k2_sweep.py --kernels k2bf16 times each)
 _BF16_VEC = None
+# the staged walk (csrc/bf16_walk.cuh): batches in its ring and the ring's
+# bytes a warp (the edges a batch follow from them, bf16_rows)
+_BF16_DEPTH = 2
+_BF16_RING_BYTES = 12288
+# the widths the staged walk takes and, at each, the fewest edges of a list
+# that it is given (bf16_plan)
+_BF16_STAGED_EDGES = {16: 1_000_000, 24: 150_000, 32: 0, 40: 0}
+# the sweep's override of the staged walk's ring: (depth, rows)
+_BF16_RING = None
+# warps a block of the staged walk and the most shared memory a block asks
+# for (kWarps, kMaxSmem in csrc/bf16_walk.cuh)
+_BF16_WARPS = 4
+_BF16_SMEM = 49152
 # the fewest loads a row that the wide walk takes (kNarrowLanes in
 # csrc/blocked_spmm.cu)
 _NARROW_LANES = 8
@@ -609,22 +624,116 @@ def bf16_vec(f: int, x_at: int, out_at: int) -> int:
     return 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """How K2's bfloat16 mode walks one product (:func:`bf16_plan`): the
+    staged walk (``staged``, ``csrc/bf16_walk.cuh``) with ``depth``
+    batches of ``rows`` edges in its ring, or the generic walk; ``vec`` and
+    ``group`` are the entry's (the generic walk: bfloat16 a lane loads and
+    lanes a unit; the staged walk: 4, a lane's float4 of sums, and F / 4
+    lanes a unit)."""
+
+    staged: bool
+    vec: int
+    group: int
+    depth: int = 0
+    rows: int = 0
+
+    def smem(self, f: int) -> int:
+        """The shared memory a block of the staged walk asks for at F."""
+        if not self.staged:
+            return 0
+        return bf16_ring_bytes(f, self.depth, self.rows) * _BF16_WARPS
+
+
+def bf16_ring_bytes(f: int, depth: int, rows: int) -> int:
+    """A warp's rings in the staged walk, one a unit of F / 4 lanes:
+    ``depth`` batches of ``rows`` bfloat16 x rows of F elements, with their
+    values and sources."""
+    return 32 // (f // 4) * depth * rows * (2 * f + 8)
+
+
+def bf16_rows(f: int, depth: int) -> int:
+    """The staged walk's edges a batch: the most, up to 32 and a multiple
+    of 4, whose rings fit ``_BF16_RING_BYTES`` a warp (at least 4): 16 at
+    F = 16, 20 at F = 24, 32 and 40."""
+    rows = _BF16_RING_BYTES // bf16_ring_bytes(f, depth, 1)
+    return max(4, min(32, rows // 4 * 4))
+
+
+def bf16_plan(f: int, x_at: int, out_at: int, edges: int) -> Bf16Plan:
+    """K2's bfloat16 mode's walk for an (N, F) bfloat16 ``x`` at address
+    ``x_at``, writing ``out`` at ``out_at``, over a list of ``edges``
+    edges.
+
+    The staged walk (``csrc/bf16_walk.cuh``) takes the widths of
+    ``_BF16_STAGED_EDGES`` (F = 16, 24, 32, 40), each from its number of
+    edges on, with ``x`` and ``out`` 16-byte aligned; its ring holds
+    ``_BF16_DEPTH`` batches of :func:`bf16_rows` edges (``_BF16_RING``,
+    (depth, rows), forces another).  The rest take the generic walk at
+    :func:`bf16_vec`'s load (``_BF16_VEC`` set forces it everywhere).
+
+    Why (NVIDIA H100 80GB HBM3, 700 W; device time of a call, walk + parts
+    + fix-up, averaged over 20 calls; ``k2_sweep.py --kernels k2bf16``,
+    PERF.md §6).  Staged / generic, in us:
+
+    =============================  =========  ==========  =========  =========
+    list (edges)                   F = 16     F = 24      F = 32     F = 40
+    =============================  =========  ==========  =========  =========
+    Cora, uniform (10,556)         6.5/5.9    6.3/5.4     5.7/6.5    6.1/6.7
+    Cora, power law (10,554)       13.4/12.7  12.7/12.5   12.3/12.8  12.3/13.0
+    power law (79,994)             19.0/19.3  18.0/17.7   17.3/19.2  18.3/20.0
+    power law (199,996)            27.9/27.8  25.6/26.3   24.5/28.1  24.8/28.7
+    power law (359,998)            29.9/29.7  29.0/29.6   27.7/31.2  29.9/31.3
+    bench, first quarter (583,119) 39.3/36.6  35.0/42.1   36.6/53.1  39.8/59.1
+    RCM bench (2,332,478)          72.2/74.4  71.0/107.5  74.4/92.0  86.6/106.4
+    =============================  =========  ==========  =========  =========
+
+    So F = 32 and 40 take it on any list; F = 24 from 150,000 edges (it
+    lost at 79,994 and won at 199,996); F = 16 from 1,000,000 (it lost at
+    583,119 and won at 2.33 M, also in ``--ab-bf16``: 0.0724 against
+    0.0750-0.0782 ms).  Above F = 40 it lost on the bench list
+    (0.1159-0.1166 ms against 0.1111-0.1120 at F = 64, 0.202 against
+    0.169 at F = 128): both walks wait on L2's bandwidth there, and the
+    staged walk moves each row through L1 and shared memory twice."""
+    least = _BF16_STAGED_EDGES.get(f)
+    if (_BF16_VEC is None and least is not None and edges >= least
+            and x_at % 16 == 0 and out_at % 16 == 0):
+        depth, rows = _ring(f)
+        return Bf16Plan(True, 4, f // 4, depth, rows)
+    vec = bf16_vec(f, x_at, out_at)
+    return Bf16Plan(False, vec, max(1, min(32, f // vec)))
+
+
+def _ring(f):
+    if _BF16_RING is None:
+        return _BF16_DEPTH, bf16_rows(f, _BF16_DEPTH)
+    depth, rows = _BF16_RING
+    # the checks of csrc/blocked_spmm.cu's staged()
+    if (depth not in (2, 3, 4) or not 1 <= rows <= 8 * (f // 4)
+            or depth * rows % 4
+            or bf16_ring_bytes(f, depth, rows) * _BF16_WARPS > _BF16_SMEM):
+        raise ValueError(f"the staged walk takes no ring of {depth} batches "
+                         f"of {rows} edges at F={f}")
+    return depth, rows
+
+
 def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
-               out: torch.Tensor, extra=()):
+               out: torch.Tensor, extra=(), shape=None):
     """The C arguments of a walk's entry point but the stream (the list's,
     then ``extra``), and the scratch tensor they point into (None where no
-    row is split), to be kept until the launch."""
+    row is split), to be kept until the launch.  ``shape`` gives the
+    entry's (vec, group) where the caller picked them."""
     f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
-    # float4 loads where rows are 16-byte aligned (bfloat16 x: bf16_vec); a
-    # group of lanes a unit
+    # float4 loads where rows are 16-byte aligned; a group of lanes a unit
     x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
-    if x is not None and x.dtype == torch.bfloat16:
-        vec = bf16_vec(f, x_at, out_at)
+    if shape is not None:
+        vec, group = shape
     else:
         vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
                     and out_at % 16 == 0) else 1
-    group = max(1, min(32, f // vec))
+        group = max(1, min(32, f // vec))
     # the pieces' sums, then the split rows' parts
     carry = (torch.empty(n_units + n_split * lst.parts, f,
                          dtype=torch.float32, device=out.device)
@@ -637,15 +746,16 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
 
 def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
            x: Optional[torch.Tensor], out: torch.Tensor,
-           extra=()) -> None:
+           extra=(), shape=None) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
     K2's), writing into ``out`` on the current stream; counts nothing.
     ``extra`` holds the arguments a dropout walk's entry takes after the
-    list's (``ops/ell_gather.py``: the tiles, the draw, the flag); with no
-    ``x`` (the degree walk) the walk sums one value a row."""
+    list's (``ops/ell_gather.py``: the tiles, the draw, the flag; K2's
+    bfloat16 mode: its walk); with no ``x`` (the degree walk) the walk sums
+    one value a row.  ``shape``: :func:`entry_args`'."""
     if lst.n_units == 0 or (x is not None and x.shape[1] == 0):
         return
-    args, _carry = entry_args(lst, val, x, out, extra)
+    args, _carry = entry_args(lst, val, x, out, extra, shape)
     device = out.device
     if device.index == torch.cuda.current_device():
         rc = getattr(lib, entry)(
@@ -701,8 +811,9 @@ def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
     ``out[r] = sum_e fp32(bf16_rn(val[eid[e]] * fp32(xb[idx[e]])))`` as an
     (N, F) float32 tensor, ``xb`` (``n_in``, F) bfloat16 and ``val``
     float32.  CPU tensors take :func:`blocked_spmm_bf16_plain`; CUDA tensors
-    launch the walk over bfloat16 loads (:func:`bf16_vec`), counted in
-    ``blocked_spmm_bf16.launches``."""
+    launch the walk that :func:`bf16_plan` picks, counted in
+    ``blocked_spmm_bf16.launches``, and those of the staged walk also in
+    ``blocked_spmm_bf16.staged_launches``."""
     if lst.rows is not None:
         raise ValueError("blocked_spmm_bf16 stores row r at r; a list with "
                          "row ids is K1's (ops/ell_gather.py)")
@@ -712,16 +823,24 @@ def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
     if xb.device.type != "cuda":
         raise ValueError(f"blocked_spmm_bf16 runs on cpu or cuda, not "
                          f"{xb.device}")
-    out = torch.empty(lst.n_rows, xb.shape[1], dtype=torch.float32,
-                      device=xb.device)
-    if lst.n_units == 0 or xb.shape[1] == 0:
+    f = xb.shape[1]
+    out = torch.empty(lst.n_rows, f, dtype=torch.float32, device=xb.device)
+    if lst.n_units == 0 or f == 0:
         return out
-    launch(_library(), "gnntf_blocked_spmm_bf16", lst, val, xb, out)
+    plan = bf16_plan(f, xb.data_ptr(), out.data_ptr(), lst.n_edges)
+    if plan.staged:
+        launch(_library(), "gnntf_blocked_spmm_bf16_staged", lst, val, xb,
+               out, extra=(plan.depth, plan.rows), shape=(4, f // 4))
+        blocked_spmm_bf16.staged_launches += 1
+    else:
+        launch(_library(), "gnntf_blocked_spmm_bf16", lst, val, xb, out,
+               shape=(plan.vec, plan.group))
     blocked_spmm_bf16.launches += 1
     return out
 
 
 blocked_spmm_bf16.launches = 0
+blocked_spmm_bf16.staged_launches = 0
 
 
 # the C signature of the walk's entry points (gnntf_blocked_spmm,
@@ -730,6 +849,10 @@ blocked_spmm_bf16.launches = 0
 # n_units, n_split, n_part_items, f, vec, group, parts; stream
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# the staged walk of K2's bfloat16 mode (gnntf_blocked_spmm_bf16_staged)
+# takes its ring's depth and rows a batch before the stream
+STAGED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
 # the dropout walks' entry points (gnntf_ell_gather_masked,
 # gnntf_ell_degree) take before the stream the tiles (tile_seg, tile_edge,
 # seg_end, seg_out; n_tiles, cap_edges, cap_segs), the draw (the salt
@@ -747,10 +870,12 @@ SCALED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_float, ctypes.c_void_p]
 
 
-def declare(entry, drop: bool = False, scaled: bool = False) -> None:
+def declare(entry, drop: bool = False, scaled: bool = False,
+            staged: bool = False) -> None:
     entry.restype = ctypes.c_int
     entry.argtypes = (DROP_ARGTYPES if drop else
-                      SCALED_ARGTYPES if scaled else ENTRY_ARGTYPES)
+                      SCALED_ARGTYPES if scaled else
+                      STAGED_ARGTYPES if staged else ENTRY_ARGTYPES)
 
 
 @functools.cache
@@ -760,6 +885,7 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("blocked_spmm")
     declare(lib.gnntf_blocked_spmm)
     declare(lib.gnntf_blocked_spmm_bf16)
+    declare(lib.gnntf_blocked_spmm_bf16_staged, staged=True)
     return lib
 
 

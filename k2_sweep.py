@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small,k2bf16]
                         [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
-                        [--ab-route DIR]
+                        [--ab-route DIR] [--ab-bf16 DIR]
 
 K2: on the RCM-reordered benchmark graph of ``chip_smoke.py``, over the
 forward and the transposed list at F=40 and F=128, it times K2 (CUDA events,
@@ -31,13 +31,20 @@ RCM benchmark graph), at F=1 (the degree walk), 7 (Cora's classes) and
 narrow walk, the parts, the fix-up) beside the CUDA-event mean, and, on
 the Cora-scale lists, the ``index_add_`` route that the walk replaced.
 
-K2's bfloat16 mode (``--kernels k2bf16``, not run by default): the widest
-load a lane may take, forced (``ops/blocked.py::_BF16_VEC``: 8, 4, 2 or 1
-bfloat16; ``bf16_vec`` narrows it to what F and the addresses allow, and
-rows of fewer than 8 loads take the narrow walk), over the forward list of
-the Cora-scale uniform graph and of the RCM benchmark graph at F=1, 7, 16,
-40, 64 and 128: each setting's CUDA-event mean and one call's device time
-by kernel, beside the float32 walk and the cast of x to bfloat16.
+K2's bfloat16 mode (``--kernels k2bf16``, not run by default), over the
+forward list of the Cora-scale uniform graph and of the RCM benchmark graph
+at F=1, 7, 16, 40, 64 and 128: the generic walk at the widest load a lane
+may take, forced (``ops/blocked.py::_BF16_VEC``: 8, 4, 2 or 1 bfloat16;
+``bf16_vec`` narrows it to what F and the addresses allow, and rows of
+fewer than 8 loads take the narrow walk); where it runs (F % 8 == 0, 16 <=
+F <= 40), the staged walk (``csrc/bf16_walk.cuh``) at each ring of
+``BF16_RINGS`` (batches in flight, edges a batch; ``_BF16_RING``); each
+setting's CUDA-event mean and one call's device time by kernel, beside the
+float32 walk and the cast of x to bfloat16.  Then the crossover that
+``_BF16_STAGED_EDGES`` sets: the staged and the generic walk over the
+lists of ``--kernels k2small`` and two power-law graphs between them
+(10 K to 2.3 M edges) at F=16, 24, 32 and 40, each's device time a call
+averaged over a profile of 20 calls.
 
 K1's scaled walk (``--kernels k1``): over the whole list of the benchmark
 graph's normalized adjacency (``PreparedSpMM`` under ``auto``: every live
@@ -96,6 +103,14 @@ CUDA-event mean of 20 calls and one call's device time by kernel (walk,
 parts, fix-up) from a profile; then one training step of GAT at
 ``GATConfig`` on the benchmark graph: its device busy and wall time and
 A1-A4's share of the busy time, from a profile.
+
+With ``--ab-bf16 DIR`` it times, in the same four processes, K2's
+bfloat16 mode on the RCM benchmark graph's normalized forward list (phase
+2f's) at F=16, 40, 64 and 128 and on the Cora-scale uniform graph's at
+F=7, 16, 40 and 64: ``spmm_pallas(graph, x, bf16=True)`` from float32 ``x``
+(the product as users call it, the cast included), the mode's walk over
+``x`` cast to bfloat16, the cast, and K2's float32 walk beside them, each's
+CUDA-event mean and one call's device time by kernel.
 
 With ``--ab-route DIR`` it times, in the same four processes, the
 prepared operator's routes on the benchmark graph's normalized adjacency
@@ -587,6 +602,52 @@ for name in ("APPNP", "GCNII-64"):
 """
 
 
+# One process of the bfloat16 A/B: K2's bfloat16 mode in the tree it runs
+# in; one JSON line a (graph, F, run).  It uses only what the parent tree
+# has too.
+AB_BF16_CODE = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+import gnntf_tpu_torch as tt
+from gnntf_tpu_torch.data import random_power_law_edges
+from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
+                                 normalize_adjacency, spmm_pallas)
+from gnntf_tpu_torch.utils import kernels
+kernels.build(["blocked_spmm"], force=True)
+dev = torch.device("cuda")
+src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
+graph = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False,
+                      device=dev)
+g_rcm, _ = tt.permute_graph(graph, tt.rcm_order(graph))
+rng = np.random.RandomState(0)
+n = cs.CORA_NODES
+cora = tt.from_edges(rng.randint(0, n, cs.CORA_EDGES),
+                     rng.randint(0, n, cs.CORA_EDGES), n_nodes=n,
+                     directed=False, device=dev)
+for name, g, widths in (("bench_rcm", g_rcm, (16, 40, 64, 128)),
+                        ("cora_uniform", cora, (7, 16, 40, 64))):
+    base = normalize_adjacency(g, graph_dropout=0.0).materialized()
+    lst = blocked.blocked_layout(base).forward
+    val = base.val.to(torch.float32).contiguous()
+    for f in widths:
+        x = torch.from_numpy(np.random.RandomState(f).randn(
+            g.n_nodes, f).astype(np.float32)).to(dev)
+        xb = x.to(torch.bfloat16)
+        runs = {"call": lambda: spmm_pallas(base, x, bf16=True),
+                "walk": lambda: blocked_spmm_bf16(lst, val, xb),
+                "cast": lambda: x.to(torch.bfloat16),
+                "k2": lambda: blocked_spmm(lst, val, x)}
+        for run_name, run in runs.items():
+            rows, busy, _, _ = cs.device_profile(run)
+            print(json.dumps(dict(
+                tree=sys.argv[1], graph=name, f=f, run=run_name,
+                edges=lst.n_edges, ms=cs.time_ms(run), device_ms=busy / 1e3,
+                us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows})),
+                flush=True)
+"""
+
+
 def ab(parent, card, code=AB_CODE):
     """An A/B (``code``: the dropout walks, ``AB_SMALL_CODE`` or
     ``AB_ATTN_CODE``): this tree
@@ -694,24 +755,50 @@ def sweep_small(dev, card):
 
 BF16_WIDTHS = (1, 7, 16, 40, 64, 128)
 BF16_VECS = (8, 4, 2, 1)
+# the staged walk's rings: (batches in flight, edges a batch); a width
+# skips those past its 48 KB a block
+BF16_RINGS = ((2, 8), (2, 12), (2, 16), (2, 20), (3, 8), (3, 12), (4, 8))
+# the crossover between the staged and the generic walk in a list's edges:
+# its widths, the power-law graphs (nodes, edges before symmetrizing) it
+# adds to small_lists(), and the calls a profile averages
+BF16_CROSS_WIDTHS = (16, 24, 32, 40)
+BF16_CROSS_GRAPHS = ((40_000, 100_000), (60_000, 180_000))
+BF16_CROSS_CALLS = 20
+# _BF16_STAGED_EDGES that gives the staged walk every list at its widths
+EVERY_LIST = dict.fromkeys((16, 24, 32, 40), 0)
 
 
 def sweep_bf16(dev, card):
-    """K2's bfloat16 mode at each widest load of ``BF16_VECS`` and width of
-    ``BF16_WIDTHS``, over the Cora-scale uniform and the RCM bench forward
-    lists, beside the float32 walk and the cast; returns the JSON lines."""
+    """K2's bfloat16 mode over the Cora-scale uniform and the RCM bench
+    forward lists at each width of ``BF16_WIDTHS``: the generic walk at each
+    widest load of ``BF16_VECS``, the staged walk at each ring of
+    ``BF16_RINGS`` (where it runs), beside the float32 walk and the cast;
+    then the staged and the generic walk over lists of 10 K to 2.3 M edges
+    at each width of ``BF16_CROSS_WIDTHS`` (:func:`_sweep_crossover`);
+    returns the JSON lines."""
     from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
                                      blocked_spmm_bf16_plain,
                                      blocked_spmm_plain)
-    default = blocked._BF16_VEC
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    default = (blocked._BF16_VEC, blocked._BF16_RING,
+               blocked._BF16_STAGED_EDGES)
     lines = []
-    for name, n, row, col in small_lists():
-        if name not in ("cora_uniform", "bench_rcm"):
-            continue
-        lst = blocked.BlockedSpMM(blocked.graph_lists(row, col, n),
-                                  dev).forward
+    graphs = small_lists()
+    for n, e in BF16_CROSS_GRAPHS:
+        g = tt.from_edges(*random_power_law_edges(n, e, seed=2), n_nodes=n,
+                          directed=False, device="cpu")
+        graphs.append((f"power_law_{n // 1000}k", n, g.row.numpy(),
+                       g.col.numpy()))
+    for name, n, row, col in graphs:
+        lists = blocked.graph_lists(row, col, n)
+        lst = blocked.BlockedSpMM(lists, dev).forward
         val = torch.from_numpy(np.random.RandomState(6).uniform(
             0.1, 1.0, len(row)).astype(np.float32)).to(dev)
+        lines += _sweep_crossover(blocked, lst, val, n, name, card)
+        if name not in ("cora_uniform", "bench_rcm"):
+            continue
+        cpu_lst = blocked.BlockedSpMM(lists, "cpu").forward
         for f in BF16_WIDTHS:
             x = torch.from_numpy(np.random.RandomState(f).randn(
                 n, f).astype(np.float32)).to(dev)
@@ -732,13 +819,85 @@ def sweep_bf16(dev, card):
                     walk="narrow" if min(32, f // vec) < 8 else "wide",
                     edges=lst.n_edges, units=lst.n_units, card=card),
                     lambda: blocked_spmm_bf16(lst, val, xb))
+            blocked._BF16_VEC = None
+            lines += _sweep_rings(blocked, lst, cpu_lst, val, xb, name, card)
             lines += _time_runs(dict(kernel="K2", graph=name, f=f,
                                      edges=lst.n_edges, card=card),
                                 lambda: blocked_spmm(lst, val, x))
             lines += _time_runs(dict(kernel="cast", graph=name, f=f,
                                      card=card),
                                 lambda: x.to(torch.bfloat16))
-    blocked._BF16_VEC = default
+    (blocked._BF16_VEC, blocked._BF16_RING,
+     blocked._BF16_STAGED_EDGES) = default
+    return lines
+
+
+def _sweep_crossover(blocked, lst, val, n, name, card):
+    """The staged walk and the generic walk (each forced through
+    ``_BF16_STAGED_EDGES``) over ``lst`` at each width of
+    ``BF16_CROSS_WIDTHS``: each's CUDA-event mean and device time a call,
+    averaged over a profile of ``BF16_CROSS_CALLS`` calls, and whether the
+    two outputs are equal bit for bit."""
+    from gnntf_tpu_torch.ops import blocked_spmm_bf16
+    default = blocked._BF16_STAGED_EDGES
+    lines = []
+    for f in BF16_CROSS_WIDTHS:
+        xb = torch.from_numpy(np.random.RandomState(f).randn(n, f).astype(
+            np.float32)).to(lst.device).to(torch.bfloat16)
+        run = lambda: blocked_spmm_bf16(lst, val, xb)
+        outs = {}
+        for walk, edges in (("staged", EVERY_LIST), ("generic", {})):
+            blocked._BF16_STAGED_EDGES = edges
+            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            outs[walk] = run()
+            rows, busy, _, _ = device_profile(
+                lambda: [run() for _ in range(BF16_CROSS_CALLS)])
+            line = dict(kernel="K2bf16cross", graph=name, f=f, walk=walk,
+                        vec=plan.vec, ring=(plan.depth, plan.rows),
+                        edges=lst.n_edges, units=lst.n_units,
+                        ms=time_ms(run),
+                        device_ms=busy / 1e3 / BF16_CROSS_CALLS,
+                        us_by_kernel={kernel_name(k): us / BF16_CROSS_CALLS
+                                      for k, us, _ in rows}, card=card)
+            lines.append(line)
+        for line in lines[-2:]:
+            line["equal"] = bool(torch.equal(outs["staged"],
+                                             outs["generic"]))
+            print(json.dumps(line), flush=True)
+    blocked._BF16_STAGED_EDGES = default
+    return lines
+
+
+def _sweep_rings(blocked, lst, cpu_lst, val, xb, name, card):
+    """The staged walk (forced on any list) at its own ring and at each
+    ring of ``BF16_RINGS`` that fits, where it runs at F; each held
+    bit-equal to the plain version on the CPU (``cpu_lst``: ``lst``
+    there)."""
+    from gnntf_tpu_torch.ops import blocked_spmm_bf16, blocked_spmm_bf16_plain
+    f = xb.shape[1]
+    default = blocked._BF16_RING, blocked._BF16_STAGED_EDGES
+    blocked._BF16_STAGED_EDGES = EVERY_LIST
+    ref = None
+    lines = []
+    for ring in (None,) + BF16_RINGS:
+        blocked._BF16_RING = ring
+        try:
+            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+        except ValueError:  # past 48 KB a block at F
+            continue
+        if not plan.staged:
+            break
+        if ref is None:
+            ref = blocked_spmm_bf16_plain(cpu_lst, val.cpu(), xb.cpu())
+        run = lambda: blocked_spmm_bf16(lst, val, xb)
+        if not torch.equal(run().cpu(), ref):
+            raise AssertionError(f"k2bf16 staged {name} F={f} {plan}: "
+                                 f"not bit-equal to the plain version")
+        lines += _time_runs(dict(
+            kernel="K2bf16staged", graph=name, f=f, ring=ring,
+            depth=plan.depth, rows=plan.rows, smem=plan.smem(f),
+            edges=lst.n_edges, units=lst.n_units, card=card), run)
+    blocked._BF16_RING, blocked._BF16_STAGED_EDGES = default
     return lines
 
 
@@ -770,6 +929,11 @@ def main():
                         help="time the attention kernels A1-A4 and a GAT "
                              "step of this tree and of the checkout in DIR "
                              "in turn, and nothing else")
+    parser.add_argument("--ab-bf16", metavar="DIR",
+                        help="time K2's bfloat16 mode (the product, its "
+                             "walk, the cast, the float32 walk) of this tree "
+                             "and of the checkout in DIR in turn, and "
+                             "nothing else")
     parser.add_argument("--ab-route", metavar="DIR",
                         help="time the prepared operator's routes and the "
                              "APPNP and GCNII-64 serving forwards of this "
@@ -788,10 +952,12 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(f"card: {card}")
-    if args.ab or args.ab_small or args.ab_attn or args.ab_route:
+    if (args.ab or args.ab_small or args.ab_attn or args.ab_route
+            or args.ab_bf16):
         write(args.out, ab(args.ab, card) if args.ab
               else ab(args.ab_small, card, AB_SMALL_CODE) if args.ab_small
               else ab(args.ab_attn, card, AB_ATTN_CODE) if args.ab_attn
+              else ab(args.ab_bf16, card, AB_BF16_CODE) if args.ab_bf16
               else ab(args.ab_route, card, AB_ROUTE_CODE))
         return
     lines = sweep_small(dev, card) if "k2small" in which else []

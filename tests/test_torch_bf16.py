@@ -227,3 +227,219 @@ def test_pallas_impl_keeps_float32():
     with tt.spmm_impl("pallas"):
         out = tt.spmm(pg, torch.from_numpy(x))
     assert torch.equal(out, spmm_pallas(pg, torch.from_numpy(x)))
+
+
+# K2's bfloat16 mode's host rule (bf16_plan) and the staged walk
+# (csrc/bf16_walk.cuh) through a Python twin of its copies and its sum.
+
+STAGED_WIDTHS = (16, 24, 32, 40)
+# a Cora-scale list's edges and the RCM bench graph's forward list's
+EDGES = {"cora": 10_556, "bench": 2_332_478}
+
+
+@pytest.mark.parametrize("edges", sorted(EDGES))
+@pytest.mark.parametrize("x_at", [0, 2, 4, 8, 16])
+@pytest.mark.parametrize("out_at", [0, 8])
+def test_plan_for_each_width_and_alignment(edges, x_at, out_at):
+    """F = 1-136: the staged walk at F = 32 and 40 on any list, at F = 24
+    and 16 on lists of 150,000 and 1,000,000 edges on (the bench list, not
+    the Cora-scale one), with ``x`` and ``out`` 16-byte aligned; else the
+    generic walk at ``bf16_vec``'s load."""
+    assert blocked._BF16_VEC is None and blocked._BF16_RING is None
+    least = blocked._BF16_STAGED_EDGES
+    assert least == {16: 1_000_000, 24: 150_000, 32: 0, 40: 0}
+    n_edges = EDGES[edges]
+    aligned = x_at % 16 == 0 and out_at % 16 == 0
+    for f in range(1, 137):
+        plan = blocked.bf16_plan(f, x_at, out_at, n_edges)
+        staged = aligned and f in least and n_edges >= least[f]
+        assert plan.staged == staged, (f, plan)
+        assert staged == (aligned and (f in (32, 40) or (
+            edges == "bench" and f in (16, 24)))), f
+        if staged:
+            assert (plan.vec, plan.group, plan.depth, plan.rows) == (
+                4, f // 4, blocked._BF16_DEPTH,
+                blocked.bf16_rows(f, blocked._BF16_DEPTH))
+        else:
+            vec = blocked.bf16_vec(f, x_at, out_at)
+            assert (plan.vec, plan.group) == (vec, max(1, min(32, f // vec)))
+    # each width's crossover: the first list size that takes the staged walk
+    for f, at in least.items():
+        if at:
+            assert not blocked.bf16_plan(f, 0, 0, at - 1).staged
+        assert blocked.bf16_plan(f, x_at, out_at, at).staged == aligned
+
+
+def test_forced_walks(monkeypatch):
+    """``_BF16_VEC`` forces the generic walk at any width and list size;
+    ``_BF16_STAGED_EDGES`` of zeros gives the staged walk any list at its
+    widths, and empty none; ``_BF16_RING`` forces its ring, within what the
+    kernel takes."""
+    big = EDGES["bench"]
+    monkeypatch.setattr(blocked, "_BF16_VEC", 8)
+    plan = blocked.bf16_plan(40, 0, 0, big)
+    assert (plan.staged, plan.vec, plan.group) == (False, 8, 5)
+    monkeypatch.setattr(blocked, "_BF16_VEC", None)
+    assert not blocked.bf16_plan(16, 0, 0, EDGES["cora"]).staged
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES",
+                        dict.fromkeys((16, 24, 32, 40), 0))
+    assert blocked.bf16_plan(16, 0, 0, EDGES["cora"]).staged
+    assert not blocked.bf16_plan(48, 0, 0, big).staged  # past kMaxF
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", {})
+    assert not blocked.bf16_plan(40, 0, 0, big).staged
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", {40: 0})
+    monkeypatch.setattr(blocked, "_BF16_RING", (3, 8))
+    plan = blocked.bf16_plan(40, 0, 0, big)
+    assert (plan.staged, plan.depth, plan.rows) == (True, 3, 8)
+    # past 48 KB a block at F=40 (2 x 32, 3 x 16), more edges a batch than
+    # 8 a lane at F=16, depth * rows not a multiple of 4, depths 1 and 5
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", {16: 0, 40: 0})
+    for f, ring in ((40, (2, 32)), (40, (3, 16)), (16, (2, 36)),
+                    (40, (3, 6)), (40, (2, 0)), (40, (1, 8)), (40, (5, 4))):
+        monkeypatch.setattr(blocked, "_BF16_RING", ring)
+        with pytest.raises(ValueError):
+            blocked.bf16_plan(f, 0, 0, big)
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("f", STAGED_WIDTHS)
+def test_ring_fits_shared_memory(f, depth):
+    """The staged walk's ring, kWarps warps a block: whole 16-byte rows and
+    values after them, within the 48 KB a block takes without opting in at
+    the default depth; another depth's ring at the default rows is refused
+    where it does not fit."""
+    rows = blocked.bf16_rows(f, depth)
+    assert 4 <= rows <= 32 and rows % 4 == 0 and 2 * f % 16 == 0
+    smem = blocked.bf16_ring_bytes(f, depth, rows) * blocked._BF16_WARPS
+    assert smem <= blocked._BF16_SMEM, (f, depth, smem)
+    assert blocked.bf16_ring_bytes(f, depth, rows + 4) * \
+        blocked._BF16_WARPS > blocked._BF16_SMEM or rows == 32
+    if depth == blocked._BF16_DEPTH:
+        plan = blocked.bf16_plan(f, 0, 0, EDGES["bench"])
+        assert plan.staged and plan.smem(f) == smem
+    assert [blocked.bf16_rows(g, 2) for g in STAGED_WIDTHS] == [16, 20, 20,
+                                                                  20]
+
+
+def staged_copies(f, rows, n):
+    """bf16_walk.cuh's stage(), lane by lane over a unit's group of lanes:
+    the (edge, 16-byte chunk) copies a lane issues for a batch of ``n`` of
+    ``rows`` edges, each with the lane that fetched its edge's source."""
+    group = f // 4
+    chunks = f * 2 // 16
+    rounds = -(-rows * chunks // group)
+    dk, dp = group // chunks, group - (group // chunks) * chunks
+    copies = []
+    for lane in range(group):
+        k, part = divmod(lane, chunks)
+        for _ in range(rounds):
+            if k < n:
+                copies.append((lane, k % group, k, part))
+            k += dk
+            part += dp
+            if part >= chunks:
+                part -= chunks
+                k += 1
+    return copies
+
+
+@pytest.mark.parametrize("ring", ["default", "2x8", "3x12"])
+@pytest.mark.parametrize("f", STAGED_WIDTHS)
+def test_staged_copies_cover_a_batch_once(f, ring):
+    """Every (edge, chunk) of a batch is copied once, for full and partial
+    batches; a lane fetches at most 8 edges' sources (``kEdges``)."""
+    chunks = f * 2 // 16
+    rows = {"default": blocked.bf16_rows(f, 2), "2x8": 8, "3x12": 12}[ring]
+    for n in {1, rows // 2, rows - 1, rows} - {0}:
+        copies = staged_copies(f, rows, n)
+        seen = sorted((k, part) for _, _, k, part in copies)
+        assert seen == [(k, c) for k in range(n) for c in range(chunks)]
+        assert -(-rows // (f // 4)) <= 8
+
+
+def staged_walk_twin(lst, val, xb, depth, rows):
+    """bf16_walk.cuh's walk in torch: each unit's batches staged into a
+    ring by the copies of :func:`staged_copies`, summed edge by edge, lane
+    by lane (each lane's pairs of elements: two terms rounded apart, added
+    to float32 sums), rows written at their ends; then edge_walk's parts
+    and fix-up over a split row's pieces."""
+    f = xb.shape[1]
+    raw = xb.contiguous().view(torch.uint8).reshape(xb.shape[0], -1)
+    ptr, idx = lst.ptr.long().tolist(), lst.idx.long()
+    eid = (torch.arange(lst.n_edges) if lst.eid is None
+           else lst.eid.long())
+    unit_row, unit_edge = lst.unit_row.tolist(), lst.unit_edge.tolist()
+    out = torch.full((lst.n_rows, f), float("nan"))
+    carry = torch.zeros(lst.n_units, f)
+    row_bytes = f * 2
+    for u in range(lst.n_units):
+        head, r1 = unit_row[u], unit_row[u + 1]
+        piece, r1 = head < 0, (~r1 if r1 < 0 else r1)
+        e0, e1 = unit_edge[u], unit_edge[u + 1]
+        row = ~head if piece else head
+        ring = torch.zeros(depth, rows, row_bytes, dtype=torch.uint8)
+        acc = torch.zeros(f)
+        for b in range(-(-(e1 - e0) // rows)):
+            b0 = e0 + b * rows
+            n = min(rows, e1 - b0)
+            for _, _, k, part in staged_copies(f, rows, n):
+                at = slice(16 * part, 16 * part + 16)
+                ring[b % depth, k, at] = raw[idx[b0 + k], at]
+            staged = ring[b % depth].view(torch.bfloat16)
+            for k in range(n):
+                while not piece and b0 + k >= ptr[row + 1]:
+                    out[row], acc = acc, torch.zeros(f)
+                    row += 1
+                w = val[eid[b0 + k]].reshape(())
+                xk = staged[k].to(torch.float32)
+                acc = acc + (w * xk).to(torch.bfloat16).to(torch.float32)
+        if piece:
+            carry[u] = acc
+            continue
+        for r in range(row, r1):
+            out[r], acc = acc, torch.zeros(f)
+    parts = lst.parts
+    for s, first, count in lst.split.tolist():
+        sums = []
+        for g in range(min(parts, count)):
+            part = torch.zeros(f)
+            for k in range(g, count, parts):
+                part = part + carry[first + k]
+            sums.append(part)
+        total = torch.zeros(f)
+        for part in sums:
+            total = total + part
+        out[s] = total
+    return out
+
+
+@pytest.mark.parametrize("f", STAGED_WIDTHS)
+def test_staged_walk_twin_equals_plain(f):
+    """The twin of the staged walk over a power-law list (split rows, rows
+    without edges, inf and NaN in x), forward and transposed (values
+    through ``eid``), at two rings: bit-equal to the plain version (NaN
+    where it has NaN)."""
+    from gnntf_tpu_torch.data import random_power_law_edges
+    n = 300
+    src, dst = random_power_law_edges(n, 1500, seed=3)
+    graph = tt.from_edges(src, dst, np.random.RandomState(4).uniform(
+        -1.0, 2.0, len(src)), n_nodes=n, directed=True, device="cpu")
+    prep = blocked.BlockedSpMM(blocked.graph_lists(
+        graph.row.numpy(), graph.col.numpy(), n), "cpu", items=32)
+    assert prep.forward.split.shape[0] > 0
+    assert (prep.forward.ptr.diff() == 0).any()
+    x = torch.from_numpy(np.random.RandomState(f).randn(n, f).astype(
+        np.float32))
+    for lst in (prep.forward, prep.transposed):  # in rows each gathers
+        a, b, c = lst.idx[[0, 50, 100]].tolist()
+        x[a, 3], x[b, 0], x[c, 1] = (float("inf"), float("-inf"),
+                                     float("nan"))
+    xb = x.to(torch.bfloat16)
+    val = graph.val.to(torch.float32)
+    for lst in (prep.forward, prep.transposed):
+        ref = blocked_spmm_bf16_plain(lst, val, xb)
+        for depth, rows in ((2, blocked.bf16_rows(f, 2)), (3, 4)):
+            out = staged_walk_twin(lst, val, xb, depth, rows)
+            torch.testing.assert_close(out, ref, rtol=0, atol=0,
+                                       equal_nan=True)
+        assert torch.isnan(ref).any()

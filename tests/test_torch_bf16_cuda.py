@@ -5,10 +5,21 @@ card, against their plain versions, without JAX:
 
 * ``blocked_spmm_bf16`` over a random graph's lists (duplicate pairs, empty
   rows, a hub row split over many units) at F = 1, 4, 7, 16, 40, 64, 128
-  with the program's load width and with each forced (``_BF16_VEC`` 8, 4,
-  2, 1; the narrow walk where a row has fewer than 8 loads): within ``1e-5 * sum|terms|`` of the plain
-  version on the card, and bit-equal to it on the CPU (the same terms,
-  summed in the same order); the share is logged;
+  with the program's walk (``bf16_plan``: on these lists the staged walk
+  at F = 40, the generic walk elsewhere) and with the generic walk
+  forced (``_BF16_VEC`` 8, 4, 2, 1; the narrow walk where a row has fewer
+  than 8 loads): within ``1e-5 * sum|terms|`` of the plain version on the
+  card, and bit-equal to it on the CPU (the same terms, summed in the same
+  order); the share is logged;
+* the staged walk (``csrc/bf16_walk.cuh``, given every list at its
+  widths through ``_BF16_STAGED_EDGES``) at F = 16, 24, 32, 40, and the mode at 64
+  and 128 where the generic walk takes it, over the forward list, the
+  transposed one (values through ``eid``) and a power-law list with split
+  rows, ``x`` holding inf and NaN: bit-equal to the plain version on the
+  CPU (NaN where it has NaN) and within ``1e-5 * sum|terms|`` of it on the
+  card (whose ``index_add_`` adds in no fixed order); at other rings; ``x``
+  views that are not 16-byte aligned, which the host rule sends to the
+  generic walk;
 * the masked and degree walks over bfloat16 base values (the training grids
   of ``GNNTF_GRID_VALUE_DTYPE=bfloat16``): the same two checks;
 * ``spmm_pallas(bf16=True)`` forward and backward (``dx``, ``dval``) on the
@@ -73,7 +84,10 @@ def _same(label, out, ref_card, scale, ref_cpu):
 
 def _walk_kernels(fn):
     """The walk kernels that ``fn`` ran (one profile, opened with spin
-    kernels, taken again when it kept none of them)."""
+    kernels and closed 2 ms a 256 of them after ``fn``'s end; taken again
+    when it kept none of them, or no walk: the profiler can drop a
+    session's first and last device events)."""
+    import time
     from torch.profiler import ProfilerActivity, profile
     primer = 256
     for _ in range(3):
@@ -83,14 +97,17 @@ def _walk_kernels(fn):
                 torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.002 * primer / 256)
         keys = [e.key for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any("spin_kernel" in k for k in keys):
-            names = {k.split("(anonymous namespace)::")[-1].split("<")[0]
-                     .split("(")[0] for k in keys}
-            return {n for n in names if "_walk" in n}
+        names = {k.split("(anonymous namespace)::")[-1].split("<")[0]
+                 .split("(")[0] for k in keys}
+        walks = {n for n in names if "_walk" in n}
+        if any("spin_kernel" in k for k in keys) and walks:
+            return walks
         primer *= 4
-    raise RuntimeError("the profiler kept no primer kernel in 3 sessions")
+    raise RuntimeError("the profiler kept no primer kernel or no walk in 3 "
+                       "sessions")
 
 
 @pytest.mark.cuda
@@ -104,7 +121,8 @@ def test_bf16_walk_matches_plain(cuda, monkeypatch, f, widest):
     val = graph.val.to(torch.float32).contiguous()
     x = torch.from_numpy(np.random.RandomState(f).randn(N, f).astype(
         np.float32)).to(cuda).to(torch.bfloat16)
-    vec = blocked.bf16_vec(f, x.data_ptr(), 0)
+    plan = blocked.bf16_plan(f, x.data_ptr(), 0, prep.forward.n_edges)
+    vec = plan.vec
     for name in ("forward", "transposed"):
         lst = getattr(prep, name)
         before = blocked.blocked_spmm_bf16.launches
@@ -120,8 +138,12 @@ def test_bf16_walk_matches_plain(cuda, monkeypatch, f, widest):
     walks = _walk_kernels(lambda: blocked.blocked_spmm_bf16(prep.forward,
                                                             val, x))
     narrow = min(32, f // vec) < 8
-    assert walks == ({"blocked_spmm_walk_narrow"} if narrow
+    assert walks == ({"blocked_spmm_bf16_walk"} if plan.staged
+                     else {"blocked_spmm_walk_narrow"} if narrow
                      else {"blocked_spmm_walk"}), walks
+    least = blocked._BF16_STAGED_EDGES
+    assert plan.staged == (widest is None and f in least
+                           and prep.forward.n_edges >= least[f])
 
 
 @pytest.mark.cuda
@@ -237,3 +259,132 @@ def test_appnp_under_the_knob_equals_float32(cuda, monkeypatch):
                 name == "bfloat16")
     for key in ("train_loss", "valid_loss"):
         assert hist["bfloat16"][key] == hist["float32"][key], key
+
+
+def _power_law(device):
+    from gnntf_tpu_torch.data import random_power_law_edges
+    src, dst = random_power_law_edges(N, 20000, seed=1)
+    vals = np.random.RandomState(5).uniform(-1.0, 2.0, len(src))
+    return tt.from_edges(src, dst, vals, n_nodes=N, directed=True,
+                         device=device)
+
+
+def _nonfinite_x(f, lists, seed):
+    """(N, F) float32 on the CPU, with inf, -inf and NaN in rows that each
+    list gathers."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(N, f).astype(
+        np.float32))
+    for lst in lists:
+        a, b, c = lst.idx[[0, lst.n_edges // 2, -1]].tolist()
+        x[a, f - 1], x[b, 0], x[c, f // 2] = (float("inf"), float("-inf"),
+                                              float("nan"))
+    return x
+
+
+def _bit_equal(label, out, ref_card, scale, ref_cpu):
+    """Bit-equal to the plain version on the CPU, NaN where it has NaN; on
+    the card, whose ``index_add_`` adds in no fixed order, non-finite where
+    it is and elsewhere within ``RTOL * scale``."""
+    out, ref_card, scale = out.cpu(), ref_card.cpu(), scale.cpu()
+    torch.testing.assert_close(out, ref_cpu, rtol=0, atol=0, equal_nan=True,
+                               msg=lambda m: f"{label}: {m}")
+    finite = torch.isfinite(ref_card)
+    assert torch.equal(finite, torch.isfinite(out)), label
+    diff = (out - ref_card).abs()[finite]
+    assert bool((diff <= RTOL * scale[finite]).all()), (label, diff.max())
+    print(f"{label}: bit-equal to the plain version on the CPU")
+
+
+def _scale(lst, val, xb):
+    """``sum|terms|`` of each output element."""
+    return blocked.blocked_spmm_plain(lst, val.abs(),
+                                      xb.to(torch.float32).abs())
+
+
+# the staged walk at each of its widths on any list
+EVERY_LIST = dict.fromkeys((16, 24, 32, 40), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 24, 32, 40, 64, 128])
+def test_staged_walk_bit_equal_to_plain(cuda, monkeypatch, f):
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", EVERY_LIST)
+    staged = f <= 40  # the widths the staged walk takes
+    for graph in (_graph(cuda), _power_law(cuda)):
+        prep = blocked.blocked_layout(graph)
+        assert prep.forward.split.shape[0] > 0
+        assert (prep.forward.ptr.diff() == 0).any()
+        val = graph.val.to(torch.float32).contiguous()
+        x = _nonfinite_x(f, (prep.forward, prep.transposed), f)
+        xb = x.to(torch.bfloat16).to(cuda)
+        for name in ("forward", "transposed"):
+            lst = getattr(prep, name)
+            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            assert plan.staged == staged
+            before = (blocked.blocked_spmm_bf16.launches,
+                      blocked.blocked_spmm_bf16.staged_launches)
+            out = blocked.blocked_spmm_bf16(lst, val, xb)
+            torch.cuda.synchronize()
+            assert (blocked.blocked_spmm_bf16.launches,
+                    blocked.blocked_spmm_bf16.staged_launches) == (
+                        before[0] + 1, before[1] + staged)
+            _bit_equal(f"bf16 mode staged={staged} {name} F={f} "
+                       f"split={lst.split.shape[0]}", out,
+                       blocked.blocked_spmm_bf16_plain(lst, val, xb),
+                       _scale(lst, val, xb),
+                       blocked.blocked_spmm_bf16_plain(
+                           _list_to(lst, "cpu"), val.cpu(), xb.cpu()))
+            assert torch.isnan(out).any()
+        walks = _walk_kernels(lambda: blocked.blocked_spmm_bf16(
+            prep.forward, val, xb))
+        assert walks == ({"blocked_spmm_bf16_walk"} if staged
+                         else {"blocked_spmm_walk"}), walks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [(2, 16), (2, 4), (3, 8), (4, 8), (3, 12)])
+@pytest.mark.parametrize("f", [16, 40])
+def test_staged_walk_at_other_rings(cuda, monkeypatch, f, ring):
+    monkeypatch.setattr(blocked, "_BF16_RING", ring)
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", EVERY_LIST)
+    graph = _power_law(cuda)
+    prep = blocked.blocked_layout(graph)
+    val = graph.val.to(torch.float32).contiguous()
+    x = _nonfinite_x(f, (prep.forward,), 7)
+    xb = x.to(torch.bfloat16).to(cuda)
+    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, prep.forward.n_edges)
+    assert plan.staged and (plan.depth, plan.rows) == ring
+    out = blocked.blocked_spmm_bf16(prep.forward, val, xb)
+    _bit_equal(f"staged walk ring {ring} F={f}", out,
+               blocked.blocked_spmm_bf16_plain(prep.forward, val, xb),
+               _scale(prep.forward, val, xb),
+               blocked.blocked_spmm_bf16_plain(
+                   _list_to(prep.forward, "cpu"), val.cpu(), xb.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 40])
+def test_unaligned_views_take_a_walk_that_reads_them(cuda, monkeypatch, f):
+    """A bfloat16 view 2 bytes past a 16-byte boundary takes the generic
+    walk at loads of one bfloat16, on a list the staged walk would take."""
+    monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", EVERY_LIST)
+    graph = _graph(cuda)
+    prep = blocked.blocked_layout(graph)
+    val = graph.val.to(torch.float32).contiguous()
+    x = _nonfinite_x(f, (prep.forward,), 8)
+    flat = torch.empty(N * f + 1, dtype=torch.bfloat16, device=cuda)
+    xd = flat[1:].view(N, f)
+    xd.copy_(x.to(torch.bfloat16))
+    assert xd.data_ptr() % 16 and xd.is_contiguous()
+    plan = blocked.bf16_plan(f, xd.data_ptr(), 0, prep.forward.n_edges)
+    assert (plan.staged, plan.vec) == (False, 1)
+    out = blocked.blocked_spmm_bf16(prep.forward, val, xd)
+    xb = x.to(torch.bfloat16).to(cuda)
+    _bit_equal(f"unaligned view F={f}", out,
+               blocked.blocked_spmm_bf16_plain(prep.forward, val, xb),
+               _scale(prep.forward, val, xb),
+               blocked.blocked_spmm_bf16_plain(
+                   _list_to(prep.forward, "cpu"), val.cpu(), xb.cpu()))
+    walks = _walk_kernels(lambda: blocked.blocked_spmm_bf16(
+        prep.forward, val, xd))
+    assert walks == {"blocked_spmm_walk"}, walks
