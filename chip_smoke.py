@@ -27,9 +27,12 @@ Phases (any failure raises and exits non-zero):
    ``auto`` (every live slot of the hub-free ELL as a list over all rows,
    the normalized adjacency's scales applied in the walk), over the bench
    graph's whole list at the same widths beside ``torch.sparse.mm`` of the
-   normalized matrix, with the whole list's statistics (rows, units, split
-   rows), the device memory each operator holds and the share at F=40
-   bit-equal to the plain version on the CPU (all of it);
+   normalized matrix (``csrc/scaled_walk.cuh``; each call's device time by
+   kernel and its launches), each width bit-equal to the plain version on
+   the CPU, and over a list with a row split into thousands of pieces,
+   rows without slots and an identity (F=7, 40), with the whole list's
+   statistics (rows, units, split rows) and the device memory each
+   operator holds;
 2b. the same for K2 (the blocked-COO SpMM, an edge-balanced walk over
    per-edge lists) over its forward list (A) and its transposed list (A^T):
    a small random layout with duplicates, empty rows and a hub row and
@@ -54,13 +57,18 @@ Phases (any failure raises and exits non-zero):
    with the same arguments, the buffer rewritten between them, and a CUDA
    graph of the launches replayed after another rewrite, each output
    bit-equal to the CPU plain version of its draw;
-2d. the same for K1's backward walk, ``dx = A_rest^T dy`` over the
-   transposed list of K1's list (``ell_transposed_list``) in the walk's
-   store mode: a small random ELL with duplicates, an empty column and a
-   hub column split over many units, and the bench rest list at F=40,
-   F=64 and F=16 beside ``torch.sparse.mm`` of ``A_rest^T`` in CSR and the
-   ``index_add_`` route it replaced, logging the share bit-equal to the
-   plain version on the CPU;
+2d. the same for the prepared operator's backward: under ``auto`` one
+   launch of the scaled walk over the transposed whole list, ``dx = cs *
+   (A^T (rs * dy)) + w * dy`` (``ell_gather_scaled_backward``), over a
+   list with a column in thousands of pieces, rows without slots and an
+   identity, and over the bench graph's transposed whole list at F=64, 40,
+   16 and 128 beside ``torch.sparse.mm`` of the normalized ``A^T`` (the
+   scales folded in), each bit-equal to the plain version on the CPU;
+   under ``hybrid`` K2's store-mode entry, ``dx = A_rest^T dy``
+   (``ell_gather_transposed``): a small random ELL with duplicates, an
+   empty column and a hub column split over many units, and the bench
+   transposed list at F=40 beside ``torch.sparse.mm`` of ``A^T`` in CSR
+   and the ``index_add_`` route it replaced;
 2e. the same for the attention kernels A1-A4 (``csrc/attention.cu``: the
    row pass's statistics and aggregation, the backward's row and column
    passes), each on its kernel's inputs within ``1e-5 * sum|terms|`` and a
@@ -103,7 +111,9 @@ Phases (any failure raises and exits non-zero):
    requests of 10,000 nodes and one evaluate, with the kernel launch counts
    zeroed just before and read just after (30 launches of K1's scaled
    walk, nothing else); a device profile of one forward and of one SpMM
-   (the scaled walk, its parts and its fix-up, no GEMM); the same forwards
+   (the scaled walk alone: its split rows are finished inside its launch;
+   no GEMM), logging the device launches per SpMM and per forward; the
+   same forwards
    under ``hybrid`` (the hub slice's matmul and K1 adding into it: 30 K1
    launches) with their profiles beside, the logits allclose to auto's;
    then the same forward on the CPU (plain versions) as the reference;
@@ -240,8 +250,8 @@ Phases (any failure raises and exits non-zero):
    and optax-style Adam (the masked and degree walks); (d) (a)'s APPNP
    with a layer that scales by a draw from ``next_generator(device)``;
 13. print each phase's seconds, a ``{"kernels": [...]}`` line (K1's
-   scaled walk, K1 and its backward walk with NGCF's launches and an F=16
-   reading, phases 2 and 2d; K2 and the masked walk with phase 14's per-rank walks and
+   scaled walk and its backward, K1 and hybrid's backward walk, with
+   NGCF's launches and an F=16 reading, phases 2 and 2d; K2 and the masked walk with phase 14's per-rank walks and
    launches; K2's bfloat16 mode and the walks over bfloat16 values, phase
    2f), the card's name and power limit from nvidia-smi, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -571,15 +581,18 @@ def check_ell_kernel(label, lst, val, x, base, library=False):
 
 
 def scaled_bound(lst, f, scales, w):
-    """Least time for K1's scaled walk over this whole list: its row
-    pointer (4 B a row), each live slot's source and value (8 B), x read
-    once (the referenced rows, or every row where the identity reads it),
-    the scales (4 B a row each) and out written once; per slot and feature
-    a product and a sum (and cs's product), per row and feature rs's
+    """Least time for K1's scaled walk over this whole list (or, over the
+    transposed list, its backward, ``scales`` swapped): its row pointer (4
+    B a row), each live slot's source and value (8 B) and, where the list
+    reads one, its id (4 B more), x read once (the referenced rows, or
+    every row where the identity reads it), the scales (4 B a row each)
+    and out written once; per slot and feature a product and a sum (and
+    the gathered scale's product), per row and feature the stored scale's
     product (and the identity's product and sum)."""
     x_rows = lst.n_rows if w != 0.0 else int(torch.unique(lst.idx).numel())
     n_scales = sum(v is not None for v in scales)
     n_bytes = ((lst.n_rows + 1) * 4 + lst.n_edges * 8 + x_rows * f * 4
+               + (lst.eid is not None) * lst.n_edges * 4
                + n_scales * lst.n_rows * 4 + lst.n_rows * f * 4)
     flops = ((2 + (scales[1] is not None)) * lst.n_edges
              + ((scales[0] is not None) + 2 * (w != 0.0)) * lst.n_rows) * f
@@ -589,38 +602,58 @@ def scaled_bound(lst, f, scales, w):
                                  else "operations"), n_bytes
 
 
-def check_scaled_kernel(label, op, x, library=False):
-    """K1's scaled walk of the prepared operator ``op`` (``auto``) against
-    its plain version on the card; times kernel, plain version and
-    (``library``) ``torch.sparse.mm`` of the normalized matrix (the scales
-    folded into its values) plus ``w * x``; one call's device time by
-    kernel from a profile."""
-    from gnntf_tpu_torch.ops import ell_gather_scaled, ell_gather_scaled_plain
+def check_scaled_kernel(label, lst, val, x, rs, cs, w, library=False,
+                        backward=False):
+    """K1's scaled walk over the whole list ``lst`` (with ``backward``, the
+    prepared operator's backward over the transposed list, ``x`` being
+    ``dy``) against its plain version on the card and, bit for bit, on the
+    CPU; times kernel, plain version and (``library``) ``torch.sparse.mm``
+    of the normalized matrix (``A^T`` for the backward; the scales folded
+    into its values) plus ``w * x``; one call's device time by kernel from
+    a profile."""
+    from gnntf_tpu_torch.ops import (ell_gather_scaled,
+                                     ell_gather_scaled_backward,
+                                     ell_gather_scaled_backward_plain,
+                                     ell_gather_scaled_plain)
 
-    lst, val, (rs, cs), w = op.k1_list, op.k1_val, op._scales, \
-        float(op.eye_weight)
-    out = ell_gather_scaled(lst, val, x, rs, cs, w)
+    call, plain = ((ell_gather_scaled_backward,
+                    ell_gather_scaled_backward_plain) if backward
+                   else (ell_gather_scaled, ell_gather_scaled_plain))
+    what = "K1 scaled backward" if backward else "K1 scaled"
+    out = call(lst, val, x, rs, cs, w)
     torch.cuda.synchronize()
-    ref = ell_gather_scaled_plain(lst, val, x, rs, cs, w)
+    ref = plain(lst, val, x, rs, cs, w)
     absent = lambda t: None if t is None else t.abs()
-    scale = ell_gather_scaled_plain(lst, val.abs(), x.abs(), absent(rs),
-                                    absent(cs), abs(w))
-    err = check_close(f"K1 scaled {label}", out, ref, scale)
-    run = lambda: ell_gather_scaled(lst, val, x, rs, cs, w)
-    res = dict(max_abs_err=err, ms=time_ms(run),
-               plain_ms=time_ms(lambda: ell_gather_scaled_plain(
-                   lst, val, x, rs, cs, w)))
+    scale = plain(lst, val.abs(), x.abs(), absent(rs), absent(cs), abs(w))
+    err = check_close(f"{what} {label}", out, ref, scale)
+    cpu = lambda t: None if t is None else t.cpu()
+    bits = (out.cpu() == plain(list_to(lst, "cpu"), val.cpu(), x.cpu(),
+                               cpu(rs), cpu(cs), w)).double().mean().item()
+    log(f"{what} {label} on the card against the plain version on the "
+        f"CPU: bit-equal share {bits}")
+    if bits != 1.0:
+        raise AssertionError(f"{what} {label} is not bit-equal to its plain "
+                             "version on the CPU")
+    run = lambda: call(lst, val, x, rs, cs, w)
+    res = dict(max_abs_err=err, bit_equal_to_cpu_plain=bits, ms=time_ms(run),
+               plain_ms=time_ms(lambda: plain(lst, val, x, rs, cs, w)))
     rows, busy_us, _, _ = device_profile(run)
     res["device_ms"] = busy_us / 1e3
     res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+    res["launches_a_call"] = sum(r[2] for r in rows)
+    # the gathered scale is cs forward, rs backward
     res["bound_ms"], res["bound_by"], n_bytes = scaled_bound(
-        lst, x.shape[1], (rs, cs), w)
+        lst, x.shape[1], (cs, rs) if backward else (rs, cs), w)
     res["library_ms"] = None
     if library:
         # yardstick only: one cuSPARSE CSR product of the normalized matrix
+        # (the scales folded into its values; backward: A^T, the stored
+        # scale cs and the gathered rs)
         r, c = live_edges(lst)
-        v = val * (1.0 if rs is None else rs[r]) * (1.0 if cs is None
-                                                    else cs[c])
+        v = val if lst.eid is None else val[lst.eid.long()]
+        gathered, stored = (rs, cs) if backward else (cs, rs)
+        v = v * (1.0 if stored is None else stored[r]) * (
+            1.0 if gathered is None else gathered[c])
         a = torch.sparse_coo_tensor(torch.stack([r, c]), v,
                                     (lst.n_rows, x.shape[0]))
         a = a.coalesce().to_sparse_csr()
@@ -628,24 +661,48 @@ def check_scaled_kernel(label, op, x, library=False):
             (lambda: torch.sparse.addmm(x, a, x, beta=w))
         check_close(f"library sparse.mm {label}", lib(), ref, scale)
         res["library_ms"] = time_ms(lib)
-    log(f"K1 scaled {label}: kernel {res['ms']} ms (one call's device time "
-        f"{res['device_ms']} ms: {res['us_by_kernel']} us), plain "
-        f"{res['plain_ms']} ms, library {res['library_ms']} ms, bound "
-        f"{res['bound_ms']} ms ({res['bound_by']}, {n_bytes} B), rows "
-        f"{lst.n_rows}, live slots {lst.n_edges}, units {lst.n_units}, "
-        f"split rows {lst.split.shape[0]}, F={x.shape[1]}")
+    log(f"{what} {label}: kernel {res['ms']} ms (one call's device time "
+        f"{res['device_ms']} ms in {res['launches_a_call']} launches: "
+        f"{res['us_by_kernel']} us), plain {res['plain_ms']} ms, library "
+        f"{res['library_ms']} ms, bound {res['bound_ms']} ms "
+        f"({res['bound_by']}, {n_bytes} B), rows {lst.n_rows}, live slots "
+        f"{lst.n_edges}, units {lst.n_units}, split rows "
+        f"{lst.split.shape[0]}, F={x.shape[1]}")
     return res
+
+
+def split_whole_list(seed, n, pieces, dev, hub=0.05):
+    """A whole list of ``n`` short rows (0-6 slots, every third row empty),
+    row 3 split into ``pieces`` pieces of the scaled walk's unit size and
+    row n/2 into two, a share ``hub`` of the slots on column 11, in units
+    of that size with the walk's counters; its slot values, positive row
+    and column scales."""
+    from gnntf_tpu_torch.ops import EdgeList
+    items = k1_module()._WHOLE_ITEMS
+    rng = np.random.RandomState(seed)
+    deg = rng.randint(0, 7, n)
+    deg[::3] = 0
+    deg[3] = pieces * items - items // 2
+    deg[n // 2] = items + 1
+    ptr = np.concatenate([[0], np.cumsum(deg)])
+    src = rng.randint(0, n, ptr[-1])
+    src[rng.rand(len(src)) < hub] = 11
+    lst = EdgeList.build(ptr, src, None, dev, items=items)
+    val, rs, cs = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.randn(len(src)), rng.uniform(0.1, 2.0, n),
+        rng.uniform(0.1, 2.0, n)))
+    return lst, val, rs, cs
 
 
 def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
     """2: K1 against its plain version, small and on the bench graph's rest
     ELL list (``hybrid``'s, F=128, 64, 40 and 16), adding into random
     bases; K1's scaled walk over the whole list of the serving adjacency
-    (``auto``'s, the same widths); returns the results."""
+    (``auto``'s, the same widths, each bit-equal to its plain version on
+    the CPU) and over a list with a row split into thousands of pieces,
+    rows without slots and an identity; returns the results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, ell_gather_list,
-                                     ell_gather_scaled,
-                                     ell_gather_scaled_plain,
                                      normalize_adjacency)
     from gnntf_tpu_torch.ops.spmm import build_ell
 
@@ -721,27 +778,26 @@ def phase_ell_kernel(graph, dev, x16, x40, x64, x128):
     log(f"K1's whole list (auto, no hub slice): {whole_stats}")
     if op.dense is not None or whole.rows is not None:
         raise AssertionError("auto built a hub slice or a list of held rows")
+    # a list with a row split into thousands of pieces, rows without slots
+    # and an identity, at an aligned and an unaligned width
+    small_lst, small_val, rs, cs = split_whole_list(13, 3000, 2500, dev)
+    rng = np.random.RandomState(5)
+    scaled_small = {f: check_scaled_kernel(
+        f"small F={f}", small_lst, small_val, torch.from_numpy(
+            rng.randn(3000, f).astype(np.float32)).to(dev), rs, cs, 0.5)
+        for f in (7, 40)}
     scaled = {}
     for f, x in ((N_FEATURES, x128), (64, x64), (16, x16), (40, x40)):
-        scaled[f] = check_scaled_kernel(f"bench F={f}", op, x, library=True)
-    out = ell_gather_scaled(whole, op.k1_val, x40, *op._scales,
-                            float(op.eye_weight)).cpu()
-    ref = ell_gather_scaled_plain(
-        list_to(whole, "cpu"), op.k1_val.cpu(), x40.cpu(),
-        *(None if v is None else v.cpu() for v in op._scales),
-        float(op.eye_weight))
-    whole_stats["bit_equal_to_cpu_plain_f40"] = (
-        out == ref).double().mean().item()
-    log(f"K1 scaled bench F=40 on the card against the plain version on the "
-        f"CPU: bit-equal share {whole_stats['bit_equal_to_cpu_plain_f40']}")
-    if whole_stats["bit_equal_to_cpu_plain_f40"] != 1.0:
-        raise AssertionError("K1's scaled walk is not bit-equal to its plain "
-                             "version on the CPU")
+        scaled[f] = check_scaled_kernel(
+            f"bench F={f}", whole, op.k1_val, x, *op._scales,
+            float(op.eye_weight), library=True)
+    whole_stats["bit_equal_to_cpu_plain_f40"] = \
+        scaled[40]["bit_equal_to_cpu_plain"]
     return dict(small=small_res, bench=res[N_FEATURES], serving=res[40],
                 gcn_width=res[64], ngcf_width=res[16], rest_list=stats,
                 scaled=dict(serving=scaled[40], bench=scaled[N_FEATURES],
                             gcn_width=scaled[64], ngcf_width=scaled[16],
-                            whole_list=whole_stats))
+                            small=scaled_small, whole_list=whole_stats))
 
 
 def live_edges(lst):
@@ -1183,7 +1239,7 @@ def profile_step(step, top=10):
     walks = {name: family(name)[1] for name in (
         "blocked_spmm_walk", "blocked_spmm_walk_narrow",
         "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
-        "ell_gather_scaled_walk")}
+        "ell_gather_scaled_walk", "ell_gather_scaled_bwd_walk")}
     shares = {name: family(tag)[0] / busy_us for name, tag in (
         ("k2", "blocked_spmm"), ("masked", "ell_gather_masked"),
         ("degree", "ell_degree"))}
@@ -1206,7 +1262,9 @@ def profile_step(step, top=10):
                 masked_walks=walks["ell_gather_masked_walk"],
                 degree_walks=walks["ell_degree_walk"],
                 k1_walks=walks["ell_gather_walk"],
-                k1s_walks=walks["ell_gather_scaled_walk"], counted=counted)
+                k1s_walks=walks["ell_gather_scaled_walk"],
+                k1s_backward_walks=walks["ell_gather_scaled_bwd_walk"],
+                counted=counted)
 
 
 def phase_blocked_kernel(graph, dev, x40, x128):
@@ -1433,19 +1491,23 @@ ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
               "attn_bwd_cols_walk")
 def launch_counts():
     """The kernel wrappers' launch counts: K2, K1, K1's scaled walk, its
-    masked walk, its degree walk, K1's backward walk over the transposed
-    list, the attention kernels A1-A4, K2's bfloat16 mode (the generic walk,
-    "k2_bf16", and the staged walk, "k2_bf16s") and the masked and
+    masked walk, its degree walk, the scaled walk's backward over the
+    transposed list ("backward") and hybrid's backward walk over it
+    ("k1t"), the attention kernels A1-A4, K2's bfloat16 mode (the generic
+    walk, "k2_bf16", and the staged walk, "k2_bf16s") and the masked and
     degree walks over bfloat16 values."""
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
                                      blocked_spmm_bf16, ell_degree_masked,
                                      ell_gather, ell_gather_masked,
                                      ell_gather_scaled)
+    from gnntf_tpu_torch.ops.ell_gather import (ell_gather_scaled_backward,
+                                                ell_gather_transposed)
     return dict(k2=blocked_spmm.launches, k1=ell_gather.launches,
                 k1s=ell_gather_scaled.launches,
                 masked=ell_gather_masked.launches,
                 degree=ell_degree_masked.launches,
-                backward=ell_gather.backward_launches,
+                backward=ell_gather_scaled_backward.launches,
+                k1t=ell_gather_transposed.launches,
                 **{name: getattr(attention, name).launches
                    for name in ATTN_KERNELS},
                 k2_bf16=(blocked_spmm_bf16.launches
@@ -1460,8 +1522,11 @@ def zero_counts():
                                      blocked_spmm_bf16, ell_degree_masked,
                                      ell_gather, ell_gather_masked,
                                      ell_gather_scaled)
+    from gnntf_tpu_torch.ops.ell_gather import (ell_gather_scaled_backward,
+                                                ell_gather_transposed)
     for fn in (blocked_spmm, blocked_spmm_bf16, ell_gather,
                ell_gather_scaled, ell_gather_masked, ell_degree_masked,
+               ell_gather_scaled_backward, ell_gather_transposed,
                *(getattr(attention, name) for name in ATTN_KERNELS)):
         fn.launches = 0
     ell_gather.backward_launches = 0
@@ -1487,7 +1552,7 @@ def per_epoch(marks):
 # scaled walk, "k1s") in the validation forward.  K1 adding into a base
 # ("k1") runs only under hybrid and in the per-call ell route.
 NO_LAUNCHES = dict(k2=0, k1=0, k1s=0, masked=0, degree=0, backward=0,
-                   **dict.fromkeys(ATTN_KERNELS, 0), k2_bf16=0,
+                   k1t=0, **dict.fromkeys(ATTN_KERNELS, 0), k2_bf16=0,
                    k2_bf16s=0, masked_bf16=0, degree_bf16=0)
 EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
                   None: dict(NO_LAUNCHES, k1s=10, masked=20, degree=10)}
@@ -1773,7 +1838,8 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
     count = lambda tag: sum(r[2] for r in rows if tag in r[0])
     walks = {tag: count(tag) / replays for tag in (
         "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
-        "ell_gather_scaled_walk", "blocked_spmm_walk", *ATTN_WALKS)}
+        "ell_gather_scaled_walk", "ell_gather_scaled_bwd_walk",
+        "blocked_spmm_walk", *ATTN_WALKS)}
     index_add = (count("indexFunc") + count("index_add")) / replays
     out = dict(walks_per_epoch=walks, index_add_per_epoch=index_add,
                launches_per_epoch=sum(r[2] for r in rows) / replays,
@@ -1793,10 +1859,12 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
 REPLAY_WALKS = {
     None: {"ell_gather_masked_walk": 20, "ell_degree_walk": 10,
            "ell_gather_walk": 0, "ell_gather_scaled_walk": 10,
-           "blocked_spmm_walk": 0, "index_add": 0},
+           "ell_gather_scaled_bwd_walk": 0, "blocked_spmm_walk": 0,
+           "index_add": 0},
     "pallas": {"ell_gather_masked_walk": 0, "ell_degree_walk": 10,
                "ell_gather_walk": 0, "ell_gather_scaled_walk": 0,
-               "blocked_spmm_walk": 30, "index_add": 0}}
+               "ell_gather_scaled_bwd_walk": 0, "blocked_spmm_walk": 30,
+               "index_add": 0}}
 
 
 def phase_fused(label, graph, features, dev, impl=None, inv=None):
@@ -1956,12 +2024,18 @@ def check_backward_kernel(label, lst, lst_t, val, dy, library=False):
     return res
 
 
-def phase_backward_kernel(graph, dev, x16, x40, x64):
-    """2d: K1's backward walk over the transposed list of its list against
-    its plain version, small (duplicates, an empty column, a hub column
-    split over many units) and on the transposed whole list of the bench
-    graph (the ``auto`` operator's, which its backward walks) at F=40, F=64
-    and F=16; returns the results."""
+def phase_backward_kernel(graph, dev, x16, x40, x64, x128):
+    """2d: the prepared operator's backward walks against their plain
+    versions.  Under ``auto`` (the default) one launch of K1's scaled walk
+    over the transposed whole list, ``dx = cs * (A^T (rs * dy)) + w * dy``:
+    over a list with a column split into thousands of pieces, rows without
+    slots and an identity, and over the bench graph's transposed whole list
+    at F=64, 40, 16 and 128, bound and ``sparse.mm`` of the normalized
+    ``A^T`` beside it, bit for bit the plain version on the CPU.  Under
+    ``hybrid`` K2's store-mode entry over the transposed list of K1's rest
+    list (``dx = A_rest^T dy``): small (duplicates, an empty column, a hub
+    column split over many units) and at F=40 over the bench graph's
+    transposed whole list.  Returns the results."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, blocked_spmm_plain,
                                      ell_edge_list, normalize_adjacency)
     from gnntf_tpu_torch.ops.spmm import build_ell
@@ -1985,10 +2059,21 @@ def phase_backward_kernel(graph, dev, x16, x40, x64):
         small_res = check_backward_kernel(f"small F={f}", small, small_t,
                                           small_val, dy)
 
-    prep = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
-    lst, val = prep.k1_list, prep.k1_val
+    # the scaled backward over a transposed list with a hub column in
+    # thousands of pieces, rows without slots and an identity
+    lst, val, rs, cs = split_whole_list(17, 3000, 1200, dev, hub=0.5)
+    lst_t = k1.ell_transposed_list(lst, 3000)
+    if int(lst_t.split[:, 2].max()) < 1000:
+        raise AssertionError("the small transposed list splits no column "
+                             "into thousands of pieces")
+    scaled_small = {f: check_scaled_kernel(
+        f"small F={f}", lst_t, val, torch.from_numpy(rng.randn(
+            3000, f).astype(np.float32)).to(dev), rs, cs, 0.5,
+        backward=True) for f in (7, 40)}
+
+    op = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
     t0 = time.perf_counter()
-    lst_t = k1.ell_transposed_list(lst, N_NODES)
+    lst_t = op._routed.transposed()
     torch.cuda.synchronize()
     split = lst_t.split.cpu().numpy()
     slots = lst_t.ptr.diff().cpu().numpy()
@@ -1999,19 +2084,24 @@ def phase_backward_kernel(graph, dev, x16, x40, x64):
                  empty_columns=int((slots == 0).sum()),
                  build_s=time.perf_counter() - t0)
     log(f"bench whole list transposed: {stats}")
-    res = {}
-    for f, x in ((64, x64), (40, x40), (16, x16)):
-        res[f] = check_backward_kernel(f"bench F={f}", lst, lst_t, val, x,
-                                       library=True)
-        # the kernel rounds as the plain version does on the CPU, in its
-        # order
-        out = k1.ell_gather_transposed(lst_t, val, x).cpu()
-        ref = blocked_spmm_plain(list_to(lst_t, "cpu"), val.cpu(), x.cpu())
-        share = (out == ref).double().mean().item()
-        res[f]["bit_equal_to_cpu_plain"] = share
-        log(f"K1 backward bench F={f} on the card against the plain version "
-            f"on the CPU: bit-equal share {share}")
-    return dict(small=small_res, gcn=res[40], gcnii=res[64], ngcf=res[16],
+    scaled = {f: check_scaled_kernel(
+        f"bench F={f}", lst_t, op.k1_val, x, *op._scales,
+        float(op.eye_weight), library=True, backward=True)
+        for f, x in ((64, x64), (40, x40), (16, x16), (N_FEATURES, x128))}
+    hybrid = check_backward_kernel("bench F=40", op.k1_list, lst_t,
+                                   op.k1_val, x40, library=True)
+    # the kernel rounds as the plain version does on the CPU, in its order
+    out = k1.ell_gather_transposed(lst_t, op.k1_val, x40).cpu()
+    ref = blocked_spmm_plain(list_to(lst_t, "cpu"), op.k1_val.cpu(),
+                             x40.cpu())
+    hybrid["bit_equal_to_cpu_plain"] = (out == ref).double().mean().item()
+    log(f"K1 backward (hybrid's) bench F=40 on the card against the plain "
+        f"version on the CPU: bit-equal share "
+        f"{hybrid['bit_equal_to_cpu_plain']}")
+    return dict(small=small_res, hybrid=hybrid,
+                scaled=dict(gcn=scaled[40], gcnii=scaled[64],
+                            ngcf=scaled[16], bench=scaled[N_FEATURES],
+                            small=scaled_small),
                 transposed_list=stats)
 
 
@@ -3229,7 +3319,8 @@ LP_MEAN_NODES = 200
 # validation forward; the backward walk in the 2 convolutions whose input
 # needs a gradient (the first one's input is the features)
 LP_LAUNCHES = dict(NO_LAUNCHES, k1s=6, backward=2)
-LP_REPLAY = {"ell_gather_scaled_walk": 6, "blocked_spmm_walk": 2,
+LP_REPLAY = {"ell_gather_scaled_walk": 6, "ell_gather_scaled_bwd_walk": 2,
+             "blocked_spmm_walk": 0,
              "ell_gather_masked_walk": 0, "ell_degree_walk": 0,
              "index_add": 2}
 # fused vs host loop on the card, NGCF without its output regularization
@@ -4272,12 +4363,14 @@ def phase_multihost_train(graph, features, dev):
 PHASE16_EPOCHS, PHASE16_BLOCK = 10, 5
 REMAT16_EPOCHS, REMAT16_BLOCK = 4, 2
 # a replay's walks by profile name, and the wrappers' counts each one is
-# (K1's backward walk is K2's store-mode kernel)
+# (the prepared operator's backward under the default impl is the scaled
+# walk's backward)
 WALK_COUNTERS = {"ell_gather_walk": ("k1",),
                  "ell_gather_scaled_walk": ("k1s",),
+                 "ell_gather_scaled_bwd_walk": ("backward",),
                  "ell_gather_masked_walk": ("masked",),
                  "ell_degree_walk": ("degree",),
-                 "blocked_spmm_walk": ("k2", "backward")}
+                 "blocked_spmm_walk": ("k2",)}
 
 
 class MomentumSGD:
@@ -4474,7 +4567,7 @@ def phase_fused_gaps(graph, features, dev):
         raise AssertionError("16b: remat changes the best epoch")
     walks = remat["walks_per_replay"]
     if walks["ell_gather_scaled_walk"] <= 0 or \
-            walks["blocked_spmm_walk"] <= 0:
+            walks["ell_gather_scaled_bwd_walk"] <= 0:
         raise AssertionError(f"16b: K1 or its backward walk missing from a "
                              f"replay: {walks}")
     log(f"16b: fused peaks without remat {plain['peak']}, with remat "
@@ -4623,9 +4716,10 @@ def main(dev=None):
     masked = phase_masked_kernels(graph, dev, x40, x64, x128)
     seconds["2c"] = time.perf_counter() - t0
 
-    # 2d. K1's backward walk over the transposed rest list
+    # 2d. the prepared operator's backward walks: the scaled walk over the
+    # transposed whole list (auto), K2's entry over it (hybrid)
     t0 = time.perf_counter()
-    backward = phase_backward_kernel(graph, dev, x16, x40, x64)
+    backward = phase_backward_kernel(graph, dev, x16, x40, x64, x128)
     seconds["2d"] = time.perf_counter() - t0
 
     # 2e. the attention kernels A1-A4, small and on the bench graph's lists
@@ -4689,21 +4783,23 @@ def main(dev=None):
     fwd_profile = profile_forward("one forward", clean_forward(model))
     spmm_profile = profile_forward(f"one SpMM at F={acts.shape[1]}",
                                    lambda: op(acts))
+    # the split rows are finished inside the walk's launch
+    spmm_kernels = {"ell_gather_scaled_walk"}
     if (fwd_profile["k1s_walks"] != 10 or spmm_profile["k1s_walks"] != 1
             or spmm_profile["gemm_us"] or spmm_profile["k1_walks"]
-            or spmm_profile["launches"] != len(spmm_profile["us_by_kernel"])
-            or not set(spmm_profile["us_by_kernel"]) <= {
-                "ell_gather_scaled_walk", "ell_gather_scaled_parts",
-                "ell_gather_scaled_fixup"}):
+            or spmm_profile["launches"] != len(spmm_kernels)
+            or set(spmm_profile["us_by_kernel"]) != spmm_kernels):
         raise AssertionError("the auto route's profiles: "
                              f"{fwd_profile['k1s_walks']} scaled walks a "
                              "forward (expected 10); one SpMM "
-                             f"{spmm_profile['us_by_kernel']} (expected the "
-                             "scaled walk, its parts and fix-up once each)")
+                             f"{spmm_profile['us_by_kernel']} (expected "
+                             f"{sorted(spmm_kernels)} once each)")
     log(f"serving: set-up {setup_ms} ms (normalized graph + PreparedSpMM), "
         f"forward ms {forward_ms}, SpMM {spmm_ms} ms at F={acts.shape[1]}, "
         f"predict ms {request_ms}, evaluate {accuracy}, peak memory "
-        f"{peak_mb} MiB, K1 scaled launches {launches}")
+        f"{peak_mb} MiB, K1 scaled launches {launches}; device launches "
+        f"per SpMM {spmm_profile['launches']}, per forward "
+        f"{fwd_profile['launches']}")
 
     # the same forward under hybrid (the JAX package's hub slice beside K1
     # adding into its product), for K1's launches and the profiles beside
@@ -4727,17 +4823,40 @@ def main(dev=None):
         hybrid_spmm = profile_forward(f"one SpMM under hybrid at "
                                       f"F={acts.shape[1]}",
                                       lambda: hybrid_op(acts))
+        # one SpMM's dx under hybrid (K1's transposed list through K2's
+        # store-mode entry) beside auto's (the scaled walk's backward)
+        dy = torch.from_numpy(np.random.RandomState(9).randn(
+            *acts.shape).astype(np.float32)).to(dev)
+        xg = acts.detach().clone().requires_grad_()
+        hybrid_op(xg).backward(dy)  # builds the transposed list
+        xg.grad = None
+        torch.cuda.synchronize()
+        zero_counts()
+        hybrid_op(xg).backward(dy)
+        torch.cuda.synchronize()
+        hybrid_bwd_launches = launch_counts()
+        hybrid_dx = xg.grad
+    xg.grad = None
+    op(xg).backward(dy)
+    bwd_err = (hybrid_dx - xg.grad).abs().max().item()
     if hybrid_launches != dict(NO_LAUNCHES, k1=30) or \
-            hybrid_spmm["k1_walks"] != 1 or not hybrid_spmm["gemm_us"]:
+            hybrid_spmm["k1_walks"] != 1 or not hybrid_spmm["gemm_us"] or \
+            hybrid_bwd_launches != dict(NO_LAUNCHES, k1=1, k1t=1):
         raise AssertionError(f"hybrid serving launches {hybrid_launches} "
                              "(expected 30 of K1), one SpMM "
-                             f"{hybrid_spmm['us_by_kernel']}")
+                             f"{hybrid_spmm['us_by_kernel']}, one SpMM's "
+                             f"forward and backward {hybrid_bwd_launches} "
+                             "(expected 1 of K1 and 1 of its backward)")
     hybrid_err = (hybrid_acts - acts).abs().max().item()
     log(f"serving under hybrid: forward ms {hybrid_ms}, SpMM "
         f"{hybrid_spmm_ms} ms, launches {hybrid_launches}, max |logits - "
-        f"auto's| {hybrid_err}")
+        f"auto's| {hybrid_err}; one SpMM's forward and backward launches "
+        f"{hybrid_bwd_launches}, max |dx - auto's| {bwd_err}")
     if not torch.allclose(hybrid_acts, acts, **FORWARD_TOL):
         raise AssertionError(f"hybrid and auto logits differ ({hybrid_err})")
+    if not torch.allclose(hybrid_dx, xg.grad, **FORWARD_TOL):
+        raise AssertionError(f"hybrid and auto dx differ ({bwd_err})")
+    del xg, dy, hybrid_dx
     model._act_cache = None
 
     gpu = acts.cpu()
@@ -4900,7 +5019,7 @@ def main(dev=None):
     whole = k1["scaled"]["whole_list"]
     scaled_entry = {
         "name": "ell_gather_scaled", "route": "cuda",
-        "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+        "source": "gnntf_tpu_torch/csrc/scaled_walk.cuh",
         "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
         "launches": launches, **k1["scaled"]["serving"],
         "kernel_ms": k1["scaled"]["serving"]["ms"],
@@ -4916,6 +5035,7 @@ def main(dev=None):
         **kernel_launches(gcnii, gcn, "k1s"),
         "gcn_width": dict(k1["scaled"]["gcn_width"], shape="F=64"),
         "ngcf_width": dict(k1["scaled"]["ngcf_width"], shape="F=16"),
+        "small": k1["scaled"]["small"],
         "ngcf": dict(per_epoch=lp["launches_per_epoch"]["k1s"],
                      fused=fused_launches(lp["fused"],
                                           "ell_gather_scaled_walk", "k1s")),
@@ -4945,25 +5065,38 @@ def main(dev=None):
                  "name": "ell_gather_transposed", "route": "cuda",
                  "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
                  "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
-                 "launches": gcnii["launches_per_epoch"]["backward"]
-                 * GCNII_EPOCHS,
-                 **backward["gcnii"],
+                 "launches": hybrid_bwd_launches["k1t"],
+                 **backward["hybrid"],
                  "shape": f"whole list transposed, "
                           f"{backward['transposed_list']['slots']} slots "
-                          f"over N=169343 columns, F=64 (GCNII)",
-                 **kernel_launches(gcnii, gcn, "backward"),
-                 "fused_gaps": gaps_entry(gaps, "blocked_spmm_walk", (
-                     "16b_remat", "16b_plain")),
-                 "gcn_width": dict(backward["gcn"], shape="F=40 (GCN)"),
-                 "ngcf_width": dict(backward["ngcf"], shape="F=16 (NGCF)"),
-                 "ngcf": dict(per_epoch=lp["launches_per_epoch"]["backward"],
-                              fused=fused_launches(lp["fused"],
-                                                   "blocked_spmm_walk",
-                                                   "backward")),
-                 "small": backward["small"],
-                 "transposed_list": backward["transposed_list"]},
+                          f"over N=169343 columns, F=40 (launches: one "
+                          f"SpMM's backward under hybrid in phase 3)",
+                 "small": backward["small"]},
              "small": k1["small"], "rest_list": rest,
              "serving_profile": dict(forward=hybrid_fwd, spmm=hybrid_spmm)}
+    scaled_bwd = backward["scaled"]
+    scaled_backward_entry = {
+        "name": "ell_gather_scaled_backward", "route": "cuda",
+        "source": "gnntf_tpu_torch/csrc/scaled_walk.cuh",
+        "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
+        "launches": gcnii["launches_per_epoch"]["backward"] * GCNII_EPOCHS,
+        **scaled_bwd["gcnii"],
+        "shape": f"whole list transposed, "
+                 f"{backward['transposed_list']['slots']} slots over "
+                 f"N=169343 columns, F=64 (GCNII), dx = cs * (A^T (rs * "
+                 f"dy)) + w * dy in one launch",
+        **kernel_launches(gcnii, gcn, "backward"),
+        "fused_gaps": gaps_entry(gaps, "ell_gather_scaled_bwd_walk", (
+            "16b_remat", "16b_plain")),
+        "gcn_width": dict(scaled_bwd["gcn"], shape="F=40 (GCN)"),
+        "ngcf_width": dict(scaled_bwd["ngcf"], shape="F=16 (NGCF)"),
+        "bench_width": dict(scaled_bwd["bench"], shape="F=128"),
+        "ngcf": dict(per_epoch=lp["launches_per_epoch"]["backward"],
+                     fused=fused_launches(lp["fused"],
+                                          "ell_gather_scaled_bwd_walk",
+                                          "backward")),
+        "small": scaled_bwd["small"],
+        "transposed_list": backward["transposed_list"]}
     lay = k2["layout"]
     entry2 = {"name": "blocked_spmm", "route": "cuda",
               "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
@@ -5069,7 +5202,8 @@ def main(dev=None):
                      f"3 epochs under GNNTF_GRID_VALUE_DTYPE=bfloat16)",
             "float32_values": bf16["masked"][f"float32_{walk}"]})
     bf16_entries[2]["backward"] = bf16["masked"]["bf16_column"]
-    print(json.dumps({"kernels": [scaled_entry, entry, entry2, entry3,
+    print(json.dumps({"kernels": [scaled_entry, scaled_backward_entry,
+                                  entry, entry2, entry3,
                                   entry4, *attn_entries, *bf16_entries]}),
           flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)

@@ -34,13 +34,8 @@
 // geometry does not change it, so the result is the same from launch to
 // launch and on the CPU.
 //
-// With kScaled (K1's scaled walk, the prepared operator's whole product) the
-// walk finishes a normalized graph's product in its store, in the JAX
-// package's order rs * (A @ (cs * x)) + w * x: each gathered row is scaled by
-// its column's cs first, and each row is written as rs[row] * sum + w *
-// x[row] (Scale), each product and sum rounded apart, so the roundings are
-// those of the JAX package's separate passes.  Without it (every other walk)
-// none of that is compiled.
+// K1's scaled walk (the prepared operator's whole product) has a design of
+// its own, scaled_walk.cuh, which takes this header's parts.
 //
 // In K2's bfloat16 mode (blocked_spmm.cu, gnntf_blocked_spmm_bf16) x holds
 // bfloat16 (X: 2, 4 or 8 of them a lane's load, or one) while the sums,
@@ -96,14 +91,6 @@ struct Args {
   void* out;
   void* carry;
   int n_units, n_split, n_part_items, fv, group, parts;
-};
-
-// The scaled walk's epilogue: out[r] = rs[r] * sum + w * x[r], the gathered
-// x[c] scaled by cs[c]; a null rs or cs scales by one, w == 0 adds nothing.
-struct Scale {
-  const float* rs;
-  const float* cs;
-  float w;
 };
 
 // murmur3's 32-bit finalizer
@@ -215,18 +202,13 @@ __device__ __forceinline__ T* row_at(T* __restrict__ out,
 
 // Writes list row `row`'s sum: stores it, or, with kAdd, adds it to `base`,
 // the row's value in out, as the plain version's index_add_ into its base
-// does; with kScaled (store mode) stores rs[row] * sum + w * x[row].
-template <bool kAdd, bool kScaled = false, typename T, typename X = T>
+// does.
+template <bool kAdd, typename T>
 __device__ __forceinline__ void put_row(T* __restrict__ out,
                                         const int32_t* __restrict__ rows,
                                         int row, int fv, int j, T acc,
-                                        T base, const Scale& sc = Scale{},
-                                        const X* __restrict__ x = nullptr) {
+                                        T base) {
   if (kAdd) add_into(acc, base);
-  if constexpr (kScaled) {
-    if (sc.rs) acc = scaled(sc.rs[row], acc);
-    if (sc.w != 0.f) add_into(acc, scaled(sc.w, x[(long long)row * fv + j]));
-  }
   *row_at<kAdd>(out, rows, row, fv, j) = acc;
 }
 
@@ -267,14 +249,14 @@ __device__ __forceinline__ long long group_item(int group, long long n_items,
 // Unit u holds edges unit_edge[u] .. unit_edge[u+1]; unit_row[u] is its
 // first row, or ~row for a piece of a split row.  x holds X (T, or the
 // bfloat16 mode's loads).
-template <typename T, bool kAdd, bool kScaled = false, typename X = T>
+template <typename T, bool kAdd, typename X = T>
 __device__ __forceinline__ void walk_units(
     const int32_t* __restrict__ ptr, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ eid, const int32_t* __restrict__ rows,
     const float* __restrict__ val, const int32_t* __restrict__ unit_row,
     const int32_t* __restrict__ unit_edge, const X* __restrict__ x,
     T* __restrict__ out, T* __restrict__ carry, int n_units, int fv,
-    int group, const Scale sc = Scale{}) {
+    int group) {
   int lane;
   const long long unit = group_item(group, n_units, lane);
   if (unit < 0) return;
@@ -316,36 +298,26 @@ __device__ __forceinline__ void walk_units(
       for (int k = 0; k < n; k += kUnroll) {
         X a[kUnroll];
         float w[kUnroll];
-        float c[kUnroll];  // cs of the gathered rows (kScaled)
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int from = lane0 + min(k + u, n - 1);
           w[u] = __shfl_sync(mask, my_w, from);
           set_zero(a[u]);
-          c[u] = 1.f;
           const int s = __shfl_sync(mask, my_src, from);
-          if (on && k + u < n) {
-            a[u] = x[(long long)s * fv + j];
-            if (kScaled && sc.cs) c[u] = sc.cs[s];
-          }
+          if (on && k + u < n) a[u] = x[(long long)s * fv + j];
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (k + u < n) {
             const int e = b + k + u;
             while (e >= row_end) {  // rows ending before edge e
-              if (on)
-                put_row<kAdd, kScaled>(out, rows, row, fv, j, acc, base, sc,
-                                       x);
+              if (on) put_row<kAdd>(out, rows, row, fv, j, acc, base);
               set_zero(acc);
               ++row;
               row_end = ptr[row + 1];
               if (kAdd && on) base = *row_at<kAdd>(out, rows, row, fv, j);
             }
-            if constexpr (kScaled)
-              mul_add(acc, w[u], scaled(c[u], a[u]));
-            else
-              mul_add(acc, w[u], a[u]);
+            mul_add(acc, w[u], a[u]);
           }
         }
       }
@@ -355,8 +327,7 @@ __device__ __forceinline__ void walk_units(
     } else {
       // the last row, then rows without edges
       for (; row < r1; ++row) {
-        if (on)
-          put_row<kAdd, kScaled>(out, rows, row, fv, j, acc, base, sc, x);
+        if (on) put_row<kAdd>(out, rows, row, fv, j, acc, base);
         set_zero(acc);
         if (kAdd && on && row + 1 < r1)
           base = *row_at<kAdd>(out, rows, row + 1, fv, j);
@@ -367,19 +338,10 @@ __device__ __forceinline__ void walk_units(
 
 template <typename T, bool kAdd, typename X = T>
 __device__ __forceinline__ void walk(const Args& a) {
-  walk_units<T, kAdd, false, X>(
+  walk_units<T, kAdd, X>(
       a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
       static_cast<const X*>(a.x), static_cast<T*>(a.out),
       static_cast<T*>(a.carry), a.n_units, a.fv, a.group);
-}
-
-// The scaled walk (store mode, the epilogue of Scale).
-template <typename T>
-__device__ __forceinline__ void walk_scaled(const Args& a, const Scale& sc) {
-  walk_units<T, false, true>(
-      a.ptr, a.idx, a.eid, a.rows, a.val, a.unit_row, a.unit_edge,
-      static_cast<const T*>(a.x), static_cast<T*>(a.out),
-      static_cast<T*>(a.carry), a.n_units, a.fv, a.group, sc);
 }
 
 // Item i, part_item[i] = s * parts + g: part g of split row s, the sum of
@@ -416,14 +378,12 @@ __device__ __forceinline__ void parts(const Args& a) {
 
 // Item s: split row split[3s], its parts that hold a piece added in order
 // and written.
-template <typename T, bool kAdd, bool kScaled = false>
+template <typename T, bool kAdd>
 __device__ __forceinline__ void fix_rows(const int32_t* __restrict__ split,
                                          const int32_t* __restrict__ rows,
                                          const T* __restrict__ part_sum,
                                          T* __restrict__ out, int n_split,
-                                         int fv, int group, int parts,
-                                         const Scale sc = Scale{},
-                                         const T* __restrict__ x = nullptr) {
+                                         int fv, int group, int parts) {
   int lane;
   const long long s = group_item(group, n_split, lane);
   if (s < 0) return;
@@ -433,9 +393,8 @@ __device__ __forceinline__ void fix_rows(const int32_t* __restrict__ split,
     T base;
     set_zero(base);
     if (kAdd) base = *row_at<kAdd>(out, rows, row, fv, j);
-    put_row<kAdd, kScaled>(out, rows, row, fv, j,
-                           ordered_sum(part_sum + s * parts * fv + j, fv, n),
-                           base, sc, x);
+    put_row<kAdd>(out, rows, row, fv, j,
+                  ordered_sum(part_sum + s * parts * fv + j, fv, n), base);
   }
 }
 
@@ -445,18 +404,6 @@ __device__ __forceinline__ void fixup(const Args& a) {
       a.split, a.rows,
       static_cast<const T*>(a.carry) + (long long)a.n_units * a.fv,
       static_cast<T*>(a.out), a.n_split, a.fv, a.group, a.parts);
-}
-
-// The scaled walk's fix-up: a split row written as the scaled walk writes
-// its rows.
-template <typename T>
-__device__ __forceinline__ void fixup_scaled(const Args& a,
-                                             const Scale& sc) {
-  fix_rows<T, false, true>(
-      a.split, a.rows,
-      static_cast<const T*>(a.carry) + (long long)a.n_units * a.fv,
-      static_cast<T*>(a.out), a.n_split, a.fv, a.group, a.parts, sc,
-      static_cast<const T*>(a.x));
 }
 
 // blocks of `threads` for n_items items of `group` lanes

@@ -33,24 +33,28 @@
 // quarter of K2's) spread them over the card, and the fix-up adds a split
 // row's pieces in the same fixed order as K2's.
 //
-// The scaled walk (ell_gather_scaled_walk, _parts, _fixup) is the prepared
-// operator's whole product on the H100 (ops/spmm.py::PreparedSpMM under
-// `auto`), where the JAX package runs ell + dense @ x[hubs] and the scales
-// around it.  The dense hub slice existed for the TPU, whose SpMM is bound by
-// its gather unit's issue rate; the H100 has no such limit, and its fp32
-// matmul over a slice stored at 1.4% density cost more than the walk.  So
-// one walk takes every live slot of the hub-free ELL, as a CSR list over all
-// N rows (ops/ell_gather.py::whole_list), in store mode, and finishes a
-// normalized graph's product in its store: out[r] = rs[r] * sum_e val[e] *
-// (cs[c] * x[c]) + w * x[r] (edge_walk.cuh, Scale), the JAX order, each
-// product and sum rounded apart.  Every row is written, rows without a slot
-// as rs[r] * 0 + w * x[r], so out is neither zero-filled nor read.
+// The scaled walk (ell_gather_scaled_walk, the design of scaled_walk.cuh)
+// is the prepared operator's whole product on the H100 (ops/spmm.py::
+// PreparedSpMM under `auto`), where the JAX package runs ell + dense @
+// x[hubs] and the scales around it.  The dense hub slice existed for the
+// TPU, whose SpMM is bound by its gather unit's issue rate; the H100 has no
+// such limit, and its fp32 matmul over a slice stored at 1.4% density cost
+// more than the walk.  So one walk takes every live slot of the hub-free
+// ELL, as a CSR list over all N rows (ops/ell_gather.py::whole_list), in
+// store mode, and finishes a normalized graph's product in its store:
+// out[r] = rs[r] * sum_e val[e] * (cs[c] * x[c]) + w * x[r], the JAX order,
+// each product and sum rounded apart.  Every row is written, rows without a
+// slot as rs[r] * 0 + w * x[r], so out is neither zero-filled nor read, and
+// a split row is finished inside the launch.
 // Bound, bytes: the list (ptr 4 B a row; idx and val 8 B a live slot), x
 // read once (gathers and identity), rs and cs once, out written once.  On
 // the symmetric normalized bench graph at F = 40 (N = 169,343 rows,
 // 1,219,880 live slots, no identity): 65,952,920 B, 19.7 us at 3.35 TB/s
-// (chip_smoke.py phase 2's scaled_bound).  Units of 64 items
-// (ops/ell_gather.py::_WHOLE_ITEMS) split 168 rows.
+// (chip_smoke.py phase 2's scaled_bound).  Units of
+// ops/ell_gather.py::_WHOLE_ITEMS items split its 168 longest rows.
+// The prepared operator's backward, dx = cs * (A^T (rs * dy)) + w * dy, is
+// the same walk (ell_gather_scaled_bwd_walk) over the transposed list, eid
+// read, the scales swapped; its bound adds eid's 4 B a slot.
 //
 // Two more walks carry the training step under the default implementation
 // (ops/stochastic.py::TrainGrids, the counterpart of the JAX package's
@@ -83,6 +87,7 @@
 // of the kept edges' 8 and of the degree walk's kept values.
 #include "drop_walk.cuh"
 #include "edge_walk.cuh"
+#include "scaled_walk.cuh"
 
 namespace {
 
@@ -90,7 +95,7 @@ using drop_walk::Mask;
 using drop_walk::Pass;
 using drop_walk::Tiles;
 using edge_walk::Args;
-using edge_walk::Scale;
+using scaled_walk::Scale;
 
 template <typename T>
 __global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
@@ -108,42 +113,35 @@ __global__ void __launch_bounds__(32) ell_gather_fixup(const Args a) {
   edge_walk::fixup<T, true>(a);
 }
 
+// The scaled walk (scaled_walk.cuh), and its twin for the prepared
+// operator's backward, the same code under a name of its own so a profile
+// tells them apart.
 template <typename T>
-__global__ void __launch_bounds__(edge_walk::kThreads, edge_walk::kMinBlocks)
-    ell_gather_scaled_walk(const Args a, const Scale sc) {
-  edge_walk::walk_scaled<T>(a, sc);
+__global__ void __launch_bounds__(scaled_walk::kThreads,
+                                  scaled_walk::kMinBlocks)
+    ell_gather_scaled_walk(const Args a, const Scale sc, int* counters) {
+  scaled_walk::walk<T>(a, sc, counters);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(32) ell_gather_scaled_parts(const Args a) {
-  edge_walk::parts<T>(a);
+__global__ void __launch_bounds__(scaled_walk::kThreads,
+                                  scaled_walk::kMinBlocks)
+    ell_gather_scaled_bwd_walk(const Args a, const Scale sc, int* counters) {
+  scaled_walk::walk<T>(a, sc, counters);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32)
-    ell_gather_scaled_fixup(const Args a, const Scale sc) {
-  edge_walk::fixup_scaled<T>(a, sc);
-}
-
-// The scaled walk, then (only where a row is split) its parts and fix-up,
-// on `stream`; returns a CUDA error code (0 on success).
-template <typename T>
-int launch_scaled(const Args& a, const Scale& sc, cudaStream_t stream) {
-  ell_gather_scaled_walk<T>
-      <<<edge_walk::group_blocks(a.n_units, a.group, edge_walk::kThreads),
-         edge_walk::kThreads, 0, stream>>>(a, sc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 0) return (int)err;
-  if (a.parts < 1) return (int)cudaErrorInvalidValue;
-  ell_gather_scaled_parts<T>
-      <<<edge_walk::group_blocks(a.n_part_items, a.group, 32), 32, 0,
-         stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ell_gather_scaled_fixup<T>
-      <<<edge_walk::group_blocks(a.n_split, a.group, 32), 32, 0, stream>>>(
-          a, sc);
-  return (int)cudaGetLastError();
+// The scaled walk (the backward's, with kBwd) on `stream`; returns a CUDA
+// error code (0 on success).
+template <bool kBwd>
+int launch_scaled(const Args& a, const Scale& sc, int* counters, int vec,
+                  cudaStream_t stream) {
+  if (vec == 4)
+    return scaled_walk::launch(kBwd ? ell_gather_scaled_bwd_walk<float4>
+                                    : ell_gather_scaled_walk<float4>,
+                               a, sc, counters, stream);
+  return scaled_walk::launch(kBwd ? ell_gather_scaled_bwd_walk<float>
+                                  : ell_gather_scaled_walk<float>,
+                             a, sc, counters, stream);
 }
 
 template <typename T, typename V>
@@ -211,30 +209,38 @@ extern "C" int gnntf_ell_gather(
                            ell_gather_fixup<float>, a, s);
 }
 
-// The scaled walk in store mode over a list of all n rows (rows is
-// ignored): out (n, f) float32 gets rs[r] * sum + w * x[r] in every row and
-// needs no zero-fill; rs and cs are (n,) float32 or null (a scale of one),
-// w the identity's weight; x (n, f) is gathered scaled by cs.  The other
-// arguments are as gnntf_ell_gather's.
-extern "C" int gnntf_ell_gather_scaled(
-    const void* ptr, const void* idx, const void* eid, const void* rows,
-    const void* unit_row, const void* unit_edge, const void* split,
-    const void* part_item, const void* val, const void* x, void* out,
-    void* carry, int n_units, int n_split, int n_part_items, int f,
-    int vec, int group, int parts, const void* rs, const void* cs, float w,
-    void* stream) {
-  (void)rows;
-  const Args a = edge_walk::make_args(
-      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
-      out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
-  Scale sc;
-  sc.rs = static_cast<const float*>(rs);
-  sc.cs = static_cast<const float*>(cs);
-  sc.w = w;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) return launch_scaled<float4>(a, sc, s);
-  return launch_scaled<float>(a, sc, s);
-}
+// The scaled walk in store mode over a list of all n rows: out (n, f)
+// float32 gets rs[r] * sum + w * x[r] in every row and needs no zero-fill;
+// rs and cs are (n,) float32 or null (a scale of one), w the identity's
+// weight; x (n, f) is gathered scaled by cs.  counters (in the place of
+// gnntf_ell_gather's rows, which this list has none of) is the list's
+// n_split * (parts + 1) int32 counters, zero, which the walk leaves zero
+// (null where no row is split): with them a split row is finished inside
+// the walk's launch.  The other arguments are as gnntf_ell_gather's.
+// gnntf_ell_gather_scaled_t is the same function under the backward's
+// kernel name (ell_gather_scaled_bwd_walk, over the transposed list with
+// the scales swapped).
+#define GNNTF_SCALED_ENTRY(NAME, BWD)                                        \
+  extern "C" int NAME(                                                       \
+      const void* ptr, const void* idx, const void* eid, void* counters,     \
+      const void* unit_row, const void* unit_edge, const void* split,        \
+      const void* part_item, const void* val, const void* x, void* out,      \
+      void* carry, int n_units, int n_split, int n_part_items, int f,        \
+      int vec, int group, int parts, const void* rs, const void* cs,         \
+      float w, void* stream) {                                               \
+    const Args a = edge_walk::make_args(                                     \
+        ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,  \
+        x, out, carry, n_units, n_split, n_part_items, f, vec, group,        \
+        parts);                                                              \
+    Scale sc;                                                                \
+    sc.rs = static_cast<const float*>(rs);                                   \
+    sc.cs = static_cast<const float*>(cs);                                   \
+    sc.w = w;                                                                \
+    return launch_scaled<BWD>(a, sc, static_cast<int*>(counters), vec,      \
+                              static_cast<cudaStream_t>(stream));            \
+  }
+GNNTF_SCALED_ENTRY(gnntf_ell_gather_scaled, false)
+GNNTF_SCALED_ENTRY(gnntf_ell_gather_scaled_t, true)
 
 namespace {
 

@@ -13,6 +13,8 @@ from .ell_gather import (ell_degree_masked, ell_degree_masked_plain,
                          ell_edge_list, ell_gather, ell_gather_list,
                          ell_gather_masked, ell_gather_masked_plain,
                          ell_gather_plain, ell_gather_scaled,
+                         ell_gather_scaled_backward,
+                         ell_gather_scaled_backward_plain,
                          ell_gather_scaled_plain, ell_list, whole_list)
 from .normalize import edge_dropout, normalize_adjacency
 from .segment import segment_softmax

@@ -366,7 +366,10 @@ class EdgeList:
     number of parts that fixes its order, for K1's lists the output row of
     each list row (``rows``; None for K2's, where row r is output row r),
     and, for the lists of K1's dropout walks, their tiles
-    (:func:`drop_tiles`; None where the list was built without them)."""
+    (:func:`drop_tiles`; None where the list was built without them), and
+    the split rows' counters with which K1's scaled walk finishes them in
+    its own launch (``counters``: ``n_split * (parts + 1)`` int32 zeros,
+    which each launch leaves zero; None where no row is split)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -384,6 +387,7 @@ class EdgeList:
     tile_caps: tuple = (0, 0)  # most edges and segments of a tile
     n_x: Optional[int] = None     # x rows read; None: n_rows
     n_ids: Optional[int] = None   # values read through eid; None: n_edges
+    counters: Optional[torch.Tensor] = None  # (S * (parts + 1),) int32
 
     @classmethod
     def build(cls, ptr, idx, eid, device, rows=None, items=None,
@@ -392,9 +396,9 @@ class EdgeList:
         (default :func:`unit_items` of its edges and rows), its split rows
         summed in ``_FIXUP_PARTS`` parts, with tiles of ``tile_items`` items
         for the dropout walks (:func:`drop_tiles`; none without
-        ``tile_items``); ``eid`` None means the identity.  ``n_x`` and
-        ``n_ids`` give the rows of ``x`` and the values a non-square list
-        reads."""
+        ``tile_items``) and the split rows' counters; ``eid`` None means
+        the identity.  ``n_x`` and ``n_ids`` give the rows of ``x`` and the
+        values a non-square list reads."""
         if len(idx) >= 2**31 - 1:
             raise ValueError(f"{len(idx)} edges exceed the walk's int32 "
                              "indices")
@@ -416,11 +420,15 @@ class EdgeList:
             tiles = dict(zip(("tile_seg", "tile_edge", "seg_end", "seg_out"),
                              map(put, arrays)),
                          tile_caps=(cap_edges, cap_segs))
+        n_split = len(units[2])
         return cls(put(ptr), put(idx), None if identity else put(eid),
                    *(put(a) for a in units),
                    put(part_items(units[2], parts)), parts,
                    rows=None if rows is None else put(rows), **tiles,
-                   n_x=n_x, n_ids=n_ids)
+                   n_x=n_x, n_ids=n_ids,
+                   counters=torch.zeros(n_split * (parts + 1),
+                                        dtype=torch.int32, device=device)
+                   if n_split else None)
 
     @property
     def n_rows(self) -> int:
@@ -719,13 +727,16 @@ def _ring(f):
 
 
 def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
-               out: torch.Tensor, extra=(), shape=None):
+               out: torch.Tensor, extra=(), shape=None, counters=None):
     """The C arguments of a walk's entry point but the stream (the list's,
     then ``extra``), and the scratch tensor they point into (None where no
     row is split), to be kept until the launch.  ``shape`` gives the
-    entry's (vec, group) where the caller picked them."""
+    entry's (vec, group) where the caller picked them; ``counters`` (the
+    scaled walk's, ``EdgeList.counters``) goes in the place of ``rows``."""
     f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
+    if counters is not None:
+        addresses = (*addresses[:3], counters.data_ptr(), *addresses[4:])
     # float4 loads where rows are 16-byte aligned; a group of lanes a unit
     x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
     if shape is not None:
@@ -746,16 +757,16 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
 
 def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
            x: Optional[torch.Tensor], out: torch.Tensor,
-           extra=(), shape=None) -> None:
+           extra=(), shape=None, counters=None) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
     K2's), writing into ``out`` on the current stream; counts nothing.
     ``extra`` holds the arguments a dropout walk's entry takes after the
     list's (``ops/ell_gather.py``: the tiles, the draw, the flag; K2's
     bfloat16 mode: its walk); with no ``x`` (the degree walk) the walk sums
-    one value a row.  ``shape``: :func:`entry_args`'."""
+    one value a row.  ``shape``, ``counters``: :func:`entry_args`'."""
     if lst.n_units == 0 or (x is not None and x.shape[1] == 0):
         return
-    args, _carry = entry_args(lst, val, x, out, extra, shape)
+    args, _carry = entry_args(lst, val, x, out, extra, shape, counters)
     device = out.device
     if device.index == torch.cuda.current_device():
         rc = getattr(lib, entry)(
@@ -864,8 +875,10 @@ DROP_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p] * 4 + [
                          ctypes.c_longlong, ctypes.c_void_p]
 
 
-# K1's scaled walk (gnntf_ell_gather_scaled) takes before the stream the
-# row and column scales' device addresses (or null) and the identity's weight
+# K1's scaled walk (gnntf_ell_gather_scaled, gnntf_ell_gather_scaled_t)
+# takes its list's split-row counters (null where no row is split) in the
+# place of rows and, before the stream, the row and column scales' device
+# addresses (or null) and the identity's weight
 SCALED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_float, ctypes.c_void_p]
 

@@ -26,18 +26,24 @@ kernel's order; a CUDA tensor launches the kernel or raises.
 The prepared operator's route on the card (``ops/spmm.py::PreparedSpMM``
 under ``auto``) has no hub slice: :func:`ell_gather_scaled` walks every
 live slot of the hub-free ELL, as :func:`whole_list` (K1's list with
-``ptr`` over all N rows), in the walk's store mode, and finishes a
-normalized graph's product in its store: ``out[r] = rs[r] * sum_e val[e] *
-(cs[c] * x[c]) + w * x[r]``, the JAX package's order, each product and sum
-rounded apart (``csrc/edge_walk.cuh``, ``Scale``).  Its plain version
-applies the same scales in the same order around ``blocked_spmm_plain``.
+``ptr`` over all N rows), in store mode, and finishes a normalized graph's
+product in its store: ``out[r] = rs[r] * sum_e val[e] * (cs[c] * x[c]) + w
+* x[r]``, the JAX package's order, each product and sum rounded apart
+(``csrc/scaled_walk.cuh``, a design of its own for the whole list's short
+rows, which also finishes split rows inside its launch with the list's
+counters).  Its plain version applies the same scales in the same order
+around ``blocked_spmm_plain``.  The operator's backward ``dx = cs *
+(A^T (rs * dy)) + w * dy`` is one launch of the same walk over the
+transposed list, the scales swapped (:func:`ell_gather_scaled_backward`,
+counted in its own ``launches`` and in ``ell_gather.backward_launches``).
 
-The backward's ``dx = A_rest^T dy`` walks the transposed list
-(:func:`ell_transposed_list`: K1's live slots stable-sorted by source,
-``ptr`` over the sources, each slot's output row as its ``idx`` and its
-place in K1's list as its ``eid``) in the walk's store mode, through K2's
-entry point, which takes such a list as it is (:func:`ell_gather_transposed`,
-counted apart in ``ell_gather.backward_launches``).
+The transposed list (:func:`ell_transposed_list`: K1's live slots
+stable-sorted by source, ``ptr`` over the sources, each slot's output row
+as its ``idx`` and its place in K1's list as its ``eid``) also carries
+``hybrid``'s backward ``dx = A_rest^T dy``, in the walk's store mode,
+through K2's entry point, which takes such a list as it is
+(:func:`ell_gather_transposed`, counted in its own ``launches`` and in
+``ell_gather.backward_launches`` as well).
 
 Two more walks carry the training step's edge dropout
 (``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
@@ -238,6 +244,30 @@ def ell_gather_scaled_plain(lst: EdgeList, val: torch.Tensor,
     return out
 
 
+def _scaled(what, entry, lst, val, x, rs, cs, w):
+    """The scaled walk over ``lst`` through the C ``entry`` and whether it
+    launched: the plain version on the CPU; on a card one launch, or none
+    where there is nothing to walk (the output unwritten)."""
+    if lst.rows is not None:
+        raise ValueError(f"{what} stores row r at r (whole_list, "
+                         "ell_transposed_list)")
+    blocked.check(what, lst, val, x)
+    _check_scales(lst, x, rs, cs)
+    if x.device.type == "cpu":
+        return ell_gather_scaled_plain(lst, val, x, rs, cs, w), False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    out = torch.empty(lst.n_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    if lst.n_units == 0 or x.shape[1] == 0:
+        return out, False
+    address = lambda t: None if t is None else t.data_ptr()
+    blocked.launch(_library(), entry, lst, val, x, out,
+                   extra=(address(rs), address(cs), float(w)),
+                   counters=lst.counters)
+    return out, True
+
+
 def ell_gather_scaled(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
                       rs: Optional[torch.Tensor] = None,
                       cs: Optional[torch.Tensor] = None,
@@ -249,28 +279,52 @@ def ell_gather_scaled(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
 
     CPU tensors take :func:`ell_gather_scaled_plain`; CUDA tensors launch
     the scaled walk, the scales and identity applied in its gathers and
-    its store (counted in ``ell_gather_scaled.launches``)."""
-    if lst.rows is not None:
-        raise ValueError("the scaled walk stores row r at r (whole_list)")
-    blocked.check("ell_gather_scaled", lst, val, x)
-    _check_scales(lst, x, rs, cs)
-    if x.device.type == "cpu":
-        return ell_gather_scaled_plain(lst, val, x, rs, cs, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"ell_gather_scaled runs on cpu or cuda, not "
-                         f"{x.device}")
-    out = torch.empty(lst.n_rows, x.shape[1], dtype=torch.float32,
-                      device=x.device)
-    if lst.n_units == 0 or x.shape[1] == 0:
-        return out
-    address = lambda t: None if t is None else t.data_ptr()
-    blocked.launch(_library(), "gnntf_ell_gather_scaled", lst, val, x, out,
-                   extra=(address(rs), address(cs), float(w)))
-    ell_gather_scaled.launches += 1
+    its store (counted in ``ell_gather_scaled.launches``).  Launches over
+    one list run in stream order: the walk keeps its split rows' counts in
+    the list (``EdgeList.counters``)."""
+    out, launched = _scaled("ell_gather_scaled", "gnntf_ell_gather_scaled",
+                            lst, val, x, rs, cs, w)
+    ell_gather_scaled.launches += launched
     return out
 
 
 ell_gather_scaled.launches = 0
+
+
+def ell_gather_scaled_backward_plain(lst_t: EdgeList, val: torch.Tensor,
+                                     dy: torch.Tensor, rs=None, cs=None,
+                                     w: float = 0.0) -> torch.Tensor:
+    """The plain version of :func:`ell_gather_scaled_backward`: ``rs *
+    dy``, the transposed sum in the walk's order (``blocked_spmm_plain``),
+    ``cs *`` it, ``+ w * dy``, each a rounded pass of its own: the scaled
+    walk's plain version with the scales swapped."""
+    return ell_gather_scaled_plain(lst_t, val, dy, cs, rs, w)
+
+
+def ell_gather_scaled_backward(lst_t: EdgeList, val: torch.Tensor,
+                               dy: torch.Tensor,
+                               rs: Optional[torch.Tensor] = None,
+                               cs: Optional[torch.Tensor] = None,
+                               w: float = 0.0) -> torch.Tensor:
+    """The backward of :func:`ell_gather_scaled`, ``dx = cs ⊙ (A^T (rs ⊙
+    dy)) + w·dy``, over the transposed list ``lst_t``
+    (:func:`ell_transposed_list` of its whole list; ``val`` the whole
+    list's values, read through ``eid``) as an (N, F) float32 tensor, with
+    the forward's ``rs``, ``cs`` and ``w``.
+
+    CPU tensors take :func:`ell_gather_scaled_backward_plain`; CUDA tensors
+    launch the scaled walk once (kernel ``ell_gather_scaled_bwd_walk``), rs
+    gathered and cs stored (counted in ``ell_gather_scaled_backward.launches``
+    and, with hybrid's backward walk, in ``ell_gather.backward_launches``)."""
+    out, launched = _scaled("ell_gather_scaled_backward",
+                            "gnntf_ell_gather_scaled_t", lst_t, val, dy, cs,
+                            rs, w)
+    ell_gather_scaled_backward.launches += launched
+    ell_gather.backward_launches += launched
+    return out
+
+
+ell_gather_scaled_backward.launches = 0
 
 
 def pair_lists(dst, src, eid, n_out: int, n_in: int, device,
@@ -323,7 +377,8 @@ def ell_gather_transposed(lst_t: EdgeList, val: torch.Tensor,
 
     CPU tensors take ``blocked_spmm_plain``; CUDA tensors launch the walk in
     store mode, K2's entry point (counted in
-    ``ell_gather.backward_launches``, not in ``blocked_spmm.launches``)."""
+    ``ell_gather_transposed.launches`` and ``ell_gather.backward_launches``,
+    not in ``blocked_spmm.launches``)."""
     if lst_t.rows is not None:
         raise ValueError("the transposed list stores row r at r "
                          "(ell_transposed_list)")
@@ -339,8 +394,12 @@ def ell_gather_transposed(lst_t: EdgeList, val: torch.Tensor,
         return out
     blocked.launch(blocked._library(), "gnntf_blocked_spmm", lst_t, val, dy,
                    out)
+    ell_gather_transposed.launches += 1
     ell_gather.backward_launches += 1
     return out
+
+
+ell_gather_transposed.launches = 0
 
 
 # the base values' dtypes that the dropout walks take, and the suffix of
@@ -506,6 +565,7 @@ def declare(lib) -> None:
     built with other settings)."""
     blocked.declare(lib.gnntf_ell_gather)
     blocked.declare(lib.gnntf_ell_gather_scaled, scaled=True)
+    blocked.declare(lib.gnntf_ell_gather_scaled_t, scaled=True)
     for suffix in _DROP_VALUES.values():
         blocked.declare(getattr(lib, "gnntf_ell_gather_masked" + suffix),
                         drop=True)

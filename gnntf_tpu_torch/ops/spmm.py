@@ -56,8 +56,8 @@ from ..graph.coo import Graph
 from ..utils.idcache import IdLRU, sizeof
 from .blocked import EdgeList, blocked_layout, blocked_spmm, spmm_pallas
 from .ell_gather import (_UNIT_ITEMS, ell_gather_list, ell_gather_scaled,
-                         ell_gather_transposed, ell_list, ell_transposed_list,
-                         whole_list)
+                         ell_gather_scaled_backward, ell_gather_transposed,
+                         ell_list, ell_transposed_list, whole_list)
 from .segment import gather_rows
 
 _IMPL_NAMES = ("auto", "segment", "ell", "hybrid", "pallas")
@@ -495,7 +495,9 @@ class _RoutedLayout:
         return ell_gather_list(self.list, list_val, x, out)
 
     def transposed(self):
-        """K1's transposed list (the backward's), built on first use."""
+        """K1's transposed list (the backward's: K2's entry under
+        ``hybrid`` and the per-call ``ell``, the scaled walk under
+        ``auto``), built on first use."""
         if self._transposed is None:
             self._transposed = ell_transposed_list(self.list, self.n_nodes)
         return self._transposed
@@ -560,9 +562,9 @@ def spmm_hybrid(graph: Graph, x: torch.Tensor,
 class _ScaledGatherFn(torch.autograd.Function):
     """``x -> rs ⊙ (A @ (cs ⊙ x)) + w·x`` through K1's scaled walk over the
     whole list (the values are constants).  The backward's ``dx = cs ⊙
-    (A^T (rs ⊙ dy)) + w·dy``: one walk over the transposed list (on a card
-    K2's store-mode entry, :func:`ell_gather_transposed`), the scales and
-    the identity around it in plain torch."""
+    (A^T (rs ⊙ dy)) + w·dy`` is one launch of the same walk over the
+    transposed list, the scales and the identity in its gathers and its
+    store (:func:`ell_gather_scaled_backward`)."""
 
     @staticmethod
     def forward(ctx, x, routed, val, rs, cs, w):
@@ -571,13 +573,9 @@ class _ScaledGatherFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        g = dy if ctx.rs is None else dy * ctx.rs[:, None]
-        dx = ell_gather_transposed(ctx.routed.transposed(), ctx.val,
-                                   g.contiguous())
-        if ctx.cs is not None:
-            dx = dx * ctx.cs[:, None]
-        if ctx.w != 0.0:
-            dx = dx + ctx.w * dy
+        dx = ell_gather_scaled_backward(ctx.routed.transposed(), ctx.val,
+                                        dy.contiguous(), ctx.rs, ctx.cs,
+                                        ctx.w)
         return dx, None, None, None, None, None
 
 

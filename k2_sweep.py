@@ -4,7 +4,8 @@ NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 k2_sweep.py [--out FILE] [--kernels k1,k2,train,k2small,k2bf16]
+    python3 k2_sweep.py [--out FILE]
+                        [--kernels k1,k1s,k2,train,k2small,k2bf16]
                         [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
                         [--ab-route DIR] [--ab-bf16 DIR]
 
@@ -46,12 +47,15 @@ lists of ``--kernels k2small`` and two power-law graphs between them
 (10 K to 2.3 M edges) at F=16, 24, 32 and 40, each's device time a call
 averaged over a profile of 20 calls.
 
-K1's scaled walk (``--kernels k1``): over the whole list of the benchmark
-graph's normalized adjacency (``PreparedSpMM`` under ``auto``: every live
-slot, ``ptr`` over all rows, the scales applied in the walk) at F=40 and
-F=128, it times the walk at every pair of unit size
-(``ops/ell_gather.py::_WHOLE_ITEMS``: 32, 64, 128, 256 items) and gathers
-in flight (2, 4, 8), each call's kernels apart from a profile.
+K1's scaled walk (``--kernels k1``, or ``k1s`` for it alone): over the
+whole list of the benchmark graph's normalized adjacency (``PreparedSpMM``
+under ``auto``: every live slot, ``ptr`` over all rows, the scales applied
+in the walk) and over the transposed list its backward walks, at F=16, 40,
+64 and 128, it times ``csrc/scaled_walk.cuh`` at each unit size
+(``ops/ell_gather.py::_WHOLE_ITEMS``, and ``_UNIT_ITEMS`` for the
+transposed list: 32, 64, 128, 256 items), each setting bit-equal to the
+plain version on the CPU, with its CUDA-event mean and one call's device
+time by kernel.
 
 K1: on the rest list of the benchmark graph's hub-free ELL
 (``PreparedSpMM(hubs=True)``, the ``hybrid`` route), adding into a random
@@ -124,7 +128,11 @@ scales in torch): each route's CUDA-event mean, one call's device time,
 launches and time by kernel from a profile, its largest difference from
 ``hybrid``, and the device memory its operator holds; then a clean forward
 of APPNP and of GCNII-64 (``GCNIIConfig``) under ``auto`` and under
-``hybrid``: CUDA-event mean, device busy time and launches.
+``hybrid``: CUDA-event mean, device busy time and launches.  Beside each
+SpMM it times the ``auto`` operator's backward (``dx`` of that SpMM:
+CUDA-event mean, one call's device time, launches and time by kernel) and,
+after GCNII-64's forwards, one of its training steps under ``auto``
+(forward, losses, gradients: 64 scaled walks and 64 backward walks).
 
 Each setting is first held against the plain version on the card (per
 element, within 1e-5 * sum|terms|); the A/B runs hold nothing.  One JSON
@@ -141,8 +149,8 @@ import numpy as np
 import torch
 
 from chip_smoke import (N_EDGES, N_FEATURES, N_NODES, check_close,
-                        device_profile, kernel_name, log, nvidia_smi,
-                        time_ms)
+                        device_profile, kernel_name, list_to, log,
+                        nvidia_smi, time_ms)
 
 ITEMS = (64, 128, 256)
 SMALL_ITEMS = (8, 16, 32, 64, 128)
@@ -210,7 +218,7 @@ def sweep_k1(graph, dev, card):
                           k1._library(),
                           sorted({(u, b) for _, u, b in settings}))
     norm = normalize_adjacency(graph, graph_dropout=0.0)
-    lines = sweep_k1_whole(norm, libs, dev, card)
+    lines = sweep_k1_whole(norm, dev, card)
     default, library = k1._UNIT_ITEMS, k1._library
     rng = np.random.RandomState(4)
     bases = {f: torch.from_numpy(rng.randn(N_NODES, f).astype(
@@ -255,11 +263,16 @@ def sweep_k1(graph, dev, card):
     return lines
 
 
-def sweep_k1_whole(norm, libs, dev, card):
-    """K1's scaled walk's unit size and gathers in flight over the whole
-    list of the normalized bench graph (``libs``: ``sweep_k1``'s builds);
-    returns the JSON lines."""
+def sweep_k1_whole(norm, dev, card):
+    """K1's scaled walk (``csrc/scaled_walk.cuh``) over the whole list of
+    the normalized bench graph and, its backward, over the transposed list,
+    at each unit size (``WHOLE_ITEMS``, set through ``whole_list(items=)``
+    and ``_UNIT_ITEMS``, which the transposed list reads) and F=16, 40, 64
+    and 128; each setting bit-equal to the plain version on the CPU, its
+    CUDA-event mean and one call's device time by kernel.  Returns the JSON
+    lines."""
     from gnntf_tpu_torch.ops import (PreparedSpMM, ell_gather_scaled,
+                                     ell_gather_scaled_backward,
                                      ell_gather_scaled_plain, whole_list)
     k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
     op = PreparedSpMM(norm)
@@ -267,36 +280,44 @@ def sweep_k1_whole(norm, libs, dev, card):
     host = op._routed._host_list
     xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
         N_NODES, f).astype(np.float32)).to(dev)
-        for f, seed in ((40, 3), (N_FEATURES, 2))}
-    library, lines = k1._library, []
+        for f, seed in ((16, 5), (40, 3), (64, 10), (N_FEATURES, 2))}
+    defaults = {"A": k1._WHOLE_ITEMS, "AT": k1._UNIT_ITEMS}
+    lines = []
     for items in WHOLE_ITEMS:
-        lst = whole_list(*host, N_NODES, dev, items=items)
-        for unroll in UNROLLS:
-            k1._library = lambda lib=libs[unroll, MIN_BLOCKS_DEFAULT]: lib
+        k1._UNIT_ITEMS = items
+        try:
+            lists = {"A": whole_list(*host, N_NODES, dev, items=items),
+                     "AT": k1.ell_transposed_list(op._routed.list, N_NODES)}
+        finally:
+            k1._UNIT_ITEMS = defaults["AT"]
+        for kind, lst in lists.items():
+            call = (ell_gather_scaled if kind == "A"
+                    else ell_gather_scaled_backward)
             for f, x in xs.items():
-                label = f"K1 scaled items={items} unroll={unroll} F={f}"
-                check_close(label, ell_gather_scaled(lst, op.k1_val, x, rs,
-                                                     cs),
-                            ell_gather_scaled_plain(lst, op.k1_val, x, rs,
-                                                    cs),
-                            ell_gather_scaled_plain(lst, op.k1_val.abs(),
-                                                    x.abs(), rs, cs))
+                out = call(lst, op.k1_val, x, rs, cs)
+                ref = ell_gather_scaled_plain(
+                    list_to(lst, "cpu"), op.k1_val.cpu(), x.cpu(),
+                    *(None if v is None else v.cpu() for v in (
+                        (rs, cs) if kind == "A" else (cs, rs))))
+                if not torch.equal(out.cpu(), ref):
+                    raise AssertionError(
+                        f"K1 scaled {kind} items={items} F={f}: not "
+                        "bit-equal to the plain version on the CPU")
 
                 def run():
-                    ell_gather_scaled(lst, op.k1_val, x, rs, cs)
+                    call(lst, op.k1_val, x, rs, cs)
 
                 rows, busy, _, _ = device_profile(run)
-                line = dict(kernel="K1 scaled", items=items, unroll=unroll,
-                            f=f, units=lst.n_units,
+                line = dict(kernel="K1 scaled", list=kind, items=items,
+                            default=items == defaults[kind], f=f,
+                            units=lst.n_units,
                             split_rows=int(lst.split.shape[0]),
-                            pieces=int(lst.split[:, 2].sum()),
                             ms=time_ms(run), device_ms=busy / 1e3,
-                            card=card, us_by_kernel={
-                                kernel_name(key): us
-                                for key, us, _ in rows})
+                            card=card,
+                            us_by_kernel={kernel_name(key): us
+                                          for key, us, _ in rows})
                 print(json.dumps(line), flush=True)
                 lines.append(line)
-    k1._library = library
     return lines
 
 
@@ -574,6 +595,20 @@ for f in (16, 40, 64, 128):
             device_ms=busy / 1e3, launches=sum(n for _, _, n in rows),
             us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows},
             max_diff_from_hybrid=diff, operator_bytes=nbytes)), flush=True)
+    # the auto operator's backward, dx of one SpMM
+    dy = torch.from_numpy(np.random.RandomState(f + 1).randn(
+        cs.N_NODES, f).astype(np.float32)).to(dev)
+    xg = x.clone().requires_grad_()
+    y = routes["auto"][0](xg)
+    run = lambda: torch.autograd.grad(y, xg, dy, retain_graph=True)
+    run()  # builds the transposed list
+    rows, busy, _, _ = cs.device_profile(run)
+    print(json.dumps(dict(
+        tree=tree, route="auto_backward", f=f, ms=cs.time_ms(run),
+        device_ms=busy / 1e3, launches=sum(n for _, _, n in rows),
+        us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows})),
+        flush=True)
+    del xg, y
 features = np.random.RandomState(2).randn(
     cs.N_NODES, cs.N_FEATURES).astype(np.float32)
 for name in ("APPNP", "GCNII-64"):
@@ -597,6 +632,18 @@ for name in ("APPNP", "GCNII-64"):
                 wall_ms=wall / 1e3, launches=sum(n for _, _, n in rows),
                 gemm_ms=gemm / 1e3, top={cs.kernel_name(k): us
                                          for k, us, _ in rows[:8]})),
+                flush=True)
+        if name == "GCNII-64" and impl == "auto":
+            # one training step: 64 scaled walks and 64 backward walks
+            train, _ = cs.fused_tasks()
+            step = cs.step_fn(model, train)
+            step()
+            rows, busy, wall, _ = cs.device_profile(step)
+            print(json.dumps(dict(
+                tree=tree, model=name, impl=impl, run="step",
+                ms=cs.time_ms(step, reps=5), busy_ms=busy / 1e3,
+                wall_ms=wall / 1e3, launches=sum(n for _, _, n in rows),
+                top={cs.kernel_name(k): us for k, us, _ in rows[:8]})),
                 flush=True)
         del model, fwd
 """
@@ -915,8 +962,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
     parser.add_argument("--kernels", default="k1,k2,train",
-                        help="which sweeps to run (k1, k2, train, k2small, "
-                             "k2bf16; "
+                        help="which sweeps to run (k1, k1s: K1's scaled "
+                             "walk alone, k2, train, k2small, k2bf16; "
                              "comma-separated)")
     parser.add_argument("--ab", metavar="DIR",
                         help="time the dropout walks of this tree and of "
@@ -963,7 +1010,7 @@ def main():
     lines = sweep_small(dev, card) if "k2small" in which else []
     if "k2bf16" in which:
         lines += sweep_bf16(dev, card)
-    if not which & {"k1", "k2", "train"}:
+    if not which & {"k1", "k1s", "k2", "train"}:
         write(args.out, lines)
         return
     src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
@@ -971,6 +1018,9 @@ def main():
                           device=dev)
     if "k1" in which:
         lines += sweep_k1(graph, dev, card)
+    elif "k1s" in which:
+        lines += sweep_k1_whole(normalize_adjacency(graph, graph_dropout=0.0),
+                                dev, card)
     if "train" in which:
         lines += sweep_train(graph, dev, card)
     if "k2" not in which:

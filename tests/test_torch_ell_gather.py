@@ -21,7 +21,14 @@ on the card (within ``1e-5 * sum|terms|``) and bit for bit against the CPU.
 K1's backward ``dx = A_rest^T dy`` walks the transposed list
 (``ell_transposed_list``) in the walk's store mode (``ell_gather_transposed``):
 on the CPU its plain version is held against autograd of the dense product
-(rtol=atol=1e-5), on the card the kernel bit for bit against the CPU.
+(rtol=atol=1e-5), on the card the kernel bit for bit against the CPU.  The
+scaled walk's backward (``ell_gather_scaled_backward``, ``dx = cs * (A^T
+(rs * dy)) + w * dy`` in one launch over the transposed list): its plain
+version bit for bit the composition it replaced (``rs * dy``, the
+transposed walk's sum, ``* cs``, ``+ w * dy``) on the CPU; on the card
+both scaled walks bit for bit their plain versions on the CPU, twice in a
+row and in a replayed CUDA graph (the split rows' counters come back to
+zero), on lists with rows split into 2 to 3,000 pieces.
 
 The two dropout walks (``ell_gather_masked``, ``ell_degree_masked``;
 ``csrc/drop_walk.cuh``) run over the training grids' row and column lists
@@ -36,6 +43,7 @@ version bit for bit: leaving the dropped edges out changes no bit.
 """
 import dataclasses
 import importlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -48,6 +56,8 @@ from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
                                  ell_gather_masked, ell_gather_masked_plain,
                                  ell_gather_plain, ell_list)
 from gnntf_tpu_torch.ops.ell_gather import (ell_gather_scaled,
+                                           ell_gather_scaled_backward,
+                                           ell_gather_scaled_backward_plain,
                                            ell_gather_scaled_plain,
                                            whole_list)
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _ELLGatherFn, build_ell
@@ -665,6 +675,71 @@ def test_whole_list_holds_k1_slots_over_every_row():
         assert torch.equal(getattr(a, name), getattr(b, name))
 
 
+def _split_list(seed, f, pieces, items=8, n=2000):
+    """A whole list of short rows (0-6 slots, every third row empty), row 3
+    split into ``pieces`` pieces of ``items`` slots and row n/2 into two;
+    its transposed list (a hub column split too), values, x, dy, positive
+    scales."""
+    rng = np.random.RandomState(seed)
+    deg = rng.randint(0, 7, n)
+    deg[::3] = 0
+    deg[3] = pieces * items - items // 2
+    deg[n // 2] = items + 1
+    ptr = np.concatenate([[0], np.cumsum(deg)])
+    src = rng.randint(0, n, ptr[-1])
+    src[ptr[5]:ptr[5] + deg[5]] = 7
+    src[rng.rand(len(src)) < 0.05] = 11  # column 11 a hub of A^T
+    lst = blocked_ops.EdgeList.build(ptr, src, None, "cpu", items=items)
+    with mock.patch.object(k1_ops, "_UNIT_ITEMS", items):
+        lst_t = k1_ops.ell_transposed_list(lst, n)
+    val = torch.from_numpy(rng.randn(len(src)).astype(np.float32))
+    x, dy = (torch.from_numpy(rng.randn(n, f).astype(np.float32))
+             for _ in range(2))
+    rs, cs = (torch.from_numpy(rng.uniform(0.1, 2.0, n).astype(np.float32))
+              for _ in range(2))
+    return lst, lst_t, val, x, dy, rs, cs
+
+
+@pytest.mark.parametrize("f", [1, 7, 40])
+@pytest.mark.parametrize("rs_on,cs_on,w", [(True, True, 0.0),
+                                           (False, True, 0.5),
+                                           (True, False, -0.25),
+                                           (False, False, 1.5)])
+def test_scaled_backward_plain_is_the_old_composition(f, rs_on, cs_on, w):
+    """The one-launch backward's plain version is, bit for bit, the
+    composition the prepared operator's backward ran before it: ``dy *
+    rs``, the transposed list's store-mode sum (``blocked_spmm_plain``),
+    ``* cs``, then ``+ w * dy``; hub columns split over many units."""
+    lst, lst_t, val, _, dy, rs, cs = _split_list(3, f, pieces=40)
+    assert lst_t.split.shape[0] and int(lst_t.split[:, 2].max()) > 10
+    rs, cs = (rs if rs_on else None), (cs if cs_on else None)
+    g = dy if rs is None else dy * rs[:, None]
+    old = blocked_spmm_plain(lst_t, val, g.contiguous())
+    if cs is not None:
+        old = old * cs[:, None]
+    if w != 0.0:
+        old = old + w * dy
+    for call in (ell_gather_scaled_backward_plain,
+                 ell_gather_scaled_backward):
+        assert torch.equal(call(lst_t, val, dy, rs, cs, w), old)
+
+
+def test_scaled_lists_carry_zeroed_counters():
+    """A list that splits a row (the whole list, its transposed list)
+    holds ``n_split * (parts + 1)`` int32 zeros (one a part of each split
+    row, one a split row), the scaled walk's; one that splits no row holds
+    none."""
+    lst, lst_t, *_ = _split_list(4, 8, pieces=5)
+    for one in (lst, lst_t):
+        n_split = one.split.shape[0]
+        assert n_split
+        assert one.counters.dtype == torch.int32
+        assert one.counters.shape == (n_split * (one.parts + 1),)
+        assert not one.counters.any()
+    assert whole_list(np.arange(3), np.arange(4), np.arange(3), 3,
+                      "cpu").counters is None
+
+
 def test_scaled_wrapper_rejects_bad_inputs():
     layout, lst, val, x, rs, cs, w = _scaled_inputs(7, 8, True, n=300,
                                                     e=2000, heavy=0)
@@ -1105,11 +1180,117 @@ def test_scaled_kernel_matches_plain_on_card(cuda, f, scaled):
         lst, val, x, rs, cs, w))
 
 
+def _on(lst, device):
+    """A list with every tensor on ``device``."""
+    return dataclasses.replace(lst, **{
+        fl.name: getattr(lst, fl.name).to(device)
+        for fl in dataclasses.fields(lst)
+        if isinstance(getattr(lst, fl.name), torch.Tensor)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4, 7, 16, 40, 64, 128])
+@pytest.mark.parametrize("pieces", [2, 3000])
+def test_scaled_walks_match_plain_on_card(cuda, f, pieces):
+    """Both scaled walks on the card, the forward over the whole list and
+    the backward over its transposed list (rows split into 2 and into
+    ``pieces`` pieces, rows without slots, ``w != 0``): bit for bit their
+    plain versions on the CPU, twice in a row, each call one launch, the
+    counters back at zero after each."""
+    lst, lst_t, val, x, dy, rs, cs = _split_list(5, f, pieces)
+    w = 0.5
+    on, on_t = _on(lst, cuda), _on(lst_t, cuda)
+    val_c, x_c, dy_c, rs_c, cs_c = (t.to(cuda) for t in (val, x, dy, rs,
+                                                          cs))
+    ref = ell_gather_scaled_plain(lst, val, x, rs, cs, w)
+    ref_t = ell_gather_scaled_backward_plain(lst_t, val, dy, rs, cs, w)
+    before = (k1_ops.ell_gather_scaled.launches,
+              ell_gather.backward_launches)
+    for _ in range(2):
+        out = ell_gather_scaled(on, val_c, x_c, rs_c, cs_c, w)
+        out_t = ell_gather_scaled_backward(on_t, val_c, dy_c, rs_c, cs_c, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref)
+        assert torch.equal(out_t.cpu(), ref_t)
+        assert not on.counters.any() and not on_t.counters.any()
+    assert (k1_ops.ell_gather_scaled.launches,
+            ell_gather.backward_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 40])
+def test_scaled_walks_replay_in_a_cuda_graph_on_card(cuda, f):
+    """Both scaled walks captured in a CUDA graph: each replay, on new x
+    and dy written in place, gives the plain versions' bits, so the split
+    rows' counters were zero again after each replay."""
+    lst, lst_t, val, x, dy, rs, cs = _split_list(6, f, pieces=300)
+    on, on_t = _on(lst, cuda), _on(lst_t, cuda)
+    val_c, x_c, dy_c, rs_c, cs_c = (t.to(cuda) for t in (val, x, dy, rs,
+                                                          cs))
+    ell_gather_scaled(on, val_c, x_c, rs_c, cs_c, 0.5)
+    ell_gather_scaled_backward(on_t, val_c, dy_c, rs_c, cs_c, 0.5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ell_gather_scaled(on, val_c, x_c, rs_c, cs_c, 0.5)
+        out_t = ell_gather_scaled_backward(on_t, val_c, dy_c, rs_c, cs_c, 0.5)
+    rng = np.random.RandomState(7)
+    for _ in range(3):
+        x, dy = (torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+                 for _ in range(2))
+        x_c.copy_(x)
+        dy_c.copy_(dy)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(),
+                           ell_gather_scaled_plain(lst, val, x, rs, cs, 0.5))
+        assert torch.equal(out_t.cpu(), ell_gather_scaled_backward_plain(
+            lst_t, val, dy, rs, cs, 0.5))
+        assert not on.counters.any() and not on_t.counters.any()
+
+
+@pytest.mark.cuda
+def test_prepared_backward_is_one_walk_on_card(cuda):
+    """The ``auto`` operator's ``dx`` on the card: one launch of the scaled
+    walk's backward (``ell_gather_scaled_bwd_walk``, nothing else in its
+    profile), counted in ``ell_gather.backward_launches``, bit for bit the
+    plain version on the CPU over the operator's own list, values and
+    scales (the card's degrees, and so its scales, may differ from the
+    CPU's in their last bits)."""
+    import chip_smoke
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    n = 20_000
+    src, dst = random_power_law_edges(n, 100_000, seed=1)
+    rng = np.random.RandomState(2)
+    x, dy = (torch.from_numpy(rng.randn(n, 40).astype(np.float32))
+             for _ in range(2))
+    g = tt.normalize_adjacency(tt.from_edges(
+        src, dst, n_nodes=n, directed=False, device=cuda),
+        graph_dropout=0.0, add_eye="after")
+    op = tt.ops.prepare(g)
+    assert isinstance(op, PreparedSpMM) and op.eye_weight != 0.0
+    xt = x.to(cuda).requires_grad_()
+    y = op(xt)
+    dy_c = dy.to(cuda)
+    run = lambda: torch.autograd.grad(y, xt, dy_c, retain_graph=True)[0]
+    dx = run().cpu()
+    lst_t = op._routed.transposed()
+    assert len(lst_t.split)
+    rows, _, _, counted = chip_smoke.device_profile(run)
+    assert counted == dict(chip_smoke.NO_LAUNCHES, backward=1)
+    names = [chip_smoke.kernel_name(key) for key, _, _ in rows]
+    assert names == ["ell_gather_scaled_bwd_walk"], names
+    rs, cs = (t.cpu() for t in op._scales)
+    assert torch.equal(dx, ell_gather_scaled_backward_plain(
+        _on(lst_t, "cpu"), op.k1_val.cpu(), dy, rs, cs, op.eye_weight))
+
+
 @pytest.mark.cuda
 def test_auto_spmm_is_one_walk_without_gemm_on_card(cuda):
     """One SpMM of a normalized power-law graph under ``auto``: no hub
-    slice, one wrapper launch, and in its profile K1's scaled walk, its
-    parts and its fix-up (a hub row is split) and no GEMM."""
+    slice, one wrapper launch, and in its profile K1's scaled walk alone (a
+    hub row is split, and finished inside the walk) and no GEMM."""
     import chip_smoke
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.data import random_power_law_edges
@@ -1131,7 +1312,6 @@ def test_auto_spmm_is_one_walk_without_gemm_on_card(cuda):
     assert counted == dict(chip_smoke.NO_LAUNCHES, k1s=1), counted
     names = [chip_smoke.kernel_name(key) for key, _, _ in rows]
     assert not [k for k in names if "gemm" in k.lower()], names
-    assert sorted(names) == ["ell_gather_scaled_fixup",
-                             "ell_gather_scaled_parts",
-                             "ell_gather_scaled_walk"], names
-    assert [count for _, _, count in rows] == [1, 1, 1], rows
+    # the split rows are finished inside the walk's launch
+    assert names == ["ell_gather_scaled_walk"], names
+    assert [count for _, _, count in rows] == [1], rows

@@ -182,3 +182,51 @@ def test_gcnii_steps_under_auto_match_jax():
     for k, v in jm.params.items():
         np.testing.assert_allclose(pm.params[k].detach().numpy(),
                                    np.asarray(v), **MODEL_TOL)
+
+
+def _gradient_models(kind, pkg, graph, features, **kw):
+    """A GCN of two ``GCNLayer``s (no edge or feature dropout, so its
+    adjacency is the fixed one) or a GCNII of 4 iterations, dropout off."""
+    if kind == "GCN":
+        model = pkg.GNN(graph, features, **kw)
+        model.add(pkg.GCNLayer(16))
+        model.add(pkg.GCNLayer(5, activation=lambda x: x))
+        return model
+    return pkg.GCNII(graph, features, num_classes=5, iterations=4,
+                     latent_dims=(16,), dropout=0.0, **kw)
+
+
+@pytest.mark.parametrize("kind", ["GCN", "GCNII"])
+def test_auto_parameter_gradients_match_jax(kind):
+    """The gradients of GCN's and GCNII's training loss (losses and the
+    weight decay) through the ``auto`` operator, whose backward is one
+    scaled walk over the transposed whole list, against ``jax.grad`` of
+    the JAX package's loss, from the same numpy weights: rtol=1e-4 and an
+    atol of 1e-5 of the parameter's largest JAX gradient (float32, sums in
+    other orders)."""
+    from gnntf_tpu.train import trainer as jax_trainer
+    from gnntf_tpu_torch.train.trainer import _total_loss
+    n, src, dst, features, labels = _model_data()
+    jm = _gradient_models(kind, gt, gt.from_edges(src, dst, n_nodes=n,
+                                                  directed=False), features)
+    pm = _gradient_models(kind, tt, tt.from_edges(
+        src, dst, n_nodes=n, directed=False, device="cpu"), features,
+        device="cpu")
+    params = _params(jm, 6)
+    tt.params_from_jax(params, pm)
+    jtask = gt.NodeClassification(np.arange(600), labels[:600])
+    ptask = tt.NodeClassification(np.arange(600), labels[:600])
+    ref = jax.grad(lambda p: jax_trainer._total_loss(
+        jm, jtask, p, jm.features, jax.random.PRNGKey(0), jtask.batch(),
+        5e-4))({k: jnp.asarray(v) for k, v in params.items()})
+    loss = _total_loss(pm, ptask, ptask.batch(), 5e-4,
+                       torch.Generator().manual_seed(0))
+    names = sorted(params)
+    got = torch.autograd.grad(loss, [pm.params[k] for k in names])
+    ops = [op for _, op in pm._adjacency.values()]
+    assert ops and all(isinstance(op, PreparedSpMM) and not op.hubs
+                       for op in ops)
+    for name, g in zip(names, got):
+        r = np.asarray(ref[name])
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4,
+                                   atol=1e-5 * np.abs(r).max())
