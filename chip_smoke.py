@@ -105,6 +105,13 @@ Phases (any failure raises and exits non-zero):
    benchmark graph 3 epochs without and 3 under the knob (an epoch: 20
    masked and 10 degree walks over bfloat16 values), the losses
    bit-equal;
+2g. launches over one list that run at the same time: over one
+   ``PreparedSpMM`` (the scaled walk) and one training grid's lists (the
+   masked and degree walks), calls on two streams in turn and replays of
+   a captured call beside eager calls on another stream, each output
+   bit-equal to the CPU plain version; the scaled walk's list holds a set
+   of split-row counters for each stream and one for the capture, all zero
+   after, and lets go of the capture's at the next eager call;
 3. drive the serving path: APPNP(num_classes=40) at full width on the
    benchmark graph (random_power_law_edges(169,343, 1,166,243, seed=0),
    symmetrized; 128 random features), three clean forwards, three predict
@@ -1209,6 +1216,122 @@ def check_device_salts(rows, cols, val, x40, x128, dev):
     for (label, _, lst, x), out in zip(graphed, outs):
         hold(f"{label} (graph replay)", out, lst, x, 2)
     return shares
+
+
+def counters_zero(label, *lists):
+    """Raise unless every set of the lists' split-row counters reads zero
+    (each launch of a walk leaves its set zero)."""
+    for lst in lists:
+        if lst.counters is not None and not lst.counters.zero():
+            raise AssertionError(f"{label}: a set of split-row counters is "
+                                 "not zero")
+
+
+STREAM_REPS = 8
+
+
+def phase_streams(graph, dev, x40):
+    """2g: launches over one list that run at the same time.  Over one
+    ``PreparedSpMM`` (the scaled walk) and over one training grid's lists
+    (the masked walk over both, the degree walk over the column list):
+    STREAM_REPS calls on each of two streams, enqueued in turn, then
+    STREAM_REPS replays of a captured call on one stream, each beside an
+    eager call on another.  Every output must be bit-equal to the plain
+    version on the CPU.  The scaled walk's list must hold a set of
+    split-row counters for each stream and, once captured, one for the
+    capture, apart from them; the next eager call lets go of the capture's,
+    and every set reads zero after; returns each case's results."""
+    from gnntf_tpu_torch.ops import (PreparedSpMM, build_train_grids,
+                                     ell_degree_masked,
+                                     ell_degree_masked_plain,
+                                     ell_gather_masked,
+                                     ell_gather_masked_plain,
+                                     normalize_adjacency)
+    from gnntf_tpu_torch.ops.ell_gather import ell_gather_scaled_plain
+
+    cpu = torch.device("cpu")
+    host = lambda t: None if t is None else t.cpu()
+    op = PreparedSpMM(normalize_adjacency(graph, graph_dropout=0.0))
+    rs, cs = op._scales
+    w = float(op.eye_weight)
+    rows, cols = build_train_grids(graph.row.cpu().numpy(),
+                                   graph.col.cpu().numpy(),
+                                   graph.val.cpu().numpy(),
+                                   N_NODES).lists(dev)
+    val = graph.val.to(torch.float32).contiguous()
+    salt = torch.tensor([0x2545F491, 31337], dtype=torch.int64, device=dev)
+    draw = (salt, KEEP, graph.n_edges)
+    host_draw = (salt.cpu(), KEEP, graph.n_edges)
+    k1_cpu, rows_cpu, cols_cpu = (list_to(lst, cpu)
+                                  for lst in (op.k1_list, rows, cols))
+    cases = {
+        "scaled walk, one PreparedSpMM": (
+            op.k1_list, op, lambda x: ell_gather_scaled_plain(
+                k1_cpu, op.k1_val.cpu(), x.cpu(), host(rs), host(cs), w)),
+        "masked walk, row list": (
+            rows, lambda x: ell_gather_masked(rows, val, *draw, x),
+            lambda x: ell_gather_masked_plain(rows_cpu, val.cpu(),
+                                              *host_draw, x.cpu())),
+        "masked walk, column list": (
+            cols, lambda x: ell_gather_masked(cols, val, *draw, x),
+            lambda x: ell_gather_masked_plain(cols_cpu, val.cpu(),
+                                              *host_draw, x.cpu())),
+        "degree walk, column list": (
+            cols, lambda x: ell_degree_masked(cols, val, *draw),
+            lambda x: ell_degree_masked_plain(cols_cpu, val.cpu(),
+                                              *host_draw))}
+    xb = torch.from_numpy(np.random.RandomState(41).randn(
+        N_NODES, N_CLASSES).astype(np.float32)).to(dev)
+    out = {}
+    for label, (lst, call, plain) in cases.items():
+        refs = {"a": plain(x40), "b": plain(xb)}
+        xs = {"a": x40, "b": xb}
+        side = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+        for s in side:
+            s.wait_stream(torch.cuda.current_stream(dev))
+        got = []
+        for _ in range(STREAM_REPS):
+            for s, key in zip(side, "ab"):
+                with torch.cuda.stream(s):
+                    got.append((key, call(xs[key])))
+        torch.cuda.synchronize()
+        two_streams = all(torch.equal(o.cpu(), refs[key]) for key, o in got)
+        cap = torch.cuda.Stream(dev)
+        cap.wait_stream(torch.cuda.current_stream(dev))
+        graph_exec = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph_exec, stream=cap):
+            static = call(x40)
+        store = lst.counters if label.startswith("scaled") else None
+        if store is not None:
+            eager = {id(t) for t in store.sets.values()}
+            own = (len(store.captured) == 1 and len(store.sets) >= 2
+                   and not eager & {id(t) for t in store.captured.values()})
+        got = []
+        for _ in range(STREAM_REPS):
+            with torch.cuda.stream(side[0]):
+                graph_exec.replay()
+            with torch.cuda.stream(side[1]):
+                got.append(call(xb))
+        torch.cuda.synchronize()
+        beside_replay = (torch.equal(static.cpu(), refs["a"]) and all(
+            torch.equal(o.cpu(), refs["b"]) for o in got))
+        out[label] = dict(two_streams_bit_equal=two_streams,
+                          beside_replay_bit_equal=beside_replay,
+                          split_rows=lst.split.shape[0])
+        if store is not None:
+            counters_zero(label, lst)
+            out[label].update(eager_counter_sets=len(store.sets),
+                              capture_set_of_its_own=own,
+                              capture_set_let_go=not store.captured)
+        log(f"2g {label}: {STREAM_REPS} calls on each of two streams "
+            f"bit-equal to the CPU plain version: {two_streams}; "
+            f"{STREAM_REPS} replays each beside an eager call on another "
+            f"stream: {beside_replay}; {out[label]}")
+        if not (two_streams and beside_replay) or (
+                store is not None and not (own and not store.captured)):
+            raise AssertionError(f"2g {label}: {out[label]}")
+        del graph_exec, static, got
+    return out
 
 
 def hand_stack(graph, features, device, iterations=10):
@@ -2436,9 +2559,11 @@ def phase_native_builders(src, dst):
 
 
 def entry_numbers(res):
-    """The numbers of a ``kernels`` entry from a check's results."""
-    return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}
+    """The numbers of a ``kernels`` entry from a check's results (with one
+    call's device time where the check took one)."""
+    return {k: res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")
+            if k in res}
 
 
 def bf16_bound(lst, f):
@@ -4733,6 +4858,11 @@ def main(dev=None):
         N_FEATURES: x128, 64: x64, N_CLASSES: x40, LP_CLASSES: x16})
     seconds["2f"] = time.perf_counter() - t0
 
+    # 2g. launches over one list on two streams and beside a graph replay
+    t0 = time.perf_counter()
+    streams = phase_streams(graph, dev, x40)
+    seconds["2g"] = time.perf_counter() - t0
+
     log("card after the kernel timings (clocks.sm, power.draw, "
         f"temperature.gpu): "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -5145,6 +5275,7 @@ def main(dev=None):
                                bench_width=dict(masked["backward_bench"],
                                                 shape="F=128")),
               "small": masked["small"], "lists": lists,
+              "streams": streams,
               "mesh": mesh_entry(mesh_products, mesh_train, "lazy",
                                  "masked"),
               "hier": hier_entry(hier_products, multihost, "lazy", "masked")}

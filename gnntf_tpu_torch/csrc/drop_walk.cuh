@@ -43,8 +43,13 @@
 //    whose result is thrown away.
 // A piece's sum goes to its carry, and edge_walk's parts and fix-up
 // kernels add a split row's pieces after the walk, as for K1 and K2.
-// (Folding them into the walk, the last piece of a part to finish summing
-// the part behind a counter, measured slower on the card: PERF.md.)
+// (Finishing split rows inside the walk's launch measured slower on the
+// card each way it was built: the last piece of a part summing the part
+// behind a counter, in the tile loop, whose registers the sums' code then
+// took; and warps summing the split rows once every tile was claimed from
+// a counter, which left a tail after the last tile.  So did the next
+// tile's loads issued before this tile's sum, and the degree walk's
+// segments shared out by kept counts: PERF.md.)
 //
 // Leaving a dropped edge out adds nothing that changes a bit: its term is
 // +0 * x = +-0 for a finite x, and a sum that starts at +0 is never -0, so

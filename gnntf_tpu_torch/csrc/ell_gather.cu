@@ -213,10 +213,11 @@ extern "C" int gnntf_ell_gather(
 // float32 gets rs[r] * sum + w * x[r] in every row and needs no zero-fill;
 // rs and cs are (n,) float32 or null (a scale of one), w the identity's
 // weight; x (n, f) is gathered scaled by cs.  counters (in the place of
-// gnntf_ell_gather's rows, which this list has none of) is the list's
-// n_split * (parts + 1) int32 counters, zero, which the walk leaves zero
-// (null where no row is split): with them a split row is finished inside
-// the walk's launch.  The other arguments are as gnntf_ell_gather's.
+// gnntf_ell_gather's rows, which this list has none of) is a set of the
+// list's n_split * (parts + 1) int32 counters, zero, which the walk leaves
+// zero (null where no row is split), and which no launch running at the
+// same time shares: with them a split row is finished inside the walk's
+// launch.  The other arguments are as gnntf_ell_gather's.
 // gnntf_ell_gather_scaled_t is the same function under the backward's
 // kernel name (ell_gather_scaled_bwd_walk, over the transposed list with
 // the scales swapped).
@@ -350,6 +351,20 @@ GNNTF_MASKED_ENTRY(gnntf_ell_gather_masked_bf16, __nv_bfloat16)
   }
 GNNTF_DEGREE_ENTRY(gnntf_ell_degree, float)
 GNNTF_DEGREE_ENTRY(gnntf_ell_degree_bf16, __nv_bfloat16)
+
+// Whether `stream` is capturing a CUDA graph (*active) and, if it is, the
+// capture's id (*id; else 0): the host keys a list's counters on them
+// (ops/blocked.py::Counters).  Returns a CUDA error code (0 on success).
+extern "C" int gnntf_stream_capture(void* stream, int* active,
+                                    unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  unsigned long long capture = 0;
+  const cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &capture);
+  *active = err == cudaSuccess && status == cudaStreamCaptureStatusActive;
+  *id = *active ? capture : 0;
+  return (int)err;
+}
 
 extern "C" const char* gnntf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

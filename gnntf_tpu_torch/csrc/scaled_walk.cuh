@@ -37,8 +37,9 @@
 // last part of the row (a counter a split row) sums the parts in order and
 // writes the row.  Nothing is added atomically but the counts; each count's
 // last arriver sets it back to zero, so the next launch, and a replay of a
-// captured CUDA graph, finds zeros.  Launches over one list must therefore
-// run in stream order.
+// captured CUDA graph, finds zeros.  Two launches that run at the same time
+// must not share a set of counters: the host hands each CUDA stream, and
+// each graph capture, a set of its own (ops/blocked.py::Counters).
 //
 // What was built and measured against it (k2_sweep.py --kernels k1; NVIDIA
 // H100 80GB HBM3, 700 W, PERF.md): a unit's metadata staged in shared

@@ -358,6 +358,58 @@ def drop_tiles(ptr: np.ndarray, unit_row: np.ndarray,
                                               seg_out)) + caps
 
 
+class Counters:
+    """The split-row counters of one list, with which K1's scaled walk
+    finishes a split row inside its launch (``csrc/scaled_walk.cuh``):
+    sets of ``size`` int32 (``n_split * (parts + 1)``: a count a part of
+    each split row, then a count a split row), each zero when a launch
+    takes it and zero again when the launch ends.  Two launches that run
+    at once must not share a set, so a set serves one place where launches
+    run in turn (:func:`stream_counters`):
+
+    * one CUDA stream, for eager launches (``sets``: made zeroed on the
+      stream at its first launch, kept while the list lives; a stream's
+      handle must name one stream while launches on it are pending, as
+      torch's streams do, which are never destroyed);
+    * one (graph capture, stream), for launches captured into a CUDA graph,
+      whose replays CUDA runs in turn (``captured``: made zeroed inside the
+      capture, so the graph holds its memory and its fill for as long as
+      it lives).  The store lets go of a capture's set at the next eager
+      take and at the first take of another capture, so it holds the sets
+      of one capture at most."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.sets = {}
+        self.captured = {}
+
+    def _zeros(self, device) -> torch.Tensor:
+        return torch.zeros(self.size, dtype=torch.int32, device=device)
+
+    def take(self, key, device, capture=None) -> torch.Tensor:
+        """The set of ``key`` (a stream) on ``device`` for an eager launch,
+        or, with ``capture`` (the capture's id), for one captured on that
+        stream; made zeroed at its first take."""
+        if capture is None:
+            if self.captured:
+                self.captured.clear()
+            got = self.sets.get(key)
+            if got is None:
+                got = self.sets[key] = self._zeros(device)
+            return got
+        got = self.captured.get((key, capture))
+        if got is None:
+            for old in [k for k in self.captured if k[1] != capture]:
+                del self.captured[old]
+            got = self.captured[key, capture] = self._zeros(device)
+        return got
+
+    def zero(self) -> bool:
+        """Whether every set the store holds reads zero."""
+        return not any(bool(t.any()) for t in (*self.sets.values(),
+                                                *self.captured.values()))
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeList:
     """The walk's work on a device: a CSR list (``ptr``, ``idx``, ``eid``;
@@ -368,8 +420,8 @@ class EdgeList:
     and, for the lists of K1's dropout walks, their tiles
     (:func:`drop_tiles`; None where the list was built without them), and
     the split rows' counters with which K1's scaled walk finishes them in
-    its own launch (``counters``: ``n_split * (parts + 1)`` int32 zeros,
-    which each launch leaves zero; None where no row is split)."""
+    its own launch (``counters``, a :class:`Counters` of ``n_split * (parts
+    + 1)`` int32 a set; None where no row is split)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -387,7 +439,7 @@ class EdgeList:
     tile_caps: tuple = (0, 0)  # most edges and segments of a tile
     n_x: Optional[int] = None     # x rows read; None: n_rows
     n_ids: Optional[int] = None   # values read through eid; None: n_edges
-    counters: Optional[torch.Tensor] = None  # (S * (parts + 1),) int32
+    counters: Optional[Counters] = None
 
     @classmethod
     def build(cls, ptr, idx, eid, device, rows=None, items=None,
@@ -426,8 +478,7 @@ class EdgeList:
                    put(part_items(units[2], parts)), parts,
                    rows=None if rows is None else put(rows), **tiles,
                    n_x=n_x, n_ids=n_ids,
-                   counters=torch.zeros(n_split * (parts + 1),
-                                        dtype=torch.int32, device=device)
+                   counters=Counters(n_split * (parts + 1))
                    if n_split else None)
 
     @property
@@ -732,7 +783,8 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
     then ``extra``), and the scratch tensor they point into (None where no
     row is split), to be kept until the launch.  ``shape`` gives the
     entry's (vec, group) where the caller picked them; ``counters`` (the
-    scaled walk's, ``EdgeList.counters``) goes in the place of ``rows``."""
+    scaled walk's, a set of ``EdgeList.counters``) goes in the place of
+    ``rows``."""
     f = 1 if x is None else x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
     if counters is not None:
@@ -757,25 +809,51 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
 
 def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
            x: Optional[torch.Tensor], out: torch.Tensor,
-           extra=(), shape=None, counters=None) -> None:
+           extra=(), shape=None, counted=False) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
     K2's), writing into ``out`` on the current stream; counts nothing.
     ``extra`` holds the arguments a dropout walk's entry takes after the
     list's (``ops/ell_gather.py``: the tiles, the draw, the flag; K2's
     bfloat16 mode: its walk); with no ``x`` (the degree walk) the walk sums
-    one value a row.  ``shape``, ``counters``: :func:`entry_args`'."""
+    one value a row.  ``shape``: :func:`entry_args`'.  ``counted``: the
+    entry takes the list's split-row counters (K1's scaled walk), the set
+    that :func:`stream_counters` picks for the launch's stream."""
     if lst.n_units == 0 or (x is not None and x.shape[1] == 0):
         return
-    args, _carry = entry_args(lst, val, x, out, extra, shape, counters)
     device = out.device
     if device.index == torch.cuda.current_device():
-        rc = getattr(lib, entry)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+        rc = _call(lib, entry, lst, val, x, out, extra, shape, counted,
+                   device)
     else:
         with torch.cuda.device(device):
-            rc = getattr(lib, entry)(
-                *args, torch.cuda.current_stream(device).cuda_stream)
+            rc = _call(lib, entry, lst, val, x, out, extra, shape, counted,
+                       device)
     kernels.check(lib, rc, f"{entry} launch")
+
+
+def _call(lib, entry, lst, val, x, out, extra, shape, counted, device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counters = stream_counters(lib, lst, device, stream) if counted else None
+    args, _carry = entry_args(lst, val, x, out, extra, shape, counters)
+    return getattr(lib, entry)(*args, stream)
+
+
+def stream_counters(lib: ctypes.CDLL, lst: EdgeList, device,
+                    stream: int) -> Optional[torch.Tensor]:
+    """The set of ``lst``'s split-row counters (:class:`Counters`) that a
+    launch on ``stream`` (the current CUDA stream's handle on ``device``)
+    takes: the stream's own, or, while the stream captures a CUDA graph,
+    the capture's (its id from K1's library, ``gnntf_stream_capture``);
+    None where no row is split."""
+    if lst.counters is None:
+        return None
+    if not torch.cuda.is_current_stream_capturing():
+        return lst.counters.take((device, stream), device)
+    active, capture = ctypes.c_int(0), ctypes.c_ulonglong(0)
+    kernels.check(lib, lib.gnntf_stream_capture(
+        stream, ctypes.byref(active), ctypes.byref(capture)),
+        "gnntf_stream_capture")
+    return lst.counters.take((device, stream), device, capture.value)
 
 
 def blocked_spmm(lst: EdgeList, val: torch.Tensor,
@@ -876,9 +954,9 @@ DROP_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p] * 4 + [
 
 
 # K1's scaled walk (gnntf_ell_gather_scaled, gnntf_ell_gather_scaled_t)
-# takes its list's split-row counters (null where no row is split) in the
-# place of rows and, before the stream, the row and column scales' device
-# addresses (or null) and the identity's weight
+# takes a set of its list's split-row counters (null where no row is
+# split) in the place of rows and, before the stream, the row and column
+# scales' device addresses (or null) and the identity's weight
 SCALED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_float, ctypes.c_void_p]
 

@@ -67,6 +67,7 @@ rounded values.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -263,8 +264,7 @@ def _scaled(what, entry, lst, val, x, rs, cs, w):
         return out, False
     address = lambda t: None if t is None else t.data_ptr()
     blocked.launch(_library(), entry, lst, val, x, out,
-                   extra=(address(rs), address(cs), float(w)),
-                   counters=lst.counters)
+                   extra=(address(rs), address(cs), float(w)), counted=True)
     return out, True
 
 
@@ -279,9 +279,10 @@ def ell_gather_scaled(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
 
     CPU tensors take :func:`ell_gather_scaled_plain`; CUDA tensors launch
     the scaled walk, the scales and identity applied in its gathers and
-    its store (counted in ``ell_gather_scaled.launches``).  Launches over
-    one list run in stream order: the walk keeps its split rows' counts in
-    the list (``EdgeList.counters``)."""
+    its store (counted in ``ell_gather_scaled.launches``).  The walk counts
+    its split rows' pieces in a set of the list's counters
+    (``EdgeList.counters``) that no launch running at the same time
+    shares: each CUDA stream, and each graph capture, takes its own."""
     out, launched = _scaled("ell_gather_scaled", "gnntf_ell_gather_scaled",
                             lst, val, x, rs, cs, w)
     ell_gather_scaled.launches += launched
@@ -570,3 +571,7 @@ def declare(lib) -> None:
         blocked.declare(getattr(lib, "gnntf_ell_gather_masked" + suffix),
                         drop=True)
         blocked.declare(getattr(lib, "gnntf_ell_degree" + suffix), drop=True)
+    lib.gnntf_stream_capture.restype = ctypes.c_int
+    lib.gnntf_stream_capture.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_ulonglong)]

@@ -85,9 +85,12 @@ two passes, its flag's memset) from ``torch.profiler``.
 With ``--ab DIR`` it times instead, in four processes started in turn
 (the tree in DIR, this tree, this tree, DIR), the dropout walks of each
 tree at their defaults: the masked walk over both lists at F=40 and F=64
-and the degree walk over both lists, with the device time of each
-kernel; DIR is another checkout (for example the parent commit, unpacked
-with ``git archive`` into a directory of its own).
+and the degree walk over both lists, over float32 and over bfloat16
+values, with one call's device time in all and by kernel; then one
+training step of APPNP at its defaults (the masked and degree walks'
+share of its device busy time).  DIR is another checkout (for example the
+parent commit, unpacked with ``git archive`` into a directory of its
+own).
 
 With ``--ab-small DIR`` it times, in the same four processes, one training
 step (forward, losses, gradients, every dropout on) of APPNP and of GAT at
@@ -198,7 +201,9 @@ def build_variants(name, entry, ref, builds, macros=("WALK_UNROLL",
             if "_walk" in line or "registers" in line or "spill" in line:
                 log(f"  {name} {' '.join(flags)}: {line.strip()}")
         lib = ctypes.CDLL(str(out))
-        for fn in (*entries, "gnntf_cuda_error_string"):
+        for fn in (*entries, "gnntf_cuda_error_string",
+                   *(["gnntf_stream_capture"]
+                     if hasattr(ref, "gnntf_stream_capture") else [])):
             getattr(lib, fn).restype = getattr(ref, fn).restype
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
         libs[values] = lib
@@ -390,8 +395,10 @@ def sweep_train(graph, dev, card):
 
 
 # One process of the A/B: the dropout walks of the tree it runs in, at that
-# tree's defaults, on the bench graph's training-grid lists; one JSON line
-# a (kernel, list, F).  It uses only what the parent tree has too.
+# tree's defaults, on the bench graph's training-grid lists, over float32
+# and bfloat16 values; one JSON line a (values, kernel, list, F), then one
+# for a training step of APPNP at its defaults.  It uses only what the
+# parent tree has too.
 AB_CODE = """
 import json, sys
 import numpy as np, torch
@@ -407,24 +414,47 @@ src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
 g = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False, device=dev)
 lists = build_train_grids(g.row.cpu().numpy(), g.col.cpu().numpy(),
                           g.val.cpu().numpy(), cs.N_NODES).lists(dev)
-val = g.val.to(torch.float32).contiguous()
+val32 = g.val.to(torch.float32).contiguous()
 salt = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
                      generator=torch.Generator().manual_seed(9)).to(dev)
 draw = (salt, cs.KEEP, g.n_edges)
 xs = {40: np.random.RandomState(3), 64: np.random.RandomState(10)}
 xs = {f: torch.from_numpy(r.randn(cs.N_NODES, f).astype(np.float32)).to(dev)
       for f, r in xs.items()}
-runs = [("masked", name, f, lambda lst=lst, x=x: ell_gather_masked(
-            lst, val, *draw, x))
-        for name, lst in zip(("row", "column"), lists) for f, x in xs.items()]
-runs += [("degree", name, None, lambda lst=lst: ell_degree_masked(
-             lst, val, *draw)) for name, lst in zip(("row", "column"), lists)]
-for kernel, name, f, run in runs:
-    rows = cs.device_profile(run)[0]
-    print(json.dumps(dict(tree=sys.argv[1], kernel=kernel, list=name, f=f,
-                          ms=cs.time_ms(run), us_by_kernel={
-                              cs.kernel_name(k): us for k, us, _ in rows})),
-          flush=True)
+for values, val in (("float32", val32), ("bfloat16",
+                                         val32.to(torch.bfloat16))):
+    runs = [("masked", name, f, lambda lst=lst, x=x: ell_gather_masked(
+                lst, val, *draw, x))
+            for name, lst in zip(("row", "column"), lists)
+            for f, x in xs.items()]
+    runs += [("degree", name, None, lambda lst=lst: ell_degree_masked(
+                 lst, val, *draw))
+             for name, lst in zip(("row", "column"), lists)]
+    for kernel, name, f, run in runs:
+        rows, busy, _, _ = cs.device_profile(run)
+        print(json.dumps(dict(
+            tree=sys.argv[1], values=values, kernel=kernel, list=name, f=f,
+            ms=cs.time_ms(run), device_ms=busy / 1e3,
+            launches=sum(n for _, _, n in rows),
+            us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows})),
+            flush=True)
+features = np.random.RandomState(2).randn(
+    cs.N_NODES, cs.N_FEATURES).astype(np.float32)
+model = tt.APPNP(g, features, num_classes=cs.N_CLASSES, device=dev)
+model.reset(seed=0)
+train, _ = cs.fused_tasks()
+step = cs.step_fn(model, train)
+step()
+rows, busy, wall, _ = cs.device_profile(step)
+family = lambda tag: sum(us for k, us, _ in rows if tag in k) / 1e3
+print(json.dumps(dict(
+    tree=sys.argv[1], run="appnp_step", ms=cs.time_ms(step, reps=5),
+    busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+    launches=sum(n for _, _, n in rows),
+    masked_ms=family("ell_gather_masked"), degree_ms=family("ell_degree"),
+    scaled_ms=family("ell_gather_scaled"),
+    top={cs.kernel_name(k): [us, n] for k, us, n in rows[:12]})),
+    flush=True)
 """
 
 

@@ -726,18 +726,100 @@ def test_scaled_backward_plain_is_the_old_composition(f, rs_on, cs_on, w):
 
 def test_scaled_lists_carry_zeroed_counters():
     """A list that splits a row (the whole list, its transposed list)
-    holds ``n_split * (parts + 1)`` int32 zeros (one a part of each split
-    row, one a split row), the scaled walk's; one that splits no row holds
-    none."""
+    holds a counter store whose sets are ``n_split * (parts + 1)`` int32
+    zeros (one a part of each split row, one a split row), the scaled
+    walk's, one set a stream: a stream's first take makes its set zeroed,
+    a second take gives the same set, another stream's take another; one
+    that splits no row holds none."""
     lst, lst_t, *_ = _split_list(4, 8, pieces=5)
+    cpu = torch.device("cpu")
     for one in (lst, lst_t):
         n_split = one.split.shape[0]
         assert n_split
-        assert one.counters.dtype == torch.int32
-        assert one.counters.shape == (n_split * (one.parts + 1),)
-        assert not one.counters.any()
+        store = one.counters
+        assert store.size == n_split * (one.parts + 1)
+        first = store.take((cpu, 1), cpu)
+        assert first.dtype == torch.int32
+        assert first.shape == (store.size,)
+        assert not first.any()
+        assert store.take((cpu, 1), cpu) is first
+        other = store.take((cpu, 2), cpu)
+        assert other is not first and not other.any()
+        assert store.zero()
     assert whole_list(np.arange(3), np.arange(4), np.arange(3), 3,
                       "cpu").counters is None
+
+
+def test_counter_store_keys_sets_apart():
+    """The counter store on the CPU with stand-in keys: a new stream gets
+    a fresh zeroed set, the same stream the same set; a capture on a
+    stream gets a set apart from the stream's, the same one while the
+    capture lasts and another for another stream of the capture; the
+    first take of another capture lets go of the last capture's sets, and
+    an eager take of every capture's, so the store holds one stream's set
+    a stream and the sets of one capture at most; a set written nonzero
+    shows in ``zero()``."""
+    cpu = torch.device("cpu")
+    store = blocked_ops.Counters(12)
+    eager = store.take("stream a", cpu)
+    assert eager.shape == (12,) and not eager.any()
+    assert store.take("stream a", cpu) is eager
+    other = store.take("stream b", cpu)
+    assert other is not eager
+    captured = store.take("stream a", cpu, capture=7)
+    assert captured is not eager and not captured.any()
+    assert store.take("stream a", cpu, capture=7) is captured
+    fork = store.take("stream c", cpu, capture=7)
+    assert fork is not captured and len(store.captured) == 2
+    later = store.take("stream a", cpu, capture=8)
+    assert later is not captured and later is not eager
+    assert list(store.captured.values()) == [later]
+    assert store.take("stream a", cpu) is eager
+    assert not store.captured and len(store.sets) == 2
+    for capture in range(9, 40):
+        store.take("stream a", cpu, capture=capture)
+    assert len(store.captured) == 1 and len(store.sets) == 2
+    assert store.zero()
+    other[3] = 1
+    assert not store.zero()
+
+
+def test_dropout_lists_report_counters_as_scaled_lists():
+    """``pair_lists``' row and column lists (the dropout walks') carry a
+    counter store and hand their split table to the C entry points as the
+    scaled walk's whole list does: a set of counters in the place of
+    ``rows`` where one is given, the split rows' count beside the units,
+    one counter a part of each split row and one a split row, and the
+    pieces' and parts' scratch."""
+    rng = np.random.RandomState(12)
+    n = 400
+    dst = np.concatenate([rng.randint(0, n, 3000), np.full(900, 5)])
+    src = np.concatenate([rng.randint(0, n, 3000), rng.randint(0, n, 900)])
+    src[:300] = 9  # column 9 a hub of the column list
+    rows, cols = k1_ops.pair_lists(dst, src, None, n, n, "cpu")
+    lst, *_ = _split_list(4, 8, pieces=5)
+    cpu = torch.device("cpu")
+    for one in (rows, cols, lst):
+        n_split = int(one.split.shape[0])
+        assert n_split
+        assert one.counters.size == n_split * (one.parts + 1)
+        counters = one.counters.take((cpu, 0), cpu)
+        x = torch.zeros(one.n_in, 4)
+        out = torch.empty(one.n_rows, 4)
+        val = torch.ones(one.n_values)
+        args, carry = blocked_ops.entry_args(one, val, x, out,
+                                             counters=counters)
+        addresses, (n_units, n_split_arg, n_items) = one.addresses
+        assert args[:3] == addresses[:3] and args[4:8] == addresses[4:]
+        assert args[3] == counters.data_ptr()
+        assert n_split_arg == n_split
+        assert args[6] == one.split.data_ptr()
+        assert args[12:15] == (n_units, n_split, n_items)
+        assert carry.shape == (n_units + n_split * one.parts, 4)
+        plain, _ = blocked_ops.entry_args(one, val, x, out)
+        assert (plain[:3], plain[4:11], plain[12:]) == (
+            args[:3], args[4:11], args[12:])
+        assert plain[3] == addresses[3]
 
 
 def test_scaled_wrapper_rejects_bad_inputs():
@@ -1212,7 +1294,7 @@ def test_scaled_walks_match_plain_on_card(cuda, f, pieces):
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), ref)
         assert torch.equal(out_t.cpu(), ref_t)
-        assert not on.counters.any() and not on_t.counters.any()
+        assert on.counters.zero() and on_t.counters.zero()
     assert (k1_ops.ell_gather_scaled.launches,
             ell_gather.backward_launches) == (before[0] + 2, before[1] + 2)
 
@@ -1246,7 +1328,7 @@ def test_scaled_walks_replay_in_a_cuda_graph_on_card(cuda, f):
                            ell_gather_scaled_plain(lst, val, x, rs, cs, 0.5))
         assert torch.equal(out_t.cpu(), ell_gather_scaled_backward_plain(
             lst_t, val, dy, rs, cs, 0.5))
-        assert not on.counters.any() and not on_t.counters.any()
+        assert on.counters.zero() and on_t.counters.zero()
 
 
 @pytest.mark.cuda
