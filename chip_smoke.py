@@ -1606,12 +1606,15 @@ def log_adam_state(name, far, steps_gpu, steps_cpu, eps, top=8):
                 f"{v_gpu[i].sqrt().item()} (eps {eps})")
 
 
-# the attention kernels A1-A4 (ops/attention.py), by their wrappers' names,
-# and the profile names of their walks (csrc/attention.cu)
-ATTN_KERNELS = ("attn_stats", "attn_aggregate", "attn_bwd_rows",
+# the attention kernels A1-A4 and the fused forward (A1 and A2 as one walk;
+# ops/attention.py), by their wrappers' names, and the profile names of
+# their walks (csrc/attention.cu, csrc/softmax_walk.cuh); A1 and A2 run
+# the forward of a slice of the edges (gspmd ranks), the fused walk the
+# whole graph's
+ATTN_FUSED = "attn_softmax_aggregate"
+ATTN_KERNELS = ("attn_stats", "attn_aggregate", ATTN_FUSED, "attn_bwd_rows",
                 "attn_bwd_cols")
-ATTN_WALKS = ("attn_stats_walk", "attn_aggregate_walk", "attn_bwd_rows_walk",
-              "attn_bwd_cols_walk")
+ATTN_WALKS = tuple(name + "_walk" for name in ATTN_KERNELS)
 def launch_counts():
     """The kernel wrappers' launch counts: K2, K1, K1's scaled walk, its
     masked walk, its degree walk, the scaled walk's backward over the
@@ -1686,14 +1689,15 @@ EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
 # layer, the prepared operator in both layers of the validation forward
 GCNII_LAUNCHES = dict(NO_LAUNCHES, k1s=128, backward=64)
 GCN_LAUNCHES = dict(NO_LAUNCHES, k1s=3, masked=2, degree=1, backward=1)
-# GAT an epoch: A1 and A2 in both layers of the step and of the validation
-# forward, A3 and A4 in both layers of the step's backward; GraphSAGE: the
+# GAT an epoch: the fused forward (A1 and A2 as one walk) in both layers of
+# the step and of the validation forward, A3 and A4 in both layers of the
+# step's backward; GraphSAGE: the
 # prepared operator in both layers of the step and of the validation
 # forward, the backward walk in both layers of the step; GIN: the prepared
 # operator in its one convolution of the step and of the validation forward
 # (its input needs no gradient, so no backward walk)
-GAT_LAUNCHES = dict(NO_LAUNCHES, attn_stats=4, attn_aggregate=4,
-                    attn_bwd_rows=2, attn_bwd_cols=2)
+GAT_LAUNCHES = dict(NO_LAUNCHES, attn_softmax_aggregate=4, attn_bwd_rows=2,
+                    attn_bwd_cols=2)
 SAGE_LAUNCHES = dict(NO_LAUNCHES, k1s=4, backward=2)
 GIN_LAUNCHES = dict(NO_LAUNCHES, k1s=2)
 
@@ -2238,14 +2242,29 @@ GAT_SHAPES = ((8, 8), (1, N_CLASSES))
 
 def attn_calls(lists, h, ss, sd, g, salt, keep, plain=False, given=None):
     """A1-A4 in the autograd Function's order over ``lists``
-    (``attn_chain``): the outputs by name, and each kernel's call (a
-    closure over its inputs).  With ``plain`` the plain versions run, each
-    on the inputs that ``given`` (the kernels' outputs) gave its kernel."""
+    (``attn_chain`` with A1 then A2), then the fused forward over the same
+    inputs (its outputs as ``fused_rmax0``, ``fused_dinv``, ``fused_out``):
+    the outputs by name, and each kernel's call (a closure over its
+    inputs).  With ``plain`` the plain versions run, A2, A3 and A4 each on
+    the inputs that ``given`` (the kernels' outputs) gave its kernel."""
     from gnntf_tpu_torch.ops import attention as pa
     calls = {}
     outs = pa.attn_chain(lists, h, ss, sd, g, ATTN_SLOPE, salt, keep,
-                         plain=plain, given=given, calls=calls)
+                         fused=False, plain=plain, given=given, calls=calls)
+    n, heads, feats = h.shape
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    fused = pa.attn_forward(lists, tab, sd, heads, feats, ATTN_SLOPE, salt,
+                            keep, fused=True, plain=plain, calls=calls)
+    outs.update({"fused_" + k: v for k, v in fused.items()})
     return outs, calls
+
+
+def attn_outputs(name):
+    """Kernel ``name``'s outputs: ``(key in attn_calls' outputs, key of
+    attn_error_scales)`` each."""
+    from gnntf_tpu_torch.ops import attention as pa
+    prefix = "fused_" if name == ATTN_FUSED else ""
+    return [(prefix + o, o) for o in pa.ATTN_OUTPUTS[name]]
 
 
 def attn_bound(name, lists, heads, feats, kept=None):
@@ -2275,7 +2294,9 @@ def attn_bound(name, lists, heads, feats, kept=None):
     if name == "attn_stats":
         n_bytes += refs * heads * 4 + nh + 2 * nh
         ops = e * heads * 10
-    elif name == "attn_aggregate":
+    elif name in ("attn_aggregate", ATTN_FUSED):
+        # A2 reads s_dst, rmax0 and dinv; the fused walk reads s_dst and
+        # writes rmax0 and dinv: the same bytes
         n_bytes += refs * heads * 4 + feat_rows + 3 * nh + n * w * 4
         ops = e * heads * (10 + hash_ops) + 2 * e * w
     elif name == "attn_bwd_rows":
@@ -2327,9 +2348,9 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
     res = {}
     for name in ATTN_KERNELS:
         r = dict(max_abs_err=max(
-            check_close(f"{name} {label} {o}", outs[o], ref[o], scales[o])
-            for o in pa.ATTN_OUTPUTS[name]))
-        for o in pa.ATTN_OUTPUTS[name]:
+            check_close(f"{name} {label} {o}", outs[o], ref[o], scales[s])
+            for o, s in attn_outputs(name)))
+        for o, _ in attn_outputs(name):
             if not torch.isfinite(outs[o]).all():
                 raise AssertionError(f"{name} {label}: {o} not finite")
             if not torch.equal(again[o], outs[o]):
@@ -2356,6 +2377,13 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
                 raise AssertionError(f"{name} {label}: "
                                      f"{r['kernel_launches']} launches "
                                      f"a call (at most 3)")
+            # the fused walk: one launch, and the merge where a row is split
+            most = 2 if lists.rows.split.shape[0] else 1
+            if name == ATTN_FUSED and profiled \
+                    and r["kernel_launches"] > most:
+                raise AssertionError(f"{name} {label}: "
+                                     f"{r['kernel_launches']} launches "
+                                     f"a call (at most {most})")
         res[name] = r
     if timed and heads == 1:
         # yardstick only: one cuSPARSE product of the realized coefficients
@@ -2372,6 +2400,7 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
         check_close(f"library sparse.mm {label}", call(), ref["out"],
                     scales["out"])
         res["attn_aggregate"]["library_ms"] = time_ms(call)
+        res[ATTN_FUSED]["library_ms"] = res["attn_aggregate"]["library_ms"]
     if cpu:
         on_cpu = dataclasses.replace(
             lists, rows=list_to(lists.rows, "cpu"),
@@ -2383,7 +2412,7 @@ def check_attn_kernels(label, lists, h, ss, sd, g, salt, keep, timed=False,
                                 plain=True, given=given)
         for name in ATTN_KERNELS:
             share = min((given[o] == cpu_ref[o]).double().mean().item()
-                        for o in pa.ATTN_OUTPUTS[name])
+                        for o, _ in attn_outputs(name))
             res[name]["bit_equal_to_cpu_plain"] = share
     for name in ATTN_KERNELS:
         log(f"{name} {label}: {res[name]}")
@@ -2434,12 +2463,13 @@ def check_attn_device_salts(lists, h, ss, sd, g, dev):
 
 
 def phase_attention_kernels(graph, dev):
-    """2e: the attention kernels A1-A4 against their plain versions, small
-    (a random graph with duplicates, an isolated destination, a hub row and
-    a hub column split over many units) and on the bench graph with its
-    self-loops at GAT's layer shapes, per-edge lists with a dropout draw
-    (keep ATTN_KEEP) and coalesced lists without; then the chain with
-    device salts."""
+    """2e: the attention kernels A1-A4 and the fused forward against their
+    plain versions, small (a random graph with duplicates, an isolated
+    destination, a hub row and a hub column split over many units) and on
+    the bench graph with its self-loops at GAT's layer shapes, per-edge
+    lists with a dropout draw (keep ATTN_KEEP) and coalesced lists without,
+    the fused forward's device time beside A1's and A2's; then the chain
+    with device salts."""
     import gnntf_tpu_torch as tt
     from gnntf_tpu_torch.ops import attention as pa
 
@@ -2494,6 +2524,14 @@ def phase_attention_kernels(graph, dev):
                 label, lists, h, ss, sd, g, None if dedup else salt,
                 1.0 if dedup else ATTN_KEEP, timed=True,
                 cpu=(dedup == (heads == 1)), profiled=True)
+            r = bench[dedup, heads]
+            r[ATTN_FUSED]["a1_a2_device_ms"] = (r["attn_stats"]["device_ms"]
+                                                + r["attn_aggregate"][
+                                                    "device_ms"])
+            log(f"{ATTN_FUSED} {label}: device {r[ATTN_FUSED]['device_ms']} "
+                f"ms {r[ATTN_FUSED]['device_us_by_kernel']} us against A1 + "
+                f"A2 {r[ATTN_FUSED]['a1_a2_device_ms']} ms, bound "
+                f"{r[ATTN_FUSED]['bound_ms']} ms")
             for name in ("attn_bwd_rows", "attn_bwd_cols"):
                 r = bench[dedup, heads][name]
                 if not dedup:
@@ -3247,6 +3285,7 @@ def attn_profile(label, fn, top=12):
                shares={w: sum(r[1] for r in rows if w in r[0]) / busy_us
                        for w in ATTN_WALKS},
                attn_us=sum(r[1] for r in rows if "attn_" in r[0]),
+               attn_launches=count("attn_"),
                index_add=count("indexFunc", "index_add"),
                scatter=count("scatter"))
     out["attn_share"] = out["attn_us"] / busy_us
@@ -3259,9 +3298,11 @@ def attn_profile(label, fn, top=12):
 
 def phase_gat(graph, features, dev):
     """9: GAT at GATConfig (latent 8, 8 heads, dropout 0.6, attention
-    dropout 0.6) on the bench graph with 40 classes: serving (A1 and A2 in
-    each layer of a forward, on the coalesced lists), a profile of one
-    forward and of one step, ``train(epochs=3)`` under the default impl
+    dropout 0.6) on the bench graph with 40 classes: serving (the fused
+    forward walk in each layer of a forward, on the coalesced lists, at
+    most 2 attention kernels a layer: the walk and, for split rows, the
+    merge), a profile of one forward and of one step, ``train(epochs=3)``
+    under the default impl
     (the per-edge lists in the step), the serving forward against the
     CPU's, 3 epochs without dropout on the card and on the CPU, and
     ``fit(block_epochs=5)`` against the host loop at ``epochs=10``."""
@@ -3275,13 +3316,14 @@ def phase_gat(graph, features, dev):
     train, valid = fused_tasks()
     model = build(graph, dev)
     model.reset(seed=0)
-    per_forward = dict(NO_LAUNCHES, attn_stats=2, attn_aggregate=2)
+    per_forward = dict(NO_LAUNCHES, attn_softmax_aggregate=2)
     serving, logits = serving_run("GAT", model, per_forward)
     serving["profile"] = attn_profile(
         "one GAT forward",
         clean_forward(model))
     if (serving["profile"]["counted"] != per_forward
-            or serving["profile"]["walks"] != walks_of(per_forward)):
+            or serving["profile"]["walks"] != walks_of(per_forward)
+            or serving["profile"]["attn_launches"] > 2 * 2):
         raise AssertionError(f"a GAT forward's profile: {serving['profile']}")
     g_cpu = graph.to("cpu")
     forward = cpu_forward("GAT", build, g_cpu, logits, GAT_FORWARD_TOL)
@@ -3294,7 +3336,7 @@ def phase_gat(graph, features, dev):
     with torch.no_grad():
         eval_ms = timed(lambda: model.forward(model.features))
     prof = attn_profile("one GAT training step", step, top=14)
-    want = dict(NO_LAUNCHES, attn_stats=2, attn_aggregate=2, attn_bwd_rows=2,
+    want = dict(NO_LAUNCHES, attn_softmax_aggregate=2, attn_bwd_rows=2,
                 attn_bwd_cols=2)
     if prof["index_add"] or prof["counted"] != want or prof[
             "walks"] != walks_of(want):
@@ -3313,7 +3355,8 @@ def phase_gat(graph, features, dev):
         lambda: torch.autograd.backward(
             pa.gat_attention(sl, h, ss, sd, attn_dropout=0.6, salt=salt),
             torch.ones(N_NODES, 8, 8, device=dev)))
-    want = dict(NO_LAUNCHES, **dict.fromkeys(ATTN_KERNELS, 1))
+    want = dict(NO_LAUNCHES, attn_softmax_aggregate=1, attn_bwd_rows=1,
+                attn_bwd_cols=1)
     if chain["index_add"] or chain["scatter"] or chain["counted"] != want \
             or chain["walks"] != walks_of(want):
         raise AssertionError(f"the attention chain's profile: {chain}")
@@ -4297,8 +4340,16 @@ def phase_gspmd_slices(graph, dev):
                                  timed=True, profiled=True)
         attention.append(dict(res, rank=r, slots=lst.rows.n_edges))
     tab = pa.pack_table(h.reshape(N_NODES, -1), ss)
+    # the forward over the slices (what a gspmd rank runs, in one process):
+    # A1 and A2, their only path since the whole graph's forward is one walk
+    zero_counts()
     fwd = pa.sharded_forward(lists, tab, sd, heads, feats, ATTN_SLOPE, salt2,
                              ATTN_KEEP, reduce=pa.folded)
+    sharded_launches = launch_counts()
+    if sharded_launches != dict(NO_LAUNCHES, attn_stats=MESH_PARTS,
+                                attn_aggregate=MESH_PARTS):
+        raise AssertionError(f"the sharded forward launched "
+                             f"{sharded_launches}")
     bwd = pa.sharded_backward(lists, tab, sd, fwd["rmax0"], fwd["dinv"], g,
                               heads, feats, ATTN_SLOPE, salt2, ATTN_KEEP,
                               reduce=pa.folded)
@@ -4329,6 +4380,7 @@ def phase_gspmd_slices(graph, dev):
         f"attention errs {merged_err}, A3 with a given rowdot errs {given}")
     return dict(degree=degree, attention=attention, degree_err=degree_err,
                 merged_err=merged_err, given_rowdot_err=given,
+                sharded_forward_launches=sharded_launches,
                 edges=graph.n_edges, looped_edges=looped.n_edges)
 
 
@@ -4452,8 +4504,9 @@ def phase_multihost_train(graph, features, dev):
         ghist, gcounts, gwalls = timed_train(gat, tasks,
                                              epochs=GAT_MESH_EPOCHS,
                                              mesh=mesh)
+        # a mesh of one rank runs one device's chain (GspmdExecutor.attention)
         check_mesh_run("GAT fit(mesh=1x1)", ghist, g_single[0], gcounts,
-                       ATTN_KERNELS)
+                       (ATTN_FUSED, "attn_bwd_rows", "attn_bwd_cols"))
         out["gat"] = mesh_run_entry(
             "GAT fit(mesh=1x1)", ghist, gcounts, gwalls, GAT_MESH_EPOCHS,
             mesh_epoch_profile(gat, tasks, executor_for(mesh, None)))
@@ -4741,19 +4794,31 @@ def kernel_launches(gcnii, gcn, key):
         gcn=dict(per_epoch=gcn["launches_per_epoch"][key]))
 
 
-def attention_entries(attention, gat):
-    """The ``kernels`` line's entries of A1-A4: phase 2e's numbers at GAT's
-    layer 1 over the per-edge lists (the training step's shapes), with
-    layer 2 and the coalesced lists beside them, and phase 9's launches."""
+def attention_entries(attention, gat, slices):
+    """The ``kernels`` line's entries of A1-A4 and the fused forward: phase
+    2e's numbers at GAT's layer 1 over the per-edge lists (the training
+    step's shapes), with layer 2 and the coalesced lists beside them, and
+    the launches of their path: phase 9's GAT training, or, for A1 and A2
+    (which the fused walk replaces there), phase 15b's forward over the
+    gspmd slices."""
     entries = []
     for name in ATTN_KERNELS:
         backward_pass = name.startswith("attn_bwd")
+        sharded_only = name in ("attn_stats", "attn_aggregate")
         entries.append({
             "name": name, "route": "cuda",
-            "source": "gnntf_tpu_torch/csrc/attention.cu",
+            "source": "gnntf_tpu_torch/csrc/"
+                      + ("softmax_walk.cuh" if name == ATTN_FUSED
+                         else "attention.cu"),
             "replaces": "gnntf_tpu/ops/attention.py:"
                         + ("357" if backward_pass else "321"),
-            "launches": gat["launches"][name],
+            "launches": (slices["sharded_forward_launches"][name]
+                         if sharded_only else gat["launches"][name]),
+            "launches_path": (f"phase 15b, the forward over {MESH_PARTS} "
+                              f"gspmd slices (sharded_forward)"
+                              if sharded_only else "phase 9, GAT training"),
+            **({"a1_a2_device_ms": attention["layer1"][name][
+                "a1_a2_device_ms"]} if name == ATTN_FUSED else {}),
             **{k: attention["layer1"][name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms", "device_us_by_kernel")},
@@ -5291,7 +5356,7 @@ def main(dev=None):
               **kernel_launches(gcnii, gcn, "degree"),
               "row_list": masked["degree_row"],
               "gspmd_slices": slice_entry(slices, multihost, "degree")}
-    attn_entries = attention_entries(attention, gat)
+    attn_entries = attention_entries(attention, gat, slices)
     for e in attn_entries:
         e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
     bf16_widths = {f"F={f}": bf16[f] for f in (LP_CLASSES, N_CLASSES, 64,

@@ -20,6 +20,10 @@
 //
 // * attn_stats_* (A1): rmax0 and dinv, per (dst, head), over the row list;
 // * attn_aggregate_* (A2): out[dst, h, :] = sum alpha~ h[src, h, :];
+// * attn_softmax_aggregate_* (softmax_walk.cuh): A1 and A2 as one walk,
+//   each score gathered and exponentiated once, a split row's pieces
+//   folded by rescaling to the row's maximum: the whole graph's forward
+//   (ops/attention.py::softmax_route); a slice of the edges takes A1, A2;
 // * attn_bwd_rows_* (A3): per (dst, head), with g the output's gradient,
 //   rowdot = sum alpha dalpha and ds_dst = sum (alpha dalpha - alpha
 //   rowdot) sigma'(pre), where dalpha = <h[src, h, :], g[dst, h, :]> *
@@ -101,6 +105,13 @@ struct AttnArgs {
   int vec, group, sgroup;
   uint32_t thresh;
   float scale, slope;
+  // the fused walk (softmax_walk.cuh): rmax0 into out3, dinv into out2,
+  // out into out; its tasks (first unit, pieces) and each split row's runs
+  // (first, count)
+  float* out3;
+  const int32_t* task;
+  const int32_t* split_runs;
+  int n_tasks, n_runs;
 };
 
 }  // namespace attention
@@ -147,6 +158,14 @@ __device__ __forceinline__ Drop load_drop(const AttnArgs& a) {
 __device__ __forceinline__ float keep_scale(const Drop& d, uint32_t id,
                                             int head) {
   const uint32_t base = edge_walk::fmix32(id ^ d.s0);
+  const uint32_t hh =
+      edge_walk::fmix32(base ^ (d.s1 + (uint32_t)head * kGold));
+  return (hh >> 8) < d.thresh ? d.scale : 0.f;
+}
+
+// The same, given the id's own hash base = fmix32(id ^ s0).
+__device__ __forceinline__ float keep_scale_of(const Drop& d, uint32_t base,
+                                               int head) {
   const uint32_t hh =
       edge_walk::fmix32(base ^ (d.s1 + (uint32_t)head * kGold));
   return (hh >> 8) < d.thresh ? d.scale : 0.f;
@@ -553,6 +572,10 @@ __device__ __forceinline__ int carry_stride(int cols) {
   return (cols + 3) & ~3;
 }
 
+// ---- A1 and A2 as one walk ----------------------------------------------
+
+#include "softmax_walk.cuh"
+
 // ---- A3: the backward's row pass -----------------------------------------
 
 // Per (row, head): rowdot, P and Q; whole rows write rowdot and ds_dst =
@@ -940,6 +963,46 @@ extern "C" int gnntf_attn_bwd_cols(const attention::AttnArgs* a,
                             : (wide ? attn_bwd_cols_walk<float, true>
                                     : attn_bwd_cols_walk<float, false>);
   return backward(walk, attn_bwd_cols_parts, attn_bwd_cols_fixup, *a, s);
+}
+
+// A1 and A2 in one walk (softmax_walk.cuh): rmax0 into out3, dinv into out2
+// ((N, H) float32), out into out ((N, W)), every row written.  H at most
+// 32, W / vec at most 128, and where W / vec > 32 H divides 32; `group`
+// A2's (ops/attention.py::feature_lanes); every segment of the list at most
+// 32 slots (ops/attention.py::softmax_plan); carry holds n_runs records of
+// carry_stride(W + 2H) floats.  One launch, two where a row is split.
+extern "C" int gnntf_attn_softmax_aggregate(const attention::AttnArgs* a,
+                                            void* stream) {
+  if (!valid(a) || !a->task || !a->out3) return (int)cudaErrorInvalidValue;
+  const int fv = a->heads * a->feats / a->vec;
+  if (fv > 128 || a->heads > 32 || a->group % a->heads ||
+      (a->group != 32 && a->group != min(32, fv)))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = fv > 32;
+  Kernel walk =
+      a->vec == 4
+          ? (wide ? attn_softmax_aggregate_walk<float4, true>
+                  : attn_softmax_aggregate_walk<float4, false>)
+          : (wide ? attn_softmax_aggregate_walk<float, true>
+                  : attn_softmax_aggregate_walk<float, false>);
+  const int smem = kThreads / 32 * (32 / a->group) *
+                   group_smem_floats(a->heads) * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->n_tasks > 0) {
+    walk<<<group_blocks(a->n_tasks, a->group, kThreads), kThreads, smem, s>>>(
+        *a);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  if (a->n_split == 0) return 0;
+  if (!a->split_runs || !a->carry) return (int)cudaErrorInvalidValue;
+  attn_softmax_aggregate_merge<<<a->n_split, kMergeWarps * 32, 0, s>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

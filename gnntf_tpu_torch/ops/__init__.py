@@ -2,8 +2,9 @@ from .attention import (AttnGrids, AttnLists, attn_aggregate,
                         attn_aggregate_plain, attn_bwd_cols,
                         attn_bwd_cols_plain, attn_bwd_rows,
                         attn_bwd_rows_plain, attn_chain, attn_lists,
-                        attn_stats, attn_stats_plain, build_attn_grids,
-                        gat_attention)
+                        attn_softmax_aggregate,
+                        attn_softmax_aggregate_plain, attn_stats,
+                        attn_stats_plain, build_attn_grids, gat_attention)
 from .blocked import (BlockedCOO, BlockedSpMM, EdgeList, block_coo,
                       blocked_spmm, blocked_spmm_bf16,
                       blocked_spmm_bf16_plain, blocked_spmm_plain,

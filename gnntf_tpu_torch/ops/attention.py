@@ -31,6 +31,11 @@ chain in XLA, ``_make_gat_core``):
 * A1 :func:`attn_stats` — per (destination, head), the row's maximum score
   ``rmax0`` and its inverse softmax denominator ``dinv``;
 * A2 :func:`attn_aggregate` — the weighted aggregation;
+* A1 and A2 as one walk, :func:`attn_softmax_aggregate` — each score
+  gathered and exponentiated once, a split row's pieces folded by
+  rescaling to the row's maximum (``csrc/softmax_walk.cuh``): the whole
+  graph's forward where :func:`softmax_route` allows it; A1 then A2 serve
+  the slices of the edges (:func:`sharded_forward`);
 * A3 :func:`attn_bwd_rows` — the backward's row pass: ``rowdot`` and the
   gradient of ``s_dst``;
 * A4 :func:`attn_bwd_cols` — the column pass: the gradients of ``h`` and
@@ -56,7 +61,8 @@ import torch.nn.functional as F
 from ..graph.coo import Graph
 from ..utils import kernels
 from ..utils.idcache import IdLRU, sizeof
-from .blocked import EdgeList, list_rows, ordered_row_sums, row_ptr
+from .blocked import (EdgeList, list_rows, ordered_row_sums, row_ptr,
+                      work_units)
 from .segment import gather_rows, segment_softmax
 from .spmm import current_executor
 from .stochastic import (_MASK32, _fmix32, _salts, _threshold, device_salt,
@@ -66,6 +72,14 @@ _GOLD = 0x9E3779B9  # odd constant decorrelating the per-head salts
 # items (slots and row ends) a unit of the attention walks: a lane walks a
 # unit's slots one by one in the per-head walks, so units are small
 _ATTN_ITEMS = 32
+# pieces of a split row that a warp of the fused walk folds in turn, and the
+# warps (parts) of a split row's merge (csrc/softmax_walk.cuh)
+_RUN_PIECES = 8
+_MERGE_WARPS = 32
+# the most slots of a task of the fused walk (a run of whole rows, or a
+# piece), and the most rows of a task (csrc/softmax_walk.cuh, kTaskRows)
+_SEGMENT_SLOTS = 32
+_TASK_ROWS = 16
 # row-split width of the attention grids: the JAX package's default
 # GNNTF_ATTN_K.  The kernels' lists do not depend on it.
 _ATTN_K = 16
@@ -90,15 +104,91 @@ def _attn_keep_scale(eids: torch.Tensor, salt, n_heads: int, keep: float,
 
 
 @dataclasses.dataclass(frozen=True)
+class SoftmaxPlan:
+    """The fused walk's work over a row list (``csrc/softmax_walk.cuh``):
+    ``task`` (T, 2) int32, a group's (first, count) each: first the runs of
+    up to ``_RUN_PIECES`` consecutive pieces of each split row, in list
+    order (first unit, pieces), then runs of consecutive whole rows of at
+    most ``_SEGMENT_SLOTS`` slots and ``_TASK_ROWS`` rows (first row, rows),
+    packed in row order; ``split_runs`` (S, 2) int32, each split row's first
+    run and run count."""
+
+    task: torch.Tensor
+    split_runs: torch.Tensor
+    n_runs: int
+
+    @property
+    def n_tasks(self) -> int:
+        return int(self.task.shape[0])
+
+
+def _row_tasks(deg: np.ndarray, split: np.ndarray) -> np.ndarray:
+    """The whole rows' tasks, (first row, rows) each: consecutive rows that
+    no unit splits, packed in row order while they hold at most
+    ``_SEGMENT_SLOTS`` slots and ``_TASK_ROWS`` rows (each holds at most
+    ``_SEGMENT_SLOTS``).  A task from row i ends at ``end[i]``, and the next
+    starts at the first whole row from there (``nxt[i]``); the starts, the
+    chain of ``nxt`` from the first whole row, are marked by doubling."""
+    n = len(deg)
+    cum = np.concatenate([[0], np.cumsum(deg)])
+    at = np.arange(n)
+    split_at = np.flatnonzero(split)
+    next_split = np.append(split_at, n)[np.searchsorted(split_at, at)]
+    fill = np.searchsorted(cum, cum[:-1] + _SEGMENT_SLOTS, side="right") - 1
+    end = np.minimum(np.minimum(next_split, at + _TASK_ROWS), fill)
+    whole = np.flatnonzero(~split)
+    first_whole = np.append(whole, n)  # the first whole row at or after i
+    nxt = np.append(first_whole[np.searchsorted(whole, end)], n)
+    start = np.zeros(n + 1, bool)
+    start[first_whole[0]] = True
+    jump = nxt
+    for _ in range(max(1, int(n).bit_length())):
+        start[jump[start]] = True
+        jump = jump[jump]
+    first = np.flatnonzero(start[:n])
+    return np.stack([first, end[first] - first], 1).reshape(-1, 2)
+
+
+def softmax_plan(ptr: np.ndarray, items: int, device) -> SoftmaxPlan:
+    """The :class:`SoftmaxPlan` of a row list with row pointers ``ptr`` cut
+    into units of ``items <= _SEGMENT_SLOTS`` items (``blocked.work_units``:
+    every whole row and every piece then holds at most that many slots)."""
+    assert items <= _SEGMENT_SLOTS, items
+    ptr = np.asarray(ptr, np.int64)
+    _, _, split = work_units(ptr, items)
+    split = split.astype(np.int64).reshape(-1, 3)
+    deg = np.diff(ptr)
+    is_split = np.zeros(len(deg), bool)
+    is_split[split[:, 0]] = True
+    n_runs = -(-split[:, 2] // _RUN_PIECES)
+    first_run = np.cumsum(n_runs) - n_runs
+    run_split = np.repeat(np.arange(len(split)), n_runs)
+    k = np.arange(len(run_split)) - first_run[run_split]
+    pieces = split[run_split, 2] - k * _RUN_PIECES
+    runs = np.stack([split[run_split, 1] + k * _RUN_PIECES,
+                     np.minimum(pieces, _RUN_PIECES)], 1).reshape(-1, 2)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return SoftmaxPlan(put(np.concatenate([runs, _row_tasks(deg, is_split)])),
+                       put(np.stack([first_run, n_runs], 1).reshape(-1, 2)),
+                       int(len(runs)))
+
+
+@dataclasses.dataclass(frozen=True)
 class AttnLists:
     """The kernels' two lists of one graph structure on a device: ``rows``
     (each destination's slots, ``ptr`` over the N destinations, ``idx`` the
-    sources, ``eid`` the edge or pair id) and ``cols`` (each source's), and
-    ``mult``, each pair id's multiplicity (None for one slot an edge)."""
+    sources, ``eid`` the edge or pair id) and ``cols`` (each source's),
+    ``mult``, each pair id's multiplicity (None for one slot an edge), and
+    the fused walk's :class:`SoftmaxPlan` of ``rows`` (None for units of
+    more than ``_SEGMENT_SLOTS`` items)."""
 
     rows: EdgeList
     cols: EdgeList
     mult: Optional[torch.Tensor]
+    plan: Optional[SoftmaxPlan] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,10 +288,14 @@ def attn_lists(row, col, n_nodes: int, device, dedup: bool = False,
 
     def one(r, c):
         order = np.argsort(r, kind="stable")
-        return EdgeList.build(row_ptr(r[order], n_nodes), c[order],
-                              order + base, device, items=items)
+        ptr = row_ptr(r[order], n_nodes)
+        return ptr, EdgeList.build(ptr, c[order], order + base, device,
+                                   items=items)
 
-    return AttnLists(one(row, col), one(col, row), mult)
+    ptr, rows = one(row, col)
+    plan = softmax_plan(ptr, items, device) if items <= _SEGMENT_SLOTS \
+        else None
+    return AttnLists(rows, one(col, row)[1], mult, plan)
 
 
 _LISTS_CACHE = IdLRU()
@@ -339,8 +433,9 @@ def column_table(g: torch.Tensor, s_dst, rmax0, dinv,
 
 
 class _AttnFn(torch.autograd.Function):
-    """``(h, s_src, s_dst) -> out`` over one :class:`AttnLists`: A1 and A2
-    forward, A3 and A4 backward; only (N, ·) tensors are saved."""
+    """``(h, s_src, s_dst) -> out`` over one :class:`AttnLists`: the fused
+    walk (or A1 and A2) forward, A3 and A4 backward; only (N, ·) tensors
+    are saved."""
 
     @staticmethod
     def forward(ctx, h, s_src, s_dst, lists, salt, keep, slope):
@@ -368,6 +463,7 @@ class _AttnFn(torch.autograd.Function):
 # the outputs of each kernel, by name, in the chain's order
 ATTN_OUTPUTS = {"attn_stats": ("rmax0", "dinv"),
                 "attn_aggregate": ("out",),
+                "attn_softmax_aggregate": ("rmax0", "dinv", "out"),
                 "attn_bwd_rows": ("rowdot", "ds_dst"),
                 "attn_bwd_cols": ("dh", "ds_src")}
 
@@ -387,16 +483,42 @@ def _runner(plain, calls, outs):
     return run
 
 
+def softmax_route(lists, heads: int, feats: int) -> bool:
+    """Whether the whole graph's forward takes the fused walk
+    (:func:`attn_softmax_aggregate`) over ``lists``: a plan (units of at
+    most ``_SEGMENT_SLOTS`` items), and lanes that take (H, F) (at most 32
+    heads, whole heads of lanes in A2's group, at most 128 feature vectors
+    a row); else A1 then A2."""
+    return lists.plan is not None and _softmax_lanes(heads, feats)
+
+
+def _softmax_lanes(heads: int, feats: int) -> bool:
+    """Whether the fused walk's lanes take (H, F): its group, A2's
+    (:func:`feature_lanes`), must be whole heads of lanes, at most 4 chunks
+    of 32 feature vectors a row."""
+    vec, group = feature_lanes(heads, feats)
+    return (heads <= 32 and heads * feats // vec <= 128
+            and group % heads == 0)
+
+
 def attn_forward(lists, tab, s_dst, heads, feats, slope, salt=None,
-                 keep=1.0, *, plain=False, given=None, calls=None) -> dict:
-    """A1, then A2 over the row list: ``rmax0``, ``dinv`` and ``out`` by
-    name; ``tab`` is ``[h | s_src]`` (:func:`pack_table`).  With ``plain``
-    the plain versions run; ``given`` (outputs by name) feeds A2 those in
-    place of A1's, so that a plain version can be held to its kernel on
-    the kernel's own inputs; ``calls`` gets each call by kernel name (to
-    time it)."""
+                 keep=1.0, *, plain=False, given=None, calls=None,
+                 fused=None) -> dict:
+    """The forward over the row list: ``rmax0``, ``dinv`` and ``out`` by
+    name, from the fused walk where ``fused`` (default
+    :func:`softmax_route`), else from A1 then A2; ``tab`` is ``[h |
+    s_src]`` (:func:`pack_table`).  With ``plain`` the plain versions run;
+    ``given`` (outputs by name) feeds A2 those in place of A1's, so that a
+    plain version can be held to its kernel on the kernel's own inputs;
+    ``calls`` gets each call by kernel name (to time it)."""
     outs = {}
     run = _runner(plain, calls, outs)
+    if fused is None:
+        fused = softmax_route(lists, heads, feats)
+    if fused:
+        run("attn_softmax_aggregate", lists.rows, lists.plan, lists.mult, tab,
+            s_dst, heads, feats, slope, salt, keep)
+        return outs
     run("attn_stats", lists.rows, lists.mult, tab, s_dst, heads, feats, slope)
     src = given or outs
     run("attn_aggregate", lists.rows, lists.mult, tab, s_dst, src["rmax0"],
@@ -422,15 +544,15 @@ def attn_backward(lists, tab, s_dst, rmax0, dinv, g, heads, feats, slope,
 
 
 def attn_chain(lists, h, s_src, s_dst, g, slope, salt=None, keep=1.0,
-               **kw) -> dict:
-    """A1-A4 as the autograd Function runs them, on ``h`` (N, H, F), the
-    score halves (N, H) and an output gradient ``g`` (N, H * F): every
-    output by name (for checks and timings of the kernels; ``kw`` as in
-    :func:`attn_forward`)."""
+               fused=None, **kw) -> dict:
+    """The forward and A3-A4 as the autograd Function runs them, on ``h``
+    (N, H, F), the score halves (N, H) and an output gradient ``g`` (N, H *
+    F): every output by name (for checks and timings of the kernels;
+    ``fused`` and ``kw`` as in :func:`attn_forward`)."""
     n, heads, feats = h.shape
     tab = pack_table(h.reshape(n, -1), s_src)
     fwd = attn_forward(lists, tab, s_dst, heads, feats, slope, salt, keep,
-                       **kw)
+                       fused=fused, **kw)
     src = kw.get("given") or fwd
     return {**fwd, **attn_backward(lists, tab, s_dst, src["rmax0"],
                                    src["dinv"], g, heads, feats, slope, salt,
@@ -617,6 +739,101 @@ def attn_aggregate_plain(lst, mult, tab, s_dst, rmax0, dinv, heads, feats,
     return ordered_row_sums(lst, terms.reshape(-1, w))
 
 
+def _fold(m1, v1, m2, v2, col_head):
+    """The fused walk's fold (``csrc/softmax_walk.cuh``, ``fold``) of
+    ``(m2, v2)`` into ``(m1, v1)``, per row: ``M = max(m1, m2)`` per head
+    ((R, H)), each column of ``v`` ((R, C), its head ``col_head``) ``v1 *
+    exp(m1 - M) + v2 * exp(m2 - M)``, each product and the sum rounded."""
+    big = torch.where(m2 > m1, m2, m1)
+    e1 = torch.exp(m1 - big)[:, col_head]
+    e2 = torch.exp(m2 - big)[:, col_head]
+    return big, v1 * e1 + v2 * e2
+
+
+def _fold_in_turn(m, v, index, count, col_head):
+    """Per row i, the fold of the records ``index[i, 0], index[i, 1], ...``
+    (the first ``count[i]``; (R, K) int64 into ``m`` (·, H) and ``v`` (·,
+    C)) in turn: the first as it is, each next folded in."""
+    fm, fv = m[index[:, 0]], v[index[:, 0]]
+    for t in range(1, index.shape[1]):
+        live = (t < count)[:, None]
+        nm, nv = _fold(fm, fv, m[index[:, t]], v[index[:, t]], col_head)
+        fm, fv = torch.where(live, nm, fm), torch.where(live, nv, fv)
+    return fm, fv
+
+
+def attn_softmax_aggregate_plain(lst, plan, mult, tab, s_dst, heads, feats,
+                                 slope, salt=None, keep=1.0):
+    """The plain version of :func:`attn_softmax_aggregate`: each segment (a
+    row of a unit of whole rows, or a piece) as the walk takes it, then
+    each split row's pieces folded as the walk and the merge fold them (runs
+    of ``_RUN_PIECES`` pieces in turn; run q into part q % ``_MERGE_WARPS``
+    in turn; the parts in order).  A whole row's outputs are those of
+    :func:`attn_stats_plain` and :func:`attn_aggregate_plain`."""
+    w = heads * feats
+    n, dev = lst.n_rows, tab.device
+    rows, src = list_rows(lst), lst.idx.long()
+    unit = torch.searchsorted(
+        lst.unit_edge.long(), torch.arange(lst.n_edges, device=dev),
+        right=True) - 1
+    piece = lst.unit_row.long()[unit] < 0
+    seg = torch.where(piece, n + unit, rows)
+    n_seg = n + lst.n_units
+    pre = tab[src, w:w + heads] + s_dst[rows]
+    big = torch.full((n_seg, heads), float("-inf"), dtype=torch.float32,
+                     device=dev).scatter_reduce(
+        0, seg[:, None].expand(-1, heads), F.leaky_relu(pre, slope),
+        reduce="amax")
+    m0 = torch.where(torch.isfinite(big), big, torch.zeros_like(big))
+    wgt = _weights(pre, m0[seg], _mults(lst, mult), slope)
+    sums = torch.zeros(n_seg, heads, dtype=torch.float32,
+                       device=dev).index_add_(0, seg, wgt)
+    dinv = 1.0 / sums.clamp(min=1e-30)
+    alpha = torch.where(piece[:, None], wgt, wgt * dinv[seg])
+    scale = _scale(lst, salt, keep, heads)
+    if scale is not None:
+        alpha = alpha * scale
+    terms = (tab[src, :w].view(-1, heads, feats) * alpha[:, :, None])
+    acc = torch.zeros(n_seg, w, dtype=torch.float32, device=dev).index_add_(
+        0, seg, terms.reshape(-1, w))
+    rmax0, dinv, out = m0[:n].clone(), dinv[:n].clone(), acc[:n].clone()
+    split = lst.split.long()
+    if split.shape[0] == 0:
+        return rmax0, dinv, out
+    # each piece a record: its maximum, and its sum and terms under it
+    col_head = torch.cat([torch.arange(w, device=dev) // feats,
+                          torch.arange(heads, device=dev)])
+    rec_m, rec_v = m0[n:], torch.cat([acc[n:], sums[n:]], 1)
+    task = plan.task.to(dev).long()[:plan.n_runs]
+    k = torch.arange(_RUN_PIECES, device=dev)
+    run_m, run_v = _fold_in_turn(
+        rec_m, rec_v, (task[:, :1] + k).clamp(max=lst.n_units - 1),
+        task[:, 1], col_head)
+    # each split row's runs: part g folds runs g, g + P, ... in turn, then
+    # the parts in order
+    runs = plan.split_runs.to(dev).long()
+    p = _MERGE_WARPS
+    depth = -(-int(runs[:, 1].max()) // p)
+    q = torch.arange(p, device=dev)[:, None] + p * torch.arange(
+        depth, device=dev)
+    idx = (runs[:, :1, None] + q).reshape(-1, depth).clamp(
+        max=plan.n_runs - 1)
+    count = (runs[:, 1:] - torch.arange(p, device=dev) + p - 1) // p
+    part_m, part_v = _fold_in_turn(run_m, run_v, idx, count.reshape(-1),
+                                   col_head)
+    n_split = split.shape[0]
+    part = (torch.arange(n_split, device=dev)[:, None] * p
+            + torch.arange(p, device=dev))
+    row_m, row_v = _fold_in_turn(part_m, part_v, part,
+                                 runs[:, 1].clamp(max=p), col_head)
+    row_dinv = 1.0 / row_v[:, w:].clamp(min=1e-30)
+    target = split[:, 0]
+    rmax0[target] = row_m
+    dinv[target] = row_dinv
+    out[target] = row_v[:, :w] * row_dinv[:, col_head[:w]]
+    return rmax0, dinv, out
+
+
 def attn_bwd_rows_plain(lst, mult, tab, s_dst, rmax0, dinv, g, heads, feats,
                         slope, salt=None, keep=1.0, rowdot=None):
     """The plain version of :func:`attn_bwd_rows`."""
@@ -704,7 +921,10 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
                 + [(name, ctypes.c_int) for name in _INTS]
                 + [("thresh", ctypes.c_uint32), ("scale", ctypes.c_float),
-                   ("slope", ctypes.c_float)])
+                   ("slope", ctypes.c_float)]
+                + [(name, ctypes.c_void_p) for name in ("out3", "task",
+                                                        "split_runs")]
+                + [("n_tasks", ctypes.c_int), ("n_runs", ctypes.c_int)])
 
 
 @functools.cache
@@ -713,7 +933,8 @@ def _library() -> ctypes.CDLL:
     first use, never at import)."""
     lib = kernels.load("attention")
     for entry in ("gnntf_attn_stats", "gnntf_attn_aggregate",
-                  "gnntf_attn_bwd_rows", "gnntf_attn_bwd_cols"):
+                  "gnntf_attn_softmax_aggregate", "gnntf_attn_bwd_rows",
+                  "gnntf_attn_bwd_cols"):
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
@@ -742,13 +963,14 @@ def _check(what, lst, tab, heads, feats, per_row=(), gathered=()):
 
 
 def _launch(entry, lst, mult, heads, feats, slope, salt, keep, tensors,
-            carry_width, lanes):
+            carry_width, lanes, plan=None):
     """Run ``entry`` of the library on the current stream.  ``tensors``
-    names the launch's tables and outputs (``_POINTERS``); the carry is
-    made here, ``carry_width`` floats a unit and a split row's part.
-    ``lanes`` is the kernel's ``(vec, group)`` (:func:`feature_lanes`,
-    :func:`head_lanes`); a gathered table whose rows are not 16-byte
-    aligned is copied (:func:`_aligned`)."""
+    names the launch's tables and outputs (``_POINTERS``, ``out3``); the
+    carry is made here, ``carry_width`` floats a unit and a split row's
+    part, or with a ``plan`` (the fused walk's) a run.  ``lanes`` is the
+    kernel's ``(vec, group)`` (:func:`feature_lanes`, :func:`head_lanes`);
+    a gathered table whose rows are not 16-byte aligned is copied
+    (:func:`_aligned`)."""
     (ptr, idx, eid, _, unit_row, unit_edge, split, part_item), (
         n_units, n_split, n_part_items) = lst.addresses
     device = lst.device
@@ -768,9 +990,15 @@ def _launch(entry, lst, mult, heads, feats, slope, salt, keep, tensors,
                for name, t in tensors.items()}
     for name, t in tensors.items():
         setattr(args, name, t.data_ptr())
+    if plan is not None:
+        args.task, args.split_runs = (plan.task.data_ptr(),
+                                      plan.split_runs.data_ptr())
+        args.n_tasks, args.n_runs = plan.n_tasks, plan.n_runs
     if n_split:
-        c = torch.empty((n_units + n_split * lst.parts) * carry_width,
-                        dtype=torch.float32, device=device)
+        records = (plan.n_runs if plan is not None
+                   else n_units + n_split * lst.parts)
+        c = torch.empty(records * carry_width, dtype=torch.float32,
+                        device=device)
         keep_alive.append(c)
         args.carry = c.data_ptr()
     tab, tabc = tensors["tab"], tensors.get("tabc")
@@ -861,6 +1089,45 @@ def attn_aggregate(lst: EdgeList, mult, tab, s_dst, rmax0, dinv, heads: int,
 attn_aggregate.launches = 0
 
 
+def attn_softmax_aggregate(lst: EdgeList, plan: SoftmaxPlan, mult, tab,
+                           s_dst, heads: int, feats: int, slope: float,
+                           salt=None, keep: float = 1.0):
+    """A1 and A2 as one walk over the row list ``lst`` with its ``plan``
+    (:func:`softmax_plan`): ``(rmax0, dinv, out)``, those of
+    :func:`attn_stats` and :func:`attn_aggregate`, each score gathered and
+    exponentiated once, a split row's pieces folded by rescaling to the
+    row's maximum.  CPU tensors take :func:`attn_softmax_aggregate_plain`;
+    CUDA tensors launch the walk and, where a row is split, the merge
+    (counted once in ``attn_softmax_aggregate.launches``); inputs the walk
+    cannot take (:func:`softmax_route`) raise."""
+    _check("attn_softmax_aggregate", lst, tab, heads, feats,
+           per_row=[(s_dst, heads)])
+    if tab.device.type == "cpu":
+        return attn_softmax_aggregate_plain(lst, plan, mult, tab, s_dst,
+                                            heads, feats, slope, salt, keep)
+    if plan is None or not _softmax_lanes(heads, feats):
+        raise ValueError(f"attn_softmax_aggregate takes a plan, at most 32 "
+                         f"heads, whole heads of lanes and at most 128 "
+                         f"feature vectors a row, not H={heads} F={feats} "
+                         f"plan={plan is not None}")
+    rmax0 = torch.empty(lst.n_rows, heads, dtype=torch.float32,
+                        device=tab.device)
+    dinv = torch.empty_like(rmax0)
+    out = torch.empty(lst.n_rows, heads * feats, dtype=torch.float32,
+                      device=tab.device)
+    if plan.n_tasks:
+        _launch("gnntf_attn_softmax_aggregate", lst, mult, heads, feats,
+                slope, salt, keep, dict(tab=tab, s_dst=s_dst, out=out,
+                                        out2=dinv, out3=rmax0),
+                _carry_width(heads * feats + 2 * heads),
+                feature_lanes(heads, feats), plan=plan)
+        attn_softmax_aggregate.launches += 1
+    return rmax0, dinv, out
+
+
+attn_softmax_aggregate.launches = 0
+
+
 def attn_bwd_rows(lst: EdgeList, mult, tab, s_dst, rmax0, dinv, g, heads: int,
                   feats: int, slope: float, salt=None, keep: float = 1.0,
                   rowdot=None):
@@ -930,5 +1197,7 @@ attn_bwd_cols.launches = 0
 # each kernel's wrapper and plain version, by name
 _KERNELS = {"attn_stats": (attn_stats, attn_stats_plain),
             "attn_aggregate": (attn_aggregate, attn_aggregate_plain),
+            "attn_softmax_aggregate": (attn_softmax_aggregate,
+                                       attn_softmax_aggregate_plain),
             "attn_bwd_rows": (attn_bwd_rows, attn_bwd_rows_plain),
             "attn_bwd_cols": (attn_bwd_cols, attn_bwd_cols_plain)}

@@ -5,7 +5,8 @@ NVIDIA GPU.
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 k2_sweep.py [--out FILE]
-                        [--kernels k1,k1s,k2,train,k2small,k2bf16]
+                        [--kernels k1,k1s,k2,train,k2small,k2bf16,
+                                   attn_sharded]
                         [--ab DIR] [--ab-small DIR] [--ab-attn DIR]
                         [--ab-route DIR] [--ab-bf16 DIR]
 
@@ -102,14 +103,25 @@ normalized lists (``blocked_layout``, forward and transposed) at F=1, 7
 and 64, with one call's device time by kernel from a profile.
 
 With ``--ab-attn DIR`` it times, in the same four processes, GAT's
-attention kernels A1-A4 (``csrc/attention.cu``) on ``chip_smoke.py``'s
-phase 2e lists (the benchmark graph with its self-loops, per-edge with a
-dropout draw at keep 0.4 and coalesced, 2,501,821 and 1,389,223 slots) at
-GAT's layer shapes (8 heads of 8; one head of 40): each kernel's
-CUDA-event mean of 20 calls and one call's device time by kernel (walk,
-parts, fix-up) from a profile; then one training step of GAT at
-``GATConfig`` on the benchmark graph: its device busy and wall time and
-A1-A4's share of the busy time, from a profile.
+attention kernels (``csrc/attention.cu``: A1-A4, and in a tree that has
+it the fused forward ``attn_softmax_aggregate``, ``csrc/softmax_walk.cuh``)
+on ``chip_smoke.py``'s phase 2e lists (the benchmark graph with its
+self-loops, per-edge with a dropout draw at keep 0.4 and coalesced,
+2,501,821 and 1,389,223 slots) at GAT's layer shapes (8 heads of 8; one
+head of 40): each kernel's CUDA-event mean of 20 calls and one call's
+device time by kernel (walk, parts, fix-up, merge) from a profile, and the
+forward as the tree routes it (``attn_forward``: A1 then A2, or the fused
+walk); then one training step and one serving forward of GAT at
+``GATConfig`` on the benchmark graph: device busy and wall time, launches,
+and the attention kernels' share of the busy time, from a profile.
+
+GAT's forward over gspmd slices (``--kernels attn_sharded``, not run by
+default): ``chip_smoke.py``'s phase 15b slices of the self-looped
+benchmark graph at GAT's layer shapes, per-edge with a dropout draw and
+coalesced; ``sharded_forward`` (A1 then A2 a slice, then the merge)
+against each slice's fused walk merged by rescaling to the rows' maxima
+(``rescale_merge``), both held to the whole graph's forward; each one's
+CUDA-event mean and one call's device time by kernel.
 
 With ``--ab-bf16 DIR`` it times, in the same four processes, K2's
 bfloat16 mode on the RCM benchmark graph's normalized forward list (phase
@@ -532,7 +544,11 @@ for dedup in (False, True):
         _, calls = cs.attn_calls(lists, h, ss, sd, g,
                                  None if dedup else salt,
                                  1.0 if dedup else cs.ATTN_KEEP)
-        for name in cs.ATTN_KERNELS:
+        tab = pa.pack_table(h.reshape(cs.N_NODES, -1), ss)
+        calls["forward"] = lambda: pa.attn_forward(
+            lists, tab, sd, heads, feats, cs.ATTN_SLOPE,
+            None if dedup else salt, 1.0 if dedup else cs.ATTN_KEEP)
+        for name in (*cs.ATTN_KERNELS, "forward"):
             rows, busy, _, _ = cs.device_profile(calls[name])
             print(json.dumps(dict(
                 tree=sys.argv[1], kernel=name, heads=heads, feats=feats,
@@ -546,19 +562,28 @@ features = np.random.RandomState(2).randn(
 model = config.GATConfig().build(graph, features, cs.N_CLASSES, device=dev)
 model.reset(seed=0)
 step = cs.step_fn(model, cs.fused_tasks()[0])
-for _ in range(3):
-    step()
-rows, busy, wall, _ = cs.device_profile(step)
-attn = {}
-for key, us, _ in rows:
-    if "attn_" in key:
-        name = cs.kernel_name(key)
-        attn[name] = attn.get(name, 0.0) + us
-print(json.dumps(dict(
-    tree=sys.argv[1], model="GAT", step_ms=cs.time_ms(step, reps=20),
-    busy_ms=busy / 1e3, wall_ms=wall / 1e3,
-    attn_share=sum(attn.values()) / busy, attn_us_by_kernel=attn)),
-    flush=True)
+
+
+def forward():
+    with torch.no_grad():
+        model.forward(model.features)
+
+
+for label, fn in (("step", step), ("forward", forward)):
+    for _ in range(3):
+        fn()
+    rows, busy, wall, _ = cs.device_profile(fn)
+    attn = {}
+    for key, us, _ in rows:
+        if "attn_" in key:
+            name = cs.kernel_name(key)
+            attn[name] = attn.get(name, 0.0) + us
+    print(json.dumps(dict(
+        tree=sys.argv[1], model="GAT", run=label,
+        ms=cs.time_ms(fn, reps=20), busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+        launches=sum(n for _, _, n in rows),
+        attn_share=sum(attn.values()) / busy, attn_us_by_kernel=attn)),
+        flush=True)
 """
 
 
@@ -978,6 +1003,92 @@ def _sweep_rings(blocked, lst, cpu_lst, val, xb, name, card):
     return lines
 
 
+def rescale_merge(ranks, tab, s_dst, heads, feats, slope, salt, keep):
+    """The forward over the slices in ``ranks`` (:class:`AttnLists` each)
+    as each slice's fused walk (``attn_softmax_aggregate``, its own rmax0
+    m_r, dinv_r and out_r), merged by rescaling: ``M = max m_r`` over the
+    slices that hold the row, ``f_r = exp(m_r - M) / dinv_r``, ``dinv = 1 /
+    sum f_r``, ``out = (sum out_r f_r) dinv`` per head; the same three
+    reductions (max, sum, sum) as ``sharded_forward``, folded in rank
+    order."""
+    from gnntf_tpu_torch.ops import attention as pa
+    per = [pa.attn_softmax_aggregate(lst.rows, lst.plan, lst.mult, tab,
+                                     s_dst, heads, feats, slope, salt, keep)
+           for lst in ranks]
+    held = [pa.row_held(lst.rows) for lst in ranks]
+    ninf = tab.new_full((), float("-inf"))
+    mx = pa.folded([torch.where(hd, m, ninf)
+                    for (m, _, _), hd in zip(per, held)], "max")
+    rmax0 = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    f = [torch.where(hd, torch.exp(m - rmax0) / di, torch.zeros_like(di))
+         for (m, di, _), hd in zip(per, held)]
+    dinv = 1.0 / pa.folded(f, "sum").clamp(min=1e-30)
+    n = tab.shape[0]
+    out = pa.folded([(o.view(n, heads, feats) * fr[:, :, None]).view(n, -1)
+                     for (_, _, o), fr in zip(per, f)], "sum")
+    out = (out.view(n, heads, feats) * dinv[:, :, None]).view(n, -1)
+    return dict(rmax0=rmax0, dinv=dinv, out=out)
+
+
+def sweep_attn_sharded(dev, card):
+    """``--kernels attn_sharded``: GAT's forward over ``chip_smoke.py``'s
+    phase 15b gspmd slices (the self-looped bench graph cut into
+    ``MESH_PARTS`` slices of its edge list, as ``RankSlice`` builds each
+    rank's lists) at GAT's layer shapes, per-edge with a dropout draw and
+    coalesced: ``sharded_forward`` (A1 then A2 a slice, merged) against
+    :func:`rescale_merge` (the fused walk a slice, merged by rescaling),
+    in the order A1+A2, rescale, rescale, A1+A2; each held to the whole
+    graph's forward within ``KERNEL_RTOL`` of its terms' magnitudes."""
+    import chip_smoke as cs
+    import gnntf_tpu_torch as tt
+    from gnntf_tpu_torch.data import random_power_law_edges
+    from gnntf_tpu_torch.ops import attention as pa
+    from gnntf_tpu_torch.parallel.dist import RankSlice
+    src, dst = random_power_law_edges(N_NODES, N_EDGES, seed=0)
+    graph = tt.add_self_loops(tt.from_edges(src, dst, n_nodes=N_NODES,
+                                            directed=False, device=dev))
+    per = -(-graph.n_edges // cs.MESH_PARTS)
+    slices = [RankSlice(graph.row[r * per:(r + 1) * per],
+                        graph.col[r * per:(r + 1) * per], r * per, r * per,
+                        N_NODES, dev) for r in range(cs.MESH_PARTS)]
+    salt = torch.tensor([0x9E3779B9, 77], device=dev)
+    lines = []
+    for dedup in (False, True):
+        ranks = [sl.attention(dedup=dedup) for sl in slices]
+        whole = pa._attn_lists(graph, dedup=dedup)
+        draw = (None, 1.0) if dedup else (salt, cs.ATTN_KEEP)
+        for heads, feats in cs.GAT_SHAPES:
+            h, ss, sd, _ = cs.attn_inputs(N_NODES, heads, feats, dev,
+                                          28 + heads)
+            tab = pa.pack_table(h.reshape(N_NODES, -1), ss)
+            args = (tab, sd, heads, feats, cs.ATTN_SLOPE, *draw)
+            want = pa.attn_forward(whole, *args)
+            scales = pa.attn_error_scales(
+                whole, tab, sd, want["rmax0"], want["dinv"],
+                torch.zeros(N_NODES, heads * feats, device=dev),
+                want["rmax0"], heads, feats, cs.ATTN_SLOPE, *draw)
+            runs = {
+                "a1_a2": lambda: pa.sharded_forward(ranks, *args,
+                                                    reduce=pa.folded),
+                "rescale": lambda: rescale_merge(ranks, *args)}
+            common = dict(heads=heads, feats=feats, parts=cs.MESH_PARTS,
+                          lists="coalesced" if dedup else "per_edge",
+                          slots=sum(r.rows.n_edges for r in ranks),
+                          card=card)
+            for name in ("a1_a2", "rescale"):
+                got = runs[name]()
+                err = {k: check_close(f"sharded forward {name} {k} "
+                                      f"H={heads} F={feats} dedup={dedup}",
+                                      got[k], want[k], scales[k])
+                       for k in ("rmax0", "dinv", "out")}
+                lines.append(dict(common, kernel=f"sharded_{name}",
+                                  max_abs_err=err))
+            for name in ("a1_a2", "rescale", "rescale", "a1_a2"):
+                lines += _time_runs(dict(common, kernel=f"sharded_{name}"),
+                                    runs[name])
+    return lines
+
+
 def _time_runs(fields, run):
     """A one-line list: ``fields`` with ``run``'s CUDA-event mean and one
     call's device time by kernel."""
@@ -993,8 +1104,8 @@ def main():
     parser.add_argument("--out", help="also write the JSON lines here")
     parser.add_argument("--kernels", default="k1,k2,train",
                         help="which sweeps to run (k1, k1s: K1's scaled "
-                             "walk alone, k2, train, k2small, k2bf16; "
-                             "comma-separated)")
+                             "walk alone, k2, train, k2small, k2bf16, "
+                             "attn_sharded; comma-separated)")
     parser.add_argument("--ab", metavar="DIR",
                         help="time the dropout walks of this tree and of "
                              "the checkout in DIR in turn, and nothing else")
@@ -1003,9 +1114,9 @@ def main():
                              "of this tree and of the checkout in DIR in "
                              "turn, and nothing else")
     parser.add_argument("--ab-attn", metavar="DIR",
-                        help="time the attention kernels A1-A4 and a GAT "
-                             "step of this tree and of the checkout in DIR "
-                             "in turn, and nothing else")
+                        help="time the attention kernels, the forward and "
+                             "a GAT step and forward of this tree and of the "
+                             "checkout in DIR in turn, and nothing else")
     parser.add_argument("--ab-bf16", metavar="DIR",
                         help="time K2's bfloat16 mode (the product, its "
                              "walk, the cast, the float32 walk) of this tree "
@@ -1040,6 +1151,8 @@ def main():
     lines = sweep_small(dev, card) if "k2small" in which else []
     if "k2bf16" in which:
         lines += sweep_bf16(dev, card)
+    if "attn_sharded" in which:
+        lines += sweep_attn_sharded(dev, card)
     if not which & {"k1", "k1s", "k2", "train"}:
         write(args.out, lines)
         return

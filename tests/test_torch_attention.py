@@ -266,11 +266,13 @@ def test_coalesced_lists_carry_the_multiplicities():
     assert per_edge.mult is None and per_edge.rows.n_edges == pg.n_edges
 
 
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("drop", [0.0, 0.5])
-def test_kernel_plain_versions_sum_split_rows_in_parts(drop):
+def test_kernel_plain_versions_sum_split_rows_in_parts(drop, fused):
     """The plain versions on lists cut into small units (so the hub row
-    spans many pieces) equal the same on one unit a row, up to the order
-    of the sums: the split rows' fix-up is a reordering only."""
+    spans many pieces) equal A1-A4's on one unit a row, up to the order of
+    the sums: the split rows' fix-up (A1 and A2, ``fused`` False) and the
+    fused walk's fold of the pieces (``fused``) are reorderings only."""
     _, pg = _graphs(seed=2, hub=True)
     h, ss, sd = (torch.from_numpy(v) for v in _inputs(pg.n_nodes))
     salt = torch.tensor(SALT.astype(np.int64)) if drop else None
@@ -283,7 +285,9 @@ def test_kernel_plain_versions_sum_split_rows_in_parts(drop):
         if items == 4:
             assert lists.rows.split.shape[0] > 0
             assert lists.cols.split.shape[0] > 0
-        outs.append(pa.attn_chain(lists, h, ss, sd, g, 0.2, salt, 1 - drop))
+        outs.append(pa.attn_chain(lists, h, ss, sd, g, 0.2, salt, 1 - drop,
+                                  fused=fused if items == 4 else None))
+    assert pa.softmax_route(lists, 4, 8) is False  # one unit a row: A1, A2
     for name in outs[0]:
         np.testing.assert_allclose(outs[0][name].numpy(),
                                    outs[1][name].numpy(), rtol=1e-5,

@@ -17,7 +17,16 @@ JAX, so it runs where JAX is not installed:
   per-edge with a salt and coalesced, with split rows; each A3 and A4 call
   launches at most three kernels (its walk, parts and fix-up, by a
   profile's kernel names);
-* a GAT training run on the card against the CPU without dropout.
+* the forward as one walk (``attn_softmax_aggregate``,
+  ``csrc/softmax_walk.cuh``) against its plain version at GAT's layer
+  shapes and at 41 features, both list flavours, with and without dropout,
+  within ``1e-5 * sum|terms|``; two launches bit-equal; its rows that no
+  unit splits bit-equal to A1's and A2's; one launch a forward without
+  split rows, two (the walk, the merge) with them, by a profile;
+* A1 then A2 (the forward of a rank's slice of the edges) against their
+  plain versions;
+* a GAT training run on the card against the CPU without dropout, its
+  forward through the fused walk.
 
 Every test skips without a card.
 """
@@ -61,10 +70,12 @@ def _inputs(n, heads, feats, device, seed=1):
     return t(n, heads, feats), t(n, heads), t(n, heads), t(n, heads * feats)
 
 
-def _chain(lists, h, ss, sd, g, salt, keep, plain):
-    """A1-A4 in the autograd Function's order, through the wrappers or the
+def _chain(lists, h, ss, sd, g, salt, keep, plain, fused=None):
+    """The forward (the fused walk, or with ``fused=False`` A1 then A2) and
+    A3-A4 in the autograd Function's order, through the wrappers or the
     plain versions."""
-    return pa.attn_chain(lists, h, ss, sd, g, 0.2, salt, keep, plain=plain)
+    return pa.attn_chain(lists, h, ss, sd, g, 0.2, salt, keep, fused=fused,
+                         plain=plain)
 
 
 @pytest.mark.cuda
@@ -95,6 +106,78 @@ def test_kernels_match_plain_on_card(cuda, dedup, heads, feats):
     again = _chain(lists, h, ss, sd, g, salt, keep, plain=False)
     for name in NAMES:
         assert torch.equal(again[name], got[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("heads,feats", [(8, 8), (1, 40)])
+def test_split_forward_matches_plain_on_card(cuda, dedup, heads, feats):
+    """A1 then A2 (what a slice of the edges runs) against their plain
+    versions, each on its kernel's inputs; two launches bit-equal."""
+    src, dst, n = _graph(seed=7)
+    lists = pa.attn_lists(np.concatenate([src, dst]),
+                          np.concatenate([dst, src]), n, cuda, dedup=dedup)
+    h, ss, sd, _ = _inputs(n, heads, feats, cuda, seed=8)
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    salt, keep = ((None, 1.0) if dedup else
+                  (torch.tensor([0x9E3779B9, 77], device=cuda), 0.4))
+    got = pa.attn_forward(lists, tab, sd, heads, feats, 0.2, salt, keep,
+                          fused=False)
+    torch.cuda.synchronize()
+    ref = pa.attn_forward(lists, tab, sd, heads, feats, 0.2, salt, keep,
+                          fused=False, plain=True, given=got)
+    g = torch.zeros(n, heads * feats, device=cuda)
+    scales = pa.attn_error_scales(lists, tab, sd, got["rmax0"], got["dinv"],
+                                  g, got["rmax0"], heads, feats, 0.2, salt,
+                                  keep)
+    again = pa.attn_forward(lists, tab, sd, heads, feats, 0.2, salt, keep,
+                            fused=False)
+    for name in ("rmax0", "dinv", "out"):
+        _within(name, got[name], ref[name], scales[name])
+        assert torch.equal(again[name], got[name]), name
+
+
+def _fused_inputs(cuda, dedup, heads, feats, seed=11):
+    src, dst, n = _graph(seed=seed)
+    lists = pa.attn_lists(np.concatenate([src, dst]),
+                          np.concatenate([dst, src]), n, cuda, dedup=dedup)
+    h, ss, sd, _ = _inputs(n, heads, feats, cuda, seed=seed + 1)
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    return lists, tab, sd, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [True, False])
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("heads,feats", [(8, 8), (1, 40), (1, 41)])
+def test_fused_forward_matches_plain_on_card(cuda, heads, feats, dedup,
+                                             drop):
+    """The fused walk against its plain version within ``1e-5 *
+    sum|terms|``, two launches bit-equal, and the rows that no unit splits
+    bit-equal to A1's and A2's kernels."""
+    lists, tab, sd, n = _fused_inputs(cuda, dedup, heads, feats)
+    assert lists.rows.split.shape[0] > 0 and pa.softmax_route(lists, heads,
+                                                              feats)
+    salt, keep = ((torch.tensor([0x2545F491, 3], device=cuda), 0.4) if drop
+                  else (None, 1.0))
+    args = (lists.rows, lists.plan, lists.mult, tab, sd, heads, feats, 0.2,
+            salt, keep)
+    got = pa.attn_softmax_aggregate(*args)
+    torch.cuda.synchronize()
+    ref = pa.attn_softmax_aggregate_plain(*args)
+    again = pa.attn_softmax_aggregate(*args)
+    split = pa.attn_forward(lists, tab, sd, heads, feats, 0.2, salt, keep,
+                            fused=False)
+    g = torch.zeros(n, heads * feats, device=cuda)
+    scales = pa.attn_error_scales(lists, tab, sd, ref[0], ref[1], g, ref[0],
+                                  heads, feats, 0.2, salt, keep)
+    whole = torch.ones(n, dtype=torch.bool, device=cuda)
+    whole[lists.rows.split[:, 0].long()] = False
+    for name, a, b, c in zip(("rmax0", "dinv", "out"), got, ref, again):
+        _within(name, a, b, scales[name])
+        assert torch.equal(a, c), name
+        assert torch.equal(a[whole], split[name][whole]), name
+    assert torch.equal(got[2][n - 1], torch.zeros_like(got[2][0]))
 
 
 def _kernel_launches(fn):
@@ -211,6 +294,34 @@ def test_backward_calls_launch_at_most_three_kernels(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split,kernels", [
+    (True, {"attn_softmax_aggregate_walk": 1,
+            "attn_softmax_aggregate_merge": 1}),
+    (False, {"attn_softmax_aggregate_walk": 1})])
+def test_forward_launches_at_most_two_kernels(cuda, split, kernels):
+    """One forward: the fused walk and, where a row is split (the hub
+    graph), the merge; a graph whose rows hold at most 32 slots (units of
+    32 items split none) launches the walk alone."""
+    if split:
+        src, dst, n = _graph(seed=9)
+    else:
+        rng = np.random.RandomState(9)
+        n = 3000
+        src, dst = rng.randint(0, n, 12_000), rng.randint(0, n, 12_000)
+    lists = pa.attn_lists(np.concatenate([src, dst]),
+                          np.concatenate([dst, src]), n, cuda)
+    assert (lists.rows.split.shape[0] > 0) == split
+    h, ss, sd, _ = _inputs(n, 8, 8, cuda, seed=10)
+    tab = pa.pack_table(h.reshape(n, -1), ss)
+    salt = torch.tensor([5, 6], device=cuda)
+    forward = lambda: pa.attn_forward(lists, tab, sd, 8, 8, 0.2, salt, 0.4)
+    before = pa.attn_softmax_aggregate.launches
+    forward()
+    assert pa.attn_softmax_aggregate.launches == before + 1
+    assert _kernel_launches(forward) == kernels
+
+
+@pytest.mark.cuda
 def test_replay_reads_the_salt_buffer(cuda):
     """A2 and A4 captured in a CUDA graph read the salts from device
     memory at each replay: after the buffer is rewritten, the replay equals
@@ -239,17 +350,18 @@ def test_replay_reads_the_salt_buffer(cuda):
 @pytest.mark.cuda
 def test_gat_training_on_card_matches_cpu(cuda):
     """GAT without feature or attention dropout on a graph above the grid
-    gate: 2 epochs on the card (A1 and A2 in each layer of a forward, A3
-    and A4 in each layer of a step's backward) and on the CPU from the same
-    weights; losses within rtol=1e-4 (float32, sums in another order)."""
+    gate: 2 epochs on the card (the fused walk in each layer of a forward,
+    A3 and A4 in each layer of a step's backward) and on the CPU from the
+    same weights; losses within rtol=1e-4 (float32, sums in another
+    order)."""
     from gnntf_tpu_torch.data import random_power_law_edges
     n = 5000
     src, dst = random_power_law_edges(n, 40_000, seed=0)
     rng = np.random.RandomState(1)
     features = rng.randn(n, 16).astype(np.float32)
     labels = rng.randint(0, 6, n)
-    names = ("attn_stats", "attn_aggregate", "attn_bwd_rows",
-             "attn_bwd_cols")
+    names = ("attn_stats", "attn_aggregate", "attn_softmax_aggregate",
+             "attn_bwd_rows", "attn_bwd_cols")
     init, hist = None, {}
     for device in ("cpu", cuda):
         graph = tt.from_edges(src, dst, n_nodes=n, directed=False,
@@ -268,8 +380,8 @@ def test_gat_training_on_card_matches_cpu(cuda):
                     for name, b in zip(names, before)]
         # an epoch: two layers in the step's forward and backward and in
         # the validation forward
-        assert launched == ([8, 8, 4, 4] if model.device.type == "cuda"
-                            else [0, 0, 0, 0])
+        assert launched == ([0, 0, 8, 4, 4] if model.device.type == "cuda"
+                            else [0, 0, 0, 0, 0])
     assert stochastic.min_edges() <= 2 * 40_000
     for key in ("train_loss", "valid_loss"):
         np.testing.assert_allclose(hist["cuda"][key], hist["cpu"][key],

@@ -63,7 +63,7 @@ def _step_kernels(model, labels):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,walk", [("APPNP", "blocked_spmm_walk"),
-                                       ("GAT", "attn_aggregate_walk")])
+                                       ("GAT", "attn_softmax_aggregate_walk")])
 def test_small_graph_step_launches_no_index_add(cuda, name, walk):
     g, feats, labels = _data(cuda)
     model = getattr(tt, name)(g, feats, num_classes=CLASSES, device=cuda)
