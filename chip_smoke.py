@@ -39,17 +39,21 @@ Phases (any failure raises and exits non-zero):
    column split over many units of work, and the layout of the
    RCM-reordered benchmark graph at F=40 and F=128 (each direction beside
    the cuSPARSE CSR product of A or A^T), with the layout's statistics;
-2c. the same for K1's dropout walks (``csrc/drop_walk.cuh``): the masked
-   walk (each edge weighted by its dropped value, the mask hashed in the
-   kernel, only kept edges' x rows gathered) over the training grids' row
-   list (the step's forward) and column list (its backward), and the
-   degree walk (the dropped graph's column sums): a small graph with empty
+2c. the same for K1's dropout walks: the masked walk
+   (``csrc/drop_walk.cuh``: each edge weighted by its dropped value, the
+   mask hashed in the kernel, only kept edges' x rows gathered) over the
+   training grids' row list (the step's forward) and column list (its
+   backward), and the degree walk (``csrc/degree_walk.cuh``: the dropped
+   graph's column or row sums over equal shares of the list's edges,
+   bit-equal to its plain version on the card, in at most two kernels a
+   call, over float32 and bfloat16 values): a small graph with empty
    rows and columns, a hub row and column split over many units, trailing
    self-loops (``n_drop < E``) and ``keep = 1``, and the benchmark graph's
    lists at F=40, F=64 and F=128 beside ``torch.sparse.mm`` of the dropped
-   A in CSR and ``index_add_`` of the dropped values, each call's device
-   time by kernel (the masked walk's two passes and its flag's memset,
-   the degree walk) from the profiler, the share bit-equal to the plain
+   A in CSR and ``index_add_`` of the dropped values (the degree walk also
+   beside ``sparse.mm`` of a column of ones), each call's device time by
+   kernel (the masked walk's two passes and its flag's memset, the degree
+   walk and its fold) from the profiler, the share bit-equal to the plain
    versions on the CPU at F=40 (all of it); an inf and a NaN in x rows
    that only dropped edges read (the masked walk's second pass then
    gathers every edge's row: NaNs where the plain version's are); then
@@ -292,6 +296,10 @@ PEAK_FP32_FLOPS = 67e12
 HASH_OPS = 21
 # the draw of the masked kernels' checks: keep rate of APPNP's edge dropout
 KEEP = 0.5
+# K1's degree walk (csrc/degree_walk.cuh) in a profile: the walk, and the
+# fold of the rows that cross a block's share (at most these two a call)
+DEGREE_WALK = "ell_degree_share_walk"
+DEGREE_FOLD = "ell_degree_share_fold"
 # kernel vs plain version on the card, per element, relative to the sum of
 # the magnitudes of the element's terms (the scale of float32 summation
 # error; the result itself may cancel).  Neither kernel uses atomics: each
@@ -470,7 +478,8 @@ class ProfiledSpan:
 
 def kernel_name(key):
     """A profiled kernel's name without namespace, template arguments and
-    parameters (``ell_degree_walk``, ``blocked_spmm_walk``, ...)."""
+    parameters (``ell_degree_share_walk``, ``blocked_spmm_walk``,
+    ...)."""
     return key.split("(anonymous namespace)::")[-1].split("<")[0].split(
         "(")[0]
 
@@ -963,17 +972,30 @@ def check_masked_kernel(label, lst, val, draw, x=None, library=False):
     torch.cuda.synchronize()
     ref = plain_fn()
     err = check_close(f"{label}", out, ref, scale)
+    # the degree walk sums in its plain version's order (shares, lanes,
+    # blocks), so it is bit-equal to it on the card
+    if x is None and not torch.equal(out, ref):
+        raise AssertionError(f"{label}: the degree walk is not bit-equal to "
+                             "its plain version")
 
     def plain():
         stochastic._last_draw = None  # hash anew, as a new draw would
         return plain_fn()
 
-    res = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain))
-    # one call's device time by kernel: the masked walk's two passes (and
-    # its flag's memset), or the degree walk
+    res = dict(max_abs_err=err, ms=time_ms(kernel))
+    # one call's device time by kernel, right after the kernel's own calls
+    # (as the library call's below): the masked walk's two passes (and its
+    # flag's memset), or the degree walk and its fold
     rows, busy_us, _, _ = device_profile(kernel)
+    res["plain_ms"] = time_ms(plain)
     res["device_ms"] = busy_us / 1e3
     res["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
+    res["kernels_a_call"] = sum(n for _, _, n in rows)
+    if x is None and (res["kernels_a_call"] > 2 or any(
+            kernel_name(key) not in (DEGREE_WALK, DEGREE_FOLD)
+            for key, _, _ in rows)):
+        raise AssertionError(f"{label}: a degree call ran {rows}, expected "
+                             f"{DEGREE_WALK} and at most {DEGREE_FOLD}")
     kept = stochastic.keep_mask(list_eids(lst) + sum(base), draw[0],
                                 draw[1], draw[2])
     res["bound_ms"], res["bound_by"], n_bytes = masked_bound(
@@ -1068,6 +1090,9 @@ def phase_masked_kernels(graph, dev, x40, x64, x128):
         small["degree"] = check_masked_kernel(
             f"degree small column list keep={keep}", cols, val,
             (salt, keep, n_drop))
+    small["degree_bf16"] = check_masked_kernel(
+        "degree small row list bf16 values", rows, val.to(torch.bfloat16),
+        (salt, 0.3, n_drop))
 
     t0 = time.perf_counter()
     grids = build_train_grids(graph.row.cpu().numpy(),
@@ -1101,6 +1126,11 @@ def phase_masked_kernels(graph, dev, x40, x64, x128):
                                         draw, library=True)
     res["degree_row"] = check_masked_kernel("degree bench row list", rows,
                                             val, draw, library=True)
+    vb = val.to(torch.bfloat16)
+    res["degree_bf16"] = check_masked_kernel(
+        "degree bench column list bf16 values", cols, vb, draw, library=True)
+    res["degree_row_bf16"] = check_masked_kernel(
+        "degree bench row list bf16 values", rows, vb, draw, library=True)
     # the kernels round as the plain versions do on the CPU, in their order
     shares = dict(
         forward_f40=cpu_share("masked bench row list F=40",
@@ -1127,7 +1157,8 @@ def phase_masked_kernels(graph, dev, x40, x64, x128):
                 forward_gcn=res["forward", 64],
                 backward_gcn=res["backward", 64],
                 degree=res["degree"], degree_row=res["degree_row"],
-                lists=stats)
+                degree_bf16=res["degree_bf16"],
+                degree_row_bf16=res["degree_row_bf16"], lists=stats)
 
 
 def check_nonfinite(rows, cols, val, draw, x):
@@ -1361,7 +1392,7 @@ def profile_step(step, top=10):
     index_add_us, index_add_launches = family("indexFunc", "index_add")
     walks = {name: family(name)[1] for name in (
         "blocked_spmm_walk", "blocked_spmm_walk_narrow",
-        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
+        "ell_gather_masked_walk", DEGREE_WALK, "ell_gather_walk",
         "ell_gather_scaled_walk", "ell_gather_scaled_bwd_walk")}
     shares = {name: family(tag)[0] / busy_us for name, tag in (
         ("k2", "blocked_spmm"), ("masked", "ell_gather_masked"),
@@ -1378,12 +1409,14 @@ def profile_step(step, top=10):
     log_kernels("K1 degree", rows, "ell_degree")
     return dict(busy_us=busy_us, wall_us=wall_us,
                 launches=sum(r[2] for r in rows),
+                degree_kernels=family("ell_degree")[1],
+                degree_us=family("ell_degree")[0],
                 index_add_share=index_add_us / busy_us,
                 index_add_launches=index_add_launches, shares=shares,
                 k2_walks=walks["blocked_spmm_walk"],
                 narrow_walks=walks["blocked_spmm_walk_narrow"],
                 masked_walks=walks["ell_gather_masked_walk"],
-                degree_walks=walks["ell_degree_walk"],
+                degree_walks=walks[DEGREE_WALK],
                 k1_walks=walks["ell_gather_walk"],
                 k1s_walks=walks["ell_gather_scaled_walk"],
                 k1s_backward_walks=walks["ell_gather_scaled_bwd_walk"],
@@ -1881,6 +1914,10 @@ def phase_default_train(graph, features, dev):
         raise AssertionError(f"step profile {profile}: expected no "
                              "index_add_, no K2, 20 masked and 10 degree "
                              "walks")
+    if profile["degree_kernels"] > 2 * profile["degree_walks"]:
+        raise AssertionError(f"step profile: {profile['degree_kernels']} "
+                             f"degree kernels for {profile['degree_walks']} "
+                             "calls, expected at most 2 a call")
     log(f"training step (forward + backward, default impl) ms "
         f"{timings['step_ms']}, validation forward ms "
         f"{timings['eval_forward_ms']}")
@@ -1964,7 +2001,7 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
     rows = profiled["rows"]
     count = lambda tag: sum(r[2] for r in rows if tag in r[0])
     walks = {tag: count(tag) / replays for tag in (
-        "ell_gather_masked_walk", "ell_degree_walk", "ell_gather_walk",
+        "ell_gather_masked_walk", DEGREE_WALK, "ell_gather_walk",
         "ell_gather_scaled_walk", "ell_gather_scaled_bwd_walk",
         "blocked_spmm_walk", *ATTN_WALKS)}
     index_add = (count("indexFunc") + count("index_add")) / replays
@@ -1984,11 +2021,11 @@ def replay_profile(label, take, want, replays=FUSED_BLOCK):
 
 # walks a replayed epoch: the profile's kernel names
 REPLAY_WALKS = {
-    None: {"ell_gather_masked_walk": 20, "ell_degree_walk": 10,
+    None: {"ell_gather_masked_walk": 20, DEGREE_WALK: 10,
            "ell_gather_walk": 0, "ell_gather_scaled_walk": 10,
            "ell_gather_scaled_bwd_walk": 0, "blocked_spmm_walk": 0,
            "index_add": 0},
-    "pallas": {"ell_gather_masked_walk": 0, "ell_degree_walk": 10,
+    "pallas": {"ell_gather_masked_walk": 0, DEGREE_WALK: 10,
                "ell_gather_walk": 0, "ell_gather_scaled_walk": 0,
                "ell_gather_scaled_bwd_walk": 0, "blocked_spmm_walk": 30,
                "index_add": 0}}
@@ -3489,7 +3526,7 @@ LP_MEAN_NODES = 200
 LP_LAUNCHES = dict(NO_LAUNCHES, k1s=6, backward=2)
 LP_REPLAY = {"ell_gather_scaled_walk": 6, "ell_gather_scaled_bwd_walk": 2,
              "blocked_spmm_walk": 0,
-             "ell_gather_masked_walk": 0, "ell_degree_walk": 0,
+             "ell_gather_masked_walk": 0, DEGREE_WALK: 0,
              "index_add": 2}
 # fused vs host loop on the card, NGCF without its output regularization
 # (``without_output_regularization``): edge_dot's backward scatters with
@@ -4547,7 +4584,7 @@ WALK_COUNTERS = {"ell_gather_walk": ("k1",),
                  "ell_gather_scaled_walk": ("k1s",),
                  "ell_gather_scaled_bwd_walk": ("backward",),
                  "ell_gather_masked_walk": ("masked",),
-                 "ell_degree_walk": ("degree",),
+                 DEGREE_WALK: ("degree",),
                  "blocked_spmm_walk": ("k2",)}
 
 
@@ -4761,7 +4798,7 @@ def phase_fused_gaps(graph, features, dev):
                           PHASE16_EPOCHS, PHASE16_BLOCK, optimizer=make())
         walks = case["walks_per_replay"]
         if walks["ell_gather_masked_walk"] <= 0 or (
-                walks["ell_degree_walk"] <= 0):
+                walks[DEGREE_WALK] <= 0):
             raise AssertionError(f"16c {name}: no masked or degree walk in "
                                  f"a replay: {walks}")
         out["16c"][name] = case
@@ -5345,16 +5382,18 @@ def main(dev=None):
                                  "masked"),
               "hier": hier_entry(hier_products, multihost, "lazy", "masked")}
     entry4 = {"name": "ell_degree_masked", "route": "cuda",
-              "source": "gnntf_tpu_torch/csrc/ell_gather.cu",
+              "source": "gnntf_tpu_torch/csrc/degree_walk.cuh",
               "replaces": "gnntf_tpu/ops/pallas/dma_gather.py:40",
               "launches": default["launches"]["degree"], **masked["degree"],
               "shape": f"bench training grids' column list, E={graph.n_edges} "
                        f"edges, N=169343, keep {KEEP}",
-              "fused": fused_launches(fused, "ell_degree_walk", "degree"),
-              "fused_gaps": gaps_entry(gaps, "ell_degree_walk", (
+              "fused": fused_launches(fused, DEGREE_WALK, "degree"),
+              "fused_gaps": gaps_entry(gaps, DEGREE_WALK, (
                   "16c_sgd_momentum", "16c_optax_adam")),
               **kernel_launches(gcnii, gcn, "degree"),
               "row_list": masked["degree_row"],
+              "bf16_values": dict(masked["degree_bf16"],
+                                  row_list=masked["degree_row_bf16"]),
               "gspmd_slices": slice_entry(slices, multihost, "degree")}
     attn_entries = attention_entries(attention, gat, slices)
     for e in attn_entries:

@@ -1,6 +1,5 @@
-// K1's two dropout walks over a training grid's list (ell_gather.cu): the
-// masked walk, out[r] = sum_e w(eid[e]) * x[idx[e]] over row r's edges, and
-// the degree walk, deg[r] = sum_e w(eid[e]), where w(id) is the edge's
+// K1's masked walk over a training grid's list (ell_gather.cu), out[r] =
+// sum_e w(eid[e]) * x[idx[e]] over row r's edges, where w(id) is the edge's
 // dropped value under the draw (Mask):
 //
 //     w = keep(id) ? val[id] * scale(id) : +0,
@@ -34,13 +33,11 @@
 //    That is one or two rounds of loads a chunk of 32 * kBatches edges,
 //    where edge_walk.cuh's walk chains one a batch of `group` edges and
 //    one a row end.
-// 2. Sum.  Masked: the warp's lanes form 32 / group sub-groups of `group`
-//    lanes (F / 4 with float4 rows); the tile's segments are shared out to
-//    them in runs of about equal kept counts, and each sub-group sums its
-//    run in list order, kRing x rows in flight, the lanes spanning the
-//    features; only kept edges' rows are gathered.  Degree: lane i sums
-//    segment i (and i + 32, ...) from shared memory; no lane runs a sum
-//    whose result is thrown away.
+// 2. Sum.  The warp's lanes form 32 / group sub-groups of `group` lanes
+//    (F / 4 with float4 rows); the tile's segments are shared out to them
+//    in runs of about equal kept counts, and each sub-group sums its run in
+//    list order, kRing x rows in flight, the lanes spanning the features;
+//    only kept edges' rows are gathered.
 // A piece's sum goes to its carry, and edge_walk's parts and fix-up
 // kernels add a split row's pieces after the walk, as for K1 and K2.
 // (Finishing split rows inside the walk's launch measured slower on the
@@ -48,8 +45,8 @@
 // behind a counter, in the tile loop, whose registers the sums' code then
 // took; and warps summing the split rows once every tile was claimed from
 // a counter, which left a tail after the last tile.  So did the next
-// tile's loads issued before this tile's sum, and the degree walk's
-// segments shared out by kept counts: PERF.md.)
+// tile's loads issued before this tile's sum: PERF.md.)  The degree walk,
+// a sum of width one, has a design of its own (degree_walk.cuh).
 //
 // Leaving a dropped edge out adds nothing that changes a bit: its term is
 // +0 * x = +-0 for a finite x, and a sum that starts at +0 is never -0, so
@@ -61,7 +58,7 @@
 // then walks again staging every edge, the dropped ones with weight +0, so
 // their +0 * x terms are added as the plain version adds them.  The flag
 // is device memory, zeroed before pass 0, so a CUDA graph replay takes each
-// replay's x.  The degree walk has no x and one pass.
+// replay's x.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,12 +129,11 @@ struct Pass {
 };
 
 // A warp's words of shared memory: each edge's place in the kept list (and
-// the count at the end), the kept edges' sources (masked walk) and weights,
-// each segment's end in the kept list and its output, and the sub-groups'
-// first segments.
-__host__ __device__ inline int stage_words(int cap_edges, int cap_segs,
-                                           bool sources) {
-  return (cap_edges + 1) + (sources ? 2 : 1) * cap_edges + 2 * cap_segs + 33;
+// the count at the end), the kept edges' sources and weights, each
+// segment's end in the kept list and its output, and the sub-groups' first
+// segments.
+__host__ __device__ inline int stage_words(int cap_edges, int cap_segs) {
+  return (cap_edges + 1) + 2 * cap_edges + 2 * cap_segs + 33;
 }
 
 template <typename T>
@@ -186,9 +182,9 @@ __device__ __forceinline__ int share(const int* seg, int k, int n_kept,
   return min(ng - 1, seg[k - 1] * ng / n_kept);
 }
 
-// kX: the masked walk (sources, x, out of fv T's a row); else the degree
-// walk (one float a row, one pass).  V: the base values' type.
-template <typename T, bool kX, typename V>
+// T: a row's float or float4 (out and x hold fv of them a row); V: the
+// base values' type.
+template <typename T, typename V>
 __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
                                      const Mask& m, const Pass& p) {
   extern __shared__ int smem[];
@@ -200,21 +196,19 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
   // an inf or a NaN) stages every edge
   bool all = false, bad = false;
   long long ci = 0, ci_end = 0;
-  if constexpr (kX) {
-    if (p.pass == 1) {
-      if (*p.flag == 0) return;
-      all = true;
-    } else {
-      const long long warps = (long long)gridDim.x * kWarps;
-      const long long per = (p.n_x + warps - 1) / warps;
-      const long long at = ((long long)blockIdx.x * kWarps + warp) * per;
-      ci = at + lane;
-      ci_end = min(p.n_x, at + per);
-    }
+  if (p.pass == 1) {
+    if (*p.flag == 0) return;
+    all = true;
+  } else {
+    const long long warps = (long long)gridDim.x * kWarps;
+    const long long per = (p.n_x + warps - 1) / warps;
+    const long long at = ((long long)blockIdx.x * kWarps + warp) * per;
+    ci = at + lane;
+    ci_end = min(p.n_x, at + per);
   }
-  int* kpos = smem + warp * stage_words(t.cap_edges, t.cap_segs, kX);
+  int* kpos = smem + warp * stage_words(t.cap_edges, t.cap_segs);
   int* src = kpos + t.cap_edges + 1;
-  float* w = reinterpret_cast<float*>(src + (kX ? t.cap_edges : 0));
+  float* w = reinterpret_cast<float*>(src + t.cap_edges);
   int* seg = reinterpret_cast<int*>(w + t.cap_edges);
   int* dst = seg + t.cap_segs;
   int* first = dst + t.cap_segs;
@@ -261,7 +255,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
       }
     }
     T cv[kCheckLoads];
-    if constexpr (kX) load_slice(x, ci, ci_end, cv);
+    load_slice(x, ci, ci_end, cv);
     int n_kept = 0;
     for (int c = 0; c < n_edge; c += 32 * kBatches) {
       int id[kBatches], from[kBatches];
@@ -275,7 +269,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
         if (i < n_edge) {
           id[b] = eid ? eid[e0 + i] : e0 + i;
           if (!eid) v0[b] = value(val[e0 + i]);
-          if (kX) from[b] = idx[e0 + i];
+          from[b] = idx[e0 + i];
         }
       }
       bool kept[kBatches];
@@ -300,7 +294,7 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
         const int pos = n_kept + __popc(ballot & below);
         if (i < n_edge) kpos[i] = pos;
         if (take) {
-          if (kX) src[pos] = from[b];
+          src[pos] = from[b];
           w[pos] = wt[b];
         }
         n_kept += __popc(ballot);
@@ -317,79 +311,65 @@ __device__ __forceinline__ void walk(const Args& a, const Tiles& t,
       seg[k] = t.seg_end[g0 + k] - e0;
       dst[k] = t.seg_out[g0 + k];
     }
-    if constexpr (kX) {
 #pragma unroll
-      for (int u = 0; u < kCheckLoads; ++u) bad |= nonfinite(cv[u]);
-    }
+    for (int u = 0; u < kCheckLoads; ++u) bad |= nonfinite(cv[u]);
     if (lane == 0) kpos[n_edge] = n_kept;
     __syncwarp();
     for (int k = lane; k < n_seg; k += 32) seg[k] = kpos[seg[k]];
     __syncwarp();
 
     // 2. sum: seg[k] is now where segment k ends in the kept list
-    if constexpr (kX) {
-      const int group = a.group, ng = 32 / group;
-      for (int k = lane; k <= n_seg; k += 32) {
-        const int hi = k == n_seg ? ng : share(seg, k, n_kept, ng);
-        const int lo = k == 0 ? -1 : share(seg, k - 1, n_kept, ng);
-        for (int h = lo + 1; h <= hi; ++h) first[h] = k;
-      }
-      __syncwarp();
-      const int g = lane / group;
-      const int k0 = g < ng ? first[g] : 0, k1 = g < ng ? first[g + 1] : 0;
-      for (int j0 = 0; k0 < k1 && j0 < fv; j0 += group) {
-        const int j = j0 + lane - g * group;
-        const bool on = j < fv;
-        int k = k0, stop = seg[k0];
-        const int i_end = seg[k1 - 1];
-        T acc;
-        edge_walk::set_zero(acc);
-        for (int i = k0 ? seg[k0 - 1] : 0; i < i_end; i += kRing) {
-          T v[kRing];
+    const int group = a.group, ng = 32 / group;
+    for (int k = lane; k <= n_seg; k += 32) {
+      const int hi = k == n_seg ? ng : share(seg, k, n_kept, ng);
+      const int lo = k == 0 ? -1 : share(seg, k - 1, n_kept, ng);
+      for (int h = lo + 1; h <= hi; ++h) first[h] = k;
+    }
+    __syncwarp();
+    const int g = lane / group;
+    const int k0 = g < ng ? first[g] : 0, k1 = g < ng ? first[g + 1] : 0;
+    for (int j0 = 0; k0 < k1 && j0 < fv; j0 += group) {
+      const int j = j0 + lane - g * group;
+      const bool on = j < fv;
+      int k = k0, stop = seg[k0];
+      const int i_end = seg[k1 - 1];
+      T acc;
+      edge_walk::set_zero(acc);
+      for (int i = k0 ? seg[k0 - 1] : 0; i < i_end; i += kRing) {
+        T v[kRing];
 #pragma unroll
-          for (int u = 0; u < kRing; ++u) {
-            edge_walk::set_zero(v[u]);
-            if (on && i + u < i_end) v[u] = x[(long long)src[i + u] * fv + j];
-          }
+        for (int u = 0; u < kRing; ++u) {
+          edge_walk::set_zero(v[u]);
+          if (on && i + u < i_end) v[u] = x[(long long)src[i + u] * fv + j];
+        }
 #pragma unroll
-          for (int u = 0; u < kRing; ++u) {
-            if (i + u < i_end) {
-              while (i + u >= stop) {  // segments ending before kept i + u
-                if (on) put(out, carry, dst[k], fv, j, acc);
-                edge_walk::set_zero(acc);
-                stop = seg[++k];
-              }
-              edge_walk::mul_add(acc, w[i + u], v[u]);
+        for (int u = 0; u < kRing; ++u) {
+          if (i + u < i_end) {
+            while (i + u >= stop) {  // segments ending before kept i + u
+              if (on) put(out, carry, dst[k], fv, j, acc);
+              edge_walk::set_zero(acc);
+              stop = seg[++k];
             }
+            edge_walk::mul_add(acc, w[i + u], v[u]);
           }
         }
-        for (; k < k1; ++k) {  // the last segment, then empty ones
-          if (on) put(out, carry, dst[k], fv, j, acc);
-          edge_walk::set_zero(acc);
-        }
       }
-    } else {
-      for (int k = lane; k < n_seg; k += 32) {
-        float acc = 0.f;
-        const int i_end = seg[k];
-        for (int i = k ? seg[k - 1] : 0; i < i_end; ++i)
-          acc = __fadd_rn(acc, w[i]);
-        put(out, carry, dst[k], 1, 0, acc);
+      for (; k < k1; ++k) {  // the last segment, then empty ones
+        if (on) put(out, carry, dst[k], fv, j, acc);
+        edge_walk::set_zero(acc);
       }
     }
 
     __syncwarp();  // the next tile overwrites the stage
   }
-  if constexpr (kX) {
-    if (p.pass == 0) {  // the rest of this warp's slice of x
-      while (ci < ci_end) {
-        T cv[kCheckTail];
-        load_slice(x, ci, ci_end, cv);
+  if (p.pass == 0) {  // the rest of this warp's slice of x
+    while (ci < ci_end) {
+      T cv[kCheckTail];
+      load_slice(x, ci, ci_end, cv);
 #pragma unroll
-        for (int u = 0; u < kCheckTail; ++u) bad |= nonfinite(cv[u]);
-      }
-      if (__any_sync(0xffffffffu, bad) && lane == 0) *p.flag = 1;
+      for (int u = 0; u < kCheckTail; ++u) bad |= nonfinite(cv[u]);
     }
+    if (__any_sync(0xffffffffu, bad) && lane == 0) *p.flag = 1;
   }
 }
 
@@ -398,15 +378,13 @@ typedef void (*Kernel)(Args, Tiles, Mask, Pass);
 // The walk's grid: at most as many blocks as fit on the card at once (each
 // warp loops over tiles), with its shared memory.  Returns a CUDA error
 // code (0 on success).
-inline int grid(Kernel walk_k, Kernel again_k, const Tiles& t, bool sources,
+inline int grid(Kernel walk_k, Kernel again_k, const Tiles& t,
                 unsigned& blocks, size_t& smem) {
-  smem = (size_t)kWarps * stage_words(t.cap_edges, t.cap_segs, sources) *
-         sizeof(int);
+  smem = (size_t)kWarps * stage_words(t.cap_edges, t.cap_segs) * sizeof(int);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     const Kernel both[2] = {walk_k, again_k};
     for (Kernel k : both) {
-      if (k == nullptr) continue;
       err = cudaFuncSetAttribute(
           k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
@@ -428,33 +406,26 @@ inline int grid(Kernel walk_k, Kernel again_k, const Tiles& t, bool sources,
   return (int)cudaSuccess;
 }
 
-// The walk on `stream`, then edge_walk::finish() (the parts and the fix-up
-// of the split rows).  The degree walk (again_k and flag null): one
-// launch.  The masked walk: the flag zeroed, pass 0 (walk_k), then pass 1
-// (again_k, the same walk under another name so a profile tells them
-// apart).  Returns a CUDA error code (0 on success).
+// The masked walk on `stream`: the flag zeroed, pass 0 (walk_k), then pass
+// 1 (again_k, the same walk under another name so a profile tells them
+// apart), then edge_walk::finish() (the parts and the fix-up of the split
+// rows).  Returns a CUDA error code (0 on success).
 inline int launch(Kernel walk_k, Kernel again_k, edge_walk::Kernel parts_k,
                   edge_walk::Kernel fixup_k, const Args& a, const Tiles& t,
                   const Mask& m, int* flag, long long n_x,
                   cudaStream_t stream) {
   if (t.n_tiles == 0) return (int)cudaSuccess;
-  if ((again_k == nullptr) != (flag == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (flag == nullptr) return (int)cudaErrorInvalidValue;
   unsigned blocks;
   size_t smem;
-  int err = grid(walk_k, again_k, t, flag != nullptr, blocks, smem);
+  int err = grid(walk_k, again_k, t, blocks, smem);
   if (err != (int)cudaSuccess) return err;
-  if (flag == nullptr) {
-    walk_k<<<blocks, kThreads, smem, stream>>>(a, t, m, Pass{nullptr, 0, 0});
-  } else {
-    cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
-    walk_k<<<blocks, kThreads, smem, stream>>>(a, t, m, Pass{flag, n_x, 0});
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    again_k<<<blocks, kThreads, smem, stream>>>(a, t, m,
-                                                Pass{flag, n_x, 1});
-  }
+  cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  walk_k<<<blocks, kThreads, smem, stream>>>(a, t, m, Pass{flag, n_x, 0});
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  again_k<<<blocks, kThreads, smem, stream>>>(a, t, m, Pass{flag, n_x, 1});
   return edge_walk::finish(parts_k, fixup_k, a, stream);
 }
 

@@ -43,8 +43,8 @@
 // is then rounded to bfloat16 before it is added (mul_add over an X), the
 // JAX package's order.  Elsewhere X is T and nothing of it is compiled.
 //
-// K1's two dropout walks (the masked and the degree walk) have a design of
-// their own, drop_walk.cuh, which takes this header's parts and fix-up.
+// K1's masked walk has a design of its own, drop_walk.cuh, which takes this
+// header's parts and fix-up; its degree walk another, degree_walk.cuh.
 //
 // Each source that includes this header defines its own __global__ kernels,
 // thin wrappers named after it and its mode (so a profile tells them

@@ -59,12 +59,12 @@
 // Two more walks carry the training step under the default implementation
 // (ops/stochastic.py::TrainGrids, the counterpart of the JAX package's
 // TrainGrids.core and stochastic_degree), over the row list (A) or the
-// column list (A^T) of every edge, ptr over all N rows, in store mode, with
-// the design of drop_walk.cuh (a warp stages a tile's kept edges in shared
-// memory, then sums them):
+// column list (A^T) of every edge, ptr over all N rows, in store mode:
 //
-// * ell_gather_masked_walk: out[r] = sum_e w(eid[e]) * x[idx[e]], w the
-//   edge's dropped value, hashed in the walk from its id; the step's
+// * ell_gather_masked_walk (drop_walk.cuh: a warp stages a tile's kept
+//   edges in shared memory, then sums them): out[r] = sum_e w(eid[e]) *
+//   x[idx[e]], w the edge's dropped value, hashed in the walk from its id;
+//   the step's
 //   forward over the row list, its dx = A^T dy over the column list.  Only
 //   kept edges' x rows are read, unless pass 0 finds an inf or a NaN in x
 //   (then pass 1, ell_gather_masked_nonfinite, walks again reading every
@@ -74,17 +74,20 @@
 //   on the bench graph's row list with half of its 2,332,478 edges kept,
 //   63,357,536 B, 18.9 us at 3.35 TB/s (chip_smoke.py phase 2c).  The hash
 //   is ~21 integer operations an edge, far below the card's rate.
-// * ell_degree_walk: deg[r] = sum_e w(eid[e]), no x: the dropped graph's
-//   column (or row) sums, with no atomics, lane i of a warp summing the
-//   tile's segment i.  Bound on the bench graph's column list: ptr, eid of
+//   It adds a split row's pieces after the walk with edge_walk's parts and
+//   fix-up kernels (ell_gather_masked_parts/_fixup).
+// * ell_degree_share_walk (degree_walk.cuh: equal shares of the list's
+//   edges, a segmented sum): deg[r] = sum_e w(eid[e]), no x: the dropped
+//   graph's column (or row) sums, with no atomics, the values streamed in
+//   list order; ell_degree_share_fold folds the sums of a row that crosses
+//   a block's end.  Bound on the bench graph's column list: ptr, eid of
 //   every edge, val of the kept ones and deg, 15,352,020 B, 4.6 us.
-// Both add a split row's pieces after the walk with edge_walk's parts and
-// fix-up kernels (ell_gather_masked_parts/_fixup, ell_degree_parts/_fixup).
 // Each walk is built for float base values and for bfloat16 ones (V; the
 // entry points gnntf_ell_gather_masked_bf16 and gnntf_ell_degree_bf16: the
 // training grids of GNNTF_GRID_VALUE_DTYPE=bfloat16, the counterpart of the
 // JAX package's bfloat16 value grids), which halve the values' bytes: 2 B
-// of the kept edges' 8 and of the degree walk's kept values.
+// of the kept edges' 8 and of the degree walk's values.
+#include "degree_walk.cuh"
 #include "drop_walk.cuh"
 #include "edge_walk.cuh"
 #include "scaled_walk.cuh"
@@ -148,7 +151,7 @@ template <typename T, typename V>
 __global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
     ell_gather_masked_walk(const Args a, const Tiles t, const Mask m,
                            const Pass p) {
-  drop_walk::walk<T, true, V>(a, t, m, p);
+  drop_walk::walk<T, V>(a, t, m, p);
 }
 
 // pass 1 of the masked walk: returns at once unless pass 0 found an inf or
@@ -157,7 +160,7 @@ template <typename T, typename V>
 __global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
     ell_gather_masked_nonfinite(const Args a, const Tiles t, const Mask m,
                                 const Pass p) {
-  drop_walk::walk<T, true, V>(a, t, m, p);
+  drop_walk::walk<T, V>(a, t, m, p);
 }
 
 template <typename T>
@@ -171,18 +174,14 @@ __global__ void __launch_bounds__(32) ell_gather_masked_fixup(const Args a) {
 }
 
 template <typename V>
-__global__ void __launch_bounds__(drop_walk::kThreads, drop_walk::kMinBlocks)
-    ell_degree_walk(const Args a, const Tiles t, const Mask m,
-                    const Pass p) {
-  drop_walk::walk<float, false, V>(a, t, m, p);
+__global__ void __launch_bounds__(degree_walk::kLanes)
+    ell_degree_share_walk(const degree_walk::Args a, const Mask m) {
+  degree_walk::walk<V>(a, m);
 }
 
-__global__ void __launch_bounds__(32) ell_degree_parts(const Args a) {
-  edge_walk::parts<float>(a);
-}
-
-__global__ void __launch_bounds__(32) ell_degree_fixup(const Args a) {
-  edge_walk::fixup<float, false>(a);
+__global__ void __launch_bounds__(32 * degree_walk::kFoldWarps)
+    ell_degree_share_fold(const degree_walk::Args a) {
+  degree_walk::fold(a);
 }
 
 }  // namespace
@@ -271,23 +270,6 @@ int masked(const void* ptr, const void* idx, const void* eid,
       m, fl, n_x, s);
 }
 
-// The degree walk over base values of type V (gnntf_ell_degree*).
-template <typename V>
-int degree(const void* ptr, const void* idx, const void* eid,
-           const void* unit_row, const void* unit_edge, const void* split,
-           const void* part_item, const void* val, void* out, void* carry,
-           int n_units, int n_split, int n_part_items, int f, int vec,
-           int group, int parts, const Tiles& t, const Mask& m,
-           cudaStream_t s) {
-  if (f != 1 || vec != 1) return (int)cudaErrorInvalidValue;
-  const Args a = edge_walk::make_args(
-      ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val,
-      nullptr, out, carry, n_units, n_split, n_part_items, 1, 1, group,
-      parts);
-  return drop_walk::launch(ell_degree_walk<V>, nullptr, ell_degree_parts,
-                           ell_degree_fixup, a, t, m, nullptr, 0, s);
-}
-
 }  // namespace
 
 // The masked walk in store mode: out (n, f) float32 needs no zero-fill
@@ -322,32 +304,45 @@ int degree(const void* ptr, const void* idx, const void* eid,
 GNNTF_MASKED_ENTRY(gnntf_ell_gather_masked, float)
 GNNTF_MASKED_ENTRY(gnntf_ell_gather_masked_bf16, __nv_bfloat16)
 
-// The degree walk: out (n,) float32, each list row's sum of its dropped
-// weights, needs no zero-fill; x, rows, idx, flag and n_floats are not
-// read; f and vec are 1; carry is (n_units + n_split * parts,) float32
-// scratch; val as the masked walk's.
+// The degree walk: out (n_rows,) float32, each list row's sum of its
+// dropped weights, needs no zero-fill; ptr (n_rows + 1,) and eid (n_edges,)
+// (null: the identity) int32 are the list's; val holds its n_edges base
+// values in list order as float (the _bf16 entry: as bfloat16); carry_in,
+// carry_out and col_in are (n_blocks,) float32, float32 and int32 scratch
+// of this call, n_blocks = max(1, ceil(n_edges / (lanes * edges))); lanes
+// and edges must be degree_walk.cuh's; folds says whether a row crosses a
+// block's end (then the fold kernel runs after the walk); salt, thresh,
+// n_drop, id_base and scale are the draw (drop_walk.cuh, Mask).  Launches
+// on `stream` and returns a CUDA error code (0 on success).
 #define GNNTF_DEGREE_ENTRY(NAME, V)                                          \
-  extern "C" int NAME(                                                       \
-      const void* ptr, const void* idx, const void* eid, const void* rows,   \
-      const void* unit_row, const void* unit_edge, const void* split,        \
-      const void* part_item, const void* val, const void* x, void* out,      \
-      void* carry, int n_units, int n_split, int n_part_items, int f,        \
-      int vec, int group, int parts, const void* tile_seg,                   \
-      const void* tile_edge, const void* seg_end, const void* seg_out,       \
-      int n_tiles, int cap_edges, int cap_segs, const void* salt,            \
-      unsigned thresh, unsigned n_drop, unsigned id_base, float scale,       \
-      void* flag, long long n_floats, void* stream) {                        \
-    (void)rows;                                                              \
-    (void)x;                                                                 \
-    (void)flag;                                                              \
-    (void)n_floats;                                                          \
-    return degree<V>(                                                        \
-        ptr, idx, eid, unit_row, unit_edge, split, part_item, val, out,      \
-        carry, n_units, n_split, n_part_items, f, vec, group, parts,         \
-        drop_walk::make_tiles(tile_seg, tile_edge, seg_end, seg_out,         \
-                              n_tiles, cap_edges, cap_segs),                 \
+  extern "C" int NAME(const void* ptr, const void* eid, const void* val,     \
+                      void* out, void* carry_in, void* carry_out,            \
+                      void* col_in, int n_rows, int n_edges, int n_blocks,   \
+                      int lanes, int edges, int folds, const void* salt,     \
+                      unsigned thresh, unsigned n_drop, unsigned id_base,    \
+                      float scale, void* stream) {                           \
+    using degree_walk::kShare;                                               \
+    const long long want = ((long long)n_edges + kShare - 1) / kShare;      \
+    if (lanes != degree_walk::kLanes || edges != degree_walk::kEdges ||      \
+        n_rows < 0 || n_edges < 0 ||                                         \
+        n_blocks != (want > 1 ? want : 1))                                   \
+      return (int)cudaErrorInvalidValue;                                     \
+    degree_walk::Args a;                                                     \
+    a.ptr = static_cast<const int32_t*>(ptr);                                \
+    a.eid = static_cast<const int32_t*>(eid);                                \
+    a.val = val;                                                             \
+    a.out = static_cast<float*>(out);                                        \
+    a.carry_in = static_cast<float*>(carry_in);                              \
+    a.carry_out = static_cast<float*>(carry_out);                            \
+    a.col_in = static_cast<int32_t*>(col_in);                                \
+    a.n_rows = n_rows;                                                       \
+    a.n_edges = n_edges;                                                     \
+    a.n_blocks = n_blocks;                                                   \
+    a.vec = (uintptr_t)val % 16 == 0 && (uintptr_t)eid % 16 == 0;           \
+    return degree_walk::launch(                                              \
+        ell_degree_share_walk<V>, ell_degree_share_fold, a,                  \
         drop_walk::make_mask(salt, thresh, n_drop, id_base, scale),          \
-        static_cast<cudaStream_t>(stream));                                  \
+        folds != 0, static_cast<cudaStream_t>(stream));                      \
   }
 GNNTF_DEGREE_ENTRY(gnntf_ell_degree, float)
 GNNTF_DEGREE_ENTRY(gnntf_ell_degree_bf16, __nv_bfloat16)

@@ -80,6 +80,11 @@ _NARROW_LANES = 8
 # fixes the order of the sum; the kernel's launch geometry does not.  A list
 # keeps the value it was built with (``EdgeList.parts``).
 _FIXUP_PARTS = 64
+# K1's degree walk (csrc/degree_walk.cuh, kLanes and kEdges): lanes a block
+# and consecutive edges a lane; a block takes DEGREE_SHARE edges of the list
+DEGREE_LANES = 128
+DEGREE_EDGES = 16
+DEGREE_SHARE = DEGREE_LANES * DEGREE_EDGES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,6 +322,19 @@ def part_items(split: np.ndarray, parts: int) -> np.ndarray:
     return (s * parts + g)[np.lexsort((s, g))].astype(np.int32)
 
 
+def share_folds(ptr: np.ndarray) -> int:
+    """The rows of a list that cross the end of a share of ``DEGREE_SHARE``
+    edges (``csrc/degree_walk.cuh``: the rows whose blocks' sums the degree
+    walk's fold kernel adds; without one, the walk is its only launch)."""
+    share = DEGREE_SHARE
+    ptr = np.asarray(ptr, np.int64)
+    ends = np.arange(share, ptr[-1], share)
+    row = np.searchsorted(ptr, ends, side="right") - 1
+    start = ptr[row]
+    # a row crossing several ends counts once, at the first it crosses
+    return int(((start < ends) & (start >= ends - share)).sum())
+
+
 def drop_tiles(ptr: np.ndarray, unit_row: np.ndarray,
                unit_edge: np.ndarray, items: int):
     """The tiles of K1's dropout walks (``csrc/drop_walk.cuh``) over a list
@@ -421,7 +439,10 @@ class EdgeList:
     (:func:`drop_tiles`; None where the list was built without them), and
     the split rows' counters with which K1's scaled walk finishes them in
     its own launch (``counters``, a :class:`Counters` of ``n_split * (parts
-    + 1)`` int32 a set; None where no row is split)."""
+    + 1)`` int32 a set; None where no row is split), the rows that cross the
+    end of a share of K1's degree walk (``share_folds``, :func:`share_folds`)
+    and what that walk makes once for the list (``memo``: its copy of the
+    base values in list order, ``ops/ell_gather.py::list_values``)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -440,6 +461,9 @@ class EdgeList:
     n_x: Optional[int] = None     # x rows read; None: n_rows
     n_ids: Optional[int] = None   # values read through eid; None: n_edges
     counters: Optional[Counters] = None
+    share_folds: int = 0
+    memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                   compare=False, repr=False)
 
     @classmethod
     def build(cls, ptr, idx, eid, device, rows=None, items=None,
@@ -479,7 +503,8 @@ class EdgeList:
                    rows=None if rows is None else put(rows), **tiles,
                    n_x=n_x, n_ids=n_ids,
                    counters=Counters(n_split * (parts + 1))
-                   if n_split else None)
+                   if n_split else None,
+                   share_folds=share_folds(ptr))
 
     @property
     def n_rows(self) -> int:
@@ -777,7 +802,7 @@ def _ring(f):
     return depth, rows
 
 
-def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
+def entry_args(lst: EdgeList, val: torch.Tensor, x: torch.Tensor,
                out: torch.Tensor, extra=(), shape=None, counters=None):
     """The C arguments of a walk's entry point but the stream (the list's,
     then ``extra``), and the scratch tensor they point into (None where no
@@ -785,17 +810,17 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
     entry's (vec, group) where the caller picked them; ``counters`` (the
     scaled walk's, a set of ``EdgeList.counters``) goes in the place of
     ``rows``."""
-    f = 1 if x is None else x.shape[1]
+    f = x.shape[1]
     addresses, (n_units, n_split, n_part_items) = lst.addresses
     if counters is not None:
         addresses = (*addresses[:3], counters.data_ptr(), *addresses[4:])
     # float4 loads where rows are 16-byte aligned; a group of lanes a unit
-    x_at, out_at = (None if x is None else x.data_ptr()), out.data_ptr()
+    x_at, out_at = x.data_ptr(), out.data_ptr()
     if shape is not None:
         vec, group = shape
     else:
-        vec = 4 if (x is not None and f % 4 == 0 and x_at % 16 == 0
-                    and out_at % 16 == 0) else 1
+        vec = 4 if (f % 4 == 0 and x_at % 16 == 0 and out_at % 16 == 0) \
+            else 1
         group = max(1, min(32, f // vec))
     # the pieces' sums, then the split rows' parts
     carry = (torch.empty(n_units + n_split * lst.parts, f,
@@ -808,27 +833,29 @@ def entry_args(lst: EdgeList, val: torch.Tensor, x: Optional[torch.Tensor],
 
 
 def launch(lib: ctypes.CDLL, entry: str, lst: EdgeList, val: torch.Tensor,
-           x: Optional[torch.Tensor], out: torch.Tensor,
+           x: torch.Tensor, out: torch.Tensor,
            extra=(), shape=None, counted=False) -> None:
     """Run the walk through the C ``entry`` of a built library (K1's or
     K2's), writing into ``out`` on the current stream; counts nothing.
     ``extra`` holds the arguments a dropout walk's entry takes after the
     list's (``ops/ell_gather.py``: the tiles, the draw, the flag; K2's
-    bfloat16 mode: its walk); with no ``x`` (the degree walk) the walk sums
-    one value a row.  ``shape``: :func:`entry_args`'.  ``counted``: the
-    entry takes the list's split-row counters (K1's scaled walk), the set
-    that :func:`stream_counters` picks for the launch's stream."""
-    if lst.n_units == 0 or (x is not None and x.shape[1] == 0):
+    bfloat16 mode: its walk).  ``shape``: :func:`entry_args`'.
+    ``counted``: the entry takes the list's split-row counters (K1's scaled
+    walk), the set that :func:`stream_counters` picks for the launch's
+    stream."""
+    if lst.n_units == 0 or x.shape[1] == 0:
         return
-    device = out.device
-    if device.index == torch.cuda.current_device():
-        rc = _call(lib, entry, lst, val, x, out, extra, shape, counted,
-                   device)
-    else:
-        with torch.cuda.device(device):
-            rc = _call(lib, entry, lst, val, x, out, extra, shape, counted,
-                       device)
+    rc = on_device(out.device, _call, lib, entry, lst, val, x, out, extra,
+                   shape, counted, out.device)
     kernels.check(lib, rc, f"{entry} launch")
+
+
+def on_device(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` the current CUDA device."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def _call(lib, entry, lst, val, x, out, extra, shape, counted, device):
@@ -942,8 +969,8 @@ ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
 # takes its ring's depth and rows a batch before the stream
 STAGED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
-# the dropout walks' entry points (gnntf_ell_gather_masked,
-# gnntf_ell_degree) take before the stream the tiles (tile_seg, tile_edge,
+# the masked walk's entry points (gnntf_ell_gather_masked and its bfloat16
+# twin) take before the stream the tiles (tile_seg, tile_edge,
 # seg_end, seg_out; n_tiles, cap_edges, cap_segs), the draw (the salt
 # pair's device address, thresh, n_drop, id_base, scale), the flag's device
 # address and x's size in floats

@@ -47,23 +47,27 @@ through K2's entry point, which takes such a list as it is
 
 Two more walks carry the training step's edge dropout
 (``ops/stochastic.py::TrainGrids``), over a list of every edge with ``ptr``
-over all N rows, in store mode, with a design of their own
+over all N rows, in store mode.  :func:`ell_gather_masked`
 (``csrc/drop_walk.cuh``: a warp stages a tile of the list, its kept edges
-in shared memory, then sums them).  :func:`ell_gather_masked` weights each
-edge by its dropped value, hashed in the kernel from its id and the draw
-(the salt pair read from device memory, so a launch captured in a CUDA
-graph takes each replay's draw), and gathers only the kept edges' ``x``
-rows unless ``x`` holds an inf or a NaN (then a second pass gathers every
-edge's, as JAX's product multiplies them);
-:func:`ell_degree_masked` sums those weights a row, with no ``x``.  Their
-lists carry tiles (``EdgeList.build(tile_items=)``).  Their plain versions
-take the draw's per-edge values (``stochastic.drawn_values``, which equal
-the kernel's weights bit for bit) and sum them in the kernel's order.  Both
-walks take the base values in float32 or in bfloat16 (the grids of
-``GNNTF_GRID_VALUE_DTYPE=bfloat16``, ``stochastic.grid_value_dtype``), each
-through an entry point of its own; a bfloat16 value is widened exactly and
-weighted in float32, so the weights are those of the float32 walk over the
-rounded values.
+in shared memory, then sums them) weights each edge by its dropped value,
+hashed in the kernel from its id and the draw (the salt pair read from
+device memory, so a launch captured in a CUDA graph takes each replay's
+draw), and gathers only the kept edges' ``x`` rows unless ``x`` holds an
+inf or a NaN (then a second pass gathers every edge's, as JAX's product
+multiplies them); its lists carry tiles (``EdgeList.build(tile_items=)``).
+:func:`ell_degree_masked` sums those weights a row, with no ``x``, as one
+segmented sum over equal shares of the list's edges
+(``csrc/degree_walk.cuh``: a block takes ``blocked.DEGREE_SHARE`` edges,
+a lane ``blocked.DEGREE_EDGES`` of them; a row's lanes' sums are folded in
+lane order, its blocks' sums in block order by a second kernel), streaming
+the values in list order (:func:`list_values`, a copy made once a list).
+The plain versions take the draw's per-edge values
+(``stochastic.drawn_values``, which equal the kernels' weights bit for
+bit) and sum them in the kernels' orders.  Both walks take the base values
+in float32 or in bfloat16 (the grids of ``GNNTF_GRID_VALUE_DTYPE=bfloat16``,
+``stochastic.grid_value_dtype``), each through an entry point of its own;
+a bfloat16 value is widened exactly and weighted in float32, so the
+weights are those of the float32 walk over the rounded values.
 """
 from __future__ import annotations
 
@@ -408,11 +412,13 @@ ell_gather_transposed.launches = 0
 _DROP_VALUES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
-def _check_masked(what, lst, val):
+def _check_masked(what, lst, val, tiles=True):
+    """Raise unless a dropout walk (``tiles``: the masked walk, whose list
+    carries tiles) can take this list and these values."""
     if lst.rows is not None:
         raise ValueError(f"{what} stores row r at r; a list with row ids is "
                          "K1's (ell_list)")
-    if lst.tile_seg is None:
+    if tiles and lst.tile_seg is None:
         raise ValueError(f"{what} walks a list built with tiles "
                          "(EdgeList.build(tile_items=...))")
     if val.shape != (lst.n_values,) or val.dtype not in _DROP_VALUES:
@@ -481,16 +487,100 @@ ell_gather_masked.launches = 0
 ell_gather_masked.bf16_launches = 0
 
 
+def _fold_runs(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """The left fold, in order, of each run of ``values`` (a run begins
+    where ``starts`` is True): ``((v0 + v1) + v2) + ...``, float32."""
+    first = torch.nonzero(starts).flatten()
+    length = torch.diff(first, append=first.new_tensor([values.numel()]))
+    acc = values[first].clone()
+    order = torch.argsort(length, descending=True, stable=True)
+    # runs longer than k, for k = 1, 2, ...: the first counts[k - 1] of order
+    longest = int(length.max()) if length.numel() else 0
+    ascending = torch.sort(length).values
+    counts = (length.numel() - torch.searchsorted(
+        ascending, torch.arange(1, max(1, longest), device=length.device),
+        right=True)).tolist()
+    for k, count in enumerate(counts, start=1):
+        on = order[:count]
+        acc[on] = acc[on] + values[first[on] + k]
+    return acc
+
+
+def share_sums(ptr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each list row's sum of ``w`` (float32, one a list item, in list
+    order) in the degree walk's order (``csrc/degree_walk.cuh``): a lane
+    sums its run of each row in list order (lanes take
+    ``blocked.DEGREE_EDGES`` consecutive items each); a row's runs in one
+    block (``blocked.DEGREE_SHARE`` items) are folded in lane order, and a
+    row's blocks' sums in block order.  Empty rows are +0."""
+    n, n_items = ptr.numel() - 1, w.numel()
+    out = torch.zeros(n, dtype=torch.float32, device=w.device)
+    if n_items == 0:
+        return out
+    lane, share = blocked.DEGREE_EDGES, blocked.DEGREE_SHARE
+    row = torch.repeat_interleave(torch.arange(n, device=w.device),
+                                  ptr.diff().long(), output_size=n_items)
+    item = torch.arange(n_items, device=w.device)
+    # 1. a lane's run of a row, from +0, one item of each lane at a time
+    # (a run holds one item of a lane, so each step writes a run once)
+    starts = torch.ones(n_items, dtype=torch.bool, device=w.device)
+    starts[1:] = (item[1:] % lane == 0) | (row[1:] != row[:-1])
+    run = torch.cumsum(starts, 0) - 1
+    sums = torch.zeros(int(run[-1]) + 1, dtype=torch.float32,
+                       device=w.device)
+    for i in range(min(lane, n_items)):
+        at = torch.arange(i, n_items, lane, device=w.device)
+        sums[run[at]] = sums[run[at]] + w[at]
+    # 2. a row's runs in a block, in lane order
+    first = torch.nonzero(starts).flatten()
+    run_row, run_block = row[first], first // share
+    grouped = torch.ones(len(first), dtype=torch.bool, device=w.device)
+    grouped[1:] = (run_row[1:] != run_row[:-1]) | (
+        run_block[1:] != run_block[:-1])
+    block_sums = _fold_runs(sums, grouped)
+    # 3. a row's blocks' sums, in block order
+    block_row = run_row[grouped]
+    rows = torch.ones(len(block_row), dtype=torch.bool, device=w.device)
+    rows[1:] = block_row[1:] != block_row[:-1]
+    out[block_row[rows]] = _fold_runs(block_sums, rows)
+    return out
+
+
 def ell_degree_masked_plain(lst: EdgeList, val: torch.Tensor, salt,
                             keep: float, n_drop: int,
                             id_base: int = 0) -> torch.Tensor:
-    """The plain version of :func:`ell_degree_masked`: the walk's order over
-    a column of ones, each product ``w * 1`` equal to ``w``."""
+    """The plain version of :func:`ell_degree_masked`: the draw's per-edge
+    values (``stochastic.drawn_values``, the kernel's weights bit for bit)
+    in list order, summed in the walk's order (:func:`share_sums`)."""
     from .stochastic import drawn_values
-    ones = torch.ones(1, 1, dtype=torch.float32,
-                      device=val.device).expand(lst.n_rows, 1)
-    return blocked_spmm_plain(
-        lst, drawn_values(val, salt, keep, n_drop, id_base), ones)[:, 0]
+    w = drawn_values(val, salt, keep, n_drop, id_base)
+    if lst.eid is not None:
+        w = w[lst.eid.long()]
+    return share_sums(lst.ptr, w)
+
+
+def list_values(lst: EdgeList, val: torch.Tensor) -> torch.Tensor:
+    """``val`` (one an edge id) in ``lst``'s order, ``val[eid]``: the copy
+    that the degree walk streams beside ``eid``, made once for the list and
+    these values (kept in ``lst.memo``, keyed on the values' address,
+    version, dtype and shape, with the values held so the address stays
+    theirs); ``val`` itself where ``eid`` is the identity."""
+    if lst.eid is None:
+        return val
+    key = (val.data_ptr(), val._version, val.dtype, val.shape, val.device)
+    held = lst.memo.get("values")
+    if held is None or held[0] != key:
+        held = lst.memo["values"] = (key, val[lst.eid.long()].contiguous(),
+                                     _Held(val))
+    return held[1]
+
+
+class _Held:
+    """A reference that ``utils.idcache.sizeof`` does not count (the base
+    values belong to the graph, not to the list)."""
+
+    def __init__(self, obj):
+        self.obj = obj
 
 
 def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
@@ -500,9 +590,13 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
     row list its row sums (``id_base`` as in :func:`ell_gather_masked`).
 
     CPU tensors take :func:`ell_degree_masked_plain`; CUDA tensors launch
-    the degree walk (counted in ``ell_degree_masked.launches``, or
-    ``.bf16_launches`` over bfloat16 values)."""
-    _check_masked("ell_degree_masked", lst, val)
+    the degree walk (``csrc/degree_walk.cuh``: equal shares of the list's
+    edges, the values streamed in list order from :func:`list_values`),
+    then its fold kernel where a row crosses a block's share
+    (``lst.share_folds``), counted in ``ell_degree_masked.launches``, or
+    ``.bf16_launches`` over bfloat16 values.  The scratch of the blocks'
+    sums is allocated for each call."""
+    _check_masked("ell_degree_masked", lst, val, tiles=False)
     if val.device.type == "cpu":
         return ell_degree_masked_plain(lst, val, salt, keep, n_drop,
                                        id_base)
@@ -510,10 +604,16 @@ def ell_degree_masked(lst: EdgeList, val: torch.Tensor, salt, keep: float,
         raise ValueError(f"ell_degree_masked runs on cpu or cuda, not "
                          f"{val.device}")
     out = torch.empty(lst.n_rows, dtype=torch.float32, device=val.device)
-    if lst.n_units == 0:
+    if lst.n_rows == 0:
         return out
-    _launch_drop("gnntf_ell_degree", lst, val, None, out, salt, keep,
-                 n_drop, id_base)
+    from .stochastic import device_salt
+    args, _scratch = degree_args(lst, list_values(lst, val), out,
+                                 device_salt(salt, val.device), keep, n_drop,
+                                 id_base)
+    entry = getattr(_library(), "gnntf_ell_degree" + _DROP_VALUES[val.dtype])
+    rc = blocked.on_device(out.device, lambda: entry(
+        *args, torch.cuda.current_stream(out.device).cuda_stream))
+    kernels.check(_library(), rc, "gnntf_ell_degree launch")
     if val.dtype == torch.float32:
         ell_degree_masked.launches += 1
     else:
@@ -525,22 +625,43 @@ ell_degree_masked.launches = 0
 ell_degree_masked.bf16_launches = 0
 
 
-def drop_args(lst, salt, keep, n_drop, flag=None, x=None,
-              id_base=0) -> tuple:
-    """A dropout walk's arguments after the list's: the tiles, the draw (the
-    salt pair's device address, then ``stochastic.draw_scalars``), the
-    address of the masked walk's flag (one int32 of scratch, zeroed by the
-    launch) and ``x``'s size in floats (None and 0 for the degree walk)."""
+def degree_args(lst: EdgeList, ordered: torch.Tensor, out: torch.Tensor,
+                salt: torch.Tensor, keep: float, n_drop: int,
+                id_base: int = 0) -> tuple:
+    """The degree walk's C arguments but the stream, and the scratch tensor
+    they point into (to be kept until the launch): the list's ``ptr`` and
+    ``eid``, the values in list order, ``out``, the blocks' scratch (their
+    sums of the rows coming in and going on, and the row coming in: one
+    each a block), the counts, the walk's lanes and edges a lane, whether
+    a row crosses a block's share, then the draw (the salt pair's device
+    address and ``stochastic.draw_scalars``)."""
+    from .stochastic import draw_scalars
+    blocks = max(1, -(-lst.n_edges // blocked.DEGREE_SHARE))
+    scratch = torch.empty(3, blocks, dtype=torch.int32, device=out.device)
+    at = scratch.data_ptr()
+    return (lst.ptr.data_ptr(),
+            None if lst.eid is None else lst.eid.data_ptr(),
+            ordered.data_ptr(), out.data_ptr(), at, at + 4 * blocks,
+            at + 8 * blocks, lst.n_rows, lst.n_edges, blocks,
+            blocked.DEGREE_LANES, blocked.DEGREE_EDGES,
+            int(lst.share_folds > 0), salt.data_ptr(),
+            *draw_scalars(keep, n_drop, id_base)), scratch
+
+
+def drop_args(lst, salt, keep, n_drop, flag, x, id_base=0) -> tuple:
+    """The masked walk's arguments after the list's: the tiles, the draw
+    (the salt pair's device address, then ``stochastic.draw_scalars``), the
+    address of its flag (one int32 of scratch, zeroed by the launch) and
+    ``x``'s size in floats."""
     from .stochastic import draw_scalars
     return (*lst.tile_addresses, salt.data_ptr(),
-            *draw_scalars(keep, n_drop, id_base),
-            None if flag is None else flag.data_ptr(),
-            0 if x is None else x.numel())
+            *draw_scalars(keep, n_drop, id_base), flag.data_ptr(),
+            x.numel())
 
 
 def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, id_base,
-                 flag=None):
-    """A dropout walk's launch, through ``entry`` or its bfloat16 values'
+                 flag):
+    """The masked walk's launch, through ``entry`` or its bfloat16 values'
     twin (``entry + "_bf16"``): the kernel reads the salt pair from device
     memory (:func:`stochastic.device_salt`; a host salt is uploaded first),
     the rest of the draw as kernel scalars."""
@@ -550,6 +671,15 @@ def _launch_drop(entry, lst, val, x, out, salt, keep, n_drop, id_base,
                    out,
                    extra=drop_args(lst, salt, keep, n_drop, flag, x,
                                    id_base))
+
+
+# the degree walk's C signature (gnntf_ell_degree and its bfloat16 twin):
+# ptr, eid, val, out, carry_in, carry_out, col_in; n_rows, n_edges,
+# n_blocks, lanes, edges, folds; salt, thresh, n_drop, id_base, scale;
+# stream
+DEGREE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+    ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -570,7 +700,9 @@ def declare(lib) -> None:
     for suffix in _DROP_VALUES.values():
         blocked.declare(getattr(lib, "gnntf_ell_gather_masked" + suffix),
                         drop=True)
-        blocked.declare(getattr(lib, "gnntf_ell_degree" + suffix), drop=True)
+        degree = getattr(lib, "gnntf_ell_degree" + suffix)
+        degree.restype = ctypes.c_int
+        degree.argtypes = DEGREE_ARGTYPES
     lib.gnntf_stream_capture.restype = ctypes.c_int
     lib.gnntf_stream_capture.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),

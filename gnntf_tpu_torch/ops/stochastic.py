@@ -27,7 +27,10 @@ graph and is not stored).  The kernels read the graph's base values through
   the column list with the same draw (never a row scatter); no gradient
   flows to the values, as in the JAX package;
 * :func:`stochastic_degree` — the dropped graph's column (or row) sums, the
-  degree walk over the column (or row) list, with no E-sized scatter.
+  degree walk over the column (or row) list, with no E-sized scatter; it
+  streams the base values in the list's order, a copy that each list
+  makes once (``ell_gather.list_values``; ``train_grids`` makes it with the
+  lists, so the grids cache counts it).
 
 ``GNNTF_GRID_VALUE_DTYPE=bfloat16`` (:func:`grid_value_dtype`, as in the
 JAX package) stores the grids' base values rounded to bfloat16 (numpy holds
@@ -51,7 +54,8 @@ import torch
 from ..graph.coo import Graph
 from ..utils.idcache import IdLRU, sizeof
 from .blocked import EdgeList
-from .ell_gather import ell_degree_masked, ell_gather_masked, ell_list
+from .ell_gather import (ell_degree_masked, ell_gather_masked, ell_list,
+                         list_values)
 # the row-split width of the ELL layouts (ops/spmm.py), shared by the grids
 from .spmm import _ELL_DEFAULT_K as _K
 
@@ -145,7 +149,7 @@ def draw_scalars(keep: float, n_drop: int, id_base: int = 0) -> tuple:
     into the global ids hashed, and ``scale`` the float32 ``1 / keep`` of
     :func:`dropped_values`.  The salts stay in device memory
     (:func:`device_salt`)."""
-    scale = float(torch.tensor(1.0 / keep, dtype=torch.float32))
+    scale = float(np.float32(1.0 / keep))  # rounded to nearest, as torch
     return _threshold(keep), int(n_drop), int(id_base), scale
 
 
@@ -401,6 +405,9 @@ def train_grids(graph: Graph, k: int = _K) -> TrainGrids:
         held = [grids.lists(graph.device)]
         if grids.value_dtype != torch.float32:
             held.append(grids.values(graph.device))
+        # the degree walk's copies of the values in each list's order
+        for lst in held[0]:
+            list_values(lst, _walk_values(grids, graph))
         _GRIDS_CACHE.put(key, anchors, grids,
                          nbytes=sizeof(grids) + sizeof(held))
         train_grids.builds += 1

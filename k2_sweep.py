@@ -68,20 +68,20 @@ the default 4) at the default unit size and unroll; one ``ell_gather.cu`` librar
 each build setting, and each setting's three kernels are timed apart with
 ``torch.profiler``.
 
-Train (K1's dropout walks, ``csrc/drop_walk.cuh``): over the training
+Train (K1's masked walk, ``csrc/drop_walk.cuh``): over the training
 grids' lists of the natural-order benchmark graph (a draw keeping half the
 edges), it times the masked walk over the row and the column list at F=40
-and F=64 and the degree walk over both lists, for each pair of piece size
+and F=64, for each pair of piece size
 (``ops/ell_gather.py::_DROP_ITEMS``: 64, 128 items) and tile size
 (``_TILE_ITEMS``: 128, 256, 384, 512 items), and for x rows in flight a
 sub-group, the least resident blocks the walks ask for and the batches of
 32 edges a warp loads at once when it stages (``DROP_RING``,
 ``DROP_MIN_BLOCKS``, ``DROP_BATCHES`` in ``csrc/drop_walk.cuh``;
 ``DROP_BUILDS`` below, one library built for each) at the default
-sizes.  The
-degree walk has no knob of lanes: a warp stages a tile and lane i sums its
-segment i.  Each line gives each kernel's device time (the masked walk's
-two passes, its flag's memset) from ``torch.profiler``.
+sizes.  Each line gives each kernel's device time (the masked walk's two
+passes, its flag's memset) from ``torch.profiler``.  The degree walk
+(``csrc/degree_walk.cuh``) has no knob: its lanes and edges a lane are
+constants.
 
 With ``--ab DIR`` it times instead, in four processes started in turn
 (the tree in DIR, this tree, this tree, DIR), the dropout walks of each
@@ -339,11 +339,10 @@ def sweep_k1_whole(norm, dev, card):
 
 
 def sweep_train(graph, dev, card):
-    """K1's dropout walks (piece size, tile size, x rows in flight) over
-    the bench graph's training-grid lists; returns the JSON lines."""
+    """K1's masked walk (piece size, tile size, x rows in flight) over the
+    bench graph's training-grid lists; returns the JSON lines."""
     from gnntf_tpu_torch.ops import (blocked_spmm_plain, build_train_grids,
-                                     ell_degree_masked, ell_gather_masked,
-                                     stochastic)
+                                     ell_gather_masked, stochastic)
     k1 = importlib.import_module("gnntf_tpu_torch.ops.ell_gather")
     grids = build_train_grids(graph.row.cpu().numpy(),
                               graph.col.cpu().numpy(),
@@ -357,9 +356,8 @@ def sweep_train(graph, dev, card):
     xs = {f: torch.from_numpy(np.random.RandomState(seed).randn(
         N_NODES, f).astype(np.float32)).to(dev)
         for f, seed in ((40, 3), (64, 10))}
-    ones = torch.ones(N_NODES, 1, device=dev)
-    entries = ("gnntf_ell_gather_masked", "gnntf_ell_degree")
-    libs = build_variants("ell_gather", entries, k1._library(), DROP_BUILDS,
+    libs = build_variants("ell_gather", "gnntf_ell_gather_masked",
+                          k1._library(), DROP_BUILDS,
                           macros=("DROP_RING", "DROP_MIN_BLOCKS",
                                   "DROP_BATCHES"))
     defaults = k1._DROP_ITEMS, k1._TILE_ITEMS, k1._library
@@ -395,24 +393,18 @@ def sweep_train(graph, dev, card):
                             blocked_spmm_plain(lst, w.abs(), x.abs()))
                 emit(dict(kernel="masked", f=f, **common),
                      lambda: ell_gather_masked(lst, val, *draw, x))
-            ref = blocked_spmm_plain(lst, w, ones)[:, 0]
-            check_close(f"degree items={items} tile={tile} ring={ring} "
-                        f"min_blocks={blocks} batches={batches} {name}",
-                        ell_degree_masked(lst, val, *draw), ref,
-                        blocked_spmm_plain(lst, w.abs(), ones)[:, 0])
-            emit(dict(kernel="degree", **common),
-                 lambda: ell_degree_masked(lst, val, *draw))
     k1._DROP_ITEMS, k1._TILE_ITEMS, k1._library = defaults
     return lines
 
 
 # One process of the A/B: the dropout walks of the tree it runs in, at that
 # tree's defaults, on the bench graph's training-grid lists, over float32
-# and bfloat16 values; one JSON line a (values, kernel, list, F), then one
+# and bfloat16 values; one JSON line a (values, kernel, list, F), with the
+# host's time to issue a call (HOST_CALLS calls enqueued in turn), then one
 # for a training step of APPNP at its defaults.  It uses only what the
 # parent tree has too.
 AB_CODE = """
-import json, sys
+import json, sys, time
 import numpy as np, torch
 import chip_smoke as cs
 import gnntf_tpu_torch as tt
@@ -422,6 +414,7 @@ from gnntf_tpu_torch.ops import (build_train_grids, ell_degree_masked,
 from gnntf_tpu_torch.utils import kernels
 kernels.build(["ell_gather"], force=True)
 dev = torch.device("cuda")
+HOST_CALLS = 50
 src, dst = random_power_law_edges(cs.N_NODES, cs.N_EDGES, seed=0)
 g = tt.from_edges(src, dst, n_nodes=cs.N_NODES, directed=False, device=dev)
 lists = build_train_grids(g.row.cpu().numpy(), g.col.cpu().numpy(),
@@ -443,10 +436,17 @@ for values, val in (("float32", val32), ("bfloat16",
                  lst, val, *draw))
              for name, lst in zip(("row", "column"), lists)]
     for kernel, name, f, run in runs:
+        run()  # what a first call makes once (a list's copy of the values)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the host's time to issue a call
+        for _ in range(HOST_CALLS):
+            run()
+        host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
         rows, busy, _, _ = cs.device_profile(run)
         print(json.dumps(dict(
             tree=sys.argv[1], values=values, kernel=kernel, list=name, f=f,
-            ms=cs.time_ms(run), device_ms=busy / 1e3,
+            ms=cs.time_ms(run), host_us=host_us, device_ms=busy / 1e3,
             launches=sum(n for _, _, n in rows),
             us_by_kernel={cs.kernel_name(k): us for k, us, _ in rows})),
             flush=True)

@@ -1,12 +1,19 @@
-"""K1's dropout walks on the card over lists with split rows
-(``csrc/drop_walk.cuh``: the walk, then edge_walk's parts and fix-up), and
-launches over one list that run at the same time, without JAX:
+"""K1's dropout walks on the card over lists with split rows (the masked
+walk, ``csrc/drop_walk.cuh``: the walk, then edge_walk's parts and fix-up;
+the degree walk, ``csrc/degree_walk.cuh``: equal shares of the list's
+edges, then a fold of the rows that cross a block's share), and launches
+over one list that run at the same time, without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_drop_walks_cuda.py
 
 Every output is held bit for bit against the plain version run on the CPU
-(the walks sum in its order: a piece in list order, a split row's pieces in
-``parts`` parts, the parts in order), over float32 and bfloat16 values.
+(the walks sum in its order: the masked walk a piece in list order, a split
+row's pieces in ``parts`` parts, the parts in order; the degree walk a
+lane's run of a row, a row's runs in a block in lane order, its blocks'
+sums in block order), over float32 and bfloat16 values.  The degree walk
+is also held to at most two kernels a call (the profiler), to a CUDA-graph
+replay across draws, to two streams at once, and to allocating nothing
+but its output and its call's scratch.
 The scaled walk finishes split rows inside its launch with a set of its
 list's counters, one for each CUDA stream and each graph capture
 (``ops/blocked.py::Counters``): the last tests launch it (one
@@ -26,6 +33,7 @@ from gnntf_tpu_torch.ops import (PreparedSpMM, build_train_grids,
                                  ell_degree_masked, ell_degree_masked_plain,
                                  ell_gather_masked, ell_gather_masked_plain,
                                  normalize_adjacency)
+from gnntf_tpu_torch.ops import blocked
 from gnntf_tpu_torch.ops.ell_gather import ell_gather_scaled_plain
 from gnntf_tpu_torch.ops.stochastic import keep_mask
 
@@ -291,3 +299,182 @@ def test_launches_on_two_streams_and_beside_a_replay_on_card(cuda, case):
         assert torch.equal(out.cpu(), refs["b"])
     if store is not None:
         assert store.zero() and not store.captured
+
+
+def _hub_lists(seed, n=3000, e=40_000, hubs=(0, 3)):
+    """A training grid's lists on the CPU whose hub row and hub column hold
+    ``hubs[1]`` shares of the degree walk and more (each spans several
+    blocks), with empty rows and columns (odd rows, columns not a multiple
+    of 3), a column of more than a lane's run, and 300 trailing self-loops
+    past ``n_drop``; returns the row and column lists, values and
+    ``n_drop``."""
+    rng = np.random.RandomState(seed)
+    share = blocked.DEGREE_SHARE
+    hub = hubs[1] * share + 77
+    row = np.concatenate([rng.randint(0, n // 2, e) * 2,
+                          np.full(hub, hubs[0]),
+                          rng.randint(0, n // 2, hub + 50) * 2])
+    col = np.concatenate([rng.randint(0, n // 3, e) * 3,
+                          rng.randint(0, n // 3, hub) * 3,
+                          np.full(hub, 33), np.full(50, 7)])
+    order = rng.permutation(len(row))
+    row, col = row[order], col[order]
+    n_drop = len(row)
+    loops = np.arange(300) % (n // 6)
+    row, col = np.concatenate([row, loops * 2]), np.concatenate([col,
+                                                                 loops * 3])
+    val = rng.rand(len(row)).astype(np.float32) + 0.5
+    rows, cols = build_train_grids(row, col, val, n).lists("cpu")
+    return rows, cols, torch.from_numpy(val), n_drop
+
+
+def _degrees(lst, val, salt, keep, n_drop, cuda, id_base=0):
+    """The degree walk over ``lst`` on the card (twice) and its plain
+    versions on the card and on the CPU."""
+    on, val_c = _on(lst, cuda), val.to(cuda)
+    salt_t = torch.tensor(salt)
+    got = ell_degree_masked(on, val_c, salt_t, keep, n_drop, id_base)
+    again = ell_degree_masked(on, val_c, salt_t, keep, n_drop, id_base)
+    plain = ell_degree_masked_plain(on, val_c, salt_t.to(cuda), keep, n_drop,
+                                    id_base)
+    cpu = ell_degree_masked_plain(lst, val, salt_t, keep, n_drop, id_base)
+    return got, again, plain, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["half", "all_dropped", "keep_1",
+                                  "n_drop_below", "id_base"])
+def test_degree_walk_bit_equal_to_plain_on_card(cuda, dtype, case):
+    """The CPU file's cases at a size where the hubs span several blocks:
+    keep 0.5, keep 1/16 (rows whose edges are all dropped), keep 1, ``n_drop``
+    below the edge count, and a slice's ``id_base``: the walk bit for bit its
+    plain version on the card and on the CPU, and a relaunch."""
+    rows, cols, val, n_drop = _hub_lists(11)
+    keep, base = {"half": (0.5, 0), "all_dropped": (1 / 16, 0),
+                  "keep_1": (1.0, 0), "n_drop_below": (0.3, 0),
+                  "id_base": (0.5, 12_345)}[case]
+    if case == "n_drop_below":
+        n_drop -= 5000
+    for lst in (rows, cols):
+        assert lst.share_folds > 0
+        assert int(lst.ptr.diff().max()) > 2 * blocked.DEGREE_SHARE
+        got, again, plain, cpu = _degrees(lst, val.to(dtype), SALT, keep,
+                                          n_drop, cuda, base)
+        assert torch.equal(got, plain) and torch.equal(got, again)
+        assert torch.equal(got.cpu(), cpu)
+        if case == "all_dropped":
+            held = lst.ptr.diff() > 0
+            assert (held & (cpu == 0)).any()
+
+
+def _kernels(fn):
+    """The device kernels ``fn()`` launches, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_degree_walk_launches_at_most_two_kernels_on_card(cuda, dtype):
+    """A call over lists whose hubs cross blocks' shares runs the walk and
+    the fold, one launch each; over a list none of whose rows crosses one
+    (a list within one block), the walk alone."""
+    rows, cols, val, n_drop = _hub_lists(12)
+    small_rows, _, small_val, small_drop = _hub_lists(13, n=300, e=800,
+                                                      hubs=(0, 0))
+    cases = [(rows, val, n_drop, 2), (cols, val, n_drop, 2),
+             (small_rows, small_val, small_drop, 1)]
+    for lst, v, nd, want in cases:
+        on, v_c = _on(lst, cuda), v.to(dtype).to(cuda)
+        salt = torch.tensor(SALT, device=cuda)
+        ell_degree_masked(on, v_c, salt, 0.5, nd)  # the values' copy made
+        got = _kernels(lambda: ell_degree_masked(on, v_c, salt, 0.5, nd))
+        names = {k.split("(anonymous namespace)::")[-1].split("<")[0]
+                 .split("(")[0]: n for k, n in got.items()}
+        assert sum(got.values()) == want, got
+        assert names.get("ell_degree_share_walk") == 1, got
+        assert names.get("ell_degree_share_fold", 0) == want - 1, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_degree_walk_replays_across_draws_on_card(cuda, dtype):
+    """The degree walk over both lists captured in one CUDA graph with the
+    salt pair in a device buffer, replayed under two draws: each replay bit
+    for bit the plain versions of its draw on the CPU."""
+    rows, cols, val, n_drop = _hub_lists(14)
+    val = val.to(dtype)
+    lists, val_c = [_on(lst, cuda) for lst in (rows, cols)], val.to(cuda)
+    buf = torch.tensor(SALT, device=cuda)
+    calls = lambda: [ell_degree_masked(l, val_c, buf, 0.5, n_drop)
+                     for l in lists]
+    calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for salt in ((41, 42), (0xDEADBEEF, 6)):
+        buf.copy_(torch.tensor(salt))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, lst in zip(outs, (rows, cols)):
+            assert torch.equal(out.cpu(), ell_degree_masked_plain(
+                lst, val, torch.tensor(salt), 0.5, n_drop))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_degree_walk_on_two_streams_on_card(cuda, dtype):
+    """Calls over one list on two streams at once (each call's scratch its
+    own): the same bits on each, those of the plain version on the CPU."""
+    _, cols, val, n_drop = _hub_lists(15)
+    val = val.to(dtype)
+    on, val_c = _on(cols, cuda), val.to(cuda)
+    draws = {"a": (51, 52), "b": (53, 54)}
+    refs = {k: ell_degree_masked_plain(cols, val, torch.tensor(d), 0.5,
+                                       n_drop) for k, d in draws.items()}
+    salts = {k: torch.tensor(d, device=cuda) for k, d in draws.items()}
+    ell_degree_masked(on, val_c, salts["a"], 0.5, n_drop)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in side:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(REPS):
+        for s, key in zip(side, "ab"):
+            with torch.cuda.stream(s):
+                got.append((key, ell_degree_masked(on, val_c, salts[key],
+                                                   0.5, n_drop)))
+    torch.cuda.synchronize()
+    for key, out in got:
+        assert torch.equal(out.cpu(), refs[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_degree_walk_allocates_only_out_and_scratch_on_card(cuda, dtype):
+    """After the first call (which makes the list's copy of the values, once),
+    a call allocates two tensors: its output and its scratch (the blocks'
+    sums and rows, three int32 a block); nothing lasts past the call but the
+    output."""
+    _, cols, val, n_drop = _hub_lists(16)
+    on, val_c = _on(cols, cuda), val.to(dtype).to(cuda)
+    salt = torch.tensor(SALT, device=cuda)
+    ell_degree_masked(on, val_c, salt, 0.5, n_drop)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(cuda)
+    count = stats["allocation.all.allocated"]
+    held = torch.cuda.memory_allocated(cuda)
+    out = ell_degree_masked(on, val_c, salt, 0.5, n_drop)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] \
+        - count == 2
+    # the caching allocator rounds a block up to 512 bytes
+    kept = torch.cuda.memory_allocated(cuda) - held
+    assert out.untyped_storage().nbytes() <= kept < \
+        out.untyped_storage().nbytes() + 512

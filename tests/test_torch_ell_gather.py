@@ -30,16 +30,18 @@ both scaled walks bit for bit their plain versions on the CPU, twice in a
 row and in a replayed CUDA graph (the split rows' counters come back to
 zero), on lists with rows split into 2 to 3,000 pieces.
 
-The two dropout walks (``ell_gather_masked``, ``ell_degree_masked``;
-``csrc/drop_walk.cuh``) run over the training grids' row and column lists
-of a dropped graph, cut into tiles (``drop_tiles``); they are held the same
-way, the plain versions against the dense dropped matrix on the CPU, the
-kernels against the plain versions on the card (within ``1e-5 *
+The two dropout walks (``ell_gather_masked``, ``csrc/drop_walk.cuh``, over
+lists cut into tiles by ``drop_tiles``; ``ell_degree_masked``,
+``csrc/degree_walk.cuh``, over equal shares of a list's edges) run over the
+training grids' row and column lists of a dropped graph; they are held the
+same way, the plain versions against the dense dropped matrix on the CPU,
+the kernels against the plain versions on the card (within ``1e-5 *
 sum|terms|`` per element, and bit for bit against the CPU and a relaunch),
 also with other piece and tile sizes and with an inf and a NaN on dropped
 edges' sources (NaNs where the plain version's are).  On the CPU, a
-one-addition-at-a-time sum of the kept edges alone equals the plain
-version bit for bit: leaving the dropped edges out changes no bit.
+one-addition-at-a-time sum of the kept edges alone, in each walk's order,
+equals the plain version bit for bit: leaving the dropped edges out
+changes no bit.
 """
 import dataclasses
 import importlib
@@ -404,10 +406,52 @@ def test_masked_plain_matches_dense(keep, f):
     assert rows.split.shape[0] and cols.split.shape[0]
 
 
-def test_masked_plain_rounds_as_the_walk():
+def _share_order_sums(lst, w, kept_only=False):
+    """The degree walk's order (``csrc/degree_walk.cuh``), one float32
+    addition at a time: a lane's run (``DEGREE_EDGES`` items) of a row from
+    +0, a row's runs in a block (``DEGREE_SHARE`` items) in lane order, a
+    row's blocks' sums in block order; ``kept_only``: the dropped edges
+    (w == 0) left out."""
+    ptr = lst.ptr.numpy()
+    eid = np.arange(lst.n_edges) if lst.eid is None else lst.eid.numpy()
+    w = w.numpy()
+    lane, share = blocked_ops.DEGREE_EDGES, blocked_ops.DEGREE_SHARE
+    out = np.zeros(lst.n_rows, np.float32)
+    for r in range(lst.n_rows):
+        a, b = int(ptr[r]), int(ptr[r + 1])
+        total = None
+        for blk in range(a // share, (b - 1) // share + 1 if b > a else 0):
+            lo, hi = max(a, blk * share), min(b, (blk + 1) * share)
+            block_sum = None
+            for ln in range(lo // lane, (hi - 1) // lane + 1):
+                acc = np.float32(0)
+                for e in range(max(lo, ln * lane), min(hi, (ln + 1) * lane)):
+                    if not kept_only or w[eid[e]] != 0:
+                        acc = np.float32(acc + np.float32(w[eid[e]]))
+                block_sum = acc if block_sum is None else np.float32(
+                    block_sum + acc)
+            total = block_sum if total is None else np.float32(
+                total + block_sum)
+        if total is not None:
+            out[r] = total
+    return torch.from_numpy(out)
+
+
+def _small_shares(monkeypatch, lanes=8, edges=4):
+    """The degree walk's shares cut small (``lanes`` x ``edges`` items), so
+    a test list's rows span lanes and blocks."""
+    monkeypatch.setattr(blocked_ops, "DEGREE_LANES", lanes)
+    monkeypatch.setattr(blocked_ops, "DEGREE_EDGES", edges)
+    monkeypatch.setattr(blocked_ops, "DEGREE_SHARE", lanes * edges)
+
+
+@pytest.mark.parametrize("shares", [(128, 16), (8, 4)])
+def test_masked_plain_rounds_as_the_walk(monkeypatch, shares):
     """The masked plain version is the walk's plain version over the
-    draw's per-edge values; the degree, over a column of ones, bit for
-    bit."""
+    draw's per-edge values; the degree's is the degree walk's order over
+    them, one addition at a time, bit for bit (at the walk's shares and at
+    shares of 32 items, where rows span lanes and blocks)."""
+    _small_shares(monkeypatch, *shares)
     (rows, cols), val, x, n_drop, _ = _masked_inputs(2, heavy=400,
                                                      n_loops=20)
     salt = torch.tensor((9, 10))
@@ -421,7 +465,7 @@ def test_masked_plain_rounds_as_the_walk():
                            blocked_spmm_plain(lst, w, x))
         assert torch.equal(
             ell_degree_masked_plain(lst, val, salt, 0.5, n_drop),
-            blocked_spmm_plain(lst, w, torch.ones(600, 1))[:, 0])
+            _share_order_sums(lst, w))
 
 
 def test_masked_wrappers_reject_bad_inputs():
@@ -537,11 +581,13 @@ def _kept_only_sums(lst, w, x):
 
 @pytest.mark.parametrize("keep", [0.5, 0.05])
 def test_kept_edges_alone_give_the_plain_sums(monkeypatch, keep):
-    """What the dropout walks compute, leaving the dropped edges out, is
+    """What the masked walk computes, leaving the dropped edges out, is
     the plain version bit for bit (which adds their +0 * x terms), for
     finite x: a sum that starts at +0 is never -0, so adding +-0 changes
-    no bit."""
+    no bit.  So is the degree walk's order over the kept edges alone (the
+    walk adds a dropped edge's +0, as its plain version does)."""
     monkeypatch.setattr(blocked_ops, "_FIXUP_PARTS", 3)
+    _small_shares(monkeypatch)
     (rows, cols), val, x, n_drop, _ = _masked_inputs(8, e=3000, f=3,
                                                      heavy=500, n_loops=20)
     x[::7] = -x[::7]
@@ -553,15 +599,16 @@ def test_kept_edges_alone_give_the_plain_sums(monkeypatch, keep):
         assert lst.split.shape[0] and lst.parts == 3
         want = ell_gather_masked_plain(lst, val, salt, keep, n_drop, x)
         assert torch.equal(_kept_only_sums(lst, w, x), want)
-        ones = torch.ones(600, 1)
-        assert torch.equal(_kept_only_sums(lst, w, ones)[:, 0],
+        assert torch.equal(_share_order_sums(lst, w, kept_only=True),
                            ell_degree_masked_plain(lst, val, salt, keep,
                                                    n_drop))
 
 
 def test_dropout_walks_need_a_list_with_tiles():
-    """A list built without tiles is refused by both dropout walks (and its
-    tile addresses do not exist); the training grids' lists have them."""
+    """A list built without tiles is refused by the masked walk (and its
+    tile addresses do not exist); the training grids' lists have them.  The
+    degree walk takes equal shares of any list's edges: over the bare list
+    it gives the tiled list's degrees."""
     (rows, _), val, x, n_drop, _ = _masked_inputs(9)
     assert rows.tile_seg is not None and rows.n_tiles > 0
     bare = blocked_ops.EdgeList.build(
@@ -571,8 +618,8 @@ def test_dropout_walks_need_a_list_with_tiles():
     salt = torch.tensor((1, 2))
     with pytest.raises(ValueError, match="tiles"):
         ell_gather_masked(bare, val, salt, 0.5, n_drop, x)
-    with pytest.raises(ValueError, match="tiles"):
-        ell_degree_masked(bare, val, salt, 0.5, n_drop)
+    assert torch.equal(ell_degree_masked(bare, val, salt, 0.5, n_drop),
+                       ell_degree_masked(rows, val, salt, 0.5, n_drop))
     with pytest.raises(ValueError, match="tiles"):
         bare.tile_addresses
 
@@ -603,12 +650,24 @@ def test_entry_args_follow_the_list():
     assert args[26:] == (salt.data_ptr(), *draw_scalars(0.5, n_drop),
                          flag.data_ptr(), 600 * 8)
     assert len(args) == len(blocked_ops.DROP_ARGTYPES) - 1
-    # the degree walk: one value a row, no x and no flag
-    deg_args, _ = blocked_ops.entry_args(
-        rows, val, None, torch.empty(600),
-        k1_ops.drop_args(rows, salt, 0.5, n_drop))
-    assert deg_args[9] is None and deg_args[-2:] == (None, 0)
-    assert deg_args[15:18] == (1, 1, 1)
+    # the degree walk: the list's ptr and eid, its values in list order,
+    # out, a call's scratch (three rows of one int32 a block), the counts,
+    # the walk's shares, whether a row crosses one, then the draw
+    deg = torch.empty(600)
+    ordered = k1_ops.list_values(rows, val)
+    deg_args, scratch = k1_ops.degree_args(rows, ordered, deg, salt, 0.5,
+                                           n_drop, 7)
+    blocks = -(-rows.n_edges // blocked_ops.DEGREE_SHARE)
+    assert scratch.shape == (3, blocks) and scratch.dtype == torch.int32
+    assert deg_args == (
+        rows.ptr.data_ptr(),
+        None if rows.eid is None else rows.eid.data_ptr(),
+        ordered.data_ptr(), deg.data_ptr(),
+        *(scratch[k].data_ptr() for k in range(3)), 600, rows.n_edges,
+        blocks, blocked_ops.DEGREE_LANES, blocked_ops.DEGREE_EDGES,
+        int(rows.share_folds > 0), salt.data_ptr(),
+        *draw_scalars(0.5, n_drop, 7))
+    assert len(deg_args) == len(k1_ops.DEGREE_ARGTYPES) - 1
 
 
 def _scaled_inputs(seed, f, scaled, n=3000, e=60_000, heavy=20_000):
