@@ -88,19 +88,21 @@ Phases (any failure raises and exits non-zero):
    graph's replay, each output equal to a fresh launch with its draw;
 2f. K2's bfloat16 mode (``spmm_pallas(bf16=True)``: x rounded to
    bfloat16, each term rounded to bfloat16, the sums in float32) over the
-   RCM benchmark graph's forward list at F=16, 40, 64 and 128 against its
-   plain version: the walk ``bf16_plan`` picks (the staged walk,
-   ``csrc/bf16_walk.cuh``, at F=16 and 40, bit-equal to the plain version;
-   the generic walk at 64 and 128), the call from float32 x (cast,
-   then that walk) and, at F=16 and 40, the generic walk beside it, each
-   timed beside its bound, beside the cast, the float32 walk and
-   ``torch.sparse.mm``, the share at F=40 bit-equal to the plain version
-   on the CPU; the slice's main path, a serving product and
-   a training step at F=40 and a serving product at F=7 through
-   ``spmm_pallas(bf16=True)`` with the counts zeroed just before and read
-   just after (2 launches of the staged walk, 1 of the generic walk, 1 of
-   K2's float32 walk for ``dx``), the products and ``dx`` bit-equal to the
-   CPU's and ``dval`` close to it; the masked walk over the training
+   RCM benchmark graph's forward list at F=7, 16, 40, 64 and 128 against
+   its plain version: the walk ``bf16_plan`` picks (the staged walk,
+   ``csrc/bf16_walk.cuh``, at F=16 and 40, bit-equal to the plain version
+   on the CPU; the share walk, ``csrc/share_walk.cuh``, at 64 and 128,
+   bit-equal to it on the card and on the CPU; the generic walk's narrow
+   walk at 7), the call from float32 x (cast, then that walk) and, at
+   F=16-128, the generic walk beside it, each timed beside its bound,
+   beside the cast, the float32 walk and ``torch.sparse.mm``, the share at
+   F=40 bit-equal to the plain version on the CPU; the slice's main path,
+   a serving product and a training step at F=40 and serving products at
+   F=7 and F=128 through ``spmm_pallas(bf16=True)`` with the counts zeroed
+   just before and read just after (2 launches of the staged walk, 1 of
+   the generic walk, 1 of the share walk, 1 of K2's float32 walk for
+   ``dx``), the products and ``dx`` bit-equal to the CPU's and ``dval``
+   close to it; the masked walk over the training
    grids' row and column lists and the degree walk (beside
    ``torch.sparse.mm`` of a column of ones), the values of a weighted
    copy in bfloat16 (the
@@ -1653,8 +1655,8 @@ def launch_counts():
     masked walk, its degree walk, the scaled walk's backward over the
     transposed list ("backward") and hybrid's backward walk over it
     ("k1t"), the attention kernels A1-A4, K2's bfloat16 mode (the generic
-    walk, "k2_bf16", and the staged walk, "k2_bf16s") and the masked and
-    degree walks over bfloat16 values."""
+    walk, "k2_bf16", the staged walk, "k2_bf16s", and the share walk,
+    "k2_bf16sh") and the masked and degree walks over bfloat16 values."""
     from gnntf_tpu_torch.ops import (attention, blocked_spmm,
                                      blocked_spmm_bf16, ell_degree_masked,
                                      ell_gather, ell_gather_masked,
@@ -1670,8 +1672,10 @@ def launch_counts():
                 **{name: getattr(attention, name).launches
                    for name in ATTN_KERNELS},
                 k2_bf16=(blocked_spmm_bf16.launches
-                         - blocked_spmm_bf16.staged_launches),
+                         - blocked_spmm_bf16.staged_launches
+                         - blocked_spmm_bf16.share_launches),
                 k2_bf16s=blocked_spmm_bf16.staged_launches,
+                k2_bf16sh=blocked_spmm_bf16.share_launches,
                 masked_bf16=ell_gather_masked.bf16_launches,
                 degree_bf16=ell_degree_masked.bf16_launches)
 
@@ -1691,6 +1695,7 @@ def zero_counts():
     ell_gather.backward_launches = 0
     ell_gather_masked.bf16_launches = ell_degree_masked.bf16_launches = 0
     blocked_spmm_bf16.staged_launches = 0
+    blocked_spmm_bf16.share_launches = 0
 
 
 def per_epoch(marks):
@@ -1712,7 +1717,7 @@ def per_epoch(marks):
 # ("k1") runs only under hybrid and in the per-call ell route.
 NO_LAUNCHES = dict(k2=0, k1=0, k1s=0, masked=0, degree=0, backward=0,
                    k1t=0, **dict.fromkeys(ATTN_KERNELS, 0), k2_bf16=0,
-                   k2_bf16s=0, masked_bf16=0, degree_bf16=0)
+                   k2_bf16s=0, k2_bf16sh=0, masked_bf16=0, degree_bf16=0)
 EPOCH_LAUNCHES = {"pallas": dict(NO_LAUNCHES, k2=30, degree=10),
                   None: dict(NO_LAUNCHES, k1s=10, masked=20, degree=10)}
 # GCNII-64 an epoch: the prepared operator in each convolution of the step
@@ -2660,15 +2665,17 @@ def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
     """K2's bfloat16 mode over ``lst`` on ``x`` (float32, cast to bfloat16
     as ``spmm_pallas(bf16=True)`` casts it) against its plain version:
     the walk that ``bf16_plan`` picks ("walk": the staged walk,
-    ``csrc/bf16_walk.cuh``, at F % 8 == 0, 16 <= F <= 40 on this list), the
-    call from the float32 ``x`` (the cast, then that walk) and, where the
-    staged walk runs, the generic walk at its own load beside it, each
-    within ``1e-5 * sum|terms|`` of the plain version on the card and
-    compared with it on the CPU (``cpu_lst``: ``lst`` there), which the
-    staged walk must equal bit for bit.  Each is timed (CUDA events; one
-    call's device time) beside its bound, with the cast, the float32 walk,
-    the plain version and (``library``) ``torch.sparse.mm`` of the same
-    matrix in float32."""
+    ``csrc/bf16_walk.cuh``, at F % 8 == 0, 16 <= F <= 40 on this list; the
+    share walk, ``csrc/share_walk.cuh``, at F % 8 == 0, 64 <= F <= 256),
+    the call from the float32 ``x`` (the cast, then that walk) and, where
+    the staged or the share walk runs, the generic walk at its own load
+    beside it, each within ``1e-5 * sum|terms|`` of the plain version on
+    the card and compared with it on the CPU (``cpu_lst``: ``lst`` there),
+    which the staged walk must equal bit for bit, and the share walk both
+    there and on the card.  Each is timed (CUDA events; one call's device
+    time) beside its bound, with the cast, the float32 walk, the plain
+    version and (``library``) ``torch.sparse.mm`` of the same matrix in
+    float32."""
     from gnntf_tpu_torch.ops import (blocked, blocked_spmm, blocked_spmm_bf16,
                                      blocked_spmm_bf16_plain,
                                      blocked_spmm_plain)
@@ -2678,30 +2685,35 @@ def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
     ref = blocked_spmm_bf16_plain(lst, val, xb)
     ref_cpu = blocked_spmm_bf16_plain(cpu_lst, val.cpu(), xb.cpu())
     scale = blocked_spmm_plain(lst, val.abs(), xb.to(torch.float32).abs())
-    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                             lst.n_rows)
     runs = {"walk": lambda: blocked_spmm_bf16(lst, val, xb),
             "call": lambda: blocked_spmm_bf16(lst, val,
                                               x.to(torch.bfloat16))}
-    if plan.staged:
+    if plan.staged or plan.share:
         runs["generic"] = lambda: blocked_spmm_bf16(lst, val, xb)
     res = {}
-    old = blocked._BF16_STAGED_EDGES
+    old = blocked._BF16_STAGED_EDGES, blocked._BF16_SHARE_LISTS
     for name, run in runs.items():
-        # the generic walk: the staged walk at no width
-        blocked._BF16_STAGED_EDGES = {} if name == "generic" else old
+        # the generic walk: the staged and the share walk at no width
+        if name == "generic":
+            blocked._BF16_STAGED_EDGES = {}
+            blocked._BF16_SHARE_LISTS = {}
         try:
-            p = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            p = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                                  lst.n_rows)
             out = run()
             torch.cuda.synchronize()
-            r = dict(staged=p.staged, vec=p.vec, group=p.group,
-                     ring=(p.depth, p.rows),
+            r = dict(staged=p.staged, share=p.share, vec=p.vec,
+                     group=p.group, ring=(p.depth, p.rows),
                      max_abs_err=check_close(f"K2 bf16 {name} {label}", out,
                                              ref, scale),
                      bit_equal=bool(torch.equal(out.cpu(), ref_cpu)),
+                     bit_equal_card=bool(torch.equal(out, ref)),
                      ms=time_ms(run))
             rows, busy_us, _, _ = device_profile(run)
         finally:
-            blocked._BF16_STAGED_EDGES = old
+            blocked._BF16_STAGED_EDGES, blocked._BF16_SHARE_LISTS = old
         r["device_ms"] = busy_us / 1e3
         r["us_by_kernel"] = {kernel_name(key): us for key, us, _ in rows}
         r["bound_ms"], r["bound_by"], r["bound_bytes"] = bf16_bound(lst, f)
@@ -2709,6 +2721,10 @@ def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
             raise AssertionError(f"K2 bf16 {name} {label}: the staged walk "
                                  f"is not bit-equal to the plain version on "
                                  f"the CPU")
+        if p.share and not (r["bit_equal"] and r["bit_equal_card"]):
+            raise AssertionError(f"K2 bf16 {name} {label}: the share walk "
+                                 f"is not bit-equal to the plain version on "
+                                 f"the card and on the CPU")
         res[name] = r
     cast = lambda: x.to(torch.bfloat16)
     common = dict(plain_ms=time_ms(lambda: blocked_spmm_bf16_plain(lst, val,
@@ -2731,7 +2747,8 @@ def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
         r.update(common)
     log(f"K2 bf16 {label} (edges {lst.n_edges}, units {lst.n_units}, split "
         f"rows {lst.split.shape[0]}, N={lst.n_rows} F={f}): " + "; ".join(
-            f"{name} (staged {r['staged']}, vec {r['vec']}, group "
+            f"{name} (staged {r['staged']}, share {r['share']}, vec "
+        f"{r['vec']}, group "
             f"{r['group']}, ring {r['ring']}) {r['ms']} ms, device "
             f"{r['device_ms']} ms {r['us_by_kernel']} us, bound "
             f"{r['bound_ms']} ms ({r['bound_bytes']} B), bit-equal "
@@ -2742,14 +2759,15 @@ def check_bf16_kernel(label, lst, cpu_lst, val, x, library=False):
 
 def phase_bf16_kernels(graph, g_rcm, dev, xs):
     """2f: K2's bfloat16 mode (``spmm_pallas(bf16=True)``) on the RCM bench
-    graph's forward list at each F of ``xs`` ({F: x}) against its plain
-    version, the share at F=40 bit-equal to the plain version on the CPU;
-    a serving product at F=40 and at F=7 (the generic walk) and a
-    training step at F=40 through ``spmm_pallas(bf16=True)`` with the
-    counts zeroed just before and read just after, ``dx`` and ``dval``
-    against the CPU; then the masked and degree walks over a weighted copy
-    of the bench graph's training lists, the values in bfloat16 beside
-    float32; returns the results."""
+    graph's forward list at each F of ``xs`` ({F: x}) and at F=7 against
+    its plain version, the share at F=40 bit-equal to the plain version on
+    the CPU; a serving product at F=40, at F=7 (the generic walk's narrow
+    walk) and at F=128 (the share walk) and a training step at F=40
+    through ``spmm_pallas(bf16=True)`` with the counts zeroed just before
+    and read just after, ``dx`` and ``dval`` against the CPU; then the
+    masked and degree walks over a weighted copy of the bench graph's
+    training lists, the values in bfloat16 beside float32; returns the
+    results."""
     from gnntf_tpu_torch.ops import (blocked, blocked_spmm_bf16_plain,
                                      build_train_grids, ell_degree_masked,
                                      ell_gather_masked, normalize_adjacency,
@@ -2761,12 +2779,12 @@ def phase_bf16_kernels(graph, g_rcm, dev, xs):
     val = base.val.to(torch.float32).contiguous()
     cpu = blocked.blocked_layout(norm.to("cpu"))
     res = {}
-    for f, x in xs.items():
-        res[f] = check_bf16_kernel(f"RCM bench F={f}", prep.forward,
-                                   cpu.forward, val, x, library=True)
-    x40 = xs[N_CLASSES]
+    x40, x128 = xs[N_CLASSES], xs[N_FEATURES]
     x7 = torch.from_numpy(np.random.RandomState(18).randn(
         N_NODES, CORA_CLASSES).astype(np.float32)).to(dev)
+    for f, x in {**xs, CORA_CLASSES: x7}.items():
+        res[f] = check_bf16_kernel(f"RCM bench F={f}", prep.forward,
+                                   cpu.forward, val, x, library=True)
     x_cpu = x40.cpu()
     ref = blocked_spmm_bf16_plain(cpu.forward, val.cpu(),
                                   x_cpu.to(torch.bfloat16))
@@ -2801,13 +2819,17 @@ def phase_bf16_kernels(graph, g_rcm, dev, xs):
     served7 = spmm_pallas(norm, x7, bf16=True)
     torch.cuda.synchronize()
     serve7_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    served128 = spmm_pallas(norm, x128, bf16=True)
+    torch.cuda.synchronize()
+    serve128_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
     # the staged walk in the F=40 product and step forward, the generic walk at
-    # F=7, K2's float32 walk for dx
-    want = dict(NO_LAUNCHES, k2_bf16s=2, k2_bf16=1, k2=1)
+    # F=7, the share walk at F=128, K2's float32 walk for dx
+    want = dict(NO_LAUNCHES, k2_bf16s=2, k2_bf16=1, k2_bf16sh=1, k2=1)
     log(f"spmm_pallas(bf16=True): serving product {serve_ms} ms, step "
         f"(forward, backward) {step_ms} ms, serving product at F=7 "
-        f"{serve7_ms} ms, launches {counts}")
+        f"{serve7_ms} ms, at F=128 {serve128_ms} ms, launches {counts}")
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     n_cpu = norm.to("cpu")
@@ -2817,11 +2839,13 @@ def phase_bf16_kernels(graph, g_rcm, dev, xs):
                          bf16=True)
     ref.backward(dy.cpu())
     ref7 = spmm_pallas(n_cpu, x7.cpu(), bf16=True)
+    ref128 = spmm_pallas(n_cpu, x128.cpu(), bf16=True)
     step = dict(serve_ms=serve_ms, step_ms=step_ms, serve7_ms=serve7_ms,
-                launches=counts)
+                serve128_ms=serve128_ms, launches=counts)
     for name, a, b in (("forward", served, ref), ("dx", xg.grad, x_cpu.grad),
                        ("dval", v.grad, v_cpu.grad),
-                       ("forward_f7", served7, ref7)):
+                       ("forward_f7", served7, ref7),
+                       ("forward_f128", served128, ref128)):
         a, b = a.detach().cpu(), b.detach()
         step[f"{name}_max_abs_err"] = (a - b).abs().max().item()
         step[f"{name}_bit_equal_share"] = (a == b).double().mean().item()
@@ -5398,8 +5422,8 @@ def main(dev=None):
     attn_entries = attention_entries(attention, gat, slices)
     for e in attn_entries:
         e["gspmd_slices"] = slice_entry(slices, multihost, e["name"])
-    bf16_widths = {f"F={f}": bf16[f] for f in (LP_CLASSES, N_CLASSES, 64,
-                                                 N_FEATURES)}
+    bf16_widths = {f"F={f}": bf16[f] for f in (CORA_CLASSES, LP_CLASSES,
+                                                 N_CLASSES, 64, N_FEATURES)}
     bf16_entries = [
         {"name": "blocked_spmm_bf16_staged", "route": "cuda",
          "source": "gnntf_tpu_torch/csrc/bf16_walk.cuh",
@@ -5413,15 +5437,26 @@ def main(dev=None):
          "widths": bf16_widths,
          "bit_equal_to_cpu_plain_f40": bf16["bit_equal_to_cpu_plain_f40"],
          "step": bf16["step"]},
+        {"name": "blocked_spmm_bf16_share", "route": "cuda",
+         "source": "gnntf_tpu_torch/csrc/share_walk.cuh",
+         "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
+         "launches": bf16["step"]["launches"]["k2_bf16sh"],
+         **entry_numbers(bf16[N_FEATURES]["walk"]),
+         "shape": "RCM bench graph's forward list, N=169343, F=128, over x "
+                  "cast to bfloat16 (launches: one serving product through "
+                  "spmm_pallas(bf16=True))",
+         "generic_walk": bf16[N_FEATURES]["generic"],
+         "f64": bf16[64]["walk"], "f64_generic_walk": bf16[64]["generic"]},
         {"name": "blocked_spmm_bf16", "route": "cuda",
          "source": "gnntf_tpu_torch/csrc/blocked_spmm.cu",
          "replaces": "gnntf_tpu/ops/pallas/spmm.py:49",
          "launches": bf16["step"]["launches"]["k2_bf16"],
-         **entry_numbers(bf16[N_CLASSES]["generic"]),
-         "shape": "the generic walk over x cast to bfloat16, timed on "
-                  "the RCM bench graph's forward list at F=40 (launches: "
-                  "one serving product at F=7, where the staged walk does "
-                  "not run)"}]
+         **entry_numbers(bf16[CORA_CLASSES]["walk"]),
+         "shape": "the generic walk (its narrow walk) over x cast to "
+                  "bfloat16 on the RCM bench graph's forward list at F=7 "
+                  "(launches: one serving product at F=7, where neither "
+                  "the staged nor the share walk runs)",
+         "f40": bf16[N_CLASSES]["generic"]}]
     for name, key, walk, shape in (
             ("ell_gather_masked_bf16", "masked_bf16", "row", "row list, F=40"),
             ("ell_degree_masked_bf16", "degree_bf16", "degree",
@@ -5436,7 +5471,7 @@ def main(dev=None):
                      f"values in bfloat16, keep {KEEP} (launches: APPNP, "
                      f"3 epochs under GNNTF_GRID_VALUE_DTYPE=bfloat16)",
             "float32_values": bf16["masked"][f"float32_{walk}"]})
-    bf16_entries[2]["backward"] = bf16["masked"]["bf16_column"]
+    bf16_entries[3]["backward"] = bf16["masked"]["bf16_column"]
     print(json.dumps({"kernels": [scaled_entry, scaled_backward_entry,
                                   entry, entry2, entry3,
                                   entry4, *attn_entries, *bf16_entries]}),

@@ -56,7 +56,7 @@
 // graph's forward list: ptr 0.68 MB, idx and val 18.66 MB, bfloat16 x 13.55
 // MB, float out 27.09 MB: 59.98 MB, 17.9 us at 3.35 TB/s (the cast before
 // it, 27.09 MB read and 13.55 MB written, 12.1 us, is a pass of its own).
-// Two walks take it; the host picks by width, alignment and the list's
+// Three walks take it; the host picks by width, alignment and the list's
 // edges (ops/blocked.py::bf16_plan):
 //
 // - the staged walk (gnntf_blocked_spmm_bf16_staged; bf16_walk.cuh): a
@@ -66,6 +66,12 @@
 //   packed conversion.  It takes F % 8 == 0, 16 <= F <= 40, x and out
 //   16-byte aligned, and the host gives it lists large enough for it to
 //   win;
+// - the share walk (gnntf_blocked_spmm_bf16_share; share_walk.cuh): equal
+//   shares of the list's edges, a group of F / 8 lanes a run of
+//   consecutive edges, each lane one 16-byte load of 8 bfloat16 an edge,
+//   split rows folded across blocks by a second kernel in a fixed order.
+//   It takes F % 8 == 0, 64 <= F <= 256, x and out 16-byte aligned, on the
+//   lists where it measured faster than the generic walk;
 // - the generic walk (gnntf_blocked_spmm_bf16; edge_walk.cuh's walk over
 //   loads of X): a lane loads vec bfloat16 at once (2, 4 or 8, or 1) and
 //   keeps vec float sums (T); rows of fewer than kNarrowLanes loads take
@@ -76,6 +82,7 @@
 
 #include "bf16_walk.cuh"
 #include "edge_walk.cuh"
+#include "share_walk.cuh"
 
 namespace {
 
@@ -311,6 +318,24 @@ int staged(const Args& a, int f, int depth, int rows, cudaStream_t s) {
                            blocked_spmm_fixup<float4>, a, s);
 }
 
+// The share walk (share_walk.cuh) at groups of L lanes, and its fold of
+// the rows that cross a block's end.
+template <int L>
+__global__ void __launch_bounds__(share_walk::kThreads,
+                                  share_walk::kMinBlocks)
+    blocked_spmm_bf16_share_walk(const share_walk::Args a) {
+  share_walk::walk<L>(a);
+}
+
+__global__ void __launch_bounds__(32 * share_walk::kFoldWarps)
+    blocked_spmm_bf16_share_fold(const share_walk::Args a) {
+  share_walk::fold(a);
+}
+
+const share_walk::Kernel kShareWalks[3] = {blocked_spmm_bf16_share_walk<8>,
+                                           blocked_spmm_bf16_share_walk<16>,
+                                           blocked_spmm_bf16_share_walk<32>};
+
 }  // namespace
 
 // out (n, f) float32 needs no zero-fill; carry (n_units + n_split * parts,
@@ -387,6 +412,25 @@ extern "C" int gnntf_blocked_spmm_bf16_staged(
       ptr, idx, eid, nullptr, unit_row, unit_edge, split, part_item, val, x,
       out, carry, n_units, n_split, n_part_items, f, vec, group, parts);
   return staged(a, f, depth, rows_a_batch, static_cast<cudaStream_t>(stream));
+}
+
+// K2's bfloat16 mode's share walk: x (n_in, f) bfloat16 and out (n_rows,
+// f) float32, both 16-byte aligned, f % 8 == 0 and 64 <= f <= 256; val the
+// values by edge id, eid may be null (the identity); carry_in and carry_out
+// (n_blocks, f) float32 and col_in (n_blocks,) int32 are scratch, n_blocks
+// = max(1, ceil(n_edges / share)); share and fold_range are the host's
+// constants, checked against the kernel's; folds says whether a row
+// crosses a block's share (else the fold is not launched).  Launches on
+// `stream` and returns a CUDA error code (0 on success).
+extern "C" int gnntf_blocked_spmm_bf16_share(
+    const void* ptr, const void* idx, const void* eid, const void* val,
+    const void* x, void* out, void* carry_in, void* carry_out, void* col_in,
+    int n_rows, int n_edges, int n_blocks, int f, int share, int fold_range,
+    int folds, void* stream) {
+  return share_walk::launch(
+      kShareWalks, blocked_spmm_bf16_share_fold, ptr, idx, eid, val, x, out,
+      carry_in, carry_out, col_in, n_rows, n_edges, n_blocks, f, share,
+      fold_range, folds != 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gnntf_cuda_error_string(int code) {

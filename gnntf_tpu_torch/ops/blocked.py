@@ -32,9 +32,10 @@ it over the transposed list, and the values' gradient (the JAX package's
 rounded to bfloat16 once a call and :func:`blocked_spmm_bf16` walks the
 forward list over it, each term ``val * x`` rounded to bfloat16 and summed
 in float32 (:func:`blocked_spmm_bf16_plain` on the CPU); :func:`bf16_plan`
-picks its walk (``csrc/bf16_walk.cuh``'s staged walk, or the generic walk
-of ``edge_walk.cuh``).  The backward is the float32 one, over the unrounded
-``x``, as the JAX package's is.
+picks its walk (``csrc/bf16_walk.cuh``'s staged walk,
+``csrc/share_walk.cuh``'s walk over equal shares of the list's edges, or
+the generic walk of ``edge_walk.cuh``).  The backward is the float32 one,
+over the unrounded ``x``, as the JAX package's is.
 """
 from __future__ import annotations
 
@@ -85,6 +86,20 @@ _FIXUP_PARTS = 64
 DEGREE_LANES = 128
 DEGREE_EDGES = 16
 DEGREE_SHARE = DEGREE_LANES * DEGREE_EDGES
+# K2's bfloat16 share walk (csrc/share_walk.cuh, kShare, kThreads and
+# kFoldRange): edges a block's share of the list and threads a block (a
+# group of bf16_share_lanes(F) lanes takes a run of BF16_SHARE *
+# lanes / BF16_SHARE_THREADS of them), and the blocks' sums a range of its
+# fold; the least and the most width it takes (F % 8 == 0)
+BF16_SHARE = 1024
+BF16_SHARE_THREADS = 256
+BF16_FOLD_RANGE = 32
+BF16_SHARE_WIDTHS = (64, 256)
+# the lists that bf16_plan gives the share walk, by the lanes of its groups
+# (bf16_share_lanes: 8 at F = 64, 16 at F = 72-128, 32 at F = 136-256): the
+# fewest edges, and the fewest edges a row (the list's edges over its rows,
+# empty ones too); {} gives it no list
+_BF16_SHARE_LISTS = {8: (40_000, 0), 16: (150_000, 4), 32: (300_000, 0)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,11 +337,11 @@ def part_items(split: np.ndarray, parts: int) -> np.ndarray:
     return (s * parts + g)[np.lexsort((s, g))].astype(np.int32)
 
 
-def share_folds(ptr: np.ndarray) -> int:
-    """The rows of a list that cross the end of a share of ``DEGREE_SHARE``
-    edges (``csrc/degree_walk.cuh``: the rows whose blocks' sums the degree
-    walk's fold kernel adds; without one, the walk is its only launch)."""
-    share = DEGREE_SHARE
+def share_folds(ptr: np.ndarray, share: int = DEGREE_SHARE) -> int:
+    """The rows of a list that cross the end of a share of ``share`` edges
+    (``DEGREE_SHARE``: ``csrc/degree_walk.cuh``, ``BF16_SHARE``:
+    ``csrc/share_walk.cuh``; the rows whose blocks' sums the walk's fold
+    kernel adds: without one, the walk is its only launch)."""
     ptr = np.asarray(ptr, np.int64)
     ends = np.arange(share, ptr[-1], share)
     row = np.searchsorted(ptr, ends, side="right") - 1
@@ -441,8 +456,9 @@ class EdgeList:
     its own launch (``counters``, a :class:`Counters` of ``n_split * (parts
     + 1)`` int32 a set; None where no row is split), the rows that cross the
     end of a share of K1's degree walk (``share_folds``, :func:`share_folds`)
-    and what that walk makes once for the list (``memo``: its copy of the
-    base values in list order, ``ops/ell_gather.py::list_values``)."""
+    and what the walks make once for the list (``memo``: the degree walk's
+    copy of the base values in list order, ``ops/ell_gather.py::
+    list_values``; :func:`bf16_folds`)."""
 
     ptr: torch.Tensor        # (N+1,) int32
     idx: torch.Tensor        # (E,) int32 source row of each edge
@@ -655,6 +671,90 @@ def ordered_row_sums(lst: EdgeList, terms: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fold_runs(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """The left fold, in order, of each run of ``values`` (rows of a
+    tensor; a run begins where ``starts`` is True): ``((v0 + v1) + v2) +
+    ...``, one rounded addition at a time."""
+    first = torch.nonzero(starts).flatten()
+    length = torch.diff(first, append=first.new_tensor([values.shape[0]]))
+    acc = values[first].clone()
+    order = torch.argsort(length, descending=True, stable=True)
+    # runs longer than k, for k = 1, 2, ...: the first counts[k - 1] of order
+    longest = int(length.max()) if length.numel() else 0
+    ascending = torch.sort(length).values
+    counts = (length.numel() - torch.searchsorted(
+        ascending, torch.arange(1, max(1, longest), device=length.device),
+        right=True)).tolist()
+    for k, count in enumerate(counts, start=1):
+        on = order[:count]
+        acc[on] = acc[on] + values[first[on] + k]
+    return acc
+
+
+def bf16_share_lanes(f: int) -> int:
+    """The lanes of the share walk's groups at width F: 8, 16 or 32, the
+    least power of two that holds F / 8 lanes of 8 elements each."""
+    return 8 if f <= 64 else 16 if f <= 128 else 32
+
+
+def bf16_share_run(f: int) -> int:
+    """The share walk's edges a run at width F: ``BF16_SHARE`` edges a
+    block of ``BF16_SHARE_THREADS`` threads, groups of
+    :func:`bf16_share_lanes` lanes (32, 64 or 128 edges at the
+    defaults)."""
+    return BF16_SHARE * bf16_share_lanes(f) // BF16_SHARE_THREADS
+
+
+def share_row_sums(ptr: torch.Tensor, terms: torch.Tensor, run: int,
+                   share: int, fold_range: Optional[int]) -> torch.Tensor:
+    """Each list row's sum of ``terms`` ((E, F) float32, one row an edge in
+    list order) in the order of a walk over equal shares of the list
+    (``csrc/share_walk.cuh``; ``csrc/degree_walk.cuh`` at F = 1): a worker
+    sums its run of ``run`` consecutive edges of each row in edge order,
+    from +0; a row's runs in one block (``share`` edges) are folded in run
+    order; a row's blocks' sums are left-folded by ranges of
+    ``fold_range`` (each range left-folded, then the ranges in order; None:
+    one range).  Empty rows are +0."""
+    n, (n_items, f) = ptr.numel() - 1, terms.shape
+    dev = terms.device
+    out = torch.zeros(n, f, dtype=torch.float32, device=dev)
+    if n_items == 0:
+        return out
+    row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  ptr.diff().long(), output_size=n_items)
+    item = torch.arange(n_items, device=dev)
+    # 1. a run of a row, from +0, one item of each run at a time (a run
+    # holds one item of a residue class, so each step writes a run once)
+    starts = torch.ones(n_items, dtype=torch.bool, device=dev)
+    starts[1:] = (item[1:] % run == 0) | (row[1:] != row[:-1])
+    at_run = torch.cumsum(starts, 0) - 1
+    sums = torch.zeros(int(at_run[-1]) + 1, f, dtype=torch.float32,
+                       device=dev)
+    for i in range(min(run, n_items)):
+        at = torch.arange(i, n_items, run, device=dev)
+        sums[at_run[at]] = sums[at_run[at]] + terms[at]
+    # 2. a row's runs in a block, in run order
+    first = torch.nonzero(starts).flatten()
+    run_row, run_block = row[first], first // share
+    grouped = torch.ones(len(first), dtype=torch.bool, device=dev)
+    grouped[1:] = (run_row[1:] != run_row[:-1]) | (
+        run_block[1:] != run_block[:-1])
+    block_sums = fold_runs(sums, grouped)
+    # 3. a row's blocks' sums, by ranges in block order
+    block_row = run_row[grouped]
+    rows = torch.ones(len(block_row), dtype=torch.bool, device=dev)
+    rows[1:] = block_row[1:] != block_row[:-1]
+    if fold_range is not None:
+        k = torch.arange(len(block_row), device=dev)
+        k = k - torch.cummax(torch.where(rows, k, 0), 0).values
+        ranges = rows | (k % fold_range == 0)
+        block_sums, block_row = (fold_runs(block_sums, ranges),
+                                 block_row[ranges])
+        rows = rows[ranges]
+    out[block_row[rows]] = fold_runs(block_sums, rows)
+    return out
+
+
 def check(what, lst, val, x, base=None, values=(torch.float32,),
           x_dtype=torch.float32):
     """Raise unless the walk can take these inputs: ``x`` (``n_in``, F) of
@@ -710,18 +810,28 @@ def bf16_vec(f: int, x_at: int, out_at: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Bf16Plan:
-    """How K2's bfloat16 mode walks one product (:func:`bf16_plan`): the
-    staged walk (``staged``, ``csrc/bf16_walk.cuh``) with ``depth``
-    batches of ``rows`` edges in its ring, or the generic walk; ``vec`` and
-    ``group`` are the entry's (the generic walk: bfloat16 a lane loads and
-    lanes a unit; the staged walk: 4, a lane's float4 of sums, and F / 4
-    lanes a unit)."""
+    """How K2's bfloat16 mode walks one product (:func:`bf16_plan`):
+    ``walk`` is ``"staged"`` (``csrc/bf16_walk.cuh``, with ``depth``
+    batches of ``rows`` edges in its ring), ``"share"``
+    (``csrc/share_walk.cuh``) or ``"generic"`` (``edge_walk.cuh``); ``vec``
+    and ``group`` are the entry's (the generic walk: bfloat16 a lane loads
+    and lanes a unit; the staged walk: 4, a lane's float4 of sums, and F /
+    4 lanes a unit; the share walk: 8 bfloat16 a lane's load, F / 8 lanes
+    that hold a row's elements in a run's group)."""
 
-    staged: bool
+    walk: str
     vec: int
     group: int
     depth: int = 0
     rows: int = 0
+
+    @property
+    def staged(self) -> bool:
+        return self.walk == "staged"
+
+    @property
+    def share(self) -> bool:
+        return self.walk == "share"
 
     def smem(self, f: int) -> int:
         """The shared memory a block of the staged walk asks for at F."""
@@ -745,10 +855,16 @@ def bf16_rows(f: int, depth: int) -> int:
     return max(4, min(32, rows // 4 * 4))
 
 
-def bf16_plan(f: int, x_at: int, out_at: int, edges: int) -> Bf16Plan:
+def bf16_plan(f: int, x_at: int, out_at: int, edges: int,
+              n_rows: int) -> Bf16Plan:
     """K2's bfloat16 mode's walk for an (N, F) bfloat16 ``x`` at address
     ``x_at``, writing ``out`` at ``out_at``, over a list of ``edges``
-    edges.
+    edges and ``n_rows`` rows.
+
+    The share walk (``csrc/share_walk.cuh``) takes F % 8 == 0 within
+    ``BF16_SHARE_WIDTHS``, with ``x`` and ``out`` 16-byte aligned, on the
+    lists of ``_BF16_SHARE_LISTS[bf16_share_lanes(F)]``: so many edges on,
+    and so many edges a row on.
 
     The staged walk (``csrc/bf16_walk.cuh``) takes the widths of
     ``_BF16_STAGED_EDGES`` (F = 16, 24, 32, 40), each from its number of
@@ -779,14 +895,50 @@ def bf16_plan(f: int, x_at: int, out_at: int, edges: int) -> Bf16Plan:
     0.0750-0.0782 ms).  Above F = 40 it lost on the bench list
     (0.1159-0.1166 ms against 0.1111-0.1120 at F = 64, 0.202 against
     0.169 at F = 128): both walks wait on L2's bandwidth there, and the
-    staged walk moves each row through L1 and shared memory twice."""
+    staged walk moves each row through L1 and shared memory twice.
+
+    The share walk's thresholds (``k2_sweep.py --kernels k2bf16``, the same
+    card, PERF.md §6; the walk as built here, whose crossover kept the edge
+    thresholds that an earlier build of it had set).  Share / generic,
+    device us a call:
+
+    ===============  ==========  ===========  ===========  ===========
+    list             F = 64      F = 96       F = 128      F = 256
+    ===============  ==========  ===========  ===========  ===========
+    Cora, uniform    16.0/7.4    23.3/7.2     21.7/7.2     30.9/6.8
+    Cora, power law  18.0/14.1   25.9/13.7    24.0/13.8    31.5/13.5
+    power law 80 K   19.2/22.0   27.7/21.3    25.9/21.0    36.4/25.4
+    power law 200 K  21.9/32.9   32.6/34.3    31.0/35.4    52.1/44.7
+    power law 360 K  26.0/40.2   38.8/44.7    37.7/45.2    67.2/68.6
+    bench quarter    56.6/74.6   84.0/77.4    92.4/85.8    153.5/158.7
+    RCM bench        94.8/112.0  148.0/165.9  149.1/167.3  259.6/289.8
+    ===============  ==========  ===========  ===========  ===========
+
+    (Edges and edges a row: Cora 10,556 and 10,554, 3.9; power law 79,994,
+    4.0, 199,996, 5.0, 359,998, 6.0; the bench's first quarter of edges
+    over all its rows 583,119, 3.4, 168,159 of its 169,343 rows empty; RCM
+    bench 2,332,478, 13.8.)
+
+    So groups of 8 lanes (F = 64) take it from 40,000 edges (it lost at
+    10,556 and won at 79,994), of 32 (F = 136-256) from 300,000 (lost at
+    199,996, won at 359,998), and of 16 (F = 72-128) from 150,000 (lost at
+    79,994, won at 199,996) on lists of 4 edges a row on: the bench's
+    first quarter lost by 8% at F = 96 and 128, and the lists it won there
+    hold 5 edges a row or more."""
+    aligned = x_at % 16 == 0 and out_at % 16 == 0
+    low, high = BF16_SHARE_WIDTHS
+    least = _BF16_SHARE_LISTS.get(bf16_share_lanes(f))
+    if (_BF16_VEC is None and aligned and f % 8 == 0 and low <= f <= high
+            and least is not None and edges >= least[0]
+            and edges >= least[1] * n_rows):
+        return Bf16Plan("share", 8, f // 8)
     least = _BF16_STAGED_EDGES.get(f)
     if (_BF16_VEC is None and least is not None and edges >= least
-            and x_at % 16 == 0 and out_at % 16 == 0):
+            and aligned):
         depth, rows = _ring(f)
-        return Bf16Plan(True, 4, f // 4, depth, rows)
+        return Bf16Plan("staged", 4, f // 4, depth, rows)
     vec = bf16_vec(f, x_at, out_at)
-    return Bf16Plan(False, vec, max(1, min(32, f // vec)))
+    return Bf16Plan("generic", vec, max(1, min(32, f // vec)))
 
 
 def _ring(f):
@@ -914,11 +1066,18 @@ def blocked_spmm_bf16_plain(lst: EdgeList, val: torch.Tensor,
                             xb: torch.Tensor) -> torch.Tensor:
     """The plain version of :func:`blocked_spmm_bf16`: each term
     ``fp32(bf16_rn(val[eid[e]] * fp32(xb[idx[e]])))`` (one float32 product,
-    rounded to bfloat16 to nearest even), summed in the walk's order
-    (:func:`ordered_row_sums`)."""
+    rounded to bfloat16 to nearest even), summed in the order of the walk
+    that :func:`bf16_plan` gives ``xb`` (at its address, ``out`` aligned):
+    :func:`share_row_sums` where it is the share walk, else
+    :func:`ordered_row_sums`."""
     w = val if lst.eid is None else val[lst.eid.long()]
-    terms = xb[lst.idx.long()].to(torch.float32) * w[:, None]
-    return ordered_row_sums(lst, terms.to(torch.bfloat16).to(torch.float32))
+    terms = (xb[lst.idx.long()].to(torch.float32) * w[:, None]).to(
+        torch.bfloat16).to(torch.float32)
+    f = xb.shape[1]
+    if bf16_plan(f, xb.data_ptr(), 0, lst.n_edges, lst.n_rows).share:
+        return share_row_sums(lst.ptr, terms, bf16_share_run(f), BF16_SHARE,
+                              BF16_FOLD_RANGE)
+    return ordered_row_sums(lst, terms)
 
 
 def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
@@ -929,7 +1088,8 @@ def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
     float32.  CPU tensors take :func:`blocked_spmm_bf16_plain`; CUDA tensors
     launch the walk that :func:`bf16_plan` picks, counted in
     ``blocked_spmm_bf16.launches``, and those of the staged walk also in
-    ``blocked_spmm_bf16.staged_launches``."""
+    ``blocked_spmm_bf16.staged_launches``, those of the share walk in
+    ``blocked_spmm_bf16.share_launches``."""
     if lst.rows is not None:
         raise ValueError("blocked_spmm_bf16 stores row r at r; a list with "
                          "row ids is K1's (ops/ell_gather.py)")
@@ -943,8 +1103,12 @@ def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
     out = torch.empty(lst.n_rows, f, dtype=torch.float32, device=xb.device)
     if lst.n_units == 0 or f == 0:
         return out
-    plan = bf16_plan(f, xb.data_ptr(), out.data_ptr(), lst.n_edges)
-    if plan.staged:
+    plan = bf16_plan(f, xb.data_ptr(), out.data_ptr(), lst.n_edges,
+                     lst.n_rows)
+    if plan.share:
+        share_launch(_library(), lst, val, xb, out)
+        blocked_spmm_bf16.share_launches += 1
+    elif plan.staged:
         launch(_library(), "gnntf_blocked_spmm_bf16_staged", lst, val, xb,
                out, extra=(plan.depth, plan.rows), shape=(4, f // 4))
         blocked_spmm_bf16.staged_launches += 1
@@ -957,6 +1121,42 @@ def blocked_spmm_bf16(lst: EdgeList, val: torch.Tensor,
 
 blocked_spmm_bf16.launches = 0
 blocked_spmm_bf16.staged_launches = 0
+blocked_spmm_bf16.share_launches = 0
+
+
+def bf16_folds(lst: EdgeList) -> int:
+    """The rows of ``lst`` that cross the end of a share of the bfloat16
+    share walk (:func:`share_folds` at ``BF16_SHARE``), counted once a list
+    and share in ``lst.memo``.  The count reads ``ptr`` on the host, so a
+    list on a card takes its first share walk outside a CUDA graph's
+    capture, as the library's first load does."""
+    key = ("bf16_folds", BF16_SHARE)
+    if key not in lst.memo:
+        lst.memo[key] = share_folds(lst.ptr.cpu().numpy(), BF16_SHARE)
+    return lst.memo[key]
+
+
+def share_launch(lib: ctypes.CDLL, lst: EdgeList, val: torch.Tensor,
+                 xb: torch.Tensor, out: torch.Tensor) -> None:
+    """The share walk (``gnntf_blocked_spmm_bf16_share``) over ``lst``,
+    writing ``out`` on the current stream, then its fold where a row
+    crosses a block's share (:func:`bf16_folds`); the blocks' partials
+    (``carry_in``, ``carry_out``: F floats a block, ``col_in``: one) in a
+    scratch tensor allocated for the call."""
+    f = xb.shape[1]
+    blocks = max(1, -(-lst.n_edges // BF16_SHARE))
+    scratch = torch.empty(blocks * (2 * f + 1), dtype=torch.float32,
+                          device=out.device)
+    at = scratch.data_ptr()
+    args = (lst.ptr.data_ptr(), lst.idx.data_ptr(),
+            None if lst.eid is None else lst.eid.data_ptr(),
+            val.data_ptr(), xb.data_ptr(), out.data_ptr(), at,
+            at + 4 * blocks * f, at + 8 * blocks * f, lst.n_rows,
+            lst.n_edges, blocks, f, BF16_SHARE, BF16_FOLD_RANGE,
+            int(bf16_folds(lst) > 0))
+    rc = on_device(out.device, lambda: lib.gnntf_blocked_spmm_bf16_share(
+        *args, torch.cuda.current_stream(out.device).cuda_stream))
+    kernels.check(lib, rc, "gnntf_blocked_spmm_bf16_share launch")
 
 
 # the C signature of the walk's entry points (gnntf_blocked_spmm,
@@ -969,6 +1169,11 @@ ENTRY_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
 # takes its ring's depth and rows a batch before the stream
 STAGED_ARGTYPES = ENTRY_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
+# its share walk (gnntf_blocked_spmm_bf16_share): ptr, idx, eid, val, x,
+# out, carry_in, carry_out, col_in; n_rows, n_edges, n_blocks, f, share,
+# fold_range, folds; stream
+SHARE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
 # the masked walk's entry points (gnntf_ell_gather_masked and its bfloat16
 # twin) take before the stream the tiles (tile_seg, tile_edge,
 # seg_end, seg_out; n_tiles, cap_edges, cap_segs), the draw (the salt
@@ -1004,6 +1209,8 @@ def _library() -> ctypes.CDLL:
     declare(lib.gnntf_blocked_spmm)
     declare(lib.gnntf_blocked_spmm_bf16)
     declare(lib.gnntf_blocked_spmm_bf16_staged, staged=True)
+    lib.gnntf_blocked_spmm_bf16_share.restype = ctypes.c_int
+    lib.gnntf_blocked_spmm_bf16_share.argtypes = SHARE_ARGTYPES
     return lib
 
 

@@ -487,63 +487,16 @@ ell_gather_masked.launches = 0
 ell_gather_masked.bf16_launches = 0
 
 
-def _fold_runs(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """The left fold, in order, of each run of ``values`` (a run begins
-    where ``starts`` is True): ``((v0 + v1) + v2) + ...``, float32."""
-    first = torch.nonzero(starts).flatten()
-    length = torch.diff(first, append=first.new_tensor([values.numel()]))
-    acc = values[first].clone()
-    order = torch.argsort(length, descending=True, stable=True)
-    # runs longer than k, for k = 1, 2, ...: the first counts[k - 1] of order
-    longest = int(length.max()) if length.numel() else 0
-    ascending = torch.sort(length).values
-    counts = (length.numel() - torch.searchsorted(
-        ascending, torch.arange(1, max(1, longest), device=length.device),
-        right=True)).tolist()
-    for k, count in enumerate(counts, start=1):
-        on = order[:count]
-        acc[on] = acc[on] + values[first[on] + k]
-    return acc
-
-
 def share_sums(ptr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Each list row's sum of ``w`` (float32, one a list item, in list
     order) in the degree walk's order (``csrc/degree_walk.cuh``): a lane
     sums its run of each row in list order (lanes take
     ``blocked.DEGREE_EDGES`` consecutive items each); a row's runs in one
     block (``blocked.DEGREE_SHARE`` items) are folded in lane order, and a
-    row's blocks' sums in block order.  Empty rows are +0."""
-    n, n_items = ptr.numel() - 1, w.numel()
-    out = torch.zeros(n, dtype=torch.float32, device=w.device)
-    if n_items == 0:
-        return out
-    lane, share = blocked.DEGREE_EDGES, blocked.DEGREE_SHARE
-    row = torch.repeat_interleave(torch.arange(n, device=w.device),
-                                  ptr.diff().long(), output_size=n_items)
-    item = torch.arange(n_items, device=w.device)
-    # 1. a lane's run of a row, from +0, one item of each lane at a time
-    # (a run holds one item of a lane, so each step writes a run once)
-    starts = torch.ones(n_items, dtype=torch.bool, device=w.device)
-    starts[1:] = (item[1:] % lane == 0) | (row[1:] != row[:-1])
-    run = torch.cumsum(starts, 0) - 1
-    sums = torch.zeros(int(run[-1]) + 1, dtype=torch.float32,
-                       device=w.device)
-    for i in range(min(lane, n_items)):
-        at = torch.arange(i, n_items, lane, device=w.device)
-        sums[run[at]] = sums[run[at]] + w[at]
-    # 2. a row's runs in a block, in lane order
-    first = torch.nonzero(starts).flatten()
-    run_row, run_block = row[first], first // share
-    grouped = torch.ones(len(first), dtype=torch.bool, device=w.device)
-    grouped[1:] = (run_row[1:] != run_row[:-1]) | (
-        run_block[1:] != run_block[:-1])
-    block_sums = _fold_runs(sums, grouped)
-    # 3. a row's blocks' sums, in block order
-    block_row = run_row[grouped]
-    rows = torch.ones(len(block_row), dtype=torch.bool, device=w.device)
-    rows[1:] = block_row[1:] != block_row[:-1]
-    out[block_row[rows]] = _fold_runs(block_sums, rows)
-    return out
+    row's blocks' sums in block order (``blocked.share_row_sums`` at width
+    one, in one range).  Empty rows are +0."""
+    return blocked.share_row_sums(ptr, w[:, None], blocked.DEGREE_EDGES,
+                                  blocked.DEGREE_SHARE, None)[:, 0]
 
 
 def ell_degree_masked_plain(lst: EdgeList, val: torch.Tensor, salt,

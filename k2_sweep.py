@@ -42,11 +42,13 @@ fewer than 8 loads take the narrow walk); where it runs (F % 8 == 0, 16 <=
 F <= 40), the staged walk (``csrc/bf16_walk.cuh``) at each ring of
 ``BF16_RINGS`` (batches in flight, edges a batch; ``_BF16_RING``); each
 setting's CUDA-event mean and one call's device time by kernel, beside the
-float32 walk and the cast of x to bfloat16.  Then the crossover that
-``_BF16_STAGED_EDGES`` sets: the staged and the generic walk over the
-lists of ``--kernels k2small`` and two power-law graphs between them
-(10 K to 2.3 M edges) at F=16, 24, 32 and 40, each's device time a call
-averaged over a profile of 20 calls.
+float32 walk and the cast of x to bfloat16.  Then the crossovers that
+``_BF16_STAGED_EDGES`` and ``_BF16_SHARE_LISTS`` set: the staged and the
+generic walk at F=16, 24, 32 and 40, and the share walk
+(``csrc/share_walk.cuh``) and the generic walk at F=64, 96, 128 and 256,
+over the lists of ``--kernels k2small`` and two power-law graphs between
+them (10 K to 2.3 M edges), each's device time a call averaged over a
+profile of 20 calls.
 
 K1's scaled walk (``--kernels k1``, or ``k1s`` for it alone): over the
 whole list of the benchmark graph's normalized adjacency (``PreparedSpMM``
@@ -868,6 +870,10 @@ BF16_CROSS_GRAPHS = ((40_000, 100_000), (60_000, 180_000))
 BF16_CROSS_CALLS = 20
 # _BF16_STAGED_EDGES that gives the staged walk every list at its widths
 EVERY_LIST = dict.fromkeys((16, 24, 32, 40), 0)
+# the crossover between the share walk and the generic walk: its widths,
+# and the _BF16_SHARE_LISTS that gives the share walk every list
+BF16_SHARE_CROSS_WIDTHS = (64, 96, 128, 256)
+EVERY_SHARE = dict.fromkeys((8, 16, 32), (0, 0))
 
 
 def sweep_bf16(dev, card):
@@ -937,36 +943,50 @@ def sweep_bf16(dev, card):
 def _sweep_crossover(blocked, lst, val, n, name, card):
     """The staged walk and the generic walk (each forced through
     ``_BF16_STAGED_EDGES``) over ``lst`` at each width of
-    ``BF16_CROSS_WIDTHS``: each's CUDA-event mean and device time a call,
-    averaged over a profile of ``BF16_CROSS_CALLS`` calls, and whether the
-    two outputs are equal bit for bit."""
-    from gnntf_tpu_torch.ops import blocked_spmm_bf16
-    default = blocked._BF16_STAGED_EDGES
+    ``BF16_CROSS_WIDTHS``, and the share walk and the generic walk (through
+    ``_BF16_SHARE_LISTS``) at each of ``BF16_SHARE_CROSS_WIDTHS``: each's
+    CUDA-event mean and device time a call, averaged over a profile of
+    ``BF16_CROSS_CALLS`` calls, and whether the two outputs are equal bit
+    for bit (the share walk's: each equal to its plain version)."""
+    from gnntf_tpu_torch.ops import blocked_spmm_bf16, blocked_spmm_bf16_plain
+    default = blocked._BF16_STAGED_EDGES, blocked._BF16_SHARE_LISTS
+    pairs = ((BF16_CROSS_WIDTHS, (("staged", EVERY_LIST, {}),
+                                  ("generic", {}, {}))),
+             (BF16_SHARE_CROSS_WIDTHS, (("share", {}, EVERY_SHARE),
+                                        ("generic", {}, {}))))
     lines = []
-    for f in BF16_CROSS_WIDTHS:
-        xb = torch.from_numpy(np.random.RandomState(f).randn(n, f).astype(
-            np.float32)).to(lst.device).to(torch.bfloat16)
-        run = lambda: blocked_spmm_bf16(lst, val, xb)
-        outs = {}
-        for walk, edges in (("staged", EVERY_LIST), ("generic", {})):
-            blocked._BF16_STAGED_EDGES = edges
-            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
-            outs[walk] = run()
-            rows, busy, _, _ = device_profile(
-                lambda: [run() for _ in range(BF16_CROSS_CALLS)])
-            line = dict(kernel="K2bf16cross", graph=name, f=f, walk=walk,
-                        vec=plan.vec, ring=(plan.depth, plan.rows),
-                        edges=lst.n_edges, units=lst.n_units,
-                        ms=time_ms(run),
-                        device_ms=busy / 1e3 / BF16_CROSS_CALLS,
-                        us_by_kernel={kernel_name(k): us / BF16_CROSS_CALLS
-                                      for k, us, _ in rows}, card=card)
-            lines.append(line)
-        for line in lines[-2:]:
-            line["equal"] = bool(torch.equal(outs["staged"],
-                                             outs["generic"]))
-            print(json.dumps(line), flush=True)
-    blocked._BF16_STAGED_EDGES = default
+    for widths, walks in pairs:
+        for f in widths:
+            xb = torch.from_numpy(np.random.RandomState(f).randn(
+                n, f).astype(np.float32)).to(lst.device).to(torch.bfloat16)
+            run = lambda: blocked_spmm_bf16(lst, val, xb)
+            outs = {}
+            for walk, staged, share in walks:
+                blocked._BF16_STAGED_EDGES = staged
+                blocked._BF16_SHARE_LISTS = share
+                plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                                         lst.n_rows)
+                outs[walk] = run()
+                if walk == "share" and not torch.equal(
+                        outs[walk], blocked_spmm_bf16_plain(lst, val, xb)):
+                    raise AssertionError(f"k2bf16 share {name} F={f}: not "
+                                         f"equal to the plain version")
+                rows, busy, _, _ = device_profile(
+                    lambda: [run() for _ in range(BF16_CROSS_CALLS)])
+                line = dict(kernel="K2bf16cross", graph=name, f=f, walk=walk,
+                            vec=plan.vec, ring=(plan.depth, plan.rows),
+                            edges=lst.n_edges, n_rows=lst.n_rows,
+                            units=lst.n_units, ms=time_ms(run),
+                            device_ms=busy / 1e3 / BF16_CROSS_CALLS,
+                            us_by_kernel={kernel_name(k):
+                                          us / BF16_CROSS_CALLS
+                                          for k, us, _ in rows}, card=card)
+                lines.append(line)
+            a, b = (outs[w[0]] for w in walks)
+            for line in lines[-2:]:
+                line["equal"] = bool(torch.equal(a, b))
+                print(json.dumps(line), flush=True)
+    blocked._BF16_STAGED_EDGES, blocked._BF16_SHARE_LISTS = default
     return lines
 
 
@@ -984,7 +1004,8 @@ def _sweep_rings(blocked, lst, cpu_lst, val, xb, name, card):
     for ring in (None,) + BF16_RINGS:
         blocked._BF16_RING = ring
         try:
-            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                                     lst.n_rows)
         except ValueError:  # past 48 KB a block at F
             continue
         if not plan.staged:

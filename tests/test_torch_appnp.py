@@ -12,6 +12,7 @@ import torch
 import gnntf_tpu as gt
 import gnntf_tpu_torch as tt
 from gnntf_tpu.data import random_power_law_edges, synthetic_planetoid
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -28,6 +28,7 @@ import gnntf_tpu as gt
 import gnntf_tpu_torch as tt
 from gnntf_tpu.ops import attention as ja
 from gnntf_tpu_torch.ops import attention as pa
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

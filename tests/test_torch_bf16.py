@@ -69,7 +69,7 @@ def _within(out, ref, scale, extra=0.0):
     assert (err <= limit).all(), float((err - limit).max())
 
 
-@pytest.mark.parametrize("f", [1, 7, 16, 40])
+@pytest.mark.parametrize("f", [1, 7, 16, 40, 64, 128])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_bf16_product_matches_jax(seed, f):
     jg, pg = _graphs(seed)
@@ -81,6 +81,41 @@ def test_bf16_product_matches_jax(seed, f):
     assert not out[3].any()
     # the mode rounds: it is not the float32 product
     assert not np.array_equal(out.numpy(), _jax(jg, x))
+
+
+# the share walk's share and fold range: its own, and a small share whose
+# hub row (406 edges) crosses 3-4 shares and 2-3 ranges
+SHARES = {"walk": None, "small": (128, 2)}
+
+
+@pytest.mark.parametrize("share", sorted(SHARES))
+@pytest.mark.parametrize("f", [64, 96, 128, 256])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_share_walk_matches_jax(monkeypatch, seed, f, share):
+    """The share walk's order (``share_row_sums``), which the card takes at
+    F = 64-256 on large lists, given this list through
+    ``_BF16_SHARE_LISTS``: held against JAX at the same tolerance."""
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS",
+                        dict.fromkeys((8, 16, 32), (0, 0)))
+    if SHARES[share]:
+        monkeypatch.setattr(blocked, "BF16_SHARE", SHARES[share][0])
+        monkeypatch.setattr(blocked, "BF16_FOLD_RANGE", SHARES[share][1])
+    orders = []
+    row_sums = blocked.share_row_sums
+
+    def spy(ptr, terms, *order):
+        orders.append(order)
+        return row_sums(ptr, terms, *order)
+
+    monkeypatch.setattr(blocked, "share_row_sums", spy)
+    jg, pg = _graphs(seed)
+    x = np.random.RandomState(seed + 10).randn(N, f).astype(np.float32)
+    out = spmm_pallas(pg, torch.from_numpy(x), bf16=True, **BLOCKING)
+    assert orders == [(blocked.bf16_share_run(f), blocked.BF16_SHARE,
+                       blocked.BF16_FOLD_RANGE)]
+    assert out.dtype == torch.float32 and out.shape == (N, f)
+    _within(out.numpy(), _jax(jg, x, bf16=True), _magnitudes(pg, x))
+    assert not out[3].any()
 
 
 @pytest.mark.parametrize("add_eye", ["none", "after"])
@@ -233,8 +268,10 @@ def test_pallas_impl_keeps_float32():
 # (csrc/bf16_walk.cuh) through a Python twin of its copies and its sum.
 
 STAGED_WIDTHS = (16, 24, 32, 40)
-# a Cora-scale list's edges and the RCM bench graph's forward list's
+# a Cora-scale list's edges and the RCM bench graph's forward list's, and
+# their rows
 EDGES = {"cora": 10_556, "bench": 2_332_478}
+ROWS = {"cora": 2_708, "bench": 169_343}
 
 
 @pytest.mark.parametrize("edges", sorted(EDGES))
@@ -243,31 +280,40 @@ EDGES = {"cora": 10_556, "bench": 2_332_478}
 def test_plan_for_each_width_and_alignment(edges, x_at, out_at):
     """F = 1-136: the staged walk at F = 32 and 40 on any list, at F = 24
     and 16 on lists of 150,000 and 1,000,000 edges on (the bench list, not
-    the Cora-scale one), with ``x`` and ``out`` 16-byte aligned; else the
-    generic walk at ``bf16_vec``'s load."""
+    the Cora-scale one), with ``x`` and ``out`` 16-byte aligned; the share
+    walk at F % 8 == 0 from 64 where the list and the alignment take it
+    (``tests/test_torch_bf16_shares.py``); else the generic walk at
+    ``bf16_vec``'s load."""
     assert blocked._BF16_VEC is None and blocked._BF16_RING is None
     least = blocked._BF16_STAGED_EDGES
     assert least == {16: 1_000_000, 24: 150_000, 32: 0, 40: 0}
-    n_edges = EDGES[edges]
+    n_edges, n_rows = EDGES[edges], ROWS[edges]
     aligned = x_at % 16 == 0 and out_at % 16 == 0
     for f in range(1, 137):
-        plan = blocked.bf16_plan(f, x_at, out_at, n_edges)
+        plan = blocked.bf16_plan(f, x_at, out_at, n_edges, n_rows)
         staged = aligned and f in least and n_edges >= least[f]
         assert plan.staged == staged, (f, plan)
         assert staged == (aligned and (f in (32, 40) or (
             edges == "bench" and f in (16, 24)))), f
+        if f >= 64:
+            fewest, per_row = blocked._BF16_SHARE_LISTS[
+                blocked.bf16_share_lanes(f)]
+        assert plan.share == (aligned and f % 8 == 0 and f >= 64 and (
+            n_edges >= fewest and n_edges >= per_row * n_rows)), f
         if staged:
             assert (plan.vec, plan.group, plan.depth, plan.rows) == (
                 4, f // 4, blocked._BF16_DEPTH,
                 blocked.bf16_rows(f, blocked._BF16_DEPTH))
+        elif plan.share:
+            assert (plan.vec, plan.group) == (8, f // 8)
         else:
             vec = blocked.bf16_vec(f, x_at, out_at)
             assert (plan.vec, plan.group) == (vec, max(1, min(32, f // vec)))
     # each width's crossover: the first list size that takes the staged walk
     for f, at in least.items():
         if at:
-            assert not blocked.bf16_plan(f, 0, 0, at - 1).staged
-        assert blocked.bf16_plan(f, x_at, out_at, at).staged == aligned
+            assert not blocked.bf16_plan(f, 0, 0, at - 1, 1).staged
+        assert blocked.bf16_plan(f, x_at, out_at, at, 1).staged == aligned
 
 
 def test_forced_walks(monkeypatch):
@@ -275,21 +321,21 @@ def test_forced_walks(monkeypatch):
     ``_BF16_STAGED_EDGES`` of zeros gives the staged walk any list at its
     widths, and empty none; ``_BF16_RING`` forces its ring, within what the
     kernel takes."""
-    big = EDGES["bench"]
+    big, cora = (EDGES["bench"], ROWS["bench"]), (EDGES["cora"], ROWS["cora"])
     monkeypatch.setattr(blocked, "_BF16_VEC", 8)
-    plan = blocked.bf16_plan(40, 0, 0, big)
+    plan = blocked.bf16_plan(40, 0, 0, *big)
     assert (plan.staged, plan.vec, plan.group) == (False, 8, 5)
     monkeypatch.setattr(blocked, "_BF16_VEC", None)
-    assert not blocked.bf16_plan(16, 0, 0, EDGES["cora"]).staged
+    assert not blocked.bf16_plan(16, 0, 0, *cora).staged
     monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES",
                         dict.fromkeys((16, 24, 32, 40), 0))
-    assert blocked.bf16_plan(16, 0, 0, EDGES["cora"]).staged
-    assert not blocked.bf16_plan(48, 0, 0, big).staged  # past kMaxF
+    assert blocked.bf16_plan(16, 0, 0, *cora).staged
+    assert not blocked.bf16_plan(48, 0, 0, *big).staged  # past kMaxF
     monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", {})
-    assert not blocked.bf16_plan(40, 0, 0, big).staged
+    assert not blocked.bf16_plan(40, 0, 0, *big).staged
     monkeypatch.setattr(blocked, "_BF16_STAGED_EDGES", {40: 0})
     monkeypatch.setattr(blocked, "_BF16_RING", (3, 8))
-    plan = blocked.bf16_plan(40, 0, 0, big)
+    plan = blocked.bf16_plan(40, 0, 0, *big)
     assert (plan.staged, plan.depth, plan.rows) == (True, 3, 8)
     # past 48 KB a block at F=40 (2 x 32, 3 x 16), more edges a batch than
     # 8 a lane at F=16, depth * rows not a multiple of 4, depths 1 and 5
@@ -298,7 +344,7 @@ def test_forced_walks(monkeypatch):
                     (40, (3, 6)), (40, (2, 0)), (40, (1, 8)), (40, (5, 4))):
         monkeypatch.setattr(blocked, "_BF16_RING", ring)
         with pytest.raises(ValueError):
-            blocked.bf16_plan(f, 0, 0, big)
+            blocked.bf16_plan(f, 0, 0, *big)
 
 
 @pytest.mark.parametrize("depth", [2, 3, 4])
@@ -315,7 +361,7 @@ def test_ring_fits_shared_memory(f, depth):
     assert blocked.bf16_ring_bytes(f, depth, rows + 4) * \
         blocked._BF16_WARPS > blocked._BF16_SMEM or rows == 32
     if depth == blocked._BF16_DEPTH:
-        plan = blocked.bf16_plan(f, 0, 0, EDGES["bench"])
+        plan = blocked.bf16_plan(f, 0, 0, EDGES["bench"], ROWS["bench"])
         assert plan.staged and plan.smem(f) == smem
     assert [blocked.bf16_rows(g, 2) for g in STAGED_WIDTHS] == [16, 20, 20,
                                                                   20]

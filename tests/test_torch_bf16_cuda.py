@@ -13,13 +13,19 @@ card, against their plain versions, without JAX:
   order); the share is logged;
 * the staged walk (``csrc/bf16_walk.cuh``, given every list at its
   widths through ``_BF16_STAGED_EDGES``) at F = 16, 24, 32, 40, and the mode at 64
-  and 128 where the generic walk takes it, over the forward list, the
+  and 128 where the share walk or the generic walk takes it, over the forward list, the
   transposed one (values through ``eid``) and a power-law list with split
   rows, ``x`` holding inf and NaN: bit-equal to the plain version on the
   CPU (NaN where it has NaN) and within ``1e-5 * sum|terms|`` of it on the
   card (whose ``index_add_`` adds in no fixed order); at other rings; ``x``
   views that are not 16-byte aligned, which the host rule sends to the
   generic walk;
+* the share walk (``csrc/share_walk.cuh``, given every list through
+  ``_BF16_SHARE_LISTS``) at F = 64, 96, 128 and 256 over small lists, a
+  list shorter than one share and lists with a row of more than one share:
+  ``torch.equal`` to the plain version on the card and on the CPU; at most
+  2 kernels a call (the walk, and its fold where a row crosses a share),
+  none without a crossing row; a CUDA-graph replay; two streams at once;
 * the masked and degree walks over bfloat16 base values (the training grids
   of ``GNNTF_GRID_VALUE_DTYPE=bfloat16``): the same two checks;
 * ``spmm_pallas(bf16=True)`` forward and backward (``dx``, ``dval``) on the
@@ -83,7 +89,12 @@ def _same(label, out, ref_card, scale, ref_cpu):
 
 
 def _walk_kernels(fn):
-    """The walk kernels that ``fn`` ran (one profile, opened with spin
+    """The walk kernels that ``fn`` ran (:func:`_kernels`)."""
+    return {n for n in _kernels(fn) if "_walk" in n}
+
+
+def _kernels(fn):
+    """The kernels that ``fn`` ran, by name (one profile, opened with spin
     kernels and closed 2 ms a 256 of them after ``fn``'s end; taken again
     when it kept none of them, or no walk: the profiler can drop a
     session's first and last device events)."""
@@ -101,10 +112,10 @@ def _walk_kernels(fn):
         keys = [e.key for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         names = {k.split("(anonymous namespace)::")[-1].split("<")[0]
-                 .split("(")[0] for k in keys}
-        walks = {n for n in names if "_walk" in n}
-        if any("spin_kernel" in k for k in keys) and walks:
-            return walks
+                 .split("(")[0] for k in keys if "spin_kernel" not in k}
+        if (any("spin_kernel" in k for k in keys)
+                and any("_walk" in n for n in names)):
+            return names
         primer *= 4
     raise RuntimeError("the profiler kept no primer kernel or no walk in 3 "
                        "sessions")
@@ -121,7 +132,8 @@ def test_bf16_walk_matches_plain(cuda, monkeypatch, f, widest):
     val = graph.val.to(torch.float32).contiguous()
     x = torch.from_numpy(np.random.RandomState(f).randn(N, f).astype(
         np.float32)).to(cuda).to(torch.bfloat16)
-    plan = blocked.bf16_plan(f, x.data_ptr(), 0, prep.forward.n_edges)
+    plan = blocked.bf16_plan(f, x.data_ptr(), 0, prep.forward.n_edges,
+                             prep.forward.n_rows)
     vec = plan.vec
     for name in ("forward", "transposed"):
         lst = getattr(prep, name)
@@ -139,6 +151,7 @@ def test_bf16_walk_matches_plain(cuda, monkeypatch, f, widest):
                                                             val, x))
     narrow = min(32, f // vec) < 8
     assert walks == ({"blocked_spmm_bf16_walk"} if plan.staged
+                     else {"blocked_spmm_bf16_share_walk"} if plan.share
                      else {"blocked_spmm_walk_narrow"} if narrow
                      else {"blocked_spmm_walk"}), walks
     least = blocked._BF16_STAGED_EDGES
@@ -319,7 +332,8 @@ def test_staged_walk_bit_equal_to_plain(cuda, monkeypatch, f):
         xb = x.to(torch.bfloat16).to(cuda)
         for name in ("forward", "transposed"):
             lst = getattr(prep, name)
-            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges)
+            plan = blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                                     lst.n_rows)
             assert plan.staged == staged
             before = (blocked.blocked_spmm_bf16.launches,
                       blocked.blocked_spmm_bf16.staged_launches)
@@ -337,7 +351,11 @@ def test_staged_walk_bit_equal_to_plain(cuda, monkeypatch, f):
             assert torch.isnan(out).any()
         walks = _walk_kernels(lambda: blocked.blocked_spmm_bf16(
             prep.forward, val, xb))
+        share = blocked.bf16_plan(f, xb.data_ptr(), 0,
+                                  prep.forward.n_edges,
+                                  prep.forward.n_rows).share
         assert walks == ({"blocked_spmm_bf16_walk"} if staged
+                         else {"blocked_spmm_bf16_share_walk"} if share
                          else {"blocked_spmm_walk"}), walks
 
 
@@ -352,7 +370,8 @@ def test_staged_walk_at_other_rings(cuda, monkeypatch, f, ring):
     val = graph.val.to(torch.float32).contiguous()
     x = _nonfinite_x(f, (prep.forward,), 7)
     xb = x.to(torch.bfloat16).to(cuda)
-    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, prep.forward.n_edges)
+    plan = blocked.bf16_plan(f, xb.data_ptr(), 0, prep.forward.n_edges,
+                             prep.forward.n_rows)
     assert plan.staged and (plan.depth, plan.rows) == ring
     out = blocked.blocked_spmm_bf16(prep.forward, val, xb)
     _bit_equal(f"staged walk ring {ring} F={f}", out,
@@ -376,7 +395,8 @@ def test_unaligned_views_take_a_walk_that_reads_them(cuda, monkeypatch, f):
     xd = flat[1:].view(N, f)
     xd.copy_(x.to(torch.bfloat16))
     assert xd.data_ptr() % 16 and xd.is_contiguous()
-    plan = blocked.bf16_plan(f, xd.data_ptr(), 0, prep.forward.n_edges)
+    plan = blocked.bf16_plan(f, xd.data_ptr(), 0, prep.forward.n_edges,
+                             prep.forward.n_rows)
     assert (plan.staged, plan.vec) == (False, 1)
     out = blocked.blocked_spmm_bf16(prep.forward, val, xd)
     xb = x.to(torch.bfloat16).to(cuda)
@@ -388,3 +408,154 @@ def test_unaligned_views_take_a_walk_that_reads_them(cuda, monkeypatch, f):
     walks = _walk_kernels(lambda: blocked.blocked_spmm_bf16(
         prep.forward, val, xd))
     assert walks == {"blocked_spmm_walk"}, walks
+
+
+# the share walk on any list at its widths
+SHARE_WIDTHS = (64, 96, 128, 256)
+EVERY_SHARE = dict.fromkeys((8, 16, 32), (0, 0))
+
+
+def _share_lists(device):
+    """(name, forward list) of graphs for the share walk: the random graph
+    (a hub row of 6,000 edges: several shares) and its transposed list
+    (values through ``eid``), a power-law graph, a Cora-scale list, and a
+    list shorter than one share with empty rows."""
+    out = []
+    prep = blocked.blocked_layout(_graph(device))
+    out += [("random", prep.forward), ("random_t", prep.transposed)]
+    out.append(("power_law", blocked.blocked_layout(_power_law(device))
+                .forward))
+    rng = np.random.RandomState(11)
+    cora = tt.from_edges(rng.randint(0, 2708, 5278), rng.randint(0, 2708,
+                                                                 5278),
+                         n_nodes=2708, directed=False, device=device)
+    out.append(("cora", blocked.blocked_layout(cora).forward))
+    tiny = tt.from_edges(np.array([0, 0, 4, 4, 4, 9]),
+                         np.array([1, 2, 3, 5, 6, 0]), n_nodes=12,
+                         directed=True, device=device)
+    out.append(("shorter_than_a_share", blocked.blocked_layout(tiny)
+                .forward))
+    return out
+
+
+def _share_inputs(lst, f, seed):
+    rng = np.random.RandomState(seed)
+    val = torch.from_numpy(rng.uniform(-1.0, 2.0, lst.n_values).astype(
+        np.float32)).to(lst.device)
+    xb = torch.from_numpy(rng.randn(lst.n_in, f).astype(np.float32)).to(
+        lst.device).to(torch.bfloat16)
+    return val, xb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", SHARE_WIDTHS)
+def test_share_walk_equal_to_plain(cuda, monkeypatch, f):
+    """Bit-equal (``torch.equal``) to the plain version on the card and on
+    the CPU; at most 2 kernels a call, the fold only where a row crosses a
+    block's share."""
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS", EVERY_SHARE)
+    for name, lst in _share_lists(cuda):
+        val, xb = _share_inputs(lst, f, f)
+        assert blocked.bf16_plan(f, xb.data_ptr(), 0, lst.n_edges,
+                                 lst.n_rows).share
+        before = (blocked.blocked_spmm_bf16.launches,
+                  blocked.blocked_spmm_bf16.share_launches)
+        out = blocked.blocked_spmm_bf16(lst, val, xb)
+        torch.cuda.synchronize()
+        assert (blocked.blocked_spmm_bf16.launches,
+                blocked.blocked_spmm_bf16.share_launches) == (
+                    before[0] + 1, before[1] + 1)
+        card = blocked.blocked_spmm_bf16_plain(lst, val, xb)
+        cpu = blocked.blocked_spmm_bf16_plain(_list_to(lst, "cpu"),
+                                              val.cpu(), xb.cpu())
+        assert torch.equal(out, card), (name, f)
+        assert torch.equal(out.cpu(), cpu), (name, f)
+        names = _kernels(lambda: blocked.blocked_spmm_bf16(lst, val, xb))
+        want = {"blocked_spmm_bf16_share_walk"}
+        if blocked.bf16_folds(lst):
+            want.add("blocked_spmm_bf16_share_fold")
+        assert names == want, (name, names)
+        print(f"share walk {name} F={f}: {lst.n_edges} edges, "
+              f"{blocked.bf16_folds(lst)} rows crossing a share, equal to "
+              f"the plain "
+              f"version on the card and on the CPU, kernels {sorted(names)}")
+
+
+@pytest.mark.cuda
+def test_share_walk_with_nonfinite_x(cuda, monkeypatch):
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS", EVERY_SHARE)
+    prep = blocked.blocked_layout(_power_law(cuda))
+    val = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1.0, 2.0, prep.forward.n_values).astype(np.float32)).to(cuda)
+    for f in (64, 128):
+        xb = _nonfinite_x(f, (prep.forward,), f).to(torch.bfloat16).to(cuda)
+        out = blocked.blocked_spmm_bf16(prep.forward, val, xb)
+        ref = blocked.blocked_spmm_bf16_plain(
+            _list_to(prep.forward, "cpu"), val.cpu(), xb.cpu())
+        torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.isnan(out).any()
+
+
+@pytest.mark.cuda
+def test_share_walk_in_a_cuda_graph(cuda, monkeypatch):
+    """Captured and replayed with x rewritten in place: each replay equal to
+    a fresh call on the new x (the scratch is the graph's own)."""
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS", EVERY_SHARE)
+    lst = blocked.blocked_layout(_graph(cuda)).forward
+    assert blocked.bf16_folds(lst) > 0
+    val, xb = _share_inputs(lst, 128, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        blocked.blocked_spmm_bf16(lst, val, xb)  # warm: the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = blocked.blocked_spmm_bf16(lst, val, xb)
+    for seed in (2, 3):
+        xb.copy_(_share_inputs(lst, 128, seed)[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, blocked.blocked_spmm_bf16(lst, val, xb))
+        assert torch.equal(out, blocked.blocked_spmm_bf16_plain(lst, val,
+                                                                xb))
+
+
+@pytest.mark.cuda
+def test_share_walk_on_two_streams(cuda, monkeypatch):
+    """Two products over one list launched on two streams at once, each
+    with its own scratch: each equal to its plain version."""
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS", EVERY_SHARE)
+    lst = blocked.blocked_layout(_graph(cuda)).forward
+    val, xa = _share_inputs(lst, 128, 4)
+    _, xc = _share_inputs(lst, 128, 5)
+    want = [blocked.blocked_spmm_bf16_plain(lst, val, x) for x in (xa, xc)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        pair = []
+        for s, x in zip(streams, (xa, xc)):
+            with torch.cuda.stream(s):
+                pair.append(blocked.blocked_spmm_bf16(lst, val, x))
+        outs.append(pair)
+    torch.cuda.synchronize()
+    for pair in outs:
+        for out, ref in zip(pair, want):
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_share_walk_raises_rather_than_fall_back(cuda, monkeypatch):
+    """A share the kernel was not built with is refused by the C entry: the
+    wrapper raises, and nothing else runs."""
+    monkeypatch.setattr(blocked, "_BF16_SHARE_LISTS", EVERY_SHARE)
+    lst = blocked.blocked_layout(_graph(cuda)).forward
+    val, xb = _share_inputs(lst, 64, 6)
+    monkeypatch.setattr(blocked, "BF16_SHARE", blocked.BF16_SHARE * 2)
+    before = blocked.blocked_spmm_bf16.launches
+    with pytest.raises(RuntimeError, match="gnntf_blocked_spmm_bf16_share"):
+        blocked.blocked_spmm_bf16(lst, val, xb)
+    assert blocked.blocked_spmm_bf16.launches == before

@@ -28,6 +28,7 @@ from gnntf_tpu.ops import stochastic as jst
 from gnntf_tpu_torch.ops import blocked
 from gnntf_tpu_torch.ops import ell_degree_masked, ell_degree_masked_plain
 from gnntf_tpu_torch.ops import stochastic as pst
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 RTOL = 1e-6
 KNOB = "GNNTF_GRID_VALUE_DTYPE"

@@ -369,14 +369,30 @@ def test_degree_walk_bit_equal_to_plain_on_card(cuda, dtype, case):
 
 
 def _kernels(fn):
-    """The device kernels ``fn()`` launches, by name (torch.profiler)."""
+    """The device kernels ``fn()`` launches, by name (torch.profiler; the
+    session opened with spin kernels and closed 2 ms a 256 of them after
+    ``fn``'s end, and taken again with 4x as many when it kept none of
+    them, or no walk: the profiler can drop a session's first and last
+    device events)."""
+    import time
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    primer = 256
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002 * primer / 256)
+        got = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        kept = {k: n for k, n in got.items() if "spin_kernel" not in k}
+        if len(kept) < len(got) and any("_walk" in k for k in kept):
+            return kept
+        primer *= 4
+    raise RuntimeError("the profiler kept no primer kernel or no walk in 3 "
+                       "sessions")
 
 
 @pytest.mark.cuda

@@ -36,6 +36,7 @@ import gnntf_tpu as gt
 import gnntf_tpu_torch as tt
 from gnntf_tpu_torch.ops import stochastic as pst
 from gnntf_tpu_torch.utils import native
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 HEAD_TOL = dict(rtol=1e-5, atol=1e-6)
 TRAJ_TOL = dict(rtol=1e-4, atol=1e-5)

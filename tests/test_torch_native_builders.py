@@ -16,6 +16,7 @@ from gnntf_tpu.ops import prepare_spmm as jax_prepare_spmm
 from gnntf_tpu.ops.spmm import build_ell as jax_build_ell
 from gnntf_tpu_torch.ops import PreparedSpMM, build_ell, prepare_spmm
 from gnntf_tpu_torch.utils import native
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 ELL_FIELDS = ("idx", "slot", "vrow_row", "edge_slot")
 

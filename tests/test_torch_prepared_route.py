@@ -24,6 +24,7 @@ from gnntf_tpu.ops.spmm import PreparedSpMM as JaxPreparedSpMM
 from gnntf_tpu.ops.spmm import spmm as jax_spmm
 from gnntf_tpu_torch.ops import normalize_adjacency, prepare
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, _per_call, spmm_ell
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-5)

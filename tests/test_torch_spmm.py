@@ -25,6 +25,7 @@ from gnntf_tpu.ops.spmm import spmm as jax_spmm
 from gnntf_tpu_torch.ops import ell_gather_plain
 from gnntf_tpu_torch.ops import normalize_adjacency
 from gnntf_tpu_torch.ops.spmm import PreparedSpMM, build_ell, spmm
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -36,6 +36,7 @@ from gnntf_tpu.ops import normalize_adjacency as jax_normalize
 from gnntf_tpu.ops import stochastic as jst
 from gnntf_tpu_torch.ops import normalize as pnorm
 from gnntf_tpu_torch.ops import stochastic as pst
+from _jax_budget import release_jax_layout_caches  # noqa: F401
 
 # the modules, not the functions that both packages' ``ops`` export as
 # ``spmm``
